@@ -32,6 +32,8 @@ import pytest
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: excluded from the tier-1 `-m 'not slow'` run")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (skips without one)")
 
 
 def pytest_collection_modifyitems(config, items):
