@@ -22,7 +22,24 @@ Phases, each of which raises (and the script exits non-zero) on failure:
 5. parity  — a 2-layer GPT_SMALL in float32 (TF32 off): prefill logits
              within 1e-4 of the full forward, and the kernel engine and
              the plain-PyTorch engine must emit identical greedy tokens,
-             with per-step logits within 1e-4.
+             with per-step logits within 1e-4;
+6. train kernels — flash forward, dQ, dK/dV against their plain versions
+             at the training path's shapes (q/k/v [16, 1024, 12, 64]
+             sliced from one packed qkv, causal) in bf16 (each element
+             within 2^-7 x (|plain| + its row's max |plain|) + 1e-5, lse
+             within 2e-5) and at batch 2 in float32 (2e-5 forward, 3e-4
+             backward), and the flat AdamW sweep over n = 163,109,376
+             with bf16 and float32 moments, bitwise; then the bf16 kernels,
+             their plain versions and the library yardsticks are timed;
+7. training — GPT_SMALL at full width and depth, batch 16 x 1024, bf16,
+             flash, dots remat, flat AdamW kernel: 2 warm-up + 10 timed
+             steps through tools/train_bench.py (counts zeroed just
+             before the timed steps); every loss finite, the last below
+             the first, launches per step flash_fwd 2L, flash_bwd_dq L,
+             flash_bwd_dkv L, opt_adamw_flat 1; then a 2-layer float32
+             card parity check (TF32 off): 3 steps of the kernel step vs
+             the plain step (use_flash off, plain sweep), losses within
+             1e-5 relative, step-1 gradients within 3e-4.
 
 The last lines are the kernels' JSON record, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script
@@ -92,9 +109,9 @@ def _over_layers(fn, n: int):
     return lambda: fn(next(layers))
 
 
-def _check_close(name: str, got, want, dtype) -> float:
+def _check_close(name: str, got, want, dtype, tol=None) -> float:
     err = (got.float() - want.float()).abs().max().item()
-    tol = ATOL[dtype]
+    tol = ATOL[dtype] if tol is None else tol
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol,
                                msg=lambda m: f"{name} {dtype}: {m}")
     return err
@@ -261,8 +278,9 @@ def phase_serving():
     if loop.faults:
         raise AssertionError(f"engine loop faults: {loop.last_fault}")
     L = cfg.num_layers
-    want = {"fused_ln": 2 * L * ticks, "decode_slab": L * ticks,
-            "logits_head": ticks}
+    want = dict.fromkeys(CK.LAUNCHES, 0)
+    want.update(fused_ln=2 * L * ticks, decode_slab=L * ticks,
+                logits_head=ticks)
     if ticks <= 0 or launches != want:
         raise AssertionError(f"launch counts {launches} != {want} for "
                              f"{ticks} decode ticks")
@@ -333,6 +351,235 @@ def phase_parity():
           f"logit diff {worst:.3g}")
 
 
+def bf16_check(name, got, want) -> float:
+    """Each element of a bf16 [..., hd] output against its plain version:
+    |got - want| <= 2^-7 (|want| + max |want| over the element's row)
+    + 1e-5, that is 1-2 bf16 ulps of the element plus 1-2 of its row's
+    largest (2^-7 is one bf16 ulp at 1.0). Every query or key row is held
+    at its own scale, late rows as tightly as early ones; the 1e-5 covers
+    rows whose exact value is zero (dq's first causal row, where dP - D
+    cancels), which hold float32 rounding noise only. Prints the worst
+    ratio of diff to bound, raises when it exceeds 1, and returns the max
+    abs diff."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    bound = (2.0 ** -7 * (want.abs() + want.abs().amax(-1, keepdim=True))
+             + 1e-5)
+    worst = (err / bound).max().item()
+    print(f"[train-kernels] {name}: worst diff/bound {worst:.4g}")
+    if not worst <= 1.0:
+        raise AssertionError(f"{name}: {int((err > bound).sum())} elements "
+                             f"over the bound, worst diff/bound {worst:.4g}")
+    return err.max().item()
+
+
+def phase_train_kernels(dtype, time_it: bool):
+    """The training kernels vs their plain versions at the training path's
+    shapes; one record per kernel (errors, and times when ``time_it``)."""
+    from paddle_tpu_torch.models.gpt import GPT_SMALL
+    from paddle_tpu_torch.observability.hw import bound_ms
+    from paddle_tpu_torch.ops import flash_attention as FA
+
+    bf16 = dtype == torch.bfloat16
+    # the float32 plain versions must run in full float32, not TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    name = torch.cuda.get_device_name(0)
+    nh, hd = GPT_SMALL.num_heads, GPT_SMALL.head_dim
+    Bt, Tt = (16 if bf16 else 2), 1024
+    g = torch.Generator(device=dev)
+    g.manual_seed(4321)
+
+    def randn(*shape, dt=dtype, s=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * s).to(dt)
+
+    def check(kname, got, want, f32_tol):
+        if bf16:
+            return bf16_check(f"{kname} bf16", got, want)
+        return _check_close(kname, got, want, dtype, f32_tol)
+
+    qkv = randn(Bt, Tt, 3, nh, hd)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    do = randn(Bt, Tt, nh, hd)
+    recs = {}
+    o, lse = FA.flash_fwd(q, k, v)
+    o_p, lse_p = FA.flash_fwd_plain(q, k, v)
+    torch.cuda.synchronize()
+    # lse is float32 in both dtypes: the f32 tolerance
+    recs["flash_fwd"] = {"max_abs_err": max(
+        check("flash_fwd o", o, o_p, 2e-5),
+        _check_close("flash_fwd lse", lse, lse_p, torch.float32, 2e-5))}
+    dq = FA.flash_bwd_dq(q, k, v, o_p, lse_p, do)
+    dq_p = FA.flash_bwd_dq_plain(q, k, v, o_p, lse_p, do)
+    torch.cuda.synchronize()
+    recs["flash_bwd_dq"] = {"max_abs_err": check("flash_bwd_dq", dq, dq_p,
+                                                 3e-4)}
+    dk, dv = FA.flash_bwd_dkv(q, k, v, o_p, lse_p, do)
+    dk_p, dv_p = FA.flash_bwd_dkv_plain(q, k, v, o_p, lse_p, do)
+    torch.cuda.synchronize()
+    recs["flash_bwd_dkv"] = {"max_abs_err": max(
+        check("flash_bwd_dkv dk", dk, dk_p, 3e-4),
+        check("flash_bwd_dkv dv", dv, dv_p, 3e-4))}
+    del dq_p, dk_p, dv_p
+    if time_it:
+        esz = q.element_size()
+        act = Bt * Tt * nh * hd * esz             # one [B, T, nh, hd]
+        lse_b = Bt * nh * Tt * 4
+        pairs = Bt * nh * Tt * (Tt + 1) // 2      # causal (q, k) pairs
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        for kname, n_in, n_out, n_mm, fn, plain in (
+                ("flash_fwd", 3, 1, 2, lambda: FA.flash_fwd(q, k, v),
+                 lambda: FA.flash_fwd_plain(q, k, v)),
+                ("flash_bwd_dq", 5, 1, 3,
+                 lambda: FA.flash_bwd_dq(q, k, v, o_p, lse_p, do),
+                 lambda: FA.flash_bwd_dq_plain(q, k, v, o_p, lse_p, do)),
+                ("flash_bwd_dkv", 5, 2, 4,
+                 lambda: FA.flash_bwd_dkv(q, k, v, o_p, lse_p, do),
+                 lambda: FA.flash_bwd_dkv_plain(q, k, v, o_p, lse_p, do))):
+            r = recs[kname]
+            r["ms"] = _time_ms(fn, iters=20, warmup=3)
+            r["plain_ms"] = _time_ms(plain, iters=3, warmup=1)
+            nbytes = (n_in + n_out) * act + lse_b
+            r["bound_ms"], r["bound_by"] = bound_ms(
+                nbytes, 2 * hd * n_mm * pairs, "bf16", name)
+        recs["flash_fwd"]["library_ms"] = _time_ms(
+            lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                   is_causal=True),
+            iters=20, warmup=3)
+        ql, kl, vl = (x.detach().requires_grad_() for x in (qt, kt, vt))
+        ol = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
+        dot = do.transpose(1, 2)
+        bwd_ms = _time_ms(lambda: torch.autograd.grad(
+            ol, (ql, kl, vl), dot, retain_graph=True), iters=20, warmup=3)
+        # one SDPA backward computes dq, dk and dv together
+        recs["flash_bwd_dq"]["library_ms"] = bwd_ms
+        recs["flash_bwd_dkv"]["library_ms"] = bwd_ms
+        del ol
+    del qkv, q, k, v, do, o, lse, o_p, lse_p, dq, dk, dv
+    recs["opt_adamw_flat"] = _sweep_check(torch.float32 if not bf16
+                                          else torch.bfloat16, time_it)
+    for kname, r in recs.items():
+        print(f"[train-kernels] {kname} {dtype}: " + ", ".join(
+            f"{a}={b:.6g}" if isinstance(b, float) else f"{a}={b}"
+            for a, b in r.items()))
+    torch.cuda.empty_cache()
+    return recs
+
+
+N_PARAMS = 163_109_376      # GPT_SMALL's parameter count: the sweep's n
+
+
+def _sweep_check(mdt, time_it: bool):
+    """The AdamW sweep over GPT_SMALL's flat buffers vs its plain version,
+    bitwise for p, m and v; timed with bf16 moments."""
+    from paddle_tpu_torch.observability.hw import bound_ms
+    from paddle_tpu_torch.ops import cuda_kernels as CK
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(99)
+    n = N_PARAMS
+    p = torch.randn(n, generator=g, device=dev)
+    grad = torch.randn(n, generator=g, device=dev) * 1e-2
+    m = (torch.randn(n, generator=g, device=dev) * 1e-3).to(mdt)
+    v = (torch.rand(n, generator=g, device=dev) * 1e-5).to(mdt)
+    mask = (torch.rand(n, generator=g, device=dev) < 0.9).float()
+    sc = [torch.tensor(x, dtype=torch.float32, device=dev)
+          for x in (1e-4, 0.7, 1 - 0.9 ** 3, 1 - 0.95 ** 3)]
+    hp = dict(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1)
+    outs = []
+    for fn in (CK.megakernel_adamw_flat, CK.megakernel_adamw_flat_plain):
+        pc, mc, vc = p.clone(), m.clone(), v.clone()
+        fn(pc, grad, mc, vc, mask, *sc, **hp)
+        outs.append((pc, mc, vc))
+    torch.cuda.synchronize()
+    for got, want, what in zip(outs[0], outs[1], ("p", "m", "v")):
+        if not torch.equal(got, want):
+            bad = (got != want).sum().item()
+            raise AssertionError(f"opt_adamw_flat {mdt}: {what} differs "
+                                 f"from the plain version in {bad} elements")
+    rec = {"max_abs_err": 0.0}
+    del outs
+    if time_it:
+        rec["ms"] = _time_ms(lambda: CK.megakernel_adamw_flat(
+            p, grad, m, v, mask, *sc, **hp), iters=20, warmup=3)
+        rec["plain_ms"] = _time_ms(lambda: CK.megakernel_adamw_flat_plain(
+            p, grad, m, v, mask, *sc, **hp), iters=5, warmup=1)
+        # no single PyTorch call computes the masked flat AdamW sweep
+        rec["library_ms"] = None
+        esz = m.element_size()
+        rec["bound_ms"], rec["bound_by"] = bound_ms(
+            n * (4 * 4 + 4 * esz), 18 * n, "f32", torch.cuda.get_device_name(0))
+    return rec
+
+
+def phase_training():
+    """GPT_SMALL training through tools/train_bench.py; returns its record
+    (launches_per_step from the timed steps only)."""
+    from paddle_tpu_torch.tools import train_bench
+
+    cfg = train_bench.bench_config()
+    rec = train_bench.run(cfg)
+    losses = rec["losses"]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"loss did not fall: {losses}")
+    L = cfg.num_layers
+    want = {"flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkv": L,
+            "opt_adamw_flat": 1}
+    if rec["launches_per_step"] != want:
+        raise AssertionError(f"launches per step {rec['launches_per_step']}"
+                             f" != {want}")
+    print(f"[training] {rec['config']} {rec['model_params']} params: "
+          f"{rec['tokens_per_s']:.1f} tok/s, mfu={rec['mfu']:.4f}, "
+          f"ms/step={rec['ms_per_step']:.3f}, peak_mem_bytes="
+          f"{rec['peak_mem_bytes']}, warmup_s={rec['warmup_s']:.2f}")
+    print(f"[training] loss first={losses[0]:.6f} last={losses[-1]:.6f} "
+          f"({len(losses)} steps); launches/step {rec['launches_per_step']}")
+    return rec
+
+
+def phase_train_parity():
+    """Kernel train step vs plain train step, float32, on the card."""
+    from paddle_tpu_torch.models import gpt as G
+    from paddle_tpu_torch.parallel import parallelize as PZ
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    base = G.GPT_SMALL.scaled(num_layers=2, dtype=torch.float32, remat=True,
+                              remat_policy="dots")
+    arms = {"kernel": (base.scaled(use_flash=True), None),
+            "plain": (base.scaled(use_flash=False), False)}
+    rng = np.random.default_rng(5)
+    toks = torch.from_numpy(rng.integers(0, base.vocab_size, (1, 2, 256))
+                            ).cuda()
+    labs = torch.from_numpy(rng.integers(0, base.vocab_size, (1, 2, 256))
+                            ).cuda()
+    grads, losses = {}, {}
+    for arm, (cfg, kern) in arms.items():
+        params, opt = PZ.init_sharded(cfg, seed=2, fused_opt=True,
+                                      device="cuda")
+        live = [p.detach().requires_grad_() for p in PZ.flat_leaves(params)]
+        loss = G.loss_fn(PZ._unflatten(params, live), toks[0], labs[0], cfg)
+        grads[arm] = torch.autograd.grad(loss, live)
+        step = PZ.make_train_step(cfg, lr=1e-4, fused_opt=True,
+                                  fused_opt_kernel=kern, device="cuda")
+        losses[arm] = []
+        for _ in range(3):
+            params, opt, loss, _g = step(params, opt, toks, labs)
+            losses[arm].append(loss.item())
+    worst = 0.0
+    for a, b in zip(grads["kernel"], grads["plain"]):
+        torch.testing.assert_close(a, b, atol=3e-4, rtol=3e-4)
+        worst = max(worst, (a - b).abs().max().item())
+    np.testing.assert_allclose(losses["kernel"], losses["plain"], rtol=1e-5)
+    print(f"[train-parity] f32 2 layers, 3 steps of 2x256: losses kernel "
+          f"{losses['kernel']} plain {losses['plain']}; step-1 grad max "
+          f"diff {worst:.3g}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -345,6 +592,12 @@ def main() -> int:
     phase_kernels(torch.float32, time_it=False)
     launches = phase_serving()
     phase_parity()
+    recs.update(phase_train_kernels(torch.bfloat16, time_it=True))
+    phase_train_kernels(torch.float32, time_it=False)
+    train = phase_training()
+    launches.update({k: round(v * train["steps"])
+                     for k, v in train["launches_per_step"].items()})
+    phase_train_parity()
     kernels = []
     for name, meta in CK.KERNELS.items():
         r = recs[name]

@@ -10,7 +10,9 @@ This package imports torch, numpy and the standard library only — never
 jax and never ``paddle_tpu``.
 
 Slices ported so far: serving (slab KV layout) — ``models.gpt``,
-``ops.decode_attention``, ``ops.cuda_kernels`` and ``serving``.
+``ops.decode_attention``, ``ops.cuda_kernels`` and ``serving``; training
+on one device — ``models.gpt`` (``loss_fn``), ``ops.flash_attention``,
+``ops.cuda_kernels`` (the flat AdamW sweep) and ``parallel``.
 """
 from .device import resolve_device
 

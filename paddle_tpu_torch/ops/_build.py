@@ -136,6 +136,18 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.ptt_decode_slab.restype = I
     lib.ptt_logits_head.argtypes = [P, P, P, P, P, I, I, I, F, I, P]
     lib.ptt_logits_head.restype = I
+    fl = [P, P, P, P, P, I, I, I, I, LL, LL, LL, F, I, I, P]
+    lib.ptt_flash_fwd.argtypes = fl
+    lib.ptt_flash_fwd.restype = I
+    lib.ptt_flash_bwd_dq.argtypes = [P, P, P, P, P, P, P, I, I, I, I, LL, LL,
+                                     LL, F, I, I, P]
+    lib.ptt_flash_bwd_dq.restype = I
+    lib.ptt_flash_bwd_dkv.argtypes = [P, P, P, P, P, P, P, P, I, I, I, I, LL,
+                                      LL, LL, F, I, I, P]
+    lib.ptt_flash_bwd_dkv.restype = I
+    lib.ptt_adamw_flat.argtypes = [P, P, P, P, P, P, LL, F, F, F, F, F, F, I,
+                                   P]
+    lib.ptt_adamw_flat.restype = I
     lib.ptt_error_string.argtypes = [I]
     lib.ptt_error_string.restype = ctypes.c_char_p
     return lib

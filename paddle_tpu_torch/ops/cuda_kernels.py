@@ -1,6 +1,8 @@
-"""The serving slice's Hopper kernels, each beside its plain PyTorch
-version — the port of the decode-path entries of
-``paddle_tpu/ops/pallas_kernels.py``.
+"""The port's Hopper kernels, each beside its plain PyTorch version — the
+port of ``paddle_tpu/ops/pallas_kernels.py``: the serving slice's decode
+kernels and the training slice's flat AdamW sweep here, the flash-attention
+kernels in ``ops/flash_attention.py`` (which shares this module's routing
+helpers, ``KERNELS`` and ``LAUNCHES``).
 
 Each public function routes by the device its tensors lie on:
 
@@ -15,7 +17,9 @@ JAX's ``_count_launch`` (``pallas_kernels.py:853``) ticks once per TRACE —
 once per compiled executable, however often it runs; eager PyTorch has no
 trace, so the port counts every launch. A decode tick of the engine
 launches ``fused_ln`` 2·L times, ``decode_slab`` L times and
-``logits_head`` once.
+``logits_head`` once; a GPT train step under ``dots`` remat launches
+``flash_fwd`` 2·L times, ``flash_bwd_dq`` and ``flash_bwd_dkv`` L times
+each and ``opt_adamw_flat`` once.
 """
 from __future__ import annotations
 
@@ -29,7 +33,8 @@ from .decode_attention import cache_update, decode_attention
 
 __all__ = ["fused_ln", "fused_ln_plain", "fused_decode_attention",
            "fused_decode_attention_plain", "fused_logits_head",
-           "fused_logits_head_plain", "LAUNCHES", "KERNELS",
+           "fused_logits_head_plain", "megakernel_adamw_flat",
+           "megakernel_adamw_flat_plain", "LAUNCHES", "KERNELS",
            "reset_launches"]
 
 # name -> where its source lives and which TPU kernel it replaces
@@ -48,6 +53,26 @@ KERNELS: Dict[str, Dict[str, str]] = {
         "route": "cuda",
         "source": "paddle_tpu_torch/ops/csrc/logits_head.cu",
         "replaces": "paddle_tpu/ops/pallas_kernels.py:1544",
+    },
+    "flash_fwd": {
+        "route": "cuda",
+        "source": "paddle_tpu_torch/ops/csrc/flash_attention.cu",
+        "replaces": "paddle_tpu/ops/pallas_kernels.py:74",
+    },
+    "flash_bwd_dq": {
+        "route": "cuda",
+        "source": "paddle_tpu_torch/ops/csrc/flash_attention.cu",
+        "replaces": "paddle_tpu/ops/pallas_kernels.py:205",
+    },
+    "flash_bwd_dkv": {
+        "route": "cuda",
+        "source": "paddle_tpu_torch/ops/csrc/flash_attention.cu",
+        "replaces": "paddle_tpu/ops/pallas_kernels.py:261",
+    },
+    "opt_adamw_flat": {
+        "route": "cuda",
+        "source": "paddle_tpu_torch/ops/csrc/opt_megakernel.cu",
+        "replaces": "paddle_tpu/ops/pallas_kernels.py:1209",
     },
 }
 
@@ -286,3 +311,72 @@ def fused_logits_head(x, scale, bias, lm_head, *, eps: float = 1e-5):
                               _stream(x))
     _check_launch(lib, err, "logits_head")
     return out
+
+
+# ---------------------------------------------------------------------------
+# flat AdamW sweep (replaces _opt_kernel, kind "adamw_mask")
+# ---------------------------------------------------------------------------
+
+
+def _scalars(dev, *vals) -> torch.Tensor:
+    """float32 [len(vals)] on ``dev``; Python floats round to float32 as
+    ``jnp.asarray(x, jnp.float32)`` does, tensors are taken as they are
+    (no host sync)."""
+    return torch.stack([
+        x.to(device=dev, dtype=torch.float32).reshape(())
+        if isinstance(x, torch.Tensor)
+        else torch.full((), float(x), dtype=torch.float32, device=dev)
+        for x in vals])
+
+
+def megakernel_adamw_flat_plain(p, g, m, v, wd_mask, lr, scale, c1, c2, *,
+                                b1: float = 0.9, b2: float = 0.95,
+                                eps: float = 1e-8,
+                                weight_decay: float = 0.1):
+    """The sweep in PyTorch ops, expression for expression as
+    ``parallelize._adamw_update_fused``'s plain branch; ``p``, ``m``, ``v``
+    are updated IN PLACE and returned. ``lr``/``scale``/``c1``/``c2`` are
+    float32 scalars (0-d tensors or Python floats)."""
+    lr, scale, c1, c2 = _scalars(p.device, lr, scale, c1, c2).unbind()
+    gf = g.float() * scale
+    mf = b1 * m.float() + (1 - b1) * gf
+    vf = b2 * v.float() + (1 - b2) * gf * gf
+    u = (mf / c1) / (torch.sqrt(vf / c2) + eps)
+    p.copy_(p - lr * (u + weight_decay * wd_mask * p))
+    m.copy_(mf)
+    v.copy_(vf)
+    return p, m, v
+
+
+def megakernel_adamw_flat(p, g, m, v, wd_mask, lr, scale, c1, c2, *,
+                          b1: float = 0.9, b2: float = 0.95,
+                          eps: float = 1e-8, weight_decay: float = 0.1):
+    """One launch of the flat AdamW sweep over megabuffers: ``p``, ``g``,
+    ``wd_mask`` float32 [n]; ``m``, ``v`` [n] float32 or bfloat16; scalars
+    as :func:`megakernel_adamw_flat_plain`. ``p``, ``m``, ``v`` are updated
+    IN PLACE (JAX donates them) and returned. Bitwise equal to the plain
+    version at float32 moments."""
+    if not _on_card(p, g, m, v, wd_mask):
+        return megakernel_adamw_flat_plain(
+            p, g, m, v, wd_mask, lr, scale, c1, c2, b1=b1, b2=b2, eps=eps,
+            weight_decay=weight_decay)
+    n = p.numel()
+    for name, t in (("p", p), ("g", g), ("wd_mask", wd_mask)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"megakernel_adamw_flat: {name} must be float32")
+    code = _dtype_code(m, "megakernel_adamw_flat m")
+    _require(v.dtype == m.dtype, "megakernel_adamw_flat: m and v must share "
+             "a dtype")
+    for name, t in (("p", p), ("g", g), ("m", m), ("v", v),
+                    ("wd_mask", wd_mask)):
+        _require(t.dim() == 1 and t.numel() == n and t.is_contiguous(),
+                 f"megakernel_adamw_flat: {name} must be a contiguous [{n}]")
+    scal = _scalars(p.device, lr, scale, c1, c2)
+    lib = _lib()
+    err = lib.ptt_adamw_flat(
+        p.data_ptr(), g.data_ptr(), m.data_ptr(), v.data_ptr(),
+        wd_mask.data_ptr(), scal.data_ptr(), n, float(b1), float(1 - b1),
+        float(b2), float(1 - b2), float(eps), float(weight_decay), code,
+        _stream(p))
+    _check_launch(lib, err, "opt_adamw_flat")
+    return p, m, v

@@ -12,7 +12,8 @@ tick (``fused_decode=False``) — fills every slot with a seeded prompt of
 - traces ``--ticks`` more under ``torch.profiler`` and sums the device
   time of every kernel by name and by group (the port's own kernels,
   matrix products, the rest), and the union of kernel intervals — the
-  device's busy time; idle share = 1 - busy / wall.
+  device's busy time; idle share = 1 - busy / wall. Every time in the
+  output is per tick.
 
 Prints one JSON line per arm and a last JSON line with both. Needs a CUDA
 device.
@@ -31,8 +32,8 @@ import torch
 OURS = ("fused_ln_fwd_kernel", "decode_slab_kernel", "logits_head_kernel")
 
 
-def _group(name: str) -> str:
-    for k in OURS:
+def _group(name: str, ours=OURS) -> str:
+    for k in ours:
         if k in name:
             return k
     low = name.lower()
@@ -49,6 +50,36 @@ def _union_us(spans: List[Tuple[float, float]]) -> float:
         total += e - max(s, end)
         end = e
     return total
+
+
+def trace_summary(prof, wall_us: float, n: int, per: str = "tick",
+                  ours=OURS) -> dict:
+    """Device time of a ``torch.profiler`` trace of ``n`` iterations (each
+    a ``per``: tick or step) over ``wall_us`` of host time: busy ms (union
+    of kernel intervals), idle share, kernels, and kernel ms by group (the
+    names in ``ours``, ``matmul``, ``other``) and by name — all per
+    iteration."""
+    spans, by_name, by_group = [], {}, {}
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        s, e = ev.time_range.start, ev.time_range.end
+        spans.append((s, e))
+        by_name[ev.name] = by_name.get(ev.name, 0.0) + (e - s)
+        g = _group(ev.name, ours)
+        by_group[g] = by_group.get(g, 0.0) + (e - s)
+    busy_us = _union_us(spans)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {
+        f"traced_{per}_ms": wall_us / 1e3 / n,
+        f"device_busy_ms_per_{per}": busy_us / 1e3 / n,
+        "idle_share": 1.0 - busy_us / wall_us if wall_us else None,
+        f"kernels_per_{per}": len(spans) / n,
+        f"group_ms_per_{per}": {k: v / 1e3 / n
+                                for k, v in sorted(by_group.items())},
+        f"top_kernels_ms_per_{per}": [[name[:80], v / 1e3 / n]
+                                      for name, v in top],
+    }
 
 
 def _engine(fused: bool):
@@ -89,28 +120,7 @@ def _arm(eng, feed, ticks: int) -> dict:
         for _ in range(ticks):
             _step(eng, feed)
         wall_us = (time.perf_counter() - t0) * 1e6
-    spans, by_name, by_group = [], {}, {}
-    for ev in prof.events():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        s, e = ev.time_range.start, ev.time_range.end
-        spans.append((s, e))
-        by_name[ev.name] = by_name.get(ev.name, 0.0) + (e - s)
-        g = _group(ev.name)
-        by_group[g] = by_group.get(g, 0.0) + (e - s)
-    busy_us = _union_us(spans)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    return {
-        "tick_ms": tick_ms,
-        "traced_tick_ms": wall_us / 1e3 / ticks,
-        "device_busy_ms_per_tick": busy_us / 1e3 / ticks,
-        "idle_share": 1.0 - busy_us / wall_us if wall_us else None,
-        "kernels_per_tick": len(spans) / ticks,
-        "group_ms_per_tick": {k: v / 1e3 / ticks
-                              for k, v in sorted(by_group.items())},
-        "top_kernels_ms_per_tick": [[n[:80], v / 1e3 / ticks]
-                                    for n, v in top],
-    }
+    return {"tick_ms": tick_ms, **trace_summary(prof, wall_us, ticks)}
 
 
 def main(argv=None) -> int:

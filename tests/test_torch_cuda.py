@@ -134,8 +134,113 @@ def test_engine_kernel_path_matches_plain_path(card):
         tokens.append(run)
         ticks = eng.decode_ticks - ticks0
         L = cfg.num_layers
-        want = ({"fused_ln": 2 * L * ticks, "decode_slab": L * ticks,
-                 "logits_head": ticks} if fused else
-                {"fused_ln": 0, "decode_slab": 0, "logits_head": 0})
+        want = dict.fromkeys(CK.LAUNCHES, 0)
+        if fused:
+            want.update(fused_ln=2 * L * ticks, decode_slab=L * ticks,
+                        logits_head=ticks)
         assert CK.LAUNCHES == want
     assert tokens[0] == tokens[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_training_kernels_match_plain_at_path_shapes(chip_smoke, dtype):
+    """Flash forward / dQ / dK,dV at [16 (bf16) or 2 (f32), 1024, 12, 64]
+    from a packed qkv, causal: bf16 per element within 2^-7 x (|plain| +
+    its row's max |plain|) + 1e-5 and lse within 2e-5, f32 within 2e-5 / 3e-4; the AdamW sweep over GPT_SMALL's 163M parameters bitwise,
+    with bf16 and float32 moments."""
+    recs = chip_smoke.phase_train_kernels(dtype, time_it=False)
+    assert set(recs) == {"flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                         "opt_adamw_flat"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("T,hd", [(100, 32), (256, 64), (192, 128)])
+def test_flash_kernels_match_plain_small_shapes(chip_smoke, dtype, causal,
+                                               T, hd):
+    """Ragged sequence lengths (T not a multiple of the 64-row tile), full
+    attention and every head_dim the kernels take; the bounds of
+    ``chip_smoke.phase_train_kernels``."""
+    from paddle_tpu_torch.ops import flash_attention as FA
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # full-f32 plain path
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator(device="cuda")
+    g.manual_seed(T + hd)
+    q, k, v, do = (torch.randn((2, T, 3, hd), generator=g, device="cuda")
+                   .to(dtype) for _ in range(4))
+
+    def close(got, want, f32_tol):
+        if dtype == torch.bfloat16:
+            chip_smoke.bf16_check("flash", got, want)
+        else:
+            torch.testing.assert_close(got, want, atol=f32_tol, rtol=f32_tol)
+
+    o, lse = FA.flash_fwd(q, k, v, causal)
+    o_p, lse_p = FA.flash_fwd_plain(q, k, v, causal)
+    close(o, o_p, 2e-5)
+    torch.testing.assert_close(lse, lse_p, atol=2e-5, rtol=2e-5)
+    close(FA.flash_bwd_dq(q, k, v, o_p, lse_p, do, causal),
+          FA.flash_bwd_dq_plain(q, k, v, o_p, lse_p, do, causal), 3e-4)
+    for got, want in zip(FA.flash_bwd_dkv(q, k, v, o_p, lse_p, do, causal),
+                         FA.flash_bwd_dkv_plain(q, k, v, o_p, lse_p, do,
+                                                causal)):
+        close(got, want, 3e-4)
+
+
+@pytest.mark.cuda
+def test_flash_attention_autograd_on_card(card):
+    """_Flash on CUDA tensors launches forward, dQ and dK/dV once each and
+    gives the plain path's gradients (float32, 3e-4)."""
+    from paddle_tpu_torch.ops import cuda_kernels as CK
+    from paddle_tpu_torch.ops import flash_attention as FA
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # full-f32 plain path
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator(device=card)
+    g.manual_seed(1)
+    q, k, v, w = (torch.randn((2, 128, 2, 64), generator=g, device=card)
+                  for _ in range(4))
+    grads = []
+    for on_card in (True, False):
+        xs = [x.clone().requires_grad_() for x in (q, k, v)]
+        if on_card:
+            CK.reset_launches()
+            out = FA.flash_attention(*xs)
+        else:
+            out = FA.flash_fwd_plain(*xs)[0]
+        (out * w).sum().backward()
+        grads.append([x.grad for x in xs])
+    assert (CK.LAUNCHES["flash_fwd"], CK.LAUNCHES["flash_bwd_dq"],
+            CK.LAUNCHES["flash_bwd_dkv"]) == (1, 1, 1)
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, atol=3e-4, rtol=3e-4)
+
+
+@pytest.mark.cuda
+def test_train_step_kernel_matches_plain(chip_smoke):
+    """2-layer GPT_SMALL float32: 3 kernel steps vs 3 plain steps."""
+    chip_smoke.phase_train_parity()
+
+
+@pytest.mark.cuda
+def test_training_wrappers_raise_on_inputs_the_kernels_do_not_take(card):
+    from paddle_tpu_torch.ops import cuda_kernels as CK
+    from paddle_tpu_torch.ops import flash_attention as FA
+
+    x = torch.zeros((1, 64, 2, 48), device=card)
+    with pytest.raises(ValueError, match="head_dim"):
+        FA.flash_fwd(x, x, x)
+    x = torch.zeros((1, 64, 2, 64), device=card)
+    with pytest.raises(TypeError):
+        FA.flash_fwd(x.half(), x.half(), x.half())
+    with pytest.raises(ValueError, match="strides"):
+        FA.flash_fwd(x, x.transpose(1, 2).contiguous().transpose(1, 2), x)
+    p = torch.zeros(16, device=card)
+    with pytest.raises(ValueError, match="contiguous"):
+        CK.megakernel_adamw_flat(p, p, p, torch.zeros(32, device=card)[::2],
+                                 p, 1e-3, 1.0, 0.1, 0.1)

@@ -374,6 +374,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import paddle_tpu_torch.ops.cuda_kernels, "
         "paddle_tpu_torch.ops._build, paddle_tpu_torch.observability.hw, "
         "paddle_tpu_torch.tools.profile_decode\n"
+        "import paddle_tpu_torch.ops.flash_attention, "
+        "paddle_tpu_torch.parallel.parallelize, "
+        "paddle_tpu_torch.parallel.remat, paddle_tpu_torch.parallel.health, "
+        "paddle_tpu_torch.tools.train_bench\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'paddle_tpu'))\n"
         "print(bad)\n"
