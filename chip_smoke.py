@@ -8,21 +8,38 @@ Phases, each of which raises (and the script exits non-zero) on failure:
 2. build   — nvcc builds ops/csrc/*.cu for sm_90a (one process per
              source, in parallel); ptxas's registers / shared memory /
              spills per kernel and the build seconds are printed;
-3. kernels — each kernel against its plain PyTorch version at the serving
-             path's shapes (GPT_SMALL, batch 8, max_seq 1024), in bf16 and
-             in float32: outputs within 1e-2 (bf16, about one bf16 ulp) or
-             1e-5 (float32), updated KV caches bitwise; then the bf16
-             kernel, its plain version and one PyTorch library call are
-             timed with CUDA events;
+3. kernels — each serving kernel against its plain PyTorch version at the
+             serving path's shapes (GPT_SMALL, batch 8, max_seq 1024; the
+             paged pools [513, 16, 12, 64] with tables from a seeded
+             permutation of pages 1..512, one dead lane with a zeroed
+             table row, two lanes sharing their first 4 pages), in bf16
+             and in float32: bf16 outputs per element within 2^-7 x
+             (|plain| + its row's max |plain|) + 1e-5, float32 within
+             1e-5, updated KV caches bitwise (paged: pages 1..512 — page
+             0 is the scratch page dead lanes write — and the shared and
+             dead-lane pages untouched); then the bf16 kernel, its plain
+             version and one PyTorch library call are timed with CUDA
+             events;
 4. serving — a GPT_SMALL bf16 engine (seed weights, max_batch 8, max_seq
              1024, buckets 64..512) serves 16 seeded greedy requests
              through Scheduler + EngineLoop; every request must finish
              "done" and every kernel's launch count must be what the
              decode ticks imply (counts are zeroed just before);
+4b. serve-paged — the same engine with kv_layout="paged" (page 16,
+             default pool, prefix cache on) serves 16 greedy requests in a
+             seeded order, 8 of them behind one 256-token system prompt:
+             launch counts as in 4 with decode_paged in place of
+             decode_slab, exactly 7 prefix-cache hits, 7 x 256 prompt
+             tokens not prefilled, and every page back in the pool after
+             the cache is cleared;
 5. parity  — a 2-layer GPT_SMALL in float32 (TF32 off): prefill logits
-             within 1e-4 of the full forward, and the kernel engine and
-             the plain-PyTorch engine must emit identical greedy tokens,
-             with per-step logits within 1e-4;
+             within 1e-4 of the full forward, and the slab and paged
+             kernel engines and the plain-PyTorch engines must emit
+             identical greedy tokens, with per-step logits within 1e-4; a
+             repeated 80-token prompt prefills only its last 16 tokens
+             with logits within 1e-4 of the first; two requests on a
+             10-page pool are preempted and resumed and still emit the
+             slab engine's tokens;
 6. train kernels — flash forward, dQ, dK/dV against their plain versions
              at the training path's shapes (q/k/v [16, 1024, 12, 64]
              sliced from one packed qkv, causal) in bf16 (each element
@@ -57,8 +74,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-ATOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 B, S = 8, 1024           # the serving path's batch and max_seq
+PAGE = 16                # the paged serving path's page size
 
 
 def phase_device() -> str:
@@ -109,12 +126,19 @@ def _over_layers(fn, n: int):
     return lambda: fn(next(layers))
 
 
-def _check_close(name: str, got, want, dtype, tol=None) -> float:
+def _check_close(name: str, got, want, dtype, tol) -> float:
     err = (got.float() - want.float()).abs().max().item()
-    tol = ATOL[dtype] if tol is None else tol
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol,
                                msg=lambda m: f"{name} {dtype}: {m}")
     return err
+
+
+def _check_out(name: str, got, want, dtype) -> float:
+    """A serving kernel's output against its plain version: per element
+    (:func:`bf16_check`) in bf16, within 1e-5 in float32."""
+    if dtype == torch.bfloat16:
+        return bf16_check(f"{name} bf16", got, want)
+    return _check_close(name, got, want, dtype, 1e-5)
 
 
 def phase_kernels(dtype, time_it: bool):
@@ -145,7 +169,7 @@ def phase_kernels(dtype, time_it: bool):
     x = randn(B, D)
     got, want = CK.fused_ln(x, scale, bias), CK.fused_ln_plain(x, scale, bias)
     torch.cuda.synchronize()
-    rec = {"max_abs_err": _check_close("fused_ln", got, want, dtype)}
+    rec = {"max_abs_err": _check_out("fused_ln", got, want, dtype)}
     if time_it:
         rec["ms"] = _time_ms(lambda: CK.fused_ln(x, scale, bias))
         rec["plain_ms"] = _time_ms(lambda: CK.fused_ln_plain(x, scale, bias))
@@ -176,7 +200,7 @@ def phase_kernels(dtype, time_it: bool):
                              "from the plain version's")
     if not (torch.equal(k1[3], kc[0][3]) and torch.equal(v1[3], vc[0][3])):
         raise AssertionError(f"decode_slab {dtype}: masked lane was written")
-    rec = {"max_abs_err": _check_close("decode_slab", got, want, dtype)}
+    rec = {"max_abs_err": _check_out("decode_slab", got, want, dtype)}
     if time_it:
         rec["ms"] = _time_ms(_over_layers(
             lambda i: CK.fused_decode_attention(q, kc[i], vc[i], nk, nv,
@@ -200,13 +224,16 @@ def phase_kernels(dtype, time_it: bool):
         rec["bound_ms"], rec["bound_by"] = bound_ms(nbytes, flops, "f32",
                                                     name)
     recs["decode_slab"] = rec
+    del kc, vc, k1, v1, k2, v2
+    recs["decode_paged"] = _paged_kernel_check(q, nk, nv, pos_np, dtype,
+                                               time_it, randn)
 
     # -- logits_head: x [B, D] x lm_head [D, V] ------------------------------
     w = randn(D, V, s=0.02)
     got = CK.fused_logits_head(x, scale, bias, w)
     want = CK.fused_logits_head_plain(x, scale, bias, w)
     torch.cuda.synchronize()
-    rec = {"max_abs_err": _check_close("logits_head", got, want, dtype)}
+    rec = {"max_abs_err": _check_out("logits_head", got, want, dtype)}
     if not torch.equal(got.float().argmax(-1), want.float().argmax(-1)):
         print(f"[kernels] logits_head {dtype}: argmax differs on a tie-level "
               "logit (within tolerance)")
@@ -227,33 +254,99 @@ def phase_kernels(dtype, time_it: bool):
     return recs
 
 
+def _paged_kernel_check(q, nk, nv, pos_np, dtype, time_it: bool, randn):
+    """decode_paged vs its plain version at the paged serving path's
+    shapes: the slab check's q/k/v and positions, pools [L, 513, 16, nh,
+    hd], tables [8, 64] from a seeded permutation of pages 1..512; lane 3
+    is dead (zeroed table row) and lanes 0 and 1 share their first 4
+    pages."""
+    from paddle_tpu_torch.models.gpt import GPT_SMALL
+    from paddle_tpu_torch.observability.hw import bound_ms
+    from paddle_tpu_torch.ops import cuda_kernels as CK
+
+    L, nh, hd = GPT_SMALL.num_layers, GPT_SMALL.num_heads, GPT_SMALL.head_dim
+    dev = q.device
+    M = S // PAGE
+    P = B * M + 1
+    perm = np.random.default_rng(8).permutation(np.arange(1, P)).astype(
+        np.int32).reshape(B, M)
+    tab_np = perm.copy()
+    tab_np[1, :4] = tab_np[0, :4]              # shared prefix pages
+    tab_np[3] = 0                              # dead lane: scratch page 0
+    tables = torch.from_numpy(tab_np).to(dev)
+    positions = torch.from_numpy(pos_np).to(dev)
+    kp = randn(L, P, PAGE, nh, hd)
+    vp = randn(L, P, PAGE, nh, hd)
+    k1, v1, k2, v2 = kp[0].clone(), vp[0].clone(), kp[0].clone(), vp[0].clone()
+    got, _, _ = CK.fused_paged_decode_attention(q, k1, v1, nk, nv, tables,
+                                                positions)
+    want, _, _ = CK.fused_paged_decode_attention_plain(q, k2, v2, nk, nv,
+                                                       tables, positions)
+    torch.cuda.synchronize()
+    # page 0 is scratch: dead lanes write it, no valid row reads it
+    if not (torch.equal(k1[1:], k2[1:]) and torch.equal(v1[1:], v2[1:])):
+        raise AssertionError(f"decode_paged {dtype}: pages 1..{P - 1} "
+                             "differ from the plain version's")
+    keep = torch.from_numpy(np.concatenate([tab_np[0, :4], perm[3]])).to(
+        dev).long()
+    if not (torch.equal(k1[keep], kp[0][keep])
+            and torch.equal(v1[keep], vp[0][keep])):
+        raise AssertionError(f"decode_paged {dtype}: a shared prefix page "
+                             "or a dead lane's page was written")
+    rec = {"max_abs_err": _check_out("decode_paged", got, want, dtype)}
+    if time_it:
+        name = torch.cuda.get_device_name(0)
+        esz = q.element_size()
+        rec["ms"] = _time_ms(_over_layers(
+            lambda i: CK.fused_paged_decode_attention(
+                q, kp[i], vp[i], nk, nv, tables, positions), L))
+        rec["plain_ms"] = _time_ms(_over_layers(
+            lambda i: CK.fused_paged_decode_attention_plain(
+                q, kp[i], vp[i], nk, nv, tables, positions), L))
+        from paddle_tpu_torch.ops.decode_attention import paged_gather
+
+        # SDPA over the pre-gathered view: no table walk, no row write
+        gk = [paged_gather(kp[i], tables).transpose(1, 2) for i in range(L)]
+        gv = [paged_gather(vp[i], tables).transpose(1, 2) for i in range(L)]
+        mask = (torch.arange(S, device=dev)[None, None, None, :]
+                <= positions.long()[:, None, None, None])
+        q4 = q.unsqueeze(2)
+        rec["library_ms"] = _time_ms(_over_layers(
+            lambda i: F.scaled_dot_product_attention(q4, gk[i], gv[i],
+                                                     attn_mask=mask), L))
+        del gk, gv
+        rows = int((pos_np.astype(np.int64) + 1).sum())       # rows scored
+        # HBM reads each distinct (page, row) once: the dead lane's rows
+        # alias page 0's 16, lanes 0 and 1 share their first 4 pages
+        distinct = len({(int(tab_np[b, j // PAGE]), j % PAGE)
+                        for b in range(B) for j in range(int(pos_np[b]) + 1)})
+        table_ints = int((pos_np.astype(np.int64) // PAGE + 1).sum())
+        nbytes = (3 * B * nh * hd * esz                       # q, new k/v
+                  + 2 * distinct * nh * hd * esz              # K, V rows
+                  + 2 * B * nh * hd * esz                     # rows written
+                  + B * nh * hd * esz + B * 4                 # out, pos
+                  + table_ints * 4)                           # the table
+        rec["bound_ms"], rec["bound_by"] = bound_ms(
+            nbytes, rows * nh * (4 * hd + 3), "f32", name)
+    return rec
+
+
 def _pct(vals, q):
     return float(np.percentile(np.asarray(vals, np.float64), q))
 
 
-def phase_serving():
-    """GPT_SMALL bf16 through Scheduler + EngineLoop; returns the launch
-    counts of the run."""
-    from paddle_tpu_torch.models.gpt import GPT_SMALL, init_params
+def _serve(eng, prompts, tag: str):
+    """Serve ``prompts`` (64 greedy tokens each) through Scheduler +
+    EngineLoop with every launch count zeroed just before; check that each
+    request finished "done" with 64 in-vocabulary tokens and that the
+    launches are exactly what the decode ticks imply (fused_ln 2L,
+    decode_slab or decode_paged L, logits_head 1 a tick). Returns (the
+    launch counts, the requests)."""
     from paddle_tpu_torch.ops import cuda_kernels as CK
-    from paddle_tpu_torch.serving import (DecodeEngine, EngineConfig,
-                                          EngineLoop, Scheduler)
+    from paddle_tpu_torch.serving import EngineLoop, Scheduler
 
-    cfg = GPT_SMALL
-    params = init_params(cfg, seed=0, device="cuda")
-    ecfg = EngineConfig(max_batch=B, max_seq=S,
-                        prefill_buckets=(64, 128, 256, 512),
-                        weight_dtype="bf16", fused_decode=True)
-    eng = DecodeEngine(params, cfg, ecfg, device="cuda")
-    del params
-    warm = eng.warmup()
-    print("[serving] warmup ms: " + ", ".join(
-        f"{k}={v:.1f}" for k, v in warm.items()))
+    cfg = eng.cfg
     sched = Scheduler(eng, device="cuda")
-    rng = np.random.default_rng(0)
-    lens = rng.integers(16, 401, size=16)
-    prompts = [rng.integers(0, cfg.vocab_size, size=int(n)).tolist()
-               for n in lens]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ticks0 = eng.decode_ticks
@@ -279,76 +372,201 @@ def phase_serving():
         raise AssertionError(f"engine loop faults: {loop.last_fault}")
     L = cfg.num_layers
     want = dict.fromkeys(CK.LAUNCHES, 0)
-    want.update(fused_ln=2 * L * ticks, decode_slab=L * ticks,
-                logits_head=ticks)
+    want.update({"fused_ln": 2 * L * ticks, "logits_head": ticks,
+                 ("decode_paged" if eng.paged else "decode_slab"): L * ticks})
     if ticks <= 0 or launches != want:
         raise AssertionError(f"launch counts {launches} != {want} for "
                              f"{ticks} decode ticks")
+    n = len(prompts)
     ntok = sum(len(r.tokens) for r in reqs)
-    if ntok != 16 * 64:
-        raise AssertionError(f"{ntok} tokens generated, expected {16 * 64}")
+    if ntok != n * 64:
+        raise AssertionError(f"{ntok} tokens generated, expected {n * 64}")
     if not all(0 <= t < cfg.vocab_size for r in reqs for t in r.tokens):
         raise AssertionError("a generated token lies outside the vocabulary")
     ttft = [r.ttft_ms for r in reqs]
     tpot = [r.tpot_ms for r in reqs]
-    print(f"[serving] 16 requests done, {ntok} tokens in {wall:.3f} s "
+    print(f"[{tag}] {n} requests done, {ntok} tokens in {wall:.3f} s "
           f"({ntok / wall:.1f} tok/s), {ticks} decode ticks")
-    print(f"[serving] ttft_ms p50={_pct(ttft, 50):.3f} "
+    print(f"[{tag}] ttft_ms p50={_pct(ttft, 50):.3f} "
           f"p99={_pct(ttft, 99):.3f}; tpot_ms p50={_pct(tpot, 50):.3f}; "
           f"peak_mem_bytes={torch.cuda.max_memory_allocated()}")
-    print(f"[serving] launches {launches}")
+    print(f"[{tag}] launches {launches}")
+    return launches, reqs
+
+
+def _serving_engine(kv_layout: str):
+    from paddle_tpu_torch.models.gpt import GPT_SMALL, init_params
+    from paddle_tpu_torch.serving import DecodeEngine, EngineConfig
+
+    params = init_params(GPT_SMALL, seed=0, device="cuda")
+    ecfg = EngineConfig(max_batch=B, max_seq=S,
+                        prefill_buckets=(64, 128, 256, 512),
+                        weight_dtype="bf16", fused_decode=True,
+                        kv_layout=kv_layout, page_size=PAGE)
+    eng = DecodeEngine(params, GPT_SMALL, ecfg, device="cuda")
+    del params
+    warm = eng.warmup()
+    print(f"[{kv_layout}] warmup ms: " + ", ".join(
+        f"{k}={v:.1f}" for k, v in warm.items()))
+    return eng
+
+
+def phase_serving():
+    """GPT_SMALL bf16, slab layout, through Scheduler + EngineLoop; returns
+    the launch counts of the run."""
+    eng = _serving_engine("slab")
+    rng = np.random.default_rng(0)
+    lens = rng.integers(16, 401, size=16)
+    prompts = [rng.integers(0, eng.cfg.vocab_size, size=int(n)).tolist()
+               for n in lens]
+    launches, _ = _serve(eng, prompts, "serving")
+    return launches
+
+
+def phase_serving_paged():
+    """GPT_SMALL bf16, paged layout with the prefix cache, through
+    Scheduler + EngineLoop: 8 requests behind one 256-token system prompt
+    and 8 unique ones, in a seeded order. Admissions run one at a time on
+    the loop thread and each prefill publishes its pages before the next
+    lookup, so any order gives exactly 7 hits; the default pool (512
+    usable pages) holds the cache (under 300 pages) and the live slots
+    without a reclaim. Returns the launch counts of the run."""
+    from paddle_tpu_torch.serving import metrics as smetrics
+
+    eng = _serving_engine("paged")
+    V = eng.cfg.vocab_size
+    rng = np.random.default_rng(3)
+    system = rng.integers(0, V, size=256).tolist()
+    shared = [system + rng.integers(0, V, size=int(n)).tolist()
+              for n in rng.integers(16, 145, size=8)]
+    unique = [rng.integers(0, V, size=int(n)).tolist()
+              for n in rng.integers(16, 401, size=8)]
+    prompts = [(shared + unique)[i] for i in rng.permutation(16)]
+    hits0, tok0 = eng.prefix.hits, smetrics.m_prefill_tokens.value
+    launches, _ = _serve(eng, prompts, "serve-paged")
+    hits = eng.prefix.hits - hits0
+    prefilled = int(smetrics.m_prefill_tokens.value - tok0)
+    want = sum(len(p) for p in prompts) - 7 * 256
+    if hits != 7 or prefilled != want:
+        raise AssertionError(f"prefix cache: {hits} hits (want 7), "
+                             f"{prefilled} tokens prefilled (want {want})")
+    held = eng.prefix.held_page_count()
+    eng.prefix.clear()
+    free = eng.cache.free_page_count()
+    if eng.cache.live_slots() or free != eng.cache.num_pages - 1:
+        raise AssertionError(f"page pool not returned: {free} of "
+                             f"{eng.cache.num_pages - 1} pages free, live "
+                             f"slots {eng.cache.live_slots()}")
+    print(f"[serve-paged] prefix hits {hits}, prompt tokens prefilled "
+          f"{prefilled} of {want + 7 * 256}, cache held {held} pages; all "
+          f"{free} pages free after clear()")
     return launches
 
 
 def phase_parity():
-    """Kernel engine vs plain-PyTorch engine, float32, on the card."""
+    """Kernel engines vs plain-PyTorch engines, slab and paged, float32, on
+    the card; the prefix cache's continuation prefill; preemption."""
     from paddle_tpu_torch.models.gpt import GPT_SMALL, init_params
-    from paddle_tpu_torch.serving import DecodeEngine, EngineConfig
+    from paddle_tpu_torch.serving import (DecodeEngine, EngineConfig,
+                                          Scheduler)
+    from paddle_tpu_torch.serving import metrics as smetrics
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = GPT_SMALL.scaled(num_layers=2, dtype=torch.float32)
     params = init_params(cfg, seed=1, device="cuda")
-    ekw = dict(max_batch=4, max_seq=256, prefill_buckets=(64, 128))
-    engines = [DecodeEngine(params, cfg, EngineConfig(fused_decode=f, **ekw),
-                            device="cuda") for f in (True, False)]
+    ekw = dict(max_batch=4, max_seq=256, prefill_buckets=(64, 128),
+               page_size=PAGE)
+    arms = {f"{layout} {'kernel' if f else 'plain'}": DecodeEngine(
+        params, cfg, EngineConfig(fused_decode=f, kv_layout=layout, **ekw),
+        device="cuda") for layout in ("slab", "paged") for f in (True, False)}
     rng = np.random.default_rng(1)
     prompts = [rng.integers(0, cfg.vocab_size, size=int(n)).tolist()
                for n in (5, 17, 40, 100)]
-    worst = 0.0
-    toks = [{}, {}]
-    for e_i, eng in enumerate(engines):
-        slots, cur = {}, {}
+    runs = {}
+    for arm, eng in arms.items():
+        slots, cur, toks = {}, {}, {}
         for p_i, p in enumerate(prompts):
             slot, logits = eng.start_sequence(p)
             ref = eng.reference_logits(p)[-1]
             if not np.allclose(logits, ref, atol=1e-4, rtol=1e-4):
                 raise AssertionError(
-                    f"prompt {p_i}: prefill logits differ from the full "
-                    f"forward by {np.abs(logits - ref).max()}")
+                    f"{arm} prompt {p_i}: prefill logits differ from the "
+                    f"full forward by {np.abs(logits - ref).max()}")
             slots[p_i] = slot
             cur[p_i] = int(np.argmax(logits))
-            toks[e_i][p_i] = [cur[p_i]]
+            toks[p_i] = [cur[p_i]]
         steps = []
         for _ in range(31):
             out = eng.decode_step({slots[i]: cur[i] for i in slots})
             steps.append({i: out[slots[i]] for i in slots})
             for i in slots:
                 cur[i] = int(np.argmax(out[slots[i]]))
-                toks[e_i][i].append(cur[i])
-        toks[e_i]["logits"] = steps
-    for a, b in zip(toks[0]["logits"], toks[1]["logits"]):
-        for i in a:
-            worst = max(worst, float(np.abs(a[i] - b[i]).max()))
-    for i in range(len(prompts)):
-        if toks[0][i] != toks[1][i]:
-            raise AssertionError(f"prompt {i}: kernel tokens {toks[0][i]} "
-                                 f"!= plain tokens {toks[1][i]}")
+                toks[i].append(cur[i])
+        for slot in slots.values():
+            eng.free_sequence(slot)
+        runs[arm] = (toks, steps)
+    base_toks, base_steps = runs["slab kernel"]
+    worst = 0.0
+    for arm, (toks, steps) in runs.items():
+        if toks != base_toks:
+            raise AssertionError(f"{arm} tokens {toks} != slab kernel "
+                                 f"tokens {base_toks}")
+        for a, b in zip(steps, base_steps):
+            for i in a:
+                worst = max(worst, float(np.abs(a[i] - b[i]).max()))
     if not worst <= 1e-4:
         raise AssertionError(f"per-step logits differ by {worst} > 1e-4")
-    print(f"[parity] 4 prompts x 32 greedy tokens identical (f32, 2 "
-          f"layers); prefill logits match the full forward; max per-step "
-          f"logit diff {worst:.3g}")
+    print(f"[parity] 4 prompts x 32 greedy tokens identical across "
+          f"{', '.join(runs)} (f32, 2 layers); prefill logits match the "
+          f"full forward; max per-step logit diff {worst:.3g}")
+
+    # the prefix cache: the second prefill covers the last 16 tokens only
+    eng = arms["paged kernel"]
+    prompt = rng.integers(0, cfg.vocab_size, size=80).tolist()
+    tok0 = smetrics.m_prefill_tokens.value
+    s1, l1 = eng.start_sequence(prompt)
+    d1 = smetrics.m_prefill_tokens.value - tok0
+    s2, l2 = eng.start_sequence(prompt)
+    d2 = smetrics.m_prefill_tokens.value - tok0 - d1
+    diff = float(np.abs(l1 - l2).max())
+    if (d1, d2) != (80, 16) or not diff <= 1e-4:
+        raise AssertionError(f"prefix cache: prefilled {d1} then {d2} "
+                             f"tokens (want 80, 16), logit diff {diff}")
+    eng.free_sequence(s1)
+    eng.free_sequence(s2)
+    print(f"[parity] repeated 80-token prompt: prefilled 80 then 16 tokens "
+          f"(64 from the cache), logit diff {diff:.3g}")
+
+    # preemption: 2 x 7 pages wanted, 10 usable
+    eng = DecodeEngine(params, cfg, EngineConfig(
+        max_batch=2, max_seq=256, prefill_buckets=(64, 128),
+        kv_layout="paged", page_size=PAGE, num_pages=11, prefix_cache=False),
+        device="cuda")
+    sched = Scheduler(eng, device="cuda")
+    pair = [rng.integers(0, cfg.vocab_size, size=40).tolist()
+            for _ in range(2)]
+    reqs = [sched.submit(p, max_new_tokens=64, timeout_s=300.0)
+            for p in pair]
+    for _ in range(1000):
+        if not sched.pending():
+            break
+        sched.step()
+    slab = arms["slab kernel"]
+    for r, p in zip(reqs, pair):
+        slot, logits = slab.start_sequence(p)
+        want = [int(np.argmax(logits))]
+        for _ in range(63):
+            want.append(int(np.argmax(slab.decode_step(
+                {slot: want[-1]})[slot])))
+        slab.free_sequence(slot)
+        if r.state != "done" or r.tokens != want:
+            raise AssertionError(f"preempted request {r.id} ({r.state}) "
+                                 "tokens differ from the slab engine's")
+    if sched.preemptions < 1:
+        raise AssertionError("the 10-page pool never preempted")
+    print(f"[parity] 10-page pool: {sched.preemptions} preemption(s), both "
+          "64-token streams equal the slab engine's")
 
 
 def bf16_check(name, got, want) -> float:
@@ -366,7 +584,7 @@ def bf16_check(name, got, want) -> float:
     bound = (2.0 ** -7 * (want.abs() + want.abs().amax(-1, keepdim=True))
              + 1e-5)
     worst = (err / bound).max().item()
-    print(f"[train-kernels] {name}: worst diff/bound {worst:.4g}")
+    print(f"[check] {name}: worst diff/bound {worst:.4g}")
     if not worst <= 1.0:
         raise AssertionError(f"{name}: {int((err > bound).sum())} elements "
                              f"over the bound, worst diff/bound {worst:.4g}")
@@ -590,7 +808,11 @@ def main() -> int:
     phase_build()
     recs = phase_kernels(torch.bfloat16, time_it=True)
     phase_kernels(torch.float32, time_it=False)
+    # each kernel's launches summed over the serving paths (slab, paged);
+    # each path printed and asserted its own counts above
     launches = phase_serving()
+    for k, v in phase_serving_paged().items():
+        launches[k] += v
     phase_parity()
     recs.update(phase_train_kernels(torch.bfloat16, time_it=True))
     phase_train_kernels(torch.float32, time_it=False)

@@ -134,6 +134,9 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.ptt_decode_slab.argtypes = [P, P, P, LL, P, P, P, P, P, I, I, I, I,
                                     F, I, I, P]
     lib.ptt_decode_slab.restype = I
+    lib.ptt_decode_paged.argtypes = [P, P, P, LL, P, P, P, P, P, I, I, I, I,
+                                     I, I, F, I, I, P]
+    lib.ptt_decode_paged.restype = I
     lib.ptt_logits_head.argtypes = [P, P, P, P, P, I, I, I, F, I, P]
     lib.ptt_logits_head.restype = I
     fl = [P, P, P, P, P, I, I, I, I, LL, LL, LL, F, I, I, P]

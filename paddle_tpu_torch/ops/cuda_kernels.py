@@ -16,10 +16,11 @@ Each public function routes by the device its tensors lie on:
 JAX's ``_count_launch`` (``pallas_kernels.py:853``) ticks once per TRACE —
 once per compiled executable, however often it runs; eager PyTorch has no
 trace, so the port counts every launch. A decode tick of the engine
-launches ``fused_ln`` 2·L times, ``decode_slab`` L times and
-``logits_head`` once; a GPT train step under ``dots`` remat launches
-``flash_fwd`` 2·L times, ``flash_bwd_dq`` and ``flash_bwd_dkv`` L times
-each and ``opt_adamw_flat`` once.
+launches ``fused_ln`` 2·L times, ``decode_slab`` (slab layout) or
+``decode_paged`` (paged layout) L times and ``logits_head`` once; a GPT
+train step under ``dots`` remat launches ``flash_fwd`` 2·L times,
+``flash_bwd_dq`` and ``flash_bwd_dkv`` L times each and
+``opt_adamw_flat`` once.
 """
 from __future__ import annotations
 
@@ -29,10 +30,12 @@ from typing import Dict
 
 import torch
 
-from .decode_attention import cache_update, decode_attention
+from .decode_attention import (cache_update, decode_attention,
+                               paged_cache_update, paged_gather)
 
 __all__ = ["fused_ln", "fused_ln_plain", "fused_decode_attention",
-           "fused_decode_attention_plain", "fused_logits_head",
+           "fused_decode_attention_plain", "fused_paged_decode_attention",
+           "fused_paged_decode_attention_plain", "fused_logits_head",
            "fused_logits_head_plain", "megakernel_adamw_flat",
            "megakernel_adamw_flat_plain", "LAUNCHES", "KERNELS",
            "reset_launches"]
@@ -48,6 +51,11 @@ KERNELS: Dict[str, Dict[str, str]] = {
         "route": "cuda",
         "source": "paddle_tpu_torch/ops/csrc/decode_slab.cu",
         "replaces": "paddle_tpu/ops/pallas_kernels.py:1338",
+    },
+    "decode_paged": {
+        "route": "cuda",
+        "source": "paddle_tpu_torch/ops/csrc/decode_paged.cu",
+        "replaces": "paddle_tpu/ops/pallas_kernels.py:1431",
     },
     "logits_head": {
         "route": "cuda",
@@ -227,31 +235,11 @@ def fused_decode_attention(q, k_cache, v_cache, new_k, new_v, positions,
         return fused_decode_attention_plain(q, k_cache, v_cache, new_k,
                                             new_v, positions, active,
                                             sm_scale)
-    q_code = _dtype_code(q, "fused_decode_attention q")
-    c_code = _dtype_code(k_cache, "fused_decode_attention k_cache")
-    _require(v_cache.dtype == k_cache.dtype
-             and tuple(v_cache.shape) == (B, S, nh, hd),
-             "fused_decode_attention: v_cache must match k_cache")
-    _require(k_cache.is_contiguous() and v_cache.is_contiguous(),
-             "fused_decode_attention: caches must be contiguous")
-    for name, t in (("q", q), ("new_k", new_k), ("new_v", new_v)):
-        _require(tuple(t.shape) == (B, nh, hd) and t.dtype == q.dtype,
-                 f"fused_decode_attention: {name} must be [{B}, {nh}, "
-                 f"{hd}] {q.dtype}, got {tuple(t.shape)} {t.dtype}")
-        _require(t.stride(2) == 1 and t.stride(1) == hd
-                 and t.stride(0) == q.stride(0),
-                 f"fused_decode_attention: {name} needs contiguous heads "
-                 "and the same batch stride as q")
+    q_code, c_code = _check_decode_inputs(
+        "fused_decode_attention", q, new_k, new_v, k_cache, v_cache,
+        (B, S, nh, hd), B, S, 0)
     for name, t in (("positions", positions), ("active", active)):
-        if t.dtype != torch.int32:
-            raise TypeError(f"fused_decode_attention: {name} must be int32")
-        _require(tuple(t.shape) == (B,) and t.is_contiguous(),
-                 f"fused_decode_attention: {name} must be [{B}] contiguous")
-    _require(hd <= 128 and 128 % hd == 0,
-             f"fused_decode_attention: head_dim {hd} must divide 128")
-    _require((hd + S + 128) * 4 <= _SMEM_DEFAULT,
-             f"fused_decode_attention: max_seq {S} exceeds the kernel's "
-             "score buffer")
+        _check_ints("fused_decode_attention", name, t, (B,))
     out = torch.empty((B, nh, hd), dtype=q.dtype, device=q.device)
     if B == 0:
         return out, k_cache, v_cache
@@ -263,6 +251,109 @@ def fused_decode_attention(q, k_cache, v_cache, new_k, new_v, positions,
         q_code, c_code, _stream(q))
     _check_launch(lib, err, "decode_slab")
     return out, k_cache, v_cache
+
+
+def _check_decode_inputs(fn, q, new_k, new_v, k_cache, v_cache, cache_shape,
+                         B, rows, table_ints):
+    """The decode kernels' shared checks: dtypes, the caches' shape and
+    contiguity, q/new_k/new_v as [B, nh, hd] with contiguous heads and one
+    batch stride, hd dividing the block, and the score buffer (``rows``
+    floats + ``table_ints`` ints) within shared memory. Returns the dtype
+    codes of q and the cache."""
+    nh, hd = cache_shape[-2:]
+    q_code = _dtype_code(q, f"{fn} q")
+    c_code = _dtype_code(k_cache, f"{fn} cache")
+    _require(tuple(k_cache.shape) == tuple(cache_shape)
+             and tuple(v_cache.shape) == tuple(cache_shape)
+             and v_cache.dtype == k_cache.dtype,
+             f"{fn}: the V cache must match the K cache {tuple(cache_shape)}")
+    _require(k_cache.is_contiguous() and v_cache.is_contiguous(),
+             f"{fn}: caches must be contiguous")
+    for name, t in (("q", q), ("new_k", new_k), ("new_v", new_v)):
+        _require(tuple(t.shape) == (B, nh, hd) and t.dtype == q.dtype,
+                 f"{fn}: {name} must be [{B}, {nh}, {hd}] {q.dtype}, got "
+                 f"{tuple(t.shape)} {t.dtype}")
+        _require(t.stride(2) == 1 and t.stride(1) == hd
+                 and t.stride(0) == q.stride(0),
+                 f"{fn}: {name} needs contiguous heads and the same batch "
+                 "stride as q")
+    _require(hd <= 128 and 128 % hd == 0,
+             f"{fn}: head_dim {hd} must divide 128")
+    _require((hd + rows + 128) * 4 + table_ints * 4 <= _SMEM_DEFAULT,
+             f"{fn}: {rows} rows exceed the kernel's score buffer")
+    return q_code, c_code
+
+
+def _check_ints(fn, name, t, shape):
+    if t.dtype != torch.int32:
+        raise TypeError(f"{fn}: {name} must be int32")
+    _require(tuple(t.shape) == tuple(shape) and t.is_contiguous(),
+             f"{fn}: {name} must be {list(shape)} contiguous")
+
+
+# ---------------------------------------------------------------------------
+# one-launch paged decode step (replaces _decode_paged_kernel)
+# ---------------------------------------------------------------------------
+
+
+def fused_paged_decode_attention_plain(q, k_pool, v_pool, new_k, new_v,
+                                      tables, positions, sm_scale=None):
+    """The unfused paged tick in PyTorch ops, as the JAX reference runs it
+    (tests/test_pallas_fused.py:565-573): the row scatter into both pools
+    (in place), the page-table gathers, and one-query attention over rows
+    ``0..positions[b]`` of the gathered views."""
+    page = k_pool.shape[1]
+    pos = positions.long()
+    phys = tables.long().gather(1, (pos // page)[:, None])[:, 0]
+    rows = pos % page
+    paged_cache_update(k_pool, new_k, phys, rows)
+    paged_cache_update(v_pool, new_v, phys, rows)
+    out = decode_attention(q, paged_gather(k_pool, tables),
+                           paged_gather(v_pool, tables), positions + 1,
+                           sm_scale)
+    return out, k_pool, v_pool
+
+
+def fused_paged_decode_attention(q, k_pool, v_pool, new_k, new_v, tables,
+                                 positions, sm_scale=None):
+    """Paged KV row write + masked one-token attention through the page
+    table, in one launch.
+
+    q/new_k/new_v: [B, nh, hd]; k_pool/v_pool: [P, page, nh, hd], updated
+    IN PLACE (row ``positions[b] % page`` of page
+    ``tables[b, positions[b] // page]``; a dead lane's all-zero table row
+    writes scratch page 0); tables: [B, M] int32; positions: [B] int32.
+    Attention covers logical rows ``0..positions[b]``. On the card a lane
+    whose position lies outside [0, M * page) or whose table reaches a
+    page outside [0, P) answers zeros and writes nothing.
+
+    Returns (out [B, nh, hd] in q.dtype, k_pool, v_pool) — the pools are
+    the tensors passed in, returned for the JAX signature's sake.
+    """
+    B, M = tables.shape
+    P, page, nh, hd = k_pool.shape
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    if not _on_card(q, k_pool, v_pool, new_k, new_v, tables, positions):
+        return fused_paged_decode_attention_plain(
+            q, k_pool, v_pool, new_k, new_v, tables, positions, sm_scale)
+    q_code, c_code = _check_decode_inputs(
+        "fused_paged_decode_attention", q, new_k, new_v, k_pool, v_pool,
+        (P, page, nh, hd), B, M * page, M)
+    _check_ints("fused_paged_decode_attention", "tables", tables, (B, M))
+    _check_ints("fused_paged_decode_attention", "positions", positions,
+                (B,))
+    out = torch.empty((B, nh, hd), dtype=q.dtype, device=q.device)
+    if B == 0:
+        return out, k_pool, v_pool
+    lib = _lib()
+    err = lib.ptt_decode_paged(
+        q.data_ptr(), new_k.data_ptr(), new_v.data_ptr(), q.stride(0),
+        k_pool.data_ptr(), v_pool.data_ptr(), tables.data_ptr(),
+        positions.data_ptr(), out.data_ptr(), B, M, page, P, nh, hd,
+        float(sm_scale), q_code, c_code, _stream(q))
+    _check_launch(lib, err, "decode_paged")
+    return out, k_pool, v_pool
 
 
 # ---------------------------------------------------------------------------

@@ -1,16 +1,18 @@
 """Decode-path attention over a preallocated KV cache, in plain PyTorch.
 
-The port of ``paddle_tpu/ops/decode_attention.py`` for the slab layout:
-``cache_update`` (``:32``), ``decode_attention`` (``:63``) and
-``prefill_attention`` (``:234``). The paged and speculative-window helpers
-belong to the next serving slice.
+The port of ``paddle_tpu/ops/decode_attention.py`` for the slab and the
+paged layouts: ``cache_update`` (``:32``), ``decode_attention`` (``:63``),
+``paged_gather`` (``:97``), ``paged_cache_update`` (``:120``),
+``paged_page_write`` (``:134``), ``paged_prefill_attention`` (``:144``)
+and ``prefill_attention`` (``:234``). The speculative-window helpers come
+with speculative decoding.
 
-``cache_update`` writes in place: JAX returned a new slab and relied on
-buffer donation to make that an in-place HBM write; here the caller's
-tensor is the cache. The engine's default decode tick replaces
-``cache_update`` + ``decode_attention`` with the one-launch kernel in
-``ops/cuda_kernels.py``; these functions are the unfused path and the
-reference it is held against.
+The cache and pool writers update in place: JAX returned a new slab or
+pool and relied on buffer donation to make that an in-place HBM write;
+here the caller's tensor is the cache. The engine's default decode tick
+replaces the update + gather + ``decode_attention`` with one-launch
+kernels in ``ops/cuda_kernels.py``; these functions are the unfused path
+and the reference it is held against.
 """
 from __future__ import annotations
 
@@ -19,7 +21,9 @@ from typing import Optional
 
 import torch
 
-__all__ = ["cache_update", "decode_attention", "prefill_attention"]
+__all__ = ["cache_update", "decode_attention", "prefill_attention",
+           "paged_gather", "paged_cache_update", "paged_page_write",
+           "paged_prefill_attention"]
 
 
 def cache_update(cache, new, positions, active=None):
@@ -65,6 +69,64 @@ def decode_attention(q, k_cache, v_cache, lengths,
     e = torch.where(valid, torch.exp(scores - m), torch.zeros_like(scores))
     probs = e / e.sum(-1, keepdim=True).clamp_min(1e-30)
     out = torch.einsum("bns,bsnh->bnh", probs, v_cache.float())
+    return out.to(q.dtype)
+
+
+def paged_gather(pool, tables):
+    """Per-slot contiguous views of a page pool.
+
+    pool: [P, page, nh, hd] (one layer's K or V pool); tables: [B, M]
+    integer (physical page per logical page; unmapped entries point at
+    scratch page 0, whose rows the callers' lengths always mask).
+    Returns [B, M * page, nh, hd], a copy."""
+    B, M = tables.shape
+    g = pool[tables.long()]                       # [B, M, page, nh, hd]
+    return g.reshape(B, M * pool.shape[1], pool.shape[2], pool.shape[3])
+
+
+def paged_cache_update(pool, new, phys_pages, rows):
+    """Write one row per sequence into the pool IN PLACE and return it.
+
+    pool: [P, page, nh, hd]; new: [B, nh, hd] (cast to the pool dtype);
+    phys_pages, rows: [B] integer (the page and the row within it; dead
+    lanes point at scratch page 0, the only page where indices collide,
+    and it is never read back)."""
+    pool[phys_pages.long(), rows.long()] = new.to(pool.dtype)
+    return pool
+
+
+def paged_page_write(pool, pages_data, phys_pages):
+    """Write whole pages into the pool IN PLACE (the prefill path).
+
+    pool: [P, page, nh, hd]; pages_data: [n, page, nh, hd]; phys_pages:
+    [n] integer (unmapped pages of a bucket point at scratch page 0)."""
+    pool[phys_pages.long()] = pages_data.to(pool.dtype)
+    return pool
+
+
+def paged_prefill_attention(q, k_all, v_all, prefix_len: int,
+                            sm_scale: Optional[float] = None):
+    """Suffix prefill over a gathered paged view (prefix-cache capable).
+
+    q: [1, T, nh, hd], the suffix queries at global positions
+    ``prefix_len + i``; k_all/v_all: [1, S, nh, hd], the slot's whole view
+    (cached prefix rows and this call's suffix rows already written).
+    Query i attends key j iff ``j <= prefix_len + i``; the softmax guards
+    and float32 contraction order are :func:`decode_attention`'s, so a
+    decode replay of the same positions agrees to float rounding."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    T, S = q.shape[1], k_all.shape[1]
+    scores = torch.einsum("bqnh,bknh->bnqk", q.float(),
+                          k_all.float()) * sm_scale
+    mask = (torch.arange(S, device=q.device)[None, :]
+            <= prefix_len + torch.arange(T, device=q.device)[:, None])
+    scores = scores.masked_fill(~mask, -math.inf)
+    m = scores.amax(-1, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    e = torch.where(mask, torch.exp(scores - m), torch.zeros_like(scores))
+    probs = e / e.sum(-1, keepdim=True).clamp_min(1e-30)
+    out = torch.einsum("bnqk,bknh->bqnh", probs, v_all.float())
     return out.to(q.dtype)
 
 

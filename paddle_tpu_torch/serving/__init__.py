@@ -1,14 +1,16 @@
-"""Serving on the card — the port of ``paddle_tpu.serving`` (slab KV
-layout): the decode engine with its three Hopper kernels, the
-continuous-batching scheduler and the HTTP front door."""
+"""Serving on the card — the port of ``paddle_tpu.serving`` (slab and paged
+KV layouts): the decode engine with its Hopper kernels, the page pool and
+prefix cache, the continuous-batching scheduler and the HTTP front door."""
 from .engine import (DecodeEngine, EngineConfig, PromptTooLongError,
                      default_bucket_ladder)
 from .kv_cache import CacheFullError, KVCache
+from .paged_kv import PagedKVCache, PagePoolFullError, PrefixCache
 from .sampling import GREEDY, SamplingParams
 from .scheduler import QueueFullError, Request, Scheduler, SchedulerConfig
 from .server import EngineLoop, FrontDoor
 
 __all__ = ["DecodeEngine", "EngineConfig", "PromptTooLongError",
-           "default_bucket_ladder", "CacheFullError", "KVCache", "GREEDY",
+           "default_bucket_ladder", "CacheFullError", "KVCache",
+           "PagedKVCache", "PagePoolFullError", "PrefixCache", "GREEDY",
            "SamplingParams", "QueueFullError", "Request", "Scheduler",
            "SchedulerConfig", "EngineLoop", "FrontDoor"]

@@ -1,19 +1,29 @@
 """Decode engine over a preallocated KV cache — the port of
-``paddle_tpu/serving/engine.py`` for the slab layout.
+``paddle_tpu/serving/engine.py`` for the slab and the paged layouts.
 
 - **Prefill** runs the full causal forward over the prompt padded to its
   bucket, writes every layer's K/V rows (padding included — the length
   mask keeps decode from reading them) into the slot, and returns the
-  logits of the last valid position (``engine.py:315-356``).
+  logits of the last valid position (``engine.py:315-356``). The paged
+  prefill (``:358-406``) covers only the suffix behind a prefix-cache hit:
+  it writes the suffix's pages, gathers the slot's whole view and runs
+  the continuation attention over it.
 - **Decode** is one token per slot over the static ``[max_batch]`` slot
-  layout (``engine.py:408-460``). With ``fused_decode`` (the default
+  layout (``engine.py:408-516``). With ``fused_decode`` (the default
   here) each layer's layernorms run the ``fused_ln`` kernel, the KV row
-  write and the one-query attention run as one ``decode_slab`` launch,
-  and the final layernorm + LM head as one ``logits_head`` launch
-  (``ops/cuda_kernels.py``). ``fused_decode=False`` is the unfused
-  plain-PyTorch tick (``cache_update`` + ``decode_attention``). The JAX
-  engine made the fused tick opt-in because interpret-mode Pallas is
+  write and the one-query attention run as one ``decode_slab`` launch
+  (slab) or one ``decode_paged`` launch (paged: the page-table walk in
+  the kernel), and the final layernorm + LM head as one ``logits_head``
+  launch (``ops/cuda_kernels.py``). ``fused_decode=False`` is the unfused
+  plain-PyTorch tick (``cache_update`` + ``decode_attention``; paged:
+  ``paged_cache_update`` + ``paged_gather`` + ``decode_attention``). The
+  JAX engine made the fused tick opt-in because interpret-mode Pallas is
   slow off the TPU; on the card that reason does not hold.
+- **Paged layout** (``kv_layout="paged"``): a page pool with a token-hash
+  prefix cache (``serving/paged_kv.py``), pages bound as sequences grow,
+  dead decode lanes riding with zeroed page tables (their writes land on
+  scratch page 0), and a recompute resume for preempted requests that
+  replays past the bucket ladder through the decode tick.
 - **Weights** are cast once, at construction: matmul weights to the
   compute dtype, layernorm parameters to float32, embeddings kept in the
   storage dtype and summed in float32 — numerically what the JAX engine
@@ -41,9 +51,13 @@ from ..models import gpt as gpt_mod
 from ..models.gpt import GPTConfig
 from ..ops import cuda_kernels as CK
 from ..ops.decode_attention import (cache_update, decode_attention,
+                                    paged_cache_update, paged_gather,
+                                    paged_page_write,
+                                    paged_prefill_attention,
                                     prefill_attention)
 from . import metrics as smetrics
 from .kv_cache import KVCache
+from .paged_kv import PagedKVCache, PagePoolFullError, PrefixCache
 from .sampling import (GREEDY, SamplingParams, batch_arrays, sample_batch,
                        sample_token)
 
@@ -73,10 +87,10 @@ def default_bucket_ladder(max_seq: int, smallest: int = 16) -> Tuple[int, ...]:
 class EngineConfig:
     """Serving geometry, field for field the JAX ``EngineConfig``.
 
-    Refused in this slice (``NotImplementedError`` naming the ROADMAP
-    item): ``kv_layout="paged"`` (and with it ``page_size``, ``num_pages``,
-    ``prefix_cache*``), ``sharding="tp"`` (``tp``), ``weight_dtype="int8"``
-    (``quant_chunk``) and ``verify_window > 0``."""
+    Refused so far (``NotImplementedError`` naming the ROADMAP item):
+    ``sharding="tp"`` (``tp``), ``weight_dtype="int8"`` (``quant_chunk``)
+    and ``verify_window > 0``. With ``kv_layout="paged"``, ``page_size``
+    must divide every prefill bucket."""
     max_batch: int = 8               # decode slots (the static batch)
     max_seq: int = 256               # per-slot prompt+generation bound
     prefill_buckets: Tuple[int, ...] = ()   # () -> default_bucket_ladder
@@ -84,11 +98,11 @@ class EngineConfig:
     quant_chunk: int = 256
     cache_dtype: Any = None          # None -> the model's compute dtype
     eos_id: Optional[int] = None     # decode stops on this token
-    kv_layout: str = "slab"
-    page_size: int = 16
-    num_pages: int = 0
-    prefix_cache: bool = True
-    prefix_cache_pages: int = 0
+    kv_layout: str = "slab"          # "slab" | "paged"
+    page_size: int = 16              # tokens per page (divides buckets)
+    num_pages: int = 0               # 0 -> slab-parity pool (+1 scratch)
+    prefix_cache: bool = True        # token-hash prefix cache (paged only)
+    prefix_cache_pages: int = 0      # 0 -> bounded by the pool itself
     sharding: Optional[str] = None
     tp: int = 1
     role: str = "colocated"          # stamps the TTFT/TPOT metric labels
@@ -110,11 +124,7 @@ class EngineConfig:
 
 
 def _refuse_unported(ecfg: EngineConfig) -> None:
-    if ecfg.kv_layout == "paged":
-        raise NotImplementedError(
-            "kv_layout='paged' is the next serving slice of the port "
-            "(ROADMAP.md, queue A: paged serving, kernel #9)")
-    if ecfg.kv_layout != "slab":
+    if ecfg.kv_layout not in ("slab", "paged"):
         raise ValueError(f"kv_layout {ecfg.kv_layout!r}: expected 'slab' "
                          "or 'paged'")
     if ecfg.sharding == "tp":
@@ -158,13 +168,32 @@ class DecodeEngine:
         self.cfg = cfg
         self.ecfg = ecfg
         self.buckets = ecfg.resolved_buckets()
+        self.paged = ecfg.kv_layout == "paged"
+        if self.paged:
+            bad = [b for b in self.buckets if b % ecfg.page_size]
+            if bad:
+                raise ValueError(
+                    f"paged engine: prefill buckets {bad} are not "
+                    f"multiples of page_size {ecfg.page_size}")
         self.role = ecfg.role
         self._ref_params = _to_device(params, self.device)  # f32 truth
         self._cast_weights(self._ref_params)
-        self.cache = KVCache(cfg.num_layers, ecfg.max_batch, ecfg.max_seq,
-                             cfg.num_heads, cfg.head_dim,
-                             dtype=ecfg.cache_dtype or cfg.dtype,
-                             device=self.device)
+        cache_dtype = ecfg.cache_dtype or cfg.dtype
+        self.prefix: Optional[PrefixCache] = None
+        if self.paged:
+            self.cache = PagedKVCache(
+                cfg.num_layers, ecfg.max_batch, ecfg.max_seq,
+                cfg.num_heads, cfg.head_dim, dtype=cache_dtype,
+                page_size=ecfg.page_size, num_pages=ecfg.num_pages,
+                device=self.device)
+            if ecfg.prefix_cache:
+                self.prefix = PrefixCache(self.cache,
+                                          ecfg.prefix_cache_pages)
+                self.cache.reclaimer = self.prefix
+        else:
+            self.cache = KVCache(cfg.num_layers, ecfg.max_batch,
+                                 ecfg.max_seq, cfg.num_heads, cfg.head_dim,
+                                 dtype=cache_dtype, device=self.device)
         self.decode_ticks = 0
         self._tokens_window: List[Tuple[float, int]] = []
 
@@ -247,27 +276,84 @@ class DecodeEngine:
         return (h_last @ self.lm_head).float()
 
     @torch.no_grad()
+    def _prefill_paged(self, tokens: torch.Tensor, length: int,
+                       prefix_len: int,
+                       table_row: torch.Tensor) -> torch.Tensor:
+        """tokens [1, T]: the SUFFIX after ``prefix_len`` cached tokens,
+        ``length`` of them valid; table_row [M] int32 (the slot's pages).
+        Writes the suffix's K/V pages of every layer (bucket pages past the
+        slot's mapping land on scratch page 0), attends over the gathered
+        view (cached prefix + suffix) and returns the float32 logits [V]
+        of the last valid suffix position. prefix_len 0 is a plain paged
+        prefill."""
+        T = tokens.shape[1]
+        ps = self.ecfg.page_size
+        n_pages = T // ps
+        ln = self._ln(False)
+        pos = prefix_len + torch.arange(T, device=self.device)
+        x = (self.wte[tokens].float() + self.wpe[pos].float()).to(
+            self.cfg.dtype)
+        suffix_pages = table_row[prefix_len // ps:prefix_len // ps + n_pages]
+        nh, hd = self.cfg.num_heads, self.cfg.head_dim
+        for i, lw in enumerate(self.layers):
+            qkv = self._qkv(ln(x, lw["ln1"]), lw)
+            q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+            kp, vp = self.cache.k[i], self.cache.v[i]
+            paged_page_write(kp, k[0].reshape(n_pages, ps, nh, hd),
+                             suffix_pages)
+            paged_page_write(vp, v[0].reshape(n_pages, ps, nh, hd),
+                             suffix_pages)
+            a = paged_prefill_attention(q, paged_gather(kp, table_row[None]),
+                                        paged_gather(vp, table_row[None]),
+                                        prefix_len)
+            x = self._block_tail(x, a, lw, ln)
+        h_last = ln(x[0, length - 1], self.ln_f)
+        return (h_last @ self.lm_head).float()
+
+    def _attend(self, i: int, q, k, v, positions, lanes, phys):
+        """Layer ``i``'s KV row write + one-query attention of a decode
+        tick. Slab: ``lanes`` is the [B] write mask. Paged: ``lanes`` is
+        the [B, M] page-table feed (dead lanes zeroed) and ``phys``/rows
+        the unfused path's write addresses."""
+        kc, vc = self.cache.k[i], self.cache.v[i]
+        if self.ecfg.fused_decode:
+            if self.paged:
+                return CK.fused_paged_decode_attention(
+                    q, kc, vc, k, v, lanes, positions)[0]
+            return CK.fused_decode_attention(q, kc, vc, k, v, positions,
+                                             lanes)[0]
+        if self.paged:
+            paged_cache_update(kc, k, *phys)
+            paged_cache_update(vc, v, *phys)
+            return decode_attention(q, paged_gather(kc, lanes),
+                                    paged_gather(vc, lanes), positions + 1)
+        cache_update(kc, k, positions, lanes)
+        cache_update(vc, v, positions, lanes)
+        return decode_attention(q, kc, vc, positions + 1)
+
+    @torch.no_grad()
     def _decode(self, tokens: torch.Tensor, positions: torch.Tensor,
-                actives: torch.Tensor) -> torch.Tensor:
-        """tokens (int64), positions, actives (int32): [max_batch] ->
-        float32 logits [max_batch, V]. Writes this step's K/V at
-        ``positions`` for the active lanes only — a live slot riding as a
-        masked lane keeps every cached row."""
+                lanes: torch.Tensor) -> torch.Tensor:
+        """tokens (int64), positions (int32): [max_batch]; lanes (int32):
+        the [max_batch] write mask (slab) or the [max_batch, M] page
+        tables (paged) -> float32 logits [max_batch, V]. Writes this
+        step's K/V at ``positions`` for the participating lanes only — a
+        live slot riding as a masked lane (slab) or with a zeroed table
+        row (paged) keeps every cached row."""
         fused = self.ecfg.fused_decode
         ln = self._ln(fused)
         x = (self.wte[tokens].float()
              + self.wpe[positions.long()].float()).to(self.cfg.dtype)
+        phys = None
+        if self.paged and not fused:
+            ps = self.ecfg.page_size
+            pos = positions.long()
+            phys = (lanes.long().gather(1, (pos // ps)[:, None])[:, 0],
+                    pos % ps)
         for i, lw in enumerate(self.layers):
             qkv = self._qkv(ln(x, lw["ln1"]), lw)
             q, k, v = qkv[:, 0], qkv[:, 1], qkv[:, 2]
-            ck, cv = self.cache.k[i], self.cache.v[i]
-            if fused:
-                a, _, _ = CK.fused_decode_attention(q, ck, cv, k, v,
-                                                    positions, actives)
-            else:
-                cache_update(ck, k, positions, actives)
-                cache_update(cv, v, positions, actives)
-                a = decode_attention(q, ck, cv, positions + 1)
+            a = self._attend(i, q, k, v, positions, lanes, phys)
             x = self._block_tail(x, a, lw, ln)
         if fused:
             logits = CK.fused_logits_head(x, *self.ln_f, self.lm_head)
@@ -277,10 +363,12 @@ class DecodeEngine:
 
     # ------------------------------------------------------------------
     def warmup(self) -> Dict[str, float]:
-        """Run the decode tick (every lane masked — nothing is written)
-        and one prefill per bucket once, so the first request pays no
-        first-call costs: the kernel build and load, library handles.
-        Returns {path: wall ms}."""
+        """Run the decode tick (slab: every lane masked, nothing written;
+        paged: every table row zeroed, the writes land on scratch page 0),
+        one prefill per bucket (paged: into page 0) and, paged, the page
+        read/write of page 0 once, so the first request pays no first-call
+        costs: the kernel build and load, library handles. Live slots'
+        rows are never touched. Returns {path: wall ms}."""
         timings: Dict[str, float] = {}
         B = self.ecfg.max_batch
         zeros = torch.zeros((B,), dtype=torch.int32, device=self.device)
@@ -292,11 +380,26 @@ class DecodeEngine:
                 torch.cuda.synchronize(self.device)
             timings[label] = (time.perf_counter() - t0) * 1e3
 
-        timed("decode", lambda: self._decode(zeros.long(), zeros, zeros))
+        if self.paged:
+            M = self.cache.max_pages_per_slot
+            table0 = torch.zeros((B, M), dtype=torch.int32,
+                                 device=self.device)
+            timed("decode", lambda: self._decode(zeros.long(), zeros,
+                                                 table0))
+        else:
+            timed("decode", lambda: self._decode(zeros.long(), zeros, zeros))
         for bucket in self.buckets:
             toks = torch.zeros((1, bucket), dtype=torch.long,
                                device=self.device)
-            timed(f"prefill_b{bucket}", lambda: self._prefill(toks, 1, 0))
+            if self.paged:
+                timed(f"prefill_b{bucket}",
+                      lambda: self._prefill_paged(toks, 1, 0, table0[0]))
+            else:
+                timed(f"prefill_b{bucket}",
+                      lambda: self._prefill(toks, 1, 0))
+        if self.paged:
+            timed("page_io", lambda: self.cache.write_pages(
+                [0], *self.cache.read_pages([0])))
         return timings
 
     # ------------------------------------------------------------------
@@ -311,8 +414,29 @@ class DecodeEngine:
             f"{self.buckets[-1]}")
 
     def can_admit(self, prompt_len: int) -> bool:
-        """Would a prompt admit right now? (slab: a free slot)"""
+        """Would a prompt admit right now? The scheduler's head-of-line
+        check; never raises. Slab: a free slot. Paged:
+        ``PagedKVCache.can_admit``."""
+        if self.paged:
+            return self.cache.can_admit(prompt_len)
         return self.cache.free_slot_count() > 0
+
+    def _trim_prefix(self, n: int, prefix_len: int,
+                     prefix_pages: Tuple[int, ...]):
+        """Shrink a prefix hit until the suffix's bucket fits behind it
+        (prefix_len + bucket(suffix) <= max_seq keeps the page writes and
+        the positional table in range)."""
+        while prefix_len > 0:
+            try:
+                bucket = self.bucket_for(n - prefix_len)
+            except PromptTooLongError:
+                bucket = None
+            if (bucket is not None
+                    and prefix_len + bucket <= self.ecfg.max_seq):
+                return prefix_len, prefix_pages
+            prefix_len -= self.cache.page_size
+            prefix_pages = prefix_pages[:-1]
+        return 0, ()
 
     def start_sequence(self, tokens: Sequence[int]) -> Tuple[int, np.ndarray]:
         """Claim a slot, prefill the prompt, return (slot, logits[V]) of
@@ -325,39 +449,137 @@ class DecodeEngine:
     ) -> Tuple[int, np.ndarray, int]:
         """:meth:`start_sequence` plus sampling: returns (slot,
         last-position logits[V], first generated token). Raises
-        CacheFullError when no slot is free and PromptTooLongError above
-        the ladder."""
+        CacheFullError when no slot is free, PagePoolFullError when the
+        paged pool is dry, and PromptTooLongError above the ladder."""
         n = len(tokens)
         if n < 1:
             raise ValueError("empty prompt")
+        if self.paged:
+            return self._start_paged(tokens, n, params)
         bucket = self.bucket_for(n)
         slot = self.cache.alloc(length=n)
+        logits, tok = self._prefill_sampled(
+            slot, tokens, bucket, params, n,
+            lambda toks: self._prefill(toks, n, slot))
+        smetrics.m_prefill_tokens.inc(n)
+        return slot, logits, tok
+
+    def _prefill_sampled(self, slot: int, tokens: Sequence[int],
+                         bucket: int, params: SamplingParams, n: int, run
+                         ) -> Tuple[np.ndarray, int]:
+        """Pad ``tokens`` to ``bucket``, run the prefill ``run(padded)``
+        and sample the token after position ``n - 1``; frees ``slot`` when
+        either raises. Returns (logits[V], token)."""
         padded = np.zeros((1, bucket), np.int64)
-        padded[0, :n] = np.asarray(tokens, np.int64)
+        padded[0, :len(tokens)] = np.asarray(tokens, np.int64)
         t0 = time.perf_counter_ns()
         try:
-            logits = self._prefill(
-                torch.from_numpy(padded).to(self.device), n, slot).cpu()
+            logits = run(torch.from_numpy(padded).to(self.device)).cpu()
             tok = sample_token(logits, params.temperature, params.top_k,
                                params.top_p, params.seed, n - 1)
         except Exception:
             self.cache.free(slot)
             raise
         smetrics.m_prefill_ms.observe((time.perf_counter_ns() - t0) / 1e6)
-        smetrics.m_prefill_tokens.inc(n)
-        return slot, logits.numpy(), tok
+        return logits.numpy(), tok
+
+    def _start_paged(self, tokens: Sequence[int], n: int,
+                     params: SamplingParams) -> Tuple[int, np.ndarray, int]:
+        """Paged admission: attach the longest cached prefix, prefill only
+        the suffix, then publish the prompt's full pages."""
+        prefix_len, prefix_pages = 0, ()
+        if self.prefix is not None:
+            prefix_len, prefix_pages = self.prefix.lookup(tokens)
+            prefix_len, prefix_pages = self._trim_prefix(
+                n, prefix_len, tuple(prefix_pages))
+        suffix = list(tokens[prefix_len:])
+        bucket = self.bucket_for(len(suffix))
+        slot = self.cache.alloc(length=n, prefix_pages=prefix_pages)
+        table_row = self.cache.table_row(slot)
+        row_t = torch.from_numpy(table_row).to(self.device)
+        logits, tok = self._prefill_sampled(
+            slot, suffix, bucket, params, n,
+            lambda toks: self._prefill_paged(toks, len(suffix), prefix_len,
+                                             row_t))
+        smetrics.m_prefill_tokens.inc(len(suffix))
+        if self.prefix is not None:
+            self.prefix.insert(tokens, table_row)
+        return slot, logits, tok
+
+    def resume_sequence_sampled(
+            self, tokens: Sequence[int], params: SamplingParams
+    ) -> Tuple[int, np.ndarray, int]:
+        """Re-prefill a preempted request's prompt + generated stream,
+        which may exceed the bucket ladder: the head prefills through the
+        largest bucket and the tail replays through the decode tick (its
+        sampled outputs are discarded; the stream is known). Returns
+        (slot, last logits[V], next token) as
+        :meth:`start_sequence_sampled`. A failure during the replay (a
+        PagePoolFullError) frees the slot and re-raises."""
+        n = len(tokens)
+        if n <= self.buckets[-1]:
+            return self.start_sequence_sampled(tokens, params)
+        head = list(tokens[:self.buckets[-1]])
+        slot, _logits, _tok = self.start_sequence_sampled(head, params)
+        try:
+            for i in range(len(head), n - 1):
+                self.decode_step_sampled({slot: int(tokens[i])}, None)
+            out = self.decode_step_sampled({slot: int(tokens[n - 1])},
+                                           {slot: params})
+        except Exception:
+            if self.cache.is_live(slot):
+                self.cache.free(slot)
+            raise
+        tok, logits = out[slot]
+        return slot, logits, tok
+
+    def ensure_decode_capacity(self, slot: int) -> bool:
+        """Make the next position of ``slot`` writable. Paged: maps a page
+        on demand (False = the pool is dry even after a prefix-cache
+        reclaim — the scheduler preempts). Slab: always True (the slab is
+        the capacity; headroom is checked apart)."""
+        if not self.paged:
+            return True
+        return self.cache.ensure_capacity(slot, self.cache.length(slot) + 1)
 
     def _decode_feed(self, slot_tokens: Dict[int, int]) -> np.ndarray:
-        """[3, max_batch] int32: tokens, positions, actives."""
-        feed = np.zeros((3, self.ecfg.max_batch), np.int32)
+        """[2, max_batch] int32: tokens, positions (0 for absent lanes)."""
+        feed = np.zeros((2, self.ecfg.max_batch), np.int32)
         for slot, tok in slot_tokens.items():
             if not self.cache.is_live(slot):
                 raise ValueError(f"slot {slot} is not live")
             if self.cache.headroom(slot) < 1:
                 raise ValueError(
                     f"slot {slot} is at max_seq {self.ecfg.max_seq}")
-            feed[:, slot] = (tok, self.cache.length(slot), 1)
+            feed[:, slot] = (tok, self.cache.length(slot))
         return feed
+
+    def _masked_tables(self, active_slots) -> np.ndarray:
+        """Page-table feed with every lane absent from this call zeroed,
+        so its writes land on scratch page 0 — a live slot riding along
+        keeps its pages untouched."""
+        tables = self.cache.tables()
+        active = set(active_slots)
+        for s in range(self.ecfg.max_batch):
+            if s not in active:
+                tables[s, :] = 0
+        return tables
+
+    def _decode_lanes(self, slot_tokens: Dict[int, int]) -> np.ndarray:
+        """The tick's lane feed, int32. Slab: the [B] write mask. Paged:
+        the page each fed slot writes is mapped first (PagePoolFullError,
+        before any launch, when the pool cannot), then the masked [B, M]
+        page tables."""
+        if not self.paged:
+            active = np.zeros((self.ecfg.max_batch,), np.int32)
+            active[list(slot_tokens)] = 1
+            return active
+        for slot in slot_tokens:
+            if not self.ensure_decode_capacity(slot):
+                raise PagePoolFullError(
+                    f"slot {slot}: no free page for position "
+                    f"{self.cache.length(slot)}")
+        return self._masked_tables(slot_tokens)
 
     def decode_step(self, slot_tokens: Dict[int, int]) -> Dict[int, np.ndarray]:
         """One greedy-compatible decode step: {slot: input_token} ->
@@ -371,15 +593,19 @@ class DecodeEngine:
     ) -> Dict[int, Tuple[int, np.ndarray]]:
         """One decode step with per-slot sampling: {slot: input_token} ->
         {slot: (next_token, logits[V])}. Slots not in the map ride as
-        masked lanes."""
+        masked lanes (paged: with zeroed page tables)."""
         if not slot_tokens:
             return {}
-        feed_np = self._decode_feed(slot_tokens)
+        head = self._decode_feed(slot_tokens)
+        lanes = self._decode_lanes(slot_tokens)
         sp = batch_arrays(params_by_slot or {}, self.ecfg.max_batch)
         t0 = time.perf_counter_ns()
-        feed = torch.from_numpy(feed_np).to(self.device)
-        logits = self._decode(feed[0].long(), feed[1], feed[2]).cpu()
-        toks = sample_batch(logits, *sp, feed_np[1])
+        B = self.ecfg.max_batch
+        feed = torch.from_numpy(
+            np.concatenate([head.ravel(), lanes.ravel()])).to(self.device)
+        logits = self._decode(feed[:B].long(), feed[B:2 * B],
+                              feed[2 * B:].view(lanes.shape)).cpu()
+        toks = sample_batch(logits, *sp, head[1])
         smetrics.m_decode_ms.observe((time.perf_counter_ns() - t0) / 1e6)
         self.decode_ticks += 1
         logits_np = logits.numpy()

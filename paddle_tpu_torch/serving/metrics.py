@@ -1,6 +1,8 @@
 """Serving metric families — the port of the request, latency, token,
-prefill and decode families of ``paddle_tpu/serving/metrics.py:29-71``.
-Same names as the JAX package, registered in the port's own registry."""
+prefill and decode families of ``paddle_tpu/serving/metrics.py:29-71`` and
+the paged-pool, prefix-cache, preemption and head-of-line families of
+``:74-110``. Same names as the JAX package, registered in the port's own
+registry."""
 from __future__ import annotations
 
 from ..observability import metrics as _obs
@@ -8,7 +10,9 @@ from ..observability import metrics as _obs
 __all__ = ["m_requests", "m_queue_depth", "m_active", "m_occupancy",
            "m_ttft_ms", "m_tpot_ms", "m_tokens", "m_tokens_per_s",
            "m_prefill_ms", "m_prefill_tokens", "m_decode_ms",
-           "m_evictions", "m_queue_wait_ms", "request_code"]
+           "m_evictions", "m_queue_wait_ms", "m_prefix_cache",
+           "m_page_occupancy", "m_page_fragmentation", "m_preemptions",
+           "m_hol_admits", "request_code"]
 
 _REG = _obs.default_registry()
 
@@ -46,7 +50,8 @@ m_prefill_ms = _REG.histogram(
     "Prefill wall time (bucket-padded prompt), ms")
 m_prefill_tokens = _REG.counter(
     "paddle_serve_prefill_tokens_total",
-    "Prompt tokens prefilled (bucket padding excluded)")
+    "Prompt tokens actually prefilled (bucket padding and prefix-cache "
+    "hits excluded)")
 m_decode_ms = _REG.histogram(
     "paddle_serve_decode_step_ms",
     "Decode step wall time (one token across the batch), ms")
@@ -56,6 +61,26 @@ m_evictions = _REG.counter(
 m_queue_wait_ms = _REG.histogram(
     "paddle_serve_queue_wait_ms",
     "Admission-queue wait (submit -> prefill start), ms")
+# prefix cache (serving/paged_kv.py): a hit attaches a cached prompt
+# prefix's pages by refcount instead of prefilling them again
+m_prefix_cache = _REG.counter(
+    "paddle_serve_prefix_cache_total",
+    "Prefix-cache lookups by outcome", ("event",))
+m_page_occupancy = _REG.gauge(
+    "paddle_serve_page_pool_occupancy",
+    "Allocated KV pages / allocatable pages (scratch page excluded)")
+m_page_fragmentation = _REG.gauge(
+    "paddle_serve_page_pool_fragmentation",
+    "Internal page waste: 1 - used rows / allocated rows")
+# scheduler preemptions (page pool dry mid-generation -> recompute
+# requeue) and head-of-line bypass admissions
+m_preemptions = _REG.counter(
+    "paddle_serve_preemptions_total",
+    "Active requests preempted (recompute-requeued) by reason",
+    ("reason",))
+m_hol_admits = _REG.counter(
+    "paddle_serve_hol_bypass_admits_total",
+    "Requests admitted past a head-of-line prompt that did not fit")
 
 
 def request_code(code: int) -> None:

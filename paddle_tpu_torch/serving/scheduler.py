@@ -1,13 +1,23 @@
 """Continuous (in-flight) batching scheduler over the decode engine — the
-port of ``paddle_tpu/serving/scheduler.py`` for the slab layout.
+port of ``paddle_tpu/serving/scheduler.py``.
 
 Requests join and leave the static ``[max_batch]`` decode batch at TOKEN
 boundaries: each :meth:`Scheduler.step` expires queued requests whose
-deadline passed, admits queued requests FIFO into free slots (prefill
-through the bucket ladder — the prefill's logits give the first token),
-then runs one decode step for every live slot. A request finishes on
-EOS, on ``max_new_tokens``, when its slot reaches ``max_seq``, or when its
+deadline passed, admits queued requests into free slots (prefill through
+the bucket ladder — the prefill's logits give the first token), then runs
+one decode step for every live slot. A request finishes on EOS, on
+``max_new_tokens``, when its slot reaches ``max_seq``, or when its
 deadline passes (partial tokens kept).
+
+Admission is FIFO with a bounded head-of-line bypass: when the head does
+not fit the engine's slot/page budget, the first later request that fits
+goes first, until the head has been bypassed ``hol_starvation_limit``
+times and pins the queue. On a paged engine the pages each tick writes
+are mapped before the tick; when the pool cannot cover a slot, the
+youngest request is preempted — its pages freed, itself requeued at the
+head — and later resumes by re-prefilling its prompt and the tokens it
+already generated (the engine replays past the ladder through the decode
+tick).
 
 Threading contract: ``submit``/``cancel`` may be called from any thread
 (the HTTP front door's handler pool); ``step``/``drain`` run on exactly
@@ -16,9 +26,9 @@ one loop thread. Completion is signaled through a per-request
 under the queue lock before draining the queue, so a racing submit is
 either failed with the rest or refused — never parked.
 
-The KV handoff, prefix blobs, preemption, head-of-line bypass (paged
-engines only), spans, goodput and trace context of the JAX scheduler are
-still to be ported (ROADMAP.md, queue A).
+The KV handoff and prefix blobs (disaggregated serving), the spans,
+goodput and trace context of the JAX scheduler are still to be ported
+(ROADMAP.md, queue A).
 """
 from __future__ import annotations
 
@@ -35,6 +45,7 @@ from ..device import resolve_device
 from . import metrics as smetrics
 from .engine import DecodeEngine
 from .kv_cache import CacheFullError
+from .paged_kv import PagePoolFullError
 from .sampling import GREEDY, SamplingParams
 
 __all__ = ["Request", "Scheduler", "SchedulerConfig", "QueueFullError"]
@@ -65,11 +76,21 @@ class Request:
     token_times: List[float] = dataclasses.field(default_factory=list)
     ttft_ms: Optional[float] = None
     error: Optional[str] = None
+    # head-of-line bookkeeping: how many times a fitting request was
+    # admitted past this one while it sat at the queue head
+    hol_skips: int = 0
+    # preempted (page pool dry): resumes by re-prefilling gen_prompt()
+    preempted: bool = False
     finished: threading.Event = dataclasses.field(
         default_factory=threading.Event)
 
     def wait(self, timeout: Optional[float] = None) -> bool:
         return self.finished.wait(timeout)
+
+    def gen_prompt(self) -> List[int]:
+        """The token stream a (re-)prefill must cover: the prompt plus
+        everything generated before a preemption."""
+        return self.prompt + self.tokens
 
     @property
     def tpot_ms(self) -> Optional[float]:
@@ -84,6 +105,9 @@ class SchedulerConfig:
     max_queue: int = 64               # queued (not yet admitted) requests
     default_timeout_s: float = 30.0   # per-request deadline when unset
     max_new_tokens_cap: int = 1024    # server-side clamp
+    # how many times the FIFO head may be bypassed by later, fitting
+    # requests before it pins the queue (the starvation bound)
+    hol_starvation_limit: int = 32
 
 
 class Scheduler:
@@ -98,10 +122,12 @@ class Scheduler:
         self._queue: Deque[Request] = deque()
         self._active: Dict[int, Request] = {}     # slot -> request
         self._next_token: Dict[int, int] = {}     # slot -> token to feed
+        self._admit_order: List[int] = []         # slots, oldest first
         self._lock = threading.Lock()
         self._draining = False
         self._refusing: Optional[str] = None
         self.completed = 0
+        self.preemptions = 0
         role = getattr(engine, "role", "colocated")
         self._ttft_hist = smetrics.m_ttft_ms.labels("prefill", role)
         self._tpot_hist = smetrics.m_tpot_ms.labels("decode", role)
@@ -228,45 +254,72 @@ class Scheduler:
             smetrics.m_queue_depth.set(len(self._queue))
 
     def _pop_admissible(self) -> Optional[Request]:
-        """FIFO pop of the head, when the engine can admit it now."""
+        """FIFO pop with a bounded head-of-line bypass: the first request
+        whose stream fits the current slot/page budget. A head bypassed
+        up to the starvation limit pins the queue until it fits."""
         with self._lock:
-            if not self._queue or not self.engine.can_admit(
-                    len(self._queue[0].prompt)):
+            if not self._queue:
                 return None
-            req = self._queue.popleft()
-            smetrics.m_queue_depth.set(len(self._queue))
-            return req
+            head = self._queue[0]
+            for i, req in enumerate(self._queue):
+                if i > 0 and head.hol_skips >= self.cfg.hol_starvation_limit:
+                    return None       # head pinned: wait for its budget
+                if self.engine.can_admit(len(req.gen_prompt())):
+                    del self._queue[i]
+                    smetrics.m_queue_depth.set(len(self._queue))
+                    if i > 0:
+                        head.hol_skips += 1
+                        smetrics.m_hol_admits.inc()
+                    return req
+            return None
 
     def _admit(self) -> int:
-        """Prefill queued requests into free slots, FIFO."""
+        """Prefill queued requests into free slots (FIFO with the bypass
+        above); a preempted request resumes by recompute."""
         admitted = 0
-        while True:
+        while self.engine.cache.free_slot_count() > 0:
             req = self._pop_admissible()
             if req is None:
                 break
             t_admit = time.monotonic()
             try:
-                slot, _logits, first = self.engine.start_sequence_sampled(
-                    req.prompt, req.sampling)
-            except CacheFullError:
+                if req.preempted:
+                    # may exceed the ladder: the engine replays the known
+                    # stream's tail through the decode tick
+                    slot, _logits, first = \
+                        self.engine.resume_sequence_sampled(
+                            req.gen_prompt(), req.sampling)
+                else:
+                    slot, _logits, first = \
+                        self.engine.start_sequence_sampled(
+                            req.prompt, req.sampling)
+            except (CacheFullError, PagePoolFullError):
+                # raced slot or page budget: requeue at the head
                 with self._lock:
                     self._queue.appendleft(req)
+                    smetrics.m_queue_depth.set(len(self._queue))
                 break
             except Exception as e:
                 self._finish(req, FAILED, f"{type(e).__name__}: {e}")
                 continue
-            smetrics.m_queue_wait_ms.observe(
-                (t_admit - req.submitted) * 1e3)
             t = time.monotonic()
             req.state = ACTIVE
             req.slot = slot
             req.tokens.append(int(first))
             req.token_times.append(t)
-            req.ttft_ms = (t - req.submitted) * 1e3
-            self._ttft_hist.observe(req.ttft_ms)
-            self.engine.note_tokens(1)
+            if req.preempted:
+                # the resumed prefill covered prompt + generated tokens;
+                # its sampled token is the next output token
+                req.preempted = False
+            else:
+                smetrics.m_queue_wait_ms.observe(
+                    (t_admit - req.submitted) * 1e3)
+                req.ttft_ms = (t - req.submitted) * 1e3
+                self._ttft_hist.observe(req.ttft_ms)
+                self.engine.note_tokens(1)
             self._active[slot] = req
             self._next_token[slot] = int(first)
+            self._admit_order.append(slot)
             admitted += 1
             if self._should_finish(req, int(first)):
                 self._evict(slot, DONE)
@@ -276,11 +329,50 @@ class Scheduler:
                 self._evict(slot, DONE, "max_seq reached", reason="max_seq")
         return admitted
 
+    def _preempt_youngest(self, exclude_slot: Optional[int] = None) -> bool:
+        """Free the most recently admitted active request's pages and
+        requeue it at the queue head for a recompute resume. Returns False
+        when there is nothing (else) to preempt."""
+        for slot in reversed(self._admit_order):
+            if slot == exclude_slot or slot not in self._active:
+                continue
+            req = self._active.pop(slot)
+            self._next_token.pop(slot, None)
+            self._admit_order.remove(slot)
+            self.engine.free_sequence(slot)
+            req.state = QUEUED
+            req.slot = None
+            req.preempted = True
+            smetrics.m_preemptions.labels("page_pool").inc()
+            self.preemptions += 1
+            with self._lock:
+                self._queue.appendleft(req)
+                smetrics.m_queue_depth.set(len(self._queue))
+            return True
+        return False
+
+    def _ensure_step_capacity(self) -> None:
+        """Map the pages this tick writes BEFORE the batched call, oldest
+        request first; preempt the youngest while the pool cannot cover a
+        slot. A request that alone exceeds the pool fails instead of
+        livelocking."""
+        for slot in sorted(self._active, key=self._admit_order.index):
+            if slot not in self._active:      # preempted by an earlier
+                continue                      # iteration's squeeze
+            while not self.engine.ensure_decode_capacity(slot):
+                if not self._preempt_youngest(exclude_slot=slot):
+                    self._evict(slot, FAILED, "KV page pool exhausted",
+                                reason="failed")
+                    break
+
     def _decode(self, now: float) -> bool:
         for slot in list(self._active):
             if self._active[slot].deadline <= now:
                 self._evict(slot, EXPIRED,
                             "deadline exceeded mid-generation")
+        if not self._active:
+            return False
+        self._ensure_step_capacity()
         if not self._active:
             return False
         feed = {slot: self._next_token[slot] for slot in self._active}
@@ -318,6 +410,8 @@ class Scheduler:
                reason: Optional[str] = None) -> None:
         req = self._active.pop(slot)
         self._next_token.pop(slot, None)
+        if slot in self._admit_order:
+            self._admit_order.remove(slot)
         self.engine.free_sequence(slot)
         smetrics.m_evictions.labels(
             reason or self._EVICT_REASONS.get(state, state)).inc()

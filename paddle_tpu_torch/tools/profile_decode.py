@@ -1,10 +1,12 @@
 """Where a serving decode tick's time goes on the card.
 
     python -m paddle_tpu_torch.tools.profile_decode [--ticks 30]
+        [--kv-layout {slab,paged}]
 
 Builds two GPT_SMALL bf16 engines from seed weights (8 slots, max_seq
-1024) — the kernel tick (``fused_decode=True``) and the plain-PyTorch
-tick (``fused_decode=False``) — fills every slot with a seeded prompt of
+1024, the given KV layout; paged: page 16, the default pool) — the kernel
+tick (``fused_decode=True``) and the plain-PyTorch tick
+(``fused_decode=False``) — fills every slot with a seeded prompt of
 16-400 tokens, and then, alternating plain / kernel / kernel / plain:
 
 - times ``--ticks`` decode steps on the host clock (each step ends in the
@@ -29,13 +31,18 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
-OURS = ("fused_ln_fwd_kernel", "decode_slab_kernel", "logits_head_kernel")
+# substring of a kernel's (demangled) name -> its group; the two decode
+# kernels are instances of one template, told apart by their row policy
+OURS = {"fused_ln_fwd_kernel": "fused_ln", "SlabRows": "decode_slab",
+        "PagedRows": "decode_paged", "logits_head_kernel": "logits_head"}
 
 
 def _group(name: str, ours=OURS) -> str:
+    """The group of a kernel: ``ours[k]`` for the first key ``k`` found in
+    its name, else ``matmul`` or ``other``."""
     for k in ours:
         if k in name:
-            return k
+            return ours[k]
     low = name.lower()
     if any(k in low for k in ("gemm", "gemv", "cutlass", "xmma", "nvjet")):
         return "matmul"
@@ -82,14 +89,15 @@ def trace_summary(prof, wall_us: float, n: int, per: str = "tick",
     }
 
 
-def _engine(fused: bool):
+def _engine(fused: bool, kv_layout: str):
     from paddle_tpu_torch.models.gpt import GPT_SMALL, init_params
     from paddle_tpu_torch.serving import DecodeEngine, EngineConfig
 
     params = init_params(GPT_SMALL, seed=0, device="cuda")
     eng = DecodeEngine(params, GPT_SMALL, EngineConfig(
         max_batch=8, max_seq=1024, prefill_buckets=(64, 128, 256, 512),
-        weight_dtype="bf16", fused_decode=fused), device="cuda")
+        weight_dtype="bf16", fused_decode=fused, kv_layout=kv_layout,
+        page_size=16), device="cuda")
     eng.warmup()
     rng = np.random.default_rng(0)
     feed: Dict[int, int] = {}
@@ -126,11 +134,13 @@ def _arm(eng, feed, ticks: int) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ticks", type=int, default=30)
+    ap.add_argument("--kv-layout", choices=("slab", "paged"), default="slab")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_decode: no CUDA device available", file=sys.stderr)
         return 2
-    arms = {"plain": _engine(False), "kernels": _engine(True)}
+    arms = {"plain": _engine(False, args.kv_layout),
+            "kernels": _engine(True, args.kv_layout)}
     runs: Dict[str, List[dict]] = {"plain": [], "kernels": []}
     for name in ("plain", "kernels", "kernels", "plain"):
         eng, feed = arms[name]
@@ -139,7 +149,7 @@ def main(argv=None) -> int:
         runs[name].append(r)
         print(json.dumps(r))
     print(json.dumps({"device": torch.cuda.get_device_name(0),
-                      "ticks": args.ticks,
+                      "kv_layout": args.kv_layout, "ticks": args.ticks,
                       "tick_ms": {k: [r["tick_ms"] for r in v]
                                   for k, v in runs.items()}}))
     return 0

@@ -35,9 +35,9 @@ from ..ops import cuda_kernels as CK
 from ..parallel import parallelize as PZ
 from .profile_decode import trace_summary
 
-# the training kernels' names in a trace (ops/csrc)
-TRAIN_KERNELS = ("flash_fwd_kernel", "flash_bwd_dq_kernel",
-                 "flash_bwd_dkv_kernel", "adamw_flat_kernel")
+# the training kernels' names in a trace (ops/csrc), each its own group
+TRAIN_KERNELS = {k: k for k in ("flash_fwd_kernel", "flash_bwd_dq_kernel",
+                                "flash_bwd_dkv_kernel", "adamw_flat_kernel")}
 BATCH, SEQ = 16, 1024           # bench.py's GPT lane
 STEPS, WARMUP = 10, 2
 

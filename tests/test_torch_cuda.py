@@ -35,35 +35,39 @@ def chip_smoke(card):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
                          ids=["bf16", "f32"])
 def test_kernels_match_plain_at_path_shapes(chip_smoke, dtype):
-    """GPT_SMALL, batch 8, max_seq 1024: outputs within 1e-2 (bf16) or
-    1e-5 (f32), updated caches bitwise, masked lane untouched."""
+    """GPT_SMALL, batch 8, max_seq 1024 (paged: pools [513, 16, 12, 64]):
+    bf16 outputs per element within 2^-7 x (|plain| + its row's max
+    |plain|) + 1e-5, f32 within 1e-5, updated caches bitwise (paged: pages
+    1..512), masked lane, dead lane and shared pages untouched."""
     recs = chip_smoke.phase_kernels(dtype, time_it=False)
-    assert set(recs) == {"fused_ln", "decode_slab", "logits_head"}
+    assert set(recs) == {"fused_ln", "decode_slab", "decode_paged",
+                         "logits_head"}
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
                          ids=["bf16", "f32"])
-def test_kernels_match_plain_small_shapes(card, dtype):
+def test_kernels_match_plain_small_shapes(chip_smoke, dtype):
+    """bf16 per element as ``chip_smoke.bf16_check``, f32 within 1e-5."""
     from paddle_tpu_torch.ops import cuda_kernels as CK
 
-    tol = 1e-2 if dtype == torch.bfloat16 else 1e-5
+    card = torch.device("cuda")
     g = torch.Generator(device=card)
     g.manual_seed(0)
 
     def randn(*shape, dt=dtype):
         return torch.randn(shape, generator=g, device=card).to(dt)
 
+    def close(name, got, want):
+        chip_smoke._check_out(name, got, want, dtype)
+
     x = randn(3, 64)
     scale, bias = randn(64, dt=torch.float32), randn(64, dt=torch.float32)
-    torch.testing.assert_close(CK.fused_ln(x, scale, bias).float(),
-                               CK.fused_ln_plain(x, scale, bias).float(),
-                               atol=tol, rtol=tol)
+    close("fused_ln", CK.fused_ln(x, scale, bias),
+          CK.fused_ln_plain(x, scale, bias))
     w = randn(64, 300)                      # ragged last vocab tile
-    torch.testing.assert_close(
-        CK.fused_logits_head(x, scale, bias, w).float(),
-        CK.fused_logits_head_plain(x, scale, bias, w).float(),
-        atol=tol, rtol=tol)
+    close("logits_head", CK.fused_logits_head(x, scale, bias, w),
+          CK.fused_logits_head_plain(x, scale, bias, w))
     B, S, nh, hd = 3, 32, 4, 16
     q, nk, nv = randn(B, nh, hd), randn(B, nh, hd), randn(B, nh, hd)
     kc, vc = randn(B, S, nh, hd), randn(B, S, nh, hd)
@@ -75,8 +79,65 @@ def test_kernels_match_plain_small_shapes(card, dtype):
                                                  act)
     assert torch.equal(k1, k2) and torch.equal(v1, v2)
     assert torch.equal(k1[2], kc[2]) and torch.equal(v1[2], vc[2])
-    torch.testing.assert_close(got.float(), want.float(), atol=tol,
-                               rtol=tol)
+    close("decode_slab", got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_decode_paged_matches_plain_small_shapes(chip_smoke, dtype):
+    """Pools [P, 8, 4, 16] with scattered tables: lanes 0 and 1 share
+    their first two pages, lanes 2 and 4 are dead (zeroed table rows,
+    position 0 — both write scratch page 0, so only live lanes' outputs
+    and pages 1..P-1 are compared), and positions reach the last row."""
+    from paddle_tpu_torch.ops import cuda_kernels as CK
+
+    card = torch.device("cuda")
+    g = torch.Generator(device=card)
+    g.manual_seed(3)
+    B, M, page, nh, hd = 5, 4, 8, 4, 16
+    P = B * M + 1
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=card).to(dtype)
+
+    q, nk, nv = randn(B, nh, hd), randn(B, nh, hd), randn(B, nh, hd)
+    kp, vp = randn(P, page, nh, hd), randn(P, page, nh, hd)
+    perm = np.random.default_rng(3).permutation(np.arange(1, P)).reshape(
+        B, M).astype(np.int32)
+    tab = perm.copy()
+    tab[1, :2] = tab[0, :2]
+    tab[2] = 0
+    tab[4] = 0
+    pos = torch.tensor([31, 17, 0, 8, 0], dtype=torch.int32, device=card)
+    tables = torch.from_numpy(tab).to(card)
+    k1, v1, k2, v2 = kp.clone(), vp.clone(), kp.clone(), vp.clone()
+    CK.reset_launches()
+    got, _, _ = CK.fused_paged_decode_attention(q, k1, v1, nk, nv, tables,
+                                                pos)
+    want, _, _ = CK.fused_paged_decode_attention_plain(q, k2, v2, nk, nv,
+                                                       tables, pos)
+    torch.cuda.synchronize()
+    assert CK.LAUNCHES["decode_paged"] == 1
+    assert torch.equal(k1[1:], k2[1:]) and torch.equal(v1[1:], v2[1:])
+    keep = torch.from_numpy(np.concatenate([tab[0, :2], perm[2], perm[4]])
+                            ).to(card).long()
+    assert torch.equal(k1[keep], kp[keep]) and torch.equal(v1[keep],
+                                                           vp[keep])
+    live = [0, 1, 3]
+    chip_smoke._check_out("decode_paged", got[live], want[live], dtype)
+    # a lane whose position or table entry is out of range answers zeros
+    # and writes nothing
+    bad_pos = torch.tensor([M * page, -1, 0, 8, 0], dtype=torch.int32,
+                           device=card)
+    bad_tab = tables.clone()
+    bad_tab[3, 1] = P
+    k3 = kp.clone()
+    out, _, _ = CK.fused_paged_decode_attention(q, k3, vp.clone(), nk, nv,
+                                                bad_tab, bad_pos)
+    torch.cuda.synchronize()
+    assert torch.equal(out[[0, 1, 3]], torch.zeros_like(out[[0, 1, 3]]))
+    assert torch.equal(k3[1:], kp[1:])
 
 
 @pytest.mark.cuda
@@ -99,6 +160,28 @@ def test_wrappers_raise_on_inputs_the_kernels_do_not_take(card):
     with pytest.raises(ValueError, match="batch"):
         CK.fused_logits_head(torch.zeros((65, 64), device=card), one, one,
                              torch.zeros((64, 10), device=card))
+    pool = torch.zeros((5, 8, 2, 16), device=card)
+    tables = torch.zeros((2, 4), dtype=torch.int32, device=card)
+    pos = torch.zeros(2, dtype=torch.int32, device=card)
+    with pytest.raises(TypeError, match="int32"):
+        CK.fused_paged_decode_attention(q, pool, pool.clone(), q, q,
+                                        tables.long(), pos)
+    with pytest.raises(TypeError):
+        CK.fused_paged_decode_attention(q.half(), pool.half(), pool.half(),
+                                        q.half(), q.half(), tables, pos)
+    with pytest.raises(ValueError, match="contiguous"):
+        CK.fused_paged_decode_attention(
+            q, pool.transpose(0, 1).contiguous().transpose(0, 1),
+            pool.clone(), q, q, tables, pos)
+    with pytest.raises(ValueError, match="head_dim"):
+        p24 = torch.zeros((5, 8, 2, 24), device=card)
+        q24 = torch.zeros((2, 2, 24), device=card)
+        CK.fused_paged_decode_attention(q24, p24, p24.clone(), q24, q24,
+                                        tables, pos)
+    with pytest.raises(ValueError, match="rows"):
+        CK.fused_paged_decode_attention(
+            q, pool, pool.clone(), q, q,
+            torch.zeros((2, 2048), dtype=torch.int32, device=card), pos)
 
 
 @pytest.mark.cuda
@@ -140,6 +223,47 @@ def test_engine_kernel_path_matches_plain_path(card):
                         logits_head=ticks)
         assert CK.LAUNCHES == want
     assert tokens[0] == tokens[1]
+
+
+@pytest.mark.cuda
+def test_paged_engine_kernel_path_matches_plain_and_slab(card):
+    """Tiny GPT in float32 on the card, paged layout: the kernel engine's
+    greedy tokens equal the plain paged engine's and the slab engine's,
+    and each tick launches fused_ln 2L, decode_paged L, logits_head 1."""
+    from paddle_tpu_torch import serving as TS
+    from paddle_tpu_torch.models import gpt as TG
+    from paddle_tpu_torch.ops import cuda_kernels as CK
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = TG.GPT_TINY.scaled(num_layers=2, max_seq_len=64)
+    params = TG.init_params(cfg, seed=7, device=card)
+    ekw = dict(max_batch=4, max_seq=32, prefill_buckets=(8, 16),
+               page_size=8)
+    prompts = [[5, 9, 2], [7, 7, 7, 1, 3, 3], list(range(1, 12))]
+    tokens = []
+    for layout, fused in (("paged", True), ("paged", False),
+                          ("slab", True)):
+        eng = TS.DecodeEngine(params, cfg, TS.EngineConfig(
+            fused_decode=fused, kv_layout=layout, **ekw), device=card)
+        CK.reset_launches()
+        ticks0 = eng.decode_ticks
+        slots, cur = {}, {}
+        for i, p in enumerate(prompts):      # all three decode together
+            slots[i], logits = eng.start_sequence(p)
+            cur[i] = [int(np.argmax(logits))]
+        for _ in range(11):
+            out = eng.decode_step({slots[i]: cur[i][-1] for i in slots})
+            for i in slots:
+                cur[i].append(int(np.argmax(out[slots[i]])))
+        tokens.append(cur)
+        ticks = eng.decode_ticks - ticks0
+        L = cfg.num_layers
+        want = dict.fromkeys(CK.LAUNCHES, 0)
+        if fused:
+            want.update({"fused_ln": 2 * L * ticks, "logits_head": ticks,
+                         f"decode_{layout}": L * ticks})
+        assert CK.LAUNCHES == want
+    assert tokens[0] == tokens[1] == tokens[2]
 
 
 @pytest.mark.cuda

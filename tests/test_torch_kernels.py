@@ -148,6 +148,14 @@ def test_cpu_tensors_take_plain_versions():
     want, _, _ = CK.fused_decode_attention_plain(
         q, torch.zeros_like(kc), torch.zeros_like(vc), q, q, pos)
     assert torch.equal(out, want)
+    pool = torch.from_numpy(rng.standard_normal((4, 4, 2, 16)).astype(
+        np.float32))
+    tables = torch.tensor([[1, 2], [3, 0], [0, 0]], dtype=torch.int32)
+    out, _, _ = CK.fused_paged_decode_attention(q, pool.clone(), pool.clone(),
+                                                q, q, tables, pos)
+    want, _, _ = CK.fused_paged_decode_attention_plain(
+        q, pool.clone(), pool.clone(), q, q, tables, pos)
+    assert torch.equal(out, want)
     assert CK.LAUNCHES == dict.fromkeys(CK.KERNELS, 0)
 
 

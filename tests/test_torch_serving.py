@@ -357,11 +357,10 @@ def test_entry_points_need_a_card_unless_cpu_is_asked(tiny, monkeypatch):
         TS.Scheduler(cpu_engine)
 
 
-@pytest.mark.parametrize("kw", [dict(kv_layout="paged"),
-                                dict(sharding="tp", tp=2),
+@pytest.mark.parametrize("kw", [dict(sharding="tp", tp=2),
                                 dict(weight_dtype="int8"),
                                 dict(verify_window=3)],
-                         ids=["paged", "tp", "int8", "spec"])
+                         ids=["tp", "int8", "spec"])
 def test_unported_engine_options_refused(tiny, kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _port_engine(tiny, **kw)
@@ -371,6 +370,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     code = (
         "import sys\n"
         "import paddle_tpu_torch, paddle_tpu_torch.serving, chip_smoke\n"
+        "import paddle_tpu_torch.serving.paged_kv\n"
         "import paddle_tpu_torch.ops.cuda_kernels, "
         "paddle_tpu_torch.ops._build, paddle_tpu_torch.observability.hw, "
         "paddle_tpu_torch.tools.profile_decode\n"
