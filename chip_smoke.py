@@ -46,16 +46,29 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              within 2^-7 x (|plain| + its row's max |plain|) + 1e-5, lse
              within 2e-5) and at batch 2 in float32 (2e-5 forward, 3e-4
              backward), and the flat AdamW sweep over n = 163,109,376
-             with bf16 and float32 moments, bitwise; then the bf16 kernels,
-             their plain versions and the library yardsticks are timed;
+             with bf16 and float32 moments, bitwise; the fused-layernorm
+             forward (ln2 form: residual + bias_add emitting s; plain;
+             dropout mask) and backward (dsx; dsx + mask) at rows
+             [16 x 1024, 768] bf16 and [256, 768] float32 (s bitwise, y,
+             ds, dx per element, mu/rstd 1e-5, dscale/dbias per column
+             within 2^-18 x sum |term|); the CE forward at [2048, 768] x
+             [768, 50304 -> 51200] bf16 and 256 rows float32 (lse, gold
+             1e-4); then the bf16 kernels, their plain versions and the
+             library yardsticks are timed;
 7. training — GPT_SMALL at full width and depth, batch 16 x 1024, bf16,
              flash, dots remat, flat AdamW kernel: 2 warm-up + 10 timed
              steps through tools/train_bench.py (counts zeroed just
              before the timed steps); every loss finite, the last below
              the first, launches per step flash_fwd 2L, flash_bwd_dq L,
-             flash_bwd_dkv L, opt_adamw_flat 1; then a 2-layer float32
-             card parity check (TF32 off): 3 steps of the kernel step vs
-             the plain step (use_flash off, plain sweep), losses within
+             flash_bwd_dkv L, opt_adamw_flat 1;
+7b. training-fln-vchunk — the same with the fused-layernorm block and the
+             vocab-chunked CE (``train_bench --fused-ln --ce-vchunk
+             1024``): launches per step as in 7 plus fused_ln 4L + 1,
+             fused_ln_bwd 2L + 1 and ce_fwd 8 (one a 2048-row chunk);
+             then 2-layer float32 card parity checks (TF32 off): 3 steps
+             of the kernel step vs the plain step (every kernel lever off,
+             plain sweep) for the flash arm and for the fused arm (flash,
+             fused_ln, vocab chunk 1024, row chunks of 256), losses within
              1e-5 relative, step-1 gradients within 3e-4.
 
 The last lines are the kernels' JSON record, the nvidia-smi line, and
@@ -677,12 +690,172 @@ def phase_train_kernels(dtype, time_it: bool):
     del qkv, q, k, v, do, o, lse, o_p, lse_p, dq, dk, dv
     recs["opt_adamw_flat"] = _sweep_check(torch.float32 if not bf16
                                           else torch.bfloat16, time_it)
+    recs.update(_ln_check(dtype, time_it))
+    recs["ce_fwd"] = _ce_check(dtype, time_it)
     for kname, r in recs.items():
         print(f"[train-kernels] {kname} {dtype}: " + ", ".join(
             f"{a}={b:.6g}" if isinstance(b, float) else f"{a}={b}"
             for a, b in r.items()))
     torch.cuda.empty_cache()
     return recs
+
+
+def _ln_check(dtype, time_it: bool):
+    """The fused-LN forward (ln2 form: residual + bias_add, emitting s;
+    plain form; dropout-mask form) and backward (with dsx; with dsx and
+    the mask) against their plain versions, at the training path's rows
+    [16 x 1024, 768] in bf16 or [256, 768] in float32: s and the mask
+    form's s bitwise, y, ds and dx per element (bf16_check; f32 1e-5), mu
+    and rstd within 1e-5, dscale and dbias per column within 2^-18 x the
+    column's sum of |term| over the rows (float32 sums of 16,384 terms in
+    another order). Timed: the ln2 form and the dsx backward, their plain
+    versions and F.layer_norm / aten.native_layer_norm_backward on s."""
+    from paddle_tpu_torch.observability.hw import bound_ms
+    from paddle_tpu_torch.ops import fused_ln as FL
+
+    bf16 = dtype == torch.bfloat16
+    dev = torch.device("cuda")
+    name = torch.cuda.get_device_name(0)
+    R, D = (16 * 1024 if bf16 else 256), 768
+    g = torch.Generator(device=dev)
+    g.manual_seed(77)
+
+    def randn(*shape, dt=dtype, s=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * s).to(dt)
+
+    def check(what, got, want):
+        if bf16:
+            return bf16_check(f"{what} bf16", got, want)
+        return _check_close(what, got, want, dtype, 1e-5)
+
+    x, res, dy, dsx = randn(R, D), randn(R, D), randn(R, D), randn(R, D)
+    badd = randn(D, s=0.1)
+    scale = 1.0 + randn(D, dt=torch.float32, s=0.1)
+    bias = randn(D, dt=torch.float32, s=0.1)
+    keep = 0.9
+    mask = torch.rand((R, D), generator=g, device=dev) < keep
+    forms = {"ln2": dict(residual=res, bias_add=badd), "plain": {},
+             "mask": dict(residual=res, mask=mask,
+                          inv_keep=FL._round_to(1 / keep, dtype))}
+    err = 0.0
+    for form, kw in forms.items():
+        got = FL.fused_ln_fwd(x, scale, bias, eps=1e-5, **kw)
+        want = FL.fused_ln_fwd_plain(x, scale, bias, eps=1e-5, **kw)
+        torch.cuda.synchronize()
+        if (got[1] is None) != (want[1] is None) or (
+                got[1] is not None and not torch.equal(got[1], want[1])):
+            raise AssertionError(f"fused_ln {form} {dtype}: s differs from "
+                                 "the plain version's")
+        err = max(err, check(f"fused_ln {form} y", got[0], want[0]))
+        for i, stat in ((2, "mu"), (3, "rstd")):
+            _check_close(f"fused_ln {form} {stat}", got[i], want[i],
+                         torch.float32, 1e-5)
+        if form == "ln2":
+            _y, s, mu, rstd = want
+    recs = {"fused_ln": {"max_abs_err": err}}
+    err = 0.0
+    xhat = (s.float() - mu[:, None]) * rstd[:, None]
+    sums = ((dy.float() * xhat).abs().sum(0), dy.float().abs().sum(0))
+    for form, kw in (("dsx", dict(dsx=dsx)),
+                     ("dsx+mask", dict(dsx=dsx, mask=mask,
+                                       inv_keep=FL._round_to(
+                                           1 / keep, torch.float32)))):
+        got = FL.fused_ln_bwd(s, mu, rstd, scale, dy, **kw)
+        want = FL.fused_ln_bwd_plain(s, mu, rstd, scale, dy, **kw)
+        torch.cuda.synchronize()
+        err = max(err, check(f"fused_ln_bwd {form} ds", got[0], want[0]))
+        if "mask" in kw:
+            err = max(err, check(f"fused_ln_bwd {form} dx", got[1], want[1]))
+        for i, what, tot in ((2, "dscale", sums[0]), (3, "dbias", sums[1])):
+            ratio = ((got[i] - want[i]).abs() / (2.0 ** -18 * tot + 1e-30)
+                     ).max().item()
+            print(f"[check] fused_ln_bwd {form} {what} {dtype}: worst "
+                  f"diff/bound {ratio:.4g} (bound 2^-18 x sum |term|)")
+            if not ratio <= 1.0:
+                raise AssertionError(f"fused_ln_bwd {form} {what}: worst "
+                                     f"diff/bound {ratio:.4g}")
+            err = max(err, (got[i] - want[i]).abs().max().item())
+    recs["fused_ln_bwd"] = {"max_abs_err": err}
+    if time_it:
+        esz = x.element_size()
+        fwd = recs["fused_ln"]
+        fwd["ms"] = _time_ms(lambda: FL.fused_ln_fwd(
+            x, scale, bias, res, badd, eps=1e-5), iters=20, warmup=3)
+        fwd["plain_ms"] = _time_ms(lambda: FL.fused_ln_fwd_plain(
+            x, scale, bias, res, badd, eps=1e-5), iters=20, warmup=3)
+        w16, b16 = scale.to(dtype), bias.to(dtype)
+        fwd["library_ms"] = _time_ms(
+            lambda: F.layer_norm(s, (D,), w16, b16, 1e-5), iters=20,
+            warmup=3)
+        # reads x, res, badd, scale, bias; writes y, s, mu, rstd
+        fwd["bound_ms"], fwd["bound_by"] = bound_ms(
+            4 * R * D * esz + D * esz + 2 * D * 4 + 2 * R * 4, 10 * R * D,
+            "f32", name)
+        bwd = recs["fused_ln_bwd"]
+        bwd["ms"] = _time_ms(lambda: FL.fused_ln_bwd(
+            s, mu, rstd, scale, dy, dsx), iters=20, warmup=3)
+        bwd["plain_ms"] = _time_ms(lambda: FL.fused_ln_bwd_plain(
+            s, mu, rstd, scale, dy, dsx), iters=20, warmup=3)
+        _o, mean, rs = torch.ops.aten.native_layer_norm(s, [D], w16, b16,
+                                                        1e-5)
+        bwd["library_ms"] = _time_ms(
+            lambda: torch.ops.aten.native_layer_norm_backward(
+                dy, s, [D], mean, rs, w16, b16, [True, True, True]),
+            iters=20, warmup=3)
+        # reads s, dy, dsx, mu, rstd, scale; writes ds, dscale, dbias
+        bwd["bound_ms"], bwd["bound_by"] = bound_ms(
+            4 * R * D * esz + 2 * R * 4 + 3 * D * 4, 14 * R * D, "f32", name)
+    return recs
+
+
+def _ce_check(dtype, time_it: bool):
+    """The CE forward kernel against its plain sweep at one row chunk of
+    the training path — x [2048, 768], head [768, 50304] padded to 51,200
+    columns (masked), seeded labels — in bf16, and at 256 rows in
+    float32: lse and gold within 1e-4 absolute (the Pallas-vs-lax
+    tolerance of tests/test_memory_levers.py:57-58). Timed: the kernel,
+    its plain sweep (vocab chunk 1024) and, as the floor of its work, the
+    cuBLAS product torch.matmul(x, head); no single PyTorch call computes
+    linear + CE, so library_ms is null."""
+    from paddle_tpu_torch.observability.hw import bound_ms
+    from paddle_tpu_torch.ops import chunked_ce as CE
+
+    bf16 = dtype == torch.bfloat16
+    dev = torch.device("cuda")
+    name = torch.cuda.get_device_name(0)
+    n, D, V, vc = (2048 if bf16 else 256), 768, 50304, 1024
+    g = torch.Generator(device=dev)
+    g.manual_seed(91)
+    x = torch.randn((n, D), generator=g, device=dev).to(dtype)
+    head = F.pad((torch.randn((D, V), generator=g, device=dev) * 0.02).to(
+        dtype), (0, (-V) % vc))
+    labels = torch.from_numpy(np.random.default_rng(91).integers(
+        0, V, n).astype(np.int32)).to(dev)
+    lse, gold = CE.ce_fwd(x, head, None, labels, vc, V)
+    lse_p, gold_p = CE.ce_fwd_plain(x, head, None, labels, vc, V)
+    torch.cuda.synchronize()
+    err = 0.0
+    for what, got, want in (("lse", lse, lse_p), ("gold", gold, gold_p)):
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=0,
+                                   msg=lambda m: f"ce_fwd {what} {dtype}: {m}")
+        err = max(err, (got - want).abs().max().item())
+    rec = {"max_abs_err": err}
+    if time_it:
+        rec["ms"] = _time_ms(lambda: CE.ce_fwd(x, head, None, labels, vc, V),
+                             iters=20, warmup=3)
+        rec["plain_ms"] = _time_ms(
+            lambda: CE.ce_fwd_plain(x, head, None, labels, vc, V), iters=5,
+            warmup=1)
+        rec["library_ms"] = None
+        rec["matmul_ms"] = _time_ms(lambda: torch.matmul(x, head), iters=20,
+                                    warmup=3)
+        # the V real columns: x, those head columns and labels read, lse
+        # and gold written; 2 n D V operations
+        esz = x.element_size()
+        rec["bound_ms"], rec["bound_by"] = bound_ms(
+            n * D * esz + D * V * esz + n * 4 + 2 * n * 4, 2 * n * D * V,
+            "bf16", name)
+    return rec
 
 
 N_PARAMS = 163_109_376      # GPT_SMALL's parameter count: the sweep's n
@@ -732,12 +905,16 @@ def _sweep_check(mdt, time_it: bool):
     return rec
 
 
-def phase_training():
-    """GPT_SMALL training through tools/train_bench.py; returns its record
+def phase_training(fused: bool = False):
+    """GPT_SMALL training through tools/train_bench.py — phase 7 (direct
+    CE, plain layernorm) or, with ``fused``, phase 7b (the fused-layernorm
+    block and the vocab-chunked CE, vchunk 1024); returns its record
     (launches_per_step from the timed steps only)."""
     from paddle_tpu_torch.tools import train_bench
 
-    cfg = train_bench.bench_config()
+    cfg = train_bench.bench_config(fused_ln=fused,
+                                   ce_vchunk=1024 if fused else 0)
+    tag = "training-fln-vchunk" if fused else "training"
     rec = train_bench.run(cfg)
     losses = rec["losses"]
     if not all(np.isfinite(losses)):
@@ -747,55 +924,70 @@ def phase_training():
     L = cfg.num_layers
     want = {"flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkv": L,
             "opt_adamw_flat": 1}
+    if fused:
+        # the LN forward: 2L in the blocks, 2L recomputed under dots, the
+        # final LN; its backward once each; the CE forward once a row chunk
+        want.update({"fused_ln": 4 * L + 1, "fused_ln_bwd": 2 * L + 1,
+                     "ce_fwd": rec["batch"] * rec["seq_len"] // cfg.ce_chunk})
     if rec["launches_per_step"] != want:
         raise AssertionError(f"launches per step {rec['launches_per_step']}"
                              f" != {want}")
-    print(f"[training] {rec['config']} {rec['model_params']} params: "
+    print(f"[{tag}] {rec['config']} {rec['model_params']} params: "
           f"{rec['tokens_per_s']:.1f} tok/s, mfu={rec['mfu']:.4f}, "
           f"ms/step={rec['ms_per_step']:.3f}, peak_mem_bytes="
           f"{rec['peak_mem_bytes']}, warmup_s={rec['warmup_s']:.2f}")
-    print(f"[training] loss first={losses[0]:.6f} last={losses[-1]:.6f} "
+    print(f"[{tag}] loss first={losses[0]:.6f} last={losses[-1]:.6f} "
           f"({len(losses)} steps); launches/step {rec['launches_per_step']}")
     return rec
 
 
 def phase_train_parity():
-    """Kernel train step vs plain train step, float32, on the card."""
+    """Kernel train step vs plain train step, float32, on the card: the
+    flash arm, and the fused arm (flash, the fused-layernorm block and the
+    vocab-chunked CE in row chunks of 256, so two row chunks run and the
+    vocab pads) against every lever off."""
     from paddle_tpu_torch.models import gpt as G
     from paddle_tpu_torch.parallel import parallelize as PZ
+    from paddle_tpu_torch.tools.train_bench import plain_config
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     base = G.GPT_SMALL.scaled(num_layers=2, dtype=torch.float32, remat=True,
                               remat_policy="dots")
-    arms = {"kernel": (base.scaled(use_flash=True), None),
-            "plain": (base.scaled(use_flash=False), False)}
+    fused = base.scaled(use_flash=True, fused_ln=True, ce_vocab_chunk=1024,
+                        ce_chunk=256)
     rng = np.random.default_rng(5)
     toks = torch.from_numpy(rng.integers(0, base.vocab_size, (1, 2, 256))
                             ).cuda()
     labs = torch.from_numpy(rng.integers(0, base.vocab_size, (1, 2, 256))
                             ).cuda()
-    grads, losses = {}, {}
-    for arm, (cfg, kern) in arms.items():
-        params, opt = PZ.init_sharded(cfg, seed=2, fused_opt=True,
-                                      device="cuda")
-        live = [p.detach().requires_grad_() for p in PZ.flat_leaves(params)]
-        loss = G.loss_fn(PZ._unflatten(params, live), toks[0], labs[0], cfg)
-        grads[arm] = torch.autograd.grad(loss, live)
-        step = PZ.make_train_step(cfg, lr=1e-4, fused_opt=True,
-                                  fused_opt_kernel=kern, device="cuda")
-        losses[arm] = []
-        for _ in range(3):
-            params, opt, loss, _g = step(params, opt, toks, labs)
-            losses[arm].append(loss.item())
-    worst = 0.0
-    for a, b in zip(grads["kernel"], grads["plain"]):
-        torch.testing.assert_close(a, b, atol=3e-4, rtol=3e-4)
-        worst = max(worst, (a - b).abs().max().item())
-    np.testing.assert_allclose(losses["kernel"], losses["plain"], rtol=1e-5)
-    print(f"[train-parity] f32 2 layers, 3 steps of 2x256: losses kernel "
-          f"{losses['kernel']} plain {losses['plain']}; step-1 grad max "
-          f"diff {worst:.3g}")
+    for tag, kcfg in (("flash", base.scaled(use_flash=True)),
+                      ("fused", fused)):
+        arms = {"kernel": (kcfg, None), "plain": (plain_config(kcfg), False)}
+        grads, losses = {}, {}
+        for arm, (cfg, kern) in arms.items():
+            params, opt = PZ.init_sharded(cfg, seed=2, fused_opt=True,
+                                          device="cuda")
+            live = [p.detach().requires_grad_()
+                    for p in PZ.flat_leaves(params)]
+            loss = G.loss_fn(PZ._unflatten(params, live), toks[0], labs[0],
+                             cfg)
+            grads[arm] = torch.autograd.grad(loss, live)
+            step = PZ.make_train_step(cfg, lr=1e-4, fused_opt=True,
+                                      fused_opt_kernel=kern, device="cuda")
+            losses[arm] = []
+            for _ in range(3):
+                params, opt, loss, _g = step(params, opt, toks, labs)
+                losses[arm].append(loss.item())
+        worst = 0.0
+        for a, b in zip(grads["kernel"], grads["plain"]):
+            torch.testing.assert_close(a, b, atol=3e-4, rtol=3e-4)
+            worst = max(worst, (a - b).abs().max().item())
+        np.testing.assert_allclose(losses["kernel"], losses["plain"],
+                                   rtol=1e-5)
+        print(f"[train-parity] {tag}: f32 2 layers, 3 steps of 2x256: "
+              f"losses kernel {losses['kernel']} plain {losses['plain']}; "
+              f"step-1 grad max diff {worst:.3g}")
 
 
 def main() -> int:
@@ -816,19 +1008,24 @@ def main() -> int:
     phase_parity()
     recs.update(phase_train_kernels(torch.bfloat16, time_it=True))
     phase_train_kernels(torch.float32, time_it=False)
-    train = phase_training()
-    launches.update({k: round(v * train["steps"])
-                     for k, v in train["launches_per_step"].items()})
+    # each kernel's launches summed over the main paths' runs: serving
+    # (above), training (phase 7) and the fused-LN / vocab-chunked lane (7b)
+    for fused in (False, True):
+        train = phase_training(fused)
+        for k, v in train["launches_per_step"].items():
+            launches[k] = launches.get(k, 0) + round(v * train["steps"])
     phase_train_parity()
     kernels = []
     for name, meta in CK.KERNELS.items():
         r = recs[name]
         kernels.append({
             "name": name, "route": meta["route"], "source": meta["source"],
-            "replaces": meta["replaces"], "launches": launches[name],
+            "replaces": meta["replaces"], "launches": launches.get(name, 0),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+        if "matmul_ms" in r:     # ce_fwd: the cuBLAS product, its floor
+            kernels[-1]["matmul_ms"] = r["matmul_ms"]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

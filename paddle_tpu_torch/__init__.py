@@ -12,7 +12,8 @@ jax and never ``paddle_tpu``.
 Slices ported so far: serving (slab KV layout) — ``models.gpt``,
 ``ops.decode_attention``, ``ops.cuda_kernels`` and ``serving``; training
 on one device — ``models.gpt`` (``loss_fn``), ``ops.flash_attention``,
-``ops.cuda_kernels`` (the flat AdamW sweep) and ``parallel``.
+``ops.fused_ln``, ``ops.chunked_ce``, ``ops.cuda_kernels`` (the flat
+AdamW sweep) and ``parallel``; paged serving — ``serving.paged_kv``.
 """
 from .device import resolve_device
 

@@ -8,10 +8,12 @@ Master weights stay float32; ``GPTConfig.dtype`` is the compute dtype.
 
 The layer loop is a Python loop where JAX used ``lax.scan``, each block
 wrapped by its remat policy (``parallel/remat.py``). The training losses
-(``token_ce``, ``ce_from_hidden``, ``loss_fn``) and the flash-attention
-hook are here; the fused-layernorm block (``fused_ln=True``) and the
-vocab-chunked CE (``ce_vocab_chunk > 0``) reach kernels of later slices
-and raise.
+(``token_ce``, ``ce_from_hidden``, ``loss_fn``) and the kernel hooks are
+here: flash attention (``use_flash``), the fused-layernorm block
+(``fused_ln``: every block LN and the final LN through
+``ops/fused_ln.py``, ln2 taking the ``(x + o) + b_proj`` residual in the
+same launch) and the vocab-chunked CE (``ce_vocab_chunk > 0``, through
+``ops/chunked_ce.py``).
 """
 from __future__ import annotations
 
@@ -25,6 +27,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
+from ..ops.chunked_ce import chunked_lm_loss
+from ..ops.fused_ln import fused_ln
 from ..parallel import remat as remat_mod
 
 __all__ = ["GPTConfig", "GPT_SMALL", "GPT_TINY", "init_params",
@@ -37,8 +41,7 @@ __all__ = ["GPTConfig", "GPT_SMALL", "GPT_TINY", "init_params",
 class GPTConfig:
     """Field for field the JAX ``GPTConfig``; ``dtype`` is a torch dtype.
     ``scan_layers`` is accepted and ignored (the layer loop is always a
-    Python loop); ``fused_ln`` and ``ce_vocab_chunk`` raise where they
-    would reach a kernel of a later slice."""
+    Python loop)."""
     vocab_size: int = 32000
     max_seq_len: int = 2048
     num_layers: int = 24
@@ -166,19 +169,25 @@ def _causal_attention(q, k, v, cfg: GPTConfig):
 
 def block_fn(p, x, cfg: GPTConfig):
     """One transformer block on one layer's leaves (no L axis)."""
-    if cfg.fused_ln:
-        raise NotImplementedError(
-            "fused_ln needs the residual forms and the backward of the "
-            "layernorm kernel (ROADMAP.md, queue B)")
     dt = cfg.dtype
-    h = _layer_norm(x, p["ln1_scale"], p["ln1_bias"])
+    if cfg.fused_ln:
+        h = fused_ln(x, p["ln1_scale"], p["ln1_bias"], eps=1e-5)
+    else:
+        h = _layer_norm(x, p["ln1_scale"], p["ln1_bias"])
     qkv = torch.einsum("btd,dcnh->btcnh", h, p["w_qkv"].to(dt))
     qkv = qkv + p["b_qkv"].to(dt)
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
     a = _causal_attention(q, k, v, cfg)
     o = torch.einsum("btnh,nhd->btd", a, p["w_proj"].to(dt))
-    x = x + o + p["b_proj"].to(dt)
-    h = _layer_norm(x, p["ln2_scale"], p["ln2_bias"])
+    if cfg.fused_ln:
+        # one launch for the (x + o) + b_proj residual and ln2; the summed
+        # stream comes back as the next residual input
+        h, x = fused_ln(o, p["ln2_scale"], p["ln2_bias"], residual=x,
+                        bias_add=p["b_proj"].to(dt), eps=1e-5,
+                        return_residual=True)
+    else:
+        x = x + o + p["b_proj"].to(dt)
+        h = _layer_norm(x, p["ln2_scale"], p["ln2_bias"])
     h = torch.einsum("btd,df->btf", h, p["w_fc"].to(dt)) + p["b_fc"].to(dt)
     h = F.gelu(h, approximate="tanh")
     o = torch.einsum("btf,fd->btd", h, p["w_out"].to(dt))
@@ -207,9 +216,7 @@ def embed(p, tokens, cfg: GPTConfig, pos_offset: int = 0):
 
 def _final_ln(p, x, cfg: GPTConfig):
     if cfg.fused_ln:
-        raise NotImplementedError(
-            "fused_ln needs the residual forms and the backward of the "
-            "layernorm kernel (ROADMAP.md, queue B)")
+        return fused_ln(x, p["ln_f_scale"], p["ln_f_bias"], eps=1e-5)
     return _layer_norm(x, p["ln_f_scale"], p["ln_f_bias"])
 
 
@@ -241,23 +248,26 @@ def token_ce(logits, labels, valid=None):
 
 def ce_from_hidden(params, x, labels, cfg: GPTConfig, chunk=None,
                    direct_bytes_limit=None):
-    """Summed token CE from hidden states ``x`` [B, T, D]: the full logits
-    when their float32 size fits ``direct_bytes_limit``, else row chunks
-    of ``chunk`` rows, each recomputing its logits in the backward
-    (checkpointed) and accumulated in order as JAX's scan does."""
+    """Summed token CE from hidden states ``x`` [B, T, D]: with
+    ``cfg.ce_vocab_chunk`` the vocab-chunked CE (``chunked_lm_loss``, row
+    chunks of ``chunk`` rows); else the full logits when their float32
+    size fits ``direct_bytes_limit``, else row chunks of ``chunk`` rows,
+    each recomputing its logits in the backward (checkpointed) and
+    accumulated in order as JAX's scan does."""
     if chunk is None:
         chunk = cfg.ce_chunk
     if direct_bytes_limit is None:
         direct_bytes_limit = cfg.ce_direct_bytes_limit
-    if cfg.ce_vocab_chunk:
-        raise NotImplementedError(
-            "ce_vocab_chunk > 0 reaches the vocab-chunked CE kernel "
-            "(_ce_fwd_kernel), still to be ported (ROADMAP.md, queue B)")
     head = params["lm_head"]
     B, T, D = x.shape
     V = head.shape[-1]
     x = _final_ln(params, x, cfg)
     n = B * T
+    if cfg.ce_vocab_chunk:
+        return chunked_lm_loss(x.reshape(n, D), head.to(cfg.dtype),
+                               labels.reshape(n),
+                               vocab_chunk=cfg.ce_vocab_chunk,
+                               row_chunk=chunk)
     if n * V * 4 <= direct_bytes_limit:
         logits = torch.einsum("btd,dv->btv", x, head.to(cfg.dtype))
         return token_ce(logits, labels)

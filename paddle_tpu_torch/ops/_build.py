@@ -129,8 +129,12 @@ def build(force: bool = False) -> BuildInfo:
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     P, I, F, LL = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                    ctypes.c_longlong)
-    lib.ptt_fused_ln.argtypes = [P, P, P, P, I, I, F, I, P]
+    lib.ptt_fused_ln.argtypes = [P] * 10 + [I, I, F, F, I, P]
     lib.ptt_fused_ln.restype = I
+    lib.ptt_ln_bwd.argtypes = [P] * 11 + [I, I, I, F, I, P]
+    lib.ptt_ln_bwd.restype = I
+    lib.ptt_ce_fwd.argtypes = [P] * 7 + [I] * 8 + [P]
+    lib.ptt_ce_fwd.restype = I
     lib.ptt_decode_slab.argtypes = [P, P, P, LL, P, P, P, P, P, I, I, I, I,
                                     F, I, I, P]
     lib.ptt_decode_slab.restype = I

@@ -1,8 +1,10 @@
 """The port's Hopper kernels, each beside its plain PyTorch version — the
 port of ``paddle_tpu/ops/pallas_kernels.py``: the serving slice's decode
-kernels and the training slice's flat AdamW sweep here, the flash-attention
-kernels in ``ops/flash_attention.py`` (which shares this module's routing
-helpers, ``KERNELS`` and ``LAUNCHES``).
+kernels and the training slice's flat AdamW sweep here; the
+flash-attention kernels in ``ops/flash_attention.py``, the fused-layernorm
+forward and backward in ``ops/fused_ln.py`` and the vocab-chunked CE
+forward in ``ops/chunked_ce.py``, which share this module's routing
+helpers, ``KERNELS`` and ``LAUNCHES``.
 
 Each public function routes by the device its tensors lie on:
 
@@ -17,10 +19,13 @@ JAX's ``_count_launch`` (``pallas_kernels.py:853``) ticks once per TRACE —
 once per compiled executable, however often it runs; eager PyTorch has no
 trace, so the port counts every launch. A decode tick of the engine
 launches ``fused_ln`` 2·L times, ``decode_slab`` (slab layout) or
-``decode_paged`` (paged layout) L times and ``logits_head`` once; a GPT
+``decode_paged`` (paged layout) L times and ``logits_head`` once. A GPT
 train step under ``dots`` remat launches ``flash_fwd`` 2·L times,
 ``flash_bwd_dq`` and ``flash_bwd_dkv`` L times each and
-``opt_adamw_flat`` once.
+``opt_adamw_flat`` once; with ``fused_ln=True`` also ``fused_ln`` 4·L + 1
+times (2·L in the forward, 2·L recomputed, the final LN) and
+``fused_ln_bwd`` 2·L + 1 times; with ``ce_vocab_chunk`` > 0 also
+``ce_fwd`` once a row chunk (B·T / ``ce_chunk``).
 """
 from __future__ import annotations
 
@@ -81,6 +86,16 @@ KERNELS: Dict[str, Dict[str, str]] = {
         "route": "cuda",
         "source": "paddle_tpu_torch/ops/csrc/opt_megakernel.cu",
         "replaces": "paddle_tpu/ops/pallas_kernels.py:1209",
+    },
+    "fused_ln_bwd": {
+        "route": "cuda",
+        "source": "paddle_tpu_torch/ops/csrc/ln_bwd.cu",
+        "replaces": "paddle_tpu/ops/pallas_kernels.py:931",
+    },
+    "ce_fwd": {
+        "route": "cuda",
+        "source": "paddle_tpu_torch/ops/csrc/ce_fwd.cu",
+        "replaces": "paddle_tpu/ops/pallas_kernels.py:537",
     },
 }
 
@@ -144,56 +159,34 @@ def _lib():
 
 
 # ---------------------------------------------------------------------------
-# fused layernorm (replaces _ln_fwd_kernel, plain form)
+# fused layernorm (replaces _ln_fwd_kernel; ops/fused_ln.py has every form
+# and the backward)
 # ---------------------------------------------------------------------------
 
 
 def fused_ln_plain(x, scale, bias, eps: float = 1e-5):
     """y = (x - mu) * rsqrt(var + eps) * scale + bias over the last axis,
-    float32 statistics with the population variance, y in x.dtype."""
-    x32 = x.float()
-    mu = x32.mean(-1, keepdim=True)
-    var = x32.var(-1, keepdim=True, correction=0)
-    y = (x32 - mu) * torch.rsqrt(var + eps)
-    return (y * scale.float() + bias.float()).to(x.dtype)
+    float32 statistics with the population variance, y in x.dtype: the
+    plain form of :func:`ops.fused_ln.fused_ln_fwd_plain`."""
+    from .fused_ln import fused_ln_fwd_plain
+
+    d = x.shape[-1]
+    y = fused_ln_fwd_plain(x.reshape(-1, d), scale, bias, eps=eps)[0]
+    return y.reshape(x.shape)
 
 
 def fused_ln(x, scale, bias, residual=None, bias_add=None, *,
              eps: float = 1e-5, dropout_rate: float = 0.0,
              return_residual: bool = False):
-    """LayerNorm of ``x`` [..., D] with float32 ``scale``/``bias`` [D].
+    """LayerNorm of ``s = x + residual + bias_add`` over the last axis with
+    float32 ``scale``/``bias`` [D]: :func:`ops.fused_ln.fused_ln` without
+    a dropout key, so ``dropout_rate`` > 0 raises ``ValueError`` as JAX's
+    does without one. One kernel launch on the card; differentiable."""
+    from .fused_ln import fused_ln as _fused_ln
 
-    The residual / bias-add / dropout / ``return_residual`` forms of the
-    JAX ``fused_ln`` come with the training slice, together with the
-    backward kernel."""
-    if (residual is not None or bias_add is not None or dropout_rate
-            or return_residual):
-        raise NotImplementedError(
-            "fused_ln residual/bias_add/dropout/return_residual come with "
-            "the training slice (ROADMAP.md, queue B)")
-    if not _on_card(x, scale, bias):
-        return fused_ln_plain(x, scale, bias, eps)
-    D = x.shape[-1]
-    code = _dtype_code(x, "fused_ln x")
-    _require(x.is_contiguous(), "fused_ln: x must be contiguous")
-    _require(tuple(scale.shape) == (D,) and tuple(bias.shape) == (D,),
-             f"fused_ln: scale/bias must be [{D}], got "
-             f"{tuple(scale.shape)}/{tuple(bias.shape)}")
-    if scale.dtype != torch.float32 or bias.dtype != torch.float32:
-        raise TypeError("fused_ln: scale and bias must be float32")
-    _require(scale.is_contiguous() and bias.is_contiguous(),
-             "fused_ln: scale/bias must be contiguous")
-    _require(D * 4 <= _SMEM_DEFAULT, f"fused_ln: D={D} exceeds the "
-             f"kernel's row buffer ({_SMEM_DEFAULT // 4} floats)")
-    y = torch.empty_like(x)
-    R = x.numel() // D if D else 0
-    if R == 0:
-        return y
-    lib = _lib()
-    err = lib.ptt_fused_ln(x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-                           y.data_ptr(), R, D, float(eps), code, _stream(x))
-    _check_launch(lib, err, "fused_ln")
-    return y
+    return _fused_ln(x, scale, bias, residual, bias_add, eps=eps,
+                     dropout_rate=dropout_rate,
+                     return_residual=return_residual)
 
 
 # ---------------------------------------------------------------------------

@@ -68,7 +68,9 @@ def trace_summary(prof, wall_us: float, n: int, per: str = "tick",
     iteration."""
     spans, by_name, by_group = [], {}, {}
     for ev in prof.events():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
+        # named ranges (record_function) show on the device as spans too
+        if (ev.device_type != torch.autograd.DeviceType.CUDA
+                or ev.is_user_annotation):
             continue
         s, e = ev.time_range.start, ev.time_range.end
         spans.append((s, e))

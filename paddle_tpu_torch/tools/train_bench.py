@@ -2,23 +2,28 @@
 ``bench.py``'s accelerator GPT lane (``bench.py:490-519``, ``:745-803``).
 
     python -m paddle_tpu_torch.tools.train_bench [--remat dots]
-        [--profile 3] [--compare]
+        [--fused-ln] [--ce-vchunk N] [--profile 3] [--compare]
 
 The configuration is GPT_SMALL at full width and depth, batch 16 x 1024,
 bf16 compute with float32 master weights and bf16 Adam moments,
 flash attention, ``dots`` remat (``--remat`` picks another policy), the
 direct CE path, and the flat AdamW
 sweep through its kernel (``fused_opt=True``) at lr 1e-4, weight decay
-0.1, clip 1.0; 2 warm-up steps and 10 timed ones. Weights and tokens come
+0.1, clip 1.0; 2 warm-up steps and 10 timed ones. ``--fused-ln`` sends
+every layernorm through the fused-layernorm kernels (``fused_ln=True``),
+``--ce-vchunk N`` the loss through the vocab-chunked CE in chunks of N
+columns (``ce_vocab_chunk=N``, direct CE off, as ``bench.py --ce-vchunk``
+sets it). Weights and tokens come
 from seeds; every step trains on the same batch, as ``bench.py`` does. Prints one JSON line: tokens/s, MFU
 against the card's bf16 dense peak (``observability/hw.py``), ms per
 step, peak device memory, first and last loss, kernel launches per step.
 With ``--profile N``, N more steps run under ``torch.profiler`` and the
 record gains where the device time goes: busy and idle share of the
-traced wall time, and kernel time per step by group (each flash kernel,
-the AdamW sweep, matrix products, the rest) and by name, all per step. ``--compare``
-runs the plain arm (plain attention, plain PyTorch sweep) and the kernel
-arm in turns — plain, kernel, kernel, plain — one JSON line each.
+traced wall time, and kernel time per step by group (each of the port's
+training kernels, matrix products, the rest) and by name, all per step.
+``--compare`` runs the plain arm (plain attention and layernorm, the
+row-chunked or direct CE, plain PyTorch sweep) and the kernel arm in
+turns — plain, kernel, kernel, plain — one JSON line each.
 """
 import argparse
 import json
@@ -32,19 +37,46 @@ import torch
 from ..models import gpt as G
 from ..observability import hw
 from ..ops import cuda_kernels as CK
+from ..ops.chunked_ce import CE_BWD_RANGE
 from ..parallel import parallelize as PZ
 from .profile_decode import trace_summary
 
-# the training kernels' names in a trace (ops/csrc), each its own group
+# the training kernels' names in a trace (ops/csrc), each its own group;
+# the CE forward's merge kernel counts with it
 TRAIN_KERNELS = {k: k for k in ("flash_fwd_kernel", "flash_bwd_dq_kernel",
-                                "flash_bwd_dkv_kernel", "adamw_flat_kernel")}
+                                "flash_bwd_dkv_kernel", "adamw_flat_kernel",
+                                "fused_ln_fwd_kernel", "ln_bwd_kernel",
+                                "ce_fwd")}
 BATCH, SEQ = 16, 1024           # bench.py's GPT lane
 STEPS, WARMUP = 10, 2
 
 
+def _range_summary(prof, name: str, steps: int) -> Dict[str, float]:
+    """Per step, for the profiler ranges called ``name``: the device time
+    of the kernels their ops launched (``device_ms``), how many kernels,
+    and the device-timeline span from each range's first kernel to its
+    last (``device_span_ms``: kernels plus the gaps between them)."""
+    def kernels(ev):
+        return len(ev.kernels) + sum(kernels(c) for c in ev.cpu_children)
+
+    cpu = torch.autograd.DeviceType.CPU
+    evs = [e for e in prof.events() if e.name == name]
+    host = [e for e in evs if e.device_type == cpu]
+    spans = [e for e in evs if e.device_type != cpu]
+    return {"device_ms_per_step":
+            sum(e.device_time_total for e in host) / 1e3 / steps,
+            "device_span_ms_per_step": sum(
+                e.time_range.end - e.time_range.start for e in spans)
+            / 1e3 / steps,
+            "kernels_per_step": sum(kernels(e) for e in host) / steps,
+            "ranges_per_step": len(host) / steps}
+
+
 def _profile(step, state, steps: int) -> Dict[str, Any]:
     """Trace ``steps`` train steps (``state`` = [params, opt, tokens,
-    labels]); device time per step as ``profile_decode.trace_summary``."""
+    labels]); device time per step as ``profile_decode.trace_summary``,
+    and the vocab-chunked CE's backward sweep on its own (its kernels are
+    the generic ones of the other groups)."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -54,15 +86,28 @@ def _profile(step, state, steps: int) -> Dict[str, Any]:
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     return {"steps": steps,
-            **trace_summary(prof, wall_us, steps, "step", TRAIN_KERNELS)}
+            **trace_summary(prof, wall_us, steps, "step", TRAIN_KERNELS),
+            "ce_bwd_sweep": _range_summary(prof, CE_BWD_RANGE, steps)}
 
 
-def bench_config(remat_policy: str = "dots") -> G.GPTConfig:
+def bench_config(remat_policy: str = "dots", fused_ln: bool = False,
+                 ce_vchunk: int = 0) -> G.GPTConfig:
     """bench.py's accelerator GPT lane with the tuned train winner
-    (``dots`` remat; the flat sweep is chosen in :func:`run`)."""
-    return G.GPT_SMALL.scaled(max_seq_len=SEQ, use_flash=True,
-                              remat=remat_policy != "none",
-                              remat_policy=remat_policy)
+    (``dots`` remat; the flat sweep is chosen in :func:`run`), with the
+    fused-layernorm block and the vocab-chunked CE when asked."""
+    cfg = G.GPT_SMALL.scaled(max_seq_len=SEQ, use_flash=True,
+                             remat=remat_policy != "none",
+                             remat_policy=remat_policy, fused_ln=fused_ln)
+    if ce_vchunk:
+        cfg = cfg.scaled(ce_vocab_chunk=ce_vchunk, ce_direct_bytes_limit=0)
+    return cfg
+
+
+def plain_config(cfg: G.GPTConfig) -> G.GPTConfig:
+    """``cfg`` with every kernel lever off: plain attention, the plain
+    layernorm and the row-chunked CE (or the direct one, by
+    ``ce_direct_bytes_limit``)."""
+    return cfg.scaled(use_flash=False, fused_ln=False, ce_vocab_chunk=0)
 
 
 def run(cfg: G.GPTConfig, fused_opt_kernel=None,
@@ -106,12 +151,17 @@ def run(cfg: G.GPTConfig, fused_opt_kernel=None,
     flops = G.train_flops_per_token(cfg, n_params, T)
     name = torch.cuda.get_device_name(dev)
     rec = {
-        "config": f"gpt_small_L{cfg.num_layers}_b{batch}x{T}",
+        "config": (f"gpt_small_L{cfg.num_layers}_b{batch}x{T}"
+                   + ("_fln" if cfg.fused_ln else "")
+                   + (f"_vchunk{cfg.ce_vocab_chunk}"
+                      if cfg.ce_vocab_chunk else "")),
         "device": name,
         "model_params": n_params,
         "batch": batch, "seq_len": T, "steps": steps, "warmup": warmup,
         "remat_policy": cfg.remat_policy if cfg.remat else "none",
         "flash": cfg.use_flash,
+        "fused_ln": cfg.fused_ln,
+        "ce_vocab_chunk": cfg.ce_vocab_chunk,
         "moment_dtype": "bfloat16",
         "tokens_per_s": tok_s,
         "mfu": tok_s * flops / hw.peaks_for(name)["bf16_flops_per_s"],
@@ -133,6 +183,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--remat", default="dots",
                     help="none | full | dots | save_only_flash")
+    ap.add_argument("--fused-ln", action="store_true",
+                    help="every layernorm through the fused-LN kernels")
+    ap.add_argument("--ce-vchunk", type=int, default=0, metavar="N",
+                    help="vocab-chunked CE in chunks of N columns")
     ap.add_argument("--profile", type=int, default=0,
                     help="trace this many more steps under torch.profiler")
     ap.add_argument("--compare", action="store_true",
@@ -141,9 +195,8 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("train_bench: no CUDA device available", file=sys.stderr)
         return 2
-    cfg = bench_config(args.remat)
-    arms = {"kernel": (cfg, None),
-            "plain": (cfg.scaled(use_flash=False), False)}
+    cfg = bench_config(args.remat, args.fused_ln, args.ce_vchunk)
+    arms = {"kernel": (cfg, None), "plain": (plain_config(cfg), False)}
     order = ("plain", "kernel", "kernel", "plain") if args.compare \
         else ("kernel",)
     for arm in order:

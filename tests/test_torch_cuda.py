@@ -272,11 +272,152 @@ def test_paged_engine_kernel_path_matches_plain_and_slab(card):
 def test_training_kernels_match_plain_at_path_shapes(chip_smoke, dtype):
     """Flash forward / dQ / dK,dV at [16 (bf16) or 2 (f32), 1024, 12, 64]
     from a packed qkv, causal: bf16 per element within 2^-7 x (|plain| +
-    its row's max |plain|) + 1e-5 and lse within 2e-5, f32 within 2e-5 / 3e-4; the AdamW sweep over GPT_SMALL's 163M parameters bitwise,
-    with bf16 and float32 moments."""
+    its row's max |plain|) + 1e-5 and lse within 2e-5, f32 within 2e-5 /
+    3e-4; the AdamW sweep over GPT_SMALL's 163M parameters bitwise, with
+    bf16 and float32 moments; the fused-LN forward forms and backward at
+    [16384 (bf16) or 256 (f32), 768]; the CE forward at [2048 (bf16) or
+    256 (f32), 768] x [768, 51200]."""
     recs = chip_smoke.phase_train_kernels(dtype, time_it=False)
     assert set(recs) == {"flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
-                         "opt_adamw_flat"}
+                         "opt_adamw_flat", "fused_ln", "fused_ln_bwd",
+                         "ce_fwd"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("R,D", [(1, 64), (150, 80), (37, 2048)])
+def test_fused_ln_kernels_match_plain_small_shapes(chip_smoke, dtype, R, D):
+    """Every forward form (bits: residual, bias_add, mask) and every
+    backward form (dsx, mask) at ragged shapes: s bitwise, y, ds, dx per
+    element (bf16_check; f32 1e-5), statistics and dscale/dbias within
+    1e-5 relative to the column's sum of |term|."""
+    from paddle_tpu_torch.ops import fused_ln as FL
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(R + D)
+
+    def randn(*shape, dt=dtype):
+        return torch.randn(shape, generator=g, device="cuda").to(dt)
+
+    def close(got, want):
+        if dtype == torch.bfloat16:
+            chip_smoke.bf16_check("fused_ln", got, want)
+        else:
+            torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+    x, res, dy, dsx = randn(R, D), randn(R, D), randn(R, D), randn(R, D)
+    badd = randn(D)
+    scale, bias = randn(D, dt=torch.float32), randn(D, dt=torch.float32)
+    mask = torch.rand((R, D), generator=g, device="cuda") < 0.8
+    inv = FL._round_to(1 / 0.8, dtype)
+    for form in range(8):
+        kw = {}
+        if form & 1:
+            kw["residual"] = res
+        if form & 2:
+            kw["bias_add"] = badd
+        if form & 4:
+            kw.update(mask=mask, inv_keep=inv)
+        got = FL.fused_ln_fwd(x, scale, bias, **kw)
+        want = FL.fused_ln_fwd_plain(x, scale, bias, **kw)
+        assert (got[1] is None) == (form == 0)
+        if form:
+            assert torch.equal(got[1], want[1]), form
+        close(got[0], want[0])
+        for i in (2, 3):
+            torch.testing.assert_close(got[i], want[i], atol=1e-5, rtol=1e-5)
+    _y, s, mu, rstd = want
+    xhat = (s.float() - mu[:, None]) * rstd[:, None]
+    tot = ((dy.float() * xhat).abs().sum(0), dy.float().abs().sum(0))
+    inv32 = FL._round_to(1 / 0.8, torch.float32)
+    for kw in ({}, dict(dsx=dsx), dict(mask=mask, inv_keep=inv32),
+               dict(dsx=dsx, mask=mask, inv_keep=inv32)):
+        got = FL.fused_ln_bwd(s, mu, rstd, scale, dy, **kw)
+        want = FL.fused_ln_bwd_plain(s, mu, rstd, scale, dy, **kw)
+        close(got[0], want[0])
+        if "mask" in kw:
+            close(got[1], want[1])
+        for i in (2, 3):
+            assert ((got[i] - want[i]).abs() <= 1e-5 * tot[i - 2] + 1e-30
+                    ).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("layout", ["dv", "vd"])
+@pytest.mark.parametrize("n,D,vp,vocab", [(1, 8, 128, 1), (70, 64, 384, 301),
+                                          (300, 96, 1024, 1000)])
+def test_ce_fwd_matches_plain_small_shapes(card, dtype, layout, n, D, vp,
+                                          vocab):
+    """Ragged rows, a vocab that ends inside a tile and tiles wholly past
+    it, both head layouts, with and without bias: lse and gold within
+    1e-4 of the plain sweep."""
+    from paddle_tpu_torch.ops import chunked_ce as CE
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda")
+    g.manual_seed(n + D + vp)
+    x = torch.randn((n, D), generator=g, device="cuda").to(dtype)
+    shape = (D, vp) if layout == "dv" else (vp, D)
+    head = (torch.randn(shape, generator=g, device="cuda") * 0.3).to(dtype)
+    labels = torch.randint(0, vocab, (n,), generator=g, device="cuda")
+    for bias in (None, torch.randn(vp, generator=g, device="cuda")):
+        got = CE.ce_fwd(x, head, bias, labels, 128, vocab, layout)
+        want = CE.ce_fwd_plain(x, head, bias, labels, 128, vocab, layout)
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_fused_ln_and_chunked_ce_autograd_on_card(card):
+    """On CUDA tensors (float32, TF32 off): fused_ln with residual,
+    bias_add and return_residual launches the forward and the backward
+    kernel once each and gives the plain versions' gradients;
+    chunked_lm_loss launches the CE forward once a row chunk and gives the
+    plain sweep's loss and gradients (1e-5 / 3e-4)."""
+    from paddle_tpu_torch.ops import chunked_ce as CE
+    from paddle_tpu_torch.ops import cuda_kernels as CK
+    from paddle_tpu_torch.ops import fused_ln as FL
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=card)
+    g.manual_seed(5)
+    x, res, w, w2 = (torch.randn((96, 64), generator=g, device=card)
+                     for _ in range(4))
+    scale, bias, badd = (torch.randn(64, generator=g, device=card)
+                         for _ in range(3))
+    grads = []
+    for on_card in (True, False):
+        xs = [t.clone().requires_grad_() for t in (x, scale, bias, res, badd)]
+        CK.reset_launches()
+        if on_card:
+            y, s = FL.fused_ln(*xs, return_residual=True)
+        else:
+            s = (xs[3] + xs[0]) + xs[4]
+            y = FL.fused_ln_fwd_plain(s, xs[1], xs[2])[0]
+        ((y * w).sum() + (s * w2).sum()).backward()
+        grads.append([t.grad for t in xs])
+        if on_card:
+            assert (CK.LAUNCHES["fused_ln"], CK.LAUNCHES["fused_ln_bwd"]) \
+                == (1, 1)
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, atol=3e-4, rtol=3e-4)
+    h = (torch.randn((64, 1000), generator=g, device=card) * 0.1)
+    labels = torch.randint(0, 1000, (96,), generator=g, device=card)
+    outs = []
+    for use_pallas in (None, False):
+        xs = [x.clone().requires_grad_(), h.clone().requires_grad_()]
+        CK.reset_launches()
+        loss = CE.chunked_lm_loss(xs[0], xs[1], labels, vocab_chunk=256,
+                                  row_chunk=40, use_pallas=use_pallas)
+        loss.backward()
+        assert CK.LAUNCHES["ce_fwd"] == (3 if use_pallas is None else 0)
+        outs.append((loss, xs[0].grad, xs[1].grad))
+    torch.testing.assert_close(outs[0][0], outs[1][0], atol=0, rtol=1e-5)
+    for a, b in zip(outs[0][1:], outs[1][1:]):
+        torch.testing.assert_close(a, b, atol=3e-4, rtol=3e-4)
 
 
 @pytest.mark.cuda
@@ -368,3 +509,24 @@ def test_training_wrappers_raise_on_inputs_the_kernels_do_not_take(card):
     with pytest.raises(ValueError, match="contiguous"):
         CK.megakernel_adamw_flat(p, p, p, torch.zeros(32, device=card)[::2],
                                  p, 1e-3, 1.0, 0.1, 0.1)
+    from paddle_tpu_torch.ops import chunked_ce as CE
+    from paddle_tpu_torch.ops import fused_ln as FL
+
+    x = torch.zeros((4, 64), device=card)
+    one = torch.ones(64, device=card)
+    with pytest.raises(TypeError):
+        FL.fused_ln_fwd(x, one, one, residual=x.bfloat16())
+    with pytest.raises(TypeError):
+        FL.fused_ln_fwd(x, one, one, mask=x)
+    with pytest.raises(ValueError, match="exceeds"):
+        big = torch.zeros((2, 4096), device=card)
+        FL.fused_ln_bwd(big, torch.zeros(2, device=card),
+                        torch.ones(2, device=card),
+                        torch.ones(4096, device=card), big)
+    labels = torch.zeros(4, dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match="multiples"):
+        CE.ce_fwd(torch.zeros((4, 6), device=card),
+                  torch.zeros((6, 128), device=card), None, labels, 128, 128)
+    with pytest.raises(ValueError, match="dtype"):
+        CE.ce_fwd(x, torch.zeros((64, 128), device=card).bfloat16(), None,
+                  labels, 128, 128)

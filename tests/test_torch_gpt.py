@@ -4,7 +4,6 @@ gives the JAX logits."""
 import dataclasses
 
 import numpy as np
-import pytest
 import torch
 
 import jax
@@ -73,13 +72,22 @@ def test_forward_matches_jax():
 
 
 def test_training_levers_refused():
-    """fused_ln still reaches kernels of a later slice and raises;
-    use_flash runs and gives the plain path's logits."""
+    """No training lever is refused any more: fused_ln and use_flash run
+    and give the plain path's logits, and fused_ln's logits match the JAX
+    model's with fused_ln (test_pallas_fused.py:160-179's tolerance)."""
     tp = TG.init_params(TG.GPT_TINY, seed=0, device="cpu")
-    toks = np.zeros((1, 4), np.int64)
-    with pytest.raises(NotImplementedError):
-        TG.forward(tp, toks, TG.GPT_TINY.scaled(fused_ln=True))
+    toks = np.random.RandomState(1).randint(0, 256, (2, 9))
     with torch.no_grad():
+        fused = TG.forward(tp, toks, TG.GPT_TINY.scaled(fused_ln=True))
         flash = TG.forward(tp, toks, TG.GPT_TINY.scaled(use_flash=True))
         plain = TG.forward(tp, toks, TG.GPT_TINY)
     np.testing.assert_allclose(flash.numpy(), plain.numpy(), atol=2e-5)
+    np.testing.assert_allclose(fused.numpy(), plain.numpy(), atol=2e-5,
+                               rtol=1e-5)
+    cfg_j = JG.GPT_TINY.scaled(fused_ln=True)
+    jp = JG.init_params(jax.random.PRNGKey(2), cfg_j)
+    want = np.asarray(JG.forward(jp, toks, cfg_j))
+    with torch.no_grad():
+        got = TG.forward(TG.params_from_numpy(_np_tree(jp), device="cpu"),
+                         toks, TG.GPT_TINY.scaled(fused_ln=True)).numpy()
+    np.testing.assert_allclose(got, want, atol=2e-5, rtol=1e-5)

@@ -50,12 +50,26 @@ def test_fused_ln_matches_jax(name, tol):
 
 
 def test_fused_ln_training_forms_refused():
-    x = torch.zeros((2, 8))
-    one = torch.ones(8)
-    for kw in (dict(residual=x), dict(bias_add=one),
-               dict(dropout_rate=0.1), dict(return_residual=True)):
-        with pytest.raises(NotImplementedError):
-            CK.fused_ln(x, one, one, **kw)
+    """The training forms are ported: ``cuda_kernels.fused_ln`` takes the
+    residual, bias-add and return_residual forms and gives
+    ``ops.fused_ln``'s values; only dropout without a key is refused
+    (ValueError, as JAX's ``fused_ln`` refuses it)."""
+    from paddle_tpu_torch.ops import fused_ln as TFL
+
+    rng = np.random.default_rng(7)
+    x, res = (torch.from_numpy(rng.standard_normal((3, 10, 32)).astype(
+        np.float32)) for _ in range(2))
+    scale, bias, badd = (torch.from_numpy(rng.standard_normal(32).astype(
+        np.float32)) for _ in range(3))
+    got = CK.fused_ln(x, scale, bias, res, badd, return_residual=True)
+    want = TFL.fused_ln(x, scale, bias, res, badd, return_residual=True)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert torch.equal(got[1], (res + x) + badd)
+    assert torch.equal(CK.fused_ln(x, scale, bias),
+                       CK.fused_ln_plain(x, scale, bias))
+    with pytest.raises(ValueError, match="dropout_key"):
+        CK.fused_ln(x, scale, bias, dropout_rate=0.1)
 
 
 @pytest.mark.parametrize("name", ["f32", "bf16"])

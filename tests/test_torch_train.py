@@ -1,5 +1,6 @@
 """The port's training slice against the JAX package, on the CPU: the GPT
-loss and its gradients, the remat policies, the row-chunked CE and the
+loss and its gradients (with flash attention, the fused-layernorm block
+and the vocab-chunked CE), the remat policies, the row-chunked CE and the
 single-device train step.
 
 The oracle for the step is ``jax.value_and_grad(G.loss_fn)`` followed by
@@ -22,6 +23,7 @@ from paddle_tpu.models import gpt as JG
 from paddle_tpu.parallel import parallelize as PZ
 from paddle_tpu_torch.models import gpt as TG
 from paddle_tpu_torch.ops import flash_attention as TFA
+from paddle_tpu_torch.ops import fused_ln as TFL
 from paddle_tpu_torch.parallel import parallelize as TPZ
 from paddle_tpu_torch.parallel import remat as TR
 
@@ -95,6 +97,52 @@ def test_remat_policy_grads_equal_none(policy, use_flash, monkeypatch):
         assert len(calls) == (L if policy == "save_only_flash" else 2 * L)
 
 
+_LEVERS = {"fused_ln": dict(fused_ln=True),
+           "vchunk": dict(ce_vocab_chunk=96, ce_chunk=32),
+           "both": dict(fused_ln=True, ce_vocab_chunk=96, ce_chunk=32)}
+
+
+@pytest.mark.parametrize("lever", list(_LEVERS))
+def test_memory_levers_loss_and_grads_match_jax(lever):
+    """2-layer GPT_TINY f32 with the fused-layernorm block, the
+    vocab-chunked CE (vocab 256 in chunks of 96, so it pads; 64 rows in
+    row chunks of 32), and both: loss to 1e-5 relative and every gradient
+    leaf to 3e-4 against jax.value_and_grad of the JAX model."""
+    cfg_j, cfg_t = _cfgs(**_LEVERS[lever])
+    jp, tp = _params(cfg_j, seed=6)
+    toks, labs = _data(cfg_j, seed=6)
+    jl, jg = jax.jit(jax.value_and_grad(JG.loss_fn), static_argnums=3)(
+        jp, toks, labs, cfg_j)
+    tl, tg = _torch_loss_grads(tp, toks, labs, cfg_t)
+    np.testing.assert_allclose(tl.item(), float(jl), rtol=1e-5)
+    for got, want in zip(tg, jax.tree_util.tree_leaves(jg)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=3e-4,
+                                   rtol=3e-4)
+
+
+@pytest.mark.parametrize("policy", ["full", "dots", "save_only_flash"])
+def test_remat_policy_grads_equal_none_fused_ln(policy, monkeypatch):
+    """With fused_ln=True every policy gives the no-remat gradients bit for
+    bit; the LN forward runs 2L + 1 times without recompute and 4L + 1
+    times with it (the final LN sits outside the blocks), as in JAX."""
+    calls = []
+    fwd = TFL.fused_ln_fwd
+    monkeypatch.setattr(TFL, "fused_ln_fwd",
+                        lambda *a, **k: calls.append(1) or fwd(*a, **k))
+    cfg_j, cfg_t = _cfgs(use_flash=True, fused_ln=True)
+    _jp, tp = _params(cfg_j, seed=7)
+    toks, labs = _data(cfg_j, seed=7)
+    _l0, want = _torch_loss_grads(tp, toks, labs, cfg_t)
+    L = cfg_t.num_layers
+    assert len(calls) == 2 * L + 1
+    calls.clear()
+    _l1, got = _torch_loss_grads(tp, toks, labs,
+                                 cfg_t.scaled(remat=True, remat_policy=policy))
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert len(calls) == 4 * L + 1
+
+
 def test_dots_saves_exactly_the_unbatched_products():
     cfg = TG.GPT_TINY.scaled(num_layers=1)
     seen = []
@@ -157,16 +205,19 @@ def _oracle_steps(jp, jopt, toks, labs, cfg_j, n, fused):
     return jp, jopt, losses
 
 
-@pytest.mark.parametrize("fused,mdt", [(True, None), (True, "bf16"),
-                                       (False, None)],
-                         ids=["fused-f32", "fused-bf16", "per-leaf-f32"])
-def test_train_step_tracks_oracle(fused, mdt):
+@pytest.mark.parametrize("fused,mdt,levers", [
+    (True, None, False), (True, "bf16", False), (False, None, False),
+    (True, None, True)],
+    ids=["fused-f32", "fused-bf16", "per-leaf-f32", "fused-f32-fln-vchunk"])
+def test_train_step_tracks_oracle(fused, mdt, levers):
     """3 steps at lr 1e-2 (large, so the params move): losses to 1e-5
     relative; params to 1e-2·lr — Adam divides by sqrt(v), so where a
     gradient is near zero a last-bit difference in it moves u = m/sqrt(v)
     by up to a percent of a step; moments to 1e-5 (f32) or 1 bf16 ulp of
-    the largest moment (bf16 storage rounds both sides)."""
-    cfg_j, cfg_t = _cfgs(use_flash=True, remat=True, remat_policy="dots")
+    the largest moment (bf16 storage rounds both sides). ``levers`` adds
+    the fused-layernorm block and the vocab-chunked CE."""
+    cfg_j, cfg_t = _cfgs(use_flash=True, remat=True, remat_policy="dots",
+                         **(_LEVERS["both"] if levers else {}))
     jp, tp = _params(cfg_j, seed=3)
     jdt = jnp.bfloat16 if mdt else None
     jopt = PZ.init_adamw_state(jp, moment_dtype=jdt, fused=fused)
@@ -242,11 +293,13 @@ def test_refusals_and_defaults():
         TG.GPT_TINY.scaled(remat_policy="sometimes")
     with pytest.raises(NotImplementedError):
         TPZ.ParallelConfig(dp=2)
-    cfg = TG.GPT_TINY.scaled(num_layers=1, ce_vocab_chunk=64)
+    # ce_vocab_chunk is ported: the chunked loss equals the direct one
+    cfg = TG.GPT_TINY.scaled(num_layers=1)
     p = TG.init_params(cfg, seed=0, device="cpu")
-    with pytest.raises(NotImplementedError):
-        TG.loss_fn(p, torch.zeros((1, 4), dtype=torch.long),
-                   torch.zeros((1, 4), dtype=torch.long), cfg)
+    toks = torch.arange(8, dtype=torch.long).reshape(1, 8)
+    direct = TG.loss_fn(p, toks, toks, cfg)
+    chunked = TG.loss_fn(p, toks, toks, cfg.scaled(ce_vocab_chunk=64))
+    torch.testing.assert_close(chunked, direct, rtol=1e-6, atol=0)
     assert TG.train_flops_per_token(TG.GPT_SMALL, 163109376, 1024) == \
         JG.train_flops_per_token(JG.GPT_SMALL, 163109376, 1024)
     if not torch.cuda.is_available():
