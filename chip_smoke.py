@@ -17,9 +17,15 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              (|plain| + its row's max |plain|) + 1e-5, float32 within
              1e-5, updated KV caches bitwise (paged: pages 1..512 — page
              0 is the scratch page dead lanes write — and the shared and
-             dead-lane pages untouched); then the bf16 kernel, its plain
+             dead-lane pages untouched); then each kernel, its plain
              version and one PyTorch library call are timed with CUDA
-             events;
+             events (the decode kernels, their plain versions and
+             yardsticks as CUDA-graph replays: device time without the
+             host's enqueue, which the eager time eager_ms includes), in
+             both dtypes; the decode kernels also with every
+             lane at position 15, 511 and 1023 (checked against the plain
+             version there too), and the paged one beside paged_gather +
+             SDPA as well as SDPA on the pre-gathered view;
 4. serving — a GPT_SMALL bf16 engine (seed weights, max_batch 8, max_seq
              1024, buckets 64..512) serves 16 seeded greedy requests
              through Scheduler + EngineLoop; every request must finish
@@ -131,6 +137,41 @@ def _time_ms(fn, iters: int = 100, warmup: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
+_SIDE = None     # the stream _time_graph_ms warms up on
+
+
+def _time_graph_ms(fn, calls: int, replays: int = 20) -> float:
+    """ms a call of ``fn`` on the device alone: ``calls`` calls captured
+    into one CUDA graph, replayed ``replays`` times between two CUDA
+    events. Eager back-to-back calls of a kernel shorter than its
+    wrapper's host cost time the host's enqueue, not the kernel."""
+    global _SIDE
+    if _SIDE is None:
+        _SIDE = torch.cuda.Stream()
+    side = _SIDE
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):      # warm up off the default stream
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / (replays * calls)
+    del graph
+    return ms
+
+
 def _over_layers(fn, n: int):
     """A thunk calling fn(0), fn(1), ..., fn(n-1), fn(0), ... — timed
     launches walk the layers' slabs as a decode tick does, so the caches
@@ -215,27 +256,40 @@ def phase_kernels(dtype, time_it: bool):
         raise AssertionError(f"decode_slab {dtype}: masked lane was written")
     rec = {"max_abs_err": _check_out("decode_slab", got, want, dtype)}
     if time_it:
-        rec["ms"] = _time_ms(_over_layers(
+        kern = _over_layers(
             lambda i: CK.fused_decode_attention(q, kc[i], vc[i], nk, nv,
-                                                positions, active), L))
-        rec["plain_ms"] = _time_ms(_over_layers(
+                                                positions, active), L)
+        rec["ms"] = _time_graph_ms(kern, 2 * L)
+        rec["eager_ms"] = _time_ms(kern)
+        rec["plain_ms"] = _time_graph_ms(_over_layers(
             lambda i: CK.fused_decode_attention_plain(
-                q, kc[i], vc[i], nk, nv, positions, active), L))
-        q4 = q.unsqueeze(2)
-        mask = (torch.arange(S, device=dev)[None, None, None, :]
-                <= positions.long()[:, None, None, None])
-        rec["library_ms"] = _time_ms(_over_layers(
-            lambda i: F.scaled_dot_product_attention(
-                q4, kc[i].transpose(1, 2), vc[i].transpose(1, 2),
-                attn_mask=mask), L))
-        rows = int((pos_np.astype(np.int64) + 1).sum())      # rows read
-        nbytes = (3 * B * nh * hd * esz                      # q, new k/v
-                  + 2 * rows * nh * hd * esz                 # K, V rows
-                  + 2 * int(act_np.sum()) * nh * hd * esz    # rows written
-                  + B * nh * hd * esz + 2 * B * 4)           # out, ints
-        flops = rows * nh * (4 * hd + 3)
-        rec["bound_ms"], rec["bound_by"] = bound_ms(nbytes, flops, "f32",
-                                                    name)
+                q, kc[i], vc[i], nk, nv, positions, active), L), 2 * L)
+        rec["library_ms"] = _time_graph_ms(_over_layers(
+            _slab_sdpa(q, kc, vc, positions), L), 2 * L)
+        rec["bound_ms"], rec["bound_by"] = _slab_bound(pos_np, act_np,
+                                                       nh, hd, esz, name)
+        sweep = {}
+        for p in SWEEP:
+            pos_p = np.full(B, p, np.int32)
+            pos_t = torch.from_numpy(pos_p).to(dev)
+            # the boundary row: every lane at pos p, kernel vs plain
+            k1, v1, k2, v2 = (t.clone() for t in (kc[0], vc[0], kc[0], vc[0]))
+            got, _, _ = CK.fused_decode_attention(q, k1, v1, nk, nv, pos_t)
+            want, _, _ = CK.fused_decode_attention_plain(q, k2, v2, nk, nv,
+                                                         pos_t)
+            torch.cuda.synchronize()
+            if not (torch.equal(k1, k2) and torch.equal(v1, v2)):
+                raise AssertionError(f"decode_slab {dtype} pos {p}: caches "
+                                     "differ from the plain version's")
+            _check_out(f"decode_slab pos {p}", got, want, dtype)
+            sweep[p] = (_time_graph_ms(_over_layers(
+                lambda i: CK.fused_decode_attention(q, kc[i], vc[i], nk, nv,
+                                                    pos_t), L), 2 * L),
+                        _time_graph_ms(_over_layers(
+                            _slab_sdpa(q, kc, vc, pos_t), L), 2 * L),
+                        _slab_bound(pos_p, np.ones(B, np.int32), nh, hd,
+                                    esz, name)[0])
+        rec["sweep"] = _sweep_line("decode_slab", dtype, sweep, "sdpa_ms")
     recs["decode_slab"] = rec
     del kc, vc, k1, v1, k2, v2
     recs["decode_paged"] = _paged_kernel_check(q, nk, nv, pos_np, dtype,
@@ -274,7 +328,6 @@ def _paged_kernel_check(q, nk, nv, pos_np, dtype, time_it: bool, randn):
     is dead (zeroed table row) and lanes 0 and 1 share their first 4
     pages."""
     from paddle_tpu_torch.models.gpt import GPT_SMALL
-    from paddle_tpu_torch.observability.hw import bound_ms
     from paddle_tpu_torch.ops import cuda_kernels as CK
 
     L, nh, hd = GPT_SMALL.num_layers, GPT_SMALL.num_heads, GPT_SMALL.head_dim
@@ -308,40 +361,131 @@ def _paged_kernel_check(q, nk, nv, pos_np, dtype, time_it: bool, randn):
                              "or a dead lane's page was written")
     rec = {"max_abs_err": _check_out("decode_paged", got, want, dtype)}
     if time_it:
-        name = torch.cuda.get_device_name(0)
-        esz = q.element_size()
-        rec["ms"] = _time_ms(_over_layers(
-            lambda i: CK.fused_paged_decode_attention(
-                q, kp[i], vp[i], nk, nv, tables, positions), L))
-        rec["plain_ms"] = _time_ms(_over_layers(
-            lambda i: CK.fused_paged_decode_attention_plain(
-                q, kp[i], vp[i], nk, nv, tables, positions), L))
         from paddle_tpu_torch.ops.decode_attention import paged_gather
 
+        name = torch.cuda.get_device_name(0)
+        esz = q.element_size()
+        kern = _over_layers(
+            lambda i: CK.fused_paged_decode_attention(
+                q, kp[i], vp[i], nk, nv, tables, positions), L)
+        rec["ms"] = _time_graph_ms(kern, 2 * L)
+        rec["eager_ms"] = _time_ms(kern)
+        rec["plain_ms"] = _time_graph_ms(_over_layers(
+            lambda i: CK.fused_paged_decode_attention_plain(
+                q, kp[i], vp[i], nk, nv, tables, positions), L), 2 * L)
         # SDPA over the pre-gathered view: no table walk, no row write
         gk = [paged_gather(kp[i], tables).transpose(1, 2) for i in range(L)]
         gv = [paged_gather(vp[i], tables).transpose(1, 2) for i in range(L)]
-        mask = (torch.arange(S, device=dev)[None, None, None, :]
-                <= positions.long()[:, None, None, None])
-        q4 = q.unsqueeze(2)
-        rec["library_ms"] = _time_ms(_over_layers(
-            lambda i: F.scaled_dot_product_attention(q4, gk[i], gv[i],
-                                                     attn_mask=mask), L))
+        rec["library_ms"] = _time_graph_ms(_over_layers(
+            _slab_sdpa(q, gk, gv, positions, heads_first=True), L), 2 * L)
         del gk, gv
-        rows = int((pos_np.astype(np.int64) + 1).sum())       # rows scored
-        # HBM reads each distinct (page, row) once: the dead lane's rows
-        # alias page 0's 16, lanes 0 and 1 share their first 4 pages
-        distinct = len({(int(tab_np[b, j // PAGE]), j % PAGE)
-                        for b in range(B) for j in range(int(pos_np[b]) + 1)})
-        table_ints = int((pos_np.astype(np.int64) // PAGE + 1).sum())
-        nbytes = (3 * B * nh * hd * esz                       # q, new k/v
-                  + 2 * distinct * nh * hd * esz              # K, V rows
-                  + 2 * B * nh * hd * esz                     # rows written
-                  + B * nh * hd * esz + B * 4                 # out, pos
-                  + table_ints * 4)                           # the table
-        rec["bound_ms"], rec["bound_by"] = bound_ms(
-            nbytes, rows * nh * (4 * hd + 3), "f32", name)
+        # the gathers and SDPA together: the table walk as a copy, no write
+        rec["gather_sdpa_ms"] = _time_graph_ms(_over_layers(
+            _gather_sdpa(q, kp, vp, tables, positions), L), 2 * L)
+        rec["bound_ms"], rec["bound_by"] = _paged_bound(
+            tab_np, pos_np, nh, hd, esz, name)
+        sweep = {}
+        tab_all = torch.from_numpy(perm).to(dev)      # 8 live lanes, no sharing
+        for p in SWEEP:
+            pos_p = np.full(B, p, np.int32)
+            pos_t = torch.from_numpy(pos_p).to(dev)
+            k1, v1, k2, v2 = (t.clone() for t in (kp[0], vp[0], kp[0], vp[0]))
+            got, _, _ = CK.fused_paged_decode_attention(q, k1, v1, nk, nv,
+                                                        tab_all, pos_t)
+            want, _, _ = CK.fused_paged_decode_attention_plain(
+                q, k2, v2, nk, nv, tab_all, pos_t)
+            torch.cuda.synchronize()
+            if not (torch.equal(k1, k2) and torch.equal(v1, v2)):
+                raise AssertionError(f"decode_paged {dtype} pos {p}: pools "
+                                     "differ from the plain version's")
+            _check_out(f"decode_paged pos {p}", got, want, dtype)
+            sweep[p] = (_time_graph_ms(_over_layers(
+                lambda i: CK.fused_paged_decode_attention(
+                    q, kp[i], vp[i], nk, nv, tab_all, pos_t), L), 2 * L),
+                        _time_graph_ms(_over_layers(
+                            _gather_sdpa(q, kp, vp, tab_all, pos_t), L),
+                            2 * L),
+                        _paged_bound(perm, pos_p, nh, hd, esz, name)[0])
+        rec["sweep"] = _sweep_line("decode_paged", dtype, sweep,
+                                   "gather_sdpa_ms")
     return rec
+
+
+SWEEP = (15, 511, 1023)     # the length sweep: every lane at this position
+
+
+def _slab_sdpa(q, kc, vc, positions, heads_first: bool = False):
+    """fn(i): SDPA of q over layer i's [B, S, nh, hd] caches (or
+    [B, nh, S, hd] views with ``heads_first``) under the length mask of
+    ``positions`` — the library yardstick, with no row write."""
+    S = kc[0].shape[2 if heads_first else 1]
+    mask = (torch.arange(S, device=q.device)[None, None, None, :]
+            <= positions.long()[:, None, None, None])
+    q4 = q.unsqueeze(2)
+    if heads_first:
+        return lambda i: F.scaled_dot_product_attention(
+            q4, kc[i], vc[i], attn_mask=mask)
+    return lambda i: F.scaled_dot_product_attention(
+        q4, kc[i].transpose(1, 2), vc[i].transpose(1, 2), attn_mask=mask)
+
+
+def _gather_sdpa(q, kp, vp, tables, positions):
+    """fn(i): layer i's pools gathered through the table (two copies of
+    [B, M * page, nh, hd]), then SDPA under the length mask."""
+    from paddle_tpu_torch.ops.decode_attention import paged_gather
+
+    S = tables.shape[1] * kp.shape[2]
+    mask = (torch.arange(S, device=q.device)[None, None, None, :]
+            <= positions.long()[:, None, None, None])
+    q4 = q.unsqueeze(2)
+    return lambda i: F.scaled_dot_product_attention(
+        q4, paged_gather(kp[i], tables).transpose(1, 2),
+        paged_gather(vp[i], tables).transpose(1, 2), attn_mask=mask)
+
+
+def _slab_bound(pos_np, act_np, nh, hd, esz, name):
+    """(bound ms, by) of one slab decode call: q and the new rows read,
+    rows 0..pos of K and V read, the active lanes' rows written, out
+    written, positions and active read; 4 hd + 3 operations a row."""
+    from paddle_tpu_torch.observability.hw import bound_ms
+
+    Bn = len(pos_np)
+    rows = int((pos_np.astype(np.int64) + 1).sum())
+    nbytes = (3 * Bn * nh * hd * esz                      # q, new k/v
+              + 2 * rows * nh * hd * esz                  # K, V rows
+              + 2 * int(act_np.sum()) * nh * hd * esz     # rows written
+              + Bn * nh * hd * esz + 2 * Bn * 4)          # out, ints
+    return bound_ms(nbytes, rows * nh * (4 * hd + 3), "f32", name)
+
+
+def _paged_bound(tab_np, pos_np, nh, hd, esz, name):
+    """(bound ms, by) of one paged decode call: as the slab's, with each
+    distinct (page, row) read once (a dead lane's rows alias page 0's,
+    shared prefix pages are read once) and the table entries 0..pos /
+    page of each lane."""
+    from paddle_tpu_torch.observability.hw import bound_ms
+
+    Bn = len(pos_np)
+    rows = int((pos_np.astype(np.int64) + 1).sum())       # rows scored
+    distinct = len({(int(tab_np[b, j // PAGE]), j % PAGE)
+                    for b in range(Bn) for j in range(int(pos_np[b]) + 1)})
+    table_ints = int((pos_np.astype(np.int64) // PAGE + 1).sum())
+    nbytes = (3 * Bn * nh * hd * esz                      # q, new k/v
+              + 2 * distinct * nh * hd * esz              # K, V rows
+              + 2 * Bn * nh * hd * esz                    # rows written
+              + Bn * nh * hd * esz + Bn * 4               # out, pos
+              + table_ints * 4)                           # the table
+    return bound_ms(nbytes, rows * nh * (4 * hd + 3), "f32", name)
+
+
+def _sweep_line(kname, dtype, sweep, lib_key):
+    """Print the length sweep (kernel ms, yardstick ms, bound ms at each
+    position) and return it keyed by the rows a lane reads."""
+    print(f"[kernels] {kname} {dtype} sweep: " + "; ".join(
+        f"pos {p}: ms={k:.6g} {lib_key}={lib:.6g} bound_ms={bd:.6g}"
+        for p, (k, lib, bd) in sweep.items()))
+    return {str(p + 1): {"ms": k, lib_key: lib, "bound_ms": bd}
+            for p, (k, lib, bd) in sweep.items()}
 
 
 def _pct(vals, q):
@@ -999,7 +1143,7 @@ def main() -> int:
     smi = phase_device()
     phase_build()
     recs = phase_kernels(torch.bfloat16, time_it=True)
-    phase_kernels(torch.float32, time_it=False)
+    f32 = phase_kernels(torch.float32, time_it=True)
     # each kernel's launches summed over the serving paths (slab, paged);
     # each path printed and asserted its own counts above
     launches = phase_serving()
@@ -1024,8 +1168,13 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
-        if "matmul_ms" in r:     # ce_fwd: the cuBLAS product, its floor
-            kernels[-1]["matmul_ms"] = r["matmul_ms"]
+        # the rest as measured: ce_fwd's cuBLAS floor (matmul_ms), the
+        # decode kernels' gather + SDPA yardstick, length sweep and f32 run
+        kernels[-1].update({k: v for k, v in r.items()
+                            if k not in kernels[-1]})
+        if name in ("decode_slab", "decode_paged"):
+            kernels[-1]["f32"] = {k: v for k, v in f32[name].items()
+                                  if k != "sweep"}
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

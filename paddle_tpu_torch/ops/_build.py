@@ -135,11 +135,11 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.ptt_ln_bwd.restype = I
     lib.ptt_ce_fwd.argtypes = [P] * 7 + [I] * 8 + [P]
     lib.ptt_ce_fwd.restype = I
-    lib.ptt_decode_slab.argtypes = [P, P, P, LL, P, P, P, P, P, I, I, I, I,
-                                    F, I, I, P]
+    lib.ptt_decode_slab.argtypes = [P, P, P, LL] + [P] * 6 + [I] * 6 + [
+        F, I, I, P]
     lib.ptt_decode_slab.restype = I
-    lib.ptt_decode_paged.argtypes = [P, P, P, LL, P, P, P, P, P, I, I, I, I,
-                                     I, I, F, I, I, P]
+    lib.ptt_decode_paged.argtypes = [P, P, P, LL] + [P] * 6 + [I] * 8 + [
+        F, I, I, P]
     lib.ptt_decode_paged.restype = I
     lib.ptt_logits_head.argtypes = [P, P, P, P, P, I, I, I, F, I, P]
     lib.ptt_logits_head.restype = I

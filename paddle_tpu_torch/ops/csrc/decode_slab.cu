@@ -1,4 +1,4 @@
-// One-launch slab decode step: write-guarded KV row update + masked
+// One-call slab decode step: write-guarded KV row update + masked
 // one-query attention, per (slot, head).
 //
 // Replaces: _decode_slab_kernel, paddle_tpu/ops/pallas_kernels.py:1338
@@ -12,15 +12,13 @@
 // What bounds it on the card: HBM bytes. Per (b, h) it reads pos+1 rows
 // of K and of V (hd elements each) and does 4*hd operations per row — far
 // below the card's ridge point. The TPU kernel streamed the whole
-// [S, hd] slab through VMEM and masked; here each block walks only the
-// pos+1 rows it needs, so the work and the bound both scale with the
+// [S, hd] slab through VMEM and masked; here only the chunks that hold
+// rows 0..pos do any work, so the work and the bound both scale with the
 // sequence's length, not with max_seq.
 //
-// Design: the kernel body is shared with decode_paged.cu
-// (decode_attention.cuh); the slab's row policy addresses row j of slot b
-// at (b * S + j) * nh * hd. Known limit: at B=8, nh=12 the grid is 96
-// blocks on 132 SMs, so 36 SMs idle; splitting rows across blocks
-// (flash-decoding) is later work.
+// Design: the flash-decoding body and its merge are shared with
+// decode_paged.cu (decode_attention.cuh); the slab's row policy addresses
+// row j of slot b at (b * S + j) * nh * hd and needs no staging.
 #include "decode_attention.cuh"
 
 namespace {
@@ -29,16 +27,19 @@ struct SlabRows {
   const int* active;
   int S;
   size_t rs;    // elements per cache row (nh * hd)
-  size_t base;  // set by bind: the slot's first row
+  size_t base;  // set by bind: the chunk's first row
+  size_t wrow;  // set by bind: row pos
 
-  __device__ int rows() const { return S; }
-  __device__ bool bind(int b, int /*pos*/, int* /*table*/) {
-    base = static_cast<size_t>(b) * S * rs;
+  __host__ __device__ int rows() const { return S; }
+  static size_t smem_bytes(int /*chunk*/) { return 0; }
+  __device__ bool bind(int b, int pos, int c0, int /*chunk*/, int* /*sh*/) {
+    base = (static_cast<size_t>(b) * S + c0) * rs;
+    wrow = (static_cast<size_t>(b) * S + pos) * rs;
     return true;
   }
   __device__ bool writes(int b) const { return active[b] != 0; }
-  __device__ size_t row(int j) const {
-    return base + static_cast<size_t>(j) * rs;
+  __device__ size_t row(int r) const {
+    return base + static_cast<size_t>(r) * rs;
   }
 };
 
@@ -46,19 +47,23 @@ struct SlabRows {
 
 // q, new_k, new_v: [B, nh, hd], row b at b * row_stride, heads and head
 // dim contiguous, dtype q_dtype; k_cache, v_cache: [B, S, nh, hd]
-// contiguous, dtype c_dtype, updated in place; positions, active: [B]
-// int32; out: [B, nh, hd] contiguous, dtype q_dtype. hd divides 128.
+// contiguous and 16-byte aligned, dtype c_dtype, updated in place;
+// positions, active: [B] int32; out: [B, nh, hd] contiguous, dtype
+// q_dtype; workspace: [B, nh, nsplit, hd + 2] float32 with chunk * nsplit
+// >= S. hd is 16, 32, 64 or 128. Enqueues the split pass and the merge.
 extern "C" int ptt_decode_slab(const void* q, const void* new_k,
                                const void* new_v, long long row_stride,
                                void* k_cache, void* v_cache,
                                const void* positions, const void* active,
-                               void* out, int B, int S, int nh, int hd,
+                               void* out, void* workspace, int B, int S,
+                               int nh, int hd, int chunk, int nsplit,
                                float sm_scale, int q_dtype, int c_dtype,
                                void* stream) {
   const SlabRows rows{static_cast<const int*>(active), S,
-                      static_cast<size_t>(nh) * hd, 0};
-  return ptt::decode::launch(q, new_k, new_v, row_stride, k_cache, v_cache,
-                             positions, rows, out, B, nh, hd, sm_scale,
-                             q_dtype, c_dtype,
-                             ptt::decode::smem_bytes(hd, S, 0), stream);
+                      static_cast<size_t>(nh) * hd, 0, 0};
+  const ptt::decode::Args a{q, new_k, new_v, row_stride, k_cache, v_cache,
+                            static_cast<const int*>(positions),
+                            static_cast<float*>(workspace), out, B, nh, hd,
+                            chunk, nsplit, sm_scale};
+  return ptt::decode::launch(a, rows, q_dtype, c_dtype, stream);
 }

@@ -14,7 +14,8 @@ Each public function routes by the device its tensors lie on:
   ``ops/_build.py``) or raise. There is no fallback: a kernel that cannot
   take its inputs raises instead of quietly running the plain version.
 
-``LAUNCHES[name]`` counts kernel launches, one per call that launched.
+``LAUNCHES[name]`` counts kernel launches, one per call that launched
+(a decode call enqueues its split pass and its merge: one launch).
 JAX's ``_count_launch`` (``pallas_kernels.py:853``) ticks once per TRACE —
 once per compiled executable, however often it runs; eager PyTorch has no
 trace, so the port counts every launch. A decode tick of the engine
@@ -30,8 +31,9 @@ times (2·L in the forward, 2·L recomputed, the final LN) and
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
@@ -214,7 +216,8 @@ def fused_decode_attention(q, k_cache, v_cache, new_k, new_v, positions,
     IN PLACE (only row ``positions[b]`` of slot b, and only where
     ``active[b] != 0``); positions/active: [B] int32 (``active`` None =
     every lane writes). Attention covers rows ``0..positions[b]``.
-    Positions must lie in [0, S).
+    Positions must lie in [0, S); on the card a lane outside answers zeros
+    and writes nothing. The kernel takes hd 16, 32, 64 or 128.
 
     Returns (out [B, nh, hd] in q.dtype, k_cache, v_cache) — the caches
     are the tensors passed in, returned for the JAX signature's sake.
@@ -228,60 +231,99 @@ def fused_decode_attention(q, k_cache, v_cache, new_k, new_v, positions,
         return fused_decode_attention_plain(q, k_cache, v_cache, new_k,
                                             new_v, positions, active,
                                             sm_scale)
-    q_code, c_code = _check_decode_inputs(
-        "fused_decode_attention", q, new_k, new_v, k_cache, v_cache,
-        (B, S, nh, hd), B, S, 0)
-    for name, t in (("positions", positions), ("active", active)):
-        _check_ints("fused_decode_attention", name, t, (B,))
+    fn = "fused_decode_attention"
+    q_code, c_code = _check_decode_inputs(fn, q, new_k, new_v, k_cache,
+                                          v_cache, (B, S, nh, hd), B)
+    _check_ints(fn, "positions", positions, (B,))
+    _check_ints(fn, "active", active, (B,))
     out = torch.empty((B, nh, hd), dtype=q.dtype, device=q.device)
     if B == 0:
         return out, k_cache, v_cache
+    chunk, nsplit = _decode_split(S, hd, k_cache.element_size())
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    ws = _workspace(q.device, stream, B * nh * nsplit * (hd + 2))
     lib = _lib()
     err = lib.ptt_decode_slab(
         q.data_ptr(), new_k.data_ptr(), new_v.data_ptr(), q.stride(0),
         k_cache.data_ptr(), v_cache.data_ptr(), positions.data_ptr(),
-        active.data_ptr(), out.data_ptr(), B, S, nh, hd, float(sm_scale),
-        q_code, c_code, _stream(q))
+        active.data_ptr(), out.data_ptr(), ws.data_ptr(), B, S, nh, hd,
+        chunk, nsplit, float(sm_scale), q_code, c_code, stream)
     _check_launch(lib, err, "decode_slab")
     return out, k_cache, v_cache
 
 
+# The decode kernels' split pass (ops/csrc/decode_attention.cuh): 128
+# threads a block, each loading 4 rows' 16 bytes of K and of V a tile.
+_DECODE_HDS = (16, 32, 64, 128)
+_DECODE_MAX_SPLITS = 64     # chunks a lane at most: the merge's serial loop
+_DECODE_STAGING = 32 * 1024   # bytes of a paged chunk's staged rows (int32)
+# (device index, stream) -> the float32 partials of the split pass
+_WORKSPACE: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+@functools.lru_cache(maxsize=64)
+def _decode_split(rows: int, hd: int, cache_esz: int,
+                  page: int = 1) -> Tuple[int, int]:
+    """(chunk, nsplit): the rows of a lane's chunk in the decode kernels'
+    split pass and the number of chunks that cover ``rows``. A chunk is
+    whole tiles — 4 x 128 threads' 16-byte loads, so 64 rows at bf16 and
+    hd 64 — at most 64 chunks a lane, rounded up to whole pages. It comes
+    from the shapes alone: the host never reads the positions."""
+    tile = 4 * 128 * (16 // cache_esz) // hd
+    chunk = tile * -(-rows // (tile * _DECODE_MAX_SPLITS))
+    chunk = -(-chunk // page) * page
+    return chunk, -(-rows // chunk)
+
+
+def _workspace(dev, stream: int, n: int) -> torch.Tensor:
+    """At least ``n`` float32 elements of scratch for (device, stream),
+    kept across calls: calls on one stream run in order, so one buffer
+    serves them all, and a call allocates only when it needs more."""
+    key = (dev.index, stream)
+    buf = _WORKSPACE.get(key)
+    if buf is None or buf.numel() < n:
+        buf = _WORKSPACE[key] = torch.empty(n, dtype=torch.float32,
+                                            device=dev)
+    return buf
+
+
 def _check_decode_inputs(fn, q, new_k, new_v, k_cache, v_cache, cache_shape,
-                         B, rows, table_ints):
-    """The decode kernels' shared checks: dtypes, the caches' shape and
-    contiguity, q/new_k/new_v as [B, nh, hd] with contiguous heads and one
-    batch stride, hd dividing the block, and the score buffer (``rows``
-    floats + ``table_ints`` ints) within shared memory. Returns the dtype
-    codes of q and the cache."""
+                         B):
+    """The decode kernels' shared checks: dtypes, the caches' shape,
+    contiguity and 16-byte alignment, q/new_k/new_v as [B, nh, hd] with
+    contiguous heads and one batch stride, and hd in 16, 32, 64, 128.
+    Returns the dtype codes of q and the cache. A message is built only
+    when a check fails: the engine calls this L times a tick."""
     nh, hd = cache_shape[-2:]
     q_code = _dtype_code(q, f"{fn} q")
     c_code = _dtype_code(k_cache, f"{fn} cache")
-    _require(tuple(k_cache.shape) == tuple(cache_shape)
-             and tuple(v_cache.shape) == tuple(cache_shape)
-             and v_cache.dtype == k_cache.dtype,
-             f"{fn}: the V cache must match the K cache {tuple(cache_shape)}")
-    _require(k_cache.is_contiguous() and v_cache.is_contiguous(),
-             f"{fn}: caches must be contiguous")
+    if not (k_cache.shape == cache_shape and v_cache.shape == cache_shape
+            and v_cache.dtype == k_cache.dtype):
+        raise ValueError(f"{fn}: the V cache must match the K cache "
+                         f"{tuple(cache_shape)}")
+    if not (k_cache.is_contiguous() and v_cache.is_contiguous()):
+        raise ValueError(f"{fn}: caches must be contiguous")
+    if k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16:
+        raise ValueError(f"{fn}: caches must be 16-byte aligned")
+    bs = q.stride(0)
     for name, t in (("q", q), ("new_k", new_k), ("new_v", new_v)):
-        _require(tuple(t.shape) == (B, nh, hd) and t.dtype == q.dtype,
-                 f"{fn}: {name} must be [{B}, {nh}, {hd}] {q.dtype}, got "
-                 f"{tuple(t.shape)} {t.dtype}")
-        _require(t.stride(2) == 1 and t.stride(1) == hd
-                 and t.stride(0) == q.stride(0),
-                 f"{fn}: {name} needs contiguous heads and the same batch "
-                 "stride as q")
-    _require(hd <= 128 and 128 % hd == 0,
-             f"{fn}: head_dim {hd} must divide 128")
-    _require((hd + rows + 128) * 4 + table_ints * 4 <= _SMEM_DEFAULT,
-             f"{fn}: {rows} rows exceed the kernel's score buffer")
+        if not (t.shape == (B, nh, hd) and t.dtype == q.dtype):
+            raise ValueError(f"{fn}: {name} must be [{B}, {nh}, {hd}] "
+                             f"{q.dtype}, got {tuple(t.shape)} {t.dtype}")
+        if not (t.stride(2) == 1 and t.stride(1) == hd
+                and t.stride(0) == bs):
+            raise ValueError(f"{fn}: {name} needs contiguous heads and the "
+                             "same batch stride as q")
+    if hd not in _DECODE_HDS:
+        raise ValueError(f"{fn}: head_dim {hd} not in {_DECODE_HDS}")
     return q_code, c_code
 
 
 def _check_ints(fn, name, t, shape):
     if t.dtype != torch.int32:
         raise TypeError(f"{fn}: {name} must be int32")
-    _require(tuple(t.shape) == tuple(shape) and t.is_contiguous(),
-             f"{fn}: {name} must be {list(shape)} contiguous")
+    if not (t.shape == shape and t.is_contiguous()):
+        raise ValueError(f"{fn}: {name} must be {list(shape)} contiguous")
 
 
 # ---------------------------------------------------------------------------
@@ -310,7 +352,7 @@ def fused_paged_decode_attention_plain(q, k_pool, v_pool, new_k, new_v,
 def fused_paged_decode_attention(q, k_pool, v_pool, new_k, new_v, tables,
                                  positions, sm_scale=None):
     """Paged KV row write + masked one-token attention through the page
-    table, in one launch.
+    table, in one call.
 
     q/new_k/new_v: [B, nh, hd]; k_pool/v_pool: [P, page, nh, hd], updated
     IN PLACE (row ``positions[b] % page`` of page
@@ -318,7 +360,8 @@ def fused_paged_decode_attention(q, k_pool, v_pool, new_k, new_v, tables,
     writes scratch page 0); tables: [B, M] int32; positions: [B] int32.
     Attention covers logical rows ``0..positions[b]``. On the card a lane
     whose position lies outside [0, M * page) or whose table reaches a
-    page outside [0, P) answers zeros and writes nothing.
+    page outside [0, P) answers zeros and writes nothing. The kernel takes
+    hd 16, 32, 64 or 128 and pages of up to 8,192 rows.
 
     Returns (out [B, nh, hd] in q.dtype, k_pool, v_pool) — the pools are
     the tensors passed in, returned for the JAX signature's sake.
@@ -330,21 +373,28 @@ def fused_paged_decode_attention(q, k_pool, v_pool, new_k, new_v, tables,
     if not _on_card(q, k_pool, v_pool, new_k, new_v, tables, positions):
         return fused_paged_decode_attention_plain(
             q, k_pool, v_pool, new_k, new_v, tables, positions, sm_scale)
-    q_code, c_code = _check_decode_inputs(
-        "fused_paged_decode_attention", q, new_k, new_v, k_pool, v_pool,
-        (P, page, nh, hd), B, M * page, M)
-    _check_ints("fused_paged_decode_attention", "tables", tables, (B, M))
-    _check_ints("fused_paged_decode_attention", "positions", positions,
-                (B,))
+    fn = "fused_paged_decode_attention"
+    q_code, c_code = _check_decode_inputs(fn, q, new_k, new_v, k_pool,
+                                          v_pool, (P, page, nh, hd), B)
+    _check_ints(fn, "tables", tables, (B, M))
+    _check_ints(fn, "positions", positions, (B,))
+    chunk, nsplit = _decode_split(M * page, hd, k_pool.element_size(), page)
+    if chunk * 4 > _DECODE_STAGING or P * page >= 2 ** 31:
+        raise ValueError(f"{fn}: a chunk of {chunk} rows (page {page}) "
+                         f"exceeds the kernel's {_DECODE_STAGING // 4} "
+                         f"staged rows, or the pool's {P} x {page} rows "
+                         "reach 2^31")
     out = torch.empty((B, nh, hd), dtype=q.dtype, device=q.device)
     if B == 0:
         return out, k_pool, v_pool
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    ws = _workspace(q.device, stream, B * nh * nsplit * (hd + 2))
     lib = _lib()
     err = lib.ptt_decode_paged(
         q.data_ptr(), new_k.data_ptr(), new_v.data_ptr(), q.stride(0),
         k_pool.data_ptr(), v_pool.data_ptr(), tables.data_ptr(),
-        positions.data_ptr(), out.data_ptr(), B, M, page, P, nh, hd,
-        float(sm_scale), q_code, c_code, _stream(q))
+        positions.data_ptr(), out.data_ptr(), ws.data_ptr(), B, M, page, P,
+        nh, hd, chunk, nsplit, float(sm_scale), q_code, c_code, stream)
     _check_launch(lib, err, "decode_paged")
     return out, k_pool, v_pool
 

@@ -32,7 +32,8 @@ import numpy as np
 import torch
 
 # substring of a kernel's (demangled) name -> its group; the two decode
-# kernels are instances of one template, told apart by their row policy
+# kernels are instances of one template pair (split pass and merge), told
+# apart by the row policy both carry as a template argument
 OURS = {"fused_ln_fwd_kernel": "fused_ln", "SlabRows": "decode_slab",
         "PagedRows": "decode_paged", "logits_head_kernel": "logits_head"}
 

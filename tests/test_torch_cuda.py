@@ -140,6 +140,148 @@ def test_decode_paged_matches_plain_small_shapes(chip_smoke, dtype):
     assert torch.equal(k3[1:], kp[1:])
 
 
+def _decode_inputs(card, dtype, B, nh, hd, cache_shape, seed):
+    """q/new_k/new_v sliced from one qkv (as the engine slices them) and
+    a K and a V cache of ``cache_shape``, seeded normals in ``dtype``."""
+    g = torch.Generator(device=card)
+    g.manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=card).to(dtype)
+
+    qkv = randn(B, 3, nh, hd)
+    return qkv[:, 0], qkv[:, 1], qkv[:, 2], randn(*cache_shape), randn(
+        *cache_shape)
+
+
+def _split_positions(chunk, rows):
+    """Positions on the split pass's edges: the first row, the last row of
+    the first chunk, the first and second of the next, the last row."""
+    return [0, chunk - 1, chunk, chunk + 1, rows - 1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("S", [1024, 1000], ids=["S1024", "S1000"])
+def test_decode_slab_split_edges(chip_smoke, dtype, hd, S):
+    """Lanes at positions 0, C-1, C, C+1 and S-1 for the split pass's
+    chunk C (S 1000: the last chunk is short), one inactive: the output
+    against the plain version, the caches bitwise, one counted launch;
+    then every lane inactive: the caches untouched bit for bit."""
+    from paddle_tpu_torch.ops import cuda_kernels as CK
+
+    card = torch.device("cuda")
+    nh = 3
+    chunk, _ = CK._decode_split(S, hd, torch.empty((), dtype=dtype)
+                                .element_size())
+    pos_l = _split_positions(chunk, S) + [S // 2]
+    B = len(pos_l)
+    q, nk, nv, kc, vc = _decode_inputs(card, dtype, B, nh, hd,
+                                       (B, S, nh, hd), hd + S)
+    pos = torch.tensor(pos_l, dtype=torch.int32, device=card)
+    for act_l in ([1, 1, 1, 0, 1, 1], [0] * B):
+        act = torch.tensor(act_l, dtype=torch.int32, device=card)
+        k1, v1, k2, v2 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+        CK.reset_launches()
+        got, _, _ = CK.fused_decode_attention(q, k1, v1, nk, nv, pos, act)
+        want, _, _ = CK.fused_decode_attention_plain(q, k2, v2, nk, nv, pos,
+                                                     act)
+        torch.cuda.synchronize()
+        assert CK.LAUNCHES["decode_slab"] == 1
+        assert torch.equal(k1, k2) and torch.equal(v1, v2)
+        if not any(act_l):
+            assert torch.equal(k1, kc) and torch.equal(v1, vc)
+        chip_smoke._check_out("decode_slab", got, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("page", [8, 16, 32])
+def test_decode_paged_split_edges(chip_smoke, dtype, hd, page):
+    """Pools [P, page, 3, hd] with M = 512 / page pages a lane: lanes at
+    positions 0, C-1, C, C+1 and M * page - 1 for the chunk C, a dead
+    lane, two lanes sharing their first page: the output against the
+    plain version, pages 1..P-1 bitwise, one counted launch. Then a lane
+    whose bad table entry lies in a chunk other than the one holding pos
+    answers zeros and writes nothing, and the other lanes are unchanged."""
+    from paddle_tpu_torch.ops import cuda_kernels as CK
+
+    card = torch.device("cuda")
+    nh, M = 3, 512 // page
+    rows = M * page
+    esz = torch.empty((), dtype=dtype).element_size()
+    chunk, nsplit = CK._decode_split(rows, hd, esz, page)
+    assert chunk % page == 0 and nsplit > 2
+    pos_l = _split_positions(chunk, rows) + [0, rows // 2]
+    B = len(pos_l)
+    P = B * M + 1
+    q, nk, nv, kp, vp = _decode_inputs(card, dtype, B, nh, hd,
+                                       (P, page, nh, hd), hd + page)
+    perm = np.random.default_rng(page).permutation(np.arange(1, P)).astype(
+        np.int32).reshape(B, M)
+    tab = perm.copy()
+    tab[3, 0] = tab[2, 0]          # lanes 2 and 3 share their first page
+    tab[5] = 0                     # dead lane: scratch page 0
+    tables = torch.from_numpy(tab).to(card)
+    pos = torch.tensor(pos_l, dtype=torch.int32, device=card)
+    k1, v1, k2, v2 = kp.clone(), vp.clone(), kp.clone(), vp.clone()
+    CK.reset_launches()
+    got, _, _ = CK.fused_paged_decode_attention(q, k1, v1, nk, nv, tables,
+                                                pos)
+    want, _, _ = CK.fused_paged_decode_attention_plain(q, k2, v2, nk, nv,
+                                                       tables, pos)
+    torch.cuda.synchronize()
+    assert CK.LAUNCHES["decode_paged"] == 1
+    assert torch.equal(k1[1:], k2[1:]) and torch.equal(v1[1:], v2[1:])
+    live = [b for b in range(B) if b != 5]
+    chip_smoke._check_out("decode_paged", got[live], want[live], dtype)
+    # lane 4 (pos C + 1, its row in chunk 1) with a bad entry in chunk 0;
+    # lane 1 (pos C - 1, chunk 0) with a bad entry past its pos: accepted
+    bad = tab.copy()
+    bad[4, 0] = P
+    bad[1, M - 1] = -1
+    k3, v3 = kp.clone(), vp.clone()
+    out, _, _ = CK.fused_paged_decode_attention(
+        q, k3, v3, nk, nv, torch.from_numpy(bad).to(card), pos)
+    torch.cuda.synchronize()
+    assert torch.equal(out[4], torch.zeros_like(out[4]))
+    w4 = int(tab[4, pos_l[4] // page])
+    assert torch.equal(k3[w4], kp[w4]) and torch.equal(v3[w4], vp[w4])
+    keep = [b for b in live if b != 4]
+    assert torch.equal(out[keep], got[keep])
+    others = torch.ones(P, dtype=torch.bool, device=card)
+    others[0] = others[w4] = False
+    assert torch.equal(k3[others], k1[others])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_decode_slab_beyond_the_old_row_cap(chip_smoke, dtype):
+    """A slab of 16,384 rows a slot, which the score-buffer design
+    refused (about 12k rows): the output against the plain version, the
+    caches bitwise, one counted launch."""
+    from paddle_tpu_torch.ops import cuda_kernels as CK
+
+    card = torch.device("cuda")
+    B, S, nh, hd = 2, 16384, 2, 64
+    q, nk, nv, kc, vc = _decode_inputs(card, dtype, B, nh, hd,
+                                       (B, S, nh, hd), 11)
+    pos = torch.tensor([S - 1, 12345], dtype=torch.int32, device=card)
+    k2, v2 = kc.clone(), vc.clone()
+    CK.reset_launches()
+    got, _, _ = CK.fused_decode_attention(q, kc, vc, nk, nv, pos)
+    want, _, _ = CK.fused_decode_attention_plain(q, k2, v2, nk, nv, pos)
+    torch.cuda.synchronize()
+    assert CK.LAUNCHES["decode_slab"] == 1
+    assert torch.equal(kc, k2) and torch.equal(vc, v2)
+    chip_smoke._check_out("decode_slab", got, want, dtype)
+
+
 @pytest.mark.cuda
 def test_wrappers_raise_on_inputs_the_kernels_do_not_take(card):
     from paddle_tpu_torch.ops import cuda_kernels as CK
@@ -179,9 +321,15 @@ def test_wrappers_raise_on_inputs_the_kernels_do_not_take(card):
         CK.fused_paged_decode_attention(q24, p24, p24.clone(), q24, q24,
                                         tables, pos)
     with pytest.raises(ValueError, match="rows"):
+        # a page past the split pass's staging: 16,384 rows a chunk
+        big = torch.zeros((2, 16384, 2, 16), device=card)
         CK.fused_paged_decode_attention(
-            q, pool, pool.clone(), q, q,
-            torch.zeros((2, 2048), dtype=torch.int32, device=card), pos)
+            q, big, big.clone(), q, q,
+            torch.zeros((2, 1), dtype=torch.int32, device=card), pos)
+    with pytest.raises(ValueError, match="16-byte"):
+        flat = torch.zeros(2 * 8 * 2 * 16 + 1, device=card)
+        CK.fused_decode_attention(q, flat[1:].view(2, 8, 2, 16), kc, q, q,
+                                  pos)
 
 
 @pytest.mark.cuda
