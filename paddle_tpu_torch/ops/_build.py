@@ -141,7 +141,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.ptt_decode_paged.argtypes = [P, P, P, LL] + [P] * 6 + [I] * 8 + [
         F, I, I, P]
     lib.ptt_decode_paged.restype = I
-    lib.ptt_logits_head.argtypes = [P, P, P, P, P, I, I, I, F, I, P]
+    lib.ptt_logits_head.argtypes = [P, P, P, P, P, I, I, I, I, I, F, I, P]
     lib.ptt_logits_head.restype = I
     fl = [P, P, P, P, P, I, I, I, I, LL, LL, LL, F, I, I, P]
     lib.ptt_flash_fwd.argtypes = fl

@@ -27,7 +27,6 @@ _NEG_INF = -0.7 * float(np.finfo(np.float32).max)
 _LAYOUTS = ("dv", "vd")
 _BM = 64                # rows of a block of the kernel (ops/csrc/ce_fwd.cu)
 _BN = 128               # vocab columns of one of its tiles
-_SMS = {}               # device index -> multiprocessor count
 CE_BWD_RANGE = "chunked_ce_bwd"   # the profiler range of the backward sweep
 
 
@@ -77,13 +76,6 @@ def ce_fwd_plain(x, head, bias, labels, v_chunk: int, vocab: int,
     return m + torch.log(s), gold
 
 
-def _num_sms(dev) -> int:
-    idx = dev.index if dev.index is not None else torch.cuda.current_device()
-    if idx not in _SMS:
-        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
-    return _SMS[idx]
-
-
 def ce_fwd(x, head, bias, labels, v_chunk: int, vocab: int,
            layout: str = "dv"):
     """(lse, gold) float32 [n] for rows ``x`` [n, D] against ``head``
@@ -131,7 +123,7 @@ def ce_fwd(x, head, bias, labels, v_chunk: int, vocab: int,
         return lse, gold
     # split the vocab so that about four blocks a multiprocessor run
     row_tiles, vtiles = -(-n // _BM), -(-vp // _BN)
-    nsplit = max(1, min(vtiles, -(-4 * _num_sms(x.device) // row_tiles)))
+    nsplit = max(1, min(vtiles, -(-4 * _ck._num_sms(x.device) // row_tiles)))
     scratch = torch.empty(3 * nsplit * n, dtype=torch.float32,
                           device=x.device)
     lib = _ck._lib()

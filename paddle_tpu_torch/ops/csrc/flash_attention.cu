@@ -1,14 +1,13 @@
-// FlashAttention-2 for training: forward, dQ and dK/dV kernels.
+// FlashAttention-2 for training: the dQ and dK/dV kernels.
 //
-// Replaces: _fwd_kernel (paddle_tpu/ops/pallas_kernels.py:74, called at
-// :176), _bwd_dq_kernel (:205, called at :349) and _bwd_dkv_kernel (:261,
-// called at :381), in the causal-or-full, bias-free forms the GPT training
-// step runs. The additive-bias form belongs to the ERNIE slice.
+// Replaces: _bwd_dq_kernel (paddle_tpu/ops/pallas_kernels.py:205, called
+// at :349) and _bwd_dkv_kernel (:261, called at :381), in the
+// causal-or-full, bias-free forms the GPT training step runs. The forward
+// (_fwd_kernel :74) is flash_fwd.cu; the additive-bias form belongs to the
+// ERNIE slice.
 //
-// What it computes, as the Pallas kernels do:
-//   forward  s = q.k^T * scale (f32 sums), causal entries -> -0.7*FLT_MAX,
-//            online softmax in f32, P rounded to v's dtype before P.V,
-//            o = acc * (1/l) in q's dtype, lse = m + log(l) (l == 0 -> 1);
+// What it computes, as the Pallas kernels do, from the forward's o and
+// lse:
 //   dQ       P = exp(s - lse), dP = dO.V^T, D = rowsum(dO*o) in f32,
 //            dS = P*(dP - D)*scale rounded to k's dtype, dQ = dS.K;
 //   dK/dV    dV = round(P).dO, dK = dS^T.Q. The reference keeps dS in f32
@@ -24,23 +23,25 @@
 // [B, T, nh, hd]; lse is [B, nh, T] float32.
 //
 // What bounds it on the card: at the training path's shape ([16, 1024,
-// 12, 64], causal) each kernel does 26-52 GFLOP on ~100-180 MB, so the
-// tensor cores bound it (about 0.03-0.05 ms at 989 TFLOP/s). Design, a
+// 12, 64], causal) each kernel does 39-52 GFLOP on ~150-180 MB, so the
+// tensor cores bound it (about 0.04-0.05 ms at 989 TFLOP/s). Design, a
 // simple one first: the TPU grid's sequential axis becomes a loop inside
-// one block; 4 warps own 16 rows each of a 64-row tile (Q rows for the
-// forward and dQ, K rows for dK/dV, so no atomics are needed and the
-// result is the same every run); the walked 64-row tiles are staged in
-// padded shared memory; bf16 products are mma.sync m16n8k16 with f32
-// accumulators, fragments loaded from shared memory; float32 products use
-// the same fragment layout on the CUDA cores. The (bq, 128) lane-
-// replicated m/l/lse scratch of the TPU kernel is one float per row held
-// by the 4 lanes that share it. Causal tiles above the diagonal are
-// skipped exactly (64-row tiles on both axes); the heaviest tiles launch
-// first. wgmma/TMA pipelines are later work.
+// one block; 4 warps own 16 rows each of a 64-row tile (Q rows for dQ, K
+// rows for dK/dV, so no atomics are needed and the result is the same
+// every run); the walked 64-row tiles are staged in padded shared memory;
+// bf16 products are mma.sync m16n8k16 with f32 accumulators, fragments
+// loaded from shared memory; float32 products use the same fragment
+// layout on the CUDA cores. The (bq, 128) lane-replicated m/l/lse scratch
+// of the TPU kernel is one float per row held by the 4 lanes that share
+// it. Causal tiles above the diagonal are skipped exactly (64-row tiles on
+// both axes); the heaviest tiles launch first. head_dim 16, 32, 64, 128.
+// ldmatrix fragments, cp.async rings and wgmma/TMA are later work here
+// (flash_fwd.cu has the first two).
 #include <cstdint>
 #include <type_traits>
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -89,15 +90,6 @@ __device__ __forceinline__ uint32_t ld_pair(const bf16* p) {
   }
 }
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // One warp: acc[n] += A[16 x K] . B[K x 8*NT], both in shared memory, with
 // A(m, k) = A[m*ASM + k*ASK] and B(k, n) = B[k*BSK + n*BSN]. Accumulator
 // layout of mma.m16n8k16 (lane = 4g + t): acc[n] holds (g, 8n+2t),
@@ -119,7 +111,8 @@ __device__ __forceinline__ void warp_mma(float (&acc)[NT][4],
 #pragma unroll
       for (int n = 0; n < NT; ++n) {
         const T* bp = B + (k0 + 2 * t) * BSK + (8 * n + g) * BSN;
-        mma_bf16(acc[n], a, ld_pair<BSK>(bp), ld_pair<BSK>(bp + 8 * BSK));
+        ptt::mma_bf16(acc[n], a, ld_pair<BSK>(bp),
+                      ld_pair<BSK>(bp + 8 * BSK));
       }
     }
   } else {
@@ -140,11 +133,7 @@ __device__ __forceinline__ void warp_mma(float (&acc)[NT][4],
   }
 }
 
-// Reduce over the 4 lanes that hold one row's accumulator columns.
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
+// Sum over the 4 lanes that hold one row's accumulator columns.
 __device__ __forceinline__ float quad_sum(float v) {
   v += __shfl_xor_sync(0xffffffffu, v, 1);
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
@@ -152,7 +141,7 @@ __device__ __forceinline__ float quad_sum(float v) {
 
 struct Args {
   const void *q, *k, *v, *o, *dout, *lse;
-  void *out0, *out1;            // fwd: o, lse; dq: dq; dkv: dk, dv
+  void *out0, *out1;            // dq: dq; dkv: dk, dv
   int T, nh;
   long long sb, st, sh;         // q/k/v strides (elements)
   float scale;
@@ -164,98 +153,6 @@ template <int HD>
 __device__ __forceinline__ long long packed_off(int b, int row, int h,
                                                 const Args& a) {
   return ((static_cast<long long>(b) * a.T + row) * a.nh + h) * HD;
-}
-
-// ---------------------------------------------------------------------------
-// forward
-// ---------------------------------------------------------------------------
-
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
-  using S = Tile<T, HD>;
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* sQ = reinterpret_cast<T*>(smem);
-  T* sK = sQ + S::kElems;
-  T* sV = sK + S::kElems;
-  T* sP = sV + S::kElems;
-  const int nq = gridDim.x;
-  const int qi = nq - 1 - blockIdx.x;  // diagonal-heavy tiles first
-  const int b = blockIdx.y / a.nh, h = blockIdx.y % a.nh;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const long long base = b * a.sb + h * a.sh;
-  const T* q = static_cast<const T*>(a.q) + base;
-  const T* k = static_cast<const T*>(a.k) + base;
-  const T* v = static_cast<const T*>(a.v) + base;
-  const int q0 = qi * kRows;
-  const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
-
-  load_tile<T, HD, S::LD>(sQ, q, a.st, q0, a.T);
-  float acc[HD / 8][4] = {};
-  float m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f};
-  T* pw = sP + warp * 16 * S::LDP;
-  const int nk = a.causal ? qi + 1 : nq;
-  for (int kj = 0; kj < nk; ++kj) {
-    __syncthreads();
-    load_tile<T, HD, S::LD>(sK, k, a.st, kj * kRows, a.T);
-    load_tile<T, HD, S::LD>(sV, v, a.st, kj * kRows, a.T);
-    __syncthreads();
-    float s[8][4] = {};
-    warp_mma<8, HD, S::LD, 1, 1, S::LD>(s, sQ + warp * 16 * S::LD, sK);
-    float mc[2] = {-CUDART_INF_F, -CUDART_INF_F};
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = kj * kRows + 8 * n + 2 * t + (e & 1);
-        float x = s[n][e] * a.scale;
-        if ((a.causal && col > row[e >> 1]) || col >= a.T) x = kNegInf;
-        s[n][e] = x;
-        mc[e >> 1] = fmaxf(mc[e >> 1], x);
-      }
-    float alpha[2], mn[2], rs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mn[r] = fmaxf(m[r], quad_max(mc[r]));
-      alpha[r] = expf(m[r] - mn[r]);
-    }
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = expf(s[n][e] - mn[e >> 1]);
-        rs[e >> 1] += p;
-        pw[(g + 8 * (e >> 1)) * S::LDP + 8 * n + 2 * t + (e & 1)] =
-            ptt::from_f32<T>(p);
-      }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      l[r] = alpha[r] * l[r] + quad_sum(rs[r]);
-      m[r] = mn[r];
-    }
-#pragma unroll
-    for (int n = 0; n < HD / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e >> 1];
-    __syncwarp();
-    warp_mma<HD / 8, kRows, S::LDP, 1, S::LD, 1>(acc, pw, sV);
-  }
-  T* o = static_cast<T*>(a.out0);
-  float* lse = static_cast<float*>(a.out1);
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (row[r] >= a.T) continue;
-    const float linv = l[r] == 0.f ? 1.f : 1.f / l[r];
-    T* orow = o + packed_off<HD>(b, row[r], h, a);
-#pragma unroll
-    for (int n = 0; n < HD / 8; ++n)
-#pragma unroll
-      for (int c = 0; c < 2; ++c)
-        orow[8 * n + 2 * t + c] = ptt::from_f32<T>(acc[n][2 * r + c] * linv);
-    if (t == 0)
-      lse[static_cast<long long>(blockIdx.y) * a.T + row[r]] =
-          m[r] + logf(l[r] == 0.f ? 1.f : l[r]);
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -442,29 +339,22 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(Args a) {
   }
 }
 
-enum Which { kFwd = 0, kDq = 1, kDkv = 2 };
+enum Which { kDq = 1, kDkv = 2 };
 
 template <typename T, int HD>
 size_t smem_bytes(int which) {
   using S = Tile<T, HD>;
-  switch (which) {
-    case kFwd:
-      return (3 * S::kElems + S::kPElems) * sizeof(T);
-    case kDq:
-      return (4 * S::kElems + S::kPElems) * sizeof(T);
-    default:
-      return 2 * kRows * sizeof(float) +
-             (4 * S::kElems + 2 * S::kPElems) * sizeof(T);
-  }
+  if (which == kDq) return (4 * S::kElems + S::kPElems) * sizeof(T);
+  return 2 * kRows * sizeof(float) +
+         (4 * S::kElems + 2 * S::kPElems) * sizeof(T);
 }
 
 template <typename T, int HD>
 int launch(int which, const Args& a, int B, cudaStream_t stream) {
   const dim3 grid((a.T + kRows - 1) / kRows, B * a.nh);
   const size_t smem = smem_bytes<T, HD>(which);
-  void (*kern)(Args) = which == kFwd  ? flash_fwd_kernel<T, HD>
-                       : which == kDq ? flash_bwd_dq_kernel<T, HD>
-                                      : flash_bwd_dkv_kernel<T, HD>;
+  void (*kern)(Args) = which == kDq ? flash_bwd_dq_kernel<T, HD>
+                                    : flash_bwd_dkv_kernel<T, HD>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -476,6 +366,8 @@ int launch(int which, const Args& a, int B, cudaStream_t stream) {
 template <typename T>
 int launch_hd(int which, const Args& a, int B, int hd, cudaStream_t s) {
   switch (hd) {
+    case 16:
+      return launch<T, 16>(which, a, B, s);
     case 32:
       return launch<T, 32>(which, a, B, s);
     case 64:
@@ -503,18 +395,7 @@ int dispatch(int which, const Args& a, int B, int hd, int dtype,
 }  // namespace
 
 // q, k, v: [B, T, nh, hd] with element strides (sb, st, sh, 1), 16-byte
-// aligned; o: contiguous [B, T, nh, hd]; lse: [B, nh, T] float32.
-extern "C" int ptt_flash_fwd(const void* q, const void* k, const void* v,
-                             void* o, void* lse, int B, int T, int nh,
-                             int hd, long long sb, long long st,
-                             long long sh, float scale, int causal,
-                             int dtype, void* stream) {
-  Args a{q, k, v, nullptr, nullptr, nullptr, o, lse,
-         T, nh, sb, st, sh, scale, causal};
-  return dispatch(kFwd, a, B, hd, dtype, stream);
-}
-
-// o, dout, dq: contiguous [B, T, nh, hd]; the rest as ptt_flash_fwd.
+// aligned; o, dout, dq: contiguous [B, T, nh, hd]; lse: [B, nh, T] float32.
 extern "C" int ptt_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 const void* o, const void* dout,
                                 const void* lse, void* dq, int B, int T,

@@ -71,7 +71,7 @@ KERNELS: Dict[str, Dict[str, str]] = {
     },
     "flash_fwd": {
         "route": "cuda",
-        "source": "paddle_tpu_torch/ops/csrc/flash_attention.cu",
+        "source": "paddle_tpu_torch/ops/csrc/flash_fwd.cu",
         "replaces": "paddle_tpu/ops/pallas_kernels.py:74",
     },
     "flash_bwd_dq": {
@@ -152,6 +152,16 @@ def _check_launch(lib, err: int, name: str) -> None:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} "
                            f"({msg})")
     LAUNCHES[name] += 1
+
+
+_SMS: Dict[int, int] = {}     # device index -> multiprocessor count
+
+
+def _num_sms(dev: torch.device) -> int:
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SMS[idx]
 
 
 def _lib():
@@ -411,11 +421,53 @@ def fused_logits_head_plain(x, scale, bias, lm_head, *, eps: float = 1e-5):
     return torch.matmul(y.float(), lm_head.float()).to(x.dtype)
 
 
+# ops/csrc/logits_head.cu: 128 vocab columns a tile, a 4-stage ring of
+# [32, 128] weight slabs, rows padded by 16 bytes; batch groups of at most
+# 48 rows (3 m-tiles of 16)
+_LH_BN, _LH_BK, _LH_STAGES, _LH_MAX_BM = 128, 32, 4, 48
+_SM_SMEM = 228 * 1024      # shared memory an SM holds, 1 KB a block reserved
+
+
+@functools.lru_cache(maxsize=64)
+def logits_head_plan(B: int, D: int, V: int, esz: int,
+                     sms: int = 132) -> Dict[str, object]:
+    """The logits-head kernel's launch plan for x [B, D] and a [D, V]
+    weight of ``esz``-byte elements on a card of ``sms`` SMs.
+
+    ``bm`` rows a batch group (16, 32 or 48): ``groups`` = ceil(B / bm)
+    groups cover every row once, as even as 16-row m-tiles allow; past
+    one group the weight is read once per group. ``smem`` is a block's
+    bytes (the group's normed rows, D padded to 32, and the weight ring),
+    ``bps`` the blocks an SM holds (at most 4). ``gy`` blocks a group
+    share the 128-column vocab tiles (block y takes tiles y, y + gy, ...),
+    as few tiles a block as fill one wave of ``sms`` x ``bps`` blocks;
+    ``grid`` is (groups, gy). Raises ``ValueError`` where not even 16 rows
+    fit beside the ring in 227 KB (D of about 6,000 at bf16)."""
+    pad = 16 // esz
+    ring = _LH_STAGES * _LH_BK * (_LH_BN + pad) * esz
+    row = (-(-D // _LH_BK) * _LH_BK + pad) * esz
+    cap = min(_LH_MAX_BM, (_SMEM_MAX - ring) // row // 16 * 16)
+    if cap < 16:
+        raise ValueError(f"fused_logits_head: rows of D = {D} leave no room "
+                         "for 16 normed rows beside the weight ring in 227 KB")
+    per = -(-B // -(-B // cap))          # rows a group, as even as may be
+    bm = 16 * -(-per // 16)
+    groups = -(-B // bm)
+    smem = bm * row + ring
+    bps = min(4, _SM_SMEM // (smem + 1024))
+    ntiles = -(-V // _LH_BN)
+    k = -(-ntiles * groups // (sms * bps))          # tiles a block
+    gy = -(-ntiles // k)
+    return {"bm": bm, "groups": groups, "gy": gy, "bps": bps,
+            "grid": (groups, gy), "smem": smem}
+
+
 def fused_logits_head(x, scale, bias, lm_head, *, eps: float = 1e-5):
     """Final layernorm + LM-head projection in one launch.
 
     x [B, D]; scale/bias [D] float32; lm_head [D, V] in x.dtype ->
-    logits [B, V] in x.dtype. The kernel takes 1 <= B <= 64."""
+    logits [B, V] in x.dtype, for any B >= 1 (batch groups of
+    :func:`logits_head_plan`)."""
     if not _on_card(x, scale, bias, lm_head):
         return fused_logits_head_plain(x, scale, bias, lm_head, eps=eps)
     code = _dtype_code(x, "fused_logits_head x")
@@ -425,24 +477,27 @@ def fused_logits_head(x, scale, bias, lm_head, *, eps: float = 1e-5):
              f"got {tuple(x.shape)} and {tuple(lm_head.shape)}")
     B, D = x.shape
     V = lm_head.shape[1]
-    _require(lm_head.dtype == x.dtype,
-             "fused_logits_head: lm_head must be in x's dtype")
+    if lm_head.dtype != x.dtype:
+        raise TypeError(f"fused_logits_head: lm_head is {lm_head.dtype}, "
+                        f"the kernel takes it in x's dtype {x.dtype}")
     if scale.dtype != torch.float32 or bias.dtype != torch.float32:
         raise TypeError("fused_logits_head: scale and bias must be float32")
     _require(tuple(scale.shape) == (D,) and tuple(bias.shape) == (D,),
              f"fused_logits_head: scale/bias must be [{D}]")
     _require(all(t.is_contiguous() for t in (x, scale, bias, lm_head)),
              "fused_logits_head: inputs must be contiguous")
-    _require(1 <= B <= 64, f"fused_logits_head: batch {B} outside 1..64")
-    _require(B * D * x.element_size() <= _SMEM_MAX,
-             f"fused_logits_head: {B}x{D} rows exceed the kernel's shared "
-             "memory")
     out = torch.empty((B, V), dtype=x.dtype, device=x.device)
+    if B == 0 or V == 0:
+        return out
+    plan = logits_head_plan(B, D, V, x.element_size(), _num_sms(x.device))
+    _require(plan["gy"] <= 65535,
+             f"fused_logits_head: V = {V} needs more than the grid's 65,535 "
+             "blocks a batch group")
     lib = _lib()
     err = lib.ptt_logits_head(x.data_ptr(), scale.data_ptr(),
                               bias.data_ptr(), lm_head.data_ptr(),
-                              out.data_ptr(), B, D, V, float(eps), code,
-                              _stream(x))
+                              out.data_ptr(), B, D, V, plan["bm"],
+                              plan["gy"], float(eps), code, _stream(x))
     _check_launch(lib, err, "logits_head")
     return out
 

@@ -3,8 +3,9 @@
 ``_bwd_dq_kernel``, ``_bwd_dkv_kernel``, the ``_flash`` custom_vjp and
 ``flash_attention``).
 
-Three hand-written kernels (``ops/csrc/flash_attention.cu``) each sit
-beside a plain PyTorch version: :func:`flash_fwd` / :func:`flash_fwd_plain`,
+Three hand-written kernels (the forward in ``ops/csrc/flash_fwd.cu``, dQ
+and dK/dV in ``ops/csrc/flash_attention.cu``) each sit beside a plain
+PyTorch version: :func:`flash_fwd` / :func:`flash_fwd_plain`,
 :func:`flash_bwd_dq` / :func:`flash_bwd_dq_plain` and :func:`flash_bwd_dkv`
 / :func:`flash_bwd_dkv_plain`. As in ``ops/cuda_kernels.py``, CPU tensors
 take the plain version and CUDA tensors launch the kernel or raise.
@@ -12,7 +13,10 @@ take the plain version and CUDA tensors launch the kernel or raise.
 The kernels read q, k and v in the public ``[B, T, nh, hd]`` layout through
 their strides (no transpose to ``[BH, T, hd]`` as JAX does), so slices of
 one packed qkv tensor are taken as they are; lse is ``[B, nh, T]`` float32,
-one value per row where the TPU kept 128 replicated lanes.
+one value per row where the TPU kept 128 replicated lanes. The kernels
+are compiled for head_dim 16, 32, 64 and 128; head_dim 8 runs the 16
+instance on inputs padded with zero columns (:func:`pad_head_dim`), which
+add nothing to any dot product, and the outputs are sliced back.
 
 The forward is registered as the dispatcher op
 ``paddle_tpu_torch::flash_fwd`` so that a selective-checkpoint policy sees
@@ -25,15 +29,23 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from . import cuda_kernels as _ck
 
 __all__ = ["flash_attention", "flash_fwd", "flash_fwd_plain",
            "flash_bwd_dq", "flash_bwd_dq_plain", "flash_bwd_dkv",
-           "flash_bwd_dkv_plain", "FLASH_FWD_OP"]
+           "flash_bwd_dkv_plain", "pad_head_dim", "FLASH_FWD_OP"]
 
 _NEG_INF = -0.7 * float(np.finfo(np.float32).max)
-_HEAD_DIMS = (32, 64, 128)
+_HEAD_DIMS = (16, 32, 64, 128)
+# head_dim -> the compiled instance it runs on, padded with zero columns
+_PADDED_HEAD_DIMS = {8: 16}
+
+
+def pad_head_dim(x: torch.Tensor, hd: int) -> torch.Tensor:
+    """x [..., d] -> a contiguous [..., hd] with zero columns d..hd-1."""
+    return F.pad(x, (0, hd - x.shape[-1]))
 
 
 def _bh(x: torch.Tensor) -> torch.Tensor:
@@ -113,7 +125,8 @@ def _check_qkv(q, k, v, what: str):
     _ck._require(k.dtype == q.dtype and v.dtype == q.dtype,
                  f"{what}: q, k, v must share a dtype")
     _ck._require(hd in _HEAD_DIMS,
-                 f"{what}: head_dim {hd} not in {_HEAD_DIMS}")
+                 f"{what}: head_dim {hd} not in {_HEAD_DIMS} (or 8, "
+                 "padded to 16)")
     _ck._require(q.stride() == k.stride() == v.stride(),
                  f"{what}: q, k, v must share strides")
     _ck._require(q.stride(3) == 1, f"{what}: head_dim must be unit-stride")
@@ -129,12 +142,18 @@ def _check_qkv(q, k, v, what: str):
 def flash_fwd(q, k, v, causal: bool = True,
               sm_scale: Optional[float] = None):
     """(o [B, T, nh, hd] in q's dtype, lse [B, nh, T] float32) for q, k, v
-    [B, T, nh, hd] float32 or bfloat16 (hd in 32/64/128) — one launch of
-    the forward kernel on the card."""
+    [B, T, nh, hd] float32 or bfloat16 (hd in 8/16/32/64/128) — one launch
+    of the forward kernel on the card."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     if not _ck._on_card(q, k, v):
         return flash_fwd_plain(q, k, v, causal, sm_scale)
+    hd = q.shape[-1]
+    if hd in _PADDED_HEAD_DIMS:
+        to = _PADDED_HEAD_DIMS[hd]
+        o, lse = flash_fwd(*(pad_head_dim(x, to) for x in (q, k, v)),
+                           causal, sm_scale)
+        return o[..., :hd].contiguous(), lse
     B, T, nh, hd, code, (sb, st, sh) = _check_qkv(q, k, v, "flash_fwd")
     o = torch.empty((B, T, nh, hd), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, nh, T), dtype=torch.float32, device=q.device)
@@ -171,6 +190,12 @@ def flash_bwd_dq(q, k, v, o, lse, do, causal: bool = True,
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     if not _ck._on_card(q, k, v, o, lse, do):
         return flash_bwd_dq_plain(q, k, v, o, lse, do, causal, sm_scale)
+    hd = q.shape[-1]
+    if hd in _PADDED_HEAD_DIMS:
+        to = _PADDED_HEAD_DIMS[hd]
+        q, k, v, o, do = (pad_head_dim(x, to) for x in (q, k, v, o, do))
+        return flash_bwd_dq(q, k, v, o, lse, do, causal,
+                            sm_scale)[..., :hd].contiguous()
     (B, T, nh, hd, code, (sb, st, sh)), o, do = _bwd_inputs(
         q, k, v, o, lse, do, "flash_bwd_dq")
     dq = torch.empty((B, T, nh, hd), dtype=q.dtype, device=q.device)
@@ -192,6 +217,12 @@ def flash_bwd_dkv(q, k, v, o, lse, do, causal: bool = True,
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     if not _ck._on_card(q, k, v, o, lse, do):
         return flash_bwd_dkv_plain(q, k, v, o, lse, do, causal, sm_scale)
+    hd = q.shape[-1]
+    if hd in _PADDED_HEAD_DIMS:
+        to = _PADDED_HEAD_DIMS[hd]
+        q, k, v, o, do = (pad_head_dim(x, to) for x in (q, k, v, o, do))
+        return tuple(x[..., :hd].contiguous() for x in flash_bwd_dkv(
+            q, k, v, o, lse, do, causal, sm_scale))
     (B, T, nh, hd, code, (sb, st, sh)), o, do = _bwd_inputs(
         q, k, v, o, lse, do, "flash_bwd_dkv")
     dk = torch.empty((B, T, nh, hd), dtype=q.dtype, device=q.device)
@@ -243,14 +274,14 @@ def flash_attention(q, k, v, causal: bool = True,
     differentiable through the hand-written backward kernels.
 
     ``block_q``/``block_k`` are kept for the JAX signature; the kernels
-    pick their own 64-row tiles, and since the causal block skip is exact
-    the result does not depend on them. The additive ``bias`` belongs to
+    pick their own tiles, and since the causal block skip is exact the
+    result does not depend on them. The additive ``bias`` belongs to
     the ERNIE slice and raises."""
     del block_q, block_k
     if bias is not None:
         raise NotImplementedError(
             "flash_attention bias= (padding / attention masks) comes with "
-            "the ERNIE slice of the port (ROADMAP.md, queue A item 3)")
+            "the ERNIE slice of the port (ROADMAP.md, queue A, item A1)")
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     return _Flash.apply(q, k, v, bool(causal), float(sm_scale))

@@ -7,10 +7,10 @@ from .kv_cache import CacheFullError, KVCache
 from .paged_kv import PagedKVCache, PagePoolFullError, PrefixCache
 from .sampling import GREEDY, SamplingParams
 from .scheduler import QueueFullError, Request, Scheduler, SchedulerConfig
-from .server import EngineLoop, FrontDoor
+from .server import EngineLoop, FrontDoor, shed_decision
 
 __all__ = ["DecodeEngine", "EngineConfig", "PromptTooLongError",
            "default_bucket_ladder", "CacheFullError", "KVCache",
            "PagedKVCache", "PagePoolFullError", "PrefixCache", "GREEDY",
            "SamplingParams", "QueueFullError", "Request", "Scheduler",
-           "SchedulerConfig", "EngineLoop", "FrontDoor"]
+           "SchedulerConfig", "EngineLoop", "FrontDoor", "shed_decision"]

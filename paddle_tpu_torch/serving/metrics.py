@@ -1,8 +1,8 @@
 """Serving metric families — the port of the request, latency, token,
 prefill and decode families of ``paddle_tpu/serving/metrics.py:29-71`` and
 the paged-pool, prefix-cache, preemption and head-of-line families of
-``:74-110``. Same names as the JAX package, registered in the port's own
-registry."""
+``:74-110`` and the shed family of ``:116-118``. Same names as the JAX
+package, registered in the port's own registry."""
 from __future__ import annotations
 
 from ..observability import metrics as _obs
@@ -12,7 +12,7 @@ __all__ = ["m_requests", "m_queue_depth", "m_active", "m_occupancy",
            "m_prefill_ms", "m_prefill_tokens", "m_decode_ms",
            "m_evictions", "m_queue_wait_ms", "m_prefix_cache",
            "m_page_occupancy", "m_page_fragmentation", "m_preemptions",
-           "m_hol_admits", "request_code"]
+           "m_hol_admits", "m_shed", "request_code"]
 
 _REG = _obs.default_registry()
 
@@ -81,6 +81,11 @@ m_preemptions = _REG.counter(
 m_hol_admits = _REG.counter(
     "paddle_serve_hol_bypass_admits_total",
     "Requests admitted past a head-of-line prompt that did not fit")
+# the front door's overload control: "queue_full" (429 at capacity) and
+# "deadline" (the measured queue ETA exceeds the request's deadline)
+m_shed = _REG.counter(
+    "paddle_serve_shed_total",
+    "Requests shed by the overload control, by reason", ("reason",))
 
 
 def request_code(code: int) -> None:

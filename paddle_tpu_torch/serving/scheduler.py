@@ -19,6 +19,12 @@ head — and later resumes by re-prefilling its prompt and the tokens it
 already generated (the engine replays past the ladder through the decode
 tick).
 
+Every terminal request stamps the time it finished; the measured drain
+rate over a trailing window gives the queue's ETA, which the front door's
+deadline-aware shedding and ``Retry-After`` answers are computed from
+(:meth:`Scheduler.drain_rate`, :meth:`~Scheduler.queue_eta_s`,
+:meth:`~Scheduler.retry_after_s`).
+
 Threading contract: ``submit``/``cancel`` may be called from any thread
 (the HTTP front door's handler pool); ``step``/``drain`` run on exactly
 one loop thread. Completion is signaled through a per-request
@@ -128,6 +134,10 @@ class Scheduler:
         self._refusing: Optional[str] = None
         self.completed = 0
         self.preemptions = 0
+        # terminal-event times feeding the measured drain rate (own lock:
+        # _finish runs under self._lock on some paths)
+        self._rate_lock = threading.Lock()
+        self._done_times: Deque[float] = deque(maxlen=256)
         role = getattr(engine, "role", "colocated")
         self._ttft_hist = smetrics.m_ttft_ms.labels("prefill", role)
         self._tpot_hist = smetrics.m_tpot_ms.labels("decode", role)
@@ -239,6 +249,41 @@ class Scheduler:
 
     def active_count(self) -> int:
         return len(self._active)
+
+    # ------------------------------------------------------------------
+    # measured drain rate -> deadline-aware shedding / Retry-After
+    # ------------------------------------------------------------------
+    def drain_rate(self, window_s: float = 10.0) -> Optional[float]:
+        """Terminal requests per second over the trailing window — the
+        rate the admission queue actually drains at. None until two
+        requests have finished (no measurable rate yet)."""
+        now = time.monotonic()
+        with self._rate_lock:
+            recent = [t for t in self._done_times if t >= now - window_s]
+        if len(recent) < 2:
+            return None
+        return len(recent) / max(now - recent[0], 1e-6)
+
+    def queue_eta_s(self) -> Optional[float]:
+        """Estimated seconds until a request submitted now reaches a
+        decode slot: queue depth over the measured drain rate. 0.0 for an
+        empty queue; None while the rate is not measurable."""
+        with self._lock:
+            depth = len(self._queue)
+        if depth == 0:
+            return 0.0
+        rate = self.drain_rate()
+        if rate is None or rate <= 0:
+            return None
+        return depth / rate
+
+    def retry_after_s(self, cap_s: float = 60.0) -> int:
+        """Whole seconds a shed client should wait before retrying, from
+        the measured drain rate (at least 1, at most ``cap_s``)."""
+        eta = self.queue_eta_s()
+        if eta is None:
+            return 1
+        return int(min(max(1.0, np.ceil(eta)), cap_s))
 
     # ------------------------------------------------------------------
     def _expire_queued(self, now: float) -> None:
@@ -424,4 +469,6 @@ class Scheduler:
             req.error = detail
         if state == DONE:
             self.completed += 1
+        with self._rate_lock:
+            self._done_times.append(time.monotonic())
         req.finished.set()

@@ -7,15 +7,21 @@ backend of ``paddle_tpu/serving/server.py``.
 (:class:`EngineLoop`) ticks it, the handler thread waits on the request.
 
 - bounded admission: queue full -> **429** with a JSON error body;
+- deadline-aware shedding (``shed_deadline_aware=True``, the default):
+  when the queue's measured drain ETA already exceeds the request's
+  deadline, **429** at once instead of a 504 after the whole timeout;
+- every 429 and 503 carries a ``Retry-After`` header and a
+  ``retry_after_s`` body field, from the measured drain rate (1 while no
+  rate is measurable; capped at ``retry_after_cap_s``); sheds count in
+  ``paddle_serve_shed_total{reason}`` (``queue_full``, ``deadline``);
 - malformed input or a prompt above the bucket ladder -> **400**;
 - deadline blown -> **504** with the partial tokens;
 - draining (:meth:`FrontDoor.drain`) -> **503**; in-flight work finishes;
 - internal failure -> **500**, always with a JSON body.
 
 ``GET /health`` reports the phase, queue depth, active slots and the
-loop's fault count. The predictor route, ``/prefill``/``/resume``,
-``/metrics`` and deadline-aware shedding are still to be ported
-(ROADMAP.md, queue A).
+loop's fault count. The predictor route, ``/prefill``/``/resume`` and
+``/metrics`` are still to be ported (ROADMAP.md, queue A).
 """
 from __future__ import annotations
 
@@ -30,7 +36,21 @@ from .engine import PromptTooLongError
 from .sampling import SamplingParams
 from .scheduler import QueueFullError, Scheduler
 
-__all__ = ["FrontDoor", "EngineLoop"]
+__all__ = ["FrontDoor", "EngineLoop", "shed_decision"]
+
+
+def shed_decision(scheduler: Scheduler, timeout_s: float,
+                  retry_after_cap_s: float = 60.0):
+    """Deadline-aware admission: when the measured queue-drain ETA already
+    exceeds the request's deadline, admitting it only buys a 504 after
+    the whole timeout, so shed it now. Returns None (admit) or
+    ``("deadline", retry_after_s)`` and counts
+    ``paddle_serve_shed_total{reason="deadline"}``."""
+    eta = scheduler.queue_eta_s()
+    if eta is None or eta <= timeout_s:
+        return None
+    smetrics.m_shed.labels("deadline").inc()
+    return "deadline", scheduler.retry_after_s(retry_after_cap_s)
 
 
 class EngineLoop:
@@ -97,10 +117,17 @@ class _Handler(BaseHTTPRequestHandler):
         if self.server.front.verbose:
             super().log_message(fmt, *args)
 
-    def _json(self, code: int, obj: Dict[str, Any]) -> None:
+    def _json(self, code: int, obj: Dict[str, Any],
+              retry_after: Optional[int] = None) -> None:
+        if retry_after is not None:
+            # the header for standard clients, the field for those that
+            # read the body only
+            obj = dict(obj, retry_after_s=int(retry_after))
         body = json.dumps(obj).encode()
         self.send_response(code)
         self.send_header("Content-Type", "application/json")
+        if retry_after is not None:
+            self.send_header("Retry-After", str(int(retry_after)))
         self.send_header("Content-Length", str(len(body)))
         self.end_headers()
         try:
@@ -147,7 +174,8 @@ class _Handler(BaseHTTPRequestHandler):
 
     def _generate(self, front: "FrontDoor"):
         if front.draining:
-            return self._json(503, {"error": "server is draining"})
+            return self._json(503, {"error": "server is draining"},
+                              retry_after=front._retry_after())
         req_obj = self._read_json()
         if req_obj is None:
             return
@@ -160,19 +188,34 @@ class _Handler(BaseHTTPRequestHandler):
             timeout_s = req_obj.get("timeout_s")
             timeout_s = (front.request_timeout_s if timeout_s is None
                          else float(timeout_s))
+        except (TypeError, ValueError) as e:
+            return self._json(400, {"error": f"{type(e).__name__}: {e}"})
+        if front.shed_deadline_aware:
+            shed = shed_decision(front.scheduler, timeout_s,
+                                 front.retry_after_cap_s)
+            if shed is not None:
+                reason, after = shed
+                return self._json(429, {
+                    "error": f"queue drain ETA exceeds the request "
+                             f"deadline ({timeout_s:.1f}s) — shed "
+                             f"({reason})"}, retry_after=after)
+        try:
             request = front.scheduler.submit(
                 prompt, max_new_tokens=int(req_obj.get("max_new_tokens",
                                                        16)),
                 timeout_s=timeout_s, sampling=self._parse_sampling(req_obj))
         except QueueFullError as e:
-            return self._json(429, {"error": str(e)})
+            smetrics.m_shed.labels("queue_full").inc()
+            return self._json(429, {"error": str(e)},
+                              retry_after=front._retry_after())
         except PromptTooLongError as e:
             return self._json(400, {"error": str(e)})
         except (TypeError, ValueError) as e:
             return self._json(400, {"error": f"{type(e).__name__}: {e}"})
         except RuntimeError as e:
             # draining raced the check above, or the scheduler refuses
-            return self._json(503, {"error": str(e)})
+            return self._json(503, {"error": str(e)},
+                              retry_after=front._retry_after())
         front.loop.wake()
         # the scheduler owns the deadline; +1 s covers the loop's wakeup
         request.wait(timeout=timeout_s + 1.0)
@@ -193,15 +236,22 @@ class _Handler(BaseHTTPRequestHandler):
 
 
 class FrontDoor:
-    """The serving HTTP server over one scheduler (and its engine)."""
+    """The serving HTTP server over one scheduler (and its engine).
+    ``shed_deadline_aware`` sheds requests whose deadline the queue's
+    measured drain ETA already exceeds; ``retry_after_cap_s`` caps the
+    ``Retry-After`` of every 429 and 503."""
 
     def __init__(self, scheduler: Scheduler, host: str = "127.0.0.1",
                  port: int = 0, request_timeout_s: float = 30.0,
-                 max_body_bytes: int = 16 << 20, verbose: bool = False):
+                 max_body_bytes: int = 16 << 20, verbose: bool = False,
+                 shed_deadline_aware: bool = True,
+                 retry_after_cap_s: float = 60.0):
         self.scheduler = scheduler
         self.request_timeout_s = float(request_timeout_s)
         self.max_body_bytes = int(max_body_bytes)
         self.verbose = verbose
+        self.shed_deadline_aware = bool(shed_deadline_aware)
+        self.retry_after_cap_s = float(retry_after_cap_s)
         self._draining = False
         self.loop = EngineLoop(scheduler).start()
         self.httpd = _Server((host, port), _Handler)
@@ -216,6 +266,11 @@ class FrontDoor:
     @property
     def draining(self) -> bool:
         return self._draining
+
+    def _retry_after(self) -> int:
+        """Retry-After seconds for a 429 or 503, from the scheduler's
+        measured drain rate."""
+        return self.scheduler.retry_after_s(self.retry_after_cap_s)
 
     def start(self) -> "FrontDoor":
         self._thread = threading.Thread(target=self.httpd.serve_forever,

@@ -299,9 +299,10 @@ def test_wrappers_raise_on_inputs_the_kernels_do_not_take(card):
         CK.fused_decode_attention(q, kc, kc.clone(), q, q,
                                   torch.zeros(2, dtype=torch.long,
                                               device=card))
-    with pytest.raises(ValueError, match="batch"):
+    with pytest.raises(TypeError, match="dtype"):
+        # batch 65 is served now; a head in another dtype is not
         CK.fused_logits_head(torch.zeros((65, 64), device=card), one, one,
-                             torch.zeros((64, 10), device=card))
+                             torch.zeros((64, 10), device=card).bfloat16())
     pool = torch.zeros((5, 8, 2, 16), device=card)
     tables = torch.zeros((2, 4), dtype=torch.int32, device=card)
     pos = torch.zeros(2, dtype=torch.int32, device=card)
@@ -330,6 +331,72 @@ def test_wrappers_raise_on_inputs_the_kernels_do_not_take(card):
         flat = torch.zeros(2 * 8 * 2 * 16 + 1, device=card)
         CK.fused_decode_attention(q, flat[1:].view(2, 8, 2, 16), kc, q, q,
                                   pos)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("nb", [1, 8, 64, 65, 96, 256])
+def test_logits_head_any_batch(chip_smoke, dtype, nb):
+    """GPT_SMALL's head (D 768, V 50304) at every batch the plan groups
+    differently — one m-tile, a full group, one row past it, two groups,
+    four or six — and a ragged vocab whose rows are not 16-byte aligned
+    (V 50301): one counted launch a call, bf16 per element as
+    ``chip_smoke.bf16_check``, f32 within 1e-5."""
+    from paddle_tpu_torch.ops import cuda_kernels as CK
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # full-f32 plain path
+    g = torch.Generator(device="cuda")
+    g.manual_seed(nb)
+    D = 768
+    x = torch.randn((nb, D), generator=g, device="cuda").to(dtype)
+    scale = 1.0 + 0.1 * torch.randn(D, generator=g, device="cuda")
+    bias = 0.1 * torch.randn(D, generator=g, device="cuda")
+    for V in (50304, 50301):
+        w = (0.02 * torch.randn((D, V), generator=g, device="cuda")).to(dtype)
+        CK.reset_launches()
+        got = CK.fused_logits_head(x, scale, bias, w)
+        want = CK.fused_logits_head_plain(x, scale, bias, w)
+        torch.cuda.synchronize()
+        assert CK.LAUNCHES["logits_head"] == 1
+        assert got.shape == (nb, V) and got.dtype == dtype
+        chip_smoke._check_out(f"logits_head B {nb} V {V}", got, want, dtype)
+
+
+@pytest.mark.cuda
+def test_engine_max_batch_96_kernel_tokens_equal_plain(card):
+    """C1: ``EngineConfig(max_batch=96)`` serves on the card. Tiny GPT in
+    float32, 96 prompts decoding together: the kernel engine's greedy
+    tokens equal the plain engine's, one logits_head launch a tick."""
+    from paddle_tpu_torch import serving as TS
+    from paddle_tpu_torch.models import gpt as TG
+    from paddle_tpu_torch.ops import cuda_kernels as CK
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = TG.GPT_TINY.scaled(num_layers=2, max_seq_len=64)
+    params = TG.init_params(cfg, seed=11, device=card)
+    ekw = dict(max_batch=96, max_seq=32, prefill_buckets=(8, 16))
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(0, cfg.vocab_size, size=int(n)).tolist()
+               for n in rng.integers(1, 17, size=96)]
+    tokens = []
+    for fused in (True, False):
+        eng = TS.DecodeEngine(params, cfg,
+                              TS.EngineConfig(fused_decode=fused, **ekw),
+                              device=card)
+        eng.warmup()
+        slots, cur = {}, {}
+        for i, p in enumerate(prompts):
+            slots[i], logits = eng.start_sequence(p)
+            cur[i] = [int(np.argmax(logits))]
+        CK.reset_launches()
+        for _ in range(8):
+            out = eng.decode_step({slots[i]: cur[i][-1] for i in slots})
+            for i in slots:
+                cur[i].append(int(np.argmax(out[slots[i]])))
+        assert CK.LAUNCHES["logits_head"] == (8 if fused else 0)
+        tokens.append(cur)
+    assert tokens[0] == tokens[1]
 
 
 @pytest.mark.cuda
@@ -572,12 +639,13 @@ def test_fused_ln_and_chunked_ce_autograd_on_card(card):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
                          ids=["bf16", "f32"])
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
-@pytest.mark.parametrize("T,hd", [(100, 32), (256, 64), (192, 128)])
+@pytest.mark.parametrize("T,hd", [(100, 32), (256, 64), (192, 128),
+                                  (80, 16), (130, 8)])
 def test_flash_kernels_match_plain_small_shapes(chip_smoke, dtype, causal,
                                                T, hd):
-    """Ragged sequence lengths (T not a multiple of the 64-row tile), full
-    attention and every head_dim the kernels take; the bounds of
-    ``chip_smoke.phase_train_kernels``."""
+    """Ragged sequence lengths (T not a multiple of the 64- or 128-row
+    tiles), full attention and every head_dim the kernels take (8 through
+    zero padding to 16); the bounds of ``chip_smoke.phase_train_kernels``."""
     from paddle_tpu_torch.ops import flash_attention as FA
 
     torch.backends.cuda.matmul.allow_tf32 = False   # full-f32 plain path
@@ -632,6 +700,48 @@ def test_flash_attention_autograd_on_card(card):
             CK.LAUNCHES["flash_bwd_dkv"]) == (1, 1, 1)
     for a, b in zip(*grads):
         torch.testing.assert_close(a, b, atol=3e-4, rtol=3e-4)
+
+
+@pytest.mark.cuda
+def test_gpt_tiny_trains_with_flash_on_card(card):
+    """C2: GPT_TINY (head_dim 16) with ``use_flash=True`` on the card, f32:
+    loss and gradients of the kernel path within 1e-5 / 3e-4 of the plain
+    attention path, each flash kernel launched once a layer, and three
+    train steps with finite, falling losses."""
+    from paddle_tpu_torch.models import gpt as G
+    from paddle_tpu_torch.ops import cuda_kernels as CK
+    from paddle_tpu_torch.parallel import parallelize as PZ
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = G.GPT_TINY.scaled(use_flash=True)
+    assert cfg.head_dim == 16
+    rng = np.random.default_rng(6)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 4, 64))
+                            ).cuda()
+    labs = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 4, 64))
+                            ).cuda()
+    out = {}
+    for flash in (True, False):
+        params = G.init_params(cfg, seed=6, device=card)
+        leaves = [p.detach().requires_grad_() for p in PZ.flat_leaves(params)]
+        CK.reset_launches()
+        loss = G.loss_fn(PZ._unflatten(params, leaves), toks[0], labs[0],
+                         cfg.scaled(use_flash=flash))
+        out[flash] = (loss.item(), torch.autograd.grad(loss, leaves))
+        L = cfg.num_layers if flash else 0
+        assert (CK.LAUNCHES["flash_fwd"], CK.LAUNCHES["flash_bwd_dq"],
+                CK.LAUNCHES["flash_bwd_dkv"]) == (L, L, L)
+    np.testing.assert_allclose(out[True][0], out[False][0], rtol=1e-5)
+    for a, b in zip(out[True][1], out[False][1]):
+        torch.testing.assert_close(a, b, atol=3e-4, rtol=3e-4)
+    params, opt = PZ.init_sharded(cfg, seed=6, device="cuda")
+    step = PZ.make_train_step(cfg, lr=1e-3, device="cuda")
+    losses = []
+    for _ in range(3):
+        params, opt, loss, _g = step(params, opt, toks, labs)
+        losses.append(loss.item())
+    assert np.all(np.isfinite(losses)) and losses[-1] < losses[0], losses
 
 
 @pytest.mark.cuda

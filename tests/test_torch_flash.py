@@ -53,6 +53,58 @@ def test_forward_and_grads_match_jax(causal, t, hd):
                                    rtol=3e-4)
 
 
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_head_dim_16_matches_jax(causal):
+    """head_dim 16 (GPT_TINY's), which the kernels now take: output to
+    2e-5 and gradients to 3e-4, as at the other head_dims."""
+    q, k, v, w = _inputs(16, 128, 16, n=4)
+    jf = _jax_flash(causal)
+    want = jf(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    jg = jax.grad(lambda q, k, v: jnp.sum(jf(q, k, v) * w),
+                  argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k),
+                                     jnp.asarray(v))
+    tq, tk, tv = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    got = TFA.flash_attention(tq, tk, tv, causal=causal)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               atol=2e-5, rtol=2e-5)
+    (got * torch.from_numpy(w)).sum().backward()
+    for a, b in zip((tq.grad, tk.grad, tv.grad), jg):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=3e-4,
+                                   rtol=3e-4)
+
+
+def test_head_dim_8_padding_is_exact():
+    """head_dim 8 (ERNIE_TINY's) runs the 16 instance on zero-padded
+    inputs: pad -> plain -> slice equals the plain path at 8 (forward,
+    lse and the three gradients) and JAX's flash at 8, with the true
+    scale 1/sqrt(8)."""
+    q, k, v, do = _inputs(8, 128, 8, n=4)
+    scale = 1.0 / np.sqrt(8.0)
+    tq, tk, tv, tdo = [torch.from_numpy(x) for x in (q, k, v, do)]
+    pad = [TFA.pad_head_dim(x, 16) for x in (tq, tk, tv, tdo)]
+    assert pad[0].shape == (2, 128, 2, 16) and pad[0].is_contiguous()
+    assert torch.equal(pad[0][..., 8:], torch.zeros(2, 128, 2, 8))
+    o8, lse8 = TFA.flash_fwd_plain(tq, tk, tv, True, scale)
+    o16, lse16 = TFA.flash_fwd_plain(*pad[:3], True, scale)
+    np.testing.assert_allclose(o16[..., :8].numpy(), o8.numpy(), atol=1e-6)
+    np.testing.assert_allclose(lse16.numpy(), lse8.numpy(), atol=1e-6)
+    assert torch.equal(o16[..., 8:], torch.zeros_like(o16[..., 8:]))
+    po = TFA.pad_head_dim(o8, 16)
+    dq8 = TFA.flash_bwd_dq_plain(tq, tk, tv, o8, lse8, tdo, True, scale)
+    dq16 = TFA.flash_bwd_dq_plain(*pad[:3], po, lse8, pad[3], True, scale)
+    np.testing.assert_allclose(dq16[..., :8].numpy(), dq8.numpy(),
+                               atol=1e-6)
+    for a8, a16 in zip(
+            TFA.flash_bwd_dkv_plain(tq, tk, tv, o8, lse8, tdo, True, scale),
+            TFA.flash_bwd_dkv_plain(*pad[:3], po, lse8, pad[3], True,
+                                    scale)):
+        np.testing.assert_allclose(a16[..., :8].numpy(), a8.numpy(),
+                                   atol=1e-6)
+    want = _jax_flash(True)(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    np.testing.assert_allclose(o16[..., :8].numpy(), np.asarray(want),
+                               atol=2e-5, rtol=2e-5)
+
+
 def test_lse_matches_jax():
     """The forward's lse [B, nh, T] against the Pallas kernel's
     lane-replicated [BH, T, 128] (one lane kept, as the vjp keeps it)."""

@@ -142,6 +142,66 @@ def test_fused_logits_head_matches_jax():
     assert (got.argmax(-1) == want.argmax(-1)).all()
 
 
+def test_fused_logits_head_plain_at_batch_96_matches_jax():
+    """B = 96, past the old kernel's 64-row cap: the plain version against
+    the Pallas kernel in interpret mode, D 64, a ragged V of 300."""
+    rng = np.random.default_rng(96)
+    B, d, V = 96, 64, 300
+    x = rng.standard_normal((B, d)).astype(np.float32)
+    scale = (1.0 + 0.1 * rng.standard_normal(d)).astype(np.float32)
+    bias = (0.1 * rng.standard_normal(d)).astype(np.float32)
+    head = (rng.standard_normal((d, V)) * 0.05).astype(np.float32)
+    want = np.asarray(PK.fused_logits_head(
+        jnp.asarray(x), jnp.asarray(scale), jnp.asarray(bias),
+        jnp.asarray(head), eps=1e-5, block_v=128))
+    got = CK.fused_logits_head_plain(
+        torch.from_numpy(x), torch.from_numpy(scale), torch.from_numpy(bias),
+        torch.from_numpy(head), eps=1e-5).numpy()
+    assert got.shape == (B, V)
+    np.testing.assert_allclose(got, want, atol=2e-5, rtol=1e-5)
+    assert (got.argmax(-1) == want.argmax(-1)).all()
+
+
+@pytest.mark.parametrize("esz", [2, 4], ids=["bf16", "f32"])
+@pytest.mark.parametrize("B", [1, 8, 16, 64, 65, 96, 256])
+def test_logits_head_plan_covers_every_row(B, esz):
+    """The kernel's launch plan at GPT_SMALL's head on 132 SMs: groups of
+    bm rows (a whole number of 16-row m-tiles, at most 48) cover rows
+    0..B-1 exactly once with no empty group, as even as m-tiles allow; the
+    gy blocks of a group take every 128-column vocab tile exactly once
+    (block y: tiles y, y + gy, ...), an even share of one wave of blocks
+    each; a block's normed rows plus its 4-stage weight ring fit in 227
+    KB, and ``bps`` such blocks in an SM's 228 KB."""
+    D, V, sms = 768, 50304, 132
+    plan = CK.logits_head_plan(B, D, V, esz, sms)
+    bm, groups, gy = plan["bm"], plan["groups"], plan["gy"]
+    assert bm % 16 == 0 and 16 <= bm <= 48
+    rows = [r for gi in range(groups) for r in range(gi * bm, (gi + 1) * bm)
+            if r < B]
+    assert rows == list(range(B))
+    assert (groups - 1) * bm < B <= groups * bm
+    assert bm - (-(-B // groups)) < 16
+    ntiles = -(-V // 128)
+    assert plan["grid"] == (groups, gy) and gy <= ntiles
+    tiles = sorted(t for y in range(gy) for t in range(y, ntiles, gy))
+    assert tiles == list(range(ntiles))
+    bps = plan["bps"]
+    assert -(-ntiles // gy) == -(-ntiles * groups // (sms * bps))
+    assert groups * gy < sms * bps + groups      # one wave of blocks
+    assert bps * (plan["smem"] + 1024) <= 228 * 1024
+    pad = 16 // esz
+    assert plan["smem"] == (bm * (768 + pad) + 4 * 32 * (128 + pad)) * esz
+    assert plan["smem"] <= 227 * 1024
+    if esz == 2:
+        assert groups == {1: 1, 8: 1, 16: 1, 64: 2, 65: 2, 96: 2,
+                          256: 6}[B]
+
+
+def test_logits_head_plan_refuses_rows_that_cannot_fit():
+    with pytest.raises(ValueError, match="227 KB"):
+        CK.logits_head_plan(8, 16384, 1000, 4)
+
+
 def test_cpu_tensors_take_plain_versions():
     """CPU tensors run the plain versions — identical to calling them —
     and launch nothing."""

@@ -78,6 +78,38 @@ def test_greedy_tokens_match_jax_fused_engine(tiny, jax_tokens, fused):
         assert _greedy(eng, prompt, 12) == want, prompt
 
 
+def _batch_greedy(engine, prompts, n):
+    """Every prompt in its own slot, all decoding together: n greedy
+    tokens each."""
+    slots, toks = [], []
+    for p in prompts:
+        slot, logits = engine.start_sequence(p)
+        slots.append(slot)
+        toks.append([int(np.argmax(logits))])
+    for _ in range(n - 1):
+        out = engine.decode_step({s: t[-1] for s, t in zip(slots, toks)})
+        for s, t in zip(slots, toks):
+            t.append(int(np.argmax(out[s])))
+    return toks
+
+
+def test_max_batch_96_matches_jax(tiny):
+    """``max_batch=96``, past the old logits-head cap of 64: 96 prompts
+    decoding together in the port's fused tick (the plain versions of its
+    kernels here, the logits head at B = 96) give the JAX engine's greedy
+    tokens (its unfused tick, which keeps the CPU run short)."""
+    cfg_j, jp, _, _ = tiny
+    kw = dict(EKW, max_batch=96)
+    rng = np.random.default_rng(96)
+    prompts = [rng.integers(0, cfg_j.vocab_size, size=int(n)).tolist()
+               for n in rng.integers(1, 17, size=96)]
+    want = _batch_greedy(JS.DecodeEngine(jp, cfg_j, JS.EngineConfig(
+        fused_decode=False, **kw)), prompts, 6)
+    got = _batch_greedy(_port_engine(tiny, max_batch=96, fused_decode=True),
+                        prompts, 6)
+    assert got == want
+
+
 def test_bf16_engine_tracks_jax(tiny):
     """bf16 compute and weights: tokens are compared exactly only in f32
     (rounding order differs between the frameworks), so at bf16 the port
