@@ -77,7 +77,32 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              of the kernel step vs the plain step (every kernel lever off,
              plain sweep) for the flash arm and for the fused arm (flash,
              fused_ln, vocab chunk 1024, row chunks of 256), losses within
-             1e-5 relative, step-1 gradients within 3e-4.
+             1e-5 relative, step-1 gradients within 3e-4;
+8. flash-bias — the bias forms of the flash forward, dQ and dK/dV against
+             their plain versions: bias [BB, SQ, T] with BB in {B, B*nh},
+             SQ in {1, T}, causal and full, float32 and bf16, head_dim 64
+             and 8 (padded), T 200, a random bias and a padding bias whose
+             first key tile is wholly padded (-0.5 f32 max): float32
+             within 1e-5, bf16 per element,
+             every output finite; then at ERNIE-base's call ([48, 512, 12,
+             64] bf16, a [48, 1, 1, 512] padding bias) each bias kernel,
+             the same kernel without the bias, its plain version and SDPA
+             with the same float attn_mask are timed (CUDA-graph replay
+             for the kernels and the SDPA forward);
+9. ernie   — ERNIE-base (L 12, nh 12, D 768, d_ff 3072, V 30522) pretrains
+             at full width and depth through ``train_bench --model
+             ernie``: batch 48 x 512, bf16, flash with the padding bias,
+             remat off, 2 warm-up + 10 timed momentum steps (counts zeroed
+             just before them); losses finite and falling, launches per
+             step exactly flash_fwd_bias, flash_bwd_dq_bias and
+             flash_bwd_dkv_bias L each; 9b the same with ``--pad``
+             (lengths 128-512); samples/s, MFU, peak GB printed;
+9p. ernie-parity — 2-layer ERNIE_BASE in float32 (TF32 off), batch 4 x
+             512 with padded lengths: 3 steps of the flash arm and of the
+             fused arm (flash, fused_ln, vocab-chunked CE through ce_fwd's
+             "vd" layout with the decoder bias) against the plain arm,
+             losses within 1e-5 relative, every updated leaf within 1e-5
+             of its largest |value|.
 
 The last lines are the kernels' JSON record, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script
@@ -1169,6 +1194,280 @@ def phase_train_parity():
               f"step-1 grad max diff {worst:.3g}")
 
 
+ERNIE_SHAPE = (48, 512, 12, 64)     # ERNIE-base's flash call: B, T, nh, hd
+
+
+def _pad_bias(BB: int, SQ: int, T: int, dev):
+    """A padding bias [BB, SQ, T]: 0 at real keys, -0.5 f32 max at padded
+    ones — batch row 0 pads keys 0..63 (a whole first key tile), batch
+    row 1 keys 64..127 and the tail from 180; by head when BB = B·nh, the
+    same for every query row when SQ = T."""
+    B = 2
+    pad = torch.zeros((B, T), dtype=torch.bool, device=dev)
+    pad[0, :64] = True
+    pad[1, 64:128] = True
+    pad[1, 180:] = True
+    bias = torch.where(pad, -0.5 * torch.finfo(torch.float32).max, 0.0)
+    bias = bias.float()[:, None, None, :].expand(B, BB // B, SQ, T)
+    return bias.reshape(BB, SQ, T).contiguous()
+
+
+def _flash_case(dtype, hd, T, per_head, sq1, causal, kind, g):
+    """One bias case: forward (o, lse), dQ and dK/dV of the bias form
+    against their plain versions on the same inputs, float32 within 1e-5,
+    bf16 per element (:func:`bf16_check`), every output finite; returns
+    the max abs error."""
+    from paddle_tpu_torch.ops import flash_attention as FA
+
+    B, nh = 2, 3
+    dev = torch.device("cuda")
+    q, k, v, do = (torch.randn((B, T, nh, hd), generator=g, device=dev)
+                   .to(dtype) for _ in range(4))
+    BB, SQ = (B * nh if per_head else B), (1 if sq1 else T)
+    if kind == "random":
+        bias = torch.randn((BB, SQ, T), generator=g, device=dev)
+    else:
+        bias = _pad_bias(BB, SQ, T, dev)
+    tag = (f"flash bias {dtype} hd {hd} BB {'B*nh' if per_head else 'B'} "
+           f"SQ {SQ} {'causal' if causal else 'full'} {kind}")
+
+    def check(what, got, want):
+        if not torch.isfinite(got.float()).all():
+            raise AssertionError(f"{tag} {what}: non-finite values")
+        if dtype == torch.bfloat16:
+            return bf16_check(f"{tag} {what}", got, want)
+        return _check_close(f"{tag} {what}", got, want, dtype, 1e-5)
+
+    o, lse = FA.flash_fwd(q, k, v, causal, bias=bias)
+    o_p, lse_p = FA.flash_fwd_plain(q, k, v, causal, bias=bias)
+    err = max(check("o", o, o_p),
+              _check_close(f"{tag} lse", lse, lse_p, torch.float32, 1e-5))
+    err = max(err, check("dq", FA.flash_bwd_dq(q, k, v, o_p, lse_p, do,
+                                               causal, bias=bias),
+                         FA.flash_bwd_dq_plain(q, k, v, o_p, lse_p, do,
+                                               causal, bias=bias)))
+    for what, got, want in zip(
+            ("dk", "dv"),
+            FA.flash_bwd_dkv(q, k, v, o_p, lse_p, do, causal, bias=bias),
+            FA.flash_bwd_dkv_plain(q, k, v, o_p, lse_p, do, causal,
+                                   bias=bias)):
+        err = max(err, check(what, got, want))
+    return err
+
+
+def phase_flash_bias():
+    """Phase 8: the bias forms of the three flash kernels against their
+    plain versions — BB in {B, B·nh} x SQ in {1, T} x causal in {False,
+    True}, float32 and bf16, head_dim 64 and 8 (padded to 16), T 200 (not
+    a multiple of a tile), a random bias and a padding bias with a whole
+    key tile padded: float32 within 1e-5 (o and lse also for the padded
+    rows, whose lse is -0.5 f32 max), bf16 per element
+    (:func:`bf16_check`), every output finite.
+    Then, at ERNIE-base's call ([48, 512, 12, 64] bf16, full attention, a
+    [48, 1, 1, 512] padding bias with lengths 128-512), every output of the
+    three bias kernels (o, lse, dq, dk, dv) against its plain version on
+    the same inputs (:func:`bf16_check`; lse float32 within 2e-5), and
+    each bias kernel, the same kernel without the bias, its plain version
+    and SDPA with the same float ``attn_mask`` timed (the kernels and the
+    SDPA forward by CUDA-graph replay; the backward kernels beside one SDPA
+    backward, which computes dq, dk and dv together); bounds from
+    ``observability/hw.py``. Returns one record per bias kernel: its max
+    abs error at ERNIE's shape, and over the small cases as extra keys."""
+    from paddle_tpu_torch.observability.hw import bound_ms
+    from paddle_tpu_torch.ops import flash_attention as FA
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(808)
+    err = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    n = 0
+    for dtype, hd, per_head, sq1, causal, kind in itertools.product(
+            (torch.float32, torch.bfloat16), (64, 8), (False, True),
+            (True, False), (False, True), ("random", "padding")):
+        err[dtype] = max(err[dtype], _flash_case(
+            dtype, hd, 200, per_head, sq1, causal, kind, g))
+        n += 1
+    torch.cuda.synchronize()
+    print(f"[flash-bias] {n} cases pass: max abs err f32 "
+          f"{err[torch.float32]:.3g}, bf16 {err[torch.bfloat16]:.3g}")
+    names = ("flash_fwd_bias", "flash_bwd_dq_bias", "flash_bwd_dkv_bias")
+    recs = {k: {"small_max_abs_err": err[torch.bfloat16],
+                "small_max_abs_err_f32": err[torch.float32]} for k in names}
+    B, T, nh, hd = ERNIE_SHAPE
+    gq = torch.Generator(device=dev)
+    gq.manual_seed(809)
+    qkv = torch.randn((B, T, 3, nh, hd), generator=gq, device=dev).to(
+        torch.bfloat16)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    do = torch.randn((B, T, nh, hd), generator=gq, device=dev).to(
+        torch.bfloat16)
+    lens = np.random.default_rng(0).integers(128, T + 1, size=B)
+    pad = torch.from_numpy(np.arange(T)[None, :] < lens[:, None]).to(dev)
+    mask = torch.where(pad, 0.0, -0.5 * torch.finfo(torch.float32).max
+                       ).float()[:, None, None, :]       # [B, 1, 1, T]
+    bias = mask.reshape(B, 1, T)                          # kernel form
+    tag = f"ERNIE-base {list(ERNIE_SHAPE)}"
+    o, lse = FA.flash_fwd(q, k, v, False, bias=bias)
+    o_p, lse_p = FA.flash_fwd_plain(q, k, v, False, bias=bias)
+    recs["flash_fwd_bias"]["max_abs_err"] = max(
+        bf16_check(f"flash_fwd_bias {tag} o", o, o_p),
+        _check_close(f"flash_fwd_bias {tag} lse", lse, lse_p,
+                     torch.float32, 2e-5))
+    recs["flash_bwd_dq_bias"]["max_abs_err"] = bf16_check(
+        f"flash_bwd_dq_bias {tag} dq",
+        FA.flash_bwd_dq(q, k, v, o_p, lse_p, do, False, bias=bias),
+        FA.flash_bwd_dq_plain(q, k, v, o_p, lse_p, do, False, bias=bias))
+    recs["flash_bwd_dkv_bias"]["max_abs_err"] = max(
+        bf16_check(f"flash_bwd_dkv_bias {tag} {what}", got, want)
+        for what, got, want in zip(
+            ("dk", "dv"),
+            FA.flash_bwd_dkv(q, k, v, o_p, lse_p, do, False, bias=bias),
+            FA.flash_bwd_dkv_plain(q, k, v, o_p, lse_p, do, False,
+                                   bias=bias)))
+    torch.cuda.empty_cache()
+    name = torch.cuda.get_device_name(0)
+    esz = 2
+    act = B * T * nh * hd * esz
+    pairs = B * nh * T * T
+    for kname, n_in, n_out, n_mm, fn, bare, plain in (
+            ("flash_fwd_bias", 3, 1, 2,
+             lambda: FA.flash_fwd(q, k, v, False, bias=bias),
+             lambda: FA.flash_fwd(q, k, v, False),
+             lambda: FA.flash_fwd_plain(q, k, v, False, bias=bias)),
+            ("flash_bwd_dq_bias", 5, 1, 3,
+             lambda: FA.flash_bwd_dq(q, k, v, o, lse, do, False, bias=bias),
+             lambda: FA.flash_bwd_dq(q, k, v, o, lse, do, False),
+             lambda: FA.flash_bwd_dq_plain(q, k, v, o, lse, do, False,
+                                           bias=bias)),
+            ("flash_bwd_dkv_bias", 5, 2, 4,
+             lambda: FA.flash_bwd_dkv(q, k, v, o, lse, do, False, bias=bias),
+             lambda: FA.flash_bwd_dkv(q, k, v, o, lse, do, False),
+             lambda: FA.flash_bwd_dkv_plain(q, k, v, o, lse, do, False,
+                                            bias=bias))):
+        r = recs[kname]
+        r["ms"] = _time_graph_ms(fn, 10)
+        r["eager_ms"] = _time_ms(fn, iters=20, warmup=3)
+        r["bias_free_ms"] = _time_graph_ms(bare, 10)
+        r["plain_ms"] = _time_ms(plain, iters=3, warmup=1)
+        # q/k/v (and o, dO) read, outputs written, lse, the [B, T] bias
+        nbytes = (n_in + n_out) * act + B * nh * T * 4 + B * T * 4
+        r["bound_ms"], r["bound_by"] = bound_ms(
+            nbytes, 2 * hd * n_mm * pairs, "bf16", name)
+        r["shape"] = list(ERNIE_SHAPE)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    mask16 = mask.to(torch.bfloat16)
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, attn_mask=mask16)
+    recs["flash_fwd_bias"]["library_ms"] = _time_graph_ms(sdpa, 10)
+    recs["flash_fwd_bias"]["library_eager_ms"] = _time_ms(sdpa, iters=20,
+                                                          warmup=3)
+    ql, kl, vl = (x.detach().requires_grad_() for x in (qt, kt, vt))
+    ol = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask16)
+    dot = do.transpose(1, 2)
+    bwd_ms = _time_ms(lambda: torch.autograd.grad(
+        ol, (ql, kl, vl), dot, retain_graph=True), iters=20, warmup=3)
+    recs["flash_bwd_dq_bias"]["library_ms"] = bwd_ms
+    recs["flash_bwd_dkv_bias"]["library_ms"] = bwd_ms
+    for kname, r in recs.items():
+        print(f"[flash-bias] {kname} bf16 {list(ERNIE_SHAPE)}: " + ", ".join(
+            f"{a}={b:.6g}" if isinstance(b, float) else f"{a}={b}"
+            for a, b in r.items()))
+    del qkv, q, k, v, do, o, lse, o_p, lse_p, ol, ql, kl, vl
+    torch.cuda.empty_cache()
+    return recs
+
+
+def phase_ernie(pad: bool = False):
+    """Phase 9: ERNIE-base pretraining through ``train_bench --model
+    ernie`` (batch 48 x 512, bf16, flash with the padding bias, remat
+    off): every loss finite, the last below the first, and per step
+    exactly L launches of each bias kernel and nothing else; returns the
+    record."""
+    from paddle_tpu_torch.tools import train_bench
+
+    cfg = train_bench.ernie_config()
+    rec = train_bench.run_ernie(cfg, pad=pad)
+    losses = rec["losses"]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite pretraining loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"loss did not fall: {losses}")
+    L = cfg.num_layers
+    want = {"flash_fwd_bias": L, "flash_bwd_dq_bias": L,
+            "flash_bwd_dkv_bias": L}
+    if rec["launches_per_step"] != want:
+        raise AssertionError(f"launches per step {rec['launches_per_step']}"
+                             f" != {want}")
+    print(f"[ernie] {rec['config']} {rec['model_params']} params: "
+          f"{rec['samples_per_s']:.2f} samples/s, mfu={rec['mfu']:.4f}, "
+          f"ms/step={rec['ms_per_step']:.3f}, peak GB="
+          f"{rec['peak_mem_bytes'] / 1e9:.3f}, warmup_s="
+          f"{rec['warmup_s']:.2f}")
+    print(f"[ernie] loss first={losses[0]:.6f} last={losses[-1]:.6f} "
+          f"({len(losses)} steps); launches/step {rec['launches_per_step']}")
+    return rec
+
+
+def phase_ernie_parity():
+    """Phase 9p: a 2-layer ERNIE_BASE in float32 (TF32 off), batch 4 x 512
+    with lengths drawn from 128-512 as ``train_bench --pad`` draws them: 3
+    pretrain steps of each kernel arm against the plain arm (plain
+    attention under the ``where`` mask, plain LN, direct CE) from the same
+    seeded params — the flash arm, and the fused arm (flash, fused_ln,
+    the vocab-chunked CE through ``ce_fwd``'s "vd" layout with the decoder
+    bias, vocab chunk 1024). Losses within 1e-5 relative; every updated
+    leaf within 1e-5 of its largest |value|."""
+    from paddle_tpu_torch.models import ernie as E
+    from paddle_tpu_torch.ops import cuda_kernels as CK
+    from paddle_tpu_torch.parallel.parallelize import flat_leaves
+    from paddle_tpu_torch.tools.train_bench import ernie_batch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    base = E.ERNIE_BASE.scaled(num_layers=2, dtype=torch.float32,
+                               remat=False)
+    data = E.batch_to_device(ernie_batch(base, 4, 512, pad=True), "cuda")
+    arms = {"plain": base,
+            "flash": base.scaled(use_flash=True),
+            "fused": base.scaled(use_flash=True, fused_ln=True,
+                                 ce_vocab_chunk=1024)}
+    out = {}
+    for arm, cfg in arms.items():
+        params = E.init_params(cfg, seed=3, device="cuda")
+        opt = E.init_opt(params)
+        step = E.make_pretrain_step(cfg, lr=1e-4, device="cuda")
+        CK.reset_launches()
+        losses = []
+        for _ in range(3):
+            params, opt, loss = step(params, opt, data)
+            losses.append(loss.item())
+        out[arm] = (losses, flat_leaves(params),
+                    {k: v for k, v in CK.LAUNCHES.items() if v})
+    want_l, want_p, none = out["plain"]
+    if none:
+        raise AssertionError(f"the plain arm launched kernels: {none}")
+    for arm in ("flash", "fused"):
+        losses, leaves, launches = out[arm]
+        np.testing.assert_allclose(losses, want_l, rtol=1e-5)
+        worst = 0.0
+        for a, b in zip(leaves, want_p):
+            ratio = ((a - b).abs().max() / b.abs().max()).item()
+            worst = max(worst, ratio)
+            if not ratio <= 1e-5:
+                raise AssertionError(f"ernie parity {arm}: a leaf differs "
+                                     f"by {ratio:.3g} of its scale")
+        print(f"[ernie-parity] {arm}: f32 2 layers, 3 steps of 4x512 "
+              f"(padded): losses {losses} plain {want_l}; worst leaf "
+              f"diff {worst:.3g} of its scale; launches {launches}")
+    for name in ("flash_fwd_bias", "flash_bwd_dq_bias",
+                 "flash_bwd_dkv_bias", "fused_ln", "fused_ln_bwd",
+                 "ce_fwd"):
+        if not out["fused"][2].get(name):
+            raise AssertionError(f"the fused arm never launched {name}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1194,6 +1493,14 @@ def main() -> int:
         for k, v in train["launches_per_step"].items():
             launches[k] = launches.get(k, 0) + round(v * train["steps"])
     phase_train_parity()
+    recs.update(phase_flash_bias())
+    # ERNIE-base pretraining (phase 9), then with padded lengths (9b):
+    # each zeroes the counts just before its timed steps
+    for pad in (False, True):
+        ernie = phase_ernie(pad)
+        for k, v in ernie["launches_per_step"].items():
+            launches[k] = launches.get(k, 0) + round(v * ernie["steps"])
+    phase_ernie_parity()
     kernels = []
     for name, meta in CK.KERNELS.items():
         r = recs[name]

@@ -1,2 +1,3 @@
-"""Models of the port. GPT only in this slice; ERNIE and the fluid model
-zoo are still to be ported (ROADMAP.md, queue A)."""
+"""Models of the port: GPT (``gpt``) and the ERNIE/BERT encoder
+(``ernie``); the fluid model zoo is still to be ported (ROADMAP.md,
+queue A)."""

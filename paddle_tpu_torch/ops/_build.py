@@ -143,14 +143,14 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.ptt_decode_paged.restype = I
     lib.ptt_logits_head.argtypes = [P, P, P, P, P, I, I, I, I, I, F, I, P]
     lib.ptt_logits_head.restype = I
-    fl = [P, P, P, P, P, I, I, I, I, LL, LL, LL, F, I, I, P]
-    lib.ptt_flash_fwd.argtypes = fl
+    # pointers; B, T, nh, hd; strides; scale, causal, bias heads and rows,
+    # dtype; stream
+    fl = [I] * 4 + [LL] * 3 + [F] + [I] * 4 + [P]
+    lib.ptt_flash_fwd.argtypes = [P] * 6 + fl
     lib.ptt_flash_fwd.restype = I
-    lib.ptt_flash_bwd_dq.argtypes = [P, P, P, P, P, P, P, I, I, I, I, LL, LL,
-                                     LL, F, I, I, P]
+    lib.ptt_flash_bwd_dq.argtypes = [P] * 8 + fl
     lib.ptt_flash_bwd_dq.restype = I
-    lib.ptt_flash_bwd_dkv.argtypes = [P, P, P, P, P, P, P, P, I, I, I, I, LL,
-                                      LL, LL, F, I, I, P]
+    lib.ptt_flash_bwd_dkv.argtypes = [P] * 9 + fl
     lib.ptt_flash_bwd_dkv.restype = I
     lib.ptt_adamw_flat.argtypes = [P, P, P, P, P, P, LL, F, F, F, F, F, F, I,
                                    P]

@@ -1,21 +1,23 @@
 // FlashAttention-2 for training: the dQ and dK/dV kernels.
 //
 // Replaces: _bwd_dq_kernel (paddle_tpu/ops/pallas_kernels.py:205, called
-// at :349) and _bwd_dkv_kernel (:261, called at :381), in the
-// causal-or-full, bias-free forms the GPT training step runs. The forward
-// (_fwd_kernel :74) is flash_fwd.cu; the additive-bias form belongs to the
-// ERNIE slice.
+// at :349) and _bwd_dkv_kernel (:261, called at :381), causal or full, in
+// both their forms: bias-free (the GPT training step) and with the
+// additive float32 bias (:236-238, :294-296; ERNIE's padding mask). The
+// forward (_fwd_kernel :74) is flash_fwd.cu.
 //
 // What it computes, as the Pallas kernels do, from the forward's o and
-// lse:
+// lse, with s = q.k^T * scale + bias and causal entries then replaced by
+// -0.7*FLT_MAX:
 //   dQ       P = exp(s - lse), dP = dO.V^T, D = rowsum(dO*o) in f32,
 //            dS = P*(dP - D)*scale rounded to k's dtype, dQ = dS.K;
-//   dK/dV    dV = round(P).dO, dK = dS^T.Q. The reference keeps dS in f32
-//            for dK; here dS is rounded to q's dtype so that the product
-//            runs on the tensor cores in bf16. That rounding adds about as
-//            much error to dk as dk's own rounding to bf16 on output
-//            (tools/flash_precision.py measures both). In float32 nothing
-//            is rounded.
+//   dK/dV    dV = round(P).dO, dK = dS^T.Q with dS in f32, as the
+//            reference keeps it: in bf16, dS is carried as two bf16 parts,
+//            hi = round(dS) and lo = round(dS - hi), and dK = hi^T.Q +
+//            lo^T.Q on the tensor cores, which holds dS to about 2^-17 of
+//            itself (one bf16 part alone, 2^-9, put single elements of dk
+//            past two bf16 ulps of the plain version's). In float32
+//            nothing is rounded.
 //
 // Layout: q, k, v are read in the public [B, T, nh, hd] layout through
 // their strides (batch, seq, head; unit stride on hd), so slices of one
@@ -37,6 +39,19 @@
 // both axes); the heaviest tiles launch first. head_dim 16, 32, 64, 128.
 // ldmatrix fragments, cp.async rings and wgmma/TMA are later work here
 // (flash_fwd.cu has the first two).
+//
+// The bias is float32 [BB, SQ, T], contiguous; head bh reads bias row
+// bh / bias_heads, and SQ (bias_rows) is 1 or T; s * scale + bias is one
+// FMA, where the mask is applied. dQ stages its key tile's bias in shared
+// memory beside K and V (one row for SQ = 1, else the [64 queries, 64
+// keys] tile at a row stride of 72 floats), so no global load waits
+// behind the products.
+// dK/dV works on S^T tiles, so its bias index is [bb, SQ == 1 ? 0 :
+// query, key]: with SQ = 1 one value per key row, read once a block; with
+// SQ = T the tile is staged by coalesced row loads at a row stride of 68
+// floats, which makes the transposed reads free of bank conflicts. The
+// bias is a template flag, as in flash_fwd.cu (32 instances): as a
+// runtime test it slowed the bias-free dQ by 16% on the H100 (PERF.md).
 #include <cstdint>
 #include <type_traits>
 
@@ -141,12 +156,23 @@ __device__ __forceinline__ float quad_sum(float v) {
 
 struct Args {
   const void *q, *k, *v, *o, *dout, *lse;
+  const float* bias;            // [BB, bias_rows, T] float32 or nullptr
   void *out0, *out1;            // dq: dq; dkv: dk, dv
   int T, nh;
   long long sb, st, sh;         // q/k/v strides (elements)
   float scale;
   int causal;
+  int bias_heads, bias_rows;
 };
+
+constexpr int kLDB = kRows + 4;   // row of dK/dV's staged bias tile
+constexpr int kLDQ = kRows + 8;   // row of dQ's staged bias tile
+
+// this head's bias: row bh / bias_heads of [BB, bias_rows, T]
+__device__ __forceinline__ const float* head_bias(const Args& a) {
+  return a.bias + static_cast<long long>(blockIdx.y / a.bias_heads) *
+                      a.bias_rows * a.T;
+}
 
 // o/dO/dq/dk/dv offset of (b, row, h) in a contiguous [B, T, nh, HD]
 template <int HD>
@@ -159,7 +185,7 @@ __device__ __forceinline__ long long packed_off(int b, int row, int h,
 // dQ: one block per 64 query rows, walking the key tiles
 // ---------------------------------------------------------------------------
 
-template <typename T, int HD>
+template <typename T, int HD, bool kBias>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Args a) {
   using S = Tile<T, HD>;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -168,6 +194,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Args a) {
   T* sK = sdO + S::kElems;
   T* sV = sK + S::kElems;
   T* sdS = sV + S::kElems;
+  float* sBq = reinterpret_cast<float*>(sdS + S::kPElems);   // with a bias
   const int nq = gridDim.x;
   const int qi = nq - 1 - blockIdx.x;
   const int b = blockIdx.y / a.nh, h = blockIdx.y % a.nh;
@@ -206,10 +233,25 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Args a) {
   float dq[HD / 8][4] = {};
   T* dsw = sdS + warp * 16 * S::LDP;
   const int nk = a.causal ? qi + 1 : nq;
+  const float* bias = kBias ? head_bias(a) : nullptr;
+  // this thread's rows in the staged bias (SQ = 1: the one row)
+  const int boff[2] = {a.bias_rows == 1 ? 0 : (warp * 16 + g) * kLDQ,
+                       a.bias_rows == 1 ? 0 : (warp * 16 + g + 8) * kLDQ};
   for (int kj = 0; kj < nk; ++kj) {
+    const int k0 = kj * kRows;
     __syncthreads();
-    load_tile<T, HD, S::LD>(sK, k, a.st, kj * kRows, a.T);
-    load_tile<T, HD, S::LD>(sV, v, a.st, kj * kRows, a.T);
+    load_tile<T, HD, S::LD>(sK, k, a.st, k0, a.T);
+    load_tile<T, HD, S::LD>(sV, v, a.st, k0, a.T);
+    if constexpr (kBias) {   // bias[q0 + i, k0 + j] by row; i = 0 for SQ = 1
+      const int nrows = a.bias_rows == 1 ? 1 : kRows;
+      for (int i = threadIdx.x; i < nrows * kRows; i += kThreads) {
+        const int r = i / kRows, c = i % kRows;
+        const long long qrow = a.bias_rows == 1 ? 0 : q0 + r;
+        sBq[r * kLDQ + c] = qrow < a.T && k0 + c < a.T
+                                ? __ldg(bias + qrow * a.T + k0 + c)
+                                : 0.f;
+      }
+    }
     __syncthreads();
     float s[8][4] = {}, dp[8][4] = {};
     warp_mma<8, HD, S::LD, 1, 1, S::LD>(s, sQ + warp * 16 * S::LD, sK);
@@ -219,8 +261,10 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Args a) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int r = e >> 1;
-        const int col = kj * kRows + 8 * n + 2 * t + (e & 1);
-        float x = s[n][e] * a.scale;
+        const int col = k0 + 8 * n + 2 * t + (e & 1);
+        float x = kBias ? fmaf(s[n][e], a.scale,
+                               sBq[boff[r] + 8 * n + 2 * t + (e & 1)])
+                        : s[n][e] * a.scale;
         if ((a.causal && col > row[r]) || col >= a.T) x = kNegInf;
         const float p = row[r] < a.T ? expf(x - lse[r]) : 0.f;
         const float ds = p * (dp[n][e] - di[r]) * a.scale;
@@ -247,7 +291,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Args a) {
 // dK/dV: one block per 64 key rows, walking the query tiles
 // ---------------------------------------------------------------------------
 
-template <typename T, int HD>
+template <typename T, int HD, bool kBias>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(Args a) {
   using S = Tile<T, HD>;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -257,8 +301,11 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(Args a) {
   T* sV = sK + S::kElems;
   T* sQ = sV + S::kElems;
   T* sdO = sQ + S::kElems;
+  constexpr bool kSplit = std::is_same<T, bf16>::value;   // dS = hi + lo
   T* sPt = sdO + S::kElems;
   T* sdS = sPt + S::kPElems;
+  T* sdSlo = sdS + S::kPElems;                              // bf16 only
+  float* sB = reinterpret_cast<float*>(sdSlo + (kSplit ? S::kPElems : 0));
   const int nq = gridDim.x;
   const int kj = blockIdx.x;    // low tiles see the most query tiles
   const int b = blockIdx.y / a.nh, h = blockIdx.y % a.nh;
@@ -280,11 +327,25 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(Args a) {
                           a.T);
   float dk[HD / 8][4] = {}, dv[HD / 8][4] = {};
   const int wrow = warp * 16 * S::LDP;
+  const float* bias = kBias ? head_bias(a) : nullptr;
+  float bk[2] = {0.f, 0.f};     // SQ = 1: the bias of this thread's keys
+  if (kBias && a.bias_rows == 1)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      if (krow[r] < a.T) bk[r] = __ldg(bias + krow[r]);
   for (int qi = a.causal ? kj : 0; qi < nq; ++qi) {
     const int q0 = qi * kRows;
     __syncthreads();
     load_tile<T, HD, S::LD>(sQ, q, a.st, q0, a.T);
     load_tile<T, HD, S::LD>(sdO, dout_h, ldo, q0, a.T);
+    if (kBias && a.bias_rows != 1)   // SQ = T: bias[q0 + i, k0 + j], by row
+      for (int i = threadIdx.x; i < kRows * kRows; i += kThreads) {
+        const int r = i / kRows, c = i % kRows;
+        sB[r * kLDB + c] =
+            q0 + r < a.T && k0 + c < a.T
+                ? __ldg(bias + static_cast<long long>(q0 + r) * a.T + k0 + c)
+                : 0.f;
+      }
     __syncthreads();
     {  // lse and D = rowsum(dO * o) of the 64 query rows: 2 lanes a row
       const int r = threadIdx.x >> 1, half = threadIdx.x & 1;
@@ -311,17 +372,27 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(Args a) {
       for (int e = 0; e < 4; ++e) {
         const int ci = 8 * n + 2 * t + (e & 1);  // query row in the tile
         const int qcol = q0 + ci;
-        float x = st[n][e] * a.scale;
+        float x = kBias ? fmaf(st[n][e], a.scale,
+                               a.bias_rows == 1
+                                   ? bk[e >> 1]
+                                   : sB[ci * kLDB + warp * 16 + g +
+                                        8 * (e >> 1)])
+                        : st[n][e] * a.scale;
         if ((a.causal && qcol < krow[e >> 1]) || qcol >= a.T) x = kNegInf;
         const float p = expf(x - sLse[ci]);
         const float ds = p * (dpt[n][e] - sDi[ci]) * a.scale;
         const int at = wrow + (g + 8 * (e >> 1)) * S::LDP + ci;
+        const T hi = ptt::from_f32<T>(ds);
         sPt[at] = ptt::from_f32<T>(p);
-        sdS[at] = ptt::from_f32<T>(ds);
+        sdS[at] = hi;
+        if constexpr (kSplit)
+          sdSlo[at] = ptt::from_f32<T>(ds - ptt::to_f32(hi));
       }
     __syncwarp();
     warp_mma<HD / 8, kRows, S::LDP, 1, S::LD, 1>(dv, sPt + wrow, sdO);
     warp_mma<HD / 8, kRows, S::LDP, 1, S::LD, 1>(dk, sdS + wrow, sQ);
+    if constexpr (kSplit)
+      warp_mma<HD / 8, kRows, S::LDP, 1, S::LD, 1>(dk, sdSlo + wrow, sQ);
   }
   T* dk_out = static_cast<T*>(a.out0);
   T* dv_out = static_cast<T*>(a.out1);
@@ -341,20 +412,31 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(Args a) {
 
 enum Which { kDq = 1, kDkv = 2 };
 
+// dQ: Q, dO, K, V and dS tiles, and with a bias its staged key tile;
+// dK/dV: P^T and dS^T tiles (bf16: dS^T as hi and lo), and with a full
+// (SQ = T) bias its staged tile
 template <typename T, int HD>
-size_t smem_bytes(int which) {
+size_t smem_bytes(int which, bool bias, int bias_rows) {
   using S = Tile<T, HD>;
-  if (which == kDq) return (4 * S::kElems + S::kPElems) * sizeof(T);
+  if (which == kDq)
+    return (4 * S::kElems + S::kPElems) * sizeof(T) +
+           (bias ? (bias_rows == 1 ? 1 : kRows) * kLDQ * sizeof(float) : 0);
+  const int ptiles = std::is_same<T, bf16>::value ? 3 : 2;
   return 2 * kRows * sizeof(float) +
-         (4 * S::kElems + 2 * S::kPElems) * sizeof(T);
+         (4 * S::kElems + ptiles * S::kPElems) * sizeof(T) +
+         (bias && bias_rows != 1 ? kRows * kLDB * sizeof(float) : 0);
 }
 
 template <typename T, int HD>
 int launch(int which, const Args& a, int B, cudaStream_t stream) {
   const dim3 grid((a.T + kRows - 1) / kRows, B * a.nh);
-  const size_t smem = smem_bytes<T, HD>(which);
-  void (*kern)(Args) = which == kDq ? flash_bwd_dq_kernel<T, HD>
-                                    : flash_bwd_dkv_kernel<T, HD>;
+  const bool hb = a.bias != nullptr;
+  const size_t smem = smem_bytes<T, HD>(which, hb, a.bias_rows);
+  void (*kern)(Args) =
+      which == kDq ? (hb ? flash_bwd_dq_kernel<T, HD, true>
+                         : flash_bwd_dq_kernel<T, HD, false>)
+                   : (hb ? flash_bwd_dkv_kernel<T, HD, true>
+                         : flash_bwd_dkv_kernel<T, HD, false>);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -395,26 +477,31 @@ int dispatch(int which, const Args& a, int B, int hd, int dtype,
 }  // namespace
 
 // q, k, v: [B, T, nh, hd] with element strides (sb, st, sh, 1), 16-byte
-// aligned; o, dout, dq: contiguous [B, T, nh, hd]; lse: [B, nh, T] float32.
+// aligned; o, dout, dq: contiguous [B, T, nh, hd]; lse: [B, nh, T] float32;
+// bias: nullptr or a contiguous float32 [B * nh / bias_heads, bias_rows, T].
 extern "C" int ptt_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 const void* o, const void* dout,
-                                const void* lse, void* dq, int B, int T,
-                                int nh, int hd, long long sb, long long st,
-                                long long sh, float scale, int causal,
+                                const void* lse, const float* bias, void* dq,
+                                int B, int T, int nh, int hd, long long sb,
+                                long long st, long long sh, float scale,
+                                int causal, int bias_heads, int bias_rows,
                                 int dtype, void* stream) {
-  Args a{q, k, v, o, dout, lse, dq, nullptr,
-         T, nh, sb, st, sh, scale, causal};
+  const Args a{q,  k,  v,  o,     dout,   lse,        bias,     dq, nullptr,
+               T,  nh, sb, st, sh,    scale,  causal,     bias_heads,
+               bias_rows};
   return dispatch(kDq, a, B, hd, dtype, stream);
 }
 
 // dk, dv: contiguous [B, T, nh, hd]; the rest as ptt_flash_bwd_dq.
 extern "C" int ptt_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                  const void* o, const void* dout,
-                                 const void* lse, void* dk, void* dv, int B,
-                                 int T, int nh, int hd, long long sb,
-                                 long long st, long long sh, float scale,
-                                 int causal, int dtype, void* stream) {
-  Args a{q, k, v, o, dout, lse, dk, dv,
-         T, nh, sb, st, sh, scale, causal};
+                                 const void* lse, const float* bias, void* dk,
+                                 void* dv, int B, int T, int nh, int hd,
+                                 long long sb, long long st, long long sh,
+                                 float scale, int causal, int bias_heads,
+                                 int bias_rows, int dtype, void* stream) {
+  const Args a{q,  k,  v,  o,     dout,   lse,        bias,     dk, dv,
+               T,  nh, sb, st, sh,    scale,  causal,     bias_heads,
+               bias_rows};
   return dispatch(kDkv, a, B, hd, dtype, stream);
 }

@@ -1,16 +1,22 @@
 // FlashAttention-2 forward for training, laid out for Hopper.
 //
 // Replaces: _fwd_kernel (paddle_tpu/ops/pallas_kernels.py:74, called at
-// :176) in the causal-or-full, bias-free form the GPT training step runs.
-// dQ and dK/dV live in flash_attention.cu and read this kernel's o and
-// lse.
+// :176) in both its forms, causal or full: bias-free (the GPT training
+// step) and with an additive float32 bias (:103-105, ERNIE's padding
+// mask). dQ and dK/dV live in flash_attention.cu and read this kernel's o
+// and lse.
 //
 // What it computes, as the Pallas kernel does: s = q.k^T * scale with f32
-// sums; causal entries -> -0.7*FLT_MAX; an online softmax in f32; P
-// rounded to v's dtype before P.V; o = acc * (1/l) in q's dtype; lse =
-// m + log(l) in natural-log units, with l == 0 -> 1. The exponentials are
-// ex2.approx of one FMA, score * scale*log2(e) - m, with m carried in log2
-// units and turned back into natural units for lse.
+// sums, plus the bias; causal entries -> -0.7*FLT_MAX (replaced, not
+// added); an online softmax in f32; P rounded to v's dtype before P.V;
+// o = acc * (1/l) in q's dtype; lse = m + log(l) in natural-log units,
+// with l == 0 -> 1. Bias-free, the exponentials are ex2.approx of one FMA,
+// score * scale*log2(e) - m, with m carried in log2 units and turned back
+// into natural units for lse. With a bias, s * scale + bias comes first,
+// one FMA in natural units, and m stays in natural units: a padding bias
+// of -0.5*FLT_MAX would overflow to -inf divided by the scale, and
+// carried in log2 units a fully padded row's m and lse would differ from
+// the scores they must cancel by more than exp takes.
 //
 // Layout: q, k, v are read in the public [B, T, nh, hd] layout through
 // their strides (batch, seq, head; unit stride on hd); o is contiguous
@@ -41,9 +47,17 @@
 // on the CUDA cores: S from shared memory, P.V with P broadcast across
 // the 4 lanes of a row by shuffles.
 //
-// The additive bias of the ERNIE slice (ROADMAP B1, [BB, SQ, Tk] float32,
-// added before the mask) has its operand slot in Args; it is not taken
-// yet (the wrapper refuses bias=).
+// The bias is float32 [BB, SQ, T], contiguous: head bh reads bias row
+// bh / bias_heads (bias_heads = nh when one bias serves all of a batch
+// row's heads, else 1), and SQ (bias_rows) is 1, a row-broadcast padding
+// mask, or T. It is added on every tile. With SQ = 1 a tile's 64 values
+// ride the cp.async ring with its K and V, so their latency hides under
+// the math of earlier tiles, and every row of the block reads them from
+// shared memory; with SQ = T each value is read from global memory where
+// it is added (off ERNIE's path). The bias is
+// a template flag (16 instances): as a runtime test it cost the bias-free
+// form 57% on the H100 at [16, 1024, 12, 64] causal (254 registers a
+// thread; PERF.md).
 #include <cstdint>
 #include <type_traits>
 
@@ -63,11 +77,12 @@ using bf16 = __nv_bfloat16;
 struct Args {
   const void *q, *k, *v;
   void *o, *lse;
-  const float* bias;            // ROADMAP B1's slot; nullptr for now
+  const float* bias;            // [BB, bias_rows, T] float32 or nullptr
   int T, nh;
   long long sb, st, sh;         // q/k/v strides (elements)
   float scale;
   int causal;
+  int bias_heads, bias_rows;
 };
 
 // Per instance: MT 16-row m-tiles a warp (bf16 hd <= 64: 2, so each K/V
@@ -84,8 +99,22 @@ struct Lay {
   static constexpr int LD = HD + kPad;
   static constexpr int kQ = kBM * LD;
   static constexpr int kKV = kBN * LD;          // one of K, V
-  static constexpr size_t kSmem = (kQ + kStages * 2 * kKV) * sizeof(T);
+  // the ring's stages, then one [kBN] float32 bias row a stage (SQ = 1)
+  static constexpr size_t kSmem = (kQ + kStages * 2 * kKV) * sizeof(T) +
+                                  kStages * kBN * sizeof(float);
 };
+
+// bias columns [col0, col0 + kBN) of one row into shared memory through
+// 4-byte cp.async (any T, any alignment); columns >= T zeros
+__device__ __forceinline__ void load_bias_row(float* __restrict__ s,
+                                              const float* __restrict__ g,
+                                              int col0, int T_len) {
+  if (threadIdx.x < kBN) {
+    const bool in = col0 + threadIdx.x < T_len;
+    ptt::cp_async4(s + threadIdx.x, g + (in ? col0 + threadIdx.x : 0),
+                   in ? 4 : 0);
+  }
+}
 
 // rows [row0, row0 + n) of a [T, HD] slice (row stride ld) into shared
 // memory with row stride LD, through 16-byte cp.async; rows >= T zeros
@@ -134,7 +163,7 @@ __device__ __forceinline__ void store2<bf16>(bf16* p, float a, float b) {
 
 // Register tiles: m-tile mt of a warp holds rows w0 + 16 mt + g and
 // w0 + 16 mt + g + 8 (r = 0, 1 below, the C fragment's e >> 1).
-template <typename T, int HD>
+template <typename T, int HD, bool kBias>
 __global__ void __launch_bounds__(Lay<T, HD>::kThreads,
                                   HD <= 64 ? 2 : 1)
     flash_fwd_kernel(Args a) {
@@ -143,6 +172,7 @@ __global__ void __launch_bounds__(Lay<T, HD>::kThreads,
   extern __shared__ __align__(16) unsigned char smem[];
   T* sQ = reinterpret_cast<T*>(smem);
   T* sKV = sQ + L::kQ;        // stage s: K at s * 2 * kKV, V kKV after it
+  float* sBias = reinterpret_cast<float*>(sKV + S * 2 * L::kKV);
   const int nq = gridDim.x;
   const int qi = nq - 1 - blockIdx.x;   // diagonal-heavy blocks first
   const int b = blockIdx.y / a.nh, h = blockIdx.y % a.nh;
@@ -157,6 +187,11 @@ __global__ void __launch_bounds__(Lay<T, HD>::kThreads,
   const int nk_all = (a.T + kBN - 1) / kBN;
   const int nk = a.causal ? min(nk_all, (q0 + kBM + kBN - 1) / kBN)
                           : nk_all;
+  const float* bias = kBias ? a.bias + static_cast<long long>(
+                                           blockIdx.y / a.bias_heads) *
+                                           a.bias_rows * a.T
+                            : nullptr;
+  const bool bias_row = kBias && a.bias_rows == 1;   // staged in the ring
 
   // prologue: Q and K/V tiles 0..S-2, one group each tile (Q with tile 0)
   load_rows<T, HD, L::LD, NT>(sQ, q, a.st, q0, kBM, a.T);
@@ -167,13 +202,14 @@ __global__ void __launch_bounds__(Lay<T, HD>::kThreads,
       load_rows<T, HD, L::LD, NT>(stage, k, a.st, j * kBN, kBN, a.T);
       load_rows<T, HD, L::LD, NT>(stage + L::kKV, v, a.st, j * kBN, kBN,
                                   a.T);
+      if (bias_row) load_bias_row(sBias + j * kBN, bias, j * kBN, a.T);
     }
     ptt::cp_async_commit();
   }
 
   uint32_t qf[L::kBF16 ? MT : 1][L::kBF16 ? HD / 16 : 1][4];  // Q, A frags
   float acc[MT][HD / 8][4] = {};
-  float m[MT][2], l[MT][2];                    // m in log2 units
+  float m[MT][2], l[MT][2];   // m in log2 units (natural with a bias)
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
@@ -194,6 +230,8 @@ __global__ void __launch_bounds__(Lay<T, HD>::kThreads,
         load_rows<T, HD, L::LD, NT>(stage, k, a.st, jn * kBN, kBN, a.T);
         load_rows<T, HD, L::LD, NT>(stage + L::kKV, v, a.st, jn * kBN, kBN,
                                     a.T);
+        if (bias_row)
+          load_bias_row(sBias + (jn % S) * kBN, bias, jn * kBN, a.T);
       }
       ptt::cp_async_commit();
     }
@@ -246,9 +284,11 @@ __global__ void __launch_bounds__(Lay<T, HD>::kThreads,
       }
     }
 
+    // with a bias, on every tile: s * scale + bias, in natural units; the
     // mask only where the tile crosses this warp's diagonal or the end of
-    // the sequence (ROADMAP B1: the bias, over scale, is added here, before
-    // the mask); the scale into log2 units rides in the exponent's FMA
+    // the sequence; bias-free, the scale into log2 units rides in the
+    // exponent's FMA
+    const float* sb = sBias + (j % S) * kBN;
     const bool edge = (a.causal && k0 + kBN - 1 > w0) || k0 + kBN > a.T;
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt) {
@@ -258,6 +298,19 @@ __global__ void __launch_bounds__(Lay<T, HD>::kThreads,
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           float x = s[mt][n][e];
+          if constexpr (kBias) {
+            float b;
+            if (bias_row) {
+              b = sb[8 * n + 2 * t + (e & 1)];
+            } else {
+              const int col = k0 + 8 * n + 2 * t + (e & 1);
+              const int row = min(w0 + 16 * mt + g + 8 * (e >> 1), a.T - 1);
+              b = col < a.T ? __ldg(bias + static_cast<long long>(row) * a.T +
+                                    col)
+                            : 0.f;
+            }
+            x = fmaf(x, a.scale, b);
+          }
           if (edge) {
             const int col = k0 + 8 * n + 2 * t + (e & 1);
             const int row = w0 + 16 * mt + g + 8 * (e >> 1);
@@ -269,15 +322,19 @@ __global__ void __launch_bounds__(Lay<T, HD>::kThreads,
       float alpha[2], rs[2] = {0.f, 0.f};
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
-        const float mn = fmaxf(m[mt][r], quad_max(mc[r]) * sl2);
-        alpha[r] = ex2(m[mt][r] - mn);
+        // with a bias, natural units: the difference first, then log2(e)
+        const float qm = quad_max(mc[r]);
+        const float mn = fmaxf(m[mt][r], kBias ? qm : qm * sl2);
+        alpha[r] = ex2(kBias ? (m[mt][r] - mn) * kLog2e : m[mt][r] - mn);
         m[mt][r] = mn;
       }
 #pragma unroll
       for (int n = 0; n < 8; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const float p = ex2(fmaf(s[mt][n][e], sl2, -m[mt][e >> 1]));
+          const float mr = m[mt][e >> 1];
+          const float p = kBias ? ex2((s[mt][n][e] - mr) * kLog2e)
+                             : ex2(fmaf(s[mt][n][e], sl2, -mr));
           rs[e >> 1] += p;
           s[mt][n][e] = p;
         }
@@ -357,7 +414,7 @@ __global__ void __launch_bounds__(Lay<T, HD>::kThreads,
                   acc[mt][n][2 * r + 1] * linv);
       if (t == 0)
         lse[static_cast<long long>(blockIdx.y) * a.T + row] =
-            m[mt][r] * kLn2 + logf(lr == 0.f ? 1.f : lr);
+            (kBias ? m[mt][r] : m[mt][r] * kLn2) + logf(lr == 0.f ? 1.f : lr);
     }
 }
 
@@ -365,11 +422,13 @@ template <typename T, int HD>
 int launch(const Args& a, int B, cudaStream_t stream) {
   using L = Lay<T, HD>;
   const dim3 grid((a.T + kBM - 1) / kBM, B * a.nh);
+  void (*kern)(Args) = a.bias != nullptr ? flash_fwd_kernel<T, HD, true>
+                                         : flash_fwd_kernel<T, HD, false>;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(L::kSmem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_fwd_kernel<T, HD><<<grid, L::kThreads, L::kSmem, stream>>>(a);
+  kern<<<grid, L::kThreads, L::kSmem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -392,13 +451,16 @@ int launch_hd(const Args& a, int B, int hd, cudaStream_t s) {
 }  // namespace
 
 // q, k, v: [B, T, nh, hd] with element strides (sb, st, sh, 1), 16-byte
-// aligned; o: contiguous [B, T, nh, hd]; lse: [B, nh, T] float32.
+// aligned; o: contiguous [B, T, nh, hd]; lse: [B, nh, T] float32; bias:
+// nullptr or a contiguous float32 [B * nh / bias_heads, bias_rows, T].
 extern "C" int ptt_flash_fwd(const void* q, const void* k, const void* v,
-                             void* o, void* lse, int B, int T, int nh,
-                             int hd, long long sb, long long st,
-                             long long sh, float scale, int causal,
+                             void* o, void* lse, const float* bias, int B,
+                             int T, int nh, int hd, long long sb,
+                             long long st, long long sh, float scale,
+                             int causal, int bias_heads, int bias_rows,
                              int dtype, void* stream) {
-  const Args a{q, k, v, o, lse, nullptr, T, nh, sb, st, sh, scale, causal};
+  const Args a{q,  k,  v,  o,     lse,    bias,       T,        nh,
+               sb, st, sh, scale, causal, bias_heads, bias_rows};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case ptt::kF32:

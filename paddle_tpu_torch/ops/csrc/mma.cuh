@@ -1,7 +1,7 @@
 // Tensor-core and asynchronous-copy building blocks shared by the
 // hand-written kernels (sm_80+ instructions, compiled for sm_90a):
-// 16-byte cp.async with zero fill, ldmatrix (plain and transposed) and
-// mma.sync m16n8k16 bf16 -> f32.
+// 16- and 4-byte cp.async with zero fill, ldmatrix (plain and
+// transposed) and mma.sync m16n8k16 bf16 -> f32.
 //
 // Fragment layout of mma.m16n8k16 (lane = 4g + t):
 //   A (16 x 16, row-major) a0 = (g, 2t..2t+1), a1 = (g+8, 2t..), a2 = (g,
@@ -27,6 +27,14 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            int src_bytes = 16) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(src_bytes));
+}
+
+// 4 bytes global -> shared (through L1); `src_bytes` 0 writes a zero
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int src_bytes = 4) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
                    smem_u32(dst)),
                "l"(src), "r"(src_bytes));
 }

@@ -26,7 +26,10 @@ train step under ``dots`` remat launches ``flash_fwd`` 2·L times,
 ``opt_adamw_flat`` once; with ``fused_ln=True`` also ``fused_ln`` 4·L + 1
 times (2·L in the forward, 2·L recomputed, the final LN) and
 ``fused_ln_bwd`` 2·L + 1 times; with ``ce_vocab_chunk`` > 0 also
-``ce_fwd`` once a row chunk (B·T / ``ce_chunk``).
+``ce_fwd`` once a row chunk (B·T / ``ce_chunk``). A flash call with a bias
+counts under ``flash_fwd_bias``, ``flash_bwd_dq_bias`` and
+``flash_bwd_dkv_bias``: an ERNIE pretrain step without remat launches
+each L times.
 """
 from __future__ import annotations
 
@@ -98,6 +101,23 @@ KERNELS: Dict[str, Dict[str, str]] = {
         "route": "cuda",
         "source": "paddle_tpu_torch/ops/csrc/ce_fwd.cu",
         "replaces": "paddle_tpu/ops/pallas_kernels.py:537",
+    },
+    # the additive-bias forms of the three flash kernels: the same
+    # sources, counted apart
+    "flash_fwd_bias": {
+        "route": "cuda",
+        "source": "paddle_tpu_torch/ops/csrc/flash_fwd.cu",
+        "replaces": "paddle_tpu/ops/pallas_kernels.py:74",
+    },
+    "flash_bwd_dq_bias": {
+        "route": "cuda",
+        "source": "paddle_tpu_torch/ops/csrc/flash_attention.cu",
+        "replaces": "paddle_tpu/ops/pallas_kernels.py:205",
+    },
+    "flash_bwd_dkv_bias": {
+        "route": "cuda",
+        "source": "paddle_tpu_torch/ops/csrc/flash_attention.cu",
+        "replaces": "paddle_tpu/ops/pallas_kernels.py:261",
     },
 }
 

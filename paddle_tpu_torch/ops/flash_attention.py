@@ -1,7 +1,8 @@
 """FlashAttention-2 for the training slice — the port of
 ``paddle_tpu/ops/pallas_kernels.py:74-478`` (``_fwd_kernel``,
 ``_bwd_dq_kernel``, ``_bwd_dkv_kernel``, the ``_flash`` custom_vjp and
-``flash_attention``).
+``flash_attention``), in both forms of the reference: bias-free, and with
+an additive float32 logit bias.
 
 Three hand-written kernels (the forward in ``ops/csrc/flash_fwd.cu``, dQ
 and dK/dV in ``ops/csrc/flash_attention.cu``) each sit beside a plain
@@ -17,6 +18,15 @@ one value per row where the TPU kept 128 replicated lanes. The kernels
 are compiled for head_dim 16, 32, 64 and 128; head_dim 8 runs the 16
 instance on inputs padded with zero columns (:func:`pad_head_dim`), which
 add nothing to any dot product, and the outputs are sliced back.
+
+The bias, as the kernels take it, is float32 ``[BB, SQ, T]``: BB = B
+shares one bias among a batch row's heads (head ``bh`` reads row
+``bh // nh``), BB = B·nh is one bias a head; SQ = 1 is a row-broadcast
+padding mask (the [T, T] square never materialises), SQ = T a full mask.
+Every kernel adds it to the scaled scores, ``s = q.k^T * scale + bias``,
+before the causal mask replaces entries with ``_NEG_INF``.
+:func:`flash_attention` takes the public ``[B, nh | 1, SQ, T]`` form and
+folds it as ``pallas_kernels.py:466-474`` does. The bias gets no gradient.
 
 The forward is registered as the dispatcher op
 ``paddle_tpu_torch::flash_fwd`` so that a selective-checkpoint policy sees
@@ -53,10 +63,19 @@ def _bh(x: torch.Tensor) -> torch.Tensor:
     return x.float().transpose(1, 2)
 
 
-def _scores(q, k, causal: bool, sm_scale: float) -> torch.Tensor:
-    """q.k^T * scale in float32 [B, nh, T, Tk], causal entries masked to
-    ``_NEG_INF`` as the kernels mask them."""
+def _bias_bh(bias, B: int, nh: int) -> torch.Tensor:
+    """A kernel-form bias [BB, SQ, Tk] -> float32 [B, nh | 1, SQ, Tk],
+    which broadcasts against the scores."""
+    BB, SQ, Tk = bias.shape
+    return bias.float().reshape(B, BB // B, SQ, Tk)
+
+
+def _scores(q, k, causal: bool, sm_scale: float, bias=None) -> torch.Tensor:
+    """q.k^T * scale (+ bias) in float32 [B, nh, T, Tk], causal entries
+    then replaced by ``_NEG_INF`` as the kernels mask them."""
     s = torch.matmul(_bh(q), _bh(k).transpose(-1, -2)) * sm_scale
+    if bias is not None:
+        s = s + _bias_bh(bias, q.shape[0], q.shape[2])
     if causal:
         T, Tk = s.shape[-2:]
         keep = torch.ones((T, Tk), dtype=torch.bool, device=s.device).tril()
@@ -65,14 +84,14 @@ def _scores(q, k, causal: bool, sm_scale: float) -> torch.Tensor:
 
 
 def flash_fwd_plain(q, k, v, causal: bool = True,
-                    sm_scale: Optional[float] = None):
+                    sm_scale: Optional[float] = None, bias=None):
     """The forward kernel's arithmetic in PyTorch ops: f32 scores, softmax
     with P rounded to v's dtype before P.V, o = acc * (1/l) in q's dtype
     and lse = m + log(l) ``[B, nh, T]`` float32, with the ``l == 0``
     guards of the reference."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
-    s = _scores(q, k, causal, sm_scale)
+    s = _scores(q, k, causal, sm_scale, bias)
     m = s.amax(-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(-1, keepdim=True)
@@ -82,32 +101,32 @@ def flash_fwd_plain(q, k, v, causal: bool = True,
     return o, (m + torch.log(l_safe)).squeeze(-1)
 
 
-def _probs(q, k, v, o, lse, do, causal, sm_scale):
+def _probs(q, k, v, o, lse, do, causal, sm_scale, bias):
     """(P, dS) of the backward in float32 [B, nh, T, Tk]."""
-    p = torch.exp(_scores(q, k, causal, sm_scale) - lse.unsqueeze(-1))
+    p = torch.exp(_scores(q, k, causal, sm_scale, bias) - lse.unsqueeze(-1))
     dp = torch.matmul(_bh(do), _bh(v).transpose(-1, -2))
     di = (_bh(do) * _bh(o)).sum(-1, keepdim=True)
     return p, p * (dp - di) * sm_scale
 
 
 def flash_bwd_dq_plain(q, k, v, o, lse, do, causal: bool = True,
-                       sm_scale: Optional[float] = None):
+                       sm_scale: Optional[float] = None, bias=None):
     """dQ = round(dS).K with f32 sums, in q's dtype."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
-    _p, ds = _probs(q, k, v, o, lse, do, causal, sm_scale)
+    _p, ds = _probs(q, k, v, o, lse, do, causal, sm_scale, bias)
     dq = torch.matmul(ds.to(k.dtype).float(), _bh(k))
     return dq.to(q.dtype).transpose(1, 2).contiguous()
 
 
 def flash_bwd_dkv_plain(q, k, v, o, lse, do, causal: bool = True,
-                        sm_scale: Optional[float] = None):
+                        sm_scale: Optional[float] = None, bias=None):
     """dK = dS^T.Q with dS in float32, as the reference keeps it (the bf16
-    kernel rounds dS to bf16 once), dV = round(P)^T.dO; (dk, dv) in k's
-    and v's dtypes."""
+    kernel carries dS as two bf16 parts, about 2^-17 of it), dV =
+    round(P)^T.dO; (dk, dv) in k's and v's dtypes."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
-    p, ds = _probs(q, k, v, o, lse, do, causal, sm_scale)
+    p, ds = _probs(q, k, v, o, lse, do, causal, sm_scale, bias)
     dk = torch.matmul(ds.transpose(-1, -2), _bh(q))
     dv = torch.matmul(p.to(do.dtype).float().transpose(-1, -2), _bh(do))
     return (dk.to(k.dtype).transpose(1, 2).contiguous(),
@@ -139,36 +158,63 @@ def _check_qkv(q, k, v, what: str):
     return B, T, nh, hd, code, q.stride()[:3]
 
 
+def _name(kernel: str, bias) -> str:
+    """The launch count a call ticks: the bias form counts apart."""
+    return kernel if bias is None else kernel + "_bias"
+
+
+def _check_bias(bias, B: int, T: int, nh: int, what: str):
+    """The kernels' contract on a bias: float32, contiguous, 16-byte
+    aligned, [BB, SQ, T] with BB in {B, B·nh} and SQ in {1, T}. Returns
+    (pointer, heads that share one bias row, SQ); (None, 1, 1) for none."""
+    if bias is None:
+        return None, 1, 1
+    if bias.dtype != torch.float32:
+        raise TypeError(f"{what}: bias must be float32, got {bias.dtype}")
+    _ck._require(bias.dim() == 3 and bias.shape[0] in (B, B * nh)
+                 and bias.shape[1] in (1, T) and bias.shape[2] == T,
+                 f"{what}: bias must be [B or B*nh, 1 or T, T] = "
+                 f"[{B} or {B * nh}, 1 or {T}, {T}], got "
+                 f"{tuple(bias.shape)}")
+    _ck._require(bias.is_contiguous() and bias.data_ptr() % 16 == 0,
+                 f"{what}: bias must be contiguous and 16-byte aligned")
+    heads = nh if bias.shape[0] == B else 1
+    return bias.data_ptr(), heads, bias.shape[1]
+
+
 def flash_fwd(q, k, v, causal: bool = True,
-              sm_scale: Optional[float] = None):
+              sm_scale: Optional[float] = None, bias=None):
     """(o [B, T, nh, hd] in q's dtype, lse [B, nh, T] float32) for q, k, v
-    [B, T, nh, hd] float32 or bfloat16 (hd in 8/16/32/64/128) — one launch
-    of the forward kernel on the card."""
+    [B, T, nh, hd] float32 or bfloat16 (hd in 8/16/32/64/128) and an
+    optional float32 ``bias`` [B or B·nh, 1 or T, T] — one launch of the
+    forward kernel on the card."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
-    if not _ck._on_card(q, k, v):
-        return flash_fwd_plain(q, k, v, causal, sm_scale)
+    ts = (q, k, v) if bias is None else (q, k, v, bias)
+    if not _ck._on_card(*ts):
+        return flash_fwd_plain(q, k, v, causal, sm_scale, bias)
     hd = q.shape[-1]
     if hd in _PADDED_HEAD_DIMS:
         to = _PADDED_HEAD_DIMS[hd]
         o, lse = flash_fwd(*(pad_head_dim(x, to) for x in (q, k, v)),
-                           causal, sm_scale)
+                           causal, sm_scale, bias)
         return o[..., :hd].contiguous(), lse
     B, T, nh, hd, code, (sb, st, sh) = _check_qkv(q, k, v, "flash_fwd")
+    bptr, bheads, brows = _check_bias(bias, B, T, nh, "flash_fwd")
     o = torch.empty((B, T, nh, hd), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, nh, T), dtype=torch.float32, device=q.device)
     if T == 0:
         return o, lse
     lib = _ck._lib()
     err = lib.ptt_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                            o.data_ptr(), lse.data_ptr(), B, T, nh, hd, sb,
-                            st, sh, float(sm_scale), int(bool(causal)), code,
-                            _ck._stream(q))
-    _ck._check_launch(lib, err, "flash_fwd")
+                            o.data_ptr(), lse.data_ptr(), bptr, B, T, nh, hd,
+                            sb, st, sh, float(sm_scale), int(bool(causal)),
+                            bheads, brows, code, _ck._stream(q))
+    _ck._check_launch(lib, err, _name("flash_fwd", bias))
     return o, lse
 
 
-def _bwd_inputs(q, k, v, o, lse, do, what):
+def _bwd_inputs(q, k, v, o, lse, do, bias, what):
     dims = _check_qkv(q, k, v, what)
     B, T, nh, hd = dims[:4]
     o, do = o.contiguous(), do.contiguous()
@@ -179,69 +225,75 @@ def _bwd_inputs(q, k, v, o, lse, do, what):
     _ck._require(tuple(lse.shape) == (B, nh, T)
                  and lse.dtype == torch.float32 and lse.is_contiguous(),
                  f"{what}: lse must be a contiguous float32 [{B}, {nh}, {T}]")
-    return dims, o, do
+    return dims, _check_bias(bias, B, T, nh, what), o, do
 
 
 def flash_bwd_dq(q, k, v, o, lse, do, causal: bool = True,
-                 sm_scale: Optional[float] = None):
+                 sm_scale: Optional[float] = None, bias=None):
     """dq [B, T, nh, hd] in q's dtype from the forward's (o, lse) and the
-    output cotangent ``do`` — one launch of the dQ kernel on the card."""
+    output cotangent ``do``, with the forward's ``bias`` — one launch of
+    the dQ kernel on the card."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
-    if not _ck._on_card(q, k, v, o, lse, do):
-        return flash_bwd_dq_plain(q, k, v, o, lse, do, causal, sm_scale)
+    ts = (q, k, v, o, lse, do) + (() if bias is None else (bias,))
+    if not _ck._on_card(*ts):
+        return flash_bwd_dq_plain(q, k, v, o, lse, do, causal, sm_scale,
+                                  bias)
     hd = q.shape[-1]
     if hd in _PADDED_HEAD_DIMS:
         to = _PADDED_HEAD_DIMS[hd]
         q, k, v, o, do = (pad_head_dim(x, to) for x in (q, k, v, o, do))
-        return flash_bwd_dq(q, k, v, o, lse, do, causal,
-                            sm_scale)[..., :hd].contiguous()
-    (B, T, nh, hd, code, (sb, st, sh)), o, do = _bwd_inputs(
-        q, k, v, o, lse, do, "flash_bwd_dq")
+        return flash_bwd_dq(q, k, v, o, lse, do, causal, sm_scale,
+                            bias)[..., :hd].contiguous()
+    ((B, T, nh, hd, code, (sb, st, sh)), (bptr, bheads, brows), o,
+     do) = _bwd_inputs(q, k, v, o, lse, do, bias, "flash_bwd_dq")
     dq = torch.empty((B, T, nh, hd), dtype=q.dtype, device=q.device)
     lib = _ck._lib()
     err = lib.ptt_flash_bwd_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                o.data_ptr(), do.data_ptr(), lse.data_ptr(),
-                               dq.data_ptr(), B, T, nh, hd, sb, st, sh,
-                               float(sm_scale), int(bool(causal)), code,
-                               _ck._stream(q))
-    _ck._check_launch(lib, err, "flash_bwd_dq")
+                               bptr, dq.data_ptr(), B, T, nh, hd, sb, st, sh,
+                               float(sm_scale), int(bool(causal)), bheads,
+                               brows, code, _ck._stream(q))
+    _ck._check_launch(lib, err, _name("flash_bwd_dq", bias))
     return dq
 
 
 def flash_bwd_dkv(q, k, v, o, lse, do, causal: bool = True,
-                  sm_scale: Optional[float] = None):
+                  sm_scale: Optional[float] = None, bias=None):
     """(dk, dv) [B, T, nh, hd] — one launch of the dK/dV kernel on the
     card; arguments as :func:`flash_bwd_dq`."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
-    if not _ck._on_card(q, k, v, o, lse, do):
-        return flash_bwd_dkv_plain(q, k, v, o, lse, do, causal, sm_scale)
+    ts = (q, k, v, o, lse, do) + (() if bias is None else (bias,))
+    if not _ck._on_card(*ts):
+        return flash_bwd_dkv_plain(q, k, v, o, lse, do, causal, sm_scale,
+                                   bias)
     hd = q.shape[-1]
     if hd in _PADDED_HEAD_DIMS:
         to = _PADDED_HEAD_DIMS[hd]
         q, k, v, o, do = (pad_head_dim(x, to) for x in (q, k, v, o, do))
         return tuple(x[..., :hd].contiguous() for x in flash_bwd_dkv(
-            q, k, v, o, lse, do, causal, sm_scale))
-    (B, T, nh, hd, code, (sb, st, sh)), o, do = _bwd_inputs(
-        q, k, v, o, lse, do, "flash_bwd_dkv")
+            q, k, v, o, lse, do, causal, sm_scale, bias))
+    ((B, T, nh, hd, code, (sb, st, sh)), (bptr, bheads, brows), o,
+     do) = _bwd_inputs(q, k, v, o, lse, do, bias, "flash_bwd_dkv")
     dk = torch.empty((B, T, nh, hd), dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
     lib = _ck._lib()
     err = lib.ptt_flash_bwd_dkv(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                 o.data_ptr(), do.data_ptr(), lse.data_ptr(),
-                                dk.data_ptr(), dv.data_ptr(), B, T, nh, hd,
-                                sb, st, sh, float(sm_scale),
-                                int(bool(causal)), code, _ck._stream(q))
-    _ck._check_launch(lib, err, "flash_bwd_dkv")
+                                bptr, dk.data_ptr(), dv.data_ptr(), B, T, nh,
+                                hd, sb, st, sh, float(sm_scale),
+                                int(bool(causal)), bheads, brows, code,
+                                _ck._stream(q))
+    _ck._check_launch(lib, err, _name("flash_bwd_dkv", bias))
     return dk, dv
 
 
 @torch.library.custom_op("paddle_tpu_torch::flash_fwd", mutates_args=())
 def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  causal: bool, sm_scale: float
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    return flash_fwd(q, k, v, causal, sm_scale)
+                  bias: Optional[torch.Tensor], causal: bool,
+                  sm_scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    return flash_fwd(q, k, v, causal, sm_scale, bias)
 
 
 # the forward as the dispatcher sees it (remat policies match on it)
@@ -249,22 +301,27 @@ FLASH_FWD_OP = torch.ops.paddle_tpu_torch.flash_fwd.default
 
 
 class _Flash(torch.autograd.Function):
-    """The ``_flash`` custom_vjp: saves (q, k, v, o, lse); the backward
-    launches dQ and dK/dV."""
+    """The ``_flash`` custom_vjp: saves (q, k, v, o, lse, bias); the
+    backward launches dQ and dK/dV. The bias is a constant mask: its
+    cotangent is zero (``_flash_bwd`` :428-431), given as zeros only when
+    the bias asks for a gradient."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, sm_scale: float):
-        o, lse = FLASH_FWD_OP(q, k, v, causal, sm_scale)
-        ctx.save_for_backward(q, k, v, o, lse)
+    def forward(ctx, q, k, v, bias, causal: bool, sm_scale: float):
+        o, lse = FLASH_FWD_OP(q, k, v, bias, causal, sm_scale)
+        ctx.save_for_backward(q, k, v, o, lse, bias)
         ctx.causal, ctx.sm_scale = causal, sm_scale
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o, lse = ctx.saved_tensors
-        dq = flash_bwd_dq(q, k, v, o, lse, do, ctx.causal, ctx.sm_scale)
-        dk, dv = flash_bwd_dkv(q, k, v, o, lse, do, ctx.causal, ctx.sm_scale)
-        return dq, dk, dv, None, None
+        q, k, v, o, lse, bias = ctx.saved_tensors
+        dq = flash_bwd_dq(q, k, v, o, lse, do, ctx.causal, ctx.sm_scale,
+                          bias)
+        dk, dv = flash_bwd_dkv(q, k, v, o, lse, do, ctx.causal,
+                               ctx.sm_scale, bias)
+        dbias = torch.zeros_like(bias) if ctx.needs_input_grad[3] else None
+        return dq, dk, dv, dbias, None, None
 
 
 def flash_attention(q, k, v, causal: bool = True,
@@ -273,15 +330,29 @@ def flash_attention(q, k, v, causal: bool = True,
     """FlashAttention-2: q, k, v [B, T, nh, hd] -> [B, T, nh, hd],
     differentiable through the hand-written backward kernels.
 
+    ``bias`` is an optional additive logit bias (padding or attention
+    mask), ``[B, nh, SQ, T]`` or ``[B, 1, SQ, T]`` with SQ = T or SQ = 1
+    (the O(B·T) padding form, broadcast inside the kernels, so a row mask
+    never materialises the [T, T] square). Any other head dim raises
+    ``ValueError``, as JAX's does. It is cast to float32 and is not
+    differentiated: its gradient is zero (None unless it requires one).
+
     ``block_q``/``block_k`` are kept for the JAX signature; the kernels
     pick their own tiles, and since the causal block skip is exact the
-    result does not depend on them. The additive ``bias`` belongs to
-    the ERNIE slice and raises."""
+    result does not depend on them."""
     del block_q, block_k
-    if bias is not None:
-        raise NotImplementedError(
-            "flash_attention bias= (padding / attention masks) comes with "
-            "the ERNIE slice of the port (ROADMAP.md, queue A, item A1)")
+    b, t, nh, hd = q.shape
     if sm_scale is None:
-        sm_scale = 1.0 / math.sqrt(q.shape[-1])
-    return _Flash.apply(q, k, v, bool(causal), float(sm_scale))
+        sm_scale = 1.0 / math.sqrt(hd)
+    if bias is not None:
+        if bias.dim() != 4:
+            raise ValueError(f"bias must be [B, nh | 1, SQ, Tk], got "
+                             f"{tuple(bias.shape)}")
+        bb, bn, sq, tk = bias.shape
+        if bn not in (1, nh):
+            raise ValueError(f"bias head dim {bn} must be 1 or {nh}")
+        if bb != b or sq not in (1, t) or tk != t:
+            raise ValueError(f"bias {tuple(bias.shape)} must be [{b}, "
+                             f"{bn}, 1 or {t}, {t}]")
+        bias = bias.reshape(b * bn, sq, tk).to(torch.float32).contiguous()
+    return _Flash.apply(q, k, v, bias, bool(causal), float(sm_scale))

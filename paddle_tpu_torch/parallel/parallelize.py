@@ -46,8 +46,8 @@ class ParallelConfig:
             raise NotImplementedError(
                 f"dp={self.dp} pp={self.pp} tp={self.tp} microbatches="
                 f"{self.microbatches}: multi-GPU parallelism is still to be "
-                "ported (ROADMAP.md, queue A item 7); the port trains on one "
-                "device")
+                "ported (ROADMAP.md, queue A: multi-GPU parallelism); the "
+                "port trains on one device")
 
 
 def flat_leaves(tree) -> List[torch.Tensor]:

@@ -137,14 +137,15 @@ def _refuse_unported(ecfg: EngineConfig) -> None:
     if ecfg.weight_dtype == "int8":
         raise NotImplementedError(
             "weight_dtype='int8' waits for the port of serving/quant.py "
-            "(ROADMAP.md, queue A, item A3)")
+            "(ROADMAP.md, queue A: int8 serving weights)")
     if ecfg.weight_dtype not in _STORAGE:
         raise ValueError(f"weight_dtype {ecfg.weight_dtype!r}: expected "
                          "'f32', 'bf16' or 'int8'")
     if ecfg.verify_window > 0:
         raise NotImplementedError(
             "verify_window > 0 (speculative decoding) waits for the port "
-            "of serving/spec_decode.py (ROADMAP.md, queue A, item A2)")
+            "of serving/spec_decode.py (ROADMAP.md, queue A: speculative "
+            "decoding)")
     if ecfg.role not in ("prefill", "decode", "colocated"):
         raise ValueError(f"role {ecfg.role!r}: expected 'prefill', "
                          "'decode' or 'colocated'")

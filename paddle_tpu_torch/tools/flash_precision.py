@@ -13,7 +13,8 @@ the plain bf16 version, the max abs error, the relative rms error
 (rms |x - ref| / rms |ref|), and the largest error over its row's max
 |ref| (at least 1e-5: dq's first causal row is zero). The plain version
 keeps dS in float32 for dk as the reference does, so its dk error is dk's
-output rounding alone. Also times
+output rounding alone; the kernel carries dS as two bf16 parts. Also
+times
 ``flash_bwd_dkv`` with CUDA events. One JSON line; needs a CUDA device.
 """
 import json

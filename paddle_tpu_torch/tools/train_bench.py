@@ -1,8 +1,11 @@
-"""Train GPT on one card and report throughput — the port's twin of
-``bench.py``'s accelerator GPT lane (``bench.py:490-519``, ``:745-803``).
+"""Train GPT or pretrain ERNIE on one card and report throughput — the
+port's twin of ``bench.py``'s accelerator GPT lane (``bench.py:490-519``,
+``:745-803``) and its ERNIE lane (``:326-395``).
 
     python -m paddle_tpu_torch.tools.train_bench [--remat dots]
         [--fused-ln] [--ce-vchunk N] [--profile 3] [--compare]
+    python -m paddle_tpu_torch.tools.train_bench --model ernie [--pad]
+        [--profile 3] [--compare]
 
 The configuration is GPT_SMALL at full width and depth, batch 16 x 1024,
 bf16 compute with float32 master weights and bf16 Adam moments,
@@ -24,6 +27,19 @@ training kernels, matrix products, the rest) and by name, all per step.
 ``--compare`` runs the plain arm (plain attention and layernorm, the
 row-chunked or direct CE, plain PyTorch sweep) and the kernel arm in
 turns — plain, kernel, kernel, plain — one JSON line each.
+
+``--model ernie`` is ``bench.py``'s ERNIE lane as written: ERNIE_BASE
+(L 12, nh 12, D 768, d_ff 3072, V 30522) at full width and depth, bf16
+compute on float32 params, flash attention (the bias form: the padding
+mask enters every flash kernel as a [B, 1, 1, T] bias), remat off, the
+momentum step at lr 1e-4; batch 48 x 512, 2 warm-up and 10 timed steps,
+every step on the same synthetic batch from numpy seed 0 with an all-ones
+``pad_mask``. ``--pad`` gives each sample a length drawn from 128-512
+(its own numpy seed 0), so the padding bias holds real -0.5·f32-max
+entries. The record has samples/s, ms a step, MFU
+(``pretrain_flops_per_token`` x tokens/s over the card's bf16 peak) and
+peak memory; ``--profile``/``--compare`` as for GPT (the plain arm: plain
+attention).
 """
 import argparse
 import json
@@ -34,6 +50,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from ..models import ernie as E
 from ..models import gpt as G
 from ..observability import hw
 from ..ops import cuda_kernels as CK
@@ -48,6 +65,7 @@ TRAIN_KERNELS = {k: k for k in ("flash_fwd_kernel", "flash_bwd_dq_kernel",
                                 "fused_ln_fwd_kernel", "ln_bwd_kernel",
                                 "ce_fwd")}
 BATCH, SEQ = 16, 1024           # bench.py's GPT lane
+ERNIE_BATCH, ERNIE_SEQ = 48, 512   # bench.py's ERNIE lane
 STEPS, WARMUP = 10, 2
 
 
@@ -72,9 +90,33 @@ def _range_summary(prof, name: str, steps: int) -> Dict[str, float]:
             "ranges_per_step": len(host) / steps}
 
 
+def _timed(step_once, dev):
+    """WARMUP calls of ``step_once`` (one train step, updating its state
+    in place), then STEPS more with the launch counts and the peak memory
+    zeroed just before them, ending in one synchronize. Returns (every
+    step's outputs, warm-up seconds, timed seconds, launches per timed
+    step)."""
+    outs = []
+    t0 = time.perf_counter()
+    for _ in range(WARMUP):
+        outs.append(step_once())
+    torch.cuda.synchronize(dev)
+    warm_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats(dev)
+    CK.reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(STEPS):
+        outs.append(step_once())
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    launches = {k: v / STEPS for k, v in CK.LAUNCHES.items() if v}
+    return outs, warm_s, wall, launches
+
+
 def _profile(step, state, steps: int) -> Dict[str, Any]:
     """Trace ``steps`` train steps (``state`` = [params, opt, tokens,
-    labels]); device time per step as ``profile_decode.trace_summary``,
+    labels], or [params, opt, batch] for ERNIE); device time per step as
+    ``profile_decode.trace_summary``,
     and the vocab-chunked CE's backward sweep on its own (its kernels are
     the generic ones of the other groups)."""
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -130,23 +172,9 @@ def run(cfg: G.GPTConfig, fused_opt_kernel=None,
                               ).to(dev)
     labels = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, batch, T))
                               ).to(dev)
-    losses = []
-    t0 = time.perf_counter()
-    for _ in range(warmup):
-        params, opt, loss, _g = step(params, opt, tokens, labels)
-        losses.append(loss)
-    torch.cuda.synchronize(dev)
-    warm_s = time.perf_counter() - t0
-    torch.cuda.reset_peak_memory_stats(dev)
-    CK.reset_launches()
-    t0 = time.perf_counter()
-    for _ in range(steps):
-        params, opt, loss, gnorm = step(params, opt, tokens, labels)
-        losses.append(loss)
-    torch.cuda.synchronize(dev)
-    wall = time.perf_counter() - t0
-    launches = {k: v / steps for k, v in CK.LAUNCHES.items() if v}
-    losses = [float(x) for x in losses]
+    outs, warm_s, wall, launches = _timed(
+        lambda: step(params, opt, tokens, labels), dev)
+    losses = [float(o[2]) for o in outs]
     tok_s = steps * batch * T / wall
     flops = G.train_flops_per_token(cfg, n_params, T)
     name = torch.cuda.get_device_name(dev)
@@ -170,7 +198,7 @@ def run(cfg: G.GPTConfig, fused_opt_kernel=None,
         "peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
         "loss_first": losses[0], "loss_last": losses[-1],
         "losses": losses,
-        "grad_norm_last": float(gnorm),
+        "grad_norm_last": float(outs[-1][3]),
         "launches_per_step": launches,
     }
     if profile_steps:
@@ -179,8 +207,88 @@ def run(cfg: G.GPTConfig, fused_opt_kernel=None,
     return rec
 
 
+def ernie_config() -> E.ErnieConfig:
+    """bench.py's ERNIE lane: ERNIE_BASE, bf16 compute, flash on, remat
+    off."""
+    return E.ERNIE_BASE.scaled(dtype=torch.bfloat16, use_flash=True,
+                               remat=False)
+
+
+def ernie_batch(cfg: E.ErnieConfig, batch: int, T: int,
+                pad: bool = False) -> Dict[str, np.ndarray]:
+    """bench.py's synthetic pretraining batch (numpy seed 0, the same
+    draws in the same order); with ``pad``, per-sample lengths drawn from
+    128-512 (capped at T) by their own numpy seed 0 set the pad mask."""
+    rng = np.random.default_rng(0)
+    M = cfg.max_masked
+    out = {
+        "tokens": rng.integers(0, cfg.vocab_size, (batch, T),
+                               dtype=np.int32),
+        "seg_ids": rng.integers(0, 2, (batch, T), dtype=np.int32),
+        "pad_mask": np.ones((batch, T), bool),
+        "mlm_pos": rng.integers(0, T, (batch, M), dtype=np.int32),
+        "mlm_ids": rng.integers(0, cfg.vocab_size, (batch, M),
+                                dtype=np.int32),
+        "mlm_valid": np.ones((batch, M), bool),
+        "nsp_label": rng.integers(0, 2, (batch,), dtype=np.int32),
+    }
+    if pad:
+        lens = np.minimum(np.random.default_rng(0).integers(
+            128, 513, size=batch), T)
+        out["pad_mask"] = np.arange(T)[None, :] < lens[:, None]
+    return out
+
+
+def run_ernie(cfg: E.ErnieConfig, pad: bool = False,
+              profile_steps: int = 0) -> Dict[str, Any]:
+    """WARMUP + STEPS pretrain steps on one batch on the card, timed and
+    counted as :func:`run` does."""
+    dev = torch.device("cuda")
+    batch, T, steps, warmup = ERNIE_BATCH, ERNIE_SEQ, STEPS, WARMUP
+    params = E.init_params(cfg, seed=0, device=dev)
+    opt = E.init_opt(params)
+    n_params = E.num_params(params)
+    step = E.make_pretrain_step(cfg, lr=1e-4, device=dev)
+    data = E.batch_to_device(ernie_batch(cfg, batch, T, pad), dev)
+    outs, warm_s, wall, launches = _timed(
+        lambda: step(params, opt, data), dev)
+    losses = [float(o[2]) for o in outs]
+    samples_s = steps * batch / wall
+    flops = E.pretrain_flops_per_token(cfg, n_params, T)
+    name = torch.cuda.get_device_name(dev)
+    rec = {
+        "config": (f"ernie_L{cfg.num_layers}_b{batch}x{T}"
+                   + ("_pad" if pad else "")
+                   + ("_fln" if cfg.fused_ln else "")
+                   + (f"_vchunk{cfg.ce_vocab_chunk}"
+                      if cfg.ce_vocab_chunk else "")),
+        "device": name,
+        "model_params": n_params,
+        "batch": batch, "seq_len": T, "steps": steps, "warmup": warmup,
+        "real_tokens_per_step": int(data["pad_mask"].sum()),
+        "remat_policy": cfg.remat_policy if cfg.remat else "none",
+        "flash": cfg.use_flash,
+        "samples_per_s": samples_s,
+        "tokens_per_s": samples_s * T,
+        "mfu": samples_s * T * flops
+        / hw.peaks_for(name)["bf16_flops_per_s"],
+        "ms_per_step": wall / steps * 1e3,
+        "warmup_s": warm_s,
+        "peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
+        "loss_first": losses[0], "loss_last": losses[-1],
+        "losses": losses,
+        "launches_per_step": launches,
+    }
+    if profile_steps:
+        rec["profile"] = _profile(step, [params, opt, data], profile_steps)
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--model", default="gpt", choices=("gpt", "ernie"))
+    ap.add_argument("--pad", action="store_true",
+                    help="ernie: per-sample lengths 128-512, not all-ones")
     ap.add_argument("--remat", default="dots",
                     help="none | full | dots | save_only_flash")
     ap.add_argument("--fused-ln", action="store_true",
@@ -195,13 +303,21 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("train_bench: no CUDA device available", file=sys.stderr)
         return 2
-    cfg = bench_config(args.remat, args.fused_ln, args.ce_vchunk)
-    arms = {"kernel": (cfg, None), "plain": (plain_config(cfg), False)}
     order = ("plain", "kernel", "kernel", "plain") if args.compare \
         else ("kernel",)
+    if args.model == "ernie":
+        cfg = ernie_config()
+        arms = {"kernel": cfg, "plain": cfg.scaled(use_flash=False)}
+    else:
+        cfg = bench_config(args.remat, args.fused_ln, args.ce_vchunk)
+        arms = {"kernel": (cfg, None), "plain": (plain_config(cfg), False)}
     for arm in order:
-        acfg, kern = arms[arm]
-        rec = run(acfg, fused_opt_kernel=kern, profile_steps=args.profile)
+        if args.model == "ernie":
+            rec = run_ernie(arms[arm], args.pad, args.profile)
+        else:
+            acfg, kern = arms[arm]
+            rec = run(acfg, fused_opt_kernel=kern,
+                      profile_steps=args.profile)
         rec["arm"] = arm
         print(json.dumps(rec), flush=True)
     return 0

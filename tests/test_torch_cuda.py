@@ -788,3 +788,120 @@ def test_training_wrappers_raise_on_inputs_the_kernels_do_not_take(card):
     with pytest.raises(ValueError, match="dtype"):
         CE.ce_fwd(x, torch.zeros((64, 128), device=card).bfloat16(), None,
                   labels, 128, 128)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("hd", [64, 8])
+def test_flash_bias_kernels_match_plain(chip_smoke, dtype, causal, hd):
+    """The bias forms (``chip_smoke.py`` phase 8's cases): BB in {B,
+    B·nh} x SQ in {1, T}, a random bias and a padding bias whose first
+    key tile is wholly padded, T 200; f32 within 1e-5,
+    bf16 per element, every output finite."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator(device="cuda")
+    g.manual_seed(hd + causal)
+    for per_head in (False, True):
+        for sq1 in (True, False):
+            for kind in ("random", "padding"):
+                chip_smoke._flash_case(dtype, hd, 200, per_head, sq1,
+                                       causal, kind, g)
+
+
+@pytest.mark.cuda
+def test_flash_bias_autograd_on_card(card):
+    """``flash_attention(bias=)`` on CUDA tensors launches the three bias
+    kernels once each (and no bias-free one) and gives the plain path's
+    gradients (float32, 3e-4); the bias gets none."""
+    from paddle_tpu_torch.ops import cuda_kernels as CK
+    from paddle_tpu_torch.ops import flash_attention as FA
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator(device=card)
+    g.manual_seed(2)
+    q, k, v, w = (torch.randn((2, 128, 2, 64), generator=g, device=card)
+                  for _ in range(4))
+    bias = torch.zeros((2, 1, 1, 128), device=card)
+    bias[1, ..., 100:] = -0.5 * torch.finfo(torch.float32).max
+    grads = []
+    for on_card in (True, False):
+        xs = [x.clone().requires_grad_() for x in (q, k, v)]
+        if on_card:
+            CK.reset_launches()
+            out = FA.flash_attention(*xs, causal=False, bias=bias)
+        else:
+            out = FA.flash_fwd_plain(*xs, False, bias=bias[:, 0])[0]
+        (out * w).sum().backward()
+        grads.append([x.grad for x in xs])
+    assert {k: v for k, v in CK.LAUNCHES.items() if v} == {
+        "flash_fwd_bias": 1, "flash_bwd_dq_bias": 1, "flash_bwd_dkv_bias": 1}
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, atol=3e-4, rtol=3e-4)
+
+
+@pytest.mark.cuda
+def test_ernie_tiny_trains_with_flash_bias_on_card(card):
+    """ERNIE_TINY (head_dim 8: the 16 instance on zero-padded inputs) with
+    padded lengths, f32: 3 pretrain steps with flash and its padding bias
+    equal the plain attention arm's (losses 1e-5 relative, params 1e-5),
+    each bias kernel launched once a layer a step."""
+    from paddle_tpu_torch.models import ernie as E
+    from paddle_tpu_torch.ops import cuda_kernels as CK
+    from paddle_tpu_torch.parallel.parallelize import flat_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(9)
+    cfg = E.ERNIE_TINY
+    M = cfg.max_masked
+    lens = rng.integers(16, 65, 4)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (4, 64)),
+             "seg_ids": rng.integers(0, 2, (4, 64)),
+             "pad_mask": np.arange(64)[None] < lens[:, None],
+             "mlm_pos": rng.integers(0, 64, (4, M)),
+             "mlm_ids": rng.integers(0, cfg.vocab_size, (4, M)),
+             "mlm_valid": np.ones((4, M), bool),
+             "nsp_label": rng.integers(0, 2, (4,))}
+    out = {}
+    for flash in (True, False):
+        acfg = cfg.scaled(use_flash=flash)
+        params = E.init_params(acfg, seed=9, device=card)
+        opt = E.init_opt(params)
+        step = E.make_pretrain_step(acfg, lr=1e-2, device=card)
+        CK.reset_launches()
+        losses = [step(params, opt, batch)[2].item() for _ in range(3)]
+        L = 3 * cfg.num_layers if flash else 0
+        assert (CK.LAUNCHES["flash_fwd_bias"],
+                CK.LAUNCHES["flash_bwd_dq_bias"],
+                CK.LAUNCHES["flash_bwd_dkv_bias"]) == (L, L, L)
+        out[flash] = (losses, flat_leaves(params))
+    assert np.all(np.isfinite(out[True][0]))
+    np.testing.assert_allclose(out[True][0], out[False][0], rtol=1e-5)
+    for a, b in zip(out[True][1], out[False][1]):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_ernie_parity_kernel_matches_plain(chip_smoke):
+    """2-layer ERNIE_BASE float32: the flash and fused arms vs plain."""
+    chip_smoke.phase_ernie_parity()
+
+
+@pytest.mark.cuda
+def test_flash_bias_wrappers_raise_on_biases_the_kernels_do_not_take(card):
+    from paddle_tpu_torch.ops import flash_attention as FA
+
+    x = torch.zeros((2, 64, 2, 64), device=card)
+    with pytest.raises(TypeError, match="float32"):
+        FA.flash_fwd(x, x, x, bias=torch.zeros((2, 1, 64), device=card,
+                                               dtype=torch.bfloat16))
+    for shape in ((3, 1, 64), (2, 2, 64), (2, 1, 32)):
+        with pytest.raises(ValueError, match="bias"):
+            FA.flash_fwd(x, x, x, bias=torch.zeros(shape, device=card))
+    with pytest.raises(ValueError, match="contiguous"):
+        FA.flash_bwd_dq(x, x, x, x, torch.zeros((2, 2, 64), device=card), x,
+                        bias=torch.zeros((2, 1, 128), device=card)[..., ::2])

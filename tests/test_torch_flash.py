@@ -156,6 +156,11 @@ def test_packed_qkv_slices_and_block_args():
 
 
 def test_bias_refused():
-    x = torch.zeros((1, 8, 1, 32))
-    with pytest.raises(NotImplementedError, match="ERNIE"):
-        TFA.flash_attention(x, x, x, bias=torch.zeros((1, 1, 8, 8)))
+    """A bias the kernels do not take is refused: a head dim other than 1
+    or nh, a query length other than 1 or T (the bias form itself is
+    held against JAX in tests/test_torch_flash_bias.py)."""
+    x = torch.zeros((1, 8, 2, 32))
+    with pytest.raises(ValueError, match="head dim"):
+        TFA.flash_attention(x, x, x, bias=torch.zeros((1, 3, 8, 8)))
+    with pytest.raises(ValueError, match="bias"):
+        TFA.flash_attention(x, x, x, bias=torch.zeros((1, 1, 4, 8)))
