@@ -102,7 +102,28 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              fused arm (flash, fused_ln, vocab-chunked CE through ce_fwd's
              "vd" layout with the decoder bias) against the plain arm,
              losses within 1e-5 relative, every updated leaf within 1e-5
-             of its largest |value|.
+             of its largest |value|;
+10k. opt-kernels — the sgd, momentum and adam kinds of the optimizer
+             sweep (``ops/csrc/opt_megakernel.cu``) against their plain
+             versions, bitwise: at ResNet-50's group size (25,557,032
+             float32), at n 1, 7, 1001, 4099 and unaligned; sgd in float32
+             and bf16, Nesterov off and on, AdamW's coeff 0.01; then each
+             timed beside its plain version, its bytes bound and
+             ``torch._fused_sgd_`` / ``_fused_adam_`` / ``_fused_adamw_``;
+10p. fluid-parity — the fluid MLP under SGD, Momentum, Adam and AdamW
+             (``fuse=True``, 5 steps) and ResNet-18 at 32² (3 steps) train
+             on the card through the kernel route and through
+             ``FLAGS_fuse_optimizer_pallas=False`` from the same scope:
+             float32, losses and every persistable bitwise; one launch of
+             the optimizer's kernel a step on the kernel route (counts
+             zeroed just before), none on the other;
+10. resnet50 — ResNet-50 (batch 128, 224², class 1000, float32) trains
+             through ``Program`` → ``Momentum(0.01, 0.9, fuse=True)
+             .minimize`` → ``Executor(CUDAPlace(0)).run`` (``train_bench
+             --model resnet50``): the loss falls over 6 steps on one fixed
+             fed batch; 1 warm-up + 10 timed steps on data made on the
+             card, exactly one ``opt_momentum`` launch a step; then the
+             ``--no-fuse`` arm; img/s, ms a step, MFU, peak GB printed.
 
 The last lines are the kernels' JSON record, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script
@@ -1468,6 +1489,301 @@ def phase_ernie_parity():
             raise AssertionError(f"the fused arm never launched {name}")
 
 
+def _resnet50_group_size() -> int:
+    """The element count of ResNet-50's one fused f32 group: its fluid
+    program's trainable parameters (25,557,032)."""
+    from paddle_tpu_torch.tools.train_bench import resnet_program
+
+    main, _startup, _loss = resnet_program()
+    return sum(int(np.prod(p.shape))
+               for p in main.global_block().all_parameters() if p.trainable)
+
+
+def _opt_inputs(kind, n, dtype, gen, dev, offset=0):
+    """Flat buffers for one kind (views at ``offset`` elements into their
+    allocations: offset 1 makes them unaligned, for the scalar path)."""
+    def buf(scale=1.0, positive=False, dt=torch.float32):
+        t = torch.randn(n + offset, generator=gen, device=dev)
+        t = (t.abs() if positive else t) * scale
+        return t.to(dt)[offset:]
+
+    if kind == "sgd":
+        return [buf(dt=dtype), buf(1e-2, dt=dtype)]
+    if kind == "momentum":
+        return [buf(), buf(1e-2), buf(1e-2)]
+    return [buf(), buf(1e-2), buf(1e-3), buf(1e-5, positive=True)]
+
+
+def _opt_call(kind, fn, bufs, lr, b1p, b2p, nesterov=False, coeff=0.0):
+    if kind == "sgd":
+        return [fn(bufs[0], bufs[1], lr)]
+    if kind == "momentum":
+        return list(fn(bufs[0], bufs[1], bufs[2], lr, mu=0.9,
+                       nesterov=nesterov))
+    return list(fn(bufs[0], bufs[1], bufs[2], bufs[3], lr, b1p, b2p,
+                   b1=0.9, b2=0.999, eps=1e-8, coeff=coeff))
+
+
+def phase_opt_kernels(time_it: bool):
+    """Phase 10k: the sgd, momentum and adam kinds of the optimizer sweep
+    against their plain versions, bitwise: at ResNet-50's group size
+    (25,557,032 float32), at n 1, 7, 1001 and 4099, and unaligned (views
+    one element in); sgd in float32 and bf16, momentum with Nesterov off
+    and on, adam with coeff 0 and 0.01 (AdamW). Then, at ResNet-50's size
+    in float32, each kernel, its plain version and the PyTorch library
+    call (``torch._fused_sgd_`` with momentum 0 / 0.9, dampening 0: the
+    same functions; ``torch._fused_adam_`` / ``_fused_adamw_``, which put
+    eps inside the bias correction: not the same function, timed anyway)
+    are timed with CUDA events over back-to-back calls (each call is one
+    or a few kernels of 0.1 ms or more, well above the host's enqueue).
+    Returns one record a kernel name."""
+    from paddle_tpu_torch.observability.hw import bound_ms
+    from paddle_tpu_torch.ops import cuda_kernels as CK
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(10)
+    lr = torch.tensor(0.01, device=dev)
+    b1p = torch.tensor(0.9 ** 3, device=dev)
+    b2p = torch.tensor(0.999 ** 3, device=dev)
+    variants = {"opt_sgd": [("sgd", torch.float32, {}),
+                            ("sgd", torch.bfloat16, {})],
+                "opt_momentum": [("momentum", torch.float32,
+                                  {"nesterov": False}),
+                                 ("momentum", torch.float32,
+                                  {"nesterov": True})],
+                "opt_adam": [("adam", torch.float32, {"coeff": 0.0})],
+                "opt_adamw": [("adam", torch.float32, {"coeff": 0.01})]}
+    plain = {"sgd": CK.megakernel_sgd_plain,
+             "momentum": CK.megakernel_momentum_plain,
+             "adam": CK.megakernel_adam_plain}
+    kern = {"sgd": CK.megakernel_sgd, "momentum": CK.megakernel_momentum,
+            "adam": CK.megakernel_adam}
+    n_resnet = _resnet50_group_size()
+    cases = 0
+    for name, vs in variants.items():
+        for kind, dtype, kw in vs:
+            for n, offset in ((n_resnet, 0), (1, 0), (7, 0),
+                              (1001, 0), (4099, 0), (4099, 1)):
+                bufs = _opt_inputs(kind, n, dtype, gen, dev, offset)
+                outs = []
+                for fn in (kern[kind], plain[kind]):
+                    # fresh copies at the same offset (g is only read)
+                    mine = [b if i == 1 else torch.empty(
+                        n + offset, dtype=b.dtype, device=dev)[offset:]
+                        .copy_(b) for i, b in enumerate(bufs)]
+                    outs.append(_opt_call(kind, fn, mine, lr, b1p, b2p, **kw))
+                torch.cuda.synchronize()
+                for i, (a, b) in enumerate(zip(*outs)):
+                    if not torch.equal(a, b):
+                        bad = int((a != b).sum())
+                        raise AssertionError(
+                            f"{name} {dtype} n={n} offset={offset} {kw}: "
+                            f"output {i} differs from the plain version in "
+                            f"{bad} elements")
+                cases += 1
+    print(f"[opt-kernels] {cases} cases bitwise against the plain versions "
+          f"(n up to {n_resnet:,}; float32 and bf16 sgd; Nesterov; AdamW)")
+    recs = {name: {"max_abs_err": 0.0} for name in variants}
+    if not time_it:
+        return recs
+    n = n_resnet
+    name_dev = torch.cuda.get_device_name(0)
+    step = torch.tensor(3.0, device=dev)
+    for name, (kind, dtype, kw) in (
+            ("opt_sgd", variants["opt_sgd"][0]),
+            ("opt_momentum", variants["opt_momentum"][0]),
+            ("opt_adam", variants["opt_adam"][0]),
+            ("opt_adamw", variants["opt_adamw"][0])):
+        bufs = _opt_inputs(kind, n, dtype, gen, dev)
+        rec = recs[name]
+        rec["ms"] = _time_ms(lambda: _opt_call(
+            kind, kern[kind], bufs, lr, b1p, b2p, **kw), iters=20, warmup=3)
+        rec["plain_ms"] = _time_ms(lambda: _opt_call(
+            kind, plain[kind], bufs, lr, b1p, b2p, **kw), iters=10, warmup=2)
+        p, g = bufs[0], bufs[1]
+        if kind == "sgd":
+            lib = (lambda: torch._fused_sgd_(
+                [p], [g], [], weight_decay=0.0, momentum=0.0, lr=0.01,
+                dampening=0.0, nesterov=False, maximize=False,
+                is_first_step=False))
+            rec["library_call"] = "torch._fused_sgd_ momentum 0 (same function)"
+            nbytes, flops = 12 * n, 2 * n
+        elif kind == "momentum":
+            vel = bufs[2]
+            lib = (lambda: torch._fused_sgd_(
+                [p], [g], [vel], weight_decay=0.0, momentum=0.9, lr=0.01,
+                dampening=0.0, nesterov=False, maximize=False,
+                is_first_step=False))
+            rec["library_call"] = ("torch._fused_sgd_ momentum 0.9, dampening "
+                                   "0 (same function)")
+            nbytes, flops = 20 * n, 4 * n
+        else:
+            m, v = bufs[2], bufs[3]
+            fused = torch._fused_adamw_ if kw["coeff"] else torch._fused_adam_
+            lib = (lambda: fused(
+                [p], [g], [m], [v], [], [step], lr=0.01, beta1=0.9,
+                beta2=0.999, weight_decay=kw["coeff"], eps=1e-8,
+                amsgrad=False, maximize=False))
+            rec["library_call"] = (
+                f"torch.{fused.__name__} (eps inside the bias correction: "
+                "not the same function)")
+            nbytes, flops = 28 * n, (14 if kw["coeff"] else 12) * n
+        rec["library_ms"] = _time_ms(lib, iters=20, warmup=3)
+        rec["bound_ms"], rec["bound_by"] = bound_ms(nbytes, flops, "f32",
+                                                    name_dev)
+        rec["n"] = n
+        print(f"[opt-kernels] {name} n={n}: {rec['ms']:.4f} ms, plain "
+              f"{rec['plain_ms']:.4f}, library {rec['library_ms']:.4f}, "
+              f"bound {rec['bound_ms']:.4f} ({rec['bound_by']})")
+    return recs
+
+
+FLUID_OPTS = ("sgd", "momentum", "adam", "adamw")
+FLUID_KERNEL = {"sgd": "opt_sgd", "momentum": "opt_momentum",
+                "adam": "opt_adam", "adamw": "opt_adamw"}
+
+
+def _fluid_program(kind: str):
+    """(main, startup, loss, feed) of a fluid training case on the card:
+    the MLP of ``tests/test_pallas_fused.py`` under each fused optimizer,
+    or ResNet-18 at 32², batch 4, class 4 with Momentum(0.01, 0.9,
+    fuse=True) (``kind`` "resnet18")."""
+    import paddle_tpu_torch as T
+    from paddle_tpu_torch.framework import unique_name
+    from paddle_tpu_torch.tools.train_bench import resnet_program
+
+    rng = np.random.default_rng(0)
+    with unique_name.guard():
+        if kind == "resnet18":
+            main, startup, loss = resnet_program(batch=4, hw=32, classes=4,
+                                                 depth=18, synthetic=False)
+            feed = {"img": rng.standard_normal((4, 3, 32, 32)).astype(
+                np.float32), "label": rng.integers(0, 4, (4, 1))}
+            return main, startup, loss, feed
+        main, startup = T.Program(), T.Program()
+        main.random_seed = startup.random_seed = 7
+        with T.program_guard(main, startup):
+            x = T.layers.data(name="x", shape=[8], dtype="float32")
+            h = T.layers.fc(x, size=16, act="relu")
+            y = T.layers.fc(h, size=1)
+            label = T.layers.data(name="y", shape=[1], dtype="float32")
+            loss = T.layers.reduce_mean(T.layers.square(y - label))
+            opt = {"sgd": lambda: T.optimizer.SGD(0.05, fuse=True),
+                   "momentum": lambda: T.optimizer.Momentum(0.05, 0.9,
+                                                            fuse=True),
+                   "adam": lambda: T.optimizer.Adam(0.01, fuse=True),
+                   "adamw": lambda: T.optimizer.AdamW(
+                       0.01, weight_decay=0.1, fuse=True)}[kind]
+            opt().minimize(loss)
+    feed = {"x": rng.standard_normal((4, 8)).astype(np.float32),
+            "y": rng.standard_normal((4, 1)).astype(np.float32)}
+    return main, startup, loss, feed
+
+
+def phase_fluid_parity():
+    """Phase 10p: the fluid MLP under each fused optimizer (5 steps) and
+    ResNet-18 at 32² (3 steps) train on the card through the kernel route
+    and through ``FLAGS_fuse_optimizer_pallas=False`` (the unfused
+    expression) from the same scope: float32 (TF32 off, cuDNN
+    deterministic), losses and every persistable bitwise. The kernel
+    route's launch counts are zeroed just before its steps and read just
+    after: one launch of the optimizer's kernel a step, none on the other
+    route. Returns the kernel route's launches."""
+    import paddle_tpu_torch as T
+    from paddle_tpu_torch.ops import cuda_kernels as CK
+
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    launches = {}
+    try:
+        for kind in FLUID_OPTS + ("resnet18",):
+            main, startup, loss, feed = _fluid_program(kind)
+            steps = 3 if kind == "resnet18" else 5
+            kname = FLUID_KERNEL.get(kind, "opt_momentum")
+            exe = T.Executor(T.CUDAPlace(0))
+            scope0 = T.Scope()
+            exe.run(startup, scope=scope0)
+            names = [n for n, v in main.global_block().vars.items()
+                     if v.persistable]
+            out = {}
+            for route, flag in (("kernel", None), ("plain", False)):
+                T.set_flags({"FLAGS_fuse_optimizer_pallas": flag})
+                scope = T.Scope()
+                for n in names:
+                    scope.set_var(n, scope0.find_var(n).clone())
+                CK.reset_launches()
+                losses = [float(exe.run(main, feed=feed, fetch_list=[loss],
+                                        scope=scope)[0])
+                          for _ in range(steps)]
+                counts = {k: v for k, v in CK.LAUNCHES.items() if v}
+                out[route] = (losses, scope, counts)
+            T.set_flags({"FLAGS_fuse_optimizer_pallas": None})
+            (kl, ks, kc), (pl_, ps, pc) = out["kernel"], out["plain"]
+            if kc != {kname: steps} or pc:
+                raise AssertionError(f"fluid {kind}: launches kernel route "
+                                     f"{kc}, plain route {pc}")
+            if kl != pl_ or not all(np.isfinite(kl)):
+                raise AssertionError(f"fluid {kind}: losses kernel {kl} "
+                                     f"plain {pl_}")
+            for n in names:
+                if not torch.equal(ks.find_var(n), ps.find_var(n)):
+                    raise AssertionError(f"fluid {kind}: {n} differs "
+                                         "between the routes")
+            launches[kname] = launches.get(kname, 0) + kc[kname]
+            print(f"[fluid-parity] {kind}: {steps} steps f32, kernel route "
+                  f"== plain route bitwise ({len(names)} persistables); "
+                  f"losses {kl}; launches {kc}")
+    finally:
+        T.set_flags({"FLAGS_fuse_optimizer_pallas": None})
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+    return launches
+
+
+def phase_resnet50():
+    """Phase 10: ResNet-50 (batch 128, 224², class 1000, float32) trains
+    through the fluid surface — ``Program`` → ``Momentum(0.01, 0.9,
+    fuse=True).minimize`` → ``Executor(CUDAPlace(0)).run`` — via
+    ``train_bench --model resnet50``: 6 steps on one fixed fed batch, whose
+    loss must fall; then the synthetic-data lane, 1 warm-up + 10 timed
+    steps (counts zeroed just before them): every loss finite and exactly
+    one ``opt_momentum`` launch a step; then the same for the ``--no-fuse``
+    arm (one ``momentum`` op a parameter, no kernel launch). Returns the
+    fused arm's record."""
+    from paddle_tpu_torch.tools import train_bench
+
+    fixed = train_bench.resnet_fixed_batch(steps=6)
+    if not all(np.isfinite(fixed)) or not fixed[-1] < fixed[0]:
+        raise AssertionError(f"ResNet-50 fixed-batch losses {fixed}")
+    print(f"[resnet50] fixed batch of 128: losses {fixed}")
+    recs = {}
+    for fuse in (True, False):
+        rec = train_bench.run_resnet(fuse=fuse)
+        if not all(np.isfinite(rec["losses"])):
+            raise AssertionError(f"non-finite ResNet-50 loss: "
+                                 f"{rec['losses']}")
+        want = {"opt_momentum": 1} if fuse else {}
+        if rec["launches_per_step"] != want:
+            raise AssertionError(f"launches per step "
+                                 f"{rec['launches_per_step']} != {want}")
+        print(f"[resnet50] {rec['config']} {rec['model_params']} params: "
+              f"{rec['images_per_s']:.2f} img/s, ms/step="
+              f"{rec['ms_per_step']:.3f}, mfu={rec['mfu']:.4f} (bf16 peak), "
+              f"peak GB={rec['peak_mem_bytes'] / 1e9:.3f}, warmup_s="
+              f"{rec['warmup_s']:.2f}, tf32 cudnn={rec['tf32_cudnn']}; "
+              f"loss first={rec['loss_first']:.4f} last="
+              f"{rec['loss_last']:.4f}; launches/step "
+              f"{rec['launches_per_step']}")
+        recs[fuse] = rec
+    return recs[True]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1501,6 +1817,15 @@ def main() -> int:
         for k, v in ernie["launches_per_step"].items():
             launches[k] = launches.get(k, 0) + round(v * ernie["steps"])
     phase_ernie_parity()
+    # the fluid path: the optimizer kinds (10k), the fused routes against
+    # the unfused ones on the MLP and ResNet-18 (10p: the sgd / adam /
+    # adamw kernels' main path), ResNet-50 (10: opt_momentum's)
+    recs.update(phase_opt_kernels(time_it=True))
+    for k, v in phase_fluid_parity().items():
+        launches[k] = launches.get(k, 0) + v
+    resnet = phase_resnet50()
+    for k, v in resnet["launches_per_step"].items():
+        launches[k] = launches.get(k, 0) + round(v * resnet["steps"])
     kernels = []
     for name, meta in CK.KERNELS.items():
         r = recs[name]

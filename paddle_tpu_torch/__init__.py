@@ -13,8 +13,40 @@ Slices ported so far: serving (slab KV layout) — ``models.gpt``,
 ``ops.decode_attention``, ``ops.cuda_kernels`` and ``serving``; training
 on one device — ``models.gpt`` (``loss_fn``), ``ops.flash_attention``,
 ``ops.fused_ln``, ``ops.chunked_ce``, ``ops.cuda_kernels`` (the flat
-AdamW sweep) and ``parallel``; paged serving — ``serving.paged_kv``.
+AdamW sweep) and ``parallel``; paged serving — ``serving.paged_kv``;
+ERNIE pretraining — ``models.ernie``; the fluid static-graph path —
+``framework`` (Program IR, backward, Executor), ``layers``, the op
+lowerings ``ops.math``/``nn``/``tensor``/``optimizer_ops`` (the fused
+optimizers through the sgd, momentum and adam sweeps of
+``ops.cuda_kernels``), ``optimizer`` and ``models.resnet``.
+
+The fluid names (``Program``, ``program_guard``, ``layers``,
+``optimizer``, ``Executor``, ...) load at first use, so importing the
+package for serving stays light.
 """
+import importlib
+
 from .device import resolve_device
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "Program", "program_guard", "layers",
+           "optimizer", "Executor", "Scope", "CPUPlace", "CUDAPlace",
+           "set_flags", "get_flags", "append_backward", "scope_from_numpy",
+           "ParamAttr", "global_scope", "scope_guard", "unique_name",
+           "default_main_program", "default_startup_program", "Parameter",
+           "Variable"]
+
+_FRAMEWORK_NAMES = {"Program", "program_guard", "Executor", "Scope",
+                    "CPUPlace", "CUDAPlace", "set_flags", "get_flags",
+                    "append_backward", "scope_from_numpy", "ParamAttr",
+                    "global_scope", "scope_guard", "unique_name",
+                    "default_main_program", "default_startup_program",
+                    "Parameter", "Variable"}
+
+
+def __getattr__(name):
+    if name in ("layers", "optimizer", "framework"):
+        return importlib.import_module(f"{__name__}.{name}")
+    if name in _FRAMEWORK_NAMES:
+        return getattr(importlib.import_module(f"{__name__}.framework"),
+                       name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -1,0 +1,15 @@
+"""Layer-function API — the slice of ``paddle_tpu/layers`` the fluid
+training path uses; every other name of the reference's ``layers`` raises
+``NotImplementedError`` naming ROADMAP A5."""
+from . import math_op_patch  # noqa: F401
+from . import nn  # noqa: F401
+from . import tensor  # noqa: F401
+from .nn import *  # noqa: F401,F403
+from .tensor import *  # noqa: F401,F403
+from ..framework.core import not_ported
+
+
+def __getattr__(name):
+    if name.startswith("_"):
+        raise AttributeError(name)
+    not_ported("layers", name)

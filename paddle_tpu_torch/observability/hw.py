@@ -12,13 +12,15 @@ the full 700 W power limit):
 ``bound_ms`` is the least time the card could take for a piece of work:
 the larger of its bytes over the memory rate and its operations over the
 peak rate for their type. ``chip_smoke.py`` and ``PERF.md`` take every
-bound from here.
+bound from here. ``program_train_flops`` is the reference's analytic
+count of a fluid program's training FLOPs (``paddle_tpu/observability/
+hw.py:91``), the numerator of the fluid lanes' MFU.
 """
 from __future__ import annotations
 
 from typing import Dict, Tuple
 
-__all__ = ["PEAKS", "peaks_for", "bound_ms"]
+__all__ = ["PEAKS", "peaks_for", "bound_ms", "program_train_flops"]
 
 # device-name substring (lower case) -> peak rates
 PEAKS: Dict[str, Dict[str, float]] = {
@@ -52,3 +54,29 @@ def bound_ms(nbytes: float, flops: float, flop_dtype: str,
     if t_bytes >= t_ops:
         return t_bytes * 1e3, "bytes"
     return t_ops * 1e3, "operations"
+
+
+def program_train_flops(program, batch: int = 1) -> int:
+    """Analytic fwd+bwd FLOPs of one step of a built fluid program: 2·MACs
+    over its conv2d and mul/matmul ops, times 3 for forward + backward.
+    -1 dims (data layers' batch) count as ``batch``."""
+    import numpy as np
+
+    def prod(shape):
+        return int(np.prod([batch if d in (-1, None) else d for d in shape]))
+
+    block = program.global_block()
+    macs = 0
+    for op in block.ops:
+        if op.type == "conv2d":
+            out = block.var(op.output("Output")[0]).shape
+            w = block.var(op.input("Filter")[0]).shape
+            groups = int(op.attr("groups", 1) or 1)
+            # out [N, Cout, H, W]; w [Cout, Cin/groups, kh, kw]; the
+            # reference divides by groups once more (ResNet: groups 1)
+            macs += prod(out) * prod(w[1:]) // max(groups, 1)
+        elif op.type in ("mul", "matmul"):
+            x = block.var(op.input("X")[0]).shape
+            y = block.var(op.input("Y")[0]).shape
+            macs += prod(x) * int(y[-1])
+    return 6 * macs  # 2 FLOPs a MAC x 3 (forward + backward)

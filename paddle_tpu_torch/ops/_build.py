@@ -155,6 +155,12 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.ptt_adamw_flat.argtypes = [P, P, P, P, P, P, LL, F, F, F, F, F, F, I,
                                    P]
     lib.ptt_adamw_flat.restype = I
+    lib.ptt_opt_sgd.argtypes = [P, P, P, LL, I, I, P]
+    lib.ptt_opt_sgd.restype = I
+    lib.ptt_opt_momentum.argtypes = [P, P, P, P, LL, F, I, I, P]
+    lib.ptt_opt_momentum.restype = I
+    lib.ptt_opt_adam.argtypes = [P, P, P, P, P, LL, F, F, F, F, F, F, I, P]
+    lib.ptt_opt_adam.restype = I
     lib.ptt_error_string.argtypes = [I]
     lib.ptt_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,6 +1,7 @@
 """The port's Hopper kernels, each beside its plain PyTorch version — the
 port of ``paddle_tpu/ops/pallas_kernels.py``: the serving slice's decode
-kernels and the training slice's flat AdamW sweep here; the
+kernels, the training slice's flat AdamW sweep and the fluid optimizer
+sweeps (sgd, momentum, adam) here; the
 flash-attention kernels in ``ops/flash_attention.py``, the fused-layernorm
 forward and backward in ``ops/fused_ln.py`` and the vocab-chunked CE
 forward in ``ops/chunked_ce.py``, which share this module's routing
@@ -29,7 +30,9 @@ times (2·L in the forward, 2·L recomputed, the final LN) and
 ``ce_fwd`` once a row chunk (B·T / ``ce_chunk``). A flash call with a bias
 counts under ``flash_fwd_bias``, ``flash_bwd_dq_bias`` and
 ``flash_bwd_dkv_bias``: an ERNIE pretrain step without remat launches
-each L times.
+each L times. A fluid step with a fused optimizer launches one of
+``opt_sgd``, ``opt_momentum``, ``opt_adam`` or ``opt_adamw`` a parameter
+group (ResNet-50's f32 parameters are one group).
 """
 from __future__ import annotations
 
@@ -47,7 +50,10 @@ __all__ = ["fused_ln", "fused_ln_plain", "fused_decode_attention",
            "fused_decode_attention_plain", "fused_paged_decode_attention",
            "fused_paged_decode_attention_plain", "fused_logits_head",
            "fused_logits_head_plain", "megakernel_adamw_flat",
-           "megakernel_adamw_flat_plain", "LAUNCHES", "KERNELS",
+           "megakernel_adamw_flat_plain", "megakernel_sgd",
+           "megakernel_sgd_plain", "megakernel_momentum",
+           "megakernel_momentum_plain", "megakernel_adam",
+           "megakernel_adam_plain", "LAUNCHES", "KERNELS",
            "reset_launches"]
 
 # name -> where its source lives and which TPU kernel it replaces
@@ -118,6 +124,28 @@ KERNELS: Dict[str, Dict[str, str]] = {
         "route": "cuda",
         "source": "paddle_tpu_torch/ops/csrc/flash_attention.cu",
         "replaces": "paddle_tpu/ops/pallas_kernels.py:261",
+    },
+    # the fluid optimizer kinds of _opt_kernel (one source with
+    # opt_adamw_flat); fused_adamw's launches count under opt_adamw
+    "opt_sgd": {
+        "route": "cuda",
+        "source": "paddle_tpu_torch/ops/csrc/opt_megakernel.cu",
+        "replaces": "paddle_tpu/ops/pallas_kernels.py:1178",
+    },
+    "opt_momentum": {
+        "route": "cuda",
+        "source": "paddle_tpu_torch/ops/csrc/opt_megakernel.cu",
+        "replaces": "paddle_tpu/ops/pallas_kernels.py:1183",
+    },
+    "opt_adam": {
+        "route": "cuda",
+        "source": "paddle_tpu_torch/ops/csrc/opt_megakernel.cu",
+        "replaces": "paddle_tpu/ops/pallas_kernels.py:1194",
+    },
+    "opt_adamw": {
+        "route": "cuda",
+        "source": "paddle_tpu_torch/ops/csrc/opt_megakernel.cu",
+        "replaces": "paddle_tpu/ops/pallas_kernels.py:1204",
     },
 }
 
@@ -588,4 +616,144 @@ def megakernel_adamw_flat(p, g, m, v, wd_mask, lr, scale, c1, c2, *,
         float(b2), float(1 - b2), float(eps), float(weight_decay), code,
         _stream(p))
     _check_launch(lib, err, "opt_adamw_flat")
+    return p, m, v
+
+
+# ---------------------------------------------------------------------------
+# the fluid optimizer sweeps (replace _opt_kernel, kinds "sgd", "momentum"
+# and "adam"; fluid's fused_sgd, fused_momentum, fused_adam/fused_adamw)
+# ---------------------------------------------------------------------------
+
+
+def _check_flat(fn: str, n: int, dtypes, **tensors) -> None:
+    for name, t in tensors.items():
+        if t.dtype not in dtypes:
+            raise TypeError(f"{fn}: {name} is {t.dtype}; the kernel takes "
+                            f"{' or '.join(str(d) for d in dtypes)}")
+        _require(t.dim() == 1 and t.numel() == n and t.is_contiguous(),
+                 f"{fn}: {name} must be a contiguous [{n}]")
+
+
+def _aligned16(*tensors) -> int:
+    return int(all(t.data_ptr() % 16 == 0 for t in tensors))
+
+
+def megakernel_sgd_plain(p, g, lr):
+    """``p - lr.astype(p.dtype) * g`` in p's dtype (float32 or bfloat16:
+    lr, the product and the difference each rounded to it), the
+    reference's expression; ``p`` is updated IN PLACE and returned. ``lr``
+    is a float32 scalar (0-d tensor or Python float)."""
+    lr = _scalars(p.device, lr)[0]
+    p.copy_(p - lr.to(p.dtype) * g)
+    return p
+
+
+def megakernel_sgd(p, g, lr):
+    """One launch of the flat SGD sweep: ``p``, ``g`` contiguous [n] of one
+    dtype (float32 or bfloat16), ``lr`` as :func:`megakernel_sgd_plain`;
+    ``p`` is updated IN PLACE (the reference aliases it) and returned.
+    Bitwise equal to the plain version."""
+    if not _on_card(p, g):
+        return megakernel_sgd_plain(p, g, lr)
+    n = p.numel()
+    _check_flat("megakernel_sgd", n, (torch.float32, torch.bfloat16), p=p,
+                g=g)
+    _require(g.dtype == p.dtype, "megakernel_sgd: p and g must share a dtype")
+    if n == 0:
+        return p
+    scal = _scalars(p.device, lr)
+    lib = _lib()
+    err = lib.ptt_opt_sgd(p.data_ptr(), g.data_ptr(), scal.data_ptr(), n,
+                          _DTYPE_CODES[p.dtype], _aligned16(p, g), _stream(p))
+    _check_launch(lib, err, "opt_sgd")
+    return p
+
+
+def megakernel_momentum_plain(p, g, v, lr, *, mu: float = 0.9,
+                              nesterov: bool = False):
+    """``v' = mu * v + g``; ``p' = p - lr * v'`` or, Nesterov,
+    ``p - (g + mu * v') * lr``, float32 — the reference's expression;
+    ``p`` and ``v`` are updated IN PLACE and returned."""
+    lr = _scalars(p.device, lr)[0]
+    gf = g.float()
+    v_new = mu * v.float() + gf
+    if nesterov:
+        p_new = p.float() - (gf + mu * v_new) * lr
+    else:
+        p_new = p.float() - lr * v_new
+    p.copy_(p_new)
+    v.copy_(v_new)
+    return p, v
+
+
+def megakernel_momentum(p, g, v, lr, *, mu: float = 0.9,
+                        nesterov: bool = False):
+    """One launch of the flat momentum sweep: ``p``, ``g``, ``v``
+    contiguous float32 [n]; ``lr`` as :func:`megakernel_sgd_plain`. ``p``
+    and ``v`` are updated IN PLACE and returned. Bitwise equal to the
+    plain version."""
+    if not _on_card(p, g, v):
+        return megakernel_momentum_plain(p, g, v, lr, mu=mu,
+                                         nesterov=nesterov)
+    n = p.numel()
+    _check_flat("megakernel_momentum", n, (torch.float32,), p=p, g=g, v=v)
+    if n == 0:
+        return p, v
+    scal = _scalars(p.device, lr)
+    lib = _lib()
+    err = lib.ptt_opt_momentum(p.data_ptr(), g.data_ptr(), v.data_ptr(),
+                               scal.data_ptr(), n, float(mu), int(nesterov),
+                               _aligned16(p, g, v), _stream(p))
+    _check_launch(lib, err, "opt_momentum")
+    return p, v
+
+
+def megakernel_adam_plain(p, g, m, v, lr, b1p, b2p, *, b1: float = 0.9,
+                          b2: float = 0.999, eps: float = 1e-8,
+                          coeff: float = 0.0):
+    """fluid fused_adam / fused_adamw over a flat group, float32 — the
+    reference's expression:
+    ``m' = b1 * m + (1 - b1) * g``, ``v' = b2 * v + (1 - b2) * g * g``,
+    ``lr_t = lr * sqrt(1 - b2p * b2) / (1 - b1p * b1)``,
+    ``p' = p - lr_t * m' / (sqrt(v') + eps)``, and ``- lr * coeff * p``
+    when ``coeff`` is not 0 (AdamW). ``p``, ``m``, ``v`` are updated IN
+    PLACE and returned; ``lr``, ``b1p``, ``b2p`` are float32 scalars (the
+    Beta1Pow/Beta2Pow updates stay with the op)."""
+    lr, b1p, b2p = _scalars(p.device, lr, b1p, b2p).unbind()
+    gf = g.float()
+    pf = p.float()
+    m_new = b1 * m + (1 - b1) * gf
+    v_new = b2 * v + (1 - b2) * gf * gf
+    lr_t = lr * torch.sqrt(1 - b2p * b2) / (1 - b1p * b1)
+    p_new = pf - lr_t * m_new / (torch.sqrt(v_new) + eps)
+    if coeff:
+        p_new = p_new - lr * coeff * pf
+    p.copy_(p_new)
+    m.copy_(m_new)
+    v.copy_(v_new)
+    return p, m, v
+
+
+def megakernel_adam(p, g, m, v, lr, b1p, b2p, *, b1: float = 0.9,
+                    b2: float = 0.999, eps: float = 1e-8,
+                    coeff: float = 0.0):
+    """One launch of the flat Adam sweep (AdamW when ``coeff`` is not 0):
+    ``p``, ``g``, ``m``, ``v`` contiguous float32 [n]; the scalars as
+    :func:`megakernel_adam_plain`. ``p``, ``m``, ``v`` are updated IN
+    PLACE and returned. Bitwise equal to the plain version."""
+    if not _on_card(p, g, m, v):
+        return megakernel_adam_plain(p, g, m, v, lr, b1p, b2p, b1=b1, b2=b2,
+                                     eps=eps, coeff=coeff)
+    n = p.numel()
+    _check_flat("megakernel_adam", n, (torch.float32,), p=p, g=g, m=m, v=v)
+    if n == 0:
+        return p, m, v
+    scal = _scalars(p.device, lr, b1p, b2p)
+    lib = _lib()
+    err = lib.ptt_opt_adam(
+        p.data_ptr(), g.data_ptr(), m.data_ptr(), v.data_ptr(),
+        scal.data_ptr(), n, float(b1), float(1 - b1), float(b2),
+        float(1 - b2), float(eps), float(coeff), _aligned16(p, g, m, v),
+        _stream(p))
+    _check_launch(lib, err, "opt_adamw" if coeff else "opt_adam")
     return p, m, v

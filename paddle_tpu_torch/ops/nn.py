@@ -1,0 +1,216 @@
+"""Neural-net op lowerings — the slice of ``paddle_tpu/ops/nn.py`` the
+fluid training path runs: the activation table, ``conv2d``, ``pool2d``,
+``batch_norm`` and ``softmax_with_cross_entropy``, in torch ops (cuDNN
+behind ``F.conv2d`` and ``torch.batch_norm`` on the card, where the
+reference leaves them to XLA). The rest of the reference's lowerings are still to
+be ported (ROADMAP A5)."""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..framework.registry import register_op
+
+# ---------------------------------------------------------------------------
+# Activations (the reference's _ACTS table)
+# ---------------------------------------------------------------------------
+
+_ACTS = {
+    "relu": torch.relu,
+    "relu6": lambda x: torch.clamp(x, 0.0, 6.0),
+    "sigmoid": torch.sigmoid,
+    "tanh": torch.tanh,
+    "softplus": F.softplus,
+    "silu": F.silu,
+    "swish": F.silu,
+    "mish": lambda x: x * torch.tanh(F.softplus(x)),
+    "hard_sigmoid": lambda x: torch.clamp(0.2 * x + 0.5, 0.0, 1.0),
+    "hard_swish": lambda x: x * torch.clamp(x + 3.0, 0.0, 6.0) / 6.0,
+}
+for _name, _fn in _ACTS.items():
+    register_op(_name)(
+        (lambda fn: lambda ctx, op, ins: {"Out": fn(ins["X"][0])})(_fn)
+    )
+
+
+@register_op("softmax_with_cross_entropy", diff_inputs=("Logits",))
+def softmax_with_cross_entropy(ctx, op, ins):
+    """The reference's fused, stable softmax + CE (hard or soft labels)."""
+    logits = ins["Logits"][0]
+    label = ins["Label"][0]
+    axis = op.attr("axis", -1)
+    if int(op.attr("vocab_chunk", 0) or 0):
+        raise NotImplementedError(
+            "softmax_with_cross_entropy(vocab_chunk>0) is not ported to "
+            "paddle_tpu_torch yet (ROADMAP A5)")
+    logp = F.log_softmax(logits, dim=axis)
+    if op.attr("soft_label", False):
+        loss = -torch.sum(label * logp, dim=axis, keepdim=True)
+    else:
+        lbl = label
+        if lbl.dim() == logits.dim():
+            lbl = lbl.squeeze(axis)
+        lbl = lbl.long()
+        picked = torch.take_along_dim(
+            logp, lbl.clamp(0, logits.shape[axis] - 1).unsqueeze(axis),
+            dim=axis)
+        mask = lbl.unsqueeze(axis) != op.attr("ignore_index", -100)
+        loss = torch.where(mask, -picked, 0.0)
+    return {"Softmax": torch.exp(logp), "Loss": loss}
+
+
+# ---------------------------------------------------------------------------
+# Convolution and pooling
+# ---------------------------------------------------------------------------
+
+
+def _pair(v, n=2):
+    if isinstance(v, (list, tuple)):
+        return list(v)
+    return [v] * n
+
+
+def _conv_padding(padding, ndim):
+    """Per spatial dim (lo, hi): symmetric ints or explicit pairs."""
+    p = _pair(padding, ndim)
+    if len(p) == ndim:
+        return [(int(x), int(x)) for x in p]
+    if len(p) == 2 * ndim:
+        return [(int(p[2 * i]), int(p[2 * i + 1])) for i in range(ndim)]
+    raise ValueError(f"bad padding {padding}")
+
+
+def _pad_hw(x, pads, value):
+    """Pad the last two dims of NCHW ``x`` by ((top, bottom), (left,
+    right))."""
+    (t, b), (l, r) = pads
+    return F.pad(x, (l, r, t, b), value=value)
+
+
+@register_op("conv2d", diff_inputs=("Input", "Filter"))
+def conv2d(ctx, op, ins):
+    x = ins["Input"][0]    # NCHW (or NHWC by data_format)
+    w = ins["Filter"][0]   # OIHW, I = C / groups
+    nhwc = op.attr("data_format", "NCHW") == "NHWC"
+    if nhwc:
+        x = x.permute(0, 3, 1, 2)
+    strides = _pair(op.attr("strides", [1, 1]))
+    dilations = _pair(op.attr("dilations", [1, 1]))
+    pads = _conv_padding(op.attr("paddings", [0, 0]), 2)
+    if all(lo == hi for lo, hi in pads):
+        padding = [lo for lo, _ in pads]
+    else:
+        x = _pad_hw(x, pads, 0.0)
+        padding = 0
+    out = F.conv2d(x, w, None, strides, padding, dilations,
+                   op.attr("groups", 1) or 1).to(x.dtype)
+    if nhwc:
+        out = out.permute(0, 2, 3, 1)
+    return {"Output": out}
+
+
+@register_op("pool2d", diff_inputs=("X",))
+def pool2d(ctx, op, ins):
+    """max / avg pooling as the reference's reduce_window: symmetric
+    padding, ceil mode as extra high padding so the last window fits, and
+    avg divided by the window's count of unpadded cells (``exclusive``)
+    or by the window size."""
+    x = ins["X"][0]  # NCHW
+    ptype = op.attr("pooling_type", "max")
+    ksize = _pair(op.attr("ksize", [2, 2]))
+    strides = _pair(op.attr("strides", [1, 1]))
+    paddings = _pair(op.attr("paddings", [0, 0]))
+    if op.attr("adaptive", False):
+        raise NotImplementedError("adaptive pool2d is not ported to "
+                                  "paddle_tpu_torch yet (ROADMAP A5)")
+    if op.attr("global_pooling", False):
+        if ptype == "max":
+            return {"Out": torch.amax(x, dim=(2, 3), keepdim=True)}
+        return {"Out": torch.mean(x, dim=(2, 3), keepdim=True)}
+    pads = [(p, p) for p in paddings]
+    if op.attr("ceil_mode", False):
+        for i in range(2):
+            lo, hi = pads[i]
+            rem = (x.shape[2 + i] + lo + hi - ksize[i]) % strides[i]
+            if rem:
+                pads[i] = (lo, hi + strides[i] - rem)
+    symmetric = all(lo == hi for lo, hi in pads)
+    if ptype == "max":
+        if symmetric and all(lo <= k // 2 for (lo, _), k in zip(pads, ksize)):
+            # torch pads with -inf itself here
+            out = F.max_pool2d(x, ksize, strides, [lo for lo, _ in pads])
+        else:
+            out = F.max_pool2d(_pad_hw(x, pads, -math.inf), ksize, strides)
+        return {"Out": out}
+    padded = any(p for pp in pads for p in pp)
+    summed = F.avg_pool2d(_pad_hw(x, pads, 0.0) if padded else x, ksize,
+                          strides, divisor_override=1)
+    if op.attr("exclusive", True) and padded:
+        ones = torch.ones((1, 1) + tuple(x.shape[2:]), dtype=x.dtype,
+                          device=x.device)
+        counts = F.avg_pool2d(_pad_hw(ones, pads, 0.0), ksize, strides,
+                              divisor_override=1)
+        return {"Out": summed / counts}
+    return {"Out": summed / float(np.prod(ksize))}
+
+
+# ---------------------------------------------------------------------------
+# batch_norm
+# ---------------------------------------------------------------------------
+
+
+def _batch_norm_impl(ctx, op, ins):
+    """The reference's ``_batch_norm_impl`` (without ``sync_axis``).
+
+    Training: y normalizes by the batch's mean and *biased* variance;
+    MeanOut / VarianceOut move the running statistics by ``momentum``
+    toward them; SavedMean is the batch mean and SavedVariance
+    ``rsqrt(var + eps)``. y runs through ``torch.batch_norm`` with no
+    running buffers (its backward saves x, the mean and the inverse std
+    only); the statistics outputs come from ``torch.var_mean`` and carry
+    no gradient (their vars are stop-gradient, so no grad op asks for
+    one). Given
+    running buffers, ``F.batch_norm(training=True)`` would move the
+    variance by the *unbiased* batch variance, which the reference does
+    not.
+    """
+    x = ins["X"][0]
+    scale, bias = ins["Scale"][0], ins["Bias"][0]
+    mean_in, var_in = ins["Mean"][0], ins["Variance"][0]
+    eps = op.attr("epsilon", 1e-5)
+    momentum = op.attr("momentum", 0.9)
+    is_test = op.attr("is_test", False) or op.attr("use_global_stats", False)
+    nhwc = op.attr("data_layout", "NCHW") != "NCHW"
+    xc = x.movedim(-1, 1) if nhwc else x
+    xf = xc.float()
+    if is_test:
+        y = F.batch_norm(xf, mean_in, var_in, scale, bias, False, 0.0, eps)
+        mean_out, var_out = mean_in, var_in
+        saved_mean, inv = mean_in, torch.rsqrt(var_in + eps)
+    else:
+        # the aten op: F.batch_norm refuses one value per channel, which
+        # the reference normalizes (to bias)
+        y = torch.batch_norm(xf, scale, bias, None, None, True, 0.0, eps,
+                             torch.backends.cudnn.enabled)
+        with torch.no_grad():
+            axes = (0,) + tuple(range(2, xf.dim()))
+            var, mean = torch.var_mean(xf, dim=axes, correction=0)
+            mean_out = mean_in * momentum + mean * (1 - momentum)
+            var_out = var_in * momentum + var * (1 - momentum)
+            saved_mean, inv = mean, torch.rsqrt(var + eps)
+    y = y.to(x.dtype)
+    return {
+        "Y": y.movedim(1, -1) if nhwc else y,
+        "MeanOut": mean_out,
+        "VarianceOut": var_out,
+        "SavedMean": saved_mean,
+        "SavedVariance": inv,
+    }
+
+
+@register_op("batch_norm", diff_inputs=("X", "Scale", "Bias"))
+def batch_norm(ctx, op, ins):
+    return _batch_norm_impl(ctx, op, ins)

@@ -1,11 +1,14 @@
-"""Train GPT or pretrain ERNIE on one card and report throughput — the
-port's twin of ``bench.py``'s accelerator GPT lane (``bench.py:490-519``,
-``:745-803``) and its ERNIE lane (``:326-395``).
+"""Train GPT, pretrain ERNIE or train ResNet-50 on one card and report
+throughput — the port's twin of ``bench.py``'s accelerator GPT lane
+(``bench.py:490-519``, ``:745-803``), its ERNIE lane (``:326-395``) and
+its ResNet lane (``resnet_worker``, ``:254-323``).
 
     python -m paddle_tpu_torch.tools.train_bench [--remat dots]
         [--fused-ln] [--ce-vchunk N] [--profile 3] [--compare]
     python -m paddle_tpu_torch.tools.train_bench --model ernie [--pad]
         [--profile 3] [--compare]
+    python -m paddle_tpu_torch.tools.train_bench --model resnet50
+        [--no-fuse] [--profile 3] [--host-profile 5] [--compare]
 
 The configuration is GPT_SMALL at full width and depth, batch 16 x 1024,
 bf16 compute with float32 master weights and bf16 Adam moments,
@@ -40,6 +43,25 @@ entries. The record has samples/s, ms a step, MFU
 (``pretrain_flops_per_token`` x tokens/s over the card's bf16 peak) and
 peak memory; ``--profile``/``--compare`` as for GPT (the plain arm: plain
 attention).
+
+``--model resnet50`` is ``bench.py``'s ResNet lane through the fluid
+surface of the port: ``Program`` + ``layers`` + ``models.resnet`` (depth
+50, class_dim 1000) on a batch of 128 images 224² made on the card each
+step by ``uniform_random`` / ``randint`` ops, ``reduce_mean`` of
+``softmax_with_cross_entropy``, ``optimizer.Momentum(0.01, 0.9,
+fuse=True)`` (one ``fused_momentum`` op, one ``opt_momentum`` launch a
+step) and ``Executor(CUDAPlace(0)).run``; one warm step, then 10 timed. float32, where ``bench.py``
+decorates the optimizer for bf16 AMP (not ported yet: ROADMAP A5); cuDNN
+may take TF32 for the convolutions (PyTorch's default), which the record
+states. ``--no-fuse`` is ``bench.py``'s exact optimizer: one ``momentum``
+op a parameter. The record has img/s, ms a step, MFU
+(``program_train_flops`` over the card's bf16 dense peak, the
+reference's convention), peak memory and the step's losses; with
+``--profile N`` the device time a step by group: cuDNN convolutions,
+batch norm, the optimizer sweep, the flat group's ``torch.cat``, other
+(eager glue); with ``--host-profile N`` the host ms a step by function
+under ``cProfile``. ``--compare`` runs the no-fuse and fused arms in
+turns.
 """
 import argparse
 import json
@@ -50,8 +72,12 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from .. import framework as FW
+from .. import layers
+from .. import optimizer as fluid_optimizer
 from ..models import ernie as E
 from ..models import gpt as G
+from ..models import resnet as R
 from ..observability import hw
 from ..ops import cuda_kernels as CK
 from ..ops.chunked_ce import CE_BWD_RANGE
@@ -66,6 +92,14 @@ TRAIN_KERNELS = {k: k for k in ("flash_fwd_kernel", "flash_bwd_dq_kernel",
                                 "ce_fwd")}
 BATCH, SEQ = 16, 1024           # bench.py's GPT lane
 ERNIE_BATCH, ERNIE_SEQ = 48, 512   # bench.py's ERNIE lane
+RESNET_BATCH, RESNET_HW, RESNET_CLASSES = 128, 224, 1000   # its ResNet lane
+# the ResNet step's kernels by group (first substring found); the rest of
+# the cuDNN convolution kernels carry "xmma"/"gemm" and land in matmul
+RESNET_KERNELS = {"momentum_kernel": "opt_sweep", "CatArrayBatchedCopy":
+                  "flat_cat", "batch_norm": "batch_norm", "bn_fw": "batch_norm",
+                  "bn_bw": "batch_norm", "conv": "conv", "xmma": "conv",
+                  "implicit": "conv", "wgrad": "conv", "dgrad": "conv",
+                  "fprop": "conv"}
 STEPS, WARMUP = 10, 2
 
 
@@ -90,15 +124,15 @@ def _range_summary(prof, name: str, steps: int) -> Dict[str, float]:
             "ranges_per_step": len(host) / steps}
 
 
-def _timed(step_once, dev):
-    """WARMUP calls of ``step_once`` (one train step, updating its state
-    in place), then STEPS more with the launch counts and the peak memory
-    zeroed just before them, ending in one synchronize. Returns (every
-    step's outputs, warm-up seconds, timed seconds, launches per timed
-    step)."""
+def _timed(step_once, dev, warmup: int = WARMUP):
+    """``warmup`` calls of ``step_once`` (one train step, updating its
+    state in place), then STEPS more with the launch counts and the peak
+    memory zeroed just before them, ending in one synchronize. Returns
+    (every step's outputs, warm-up seconds, timed seconds, launches per
+    timed step)."""
     outs = []
     t0 = time.perf_counter()
-    for _ in range(WARMUP):
+    for _ in range(warmup):
         outs.append(step_once())
     torch.cuda.synchronize(dev)
     warm_s = time.perf_counter() - t0
@@ -284,9 +318,136 @@ def run_ernie(cfg: E.ErnieConfig, pad: bool = False,
     return rec
 
 
+def resnet_program(batch: int = RESNET_BATCH, hw: int = RESNET_HW,
+                   classes: int = RESNET_CLASSES, depth: int = 50,
+                   fuse: bool = True, synthetic: bool = True):
+    """(main, startup, loss) of ``bench.py``'s ResNet lane: the images and
+    labels made by ``uniform_random`` / ``randint`` ops each step, or, with
+    ``synthetic=False``, fed through ``layers.data`` ("img", "label")."""
+    main, startup = FW.Program(), FW.Program()
+    with FW.program_guard(main, startup):
+        if synthetic:
+            img = layers.uniform_random([batch, 3, hw, hw], min=-1.0,
+                                        max=1.0, dtype="float32")
+            img.stop_gradient = True
+            label = layers.randint(0, classes, shape=[batch, 1],
+                                   dtype="int64")
+        else:
+            img = layers.data("img", [3, hw, hw], dtype="float32")
+            label = layers.data("label", [1], dtype="int64")
+        logits = R.resnet(img, class_dim=classes, depth=depth)
+        loss = layers.reduce_mean(
+            layers.softmax_with_cross_entropy(logits, label))
+        fluid_optimizer.Momentum(0.01, 0.9, fuse=fuse).minimize(loss)
+    return main, startup, loss
+
+
+def _host_profile(step_once, steps: int, top: int = 8) -> Dict[str, Any]:
+    """``steps`` calls of ``step_once`` under ``cProfile`` (ending in one
+    synchronize): host ms a step by function, the ``top`` by own time."""
+    import cProfile
+    import pstats
+
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.enable()
+    for _ in range(steps):
+        step_once()
+    torch.cuda.synchronize()
+    prof.disable()
+    wall = time.perf_counter() - t0
+    rows = sorted(pstats.Stats(prof).stats.items(),
+                  key=lambda kv: -kv[1][2])[:top]
+    return {"steps": steps, "wall_ms_per_step": wall / steps * 1e3,
+            "top_own_ms_per_step": [
+                [f"{fn}:{line}({name})"[-90:], tt / steps * 1e3,
+                 nc / steps]
+                for (fn, line, name), (_cc, nc, tt, _ct, _callers) in rows]}
+
+
+def run_resnet(fuse: bool = True, profile_steps: int = 0,
+               host_profile_steps: int = 0) -> Dict[str, Any]:
+    """One warm step and STEPS timed ones of the ResNet lane on the card,
+    as ``bench.py``'s lane runs them, counted as :func:`run` does (each
+    step's loss fetched as a device tensor, read after the timed window);
+    then ``profile_steps`` steps under ``torch.profiler`` and
+    ``host_profile_steps`` under ``cProfile``."""
+    dev = torch.device("cuda")
+    batch, hw_ = RESNET_BATCH, RESNET_HW
+    main, startup, loss = resnet_program(fuse=fuse)
+    exe = FW.Executor(FW.CUDAPlace(0))
+    scope = FW.Scope()
+    exe.run(startup, scope=scope)
+    n_params = sum(int(np.prod(p.shape))
+                   for p in main.global_block().all_parameters()
+                   if p.trainable)
+    outs, warm_s, wall, launches = _timed(
+        lambda: exe.run(main, fetch_list=[loss], scope=scope,
+                        return_numpy=False)[0], dev, warmup=1)
+    losses = [float(o) for o in outs]
+    img_s = STEPS * batch / wall
+    flops = hw.program_train_flops(main, batch)
+    name = torch.cuda.get_device_name(dev)
+    rec = {
+        "config": f"resnet50_b{batch}_{hw_}px_f32"
+                  + ("_fused" if fuse else "_nofuse"),
+        "device": name,
+        "model_params": n_params,
+        "batch": batch, "image": hw_, "steps": STEPS, "warmup": 1,
+        "fuse": fuse,
+        "tf32_cudnn": torch.backends.cudnn.allow_tf32,
+        "tf32_matmul": torch.backends.cuda.matmul.allow_tf32,
+        "cudnn_benchmark": torch.backends.cudnn.benchmark,
+        "flops_per_step": flops,
+        "images_per_s": img_s,
+        "mfu": img_s * flops / batch
+        / hw.peaks_for(name)["bf16_flops_per_s"],
+        "ms_per_step": wall / STEPS * 1e3,
+        "warmup_s": warm_s,
+        "peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
+        "loss_first": losses[0], "loss_last": losses[-1],
+        "losses": losses,
+        "launches_per_step": launches,
+    }
+    if profile_steps:
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            for _ in range(profile_steps):
+                exe.run(main, scope=scope)
+            torch.cuda.synchronize(dev)
+            wall_us = (time.perf_counter() - t0) * 1e6
+        rec["profile"] = {"steps": profile_steps, **trace_summary(
+            prof, wall_us, profile_steps, "step", RESNET_KERNELS)}
+    if host_profile_steps:
+        rec["host_profile"] = _host_profile(
+            lambda: exe.run(main, scope=scope), host_profile_steps)
+    return rec
+
+
+def resnet_fixed_batch(steps: int = 6, fuse: bool = True, seed: int = 0):
+    """``steps`` steps of the ResNet lane's model on one fixed fed batch
+    (numpy seed ``seed``): the losses, which must fall as the batch is
+    learnt."""
+    main, startup, loss = resnet_program(fuse=fuse, synthetic=False)
+    exe = FW.Executor(FW.CUDAPlace(0))
+    scope = FW.Scope()
+    exe.run(startup, scope=scope)
+    rng = np.random.default_rng(seed)
+    feed = {"img": rng.uniform(-1, 1, (RESNET_BATCH, 3, RESNET_HW,
+                                       RESNET_HW)).astype(np.float32),
+            "label": rng.integers(0, RESNET_CLASSES, (RESNET_BATCH, 1))}
+    return [float(exe.run(main, feed=feed, fetch_list=[loss],
+                          scope=scope)[0]) for _ in range(steps)]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--model", default="gpt", choices=("gpt", "ernie"))
+    ap.add_argument("--model", default="gpt",
+                    choices=("gpt", "ernie", "resnet50"))
+    ap.add_argument("--no-fuse", action="store_true",
+                    help="resnet50: one momentum op a parameter")
     ap.add_argument("--pad", action="store_true",
                     help="ernie: per-sample lengths 128-512, not all-ones")
     ap.add_argument("--remat", default="dots",
@@ -297,6 +458,9 @@ def main(argv=None) -> int:
                     help="vocab-chunked CE in chunks of N columns")
     ap.add_argument("--profile", type=int, default=0,
                     help="trace this many more steps under torch.profiler")
+    ap.add_argument("--host-profile", type=int, default=0, metavar="N",
+                    help="resnet50: N more steps under cProfile (host ms "
+                         "a step by function)")
     ap.add_argument("--compare", action="store_true",
                     help="plain and kernel arms in turns: P, K, K, P")
     args = ap.parse_args(argv)
@@ -305,6 +469,16 @@ def main(argv=None) -> int:
         return 2
     order = ("plain", "kernel", "kernel", "plain") if args.compare \
         else ("kernel",)
+    if args.model == "resnet50":
+        if not args.compare:
+            order = ("plain",) if args.no_fuse else ("kernel",)
+        for arm in order:
+            rec = run_resnet(fuse=arm == "kernel",
+                             profile_steps=args.profile,
+                             host_profile_steps=args.host_profile)
+            rec["arm"] = "fused" if arm == "kernel" else "no-fuse"
+            print(json.dumps(rec), flush=True)
+        return 0
     if args.model == "ernie":
         cfg = ernie_config()
         arms = {"kernel": cfg, "plain": cfg.scaled(use_flash=False)}

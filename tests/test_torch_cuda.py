@@ -905,3 +905,39 @@ def test_flash_bias_wrappers_raise_on_biases_the_kernels_do_not_take(card):
     with pytest.raises(ValueError, match="contiguous"):
         FA.flash_bwd_dq(x, x, x, x, torch.zeros((2, 2, 64), device=card), x,
                         bias=torch.zeros((2, 1, 128), device=card)[..., ::2])
+
+
+@pytest.mark.cuda
+def test_opt_kinds_match_plain_bitwise(chip_smoke):
+    """The sgd, momentum and adam sweeps against their plain versions,
+    bitwise, at ResNet-50's group size and at odd, small and unaligned n
+    (sgd also bf16; Nesterov; AdamW)."""
+    recs = chip_smoke.phase_opt_kernels(time_it=False)
+    assert set(recs) == {"opt_sgd", "opt_momentum", "opt_adam",
+                         "opt_adamw"}
+
+
+@pytest.mark.cuda
+def test_fluid_fused_routes_match_plain_bitwise(chip_smoke):
+    """The fluid MLP under each fused optimizer and ResNet-18 at 32² train
+    the same bits through the kernels and the unfused expressions, with
+    one launch of the kernel a step."""
+    launches = chip_smoke.phase_fluid_parity()
+    assert launches == {"opt_sgd": 5, "opt_momentum": 5 + 3, "opt_adam": 5,
+                        "opt_adamw": 5}
+
+
+@pytest.mark.cuda
+def test_opt_kind_wrappers_raise_on_inputs_the_kernels_do_not_take(card):
+    from paddle_tpu_torch.ops import cuda_kernels as CK
+
+    f = torch.zeros(8, device=card)
+    with pytest.raises(TypeError, match="float32"):
+        CK.megakernel_momentum(f.half(), f, f.clone(), 0.1)
+    with pytest.raises(ValueError, match="share a dtype"):
+        CK.megakernel_sgd(f.clone(), f.bfloat16(), 0.1)
+    with pytest.raises(ValueError, match="contiguous"):
+        CK.megakernel_adam(f.clone(), torch.zeros(16, device=card)[::2],
+                           f.clone(), f.clone(), 0.1, 0.9, 0.999)
+    with pytest.raises(ValueError, match="mixed"):
+        CK.megakernel_sgd(f.clone(), f.cpu(), 0.1)
