@@ -60,9 +60,15 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              ds, dx per element, mu/rstd 1e-5, dscale/dbias per column
              within 2^-18 x sum |term|); the CE forward at [2048, 768] x
              [768, 50304 -> 51200] bf16 and 256 rows float32 (lse, gold
-             1e-4); then the bf16 kernels, their plain versions and the
-             library yardsticks are timed (flash_fwd and SDPA by CUDA-graph
-             replay, eager_ms beside);
+             1e-4); dQ's D = rowsum(dO * o) within 2e-5 of the plain
+             one and dK/dV fed that D (as ``_Flash.backward`` feeds it);
+             two more launches of dQ and dK/dV (and dK/dV taking D from
+             its own dQ launch) bitwise equal; then the bf16 kernels,
+             their plain versions and the library yardsticks are timed
+             (the three flash kernels and SDPA's forward by CUDA-graph
+             replay, eager_ms beside), and the pair dQ -> dK/dV as one
+             record (``pair``: graph-timed, beside one SDPA backward and
+             the two kernels' summed bound);
 7. training — GPT_SMALL at full width and depth, batch 16 x 1024, bf16,
              flash, dots remat, flat AdamW kernel: 2 warm-up + 10 timed
              steps through tools/train_bench.py (counts zeroed just
@@ -88,7 +94,9 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              64] bf16, a [48, 1, 1, 512] padding bias) each bias kernel,
              the same kernel without the bias, its plain version and SDPA
              with the same float attn_mask are timed (CUDA-graph replay
-             for the kernels and the SDPA forward);
+             for the kernels and the SDPA forward); dK/dV fed dQ's D, the
+             backward kernels bitwise equal across launches, and the pair
+             dQ -> dK/dV timed beside one SDPA backward with the mask;
 9. ernie   — ERNIE-base (L 12, nh 12, D 768, d_ff 3072, V 30522) pretrains
              at full width and depth through ``train_bench --model
              ernie``: batch 48 x 512, bf16, flash with the padding bias,
@@ -823,6 +831,52 @@ def bf16_check(name, got, want) -> float:
     return err.max().item()
 
 
+def _bwd_bitwise(tag, dtype, FA, ins, causal, bias, outs, di):
+    """Two more launches of each backward kernel on the same inputs give
+    dq, dk and dv bitwise equal to ``outs`` (each block owns its rows, no
+    atomics); dK/dV without ``di`` (its wrapper takes D from a dQ launch)
+    equals dK/dV with dQ's D, bitwise."""
+    q, k, v, o, lse, do = ins
+    again = (FA.flash_bwd_dq(q, k, v, o, lse, do, causal, bias=bias),
+             *FA.flash_bwd_dkv(q, k, v, o, lse, do, causal, bias=bias,
+                               di=di),
+             *FA.flash_bwd_dkv(q, k, v, o, lse, do, causal, bias=bias))
+    torch.cuda.synchronize()
+    for what, got, want in zip(("dq", "dk", "dv", "dk (no di)",
+                                "dv (no di)"), again, outs + outs[1:]):
+        if not torch.equal(got, want):
+            raise AssertionError(f"{tag} {dtype} {what}: a second launch "
+                                 "differs")
+    print(f"[{tag}] {dtype} dq, dk, dv bitwise equal across launches")
+
+
+def _sdpa_bwd_ms(qt, kt, vt, dot, causal, mask) -> float:
+    """ms of one SDPA backward (dq, dk and dv together), eager."""
+    ql, kl, vl = (x.detach().requires_grad_() for x in (qt, kt, vt))
+    ol = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask,
+                                        is_causal=causal)
+    return _time_ms(lambda: torch.autograd.grad(
+        ol, (ql, kl, vl), dot, retain_graph=True), iters=20, warmup=3)
+
+
+def _pair_record(FA, ins, causal, bias, dq_rec, dkv_rec, sdpa_ms) -> dict:
+    """dQ then dK/dV with dQ's D, as ``_Flash.backward`` launches them,
+    timed by CUDA-graph replay beside one SDPA backward and the two
+    kernels' summed bound."""
+    q, k, v, o, lse, do = ins
+
+    def pair():
+        _dq, di = FA.flash_bwd_dq(q, k, v, o, lse, do, causal, bias=bias,
+                                  return_di=True)
+        return FA.flash_bwd_dkv(q, k, v, o, lse, do, causal, bias=bias,
+                                di=di)
+
+    ms = _time_graph_ms(pair, 10)
+    return {"ms": ms, "library_ms": sdpa_ms, "x_library": ms / sdpa_ms,
+            "bound_ms": dq_rec["bound_ms"] + dkv_rec["bound_ms"],
+            "kernels_ms": dq_rec["ms"] + dkv_rec["ms"]}
+
+
 def phase_train_kernels(dtype, time_it: bool):
     """The training kernels vs their plain versions at the training path's
     shapes; one record per kernel (errors, and times when ``time_it``)."""
@@ -860,59 +914,67 @@ def phase_train_kernels(dtype, time_it: bool):
     recs["flash_fwd"] = {"max_abs_err": max(
         check("flash_fwd o", o, o_p, 2e-5),
         _check_close("flash_fwd lse", lse, lse_p, torch.float32, 2e-5))}
-    dq = FA.flash_bwd_dq(q, k, v, o_p, lse_p, do)
-    dq_p = FA.flash_bwd_dq_plain(q, k, v, o_p, lse_p, do)
+    dq, di = FA.flash_bwd_dq(q, k, v, o_p, lse_p, do, return_di=True)
+    dq_p, di_p = FA.flash_bwd_dq_plain(q, k, v, o_p, lse_p, do,
+                                       return_di=True)
     torch.cuda.synchronize()
     recs["flash_bwd_dq"] = {"max_abs_err": check("flash_bwd_dq", dq, dq_p,
                                                  3e-4)}
-    dk, dv = FA.flash_bwd_dkv(q, k, v, o_p, lse_p, do)
+    # D = rowsum(dO * o): float32 in both dtypes, summed in another order
+    _check_close("flash_bwd_dq D", di, di_p, torch.float32, 2e-5)
+    dk, dv = FA.flash_bwd_dkv(q, k, v, o_p, lse_p, do, di=di)
     dk_p, dv_p = FA.flash_bwd_dkv_plain(q, k, v, o_p, lse_p, do)
     torch.cuda.synchronize()
     recs["flash_bwd_dkv"] = {"max_abs_err": max(
         check("flash_bwd_dkv dk", dk, dk_p, 3e-4),
         check("flash_bwd_dkv dv", dv, dv_p, 3e-4))}
-    del dq_p, dk_p, dv_p
+    _bwd_bitwise("train-kernels", dtype, FA, (q, k, v, o_p, lse_p, do),
+                 True, None, (dq, dk, dv), di)
+    del dq_p, dk_p, dv_p, di_p
     if time_it:
         esz = q.element_size()
         act = Bt * Tt * nh * hd * esz             # one [B, T, nh, hd]
-        lse_b = Bt * nh * Tt * 4
+        lse_b = Bt * nh * Tt * 4                  # lse or D [B, nh, T]
         pairs = Bt * nh * Tt * (Tt + 1) // 2      # causal (q, k) pairs
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        for kname, n_in, n_out, n_mm, fn, plain in (
-                ("flash_fwd", 3, 1, 2, lambda: FA.flash_fwd(q, k, v),
+        # bytes: inputs read once, outputs written once; dK/dV reads D
+        # (from dQ) where the reference's form reads o
+        for kname, n_act, n_f32, n_mm, fn, plain in (
+                ("flash_fwd", 4, 1, 2, lambda: FA.flash_fwd(q, k, v),
                  lambda: FA.flash_fwd_plain(q, k, v)),
-                ("flash_bwd_dq", 5, 1, 3,
+                ("flash_bwd_dq", 6, 1, 3,
                  lambda: FA.flash_bwd_dq(q, k, v, o_p, lse_p, do),
                  lambda: FA.flash_bwd_dq_plain(q, k, v, o_p, lse_p, do)),
-                ("flash_bwd_dkv", 5, 2, 4,
-                 lambda: FA.flash_bwd_dkv(q, k, v, o_p, lse_p, do),
-                 lambda: FA.flash_bwd_dkv_plain(q, k, v, o_p, lse_p, do))):
+                ("flash_bwd_dkv", 6, 2, 4,
+                 lambda: FA.flash_bwd_dkv(q, k, v, o_p, lse_p, do, di=di),
+                 lambda: FA.flash_bwd_dkv_plain(q, k, v, o_p, lse_p, do,
+                                                di=di))):
             r = recs[kname]
-            if kname == "flash_fwd":
-                # near its wrapper's host cost: device time by graph replay
-                r["ms"] = _time_graph_ms(fn, 10)
-                r["eager_ms"] = _time_ms(fn, iters=20, warmup=3)
-            else:
-                r["ms"] = _time_ms(fn, iters=20, warmup=3)
+            # near or under their wrappers' host cost: device time by
+            # graph replay, eager beside
+            r["ms"] = _time_graph_ms(fn, 10)
+            r["eager_ms"] = _time_ms(fn, iters=20, warmup=3)
             r["plain_ms"] = _time_ms(plain, iters=3, warmup=1)
-            nbytes = (n_in + n_out) * act + lse_b
             r["bound_ms"], r["bound_by"] = bound_ms(
-                nbytes, 2 * hd * n_mm * pairs, "bf16", name)
+                n_act * act + n_f32 * lse_b, 2 * hd * n_mm * pairs, "bf16",
+                name)
         sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
             qt, kt, vt, is_causal=True)
         recs["flash_fwd"]["library_ms"] = _time_graph_ms(sdpa, 10)
         recs["flash_fwd"]["library_eager_ms"] = _time_ms(sdpa, iters=20,
                                                          warmup=3)
-        ql, kl, vl = (x.detach().requires_grad_() for x in (qt, kt, vt))
-        ol = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
-        dot = do.transpose(1, 2)
-        bwd_ms = _time_ms(lambda: torch.autograd.grad(
-            ol, (ql, kl, vl), dot, retain_graph=True), iters=20, warmup=3)
+        bwd_ms = _sdpa_bwd_ms(qt, kt, vt, do.transpose(1, 2), True, None)
         # one SDPA backward computes dq, dk and dv together
         recs["flash_bwd_dq"]["library_ms"] = bwd_ms
         recs["flash_bwd_dkv"]["library_ms"] = bwd_ms
-        del ol
-    del qkv, q, k, v, do, o, lse, o_p, lse_p, dq, dk, dv
+        pair = _pair_record(FA, (q, k, v, o_p, lse_p, do), True, None,
+                            recs["flash_bwd_dq"], recs["flash_bwd_dkv"],
+                            bwd_ms)
+        recs["flash_bwd_dq"]["pair"] = recs["flash_bwd_dkv"]["pair"] = pair
+        print(f"[train-kernels] flash_bwd_pair bf16 [{Bt}, {Tt}, {nh}, "
+              f"{hd}] causal: " + ", ".join(f"{a}={b:.6g}" if isinstance(
+                  b, float) else f"{a}={b}" for a, b in pair.items()))
+    del qkv, q, k, v, do, o, lse, o_p, lse_p, dq, dk, dv, di
     recs["opt_adamw_flat"] = _sweep_check(torch.float32 if not bf16
                                           else torch.bfloat16, time_it)
     recs.update(_ln_check(dtype, time_it))
@@ -1336,46 +1398,54 @@ def phase_flash_bias():
         bf16_check(f"flash_fwd_bias {tag} o", o, o_p),
         _check_close(f"flash_fwd_bias {tag} lse", lse, lse_p,
                      torch.float32, 2e-5))
+    dq, di = FA.flash_bwd_dq(q, k, v, o_p, lse_p, do, False, bias=bias,
+                             return_di=True)
     recs["flash_bwd_dq_bias"]["max_abs_err"] = bf16_check(
-        f"flash_bwd_dq_bias {tag} dq",
-        FA.flash_bwd_dq(q, k, v, o_p, lse_p, do, False, bias=bias),
+        f"flash_bwd_dq_bias {tag} dq", dq,
         FA.flash_bwd_dq_plain(q, k, v, o_p, lse_p, do, False, bias=bias))
+    dkv = FA.flash_bwd_dkv(q, k, v, o_p, lse_p, do, False, bias=bias, di=di)
     recs["flash_bwd_dkv_bias"]["max_abs_err"] = max(
         bf16_check(f"flash_bwd_dkv_bias {tag} {what}", got, want)
         for what, got, want in zip(
-            ("dk", "dv"),
-            FA.flash_bwd_dkv(q, k, v, o_p, lse_p, do, False, bias=bias),
+            ("dk", "dv"), dkv,
             FA.flash_bwd_dkv_plain(q, k, v, o_p, lse_p, do, False,
                                    bias=bias)))
+    _bwd_bitwise("flash-bias", f"bf16 {tag}", FA, (q, k, v, o_p, lse_p, do),
+                 False, bias, (dq, *dkv), di)
+    del dq, dkv
     torch.cuda.empty_cache()
     name = torch.cuda.get_device_name(0)
     esz = 2
     act = B * T * nh * hd * esz
+    f32 = B * nh * T * 4                  # lse or D [B, nh, T]
     pairs = B * nh * T * T
-    for kname, n_in, n_out, n_mm, fn, bare, plain in (
-            ("flash_fwd_bias", 3, 1, 2,
+    di0 = FA.flash_bwd_dq(q, k, v, o, lse, do, False, return_di=True)[1]
+    # bytes: inputs read once, outputs written once, the [B, T] bias; dK/dV
+    # reads D (from dQ) where the reference's form reads o
+    for kname, n_act, n_f32, n_mm, fn, bare, plain in (
+            ("flash_fwd_bias", 4, 1, 2,
              lambda: FA.flash_fwd(q, k, v, False, bias=bias),
              lambda: FA.flash_fwd(q, k, v, False),
              lambda: FA.flash_fwd_plain(q, k, v, False, bias=bias)),
-            ("flash_bwd_dq_bias", 5, 1, 3,
+            ("flash_bwd_dq_bias", 6, 1, 3,
              lambda: FA.flash_bwd_dq(q, k, v, o, lse, do, False, bias=bias),
              lambda: FA.flash_bwd_dq(q, k, v, o, lse, do, False),
              lambda: FA.flash_bwd_dq_plain(q, k, v, o, lse, do, False,
                                            bias=bias)),
-            ("flash_bwd_dkv_bias", 5, 2, 4,
-             lambda: FA.flash_bwd_dkv(q, k, v, o, lse, do, False, bias=bias),
-             lambda: FA.flash_bwd_dkv(q, k, v, o, lse, do, False),
+            ("flash_bwd_dkv_bias", 6, 2, 4,
+             lambda: FA.flash_bwd_dkv(q, k, v, o, lse, do, False, bias=bias,
+                                      di=di),
+             lambda: FA.flash_bwd_dkv(q, k, v, o, lse, do, False, di=di0),
              lambda: FA.flash_bwd_dkv_plain(q, k, v, o, lse, do, False,
-                                            bias=bias))):
+                                            bias=bias, di=di))):
         r = recs[kname]
         r["ms"] = _time_graph_ms(fn, 10)
         r["eager_ms"] = _time_ms(fn, iters=20, warmup=3)
         r["bias_free_ms"] = _time_graph_ms(bare, 10)
         r["plain_ms"] = _time_ms(plain, iters=3, warmup=1)
-        # q/k/v (and o, dO) read, outputs written, lse, the [B, T] bias
-        nbytes = (n_in + n_out) * act + B * nh * T * 4 + B * T * 4
         r["bound_ms"], r["bound_by"] = bound_ms(
-            nbytes, 2 * hd * n_mm * pairs, "bf16", name)
+            n_act * act + n_f32 * f32 + B * T * 4, 2 * hd * n_mm * pairs,
+            "bf16", name)
         r["shape"] = list(ERNIE_SHAPE)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     mask16 = mask.to(torch.bfloat16)
@@ -1384,18 +1454,19 @@ def phase_flash_bias():
     recs["flash_fwd_bias"]["library_ms"] = _time_graph_ms(sdpa, 10)
     recs["flash_fwd_bias"]["library_eager_ms"] = _time_ms(sdpa, iters=20,
                                                           warmup=3)
-    ql, kl, vl = (x.detach().requires_grad_() for x in (qt, kt, vt))
-    ol = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask16)
-    dot = do.transpose(1, 2)
-    bwd_ms = _time_ms(lambda: torch.autograd.grad(
-        ol, (ql, kl, vl), dot, retain_graph=True), iters=20, warmup=3)
+    bwd_ms = _sdpa_bwd_ms(qt, kt, vt, do.transpose(1, 2), False, mask16)
     recs["flash_bwd_dq_bias"]["library_ms"] = bwd_ms
     recs["flash_bwd_dkv_bias"]["library_ms"] = bwd_ms
+    pair = _pair_record(FA, (q, k, v, o, lse, do), False, bias,
+                        recs["flash_bwd_dq_bias"], recs["flash_bwd_dkv_bias"],
+                        bwd_ms)
+    recs["flash_bwd_dq_bias"]["pair"] = pair
+    recs["flash_bwd_dkv_bias"]["pair"] = pair
     for kname, r in recs.items():
         print(f"[flash-bias] {kname} bf16 {list(ERNIE_SHAPE)}: " + ", ".join(
             f"{a}={b:.6g}" if isinstance(b, float) else f"{a}={b}"
             for a, b in r.items()))
-    del qkv, q, k, v, do, o, lse, o_p, lse_p, ol, ql, kl, vl
+    del qkv, q, k, v, do, o, lse, o_p, lse_p, di, di0
     torch.cuda.empty_cache()
     return recs
 

@@ -148,7 +148,9 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     fl = [I] * 4 + [LL] * 3 + [F] + [I] * 4 + [P]
     lib.ptt_flash_fwd.argtypes = [P] * 6 + fl
     lib.ptt_flash_fwd.restype = I
-    lib.ptt_flash_bwd_dq.argtypes = [P] * 8 + fl
+    # dQ: q, k, v, o, dout, lse, bias, dq, di; dK/dV: q, k, v, dout, lse,
+    # di, bias, dk, dv
+    lib.ptt_flash_bwd_dq.argtypes = [P] * 9 + fl
     lib.ptt_flash_bwd_dq.restype = I
     lib.ptt_flash_bwd_dkv.argtypes = [P] * 9 + fl
     lib.ptt_flash_bwd_dkv.restype = I

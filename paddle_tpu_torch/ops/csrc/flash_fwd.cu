@@ -3,8 +3,8 @@
 // Replaces: _fwd_kernel (paddle_tpu/ops/pallas_kernels.py:74, called at
 // :176) in both its forms, causal or full: bias-free (the GPT training
 // step) and with an additive float32 bias (:103-105, ERNIE's padding
-// mask). dQ and dK/dV live in flash_attention.cu and read this kernel's o
-// and lse.
+// mask). dQ and dK/dV live in flash_bwd_dq.cu and flash_bwd_dkv.cu and
+// read this kernel's o and lse.
 //
 // What it computes, as the Pallas kernel does: s = q.k^T * scale with f32
 // sums, plus the bias; causal entries -> -0.7*FLT_MAX (replaced, not

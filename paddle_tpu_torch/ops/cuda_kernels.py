@@ -85,12 +85,12 @@ KERNELS: Dict[str, Dict[str, str]] = {
     },
     "flash_bwd_dq": {
         "route": "cuda",
-        "source": "paddle_tpu_torch/ops/csrc/flash_attention.cu",
+        "source": "paddle_tpu_torch/ops/csrc/flash_bwd_dq.cu",
         "replaces": "paddle_tpu/ops/pallas_kernels.py:205",
     },
     "flash_bwd_dkv": {
         "route": "cuda",
-        "source": "paddle_tpu_torch/ops/csrc/flash_attention.cu",
+        "source": "paddle_tpu_torch/ops/csrc/flash_bwd_dkv.cu",
         "replaces": "paddle_tpu/ops/pallas_kernels.py:261",
     },
     "opt_adamw_flat": {
@@ -117,12 +117,12 @@ KERNELS: Dict[str, Dict[str, str]] = {
     },
     "flash_bwd_dq_bias": {
         "route": "cuda",
-        "source": "paddle_tpu_torch/ops/csrc/flash_attention.cu",
+        "source": "paddle_tpu_torch/ops/csrc/flash_bwd_dq.cu",
         "replaces": "paddle_tpu/ops/pallas_kernels.py:205",
     },
     "flash_bwd_dkv_bias": {
         "route": "cuda",
-        "source": "paddle_tpu_torch/ops/csrc/flash_attention.cu",
+        "source": "paddle_tpu_torch/ops/csrc/flash_bwd_dkv.cu",
         "replaces": "paddle_tpu/ops/pallas_kernels.py:261",
     },
     # the fluid optimizer kinds of _opt_kernel (one source with

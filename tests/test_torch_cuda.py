@@ -673,6 +673,83 @@ def test_flash_kernels_match_plain_small_shapes(chip_smoke, dtype, causal,
         close(got, want, 3e-4)
 
 
+def _flash_bwd_inputs(dtype, T, hd, causal, form, seed):
+    """q, k, v sliced from one packed qkv, dO, the forward's (o, lse) and
+    a bias of ``form`` ("none", "row": [B, 1, T], "full": [B·nh, T, T])
+    on the card, B 2, nh 3."""
+    from paddle_tpu_torch.ops import flash_attention as FA
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    qkv = torch.randn((2, T, 3, 3, hd), generator=g, device="cuda").to(dtype)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    do = torch.randn((2, T, 3, hd), generator=g, device="cuda").to(dtype)
+    bias = {"none": None,
+            "row": torch.randn((2, 1, T), generator=g, device="cuda"),
+            "full": torch.randn((6, T, T), generator=g, device="cuda")}[form]
+    o, lse = FA.flash_fwd(q, k, v, causal, bias=bias)
+    return (q, k, v, o, lse, do), bias
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("form", ["none", "row", "full"])
+def test_flash_di_route_matches_plain(chip_smoke, dtype, form):
+    """``flash_bwd_dq(return_di=True)`` gives the plain version's dq (bf16
+    per element as ``chip_smoke.bf16_check``, f32 3e-4) and D = rowsum(dO
+    * o) (float32, within 2e-5); ``flash_bwd_dkv(di=D)`` gives the plain
+    version's dk, dv fed the same D; and dK/dV with dQ's D equals dK/dV
+    without ``di`` (its wrapper then takes D from its own dQ launch),
+    bitwise. T 200, head_dim 64, causal."""
+    from paddle_tpu_torch.ops import flash_attention as FA
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ins, bias = _flash_bwd_inputs(dtype, 200, 64, True, form, 11)
+
+    def close(got, want):
+        if dtype == torch.bfloat16:
+            chip_smoke.bf16_check("flash di route", got, want)
+        else:
+            torch.testing.assert_close(got, want, atol=3e-4, rtol=3e-4)
+
+    dq, di = FA.flash_bwd_dq(*ins, True, bias=bias, return_di=True)
+    dq_p, di_p = FA.flash_bwd_dq_plain(*ins, True, bias=bias,
+                                       return_di=True)
+    assert di.shape == (2, 3, 200) and di.dtype == torch.float32
+    close(dq, dq_p)
+    torch.testing.assert_close(di, di_p, atol=2e-5, rtol=2e-5)
+    dkv = FA.flash_bwd_dkv(*ins, True, bias=bias, di=di)
+    for got, want in zip(dkv, FA.flash_bwd_dkv_plain(*ins, True, bias=bias,
+                                                     di=di)):
+        close(got, want)
+    for a, b in zip(dkv, FA.flash_bwd_dkv(*ins, True, bias=bias)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("form", ["none", "row", "full"])
+@pytest.mark.parametrize("hd", [8, 16, 32, 64, 128])
+def test_flash_bwd_bitwise_run_to_run(card, dtype, form, hd):
+    """Each block owns its rows and no kernel uses atomics: two launches
+    of dQ and of dK/dV on the same inputs give bitwise-equal dq, dk and
+    dv, at a ragged T (200), every head_dim, bias-free and with each bias
+    shape."""
+    from paddle_tpu_torch.ops import flash_attention as FA
+
+    ins, bias = _flash_bwd_inputs(dtype, 200, hd, True, form, hd)
+    first = [FA.flash_bwd_dq(*ins, True, bias=bias, return_di=True)]
+    first.append(FA.flash_bwd_dkv(*ins, True, bias=bias, di=first[0][1]))
+    second = [FA.flash_bwd_dq(*ins, True, bias=bias, return_di=True)]
+    second.append(FA.flash_bwd_dkv(*ins, True, bias=bias, di=second[0][1]))
+    torch.cuda.synchronize()
+    for a, b in zip([*first[0], *first[1]], [*second[0], *second[1]]):
+        assert torch.equal(a, b)
+    assert all(torch.isfinite(x.float()).all() for x in first[1])
+
+
 @pytest.mark.cuda
 def test_flash_attention_autograd_on_card(card):
     """_Flash on CUDA tensors launches forward, dQ and dK/dV once each and

@@ -164,3 +164,77 @@ def test_bias_refused():
         TFA.flash_attention(x, x, x, bias=torch.zeros((1, 3, 8, 8)))
     with pytest.raises(ValueError, match="bias"):
         TFA.flash_attention(x, x, x, bias=torch.zeros((1, 1, 4, 8)))
+
+
+def _jax_bwd_inputs(seed, causal, bias=None, t=128, hd=64):
+    """q, k, v, dO (numpy [B, T, nh, hd]) and the JAX forward's o and lse
+    at them, in both layouts: (numpy inputs, JAX [BH, T, hd] inputs with
+    o and the lane-replicated lse, port o [B, T, nh, hd] and lse [B, nh,
+    T])."""
+    q, k, v, do = _inputs(seed, t, hd, n=4)
+    B, nh = q.shape[0], q.shape[2]
+    to_bh = lambda x: jnp.asarray(x).transpose(0, 2, 1, 3).reshape(  # noqa
+        B * nh, t, hd)
+    jb = [to_bh(x) for x in (q, k, v, do)]
+    o, lse = PK._fwd(jb[0], jb[1], jb[2], bias, causal, 1.0 / np.sqrt(hd),
+                     64, 64)
+    o_t = torch.from_numpy(np.asarray(o).reshape(B, nh, t, hd)
+                           .transpose(0, 2, 1, 3).copy())
+    lse_t = torch.from_numpy(np.asarray(lse)[..., 0].reshape(B, nh, t)
+                             .copy())
+    return (q, k, v, do), (*jb, o, lse), o_t, lse_t
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_plain_di_matches_jax(causal):
+    """D = rowsum(dO * o) as ``flash_bwd_dq_plain(return_di=True)`` gives
+    it ([B, nh, T] float32) against ``jnp.sum(do * o, -1)`` on the
+    reference's o, to 1e-5; the dq beside it is the call without
+    ``return_di``, bitwise."""
+    (q, k, v, do), (_q, _k, _v, jdo, jo, _lse), o_t, lse_t = \
+        _jax_bwd_inputs(9, causal)
+    tq, tk, tv, tdo = (torch.from_numpy(x) for x in (q, k, v, do))
+    dq, di = TFA.flash_bwd_dq_plain(tq, tk, tv, o_t, lse_t, tdo, causal,
+                                    return_di=True)
+    assert di.shape == (2, 2, 128) and di.dtype == torch.float32
+    assert di.is_contiguous()
+    want = np.asarray(jnp.sum(jdo * jo, -1)).reshape(2, 2, 128)
+    np.testing.assert_allclose(di.numpy(), want, atol=1e-5, rtol=1e-5)
+    assert torch.equal(dq, TFA.flash_bwd_dq_plain(tq, tk, tv, o_t, lse_t,
+                                                  tdo, causal))
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_plain_dkv_with_di_matches_without_and_jax(causal):
+    """``flash_bwd_dkv_plain(..., di=D)`` with dQ's D equals the call
+    without it bitwise (the kernels' route: dK/dV reads D, never o), and
+    JAX's interpret-mode ``_bwd`` on the same inputs to 3e-4
+    (tests/test_pallas.py:57)."""
+    (q, k, v, do), jargs, o_t, lse_t = _jax_bwd_inputs(10, causal)
+    tq, tk, tv, tdo = (torch.from_numpy(x) for x in (q, k, v, do))
+    _dq, di = TFA.flash_bwd_dq_plain(tq, tk, tv, o_t, lse_t, tdo, causal,
+                                     return_di=True)
+    with_di = TFA.flash_bwd_dkv_plain(tq, tk, tv, o_t, lse_t, tdo, causal,
+                                      di=di)
+    without = TFA.flash_bwd_dkv_plain(tq, tk, tv, o_t, lse_t, tdo, causal)
+    for a, b in zip(with_di, without):
+        assert torch.equal(a, b)
+    jq, jk, jv, jdo, jo, jlse = jargs
+    _jdq, jdk, jdv = PK._bwd(jq, jk, jv, jo, jlse, jdo, None, causal,
+                             0.125, 64, 64)
+    for got, want in zip(with_di, (jdk, jdv)):
+        want = np.asarray(want).reshape(2, 2, 128, 64).transpose(0, 2, 1, 3)
+        np.testing.assert_allclose(got.numpy(), want, atol=3e-4, rtol=3e-4)
+
+
+def test_di_contract():
+    """The dK/dV kernel's contract on D, checked before any launch (here
+    on CPU tensors): float32, [B, nh, T], contiguous."""
+    TFA._check_di(torch.zeros((2, 3, 64)), 2, 3, 64, "t")
+    with pytest.raises(TypeError, match="float32"):
+        TFA._check_di(torch.zeros((2, 3, 64), dtype=torch.bfloat16), 2, 3,
+                      64, "t")
+    for bad in (torch.zeros((2, 3, 63)), torch.zeros((3, 2, 64)),
+                torch.zeros((2, 3, 128))[..., ::2], torch.zeros((6, 64))):
+        with pytest.raises(ValueError, match="di"):
+            TFA._check_di(bad, 2, 3, 64, "t")

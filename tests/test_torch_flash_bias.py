@@ -179,3 +179,40 @@ def test_kernel_bias_contract():
                 torch.zeros((B, 1, 63)), torch.zeros((B, 1, 128))[..., ::2]):
         with pytest.raises(ValueError):
             TFA._check_bias(bad, B, 64, NH, "t")
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_bias_dkv_with_di_matches_without_and_jax(causal):
+    """With the row-broadcast padding bias: dQ's D (``return_di=True``)
+    against ``jnp.sum(do * o, -1)`` to 1e-5, ``flash_bwd_dkv_plain(...,
+    di=D)`` equal to the call without it bitwise, and to JAX's
+    interpret-mode ``_bwd`` with the bias to 3e-4."""
+    q, k, v, do = _qkvw(21)
+    bias = _bias("padmask", 0)                     # [B, 1, 1, T]
+    to_bh = lambda x: jnp.asarray(x).transpose(0, 2, 1, 3).reshape(  # noqa
+        B * NH, T, HD)
+    jq, jk, jv, jdo = (to_bh(x) for x in (q, k, v, do))
+    jb = jnp.asarray(bias).reshape(B, 1, T)
+    scale = 1.0 / np.sqrt(HD)
+    jo, jlse = PK._fwd(jq, jk, jv, jb, causal, scale, 128, 128)
+    o_t = torch.from_numpy(np.asarray(jo).reshape(B, NH, T, HD)
+                           .transpose(0, 2, 1, 3).copy())
+    lse_t = torch.from_numpy(np.asarray(jlse)[..., 0].reshape(B, NH, T)
+                             .copy())
+    tq, tk, tv, tdo = (torch.from_numpy(x) for x in (q, k, v, do))
+    tb = torch.from_numpy(bias).reshape(B, 1, T)  # the kernels' form
+    _dq, di = TFA.flash_bwd_dq_plain(tq, tk, tv, o_t, lse_t, tdo, causal,
+                                     scale, tb, return_di=True)
+    np.testing.assert_allclose(
+        di.numpy(), np.asarray(jnp.sum(jdo * jo, -1)).reshape(B, NH, T),
+        atol=1e-5, rtol=1e-5)
+    with_di = TFA.flash_bwd_dkv_plain(tq, tk, tv, o_t, lse_t, tdo, causal,
+                                      scale, tb, di=di)
+    for a, b in zip(with_di, TFA.flash_bwd_dkv_plain(
+            tq, tk, tv, o_t, lse_t, tdo, causal, scale, tb)):
+        assert torch.equal(a, b)
+    _jdq, jdk, jdv = PK._bwd(jq, jk, jv, jo, jlse, jdo, jb, causal, scale,
+                             128, 128)
+    for got, want in zip(with_di, (jdk, jdv)):
+        want = np.asarray(want).reshape(B, NH, T, HD).transpose(0, 2, 1, 3)
+        np.testing.assert_allclose(got.numpy(), want, atol=3e-4, rtol=3e-4)
