@@ -19,10 +19,11 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              0 is the scratch page dead lanes write — and the shared and
              dead-lane pages untouched), logits_head also at batch 96;
              then each kernel, its plain version and one PyTorch library
-             call are timed with CUDA events (the decode kernels and
-             logits_head, their plain versions and yardsticks as
-             CUDA-graph replays: device time without the host's enqueue,
-             which the eager time eager_ms includes), in both dtypes;
+             call are timed as CUDA-graph replays (device time without
+             the host's enqueue, which the eager time eager_ms includes;
+             fused_ln's yardstick F.layer_norm on the same rows, its
+             weight and bias rounded to x's dtype as PyTorch needs them),
+             in both dtypes;
              the decode kernels also with every
              lane at position 15, 511 and 1023 (checked against the plain
              version there too), and the paged one beside paged_gather +
@@ -58,15 +59,20 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              dropout mask) and backward (dsx; dsx + mask) at rows
              [16 x 1024, 768] bf16 and [256, 768] float32 (s bitwise, y,
              ds, dx per element, mu/rstd 1e-5, dscale/dbias per column
-             within 2^-18 x sum |term|); the CE forward at [2048, 768] x
+             within 2^-18 x sum |term|, a second backward launch bitwise
+             equal), and every form of both at 8 small shapes (odd D,
+             each register path's cap and past it, R = 1), aligned and
+             one element off; the CE forward at [2048, 768] x
              [768, 50304 -> 51200] bf16 and 256 rows float32 (lse, gold
              1e-4); dQ's D = rowsum(dO * o) within 2e-5 of the plain
              one and dK/dV fed that D (as ``_Flash.backward`` feeds it);
              two more launches of dQ and dK/dV (and dK/dV taking D from
              its own dQ launch) bitwise equal; then the bf16 kernels,
              their plain versions and the library yardsticks are timed
-             (the three flash kernels and SDPA's forward by CUDA-graph
-             replay, eager_ms beside), and the pair dQ -> dK/dV as one
+             (the three flash kernels, SDPA's forward and the fused-LN
+             forms and backward, each beside F.layer_norm /
+             aten.native_layer_norm_backward, by CUDA-graph replay,
+             eager_ms beside), and the pair dQ -> dK/dV as one
              record (``pair``: graph-timed, beside one SDPA backward and
              the two kernels' summed bound);
 7. training — GPT_SMALL at full width and depth, batch 16 x 1024, bf16,
@@ -280,11 +286,18 @@ def phase_kernels(dtype, time_it: bool):
     torch.cuda.synchronize()
     rec = {"max_abs_err": _check_out("fused_ln", got, want, dtype)}
     if time_it:
-        rec["ms"] = _time_ms(lambda: CK.fused_ln(x, scale, bias))
-        rec["plain_ms"] = _time_ms(lambda: CK.fused_ln_plain(x, scale, bias))
+        # a decode tick launches it 2L times: device time by graph replay,
+        # the eager loop (the wrapper's host cost) beside
+        kern = lambda: CK.fused_ln(x, scale, bias)  # noqa: E731
+        rec["ms"] = _time_graph_ms(kern, 2 * L)
+        rec["eager_ms"] = _time_ms(kern)
+        rec["plain_ms"] = _time_graph_ms(
+            lambda: CK.fused_ln_plain(x, scale, bias), 2 * L)
+        # the same work on x's rows; PyTorch takes the weight and bias in
+        # x's dtype only, so they are rounded to it
         s16, b16 = scale.to(dtype), bias.to(dtype)
-        rec["library_ms"] = _time_ms(
-            lambda: F.layer_norm(x, (D,), s16, b16, 1e-5))
+        rec["library_ms"] = _time_graph_ms(
+            lambda: F.layer_norm(x, (D,), s16, b16, 1e-5), 2 * L)
         rec["bound_ms"], rec["bound_by"] = bound_ms(
             2 * B * D * esz + 2 * D * 4, 8 * B * D, "f32", name)
     recs["fused_ln"] = rec
@@ -987,6 +1000,105 @@ def phase_train_kernels(dtype, time_it: bool):
     return recs
 
 
+# the fused-LN small cases (R, D): R = 1 and R not a multiple of a block's
+# 4 rows; D not a multiple of the 16-byte vector (770); the backward's
+# register path at its cap (1024) and past it (1032, a block a row); the
+# forward's at its cap (2048) and past it (2056, 12,288: a block a row, the
+# backward refuses them as it always did)
+LN_CASES = ((1, 64), (150, 80), (5, 770), (33, 1024), (33, 1032),
+            (37, 2048), (9, 2056), (3, 12288))
+
+
+def ln_small_case(dtype, R: int, D: int, offset: int, dtol: float) -> float:
+    """Every forward form (bits: residual, bias_add, mask) and every
+    backward form (dsx, mask) of the fused-LN kernels against their plain
+    versions at rows [R, D], each [R, D] operand a view ``offset``
+    elements into a larger buffer (1: not 16-byte aligned, so the scalar
+    instances run): s bitwise; y, ds, dx per element (bf16_check; float32
+    1e-5); mu and rstd within 1e-5; dscale and dbias within ``dtol`` x the
+    column's sum of |term|; a second backward launch bitwise equal. Past
+    the backward's 2048 columns its wrapper must raise ValueError.
+    Returns the largest |kernel - plain|."""
+    from paddle_tpu_torch.ops import fused_ln as FL
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(R * 100003 + D + offset)
+
+    def rows(dt=dtype):
+        buf = (torch.rand(R * D + offset, generator=g, device=dev) < 0.8
+               if dt == torch.bool else
+               torch.randn(R * D + offset, generator=g, device=dev).to(dt))
+        return buf[offset:].view(R, D)
+
+    def close(what, got, want):
+        if dtype == torch.bfloat16:
+            return bf16_check(f"{what} [{R}, {D}]+{offset}", got, want)
+        return _check_close(what, got, want, dtype, 1e-5)
+
+    x, res, dy, dsx, mask = (rows(), rows(), rows(), rows(),
+                             rows(torch.bool))
+    badd = torch.randn(D, generator=g, device=dev).to(dtype)
+    scale = torch.randn(D, generator=g, device=dev)
+    bias = torch.randn(D, generator=g, device=dev)
+    inv = FL._round_to(1 / 0.8, dtype)
+    err = 0.0
+    for form in range(8):
+        kw = {}
+        if form & 1:
+            kw["residual"] = res
+        if form & 2:
+            kw["bias_add"] = badd
+        if form & 4:
+            kw.update(mask=mask, inv_keep=inv)
+        got = FL.fused_ln_fwd(x, scale, bias, **kw)
+        want = FL.fused_ln_fwd_plain(x, scale, bias, **kw)
+        torch.cuda.synchronize()
+        if (got[1] is None) != (form == 0) or (
+                form and not torch.equal(got[1], want[1])):
+            raise AssertionError(f"fused_ln form {form} [{R}, {D}]+{offset} "
+                                 f"{dtype}: s differs from the plain one's")
+        err = max(err, close(f"fused_ln form {form} y", got[0], want[0]))
+        for i, stat in ((2, "mu"), (3, "rstd")):
+            _check_close(f"fused_ln form {form} {stat}", got[i], want[i],
+                         torch.float32, 1e-5)
+    _y, s, mu, rstd = want
+    s = rows().copy_(s)                 # the backward's s, offset too
+    if D > FL._MAX_D:
+        try:
+            FL.fused_ln_bwd(s, mu, rstd, scale, dy)
+        except ValueError:
+            return err
+        raise AssertionError(f"fused_ln_bwd took D={D} > {FL._MAX_D}")
+    xhat = (s.float() - mu[:, None]) * rstd[:, None]
+    tot = ((dy.float() * xhat).abs().sum(0), dy.float().abs().sum(0))
+    inv32 = FL._round_to(1 / 0.8, torch.float32)
+    for kw in ({}, dict(dsx=dsx), dict(mask=mask, inv_keep=inv32),
+               dict(dsx=dsx, mask=mask, inv_keep=inv32)):
+        got = FL.fused_ln_bwd(s, mu, rstd, scale, dy, **kw)
+        want = FL.fused_ln_bwd_plain(s, mu, rstd, scale, dy, **kw)
+        again = FL.fused_ln_bwd(s, mu, rstd, scale, dy, **kw)
+        torch.cuda.synchronize()
+        form = "+".join(kw) or "plain"
+        err = max(err, close(f"fused_ln_bwd {form} ds", got[0], want[0]))
+        if "mask" in kw:
+            err = max(err, close(f"fused_ln_bwd {form} dx", got[1],
+                                 want[1]))
+        for i, what in ((2, "dscale"), (3, "dbias")):
+            diff = (got[i] - want[i]).abs()
+            if not (diff <= dtol * tot[i - 2] + 1e-30).all():
+                raise AssertionError(
+                    f"fused_ln_bwd {form} {what} [{R}, {D}]+{offset} "
+                    f"{dtype}: worst diff/bound "
+                    f"{(diff / (dtol * tot[i - 2] + 1e-30)).max().item():.4g}")
+            err = max(err, diff.max().item())
+        if not all(a is None and b is None or torch.equal(a, b)
+                   for a, b in zip(got, again)):
+            raise AssertionError(f"fused_ln_bwd {form} [{R}, {D}]+{offset} "
+                                 f"{dtype}: a second launch differs")
+    return err
+
+
 def _ln_check(dtype, time_it: bool):
     """The fused-LN forward (ln2 form: residual + bias_add, emitting s;
     plain form; dropout-mask form) and backward (with dsx; with dsx and
@@ -995,8 +1107,15 @@ def _ln_check(dtype, time_it: bool):
     form's s bitwise, y, ds and dx per element (bf16_check; f32 1e-5), mu
     and rstd within 1e-5, dscale and dbias per column within 2^-18 x the
     column's sum of |term| over the rows (float32 sums of 16,384 terms in
-    another order). Timed: the ln2 form and the dsx backward, their plain
-    versions and F.layer_norm / aten.native_layer_norm_backward on s."""
+    another order), two launches of each backward form bitwise equal;
+    then every form and instance at the LN_CASES shapes, aligned and one
+    element off (:func:`ln_small_case`, 2^-18). Timed by CUDA-graph
+    replay over three copies of the inputs: the ln2 form (``ms``; no one
+    PyTorch call computes it: ``library_ms`` null), the plain form beside
+    ``F.layer_norm`` on the same rows (the same function), the mask form,
+    ``F.layer_norm`` on s (half the ln2 form's bytes); the dsx backward
+    (``ms``) and the backward without dsx beside
+    ``aten.native_layer_norm_backward`` (the same function)."""
     from paddle_tpu_torch.observability.hw import bound_ms
     from paddle_tpu_torch.ops import fused_ln as FL
 
@@ -1049,6 +1168,7 @@ def _ln_check(dtype, time_it: bool):
                                            1 / keep, torch.float32)))):
         got = FL.fused_ln_bwd(s, mu, rstd, scale, dy, **kw)
         want = FL.fused_ln_bwd_plain(s, mu, rstd, scale, dy, **kw)
+        again = FL.fused_ln_bwd(s, mu, rstd, scale, dy, **kw)
         torch.cuda.synchronize()
         err = max(err, check(f"fused_ln_bwd {form} ds", got[0], want[0]))
         if "mask" in kw:
@@ -1062,36 +1182,80 @@ def _ln_check(dtype, time_it: bool):
                 raise AssertionError(f"fused_ln_bwd {form} {what}: worst "
                                      f"diff/bound {ratio:.4g}")
             err = max(err, (got[i] - want[i]).abs().max().item())
+        if not all(a is None and b is None or torch.equal(a, b)
+                   for a, b in zip(got, again)):
+            raise AssertionError(f"fused_ln_bwd {form} {dtype}: a second "
+                                 "launch differs")
+    print(f"[check] fused_ln_bwd {dtype}: a second launch bitwise equal")
     recs["fused_ln_bwd"] = {"max_abs_err": err}
+    small = max(ln_small_case(dtype, r, d, off, 2.0 ** -18)
+                for (r, d), off in itertools.product(LN_CASES, (0, 1)))
+    print(f"[check] fused_ln {dtype}: {2 * len(LN_CASES)} small cases, "
+          f"every form, max |kernel - plain| {small:.4g}")
+    recs["fused_ln"]["small_max_abs_err"] = small
     if time_it:
         esz = x.element_size()
-        fwd = recs["fused_ln"]
-        fwd["ms"] = _time_ms(lambda: FL.fused_ln_fwd(
-            x, scale, bias, res, badd, eps=1e-5), iters=20, warmup=3)
-        fwd["plain_ms"] = _time_ms(lambda: FL.fused_ln_fwd_plain(
-            x, scale, bias, res, badd, eps=1e-5), iters=20, warmup=3)
+        fwd, bwd = recs["fused_ln"], recs["fused_ln_bwd"]
+        # three copies of every [R, D] operand (x, res, dy, dsx, s: 25 MB
+        # each in bf16), walked in turn, so the timed launches read HBM
+        # and not the 50 MB L2
+        xs, rs_, dys, dsxs, ss = ([t] + [t.clone() for _ in range(2)]
+                                  for t in (x, res, dy, dsx, s))
+
+        def graph_ms(fn, calls=12):
+            return _time_graph_ms(_over_layers(fn, 3), calls)
+
+        # PyTorch's layernorm takes its weight and bias in x's dtype only
         w16, b16 = scale.to(dtype), bias.to(dtype)
-        fwd["library_ms"] = _time_ms(
-            lambda: F.layer_norm(s, (D,), w16, b16, 1e-5), iters=20,
-            warmup=3)
+
+        def ln2(i):
+            return FL.fused_ln_fwd(xs[i], scale, bias, rs_[i], badd,
+                                   eps=1e-5)
+
+        fwd["ms"] = graph_ms(ln2)
+        fwd["eager_ms"] = _time_ms(_over_layers(ln2, 3), iters=21,
+                                   warmup=3)
+        fwd["plain_ms"] = graph_ms(lambda i: FL.fused_ln_fwd_plain(
+            xs[i], scale, bias, rs_[i], badd, eps=1e-5), 3)
+        fwd["library_ms"] = None        # no one PyTorch call computes it
         # reads x, res, badd, scale, bias; writes y, s, mu, rstd
         fwd["bound_ms"], fwd["bound_by"] = bound_ms(
             4 * R * D * esz + D * esz + 2 * D * 4 + 2 * R * 4, 10 * R * D,
             "f32", name)
-        bwd = recs["fused_ln_bwd"]
-        bwd["ms"] = _time_ms(lambda: FL.fused_ln_bwd(
-            s, mu, rstd, scale, dy, dsx), iters=20, warmup=3)
-        bwd["plain_ms"] = _time_ms(lambda: FL.fused_ln_bwd_plain(
-            s, mu, rstd, scale, dy, dsx), iters=20, warmup=3)
-        _o, mean, rs = torch.ops.aten.native_layer_norm(s, [D], w16, b16,
-                                                        1e-5)
-        bwd["library_ms"] = _time_ms(
-            lambda: torch.ops.aten.native_layer_norm_backward(
-                dy, s, [D], mean, rs, w16, b16, [True, True, True]),
-            iters=20, warmup=3)
+        fwd["plain_form_ms"] = graph_ms(
+            lambda i: FL.fused_ln_fwd(xs[i], scale, bias, eps=1e-5))
+        fwd["plain_form_library_ms"] = graph_ms(
+            lambda i: F.layer_norm(xs[i], (D,), w16, b16, 1e-5))
+        # reads x, scale, bias; writes y, mu, rstd
+        fwd["plain_form_bound_ms"] = bound_ms(
+            2 * R * D * esz + 2 * D * 4 + 2 * R * 4, 8 * R * D, "f32",
+            name)[0]
+        fwd["mask_form_ms"] = graph_ms(lambda i: FL.fused_ln_fwd(
+            xs[i], scale, bias, rs_[i], mask=mask, eps=1e-5,
+            inv_keep=forms["mask"]["inv_keep"]))
+        # half the ln2 form's bytes: not the same function
+        fwd["layer_norm_on_s_ms"] = graph_ms(
+            lambda i: F.layer_norm(ss[i], (D,), w16, b16, 1e-5))
+        bwd["ms"] = graph_ms(lambda i: FL.fused_ln_bwd(
+            ss[i], mu, rstd, scale, dys[i], dsxs[i]))
+        bwd["plain_ms"] = graph_ms(lambda i: FL.fused_ln_bwd_plain(
+            ss[i], mu, rstd, scale, dys[i], dsxs[i]), 3)
+        bwd["library_ms"] = None        # no one PyTorch call computes it
         # reads s, dy, dsx, mu, rstd, scale; writes ds, dscale, dbias
         bwd["bound_ms"], bwd["bound_by"] = bound_ms(
             4 * R * D * esz + 2 * R * 4 + 3 * D * 4, 14 * R * D, "f32", name)
+        bwd["no_dsx_ms"] = graph_ms(lambda i: FL.fused_ln_bwd(
+            ss[i], mu, rstd, scale, dys[i]))
+        _o, mean, rstd_l = torch.ops.aten.native_layer_norm(s, [D], w16,
+                                                            b16, 1e-5)
+        bwd["no_dsx_library_ms"] = graph_ms(
+            lambda i: torch.ops.aten.native_layer_norm_backward(
+                dys[i], ss[i], [D], mean, rstd_l, w16, b16,
+                [True, True, True]))
+        # reads s, dy, mu, rstd, scale; writes ds, dscale, dbias
+        bwd["no_dsx_bound_ms"] = bound_ms(
+            3 * R * D * esz + 2 * R * 4 + 3 * D * 4, 13 * R * D, "f32",
+            name)[0]
     return recs
 
 
@@ -1871,7 +2035,10 @@ def main() -> int:
     for k, v in phase_serving_paged().items():
         launches[k] += v
     phase_parity()
+    decode_ln = recs["fused_ln"]
     recs.update(phase_train_kernels(torch.bfloat16, time_it=True))
+    # the decode tick's plain form [8, 768] beside the training shapes
+    recs["fused_ln"]["decode"] = decode_ln
     phase_train_kernels(torch.float32, time_it=False)
     # each kernel's launches summed over the main paths' runs: serving
     # (above), training (phase 7) and the fused-LN / vocab-chunked lane (7b)

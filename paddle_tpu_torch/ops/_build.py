@@ -129,10 +129,14 @@ def build(force: bool = False) -> BuildInfo:
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     P, I, F, LL = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                    ctypes.c_longlong)
-    lib.ptt_fused_ln.argtypes = [P] * 10 + [I, I, F, F, I, P]
+    # ...; R, D, eps, inv_keep, lane_elems, dtype; stream
+    lib.ptt_fused_ln.argtypes = [P] * 10 + [I, I, F, F, I, I, P]
     lib.ptt_fused_ln.restype = I
-    lib.ptt_ln_bwd.argtypes = [P] * 11 + [I, I, I, F, I, P]
+    # ...; R, D, lane_elems, blocks, inv_keep, dtype; stream
+    lib.ptt_ln_bwd.argtypes = [P] * 13 + [I, I, I, I, F, I, P]
     lib.ptt_ln_bwd.restype = I
+    lib.ptt_ln_bwd_blocks_per_sm.argtypes = [I] * 5 + [P]
+    lib.ptt_ln_bwd_blocks_per_sm.restype = I
     lib.ptt_ce_fwd.argtypes = [P] * 7 + [I] * 8 + [P]
     lib.ptt_ce_fwd.restype = I
     lib.ptt_decode_slab.argtypes = [P, P, P, LL] + [P] * 6 + [I] * 6 + [

@@ -24,6 +24,7 @@ The forward is registered as the dispatcher op
 sees one op: ``dots`` and ``save_only_flash`` recompute it, as in JAX,
 where a ``pallas_call`` is not a saveable dot.
 """
+import ctypes
 import functools
 from typing import Optional, Tuple
 
@@ -33,10 +34,74 @@ from . import cuda_kernels as _ck
 
 __all__ = ["fused_ln", "fused_ln_masked", "fused_ln_fwd",
            "fused_ln_fwd_plain", "fused_ln_bwd", "fused_ln_bwd_plain",
-           "FUSED_LN_FWD_OP"]
+           "fused_ln_plan", "ln_bwd_plan", "ln_bwd_grid", "FUSED_LN_FWD_OP"]
 
-_BWD_ROWS = 32          # rows a block of the backward kernel walks
-_MAX_D = 2048           # the backward kernel holds 8 columns a thread
+# The kernels' instances (ops/csrc/fused_ln.cu, ln_bwd.cu): one warp a row,
+# WARPS rows a block, each lane holding `lane_elems` columns of the row in
+# chunks of one 16-byte vector (8 bf16 or 4 float32 elements), accessed as
+# one vector where every operand is aligned to it and D is a multiple of
+# it (the kernel's entry point tests the pointers), else one element at a
+# time; past the register path, one block a row.
+WARPS = 4
+_FWD_ELEMS = (8, 16, 24, 32, 64)          # D <= 2048
+_BWD_ELEMS = (8, 16, 24, 32)              # D <= 1024
+_FWD_MAX_D = _ck._SMEM_DEFAULT // 4       # the block-a-row float32 row
+_MAX_D = 2048           # the backward's block a row: 8 columns a thread
+
+
+def _lane_elems(D: int, elems) -> int:
+    """The fewest elements a lane holds with 32 lanes covering D, 0 past
+    the set (one block a row)."""
+    return next((e for e in elems if 32 * e >= D), 0)
+
+
+@functools.lru_cache(maxsize=None)
+def fused_ln_plan(D: int) -> int:
+    """The forward kernel's instance for rows of D: the elements a lane
+    holds (8, 16, 24, 32 or 64: the fewest with 32 x lane_elems >= D), or
+    0 past 2048: one 256-thread block a row, its float32 row in 48 KB of
+    shared memory. Raises ``ValueError`` past 12,288 columns."""
+    if D > _FWD_MAX_D:
+        raise ValueError(f"fused_ln: D={D} exceeds the kernel's row buffer "
+                         f"({_FWD_MAX_D} floats)")
+    return _lane_elems(D, _FWD_ELEMS)
+
+
+@functools.lru_cache(maxsize=None)
+def ln_bwd_plan(D: int) -> int:
+    """The backward kernel's instance, as :func:`fused_ln_plan`: 8-32
+    elements a lane (D <= 1024), else 0: one 256-thread block a row, eight
+    columns a thread. Raises ``ValueError`` past 2048 columns."""
+    if D > _MAX_D:
+        raise ValueError(f"fused_ln_bwd: D={D} exceeds {_MAX_D}")
+    return _lane_elems(D, _BWD_ELEMS)
+
+
+def ln_bwd_grid(R: int, lane_elems: int, sms: int, bps: int) -> int:
+    """The backward kernel's blocks for R rows: one wave of ``sms`` x
+    ``bps`` blocks (``bps`` the blocks an SM holds of the instance), fewer
+    where R leaves some without a row. Each block has WARPS row walkers
+    (one, a block a row, when ``lane_elems`` is 0); walker w of W takes
+    rows w, w + W, w + 2W, ..."""
+    walkers = WARPS if lane_elems else 1
+    return max(1, min(-(-R // walkers), sms * bps))
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_blocks_per_sm(D: int, lane_elems: int, has_dsx: bool,
+                       has_mask: bool, code: int) -> int:
+    """The blocks an SM holds of the backward's (16-byte vector) instance,
+    from the occupancy API; the scalar-access instance is sized the same."""
+    lib = _ck._lib()
+    out = ctypes.c_int(0)
+    err = lib.ptt_ln_bwd_blocks_per_sm(D, lane_elems, int(has_dsx),
+                                       int(has_mask), code,
+                                       ctypes.byref(out))
+    if err != 0:
+        msg = lib.ptt_error_string(err).decode()
+        raise RuntimeError(f"fused_ln_bwd: occupancy query failed: CUDA "
+                           f"error {err} ({msg})")
+    return max(1, out.value)
 
 
 @functools.lru_cache(maxsize=None)
@@ -108,12 +173,9 @@ def fused_ln_fwd(x, scale, bias, residual=None, bias_add=None, mask=None,
         _check_rows("fused_ln bias_add", bias_add, (D,), x.dtype)
     if mask is not None:
         _check_rows("fused_ln mask", mask, (R, D), torch.bool)
-    if D * 4 > _ck._SMEM_DEFAULT:
-        raise ValueError(f"fused_ln: D={D} exceeds the kernel's row buffer "
-                         f"({_ck._SMEM_DEFAULT // 4} floats)")
-    emit = bool(opt)
+    lane_elems = fused_ln_plan(D)
     y = torch.empty_like(x)
-    s = torch.empty_like(x) if emit else None
+    s = torch.empty_like(x) if opt else None
     mu = rstd = None
     if stats:
         mu = torch.empty(R, dtype=torch.float32, device=x.device)
@@ -124,7 +186,8 @@ def fused_ln_fwd(x, scale, bias, residual=None, bias_add=None, mask=None,
     err = lib.ptt_fused_ln(x.data_ptr(), _ptr(residual), _ptr(bias_add),
                            _ptr(mask), scale.data_ptr(), bias.data_ptr(),
                            y.data_ptr(), _ptr(s), _ptr(mu), _ptr(rstd), R, D,
-                           float(eps), float(inv_keep), code, _ck._stream(x))
+                           float(eps), float(inv_keep), lane_elems, code,
+                           _ck._stream(x))
     _ck._check_launch(lib, err, "fused_ln")
     return y, s, mu, rstd
 
@@ -161,7 +224,6 @@ def fused_ln_bwd(sx, mu, rstd, scale, dy, dsx=None, mask=None,
                  f"{tuple(sx.shape)}")
     R, D = sx.shape
     code = _ck._dtype_code(sx, "fused_ln_bwd sx")
-    _ck._require(D <= _MAX_D, f"fused_ln_bwd: D={D} exceeds {_MAX_D}")
     dy = dy.contiguous()
     dsx = None if dsx is None else dsx.contiguous()
     for name, t in (("sx", sx), ("dy", dy), ("dsx", dsx)):
@@ -172,21 +234,31 @@ def fused_ln_bwd(sx, mu, rstd, scale, dy, dsx=None, mask=None,
     _check_rows("fused_ln_bwd scale", scale, (D,), torch.float32)
     if mask is not None:
         _check_rows("fused_ln_bwd mask", mask, (R, D), torch.bool)
+    lane_elems = ln_bwd_plan(D)
     ds = torch.empty_like(sx)
     dx = None if mask is None else torch.empty_like(sx)
-    blocks = -(-R // _BWD_ROWS)
+    if R == 0:
+        zero = torch.zeros(D, dtype=torch.float32, device=sx.device)
+        return ds, dx, zero, zero.clone()
+    blocks = ln_bwd_grid(R, lane_elems, _ck._num_sms(sx.device),
+                         _bwd_blocks_per_sm(D, lane_elems, dsx is not None,
+                                            mask is not None, code))
+    # the blocks' partial rows, and their sums in a fixed order (the
+    # kernel's second pass): dscale, dbias
     parts = torch.empty((2, blocks, D), dtype=torch.float32,
                         device=sx.device)
-    if R == 0:
-        return ds, dx, parts[0].sum(0), parts[1].sum(0)
+    dscale, dbias = torch.empty((2, D), dtype=torch.float32,
+                                device=sx.device)
     lib = _ck._lib()
     err = lib.ptt_ln_bwd(sx.data_ptr(), mu.data_ptr(), rstd.data_ptr(),
                          scale.data_ptr(), dy.data_ptr(), _ptr(dsx),
                          _ptr(mask), ds.data_ptr(), _ptr(dx),
-                         parts[0].data_ptr(), parts[1].data_ptr(), R, D,
-                         _BWD_ROWS, float(inv_keep), code, _ck._stream(sx))
+                         parts[0].data_ptr(), parts[1].data_ptr(),
+                         dscale.data_ptr(), dbias.data_ptr(), R, D,
+                         lane_elems, blocks, float(inv_keep), code,
+                         _ck._stream(sx))
     _ck._check_launch(lib, err, "fused_ln_bwd")
-    return ds, dx, parts[0].sum(0), parts[1].sum(0)
+    return ds, dx, dscale, dbias
 
 
 @torch.library.custom_op("paddle_tpu_torch::fused_ln_fwd", mutates_args=())

@@ -1,4 +1,5 @@
-"""Host cost of one decode-kernel wrapper call, trees compared in turns.
+"""Host cost of one decode-path kernel wrapper call, trees compared in
+turns.
 
     python -m paddle_tpu_torch.tools.enqueue_cost [--tree DIR ...]
         [--rounds 2] [--calls 3200]
@@ -6,15 +7,16 @@
 For each tree (a checkout that holds ``paddle_tpu_torch``; default: this
 one) in the order A B B A (``--rounds`` times), a fresh process imports
 that tree's package, builds its kernels and times
-``cuda_kernels.fused_decode_attention`` and
-``cuda_kernels.fused_paged_decode_attention`` at the serving path's shapes
-(GPT_SMALL bf16: batch 8, max_seq 1024, 12 heads of 64; page 16, 513
-pages; q/k/v sliced from one qkv as the engine slices them) on the host
-clock: ``--calls`` calls in bursts of 32, the device synchronised between
-bursts and not within one, so a burst's time is what the host spends
-enqueueing (the kernels run behind it). Each process prints the median
-µs a call over its bursts; the last line holds every tree's list. Needs a
-CUDA device.
+``cuda_kernels.fused_decode_attention``,
+``cuda_kernels.fused_paged_decode_attention`` and ``cuda_kernels.fused_ln``
+at the serving path's shapes (GPT_SMALL bf16: batch 8, max_seq 1024, 12
+heads of 64; page 16, 513 pages; q/k/v sliced from one qkv as the engine
+slices them; the layernorm on [8, 768] rows, float32 scale and bias) on
+the host clock: ``--calls`` calls in bursts of 32, the device synchronised
+between bursts and not within one, so a burst's time is what the host
+spends enqueueing (the kernels run behind it). Each process prints the
+median µs a call over its bursts; the last line holds every tree's list.
+Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -53,6 +55,9 @@ def _worker(calls: int) -> dict:
     rng = np.random.default_rng(7)
     pos = torch.from_numpy(rng.integers(0, S, B).astype(np.int32)).to(dev)
     act = torch.ones(B, dtype=torch.int32, device=dev)
+    x = randn(B, nh * hd)
+    ln_scale = torch.randn(nh * hd, generator=g, device=dev)
+    ln_bias = torch.randn(nh * hd, generator=g, device=dev)
     tables = torch.from_numpy(rng.permutation(np.arange(1, B * M + 1)).astype(
         np.int32).reshape(B, M)).to(dev)
     fns = {
@@ -60,6 +65,7 @@ def _worker(calls: int) -> dict:
                                                      act),
         "paged_us": lambda: CK.fused_paged_decode_attention(
             q, kp, vp, nk, nv, tables, pos),
+        "fused_ln_us": lambda: CK.fused_ln(x, ln_scale, ln_bias, eps=1e-5),
     }
     out = {}
     for key, fn in fns.items():

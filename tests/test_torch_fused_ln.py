@@ -216,3 +216,54 @@ def test_statistics_match_jax_stats():
     np.testing.assert_allclose(trstd.numpy(), np.asarray(rstd)[:, 0],
                                rtol=1e-6)
 
+
+
+def test_fused_ln_plan_gives_every_accepted_width_an_instance():
+    """Every D the forward ever took (D·4 bytes within the 48 KB row
+    buffer: 0..12,288) gets a kernel instance, never a ValueError: on the
+    register path (D <= 2048) the lanes' columns cover the row (32 lanes x
+    lane_elems >= D) with the fewest elements of the instance set, each a
+    whole number of 16-byte vectors in bf16 and in float32; past it one
+    block a row. Past 12,288 it raises, as before."""
+    for D in range(0, 12289):
+        lane_elems = TFL.fused_ln_plan(D)
+        if D > 2048:
+            assert lane_elems == 0
+            continue
+        assert lane_elems in TFL._FWD_ELEMS and lane_elems % 8 == 0
+        assert 32 * lane_elems >= D
+        assert all(32 * e < D for e in TFL._FWD_ELEMS if e < lane_elems)
+    with pytest.raises(ValueError, match="row buffer"):
+        TFL.fused_ln_plan(12289)
+
+
+@pytest.mark.parametrize("R", [1, 7, 529, 16384, 100000])
+def test_ln_bwd_plan_covers_every_row_once(R):
+    """The backward's instance for every D it ever took (0..2048): lanes
+    cover the row on the register path (D <= 1024), one block a row past
+    it, and past 2048 it raises, as before. The grid is one wave (at most
+    SMs x blocks an SM), never a block without a row, and its row walkers
+    (4 warps a block, or the block) take rows w, w + W, ... so every row
+    0..R-1 falls to exactly one walker, each walker ceil(R / W) or one
+    fewer."""
+    for D in range(0, 2049):
+        lane_elems = TFL.ln_bwd_plan(D)
+        if D > 1024:
+            assert lane_elems == 0
+        else:
+            assert lane_elems in TFL._BWD_ELEMS and 32 * lane_elems >= D
+            assert all(32 * e < D for e in TFL._BWD_ELEMS if e < lane_elems)
+    with pytest.raises(ValueError, match="exceeds 2048"):
+        TFL.ln_bwd_plan(2049)
+    for lane_elems in (24, 0):
+        per = TFL.WARPS if lane_elems else 1
+        for sms, bps in ((132, 4), (132, 1), (2, 3), (132, 5)):
+            blocks = TFL.ln_bwd_grid(R, lane_elems, sms, bps)
+            assert 1 <= blocks <= sms * bps
+            walkers = blocks * per
+            assert (blocks - 1) * per < R          # no block without a row
+            seen = sorted(r for w in range(walkers)
+                          for r in range(w, R, walkers))
+            assert seen == list(range(R))
+            assert max(len(range(w, R, walkers)) for w in range(walkers)) \
+                == -(-R // walkers)
