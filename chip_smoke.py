@@ -28,6 +28,14 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              lane at position 15, 511 and 1023 (checked against the plain
              version there too), and the paged one beside paged_gather +
              SDPA as well as SDPA on the pre-gathered view;
+3w. widths — the widths the reference takes that the port once raised
+             on (ROADMAP C4, C5), one small case each, bf16 and float32,
+             against the plain versions: flash at head_dim 24, 48, 80,
+             96 (padded to the next instance), the slab and paged decode
+             kernels at hd 8, 20, 96 (the next power-of-two instance),
+             the fused-LN forward and backward at D 2,560 to 65,536 (the
+             backward's looped block a row, the forward's two-pass one),
+             logits_head at D 8,192 (the streamed instance);
 4. serving — a GPT_SMALL bf16 engine (seed weights, max_batch 8, max_seq
              1024, buckets 64..512) serves 16 seeded greedy requests
              through Scheduler + EngineLoop; every request must finish
@@ -54,7 +62,9 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              within 2^-7 x (|plain| + its row's max |plain|) + 1e-5, lse
              within 2e-5) and at batch 2 in float32 (2e-5 forward, 3e-4
              backward), and the flat AdamW sweep over n = 163,109,376
-             with bf16 and float32 moments, bitwise; the fused-layernorm
+             with bf16 and float32 moments, bitwise (and at n 100,003
+             and at an odd n one element off alignment: the vector tail
+             and the scalar instance); the fused-layernorm
              forward (ln2 form: residual + bias_add emitting s; plain;
              dropout mask) and backward (dsx; dsx + mask) at rows
              [16 x 1024, 768] bf16 and [256, 768] float32 (s bitwise, y,
@@ -62,9 +72,13 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              within 2^-18 x sum |term|, a second backward launch bitwise
              equal), and every form of both at 8 small shapes (odd D,
              each register path's cap and past it, R = 1), aligned and
-             one element off; the CE forward at [2048, 768] x
-             [768, 50304 -> 51200] bf16 and 256 rows float32 (lse, gold
-             1e-4); dQ's D = rowsum(dO * o) within 2e-5 of the plain
+             one element off; the CE forward at phase 7b's call [2048,
+             768] x [768, 50304 -> 51200] and ERNIE-base's "vd" call with
+             the decoder bias [960, 768] x [30522 -> 30720, 768], bf16,
+             256 rows float32, and 6 small shapes in both layouts with
+             and without the bias (D 772, padded and odd head strides;
+             lse, gold 1e-4), timed by graph replay beside
+             torch.matmul's floor; dQ's D = rowsum(dO * o) within 2e-5 of the plain
              one and dK/dV fed that D (as ``_Flash.backward`` feeds it);
              two more launches of dQ and dK/dV (and dK/dV taking D from
              its own dQ launch) bitwise equal; then the bf16 kernels,
@@ -1003,8 +1017,8 @@ def phase_train_kernels(dtype, time_it: bool):
 # the fused-LN small cases (R, D): R = 1 and R not a multiple of a block's
 # 4 rows; D not a multiple of the 16-byte vector (770); the backward's
 # register path at its cap (1024) and past it (1032, a block a row); the
-# forward's at its cap (2048) and past it (2056, 12,288: a block a row, the
-# backward refuses them as it always did)
+# forward's at its cap (2048) and past it (2056, 12,288: a block a row;
+# the backward's looped block a row past 2048)
 LN_CASES = ((1, 64), (150, 80), (5, 770), (33, 1024), (33, 1032),
             (37, 2048), (9, 2056), (3, 12288))
 
@@ -1016,9 +1030,10 @@ def ln_small_case(dtype, R: int, D: int, offset: int, dtol: float) -> float:
     elements into a larger buffer (1: not 16-byte aligned, so the scalar
     instances run): s bitwise; y, ds, dx per element (bf16_check; float32
     1e-5); mu and rstd within 1e-5; dscale and dbias within ``dtol`` x the
-    column's sum of |term|; a second backward launch bitwise equal. Past
-    the backward's 2048 columns its wrapper must raise ValueError.
-    Returns the largest |kernel - plain|."""
+    column's sum of |term|; a second backward launch bitwise equal. Every
+    D runs on a kernel (past 2048 columns the backward's looped block a
+    row; past a block's shared memory the forward's two-pass block a
+    row). Returns the largest |kernel - plain|."""
     from paddle_tpu_torch.ops import fused_ln as FL
 
     dev = torch.device("cuda")
@@ -1064,12 +1079,6 @@ def ln_small_case(dtype, R: int, D: int, offset: int, dtol: float) -> float:
                          torch.float32, 1e-5)
     _y, s, mu, rstd = want
     s = rows().copy_(s)                 # the backward's s, offset too
-    if D > FL._MAX_D:
-        try:
-            FL.fused_ln_bwd(s, mu, rstd, scale, dy)
-        except ValueError:
-            return err
-        raise AssertionError(f"fused_ln_bwd took D={D} > {FL._MAX_D}")
     xhat = (s.float() - mu[:, None]) * rstd[:, None]
     tot = ((dy.float() * xhat).abs().sum(0), dy.float().abs().sum(0))
     inv32 = FL._round_to(1 / 0.8, torch.float32)
@@ -1259,77 +1268,162 @@ def _ln_check(dtype, time_it: bool):
     return recs
 
 
+# the CE forward's calls on the main paths: (n, D, vocab, layout, bias,
+# vocab chunk) — phase 7b's 2048-row chunk of GPT_SMALL's head [768,
+# 50304 -> 51200], and ERNIE-base's MLM rows (48 x 20 masked positions)
+# against its tied table [30522 -> 30720, 768] with the decoder bias
+CE_CALLS = {"gpt": (2048, 768, 50304, "dv", False, 1024),
+            "ernie": (960, 768, 30522, "vd", True, 1024)}
+# small cases (n, D, vp, vocab, extra head row stride): n = 1 and n not a
+# multiple of the 128-row tile, a vocab ending inside a tile and tiles
+# wholly past it, D = 772 (rows not 16-byte aligned at bf16: element
+# copies), a head whose rows are padded (stride past the width) and an
+# odd stride (no row 16-byte aligned)
+CE_SMALL = ((1, 8, 128, 1, 0), (70, 64, 384, 301, 0),
+            (300, 96, 1024, 1000, 0), (200, 772, 700, 650, 0),
+            (130, 768, 1000, 999, 24), (129, 100, 600, 555, 3))
+
+
+def _ce_inputs(dtype, n, D, vp, vocab, layout, with_bias, extra, seed):
+    """x [n, D], a head of vp columns in ``layout`` whose rows lie
+    ``extra`` elements apart past their width, a float32 bias [vp] or
+    None, int32 labels in [0, vocab): seeded, on the card."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    x = torch.randn((n, D), generator=g, device=dev).to(dtype)
+    rows, width = (D, vp) if layout == "dv" else (vp, D)
+    buf = (torch.randn((rows, width + extra), generator=g, device=dev)
+           * 0.3).to(dtype)
+    head = buf[:, :width]
+    bias = (torch.randn(vp, generator=g, device=dev) * 0.5 if with_bias
+            else None)
+    labels = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, vocab, n).astype(np.int32)).to(dev)
+    return x, head, bias, labels
+
+
+def _ce_close(tag, got, want) -> float:
+    """lse and gold within 1e-4 absolute (the Pallas-vs-lax tolerance of
+    tests/test_memory_levers.py:57-58), every value finite."""
+    err = 0.0
+    for what, a, b in zip(("lse", "gold"), got, want):
+        if not torch.isfinite(a).all():
+            raise AssertionError(f"{tag} {what}: non-finite values")
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=0,
+                                   msg=lambda m: f"{tag} {what}: {m}")
+        err = max(err, (a - b).abs().max().item())
+    return err
+
+
+def ce_small_case(dtype, layout, n, D, vp, vocab, extra) -> float:
+    """The CE forward against its plain sweep at one small shape, with and
+    without the bias: :func:`_ce_close`. Returns the max abs error."""
+    from paddle_tpu_torch.ops import chunked_ce as CE
+
+    err = 0.0
+    for with_bias in (False, True):
+        x, head, bias, labels = _ce_inputs(dtype, n, D, vp, vocab, layout,
+                                           with_bias, extra, n + D + vp)
+        want = CE.ce_fwd_plain(x, head, bias, labels, vp, vocab, layout)
+        got = CE.ce_fwd(x, head, bias, labels, vp, vocab, layout)
+        torch.cuda.synchronize()
+        err = max(err, _ce_close(
+            f"ce_fwd {dtype} {layout} n {n} D {D} vp {vp} vocab {vocab} "
+            f"stride +{extra} bias {with_bias}", got, want))
+    return err
+
+
 def _ce_check(dtype, time_it: bool):
-    """The CE forward kernel against its plain sweep at one row chunk of
-    the training path — x [2048, 768], head [768, 50304] padded to 51,200
-    columns (masked), seeded labels — in bf16, and at 256 rows in
-    float32: lse and gold within 1e-4 absolute (the Pallas-vs-lax
-    tolerance of tests/test_memory_levers.py:57-58). Timed: the kernel,
-    its plain sweep (vocab chunk 1024) and, as the floor of its work, the
-    cuBLAS product torch.matmul(x, head); no single PyTorch call computes
-    linear + CE, so library_ms is null."""
+    """The CE forward kernel against its plain sweep at the main paths'
+    calls (:data:`CE_CALLS`; bf16 at their shapes, float32 at 256 rows)
+    and at every :data:`CE_SMALL` shape in both layouts with and without
+    the bias: :func:`_ce_close`. Timed at bf16 by CUDA-graph replay: the
+    GPT call (``ms``) and
+    ERNIE's (``ernie_*``), each beside its plain sweep, its bound (the
+    ``2 n D vocab`` operations at the bf16 peak, or the bytes) and the
+    cuBLAS product of its logits (``matmul_ms``, the floor of its work: no
+    single PyTorch call computes linear + CE, so ``library_ms`` is
+    null)."""
     from paddle_tpu_torch.observability.hw import bound_ms
     from paddle_tpu_torch.ops import chunked_ce as CE
 
     bf16 = dtype == torch.bfloat16
-    dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
-    n, D, V, vc = (2048 if bf16 else 256), 768, 50304, 1024
-    g = torch.Generator(device=dev)
-    g.manual_seed(91)
-    x = torch.randn((n, D), generator=g, device=dev).to(dtype)
-    head = F.pad((torch.randn((D, V), generator=g, device=dev) * 0.02).to(
-        dtype), (0, (-V) % vc))
-    labels = torch.from_numpy(np.random.default_rng(91).integers(
-        0, V, n).astype(np.int32)).to(dev)
-    lse, gold = CE.ce_fwd(x, head, None, labels, vc, V)
-    lse_p, gold_p = CE.ce_fwd_plain(x, head, None, labels, vc, V)
-    torch.cuda.synchronize()
+    rec = {}
     err = 0.0
-    for what, got, want in (("lse", lse, lse_p), ("gold", gold, gold_p)):
-        torch.testing.assert_close(got, want, atol=1e-4, rtol=0,
-                                   msg=lambda m: f"ce_fwd {what} {dtype}: {m}")
-        err = max(err, (got - want).abs().max().item())
-    rec = {"max_abs_err": err}
+    calls = {}
+    for call, (n, D, V, layout, with_bias, vc) in CE_CALLS.items():
+        n = n if bf16 else 256
+        vp = -(-V // vc) * vc
+        ins = _ce_inputs(dtype, n, D, vp, V, layout, with_bias, 0, 91)
+        want = CE.ce_fwd_plain(*ins, vc, V, layout)
+        got = CE.ce_fwd(*ins, vc, V, layout)
+        torch.cuda.synchronize()
+        err = max(err, _ce_close(f"ce_fwd {dtype} {call} call", got, want))
+        calls[call] = (ins, n, D, V, layout, vc)
+    rec["max_abs_err"] = err
+    rec["small_max_abs_err"] = max(
+        ce_small_case(dtype, layout, *case)
+        for case in CE_SMALL for layout in ("dv", "vd"))
+    print(f"[check] ce_fwd {dtype}: {len(CE_CALLS)} path calls and "
+          f"{4 * len(CE_SMALL)} small cases, max |kernel - plain| "
+          f"{err:.4g} / {rec['small_max_abs_err']:.4g}")
     if time_it:
-        rec["ms"] = _time_ms(lambda: CE.ce_fwd(x, head, None, labels, vc, V),
-                             iters=20, warmup=3)
-        rec["plain_ms"] = _time_ms(
-            lambda: CE.ce_fwd_plain(x, head, None, labels, vc, V), iters=5,
-            warmup=1)
+        esz = torch.empty((), dtype=dtype).element_size()
+        for call, (ins, n, D, V, layout, vc) in calls.items():
+            x, head, bias, labels = ins
+            key = "" if call == "gpt" else f"{call}_"
+            rec[f"{key}ms"] = _time_graph_ms(
+                lambda: CE.ce_fwd(*ins, vc, V, layout), 10)
+            if call == "gpt":
+                rec["eager_ms"] = _time_ms(
+                    lambda: CE.ce_fwd(*ins, vc, V, layout), iters=20,
+                    warmup=3)
+            rec[f"{key}plain_ms"] = _time_ms(
+                lambda: CE.ce_fwd_plain(*ins, vc, V, layout), iters=5,
+                warmup=1)
+            hm = head if layout == "dv" else head.t()
+            rec[f"{key}matmul_ms"] = _time_graph_ms(
+                lambda: torch.matmul(x, hm), 10)
+            # the vocab's real columns: x, those head columns (and bias)
+            # and the labels read, lse and gold written; 2 n D V operations
+            b, b_by = bound_ms(
+                n * D * esz + D * V * esz + (4 * V if bias is not None else 0)
+                + n * 4 + 2 * n * 4, 2 * n * D * V, "bf16", name)
+            rec[f"{key}bound_ms"], rec[f"{key}bound_by"] = b, b_by
         rec["library_ms"] = None
-        rec["matmul_ms"] = _time_ms(lambda: torch.matmul(x, head), iters=20,
-                                    warmup=3)
-        # the V real columns: x, those head columns and labels read, lse
-        # and gold written; 2 n D V operations
-        esz = x.element_size()
-        rec["bound_ms"], rec["bound_by"] = bound_ms(
-            n * D * esz + D * V * esz + n * 4 + 2 * n * 4, 2 * n * D * V,
-            "bf16", name)
     return rec
 
 
 N_PARAMS = 163_109_376      # GPT_SMALL's parameter count: the sweep's n
+# the sweep's edge cases (n, offset): a whole number of vectors plus a
+# scalar tail of 3, and an odd n one element into its buffers (no operand
+# 16-byte aligned: the scalar instance)
+SWEEP_EDGES = ((100_003, 0), (1001, 1))
 
 
-def _sweep_check(mdt, time_it: bool):
-    """The AdamW sweep over GPT_SMALL's flat buffers vs its plain version,
-    bitwise for p, m and v; timed with bf16 moments."""
-    from paddle_tpu_torch.observability.hw import bound_ms
-    from paddle_tpu_torch.ops import cuda_kernels as CK
-
+def _sweep_inputs(n, mdt, offset, seed):
     dev = torch.device("cuda")
     g = torch.Generator(device=dev)
-    g.manual_seed(99)
-    n = N_PARAMS
-    p = torch.randn(n, generator=g, device=dev)
-    grad = torch.randn(n, generator=g, device=dev) * 1e-2
-    m = (torch.randn(n, generator=g, device=dev) * 1e-3).to(mdt)
-    v = (torch.rand(n, generator=g, device=dev) * 1e-5).to(mdt)
-    mask = (torch.rand(n, generator=g, device=dev) < 0.9).float()
-    sc = [torch.tensor(x, dtype=torch.float32, device=dev)
-          for x in (1e-4, 0.7, 1 - 0.9 ** 3, 1 - 0.95 ** 3)]
-    hp = dict(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1)
+    g.manual_seed(seed)
+
+    def buf(make, dt=torch.float32):
+        return make(n + offset).to(dt)[offset:]
+
+    p = buf(lambda k: torch.randn(k, generator=g, device=dev))
+    grad = buf(lambda k: torch.randn(k, generator=g, device=dev) * 1e-2)
+    m = buf(lambda k: torch.randn(k, generator=g, device=dev) * 1e-3, mdt)
+    v = buf(lambda k: torch.rand(k, generator=g, device=dev) * 1e-5, mdt)
+    mask = buf(lambda k: (torch.rand(k, generator=g, device=dev) < 0.9)
+               .float())
+    return p, grad, m, v, mask
+
+
+def _sweep_bitwise(tag, ins, sc, hp):
+    from paddle_tpu_torch.ops import cuda_kernels as CK
+
+    p, grad, m, v, mask = ins
     outs = []
     for fn in (CK.megakernel_adamw_flat, CK.megakernel_adamw_flat_plain):
         pc, mc, vc = p.clone(), m.clone(), v.clone()
@@ -1339,12 +1433,34 @@ def _sweep_check(mdt, time_it: bool):
     for got, want, what in zip(outs[0], outs[1], ("p", "m", "v")):
         if not torch.equal(got, want):
             bad = (got != want).sum().item()
-            raise AssertionError(f"opt_adamw_flat {mdt}: {what} differs "
+            raise AssertionError(f"opt_adamw_flat {tag}: {what} differs "
                                  f"from the plain version in {bad} elements")
+
+
+def _sweep_check(mdt, time_it: bool):
+    """The AdamW sweep over GPT_SMALL's flat buffers vs its plain version,
+    bitwise for p, m and v, and at :data:`SWEEP_EDGES` (a vector tail; an
+    odd n off alignment); timed with bf16 moments by CUDA-graph replay
+    (the five buffers hold 2.6 GB, so no launch finds them in L2)."""
+    from paddle_tpu_torch.observability.hw import bound_ms
+    from paddle_tpu_torch.ops import cuda_kernels as CK
+
+    dev = torch.device("cuda")
+    n = N_PARAMS
+    sc = [torch.tensor(x, dtype=torch.float32, device=dev)
+          for x in (1e-4, 0.7, 1 - 0.9 ** 3, 1 - 0.95 ** 3)]
+    hp = dict(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1)
+    for en, off in SWEEP_EDGES:
+        _sweep_bitwise(f"{mdt} n {en} offset {off}",
+                       _sweep_inputs(en, mdt, off, en), sc, hp)
+    ins = _sweep_inputs(n, mdt, 0, 99)
+    _sweep_bitwise(f"{mdt} n {n}", ins, sc, hp)
     rec = {"max_abs_err": 0.0}
-    del outs
     if time_it:
-        rec["ms"] = _time_ms(lambda: CK.megakernel_adamw_flat(
+        p, grad, m, v, mask = ins
+        rec["ms"] = _time_graph_ms(lambda: CK.megakernel_adamw_flat(
+            p, grad, m, v, mask, *sc, **hp), 4, replays=5)
+        rec["eager_ms"] = _time_ms(lambda: CK.megakernel_adamw_flat(
             p, grad, m, v, mask, *sc, **hp), iters=20, warmup=3)
         rec["plain_ms"] = _time_ms(lambda: CK.megakernel_adamw_flat_plain(
             p, grad, m, v, mask, *sc, **hp), iters=5, warmup=1)
@@ -1352,8 +1468,128 @@ def _sweep_check(mdt, time_it: bool):
         rec["library_ms"] = None
         esz = m.element_size()
         rec["bound_ms"], rec["bound_by"] = bound_ms(
-            n * (4 * 4 + 4 * esz), 18 * n, "f32", torch.cuda.get_device_name(0))
+            n * (4 * 4 + 4 * esz), 18 * n, "f32",
+            torch.cuda.get_device_name(0))
     return rec
+
+
+# widths the reference takes and the parent port raised on (ROADMAP C4,
+# C5), one small case each: flash at head dims without an instance
+# (padded), decode at hd 8 and 96 (the next power-of-two instance; 96 is
+# whole 16-byte vectors, and hd 20 is not), the LN forward past its 48 KB
+# row buffer (and past a block's shared memory: the two-pass instance),
+# the LN backward past 2048 columns, logits_head past its shared-memory
+# plan (the streamed instance)
+WIDTH_FLASH_HDS = (24, 48, 80, 96)
+WIDTH_DECODE_HDS = (8, 20, 96)
+WIDTH_LN = ((3, 16384), (2, 20000), (2, 65536), (5, 2560), (4, 4096))
+WIDTH_LH_D = 8192
+
+
+def decode_width_case(dtype, hd) -> float:
+    """The slab and the paged decode kernels at head_dim ``hd`` against
+    their plain versions: slab [3, 200, 2, hd] with one inactive lane,
+    pools [13, 16, 2, hd] with permuted tables; outputs per element
+    (:func:`_check_out`), the caches bitwise."""
+    from paddle_tpu_torch.ops import cuda_kernels as CK
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(hd)
+    B, S, nh, page, M = 3, 200, 2, 16, 4
+    P = B * M + 1
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    qkv = randn(B, 3, nh, hd)
+    q, nk, nv = qkv[:, 0], qkv[:, 1], qkv[:, 2]
+    kc, vc = randn(B, S, nh, hd), randn(B, S, nh, hd)
+    pos = torch.tensor([0, 77, S - 1], dtype=torch.int32, device=dev)
+    act = torch.tensor([1, 0, 1], dtype=torch.int32, device=dev)
+    k1, v1, k2, v2 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+    got, _, _ = CK.fused_decode_attention(q, k1, v1, nk, nv, pos, act)
+    want, _, _ = CK.fused_decode_attention_plain(q, k2, v2, nk, nv, pos, act)
+    torch.cuda.synchronize()
+    if not (torch.equal(k1, k2) and torch.equal(v1, v2)):
+        raise AssertionError(f"decode_slab {dtype} hd {hd}: caches differ "
+                             "from the plain version's")
+    err = _check_out(f"decode_slab hd {hd}", got, want, dtype)
+    kp, vp = randn(P, page, nh, hd), randn(P, page, nh, hd)
+    tab = np.random.default_rng(hd).permutation(np.arange(1, P)).astype(
+        np.int32).reshape(B, M)
+    tables = torch.from_numpy(tab).to(dev)
+    pos = torch.tensor([0, 33, M * page - 1], dtype=torch.int32, device=dev)
+    k1, v1, k2, v2 = kp.clone(), vp.clone(), kp.clone(), vp.clone()
+    got, _, _ = CK.fused_paged_decode_attention(q, k1, v1, nk, nv, tables,
+                                                pos)
+    want, _, _ = CK.fused_paged_decode_attention_plain(q, k2, v2, nk, nv,
+                                                       tables, pos)
+    torch.cuda.synchronize()
+    if not (torch.equal(k1[1:], k2[1:]) and torch.equal(v1[1:], v2[1:])):
+        raise AssertionError(f"decode_paged {dtype} hd {hd}: pools differ "
+                             "from the plain version's")
+    return max(err, _check_out(f"decode_paged hd {hd}", got, want, dtype))
+
+
+def logits_head_width_case(dtype, D, nb=8, V=4000) -> float:
+    """logits_head at rows of D too wide for the shared-memory plan (the
+    streamed instance: the rows normalised by the fused-LN kernel and
+    streamed with the weight) against its plain version: bf16 per element
+    (:func:`bf16_check`); float32 per element within 2^-18 x the sum of
+    |y w| over its D terms (float32 sums of 8,192 terms in another order
+    than cuBLAS's: the 1e-5 of the D = 768 checks does not scale)."""
+    from paddle_tpu_torch.ops import cuda_kernels as CK
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(D)
+    esz = torch.empty((), dtype=dtype).element_size()
+    if not CK.logits_head_plan(nb, D, V, esz, CK._num_sms(dev))[
+            "stream_rows"]:
+        raise AssertionError(f"logits_head D {D}: expected the streamed "
+                             "instance")
+    x = torch.randn((nb, D), generator=g, device=dev).to(dtype)
+    scale = 1.0 + 0.1 * torch.randn(D, generator=g, device=dev)
+    bias = 0.1 * torch.randn(D, generator=g, device=dev)
+    w = (0.02 * torch.randn((D, V), generator=g, device=dev)).to(dtype)
+    got = CK.fused_logits_head(x, scale, bias, w)
+    want = CK.fused_logits_head_plain(x, scale, bias, w)
+    torch.cuda.synchronize()
+    if dtype == torch.bfloat16:
+        return bf16_check(f"logits_head D {D} bf16", got, want)
+    y = CK.fused_ln_plain(x, scale, bias)
+    tot = torch.matmul(y.abs(), w.abs())
+    err = (got - want).abs()
+    worst = (err / (2.0 ** -18 * tot + 1e-30)).max().item()
+    print(f"[check] logits_head D {D} f32: worst diff/bound {worst:.4g} "
+          "(bound 2^-18 x sum |term|)")
+    if not worst <= 1.0:
+        raise AssertionError(f"logits_head D {D} f32: worst diff/bound "
+                             f"{worst:.4g}")
+    return err.max().item()
+
+
+def phase_widths(dtype) -> float:
+    """Phase 3w: every :data:`WIDTH_FLASH_HDS` / :data:`WIDTH_DECODE_HDS`
+    / :data:`WIDTH_LN` / :data:`WIDTH_LH_D` case runs on a hand kernel and
+    matches its plain version (flash: every form at T 200, causal;
+    :func:`decode_width_case`; :func:`ln_small_case` with dscale/dbias
+    within 1e-5 x sum |term|; :func:`logits_head_width_case`). Returns
+    the max abs error."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=torch.device("cuda"))
+    g.manual_seed(31)
+    err = {"flash": max(_flash_case(dtype, hd, 200, False, False, True, None,
+                                    g) for hd in WIDTH_FLASH_HDS),
+           "decode": max(decode_width_case(dtype, hd)
+                         for hd in WIDTH_DECODE_HDS),
+           "fused_ln": max(ln_small_case(dtype, R, D, 0, 1e-5)
+                           for R, D in WIDTH_LN),
+           "logits_head": logits_head_width_case(dtype, WIDTH_LH_D)}
+    print(f"[widths] {dtype}: max |kernel - plain| " + ", ".join(
+        f"{k} {v:.4g}" for k, v in err.items()))
+    return max(err.values())
 
 
 def phase_training(fused: bool = False):
@@ -1463,7 +1699,7 @@ def _flash_case(dtype, hd, T, per_head, sq1, causal, kind, g):
     """One bias case: forward (o, lse), dQ and dK/dV of the bias form
     against their plain versions on the same inputs, float32 within 1e-5,
     bf16 per element (:func:`bf16_check`), every output finite; returns
-    the max abs error."""
+    the max abs error. ``kind`` None: the bias-free form."""
     from paddle_tpu_torch.ops import flash_attention as FA
 
     B, nh = 2, 3
@@ -1471,11 +1707,15 @@ def _flash_case(dtype, hd, T, per_head, sq1, causal, kind, g):
     q, k, v, do = (torch.randn((B, T, nh, hd), generator=g, device=dev)
                    .to(dtype) for _ in range(4))
     BB, SQ = (B * nh if per_head else B), (1 if sq1 else T)
-    if kind == "random":
+    if kind is None:
+        bias = None
+    elif kind == "random":
         bias = torch.randn((BB, SQ, T), generator=g, device=dev)
     else:
         bias = _pad_bias(BB, SQ, T, dev)
-    tag = (f"flash bias {dtype} hd {hd} BB {'B*nh' if per_head else 'B'} "
+    tag = (f"flash {dtype} hd {hd} {'causal' if causal else 'full'}"
+           if bias is None else
+           f"flash bias {dtype} hd {hd} BB {'B*nh' if per_head else 'B'} "
            f"SQ {SQ} {'causal' if causal else 'full'} {kind}")
 
     def check(what, got, want):
@@ -2029,6 +2269,8 @@ def main() -> int:
     phase_build()
     recs = phase_kernels(torch.bfloat16, time_it=True)
     f32 = phase_kernels(torch.float32, time_it=True)
+    widths = {str(dt): phase_widths(dt)
+              for dt in (torch.bfloat16, torch.float32)}
     # each kernel's launches summed over the serving paths (slab, paged);
     # each path printed and asserted its own counts above
     launches = phase_serving()
@@ -2080,6 +2322,7 @@ def main() -> int:
         if name in ("decode_slab", "decode_paged"):
             kernels[-1]["f32"] = {k: v for k, v in f32[name].items()
                                   if k != "sweep"}
+    print(json.dumps({"widths_max_abs_err": widths}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
 """Executor: runs a Program's block 0 op by op on one torch device.
 
 The port of ``paddle_tpu/framework/executor.py``, with the same user API
-(``Executor.run(program, feed, fetch_list, scope, return_numpy)``,
+(``Executor.run(program, feed, fetch_list, feed_var_name,
+fetch_var_name, scope, return_numpy, use_program_cache)``,
 ``Scope``, ``global_scope``, ``scope_guard``). Where the reference
 compiles a whole block into one XLA executable, this runs each op's
 lowering eagerly on the place's device:
@@ -322,9 +323,21 @@ class Executor:
         program: Optional[Program] = None,
         feed: Optional[Dict[str, Any]] = None,
         fetch_list: Optional[Sequence] = None,
+        feed_var_name: str = "feed",
+        fetch_var_name: str = "fetch",
         scope: Optional[Scope] = None,
         return_numpy: bool = True,
+        use_program_cache: bool = True,
     ):
+        """Run block 0 of ``program`` once; returns the fetched values
+        (numpy arrays unless ``return_numpy`` is False). The signature and
+        its order are the reference's. ``feed_var_name`` and
+        ``fetch_var_name`` name the reference's feed/fetch holder vars and
+        ``use_program_cache`` its executable cache: they are accepted and
+        change nothing here, where feeds bind by name, fetches are read
+        from the environment and the op plan is always cached per
+        (program, fetch list)."""
+        del feed_var_name, fetch_var_name, use_program_cache
         if program is None:
             program = default_main_program()
         if not isinstance(program, Program):

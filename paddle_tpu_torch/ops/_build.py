@@ -137,7 +137,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.ptt_ln_bwd.restype = I
     lib.ptt_ln_bwd_blocks_per_sm.argtypes = [I] * 5 + [P]
     lib.ptt_ln_bwd_blocks_per_sm.restype = I
-    lib.ptt_ce_fwd.argtypes = [P] * 7 + [I] * 8 + [P]
+    lib.ptt_ce_fwd.argtypes = [P] * 7 + [I] * 9 + [P]
     lib.ptt_ce_fwd.restype = I
     lib.ptt_decode_slab.argtypes = [P, P, P, LL] + [P] * 6 + [I] * 6 + [
         F, I, I, P]
@@ -145,7 +145,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.ptt_decode_paged.argtypes = [P, P, P, LL] + [P] * 6 + [I] * 8 + [
         F, I, I, P]
     lib.ptt_decode_paged.restype = I
-    lib.ptt_logits_head.argtypes = [P, P, P, P, P, I, I, I, I, I, F, I, P]
+    lib.ptt_logits_head.argtypes = [P] * 5 + [I, I, I, I, I, F, I, I, P]
     lib.ptt_logits_head.restype = I
     # pointers; B, T, nh, hd; strides; scale, causal, bias heads and rows,
     # dtype; stream
@@ -159,7 +159,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.ptt_flash_bwd_dkv.argtypes = [P] * 9 + fl
     lib.ptt_flash_bwd_dkv.restype = I
     lib.ptt_adamw_flat.argtypes = [P, P, P, P, P, P, LL, F, F, F, F, F, F, I,
-                                   P]
+                                   I, P]
     lib.ptt_adamw_flat.restype = I
     lib.ptt_opt_sgd.argtypes = [P, P, P, LL, I, I, P]
     lib.ptt_opt_sgd.restype = I

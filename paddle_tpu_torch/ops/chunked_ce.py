@@ -21,12 +21,12 @@ import torch.nn.functional as F
 from . import cuda_kernels as _ck
 
 __all__ = ["chunked_lm_loss", "ce_fwd", "ce_fwd_plain", "ce_chunk_logits",
-           "CE_BWD_RANGE"]
+           "ce_fwd_plan", "CE_BWD_RANGE"]
 
 _NEG_INF = -0.7 * float(np.finfo(np.float32).max)
 _LAYOUTS = ("dv", "vd")
-_BM = 64                # rows of a block of the kernel (ops/csrc/ce_fwd.cu)
-_BN = 128               # vocab columns of one of its tiles
+_BM = 128               # rows of a block of the kernel (ops/csrc/ce_fwd.cu)
+_BN = {2: 256, 4: 128}  # vocab columns of one of its tiles, by element size
 CE_BWD_RANGE = "chunked_ce_bwd"   # the profiler range of the backward sweep
 
 
@@ -76,15 +76,31 @@ def ce_fwd_plain(x, head, bias, labels, v_chunk: int, vocab: int,
     return m + torch.log(s), gold
 
 
+def ce_fwd_plan(n: int, vp: int, esz: int, sms: int = 132) -> dict:
+    """The CE kernel's launch plan for ``n`` rows against ``vp`` head
+    columns of ``esz``-byte elements on a card of ``sms`` SMs: ``bn``
+    columns a vocab tile (256 at bf16, 128 at float32), ``row_tiles``
+    blocks of 128 rows, and the vocab cut into ``nsplit`` ranges of
+    ``tiles_per_split`` tiles, none empty, so that row_tiles x nsplit
+    blocks (one an SM: the kernel's shared memory and registers) make
+    about one wave; the row tile is the grid's fast axis. Any D."""
+    bn = _BN[esz]
+    row_tiles, vtiles = -(-n // _BM), -(-vp // bn)
+    nsplit = max(1, min(vtiles, sms // row_tiles))
+    per = -(-vtiles // nsplit)
+    return {"bn": bn, "row_tiles": row_tiles, "nsplit": -(-vtiles // per),
+            "tiles_per_split": per}
+
+
 def ce_fwd(x, head, bias, labels, v_chunk: int, vocab: int,
            layout: str = "dv"):
     """(lse, gold) float32 [n] for rows ``x`` [n, D] against ``head``
     ("dv": [D, Vp]; "vd": [Vp, D]) with optional ``bias`` [Vp] and int
     ``labels`` [n] in [0, vocab) — one launch of the kernel on the card
-    (the plain sweep on CPU tensors). The kernel walks its own 128-column
-    tiles, masks columns >= ``vocab`` and reads the head through its row
-    stride; ``v_chunk`` is the plain sweep's chunk, and only float32
-    summation order depends on it."""
+    (the plain sweep on CPU tensors). The kernel walks its own vocab tiles
+    (:func:`ce_fwd_plan`), masks columns >= ``vocab`` and reads the head
+    through its row stride (any D, any stride); ``v_chunk`` is the plain
+    sweep's chunk, and only float32 summation order depends on it."""
     if layout not in _LAYOUTS:
         raise ValueError(f"head layout {layout!r} not in {_LAYOUTS}")
     if not _ck._on_card(*(t for t in (x, head, bias, labels)
@@ -104,12 +120,7 @@ def ce_fwd(x, head, bias, labels, v_chunk: int, vocab: int,
     _ck._require(x.is_contiguous() and head.stride(1) == 1,
                  "ce_fwd: x must be contiguous and the head's rows "
                  "unit-stride")
-    ldh = head.stride(0)
-    vec = 16 // x.element_size()
-    _ck._require(D % vec == 0 and ldh % vec == 0
-                 and x.data_ptr() % 16 == 0 and head.data_ptr() % 16 == 0,
-                 f"ce_fwd: D ({D}) and the head's row stride ({ldh}) must "
-                 f"be multiples of {vec}, and x and head 16-byte aligned")
+    ldh = head.stride(0) if head.shape[0] > 1 else head.shape[1]
     _ck._require(tuple(labels.shape) == (n,),
                  f"ce_fwd: labels must be [{n}], got {tuple(labels.shape)}")
     labels = labels.to(torch.int32).contiguous()
@@ -121,9 +132,8 @@ def ce_fwd(x, head, bias, labels, v_chunk: int, vocab: int,
     gold = torch.empty_like(lse)
     if n == 0:
         return lse, gold
-    # split the vocab so that about four blocks a multiprocessor run
-    row_tiles, vtiles = -(-n // _BM), -(-vp // _BN)
-    nsplit = max(1, min(vtiles, -(-4 * _ck._num_sms(x.device) // row_tiles)))
+    plan = ce_fwd_plan(n, vp, x.element_size(), _ck._num_sms(x.device))
+    nsplit = plan["nsplit"]
     scratch = torch.empty(3 * nsplit * n, dtype=torch.float32,
                           device=x.device)
     lib = _ck._lib()
@@ -131,7 +141,8 @@ def ce_fwd(x, head, bias, labels, v_chunk: int, vocab: int,
                          None if bias is None else bias.data_ptr(),
                          labels.data_ptr(), lse.data_ptr(), gold.data_ptr(),
                          scratch.data_ptr(), n, D, vp, ldh, int(vocab),
-                         int(layout == "vd"), nsplit, code, _ck._stream(x))
+                         int(layout == "vd"), nsplit, plan["bn"], code,
+                         _ck._stream(x))
     _ck._check_launch(lib, err, "ce_fwd")
     return lse, gold
 

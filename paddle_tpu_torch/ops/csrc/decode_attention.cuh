@@ -64,6 +64,8 @@
 // splits; the workspace traffic is (hd + 2) floats a chunk.
 #pragma once
 
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace ptt {
@@ -117,22 +119,26 @@ struct Args {
   float sm_scale;
 };
 
-template <typename TQ, typename TC, int HD, typename Rows>
+// HD is the instance's width (a power of two); the head has hd <= HD
+// elements, and lanes past hd load zeros and store nothing. kVec: every
+// head row is whole 16-byte vectors of cache elements (hd * sizeof(TC) a
+// multiple of 16), else the rows load one element at a time.
+template <typename TQ, typename TC, int HD, bool kVec, typename Rows>
 __global__ void __launch_bounds__(kThreads)
     decode_split_kernel(const TQ* __restrict__ q, const TQ* __restrict__ new_k,
                         const TQ* __restrict__ new_v, long long row_stride,
                         TC* k_cache, TC* v_cache,
                         const int* __restrict__ positions, const Rows rows_in,
-                        float* __restrict__ part, int nh, int chunk,
+                        float* __restrict__ part, int nh, int hd, int chunk,
                         int nsplit, float sm_scale) {
   using V16 = Vec16<TC>;
   constexpr int VEC = V16::kN;
   constexpr int TPR = HD / VEC;          // threads a row
   static_assert(HD % VEC == 0 && TPR <= 32 && (TPR & (TPR - 1)) == 0,
-                "hd / (16 bytes of cache elements) must be a power of two "
+                "HD / (16 bytes of cache elements) must be a power of two "
                 "up to 32");
   constexpr int R = kThreads / TPR;      // rows a pass of the block
-  constexpr int W = HD + 2;              // floats a partial
+  const int W = hd + 2;                  // floats a partial
   extern __shared__ int staged[];
   __shared__ float wm[kWarps], wl[kWarps], wo[kWarps][HD];
 
@@ -147,7 +153,7 @@ __global__ void __launch_bounds__(kThreads)
     if (s == 0 && threadIdx.x == 0) pp[1] = -1.f;   // the merge answers 0
     return;
   }
-  const size_t head = static_cast<size_t>(h) * HD;
+  const size_t head = static_cast<size_t>(h) * hd;
   const size_t in_off = static_cast<size_t>(b) * row_stride + head;
   const int end = min(chunk, pos + 1 - c0);          // rows attended
   const bool wr = rows.writes(b);
@@ -156,7 +162,7 @@ __global__ void __launch_bounds__(kThreads)
   //    it back (step 2 substitutes it), so no barrier is needed
   if (wr && pos - c0 < chunk) {
     const size_t w = rows.wrow + head;
-    for (int d = threadIdx.x; d < HD; d += kThreads) {
+    for (int d = threadIdx.x; d < hd; d += kThreads) {
       k_cache[w + d] = ptt::from_f32<TC>(ptt::to_f32(new_k[in_off + d]));
       v_cache[w + d] = ptt::from_f32<TC>(ptt::to_f32(new_v[in_off + d]));
     }
@@ -164,15 +170,19 @@ __global__ void __launch_bounds__(kThreads)
 
   // 2. thread (rr, c): columns [c * VEC, c * VEC + VEC) of rows rr, rr + R,
   //    ... of each tile, and of q and the new row (rounded through the
-  //    cache dtype: the value that lands)
+  //    cache dtype: the value that lands); columns past hd are zeros
   const int c = threadIdx.x % TPR, rr = threadIdx.x / TPR;
+  const bool mine = c * VEC < hd;        // any of the columns is the head's
   float qf[VEC];
   alignas(16) TC nk[VEC], nv[VEC];
 #pragma unroll
   for (int v = 0; v < VEC; ++v) {
-    qf[v] = ptt::to_f32(q[in_off + c * VEC + v]);
-    nk[v] = ptt::from_f32<TC>(ptt::to_f32(new_k[in_off + c * VEC + v]));
-    nv[v] = ptt::from_f32<TC>(ptt::to_f32(new_v[in_off + c * VEC + v]));
+    const bool in = c * VEC + v < hd;
+    qf[v] = in ? ptt::to_f32(q[in_off + c * VEC + v]) : 0.f;
+    nk[v] = ptt::from_f32<TC>(
+        in ? ptt::to_f32(new_k[in_off + c * VEC + v]) : 0.f);
+    nv[v] = ptt::from_f32<TC>(
+        in ? ptt::to_f32(new_v[in_off + c * VEC + v]) : 0.f);
   }
   const uint4 nk16 = *reinterpret_cast<const uint4*>(nk);
   const uint4 nv16 = *reinterpret_cast<const uint4*>(nv);
@@ -194,9 +204,21 @@ __global__ void __launch_bounds__(kThreads)
         if (wr && off == rows.wrow) {   // row pos, or a row aliasing it
           kv[i] = nk16;
           vv[i] = nv16;
+        } else if (kVec) {
+          if (mine) {
+            kv[i] = *reinterpret_cast<const uint4*>(kh + off);
+            vv[i] = *reinterpret_cast<const uint4*>(vh + off);
+          }
         } else {
-          kv[i] = *reinterpret_cast<const uint4*>(kh + off);
-          vv[i] = *reinterpret_cast<const uint4*>(vh + off);
+          alignas(16) TC ke[VEC], ve[VEC];
+#pragma unroll
+          for (int v = 0; v < VEC; ++v) {
+            const bool in = c * VEC + v < hd;
+            ke[v] = in ? kh[off + v] : ptt::from_f32<TC>(0.f);
+            ve[v] = in ? vh[off + v] : ptt::from_f32<TC>(0.f);
+          }
+          kv[i] = *reinterpret_cast<const uint4*>(ke);
+          vv[i] = *reinterpret_cast<const uint4*>(ve);
         }
       }
     }
@@ -255,7 +277,7 @@ __global__ void __launch_bounds__(kThreads)
     wl[warp] = l;
   }
   __syncthreads();
-  for (int d = threadIdx.x; d < HD; d += kThreads) {
+  for (int d = threadIdx.x; d < hd; d += kThreads) {
     float M = -CUDART_INF_F;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) M = fmaxf(M, wm[w]);
@@ -275,18 +297,21 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// One block per (head, lane), hd threads: lane b's partials 0..pos / chunk
-// merged into out. The row policy rides along for rows() and so that a
-// profile can tell the slab's merge from the paged one by name.
+// One block per (head, lane), HD threads of which the first hd work: lane
+// b's partials 0..pos / chunk merged into out. The row policy rides along
+// for rows() and so that a profile can tell the slab's merge from the
+// paged one by name.
 template <typename TQ, int HD, typename Rows>
 __global__ void __launch_bounds__(HD)
     decode_merge_kernel(const float* __restrict__ part,
                         const int* __restrict__ positions, const Rows rows,
-                        TQ* __restrict__ out, int nh, int chunk, int nsplit) {
-  constexpr int W = HD + 2;
+                        TQ* __restrict__ out, int nh, int hd, int chunk,
+                        int nsplit) {
+  const int W = hd + 2;
   const int h = blockIdx.x, b = blockIdx.y, d = threadIdx.x;
+  if (d >= hd) return;
   const int pos = positions[b];
-  TQ* ob = out + (static_cast<size_t>(b) * nh + h) * HD;
+  TQ* ob = out + (static_cast<size_t>(b) * nh + h) * hd;
   const float* pp = part + (static_cast<size_t>(b) * nh + h) * nsplit * W;
   if (pos < 0 || pos >= rows.rows() || pp[1] < 0.f) {
     ob[d] = ptt::from_f32<TQ>(0.f);
@@ -307,21 +332,21 @@ __global__ void __launch_bounds__(HD)
   ob[d] = ptt::from_f32<TQ>(O / fmaxf(L, 1e-30f));
 }
 
-template <typename TQ, typename TC, int HD, typename Rows>
+template <typename TQ, typename TC, int HD, bool kVec, typename Rows>
 int launch_typed(const Args& a, const Rows& rows, cudaStream_t stream) {
-  decode_split_kernel<TQ, TC, HD, Rows>
+  decode_split_kernel<TQ, TC, HD, kVec, Rows>
       <<<dim3(a.nsplit, a.nh, a.B), kThreads, Rows::smem_bytes(a.chunk),
          stream>>>(static_cast<const TQ*>(a.q),
                    static_cast<const TQ*>(a.new_k),
                    static_cast<const TQ*>(a.new_v), a.row_stride,
                    static_cast<TC*>(a.k_cache), static_cast<TC*>(a.v_cache),
-                   a.positions, rows, a.part, a.nh, a.chunk, a.nsplit,
-                   a.sm_scale);
+                   a.positions, rows, a.part, a.nh, a.hd, a.chunk,
+                   a.nsplit, a.sm_scale);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   decode_merge_kernel<TQ, HD, Rows><<<dim3(a.nh, a.B), HD, 0, stream>>>(
-      a.part, a.positions, rows, static_cast<TQ*>(a.out), a.nh, a.chunk,
-      a.nsplit);
+      a.part, a.positions, rows, static_cast<TQ*>(a.out), a.nh, a.hd,
+      a.chunk, a.nsplit);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -330,7 +355,9 @@ int launch_typed(const Args& a, const Rows& rows, cudaStream_t stream) {
 constexpr size_t kMaxStagingBytes = 32 * 1024;
 
 // Launch pass 1 and the merge for the four q-dtype / cache-dtype pairs and
-// hd in {16, 32, 64, 128}; returns the CUDA error.
+// any hd in 1..128: the instance HD is the power of two at or above hd (8
+// at least), with 16-byte row loads where hd fills whole vectors of cache
+// elements and scalar loads elsewhere; returns the CUDA error.
 template <typename Rows>
 int launch(const Args& a, const Rows& rows, int q_dtype, int c_dtype,
            void* stream) {
@@ -340,15 +367,24 @@ int launch(const Args& a, const Rows& rows, int q_dtype, int c_dtype,
       Rows::smem_bytes(a.chunk) > kMaxStagingBytes)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (a.hd < 1 || a.hd > 128) return static_cast<int>(cudaErrorInvalidValue);
+  int inst = 8;
+  while (inst < a.hd) inst *= 2;
   const auto by_hd = [&](auto tq, auto tc) -> int {
     using TQ = decltype(tq);
     using TC = decltype(tc);
-    switch (a.hd) {
-      case 16: return launch_typed<TQ, TC, 16>(a, rows, st);
-      case 32: return launch_typed<TQ, TC, 32>(a, rows, st);
-      case 64: return launch_typed<TQ, TC, 64>(a, rows, st);
-      case 128: return launch_typed<TQ, TC, 128>(a, rows, st);
-      default: return static_cast<int>(cudaErrorInvalidValue);
+    const bool vec = (a.hd * sizeof(TC)) % 16 == 0;
+    const auto go = [&](auto hd_tag) -> int {
+      constexpr int HD = decltype(hd_tag)::value;
+      return vec ? launch_typed<TQ, TC, HD, true>(a, rows, st)
+                 : launch_typed<TQ, TC, HD, false>(a, rows, st);
+    };
+    switch (inst) {
+      case 8: return go(std::integral_constant<int, 8>{});
+      case 16: return go(std::integral_constant<int, 16>{});
+      case 32: return go(std::integral_constant<int, 32>{});
+      case 64: return go(std::integral_constant<int, 64>{});
+      default: return go(std::integral_constant<int, 128>{});
     }
   };
   using BF = __nv_bfloat16;

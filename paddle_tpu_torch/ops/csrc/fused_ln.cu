@@ -37,10 +37,13 @@
 // the operands' alignment (ops/fused_ln.py fused_ln_plan). A row of D not
 // a multiple of the vector, or an operand not aligned to it, takes the
 // same kernel with one coalesced scalar access an element; D past 2048
-// (up to the 48 KB row buffer, 12,288) the block-a-row kernel below. The
-// design before this one ran a 256-thread block a row through shared
-// memory: 2-byte scalar accesses, six block barriers a row and at most 8
-// rows in flight an SM.
+// the block-a-row kernel below, its float32 row in shared memory (opted
+// in past 48 KB, up to about 57,000 columns); past that the two-pass
+// block-a-row kernel, which keeps no row and recomputes s from its inputs
+// with the same rounded steps in each pass, so s and the statistics are
+// bitwise those of the one-pass kernel. The design before this one ran a
+// 256-thread block a row through shared memory: 2-byte scalar accesses,
+// six block barriers a row and at most 8 rows in flight an SM.
 #include <cstdint>
 
 #include "common.cuh"
@@ -136,6 +139,23 @@ __global__ void __launch_bounds__(kWarps * 32)
   }
 }
 
+// Element i of s for the row at off: the forward's rounded steps.
+template <typename T, int kForm>
+__device__ __forceinline__ float s_elem(const T* __restrict__ x,
+                                        const T* __restrict__ res,
+                                        const T* __restrict__ badd,
+                                        const unsigned char* __restrict__ mask,
+                                        size_t off, int i, float inv_keep) {
+  float e = ptt::to_f32(x[off + i]);
+  if (kForm & kMask) {
+    e = rnd<T>(__fmul_rn(e, mask[off + i] ? 1.f : 0.f));
+    e = rnd<T>(__fmul_rn(e, inv_keep));
+  }
+  if (kForm & kRes) e = rnd<T>(__fadd_rn(ptt::to_f32(res[off + i]), e));
+  if (kForm & kBadd) e = rnd<T>(__fadd_rn(e, ptt::to_f32(badd[i])));
+  return e;
+}
+
 // The block-a-row path, for rows past the register path's 2048 columns:
 // one block of 256 threads a row, the row in shared memory as float32 (s
 // built on the way in), two block reductions.
@@ -153,13 +173,7 @@ __global__ void __launch_bounds__(kRowThreads)
   const size_t off = static_cast<size_t>(blockIdx.x) * D;
   float s = 0.f;
   for (int i = threadIdx.x; i < D; i += blockDim.x) {
-    float e = ptt::to_f32(x[off + i]);
-    if (kForm & kMask) {
-      e = rnd<T>(__fmul_rn(e, mask[off + i] ? 1.f : 0.f));
-      e = rnd<T>(__fmul_rn(e, inv_keep));
-    }
-    if (kForm & kRes) e = rnd<T>(__fadd_rn(ptt::to_f32(res[off + i]), e));
-    if (kForm & kBadd) e = rnd<T>(__fadd_rn(e, ptt::to_f32(badd[i])));
+    const float e = s_elem<T, kForm>(x, res, badd, mask, off, i, inv_keep);
     if (kForm) s_out[off + i] = ptt::from_f32<T>(e);
     row[i] = e;
     s += e;
@@ -175,6 +189,50 @@ __global__ void __launch_bounds__(kRowThreads)
   T* yr = y + off;
   for (int i = threadIdx.x; i < D; i += blockDim.x) {
     const float n = __fmul_rn(row[i] - mu, rstd);
+    yr[i] = ptt::from_f32<T>(__fadd_rn(__fmul_rn(n, scale[i]), bias[i]));
+  }
+  if (mu_out != nullptr && threadIdx.x == 0) {
+    mu_out[blockIdx.x] = mu;
+    rstd_out[blockIdx.x] = rstd;
+  }
+}
+
+// The two-pass block-a-row path, for rows whose float32 copy does not fit
+// a block's shared memory: the same block and reductions as above, with s
+// recomputed from x (and the residual, mask, bias_add) in each pass
+// instead of kept: pass 1 writes s and sums it, pass 2 sums the centred
+// squares, pass 3 writes y. Each thread walks the same columns in the same
+// order as the one-pass kernel, so the statistics match it bitwise.
+template <typename T, int kForm>
+__global__ void __launch_bounds__(kRowThreads)
+    fused_ln_fwd_kernel_twopass(
+        const T* __restrict__ x, const T* __restrict__ res,
+        const T* __restrict__ badd, const unsigned char* __restrict__ mask,
+        const float* __restrict__ scale, const float* __restrict__ bias,
+        T* __restrict__ y, T* __restrict__ s_out, float* __restrict__ mu_out,
+        float* __restrict__ rstd_out, int R, int D, float eps,
+        float inv_keep) {
+  __shared__ float scratch[32];
+  const size_t off = static_cast<size_t>(blockIdx.x) * D;
+  float s = 0.f;
+  for (int i = threadIdx.x; i < D; i += blockDim.x) {
+    const float e = s_elem<T, kForm>(x, res, badd, mask, off, i, inv_keep);
+    if (kForm) s_out[off + i] = ptt::from_f32<T>(e);
+    s += e;
+  }
+  const float mu = ptt::block_sum(s, scratch) / static_cast<float>(D);
+  float ss = 0.f;
+  for (int i = threadIdx.x; i < D; i += blockDim.x) {
+    const float d =
+        s_elem<T, kForm>(x, res, badd, mask, off, i, inv_keep) - mu;
+    ss += d * d;
+  }
+  const float var = ptt::block_sum(ss, scratch) / static_cast<float>(D);
+  const float rstd = rsqrtf(var + eps);
+  T* yr = y + off;
+  for (int i = threadIdx.x; i < D; i += blockDim.x) {
+    const float e = s_elem<T, kForm>(x, res, badd, mask, off, i, inv_keep);
+    const float n = __fmul_rn(e - mu, rstd);
     yr[i] = ptt::from_f32<T>(__fadd_rn(__fmul_rn(n, scale[i]), bias[i]));
   }
   if (mu_out != nullptr && threadIdx.x == 0) {
@@ -228,11 +286,26 @@ int launch_rowblock(const Args& a, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, int kForm>
+int launch_twopass(const Args& a, cudaStream_t stream) {
+  fused_ln_fwd_kernel_twopass<T, kForm><<<a.R, kRowThreads, 0, stream>>>(
+      static_cast<const T*>(a.x), static_cast<const T*>(a.res),
+      static_cast<const T*>(a.badd),
+      static_cast<const unsigned char*>(a.mask),
+      static_cast<const float*>(a.scale), static_cast<const float*>(a.bias),
+      static_cast<T*>(a.y), static_cast<T*>(a.s),
+      static_cast<float*>(a.mu), static_cast<float*>(a.rstd), a.R, a.D,
+      a.eps, a.inv_keep);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // lane_elems as ops/fused_ln.py fused_ln_plan gives it (8, 16, 24, 32 or
-// 64; 0 for a block a row); vec: 16-byte vectors, else scalar accesses
+// 64; 0 for a block a row with the row in shared memory, -1 for the
+// two-pass block a row); vec: 16-byte vectors, else scalar accesses
 template <typename T, int kForm>
 int launch(const Args& a, int lane_elems, bool vec, cudaStream_t st) {
   if (lane_elems == 0) return launch_rowblock<T, kForm>(a, st);
+  if (lane_elems == -1) return launch_twopass<T, kForm>(a, st);
   switch (lane_elems + vec) {
     case 8: return launch_warp<T, kForm, false, 8>(a, st);
     case 9: return launch_warp<T, kForm, true, 8>(a, st);
@@ -285,8 +358,9 @@ bool vectorizable(const Args& a, int vw) {
 // [R, D] bool (one byte an element), and then s [R, D] is written; mu and
 // rstd [R] float32 are written when mu is not null. inv_keep is 1/keep
 // already rounded to x's dtype. lane_elems: the instance, as
-// fused_ln_plan picks it from D; the operands' alignment picks 16-byte
-// vectors or scalar accesses here.
+// fused_ln_plan picks it from D (0: a block a row, its row in shared
+// memory; -1: the two-pass block a row); the operands' alignment picks
+// 16-byte vectors or scalar accesses here.
 extern "C" int ptt_fused_ln(const void* x, const void* res, const void* badd,
                             const void* mask, const void* scale,
                             const void* bias, void* y, void* s, void* mu,
@@ -298,7 +372,11 @@ extern "C" int ptt_fused_ln(const void* x, const void* res, const void* badd,
                    (mask ? kMask : 0);
   if ((form != 0) != (s != nullptr) || (mu == nullptr) != (rstd == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (lane_elems == 0 ? D * sizeof(float) > 48 * 1024 : 32 * lane_elems < D)
+  // the one-pass block-a-row row and its 128-byte scratch within a
+  // block's 227 KB of shared memory
+  if (lane_elems < -1 ||
+      (lane_elems == 0 ? D * sizeof(float) > 226 * 1024
+                       : lane_elems > 0 && 32 * lane_elems < D))
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{x, res, badd, mask, scale, bias, y, s, mu, rstd, R, D, eps,
                inv_keep};

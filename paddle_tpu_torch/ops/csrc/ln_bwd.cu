@@ -32,7 +32,11 @@
 // H100, about 2 us where a torch sum over the same rows took 9). Rows of D
 // not a multiple of the vector, or operands not aligned to it, take the
 // same kernel with one coalesced scalar access an element; D past the
-// register path's 1024 (up to 2048) the block-a-row kernel below. The
+// register path's 1024 (up to 2048) the block-a-row kernel below, and
+// past 2048 its looped form, which holds no row in registers: it walks
+// the row in chunks twice, reading s and dy again (mostly from L2) in
+// the second pass, and keeps its dscale/dbias partials in the block's
+// own partial row in device memory. The
 // design before this one walked 32 rows a 256-thread block, each row one
 // dependent chain of 2-byte loads, three block barriers and 2-byte
 // stores, at 3.9 blocks an SM. Registers bound this one (168 at 24
@@ -260,6 +264,60 @@ __global__ void __launch_bounds__(kRowThreads)
   }
 }
 
+// The block-a-row path past 2048 columns: block b of G walks rows b, b +
+// G, ...; thread t takes columns t, t + 256, ... of every row. Pass 1
+// reads s and dy for the two row sums and adds dy * xhat and dy to the
+// block's partial rows (each column only ever touched by its one thread,
+// so the adds need no atomics and keep the row order); pass 2, after the
+// block reduction, reads s and dy (and dsx, the mask) again and writes
+// ds (and dx).
+template <typename T, bool kDsx, bool kMask>
+__global__ void __launch_bounds__(kRowThreads)
+    ln_bwd_kernel_rowloop(const T* __restrict__ sx,
+                          const float* __restrict__ mu,
+                          const float* __restrict__ rstd,
+                          const float* __restrict__ scale,
+                          const T* __restrict__ dy,
+                          const T* __restrict__ dsx,
+                          const unsigned char* __restrict__ mask,
+                          T* __restrict__ ds_out, T* __restrict__ dx_out,
+                          float* __restrict__ dscale_part,
+                          float* __restrict__ dbias_part, int R, int D,
+                          float inv_keep) {
+  __shared__ float scratch[64];
+  const size_t poff = static_cast<size_t>(blockIdx.x) * D;
+  float* dsc = dscale_part + poff;
+  float* dbi = dbias_part + poff;
+  for (int i = threadIdx.x; i < D; i += kRowThreads) dsc[i] = dbi[i] = 0.f;
+  const float inv_d = 1.f / static_cast<float>(D);
+  for (int r = blockIdx.x; r < R; r += gridDim.x) {
+    const size_t off = static_cast<size_t>(r) * D;
+    const float m = mu[r], rs = rstd[r];
+    float sg = 0.f, sgx = 0.f;
+    for (int i = threadIdx.x; i < D; i += kRowThreads) {
+      const float d = ptt::to_f32(dy[off + i]);
+      const float xh = (ptt::to_f32(sx[off + i]) - m) * rs;
+      const float g = d * scale[i];
+      sg += g;
+      sgx += g * xh;
+      dsc[i] += d * xh;
+      dbi[i] += d;
+    }
+    const float2 sums = block_sum2(sg, sgx, scratch);
+    const float gm = sums.x * inv_d, gxm = sums.y * inv_d;
+    for (int i = threadIdx.x; i < D; i += kRowThreads) {
+      const float xh = (ptt::to_f32(sx[off + i]) - m) * rs;
+      const float g = ptt::to_f32(dy[off + i]) * scale[i];
+      float ds = rs * (g - gm - xh * gxm);
+      if (kDsx) ds += ptt::to_f32(dsx[off + i]);
+      ds_out[off + i] = ptt::from_f32<T>(ds);
+      if (kMask)
+        dx_out[off + i] = ptt::from_f32<T>(__fmul_rn(
+            __fmul_rn(ds, mask[off + i] ? 1.f : 0.f), inv_keep));
+    }
+  }
+}
+
 // The second pass: dscale and dbias [D] as the sums of the G blocks'
 // partial rows, in one fixed order. Block b takes 32 of the 2D columns
 // (dscale's, then dbias's); thread (ty, tx) adds rows ty, ty + 32, ... of
@@ -332,12 +390,16 @@ int run_warp(const Args& a, int* bps, cudaStream_t st) {
 }
 
 // lane_elems as ops/fused_ln.py ln_bwd_plan gives it (8, 16, 24 or 32; 0
-// for a block a row); vec: 16-byte vectors, else scalar accesses
+// for a block a row, -1 for its looped form past 2048 columns); vec:
+// 16-byte vectors, else scalar accesses
 template <typename T, bool kDsx, bool kMask>
 int by_instance(const Args& a, int lane_elems, bool vec, int* bps,
                 cudaStream_t st) {
   if (lane_elems == 0)
     return run<T>(ln_bwd_kernel_rowblock<T, kDsx, kMask>, kRowThreads, 0, a,
+                  bps, st);
+  if (lane_elems == -1)
+    return run<T>(ln_bwd_kernel_rowloop<T, kDsx, kMask>, kRowThreads, 0, a,
                   bps, st);
   switch (lane_elems + vec) {
     case 8: return run_warp<T, kDsx, kMask, false, 8>(a, bps, st);
@@ -376,7 +438,9 @@ int entry(const Args& a, int lane_elems, int dtype, int* bps,
                           reinterpret_cast<uintptr_t>(a.scale);
   const bool vec = a.D % vw == 0 && any16 % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(a.mask) % vw == 0;
-  if (lane_elems == 0 ? a.D > kRowThreads * kRowCols : 32 * lane_elems < a.D)
+  if (lane_elems < -1 ||
+      (lane_elems == 0 ? a.D > kRowThreads * kRowCols
+                       : lane_elems > 0 && 32 * lane_elems < a.D))
     return static_cast<int>(cudaErrorInvalidValue);
   switch (dtype) {
     case ptt::kF32:

@@ -43,6 +43,13 @@
 // Padding every shared row by 16 bytes keeps ldmatrix free of bank
 // conflicts. The wrapper's plan (cuda_kernels.logits_head_plan) picks BM
 // and gy; past BM rows the weight is read once per group.
+//
+// Rows too wide for 16 of them to sit beside the ring in 227 KB (D past
+// about 6,000 at bf16) take the streamed instance (kStream): the wrapper
+// normalises the rows once into a [B, D] tensor (the fused-LN kernel's
+// plain form), and this kernel streams the group's [BM, 32] slab of them
+// through each ring stage beside the weight slab, from which its A
+// fragments come; steps 1 and 2 drop out.
 #include "common.cuh"
 #include "mma.cuh"
 
@@ -86,6 +93,31 @@ __device__ __forceinline__ void load_slab(T* __restrict__ s,
 #pragma unroll
       for (int e = 0; e < kVec; ++e)
         dst[e] = (d < D && col + e < V) ? src[col + e] : ptt::from_f32<T>(0.f);
+    }
+  }
+}
+
+// Rows [row0, row0 + BM) x columns [k0, k0 + 32) of y [B, D] into one
+// A slab [BM][kBK + pad], zero past B and D.
+template <typename T, int BM>
+__device__ __forceinline__ void load_rows_slab(T* __restrict__ s,
+                                               const T* __restrict__ y,
+                                               int row0, int k0, int B,
+                                               int D, bool vec_ok) {
+  constexpr int kVec = Lay<T>::kVec;
+  constexpr int kPerRow = kBK / kVec;
+  constexpr int kLdA = kBK + Lay<T>::kPad;
+  for (int i = threadIdx.x; i < BM * kPerRow; i += kThreads) {
+    const int r = i / kPerRow, c = (i % kPerRow) * kVec;
+    const int b = row0 + r, k = k0 + c;
+    T* dst = s + r * kLdA + c;
+    const T* src = y + static_cast<size_t>(b < B ? b : 0) * D;
+    if (vec_ok && (b >= B || k + kVec <= D)) {
+      ptt::cp_async16(dst, src + (b < B ? k : 0), b < B ? 16 : 0);
+    } else {
+#pragma unroll
+      for (int e = 0; e < kVec; ++e)
+        dst[e] = (b < B && k + e < D) ? src[k + e] : ptt::from_f32<T>(0.f);
     }
   }
 }
@@ -135,8 +167,9 @@ __device__ __forceinline__ void store_pair<__nv_bfloat16>(
   }
 }
 
-// MT m-tiles (16 rows each) a batch group
-template <typename T, int MT>
+// MT m-tiles (16 rows each) a batch group; kStream: x is the normed rows
+// y [B, D], streamed through the ring beside the weight
+template <typename T, int MT, bool kStream>
 __global__ void __launch_bounds__(kThreads)
     logits_head_kernel(const T* __restrict__ x,
                        const float* __restrict__ scale,
@@ -147,11 +180,13 @@ __global__ void __launch_bounds__(kThreads)
   constexpr int BM = MT * 16;
   constexpr int kVec = L::kVec;
   constexpr bool kBF16 = sizeof(T) == 2;
+  constexpr int kLdA = kBK + L::kPad;          // streamed A slab row
+  constexpr int kStage = L::kStage + (kStream ? BM * kLdA : 0);
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int Dp = padded_d(D);
-  const int ldy = Dp + L::kPad;
+  const int ldy = kStream ? kLdA : Dp + L::kPad;
   T* ys = reinterpret_cast<T*>(smem_raw);     // [BM, ldy] normed rows
-  T* ring = ys + BM * ldy;                     // [kStages, kBK, kLdW]
+  T* ring = kStream ? ys : ys + BM * ldy;     // [kStages, kStage]
   const int row0 = blockIdx.x * BM;
   const int nk = Dp / kBK;
   const int ntiles = (V + kBN - 1) / kBN;
@@ -164,9 +199,13 @@ __global__ void __launch_bounds__(kThreads)
   // the stream's load cursor: slab q is slab lk of tile lt
   int lq = 0, lk = 0, lt = blockIdx.y;
   auto fetch_next = [&]() {
-    if (lq < total)
-      load_slab<T>(ring + (lq % kStages) * L::kStage, w, lk * kBK, lt * kBN,
-                   D, V, vec_ok);
+    if (lq < total) {
+      T* st = ring + (lq % kStages) * kStage;
+      load_slab<T>(st, w, lk * kBK, lt * kBN, D, V, vec_ok);
+      if (kStream)
+        load_rows_slab<T, BM>(st + L::kStage, x, row0, lk * kBK, B, D,
+                              x_vec);
+    }
     ptt::cp_async_commit();
     ++lq;
     if (++lk == nk) {
@@ -177,7 +216,7 @@ __global__ void __launch_bounds__(kThreads)
 
   // 1. the group's rows of x (with slab 0's group) and the first slabs of
   // the weight ring, all in flight together
-  {
+  if (!kStream) {
     const int chunks = Dp / kVec;
     for (int i = threadIdx.x; i < BM * chunks; i += kThreads) {
       const int r = i / chunks, c = (i % chunks) * kVec;
@@ -199,9 +238,10 @@ __global__ void __launch_bounds__(kThreads)
   // 2. LN of the group's rows in shared memory, in place, one warp a row,
   // 16 bytes a lane a step, while the weight slabs fly; rows past B and
   // columns past D stay zero
-  ptt::cp_async_wait<kStages - 2>();
+  if (!kStream) ptt::cp_async_wait<kStages - 2>();
   __syncthreads();
-  for (int r = warp; r < BM && row0 + r < B; r += kThreads / 32) {
+  for (int r = warp; !kStream && r < BM && row0 + r < B;
+       r += kThreads / 32) {
     T* yr = ys + r * ldy;
     float s = 0.f;
     for (int c = lane * kVec; c < Dp; c += 32 * kVec) {
@@ -246,8 +286,8 @@ __global__ void __launch_bounds__(kThreads)
     ptt::cp_async_wait<kStages - 2>();
     __syncthreads();          // slab q landed; slab q-1's stage is free
     fetch_next();             // slab q + kStages - 1
-    const T* ws = ring + (q % kStages) * L::kStage;
-    const T* yk = ys + kt * kBK;
+    const T* ws = ring + (q % kStages) * kStage;
+    const T* yk = kStream ? ws + L::kStage : ys + kt * kBK;
     if constexpr (kBF16) {
 #pragma unroll
       for (int kk = 0; kk < kBK; kk += 16) {
@@ -325,15 +365,16 @@ __global__ void __launch_bounds__(kThreads)
   ptt::cp_async_wait<0>();    // the trailing (empty) groups
 }
 
-template <typename T, int MT>
+template <typename T, int MT, bool kStream>
 int run(const T* x, const float* scale, const float* bias, const T* w,
         T* out, int B, int D, int V, int gy, float eps, cudaStream_t stream) {
-  const size_t smem =
-      (static_cast<size_t>(MT * 16) * (padded_d(D) + Lay<T>::kPad) +
-       kStages * Lay<T>::kStage) * sizeof(T);
+  const size_t rows =
+      kStream ? kStages * static_cast<size_t>(MT * 16) * (kBK + Lay<T>::kPad)
+              : static_cast<size_t>(MT * 16) * (padded_d(D) + Lay<T>::kPad);
+  const size_t smem = (rows + kStages * Lay<T>::kStage) * sizeof(T);
   const cudaError_t e = cudaFuncSetAttribute(
-      logits_head_kernel<T, MT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      logits_head_kernel<T, MT, kStream>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
   // 16-byte copies where every row starts 16-byte aligned
   const int x_vec = (static_cast<size_t>(D) * sizeof(T)) % 16 == 0 &&
@@ -341,31 +382,45 @@ int run(const T* x, const float* scale, const float* bias, const T* w,
   const int vec_ok = (static_cast<size_t>(V) * sizeof(T)) % 16 == 0 &&
                      reinterpret_cast<uintptr_t>(w) % 16 == 0;
   const dim3 grid((B + MT * 16 - 1) / (MT * 16), gy);
-  logits_head_kernel<T, MT><<<grid, kThreads, smem, stream>>>(
+  logits_head_kernel<T, MT, kStream><<<grid, kThreads, smem, stream>>>(
       x, scale, bias, w, out, B, D, V, eps, x_vec, vec_ok);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, bool kStream>
+int by_bm(const T* x, const float* scale, const float* bias, const T* w,
+          T* out, int B, int D, int V, int bm, int gy, float eps,
+          cudaStream_t st) {
+  switch (bm) {
+    case 16:
+      return run<T, 1, kStream>(x, scale, bias, w, out, B, D, V, gy, eps,
+                                st);
+    case 32:
+      return run<T, 2, kStream>(x, scale, bias, w, out, B, D, V, gy, eps,
+                                st);
+    case 48:
+      return run<T, 3, kStream>(x, scale, bias, w, out, B, D, V, gy, eps,
+                                st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 template <typename T>
 int launch(const void* xv, const void* scalev, const void* biasv,
            const void* wv, void* outv, int B, int D, int V, int bm, int gy,
-           float eps, cudaStream_t st) {
+           float eps, int stream_rows, cudaStream_t st) {
   const T* x = static_cast<const T*>(xv);
   const float* scale = static_cast<const float*>(scalev);
   const float* bias = static_cast<const float*>(biasv);
   const T* w = static_cast<const T*>(wv);
   T* out = static_cast<T*>(outv);
   if (gy < 1) return static_cast<int>(cudaErrorInvalidValue);
-  switch (bm) {
-    case 16:
-      return run<T, 1>(x, scale, bias, w, out, B, D, V, gy, eps, st);
-    case 32:
-      return run<T, 2>(x, scale, bias, w, out, B, D, V, gy, eps, st);
-    case 48:
-      return run<T, 3>(x, scale, bias, w, out, B, D, V, gy, eps, st);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return stream_rows
+             ? by_bm<T, true>(x, scale, bias, w, out, B, D, V, bm, gy, eps,
+                              st)
+             : by_bm<T, false>(x, scale, bias, w, out, B, D, V, bm, gy, eps,
+                               st);
 }
 
 }  // namespace
@@ -374,17 +429,20 @@ int launch(const void* xv, const void* scalev, const void* biasv,
 // scale, bias: [D] float32. bm (16, 32 or 48) rows a batch group and gy
 // the blocks a group spreads the vocab tiles over, both from
 // cuda_kernels.logits_head_plan; the grid is (ceil(B / bm), gy).
+// stream_rows (the plan's): x holds the rows already normalised (scale,
+// bias and eps unused), streamed through the ring with the weight.
 extern "C" int ptt_logits_head(const void* x, const void* scale,
                                const void* bias, const void* w, void* out,
                                int B, int D, int V, int bm, int gy, float eps,
-                               int dtype, void* stream) {
+                               int stream_rows, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case ptt::kF32:
-      return launch<float>(x, scale, bias, w, out, B, D, V, bm, gy, eps, st);
+      return launch<float>(x, scale, bias, w, out, B, D, V, bm, gy, eps,
+                           stream_rows, st);
     case ptt::kBF16:
       return launch<__nv_bfloat16>(x, scale, bias, w, out, B, D, V, bm, gy,
-                                   eps, st);
+                                   eps, stream_rows, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

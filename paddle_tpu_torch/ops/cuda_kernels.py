@@ -275,7 +275,7 @@ def fused_decode_attention(q, k_cache, v_cache, new_k, new_v, positions,
     ``active[b] != 0``); positions/active: [B] int32 (``active`` None =
     every lane writes). Attention covers rows ``0..positions[b]``.
     Positions must lie in [0, S); on the card a lane outside answers zeros
-    and writes nothing. The kernel takes hd 16, 32, 64 or 128.
+    and writes nothing. The kernel takes any hd up to 128.
 
     Returns (out [B, nh, hd] in q.dtype, k_cache, v_cache) — the caches
     are the tensors passed in, returned for the JAX signature's sake.
@@ -312,7 +312,9 @@ def fused_decode_attention(q, k_cache, v_cache, new_k, new_v, positions,
 
 # The decode kernels' split pass (ops/csrc/decode_attention.cuh): 128
 # threads a block, each loading 4 rows' 16 bytes of K and of V a tile.
-_DECODE_HDS = (16, 32, 64, 128)
+# Instances at head widths 8..128 (powers of two) take the true hd at run
+# time: lanes past it load zeros and store nothing.
+_DECODE_HDS = (8, 16, 32, 64, 128)
 _DECODE_MAX_SPLITS = 64     # chunks a lane at most: the merge's serial loop
 _DECODE_STAGING = 32 * 1024   # bytes of a paged chunk's staged rows (int32)
 # (device index, stream) -> the float32 partials of the split pass
@@ -320,14 +322,30 @@ _WORKSPACE: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
 @functools.lru_cache(maxsize=64)
+def _decode_instance(hd: int, cache_esz: int) -> Tuple[int, bool]:
+    """(HD, vec): the decode kernels' instance for a head of ``hd``
+    elements — the power of two at or above it, 8 at least — and whether
+    its rows are whole 16-byte vectors of the cache's ``cache_esz``-byte
+    elements (else the instance loads one element at a time). The caches
+    keep their true width. Raises past 128 (ROADMAP C4)."""
+    if not 0 < hd <= _DECODE_HDS[-1]:
+        raise ValueError(f"decode attention: head_dim {hd} outside "
+                         "1..128; the kernels have no instance past 128 "
+                         "(ROADMAP C4)")
+    return (next(h for h in _DECODE_HDS if h >= hd),
+            hd * cache_esz % 16 == 0)
+
+
+@functools.lru_cache(maxsize=64)
 def _decode_split(rows: int, hd: int, cache_esz: int,
                   page: int = 1) -> Tuple[int, int]:
     """(chunk, nsplit): the rows of a lane's chunk in the decode kernels'
     split pass and the number of chunks that cover ``rows``. A chunk is
-    whole tiles — 4 x 128 threads' 16-byte loads, so 64 rows at bf16 and
-    hd 64 — at most 64 chunks a lane, rounded up to whole pages. It comes
-    from the shapes alone: the host never reads the positions."""
-    tile = 4 * 128 * (16 // cache_esz) // hd
+    whole tiles — 4 x 128 threads' 16-byte loads over the instance's
+    width, so 64 rows at bf16 and hd 64 — at most 64 chunks a lane,
+    rounded up to whole pages. It comes from the shapes alone: the host
+    never reads the positions."""
+    tile = 4 * 128 * (16 // cache_esz) // _decode_instance(hd, cache_esz)[0]
     chunk = tile * -(-rows // (tile * _DECODE_MAX_SPLITS))
     chunk = -(-chunk // page) * page
     return chunk, -(-rows // chunk)
@@ -349,9 +367,9 @@ def _check_decode_inputs(fn, q, new_k, new_v, k_cache, v_cache, cache_shape,
                          B):
     """The decode kernels' shared checks: dtypes, the caches' shape,
     contiguity and 16-byte alignment, q/new_k/new_v as [B, nh, hd] with
-    contiguous heads and one batch stride, and hd in 16, 32, 64, 128.
-    Returns the dtype codes of q and the cache. A message is built only
-    when a check fails: the engine calls this L times a tick."""
+    contiguous heads and one batch stride, and hd up to 128. Returns the
+    dtype codes of q and the cache. A message is built only when a check
+    fails: the engine calls this L times a tick."""
     nh, hd = cache_shape[-2:]
     q_code = _dtype_code(q, f"{fn} q")
     c_code = _dtype_code(k_cache, f"{fn} cache")
@@ -372,8 +390,7 @@ def _check_decode_inputs(fn, q, new_k, new_v, k_cache, v_cache, cache_shape,
                 and t.stride(0) == bs):
             raise ValueError(f"{fn}: {name} needs contiguous heads and the "
                              "same batch stride as q")
-    if hd not in _DECODE_HDS:
-        raise ValueError(f"{fn}: head_dim {hd} not in {_DECODE_HDS}")
+    _decode_instance(hd, k_cache.element_size())   # raises past 128
     return q_code, c_code
 
 
@@ -419,7 +436,7 @@ def fused_paged_decode_attention(q, k_pool, v_pool, new_k, new_v, tables,
     Attention covers logical rows ``0..positions[b]``. On the card a lane
     whose position lies outside [0, M * page) or whose table reaches a
     page outside [0, P) answers zeros and writes nothing. The kernel takes
-    hd 16, 32, 64 or 128 and pages of up to 8,192 rows.
+    any hd up to 128 and pages of up to 8,192 rows.
 
     Returns (out [B, nh, hd] in q.dtype, k_pool, v_pool) — the pools are
     the tensors passed in, returned for the JAX signature's sake.
@@ -489,25 +506,31 @@ def logits_head_plan(B: int, D: int, V: int, esz: int,
     ``bps`` the blocks an SM holds (at most 4). ``gy`` blocks a group
     share the 128-column vocab tiles (block y takes tiles y, y + gy, ...),
     as few tiles a block as fill one wave of ``sms`` x ``bps`` blocks;
-    ``grid`` is (groups, gy). Raises ``ValueError`` where not even 16 rows
-    fit beside the ring in 227 KB (D of about 6,000 at bf16)."""
+    ``grid`` is (groups, gy). Where not even 16 normed rows fit beside the
+    ring in 227 KB (D past about 6,000 at bf16), ``stream_rows``: the rows
+    are normalised once (a launch of the fused-LN kernel) and each ring
+    stage carries the group's [bm, 32] slab of them beside the weight
+    slab, so the block's bytes no longer grow with D."""
     pad = 16 // esz
     ring = _LH_STAGES * _LH_BK * (_LH_BN + pad) * esz
     row = (-(-D // _LH_BK) * _LH_BK + pad) * esz
     cap = min(_LH_MAX_BM, (_SMEM_MAX - ring) // row // 16 * 16)
-    if cap < 16:
-        raise ValueError(f"fused_logits_head: rows of D = {D} leave no room "
-                         "for 16 normed rows beside the weight ring in 227 KB")
+    stream = cap < 16
+    if stream:
+        cap = _LH_MAX_BM
     per = -(-B // -(-B // cap))          # rows a group, as even as may be
     bm = 16 * -(-per // 16)
     groups = -(-B // bm)
-    smem = bm * row + ring
+    if stream:
+        smem = ring + _LH_STAGES * bm * (_LH_BK + pad) * esz
+    else:
+        smem = bm * row + ring
     bps = min(4, _SM_SMEM // (smem + 1024))
     ntiles = -(-V // _LH_BN)
     k = -(-ntiles * groups // (sms * bps))          # tiles a block
     gy = -(-ntiles // k)
     return {"bm": bm, "groups": groups, "gy": gy, "bps": bps,
-            "grid": (groups, gy), "smem": smem}
+            "grid": (groups, gy), "smem": smem, "stream_rows": stream}
 
 
 def fused_logits_head(x, scale, bias, lm_head, *, eps: float = 1e-5):
@@ -541,11 +564,18 @@ def fused_logits_head(x, scale, bias, lm_head, *, eps: float = 1e-5):
     _require(plan["gy"] <= 65535,
              f"fused_logits_head: V = {V} needs more than the grid's 65,535 "
              "blocks a batch group")
+    if plan["stream_rows"]:
+        # the streamed instance takes the rows normalised (one launch of
+        # the fused-LN kernel's plain form)
+        from .fused_ln import fused_ln_fwd
+
+        x = fused_ln_fwd(x, scale, bias, eps=eps, stats=False)[0]
     lib = _lib()
     err = lib.ptt_logits_head(x.data_ptr(), scale.data_ptr(),
                               bias.data_ptr(), lm_head.data_ptr(),
                               out.data_ptr(), B, D, V, plan["bm"],
-                              plan["gy"], float(eps), code, _stream(x))
+                              plan["gy"], float(eps),
+                              int(plan["stream_rows"]), code, _stream(x))
     _check_launch(lib, err, "logits_head")
     return out
 
@@ -614,7 +644,7 @@ def megakernel_adamw_flat(p, g, m, v, wd_mask, lr, scale, c1, c2, *,
         p.data_ptr(), g.data_ptr(), m.data_ptr(), v.data_ptr(),
         wd_mask.data_ptr(), scal.data_ptr(), n, float(b1), float(1 - b1),
         float(b2), float(1 - b2), float(eps), float(weight_decay), code,
-        _stream(p))
+        _aligned16(p, g, m, v, wd_mask), _stream(p))
     _check_launch(lib, err, "opt_adamw_flat")
     return p, m, v
 

@@ -28,9 +28,10 @@ The kernels read q, k and v in the public ``[B, T, nh, hd]`` layout through
 their strides (no transpose to ``[BH, T, hd]`` as JAX does), so slices of
 one packed qkv tensor are taken as they are; lse is ``[B, nh, T]`` float32,
 one value per row where the TPU kept 128 replicated lanes. The kernels
-are compiled for head_dim 16, 32, 64 and 128; head_dim 8 runs the 16
-instance on inputs padded with zero columns (:func:`pad_head_dim`), which
-add nothing to any dot product, and the outputs are sliced back.
+are compiled for head_dim 16, 32, 64 and 128; any other head_dim up to
+128 (8, 24, 48, 80, 96, ...) runs the next instance on inputs padded with
+zero columns (:func:`pad_head_dim`), which add nothing to any dot
+product, and the outputs are sliced back.
 
 The bias, as the kernels take it, is float32 ``[BB, SQ, T]``: BB = B
 shares one bias among a batch row's heads (head ``bh`` reads row
@@ -62,8 +63,20 @@ __all__ = ["flash_attention", "flash_fwd", "flash_fwd_plain",
 
 _NEG_INF = -0.7 * float(np.finfo(np.float32).max)
 _HEAD_DIMS = (16, 32, 64, 128)
-# head_dim -> the compiled instance it runs on, padded with zero columns
-_PADDED_HEAD_DIMS = {8: 16}
+
+
+def _padded_hd(hd: int) -> Optional[int]:
+    """The compiled instance a head_dim that has none runs on, padded with
+    zero columns (exact: the padded columns add 0 to every q·k and give
+    zero output columns, and the scale stays 1/sqrt(true hd)); None for
+    an instance. Past 128 no instance exists (ROADMAP C4)."""
+    if hd in _HEAD_DIMS:
+        return None
+    if not 0 < hd <= _HEAD_DIMS[-1]:
+        raise ValueError(f"flash attention: head_dim {hd} outside 1..128; "
+                         "the kernels have no instance past 128 (ROADMAP "
+                         "C4)")
+    return next(h for h in _HEAD_DIMS if h >= hd)
 
 
 def pad_head_dim(x: torch.Tensor, hd: int) -> torch.Tensor:
@@ -171,8 +184,8 @@ def _check_qkv(q, k, v, what: str):
     _ck._require(k.dtype == q.dtype and v.dtype == q.dtype,
                  f"{what}: q, k, v must share a dtype")
     _ck._require(hd in _HEAD_DIMS,
-                 f"{what}: head_dim {hd} not in {_HEAD_DIMS} (or 8, "
-                 "padded to 16)")
+                 f"{what}: head_dim {hd} not in {_HEAD_DIMS} (the wrappers "
+                 "pad any other hd <= 128 to the next)")
     _ck._require(q.stride() == k.stride() == v.stride(),
                  f"{what}: q, k, v must share strides")
     _ck._require(q.stride(3) == 1, f"{what}: head_dim must be unit-stride")
@@ -212,7 +225,8 @@ def _check_bias(bias, B: int, T: int, nh: int, what: str):
 def flash_fwd(q, k, v, causal: bool = True,
               sm_scale: Optional[float] = None, bias=None):
     """(o [B, T, nh, hd] in q's dtype, lse [B, nh, T] float32) for q, k, v
-    [B, T, nh, hd] float32 or bfloat16 (hd in 8/16/32/64/128) and an
+    [B, T, nh, hd] float32 or bfloat16 (any hd up to 128: 16, 32, 64 and
+    128 are instances, any other pads to the next) and an
     optional float32 ``bias`` [B or B·nh, 1 or T, T] — one launch of the
     forward kernel on the card."""
     if sm_scale is None:
@@ -221,8 +235,8 @@ def flash_fwd(q, k, v, causal: bool = True,
     if not _ck._on_card(*ts):
         return flash_fwd_plain(q, k, v, causal, sm_scale, bias)
     hd = q.shape[-1]
-    if hd in _PADDED_HEAD_DIMS:
-        to = _PADDED_HEAD_DIMS[hd]
+    to = _padded_hd(hd)
+    if to is not None:
         o, lse = flash_fwd(*(pad_head_dim(x, to) for x in (q, k, v)),
                            causal, sm_scale, bias)
         return o[..., :hd].contiguous(), lse
@@ -282,8 +296,8 @@ def flash_bwd_dq(q, k, v, o, lse, do, causal: bool = True,
         return flash_bwd_dq_plain(q, k, v, o, lse, do, causal, sm_scale,
                                   bias, return_di)
     hd = q.shape[-1]
-    if hd in _PADDED_HEAD_DIMS:
-        to = _PADDED_HEAD_DIMS[hd]
+    to = _padded_hd(hd)
+    if to is not None:
         q, k, v, o, do = (pad_head_dim(x, to) for x in (q, k, v, o, do))
         out = flash_bwd_dq(q, k, v, o, lse, do, causal, sm_scale, bias,
                            return_di)
@@ -327,8 +341,8 @@ def flash_bwd_dkv(q, k, v, o, lse, do, causal: bool = True,
         _dq, di = flash_bwd_dq(q, k, v, o, lse, do, causal, sm_scale, bias,
                                return_di=True)
     hd = q.shape[-1]
-    if hd in _PADDED_HEAD_DIMS:
-        to = _PADDED_HEAD_DIMS[hd]
+    to = _padded_hd(hd)
+    if to is not None:
         q, k, v, o, do = (pad_head_dim(x, to) for x in (q, k, v, o, do))
         return tuple(x[..., :hd].contiguous() for x in flash_bwd_dkv(
             q, k, v, o, lse, do, causal, sm_scale, bias, di))

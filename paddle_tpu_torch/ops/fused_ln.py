@@ -41,11 +41,17 @@ __all__ = ["fused_ln", "fused_ln_masked", "fused_ln_fwd",
 # chunks of one 16-byte vector (8 bf16 or 4 float32 elements), accessed as
 # one vector where every operand is aligned to it and D is a multiple of
 # it (the kernel's entry point tests the pointers), else one element at a
-# time; past the register path, one block a row.
+# time; past the register path, one block a row (ROW_SMEM), and past that
+# a block a row that keeps no row (ROW_TWO_PASS).
 WARPS = 4
 _FWD_ELEMS = (8, 16, 24, 32, 64)          # D <= 2048
 _BWD_ELEMS = (8, 16, 24, 32)              # D <= 1024
-_FWD_MAX_D = _ck._SMEM_DEFAULT // 4       # the block-a-row float32 row
+ROW_SMEM = 0        # forward: the float32 row in shared memory; backward:
+                    # eight columns a thread in registers (D <= 2048)
+ROW_TWO_PASS = -1   # forward: s recomputed in each pass; backward: the row
+                    # walked in chunks, s and dy read again in pass 2
+# the forward's float32 row beside its scratch in a block's 227 KB
+_FWD_SMEM_MAX = _ck._SMEM_MAX - 1024
 _MAX_D = 2048           # the backward's block a row: 8 columns a thread
 
 
@@ -59,31 +65,35 @@ def _lane_elems(D: int, elems) -> int:
 def fused_ln_plan(D: int) -> int:
     """The forward kernel's instance for rows of D: the elements a lane
     holds (8, 16, 24, 32 or 64: the fewest with 32 x lane_elems >= D), or
-    0 past 2048: one 256-thread block a row, its float32 row in 48 KB of
-    shared memory. Raises ``ValueError`` past 12,288 columns."""
-    if D > _FWD_MAX_D:
-        raise ValueError(f"fused_ln: D={D} exceeds the kernel's row buffer "
-                         f"({_FWD_MAX_D} floats)")
-    return _lane_elems(D, _FWD_ELEMS)
+    past 2048 one 256-thread block a row: ``ROW_SMEM`` while its float32
+    row fits a block's shared memory (opted in past 48 KB: D up to about
+    57,000), ``ROW_TWO_PASS`` past that. Any D has an instance."""
+    lane = _lane_elems(D, _FWD_ELEMS)
+    if lane:
+        return lane
+    return ROW_SMEM if D * 4 <= _FWD_SMEM_MAX else ROW_TWO_PASS
 
 
 @functools.lru_cache(maxsize=None)
 def ln_bwd_plan(D: int) -> int:
     """The backward kernel's instance, as :func:`fused_ln_plan`: 8-32
-    elements a lane (D <= 1024), else 0: one 256-thread block a row, eight
-    columns a thread. Raises ``ValueError`` past 2048 columns."""
-    if D > _MAX_D:
-        raise ValueError(f"fused_ln_bwd: D={D} exceeds {_MAX_D}")
-    return _lane_elems(D, _BWD_ELEMS)
+    elements a lane (D <= 1024), else one 256-thread block a row:
+    ``ROW_SMEM`` (eight columns a thread in registers) up to 2048 columns,
+    ``ROW_TWO_PASS`` (the row walked in chunks) past it. Any D has an
+    instance."""
+    lane = _lane_elems(D, _BWD_ELEMS)
+    if lane:
+        return lane
+    return ROW_SMEM if D <= _MAX_D else ROW_TWO_PASS
 
 
 def ln_bwd_grid(R: int, lane_elems: int, sms: int, bps: int) -> int:
     """The backward kernel's blocks for R rows: one wave of ``sms`` x
     ``bps`` blocks (``bps`` the blocks an SM holds of the instance), fewer
     where R leaves some without a row. Each block has WARPS row walkers
-    (one, a block a row, when ``lane_elems`` is 0); walker w of W takes
-    rows w, w + W, w + 2W, ..."""
-    walkers = WARPS if lane_elems else 1
+    (one on the block-a-row instances, ``lane_elems`` <= 0); walker w of
+    W takes rows w, w + W, w + 2W, ..."""
+    walkers = WARPS if lane_elems > 0 else 1
     return max(1, min(-(-R // walkers), sms * bps))
 
 

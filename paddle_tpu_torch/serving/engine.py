@@ -197,6 +197,15 @@ class DecodeEngine:
                                  dtype=cache_dtype, device=self.device)
         self.decode_ticks = 0
         self._tokens_window: List[Tuple[float, int]] = []
+        # The reference donates its cache slabs to every executable; here
+        # the caches are CUDA tensors that prefill and the decode kernels
+        # write in place, and a CUDA fault is sticky for the context. So a
+        # failure mid-call on the card leaves caches that no later call
+        # can trust: the engine marks itself poisoned and every serving
+        # entry point refuses from then on. On the CPU a failure leaves
+        # the caches usable, as the reference's are without donation.
+        self._in_place = self.device.type == "cuda"
+        self.poisoned: Optional[str] = None
 
     def _cast_weights(self, p) -> None:
         """Serving weights, cast once: storage rounding (bf16 weights
@@ -439,6 +448,21 @@ class DecodeEngine:
             prefix_pages = prefix_pages[:-1]
         return 0, ()
 
+    def _check_poisoned(self) -> None:
+        if self.poisoned is not None:
+            raise RuntimeError(f"engine poisoned: {self.poisoned}")
+
+    def _poison_on_donation_failure(self, name: str, exc: Exception) -> None:
+        """A call that writes the caches in place died on the card: mark
+        the engine poisoned (the caches, and the CUDA context, can no
+        longer be trusted) rather than serve from them. On the CPU the
+        engine stays usable."""
+        if self._in_place and self.poisoned is None:
+            self.poisoned = (
+                f"{name} failed after writing the caches in place "
+                f"({type(exc).__name__}: {exc}); KV caches invalidated — "
+                f"rebuild the engine")
+
     def start_sequence(self, tokens: Sequence[int]) -> Tuple[int, np.ndarray]:
         """Claim a slot, prefill the prompt, return (slot, logits[V]) of
         the last prompt position."""
@@ -452,6 +476,7 @@ class DecodeEngine:
         last-position logits[V], first generated token). Raises
         CacheFullError when no slot is free, PagePoolFullError when the
         paged pool is dry, and PromptTooLongError above the ladder."""
+        self._check_poisoned()
         n = len(tokens)
         if n < 1:
             raise ValueError("empty prompt")
@@ -470,12 +495,18 @@ class DecodeEngine:
                          ) -> Tuple[np.ndarray, int]:
         """Pad ``tokens`` to ``bucket``, run the prefill ``run(padded)``
         and sample the token after position ``n - 1``; frees ``slot`` when
-        either raises. Returns (logits[V], token)."""
+        either raises; a failure of the prefill itself poisons the engine
+        on the card. Returns (logits[V], token)."""
         padded = np.zeros((1, bucket), np.int64)
         padded[0, :len(tokens)] = np.asarray(tokens, np.int64)
         t0 = time.perf_counter_ns()
         try:
             logits = run(torch.from_numpy(padded).to(self.device)).cpu()
+        except Exception as e:
+            self._poison_on_donation_failure(f"prefill_b{bucket}", e)
+            self.cache.free(slot)
+            raise
+        try:
             tok = sample_token(logits, params.temperature, params.top_k,
                                params.top_p, params.seed, n - 1)
         except Exception:
@@ -528,7 +559,7 @@ class DecodeEngine:
             out = self.decode_step_sampled({slot: int(tokens[n - 1])},
                                            {slot: params})
         except Exception:
-            if self.cache.is_live(slot):
+            if self.poisoned is None and self.cache.is_live(slot):
                 self.cache.free(slot)
             raise
         tok, logits = out[slot]
@@ -597,15 +628,22 @@ class DecodeEngine:
         masked lanes (paged: with zeroed page tables)."""
         if not slot_tokens:
             return {}
+        self._check_poisoned()
         head = self._decode_feed(slot_tokens)
+        # host-side: a PagePoolFullError here comes before any launch
         lanes = self._decode_lanes(slot_tokens)
         sp = batch_arrays(params_by_slot or {}, self.ecfg.max_batch)
         t0 = time.perf_counter_ns()
         B = self.ecfg.max_batch
-        feed = torch.from_numpy(
-            np.concatenate([head.ravel(), lanes.ravel()])).to(self.device)
-        logits = self._decode(feed[:B].long(), feed[B:2 * B],
-                              feed[2 * B:].view(lanes.shape)).cpu()
+        try:
+            feed = torch.from_numpy(
+                np.concatenate([head.ravel(), lanes.ravel()])).to(
+                    self.device)
+            logits = self._decode(feed[:B].long(), feed[B:2 * B],
+                                  feed[2 * B:].view(lanes.shape)).cpu()
+        except Exception as e:
+            self._poison_on_donation_failure("decode", e)
+            raise
         toks = sample_batch(logits, *sp, head[1])
         smetrics.m_decode_ms.observe((time.perf_counter_ns() - t0) / 1e6)
         self.decode_ticks += 1

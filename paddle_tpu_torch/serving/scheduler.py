@@ -239,6 +239,12 @@ class Scheduler:
     def draining(self) -> bool:
         return self._draining
 
+    @property
+    def refusing(self) -> Optional[str]:
+        """The reason every submit is refused (``abort_all(refuse_new=
+        True)``), else None."""
+        return self._refusing
+
     def pending(self) -> int:
         with self._lock:
             return len(self._queue) + len(self._active)

@@ -20,8 +20,9 @@ backend of ``paddle_tpu/serving/server.py``.
 - internal failure -> **500**, always with a JSON body.
 
 ``GET /health`` reports the phase, queue depth, active slots and the
-loop's fault count. The predictor route, ``/prefill``/``/resume`` and
-``/metrics`` are still to be ported (ROADMAP.md, queue A).
+loop's fault count, and status ``poisoned`` once the engine is. The
+predictor route, ``/prefill``/``/resume`` and ``/metrics`` are still to
+be ported (ROADMAP.md, queue A).
 """
 from __future__ import annotations
 
@@ -58,13 +59,20 @@ class EngineLoop:
     when idle. A ``step()`` exception fails every queued and active
     request (their waiters wake with an error), is recorded in
     ``faults``/``last_fault`` (surfaced by ``/health``), and the loop
-    keeps ticking."""
+    keeps ticking — unless the engine is ``poisoned`` (a call failed on
+    the card after writing its caches in place): then the loop fails
+    every request, refuses new ones, records ``poison_reason``, calls
+    ``on_poison(reason)`` and stops ticking, and ``/health`` reports
+    status ``poisoned``."""
 
-    def __init__(self, scheduler: Scheduler, idle_sleep_s: float = 0.002):
+    def __init__(self, scheduler: Scheduler, idle_sleep_s: float = 0.002,
+                 on_poison=None):
         self.scheduler = scheduler
         self.idle_sleep_s = idle_sleep_s
         self.faults = 0
         self.last_fault: Optional[str] = None
+        self.on_poison = on_poison
+        self.poison_reason: Optional[str] = None
         self._stop = threading.Event()
         self._wake = threading.Event()
         self._thread: Optional[threading.Thread] = None
@@ -90,6 +98,8 @@ class EngineLoop:
 
     def _run(self) -> None:
         while not self._stop.is_set():
+            if self._check_poisoned():
+                return
             worked = False
             if self.scheduler.pending():
                 try:
@@ -97,11 +107,37 @@ class EngineLoop:
                 except Exception as e:
                     self.faults += 1
                     self.last_fault = f"{type(e).__name__}: {e}"
-                    self.scheduler.abort_all(
-                        f"engine loop fault: {self.last_fault}")
+                    try:
+                        self.scheduler.abort_all(
+                            f"engine loop fault: {self.last_fault}")
+                    except Exception:
+                        pass  # never let cleanup kill the loop either
+                    if self._check_poisoned():
+                        return
             if not worked:
                 self._wake.wait(timeout=self.idle_sleep_s)
                 self._wake.clear()
+
+    def _check_poisoned(self) -> bool:
+        """Fail fast on a poisoned engine: abort and refuse, fire
+        ``on_poison``, stop the loop. Returns True when poisoned."""
+        reason = getattr(self.scheduler.engine, "poisoned", None)
+        if reason is None:
+            return False
+        if self.poison_reason is None:
+            self.poison_reason = str(reason)
+            try:
+                self.scheduler.abort_all(f"engine poisoned: {reason}",
+                                         refuse_new=True)
+            except Exception:
+                pass
+            if self.on_poison is not None:
+                try:
+                    self.on_poison(self.poison_reason)
+                except Exception:
+                    pass
+        self._stop.set()
+        return True
 
 
 class _Server(ThreadingHTTPServer):
@@ -239,13 +275,14 @@ class FrontDoor:
     """The serving HTTP server over one scheduler (and its engine).
     ``shed_deadline_aware`` sheds requests whose deadline the queue's
     measured drain ETA already exceeds; ``retry_after_cap_s`` caps the
-    ``Retry-After`` of every 429 and 503."""
+    ``Retry-After`` of every 429 and 503; ``on_poison(reason)`` is called
+    once when the engine is found poisoned (:class:`EngineLoop`)."""
 
     def __init__(self, scheduler: Scheduler, host: str = "127.0.0.1",
                  port: int = 0, request_timeout_s: float = 30.0,
                  max_body_bytes: int = 16 << 20, verbose: bool = False,
                  shed_deadline_aware: bool = True,
-                 retry_after_cap_s: float = 60.0):
+                 retry_after_cap_s: float = 60.0, on_poison=None):
         self.scheduler = scheduler
         self.request_timeout_s = float(request_timeout_s)
         self.max_body_bytes = int(max_body_bytes)
@@ -253,7 +290,7 @@ class FrontDoor:
         self.shed_deadline_aware = bool(shed_deadline_aware)
         self.retry_after_cap_s = float(retry_after_cap_s)
         self._draining = False
-        self.loop = EngineLoop(scheduler).start()
+        self.loop = EngineLoop(scheduler, on_poison=on_poison).start()
         self.httpd = _Server((host, port), _Handler)
         self.httpd.daemon_threads = True
         self.httpd.front = self
@@ -305,6 +342,12 @@ class FrontDoor:
         }
         if self.loop.last_fault is not None:
             out["loop_last_fault"] = self.loop.last_fault
+        # a poisoned engine outranks everything: no request will succeed
+        # again, so a supervisor recycles the replica on this status
+        poisoned = getattr(eng, "poisoned", None) or self.loop.poison_reason
+        if poisoned:
+            out["status"] = "poisoned"
+            out["engine_poisoned"] = str(poisoned)
         return out
 
     def drain(self, timeout_s: float = 60.0) -> bool:

@@ -317,10 +317,11 @@ def test_wrappers_raise_on_inputs_the_kernels_do_not_take(card):
             q, pool.transpose(0, 1).contiguous().transpose(0, 1),
             pool.clone(), q, q, tables, pos)
     with pytest.raises(ValueError, match="head_dim"):
-        p24 = torch.zeros((5, 8, 2, 24), device=card)
-        q24 = torch.zeros((2, 2, 24), device=card)
-        CK.fused_paged_decode_attention(q24, p24, p24.clone(), q24, q24,
-                                        tables, pos)
+        # any hd up to 128 has an instance (ROADMAP C4); past it none
+        p160 = torch.zeros((5, 8, 2, 160), device=card)
+        q160 = torch.zeros((2, 2, 160), device=card)
+        CK.fused_paged_decode_attention(q160, p160, p160.clone(), q160,
+                                        q160, tables, pos)
     with pytest.raises(ValueError, match="rows"):
         # a page past the split pass's staging: 16,384 rows a chunk
         big = torch.zeros((2, 16384, 2, 16), device=card)
@@ -504,7 +505,8 @@ def test_training_kernels_match_plain_at_path_shapes(chip_smoke, dtype):
 @pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "offset1"])
 @pytest.mark.parametrize("R,D", [(1, 64), (150, 80), (37, 2048), (5, 770),
                                  (33, 1024), (33, 1032), (9, 2056),
-                                 (3, 12288)])
+                                 (3, 12288), (5, 2560), (4, 4096),
+                                 (3, 16384), (2, 20000), (2, 65536)])
 def test_fused_ln_kernels_match_plain_small_shapes(chip_smoke, dtype, R, D,
                                                    offset):
     """Every forward form (bits: residual, bias_add, mask) and every
@@ -514,8 +516,10 @@ def test_fused_ln_kernels_match_plain_small_shapes(chip_smoke, dtype, R, D,
     aligned or one element into its buffer (the scalar instances): s
     bitwise, y, ds, dx per element (bf16_check; f32 1e-5), statistics
     within 1e-5 and dscale/dbias within 1e-5 relative to the column's sum
-    of |term|, a second backward launch bitwise equal; past 2048 columns
-    the backward raises ValueError, as it did."""
+    of |term|, a second backward launch bitwise equal. Past 2048 columns
+    (where the backward raised before) the backward's looped block a row
+    runs; past a block's shared memory (65,536) the forward's two-pass
+    block a row."""
     chip_smoke.ln_small_case(dtype, R, D, offset, 1e-5)
 
 
@@ -523,27 +527,117 @@ def test_fused_ln_kernels_match_plain_small_shapes(chip_smoke, dtype, R, D,
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
                          ids=["bf16", "f32"])
 @pytest.mark.parametrize("layout", ["dv", "vd"])
-@pytest.mark.parametrize("n,D,vp,vocab", [(1, 8, 128, 1), (70, 64, 384, 301),
-                                          (300, 96, 1024, 1000)])
-def test_ce_fwd_matches_plain_small_shapes(card, dtype, layout, n, D, vp,
-                                          vocab):
-    """Ragged rows, a vocab that ends inside a tile and tiles wholly past
-    it, both head layouts, with and without bias: lse and gold within
-    1e-4 of the plain sweep."""
-    from paddle_tpu_torch.ops import chunked_ce as CE
+@pytest.mark.parametrize("n,D,vp,vocab,extra", [
+    (1, 8, 128, 1, 0), (70, 64, 384, 301, 0), (300, 96, 1024, 1000, 0),
+    (200, 772, 700, 650, 0), (130, 768, 1000, 999, 24),
+    (129, 100, 600, 555, 3)])
+def test_ce_fwd_matches_plain_small_shapes(chip_smoke, dtype, layout, n, D,
+                                          vp, vocab, extra):
+    """Ragged rows (n not a multiple of the 128-row tile), a vocab that
+    ends inside a tile and tiles wholly past it, both head layouts, with
+    and without bias, D 772 (bf16 rows not 16-byte aligned), a head with
+    padded rows and one with an odd row stride: lse and gold within 1e-4
+    of the plain sweep
+    (``chip_smoke.ce_small_case``)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    chip_smoke.ce_small_case(dtype, layout, n, D, vp, vocab, extra)
 
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mdt", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("n,offset", [(100_003, 0), (1001, 1), (7, 0),
+                                      (8, 3)])
+def test_adamw_sweep_edges_bitwise(chip_smoke, mdt, n, offset):
+    """The adamw_mask sweep at n not a multiple of its 8-element vector
+    (the scalar tail) and with every buffer one or three elements into
+    its allocation (no operand 16-byte aligned: the scalar instance): p, m
+    and v bitwise equal to the plain version's."""
+    dev = torch.device("cuda")
+    sc = [torch.tensor(x, dtype=torch.float32, device=dev)
+          for x in (1e-4, 0.7, 1 - 0.9 ** 3, 1 - 0.95 ** 3)]
+    chip_smoke._sweep_bitwise(
+        f"{mdt} n {n} offset {offset}",
+        chip_smoke._sweep_inputs(n, mdt, offset, n + offset), sc,
+        dict(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("hd", [24, 48, 80, 96])
+def test_flash_padded_head_dims_match_plain(chip_smoke, dtype, causal, hd):
+    """Head dims without an instance run the next one on zero-padded
+    inputs (ROADMAP C4): o, lse, dq, dk, dv against the plain versions at
+    T 200 (f32 within 1e-5, bf16 per element), every output finite."""
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator(device="cuda")
-    g.manual_seed(n + D + vp)
-    x = torch.randn((n, D), generator=g, device="cuda").to(dtype)
-    shape = (D, vp) if layout == "dv" else (vp, D)
-    head = (torch.randn(shape, generator=g, device="cuda") * 0.3).to(dtype)
-    labels = torch.randint(0, vocab, (n,), generator=g, device="cuda")
-    for bias in (None, torch.randn(vp, generator=g, device="cuda")):
-        got = CE.ce_fwd(x, head, bias, labels, 128, vocab, layout)
-        want = CE.ce_fwd_plain(x, head, bias, labels, 128, vocab, layout)
-        for a, b in zip(got, want):
-            torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-5)
+    g.manual_seed(hd)
+    chip_smoke._flash_case(dtype, hd, 200, False, False, causal, None, g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("hd", [8, 20, 24, 96])
+def test_decode_kernels_any_head_dim(chip_smoke, dtype, hd):
+    """The slab and paged decode kernels at head dims that are not 16, 32,
+    64 or 128 (the next power-of-two instance; hd 20 at bf16 and float32
+    and hd 24 at bf16 are not whole 16-byte vectors: the scalar loads)
+    against their plain versions, caches bitwise."""
+    chip_smoke.decode_width_case(dtype, hd)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["slab", "paged"])
+@pytest.mark.parametrize("hd", [8, 96])
+def test_engine_any_head_dim_kernel_tokens_equal_plain(card, layout, hd):
+    """A DecodeEngine over a model of head_dim 8 or 96, which raised at
+    its first tick before (ROADMAP C4): float32, the kernel engine's
+    greedy tokens equal the plain engine's, with L decode launches a
+    tick."""
+    from paddle_tpu_torch import serving as TS
+    from paddle_tpu_torch.models import gpt as TG
+    from paddle_tpu_torch.ops import cuda_kernels as CK
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = TG.GPT_TINY.scaled(num_layers=2, max_seq_len=64,
+                             num_heads={8: 8, 96: 2}[hd],
+                             d_model={8: 64, 96: 192}[hd], d_ff=256)
+    assert cfg.head_dim == hd
+    params = TG.init_params(cfg, seed=hd, device=card)
+    ekw = dict(max_batch=4, max_seq=32, prefill_buckets=(8, 16),
+               kv_layout=layout, page_size=8)
+    prompts = [[5, 9, 2], [7, 7, 7, 1, 3, 3], list(range(1, 12))]
+    tokens = []
+    for fused in (True, False):
+        eng = TS.DecodeEngine(params, cfg,
+                              TS.EngineConfig(fused_decode=fused, **ekw),
+                              device=card)
+        slots, cur = {}, {}
+        for i, p in enumerate(prompts):
+            slots[i], logits = eng.start_sequence(p)
+            cur[i] = [int(np.argmax(logits))]
+        CK.reset_launches()
+        for _ in range(10):
+            out = eng.decode_step({slots[i]: cur[i][-1] for i in slots})
+            for i in slots:
+                cur[i].append(int(np.argmax(out[slots[i]])))
+        assert CK.LAUNCHES[f"decode_{layout}"] == (
+            10 * cfg.num_layers if fused else 0)
+        tokens.append(cur)
+    assert tokens[0] == tokens[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("nb", [1, 8, 50])
+def test_logits_head_wide_rows(chip_smoke, dtype, nb):
+    """logits_head at D 8,192 (past its shared-memory plan: the streamed
+    instance, ROADMAP C5) against its plain version."""
+    chip_smoke.logits_head_width_case(dtype, 8192, nb=nb)
 
 
 @pytest.mark.cuda
@@ -793,9 +887,9 @@ def test_training_wrappers_raise_on_inputs_the_kernels_do_not_take(card):
     from paddle_tpu_torch.ops import cuda_kernels as CK
     from paddle_tpu_torch.ops import flash_attention as FA
 
-    x = torch.zeros((1, 64, 2, 48), device=card)
+    x = torch.zeros((1, 64, 2, 160), device=card)
     with pytest.raises(ValueError, match="head_dim"):
-        FA.flash_fwd(x, x, x)
+        FA.flash_fwd(x, x, x)           # past 128: no instance (ROADMAP C4)
     x = torch.zeros((1, 64, 2, 64), device=card)
     with pytest.raises(TypeError):
         FA.flash_fwd(x.half(), x.half(), x.half())
@@ -814,15 +908,20 @@ def test_training_wrappers_raise_on_inputs_the_kernels_do_not_take(card):
         FL.fused_ln_fwd(x, one, one, residual=x.bfloat16())
     with pytest.raises(TypeError):
         FL.fused_ln_fwd(x, one, one, mask=x)
-    with pytest.raises(ValueError, match="exceeds"):
-        big = torch.zeros((2, 4096), device=card)
-        FL.fused_ln_bwd(big, torch.zeros(2, device=card),
-                        torch.ones(2, device=card),
-                        torch.ones(4096, device=card), big)
+    # D 4096 (past the backward's old 2048 cap) and a CE row of D 6 (not
+    # a whole 16-byte vector) now run on their kernels (ROADMAP C5)
+    big = torch.zeros((2, 4096), device=card)
+    FL.fused_ln_bwd(big, torch.zeros(2, device=card),
+                    torch.ones(2, device=card),
+                    torch.ones(4096, device=card), big)
     labels = torch.zeros(4, dtype=torch.int32, device=card)
-    with pytest.raises(ValueError, match="multiples"):
-        CE.ce_fwd(torch.zeros((4, 6), device=card),
-                  torch.zeros((6, 128), device=card), None, labels, 128, 128)
+    lse, gold = CE.ce_fwd(torch.zeros((4, 6), device=card),
+                          torch.zeros((6, 128), device=card), None, labels,
+                          128, 128)
+    torch.testing.assert_close(lse, torch.full_like(lse, float(np.log(128))))
+    with pytest.raises(ValueError, match="labels"):
+        CE.ce_fwd(x, torch.zeros((64, 128), device=card), None, labels[:3],
+                  128, 128)
     with pytest.raises(ValueError, match="dtype"):
         CE.ce_fwd(x, torch.zeros((64, 128), device=card).bfloat16(), None,
                   labels, 128, 128)

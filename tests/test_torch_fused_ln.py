@@ -219,29 +219,34 @@ def test_statistics_match_jax_stats():
 
 
 def test_fused_ln_plan_gives_every_accepted_width_an_instance():
-    """Every D the forward ever took (D·4 bytes within the 48 KB row
-    buffer: 0..12,288) gets a kernel instance, never a ValueError: on the
+    """Every D gets a kernel instance, never a ValueError: on the
     register path (D <= 2048) the lanes' columns cover the row (32 lanes x
     lane_elems >= D) with the fewest elements of the instance set, each a
     whole number of 16-byte vectors in bf16 and in float32; past it one
-    block a row. Past 12,288 it raises, as before."""
+    block a row with its float32 row in shared memory (ROW_SMEM) while
+    that fits a block's 227 KB; past that (the cap this plan raised at,
+    12,288, is gone) the two-pass block a row (ROW_TWO_PASS)."""
     for D in range(0, 12289):
         lane_elems = TFL.fused_ln_plan(D)
         if D > 2048:
-            assert lane_elems == 0
+            assert lane_elems == TFL.ROW_SMEM
             continue
         assert lane_elems in TFL._FWD_ELEMS and lane_elems % 8 == 0
         assert 32 * lane_elems >= D
         assert all(32 * e < D for e in TFL._FWD_ELEMS if e < lane_elems)
-    with pytest.raises(ValueError, match="row buffer"):
-        TFL.fused_ln_plan(12289)
+    last = TFL._FWD_SMEM_MAX // 4
+    assert TFL.fused_ln_plan(12289) == TFL.ROW_SMEM
+    assert TFL.fused_ln_plan(last) == TFL.ROW_SMEM
+    assert TFL.fused_ln_plan(last + 1) == TFL.ROW_TWO_PASS
+    assert TFL.fused_ln_plan(1 << 20) == TFL.ROW_TWO_PASS
 
 
 @pytest.mark.parametrize("R", [1, 7, 529, 16384, 100000])
 def test_ln_bwd_plan_covers_every_row_once(R):
-    """The backward's instance for every D it ever took (0..2048): lanes
-    cover the row on the register path (D <= 1024), one block a row past
-    it, and past 2048 it raises, as before. The grid is one wave (at most
+    """The backward's instance for every D: lanes cover the row on the
+    register path (D <= 1024), one block a row past it (ROW_SMEM), and
+    past 2048 (where this plan raised before) the block a row that walks
+    the row in chunks (ROW_TWO_PASS). The grid is one wave (at most
     SMs x blocks an SM), never a block without a row, and its row walkers
     (4 warps a block, or the block) take rows w, w + W, ... so every row
     0..R-1 falls to exactly one walker, each walker ceil(R / W) or one
@@ -249,14 +254,14 @@ def test_ln_bwd_plan_covers_every_row_once(R):
     for D in range(0, 2049):
         lane_elems = TFL.ln_bwd_plan(D)
         if D > 1024:
-            assert lane_elems == 0
+            assert lane_elems == TFL.ROW_SMEM
         else:
             assert lane_elems in TFL._BWD_ELEMS and 32 * lane_elems >= D
             assert all(32 * e < D for e in TFL._BWD_ELEMS if e < lane_elems)
-    with pytest.raises(ValueError, match="exceeds 2048"):
-        TFL.ln_bwd_plan(2049)
-    for lane_elems in (24, 0):
-        per = TFL.WARPS if lane_elems else 1
+    for D in (2049, 2560, 4096, 20000):
+        assert TFL.ln_bwd_plan(D) == TFL.ROW_TWO_PASS
+    for lane_elems in (24, TFL.ROW_SMEM, TFL.ROW_TWO_PASS):
+        per = TFL.WARPS if lane_elems > 0 else 1
         for sms, bps in ((132, 4), (132, 1), (2, 3), (132, 5)):
             blocks = TFL.ln_bwd_grid(R, lane_elems, sms, bps)
             assert 1 <= blocks <= sms * bps

@@ -198,8 +198,15 @@ def test_logits_head_plan_covers_every_row(B, esz):
 
 
 def test_logits_head_plan_refuses_rows_that_cannot_fit():
-    with pytest.raises(ValueError, match="227 KB"):
-        CK.logits_head_plan(8, 16384, 1000, 4)
+    """Rows too wide for 16 of them beside the weight ring in 227 KB,
+    which this plan refused before, now take the streamed instance: the
+    normed rows stream through the ring in [bm, 32] slabs beside the
+    weight, so the block fits at any D; narrower rows keep the
+    shared-memory instance."""
+    plan = CK.logits_head_plan(8, 16384, 1000, 4)
+    assert plan["stream_rows"] and plan["bm"] == 16
+    assert plan["smem"] == 4 * 32 * (128 + 4) * 4 + 4 * 16 * (32 + 4) * 4
+    assert not CK.logits_head_plan(8, 768, 1000, 4)["stream_rows"]
 
 
 def test_cpu_tensors_take_plain_versions():
