@@ -31,11 +31,18 @@ Phases, each of which raises (and the script exits non-zero) on failure:
 3w. widths — the widths the reference takes that the port once raised
              on (ROADMAP C4, C5), one small case each, bf16 and float32,
              against the plain versions: flash at head_dim 24, 48, 80,
-             96 (padded to the next instance), the slab and paged decode
-             kernels at hd 8, 20, 96 (the next power-of-two instance),
-             the fused-LN forward and backward at D 2,560 to 65,536 (the
-             backward's looped block a row, the forward's two-pass one),
-             logits_head at D 8,192 (the streamed instance);
+             96 (padded to the next instance) and 160, 256, 320 (the
+             split route; also its bias forms: a random bias a head with
+             SQ = T, causal, and a padding bias a batch row with SQ = 1),
+             the slab and paged decode kernels at hd 8, 20, 96 (the next
+             power-of-two instance) and 160, 256, 320 (the split route),
+             caches bitwise, the fused-LN forward and backward at D 2,560
+             to 65,536 (the backward's looped block a row, the forward's
+             two-pass one), logits_head at D 8,192 (the streamed
+             instance); then the flash split route's forward, dQ and
+             dK/dV timed at [16, 1024, 8, 256] causal bf16 beside SDPA,
+             and the decode pair's at [8, 1024, 4, 256] (every lane at
+             1023) beside SDPA on the slab and on the gathered view;
 4. serving — a GPT_SMALL bf16 engine (seed weights, max_batch 8, max_seq
              1024, buckets 64..512) serves 16 seeded greedy requests
              through Scheduler + EngineLoop; every request must finish
@@ -48,6 +55,22 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              decode_slab, exactly 7 prefix-cache hits, 7 x 256 prompt
              tokens not prefilled, and every page back in the pool after
              the cache is cleared;
+4s. serve-spec — speculative decoding at full width: target GPT_SMALL
+             bf16 with verify_window 4, draft GPT_SMALL at 3 layers from
+             seed 1 (k 3), phase 4's 16 prompts x 64 greedy tokens through
+             Scheduler + EngineLoop: every request done; launches exactly
+             fused_ln 2 x 3, decode_slab 3, logits_head 1 a draft tick and
+             none for the target's verify; the spec histogram's count
+             equal to the windows; tokens/s, TTFT, TPOT, acceptance rate,
+             tokens a window, verify ms and draft tick ms printed beside
+             phase 4's;
+4q. serve-int8 — GPT_SMALL with int8 weights (chunk 256): weight_nbytes
+             and resident bytes (memory_allocated growth across
+             construction, f32 truth dropped, KV cache excluded) below
+             bf16's / 1.9; phase 4's traffic with phase 4's launch counts;
+             a 256-token teacher-forced stream of decode logits against
+             the f32 engine within the reference's bars (max_rel_err <
+             0.06, perplexity drift < 0.02), top-1 agreement printed;
 5. parity  — a 2-layer GPT_SMALL in float32 (TF32 off): prefill logits
              within 1e-4 of the full forward, and the slab and paged
              kernel engines and the plain-PyTorch engines must emit
@@ -56,6 +79,11 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              with logits within 1e-4 of the first; two requests on a
              10-page pool are preempted and resumed and still emit the
              slab engine's tokens;
+5s. spec-parity — the same model, slab and paged, k 3: a self-draft spec
+             engine emits the target-alone kernel engine's greedy tokens
+             with acceptance exactly 1.0 and 4 tokens a window; the kernel
+             spec engine with a 1-layer draft emits the plain spec
+             engine's (fused_decode=False) tokens, token for token;
 6. train kernels — flash forward, dQ, dK/dV against their plain versions
              at the training path's shapes (q/k/v [16, 1024, 12, 64]
              sliced from one packed qkv, causal) in bf16 (each element
@@ -602,21 +630,24 @@ def _pct(vals, q):
     return float(np.percentile(np.asarray(vals, np.float64), q))
 
 
-def _serve(eng, prompts, tag: str):
+def _serve(eng, prompts, tag: str, ticker=None):
     """Serve ``prompts`` (64 greedy tokens each) through Scheduler +
     EngineLoop with every launch count zeroed just before; check that each
     request finished "done" with 64 in-vocabulary tokens and that the
-    launches are exactly what the decode ticks imply (fused_ln 2L,
-    decode_slab or decode_paged L, logits_head 1 a tick). Returns (the
-    launch counts, the requests)."""
+    launches are exactly what the decode ticks of ``ticker`` (the engine
+    whose ticks run the kernels: ``eng``, or a speculative engine's draft)
+    imply (fused_ln 2L, decode_slab or decode_paged L, logits_head 1 a
+    tick, L its layers). Returns (the launch counts, the requests, the
+    end-to-end numbers)."""
     from paddle_tpu_torch.ops import cuda_kernels as CK
     from paddle_tpu_torch.serving import EngineLoop, Scheduler
 
     cfg = eng.cfg
+    ticker = ticker or eng
     sched = Scheduler(eng, device="cuda")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ticks0 = eng.decode_ticks
+    ticks0 = ticker.decode_ticks
     CK.reset_launches()
     loop = EngineLoop(sched).start()
     t0 = time.perf_counter()
@@ -631,13 +662,13 @@ def _serve(eng, prompts, tag: str):
         loop.stop()
     wall = time.perf_counter() - t0
     launches = dict(CK.LAUNCHES)
-    ticks = eng.decode_ticks - ticks0
+    ticks = ticker.decode_ticks - ticks0
     bad = [(r.id, r.state, r.error) for r in reqs if r.state != "done"]
     if bad:
         raise AssertionError(f"requests not done: {bad}")
     if loop.faults:
         raise AssertionError(f"engine loop faults: {loop.last_fault}")
-    L = cfg.num_layers
+    L = ticker.cfg.num_layers
     want = dict.fromkeys(CK.LAUNCHES, 0)
     want.update({"fused_ln": 2 * L * ticks, "logits_head": ticks,
                  ("decode_paged" if eng.paged else "decode_slab"): L * ticks})
@@ -652,42 +683,56 @@ def _serve(eng, prompts, tag: str):
         raise AssertionError("a generated token lies outside the vocabulary")
     ttft = [r.ttft_ms for r in reqs]
     tpot = [r.tpot_ms for r in reqs]
+    e2e = {"tok_s": ntok / wall, "ttft_ms_p50": _pct(ttft, 50),
+           "ttft_ms_p99": _pct(ttft, 99), "tpot_ms_p50": _pct(tpot, 50)}
     print(f"[{tag}] {n} requests done, {ntok} tokens in {wall:.3f} s "
           f"({ntok / wall:.1f} tok/s), {ticks} decode ticks")
-    print(f"[{tag}] ttft_ms p50={_pct(ttft, 50):.3f} "
-          f"p99={_pct(ttft, 99):.3f}; tpot_ms p50={_pct(tpot, 50):.3f}; "
+    print(f"[{tag}] ttft_ms p50={e2e['ttft_ms_p50']:.3f} "
+          f"p99={e2e['ttft_ms_p99']:.3f}; tpot_ms "
+          f"p50={e2e['tpot_ms_p50']:.3f}; "
           f"peak_mem_bytes={torch.cuda.max_memory_allocated()}")
     print(f"[{tag}] launches {launches}")
-    return launches, reqs
+    return launches, reqs, e2e
 
 
-def _serving_engine(kv_layout: str):
+def _serving_engine(kv_layout: str, weight_dtype: str = "bf16",
+                    cfg=None, seed: int = 0, warm: bool = True, **kw):
+    """A GPT_SMALL (or ``cfg``) serving engine from seed weights: 8 slots,
+    max_seq 1024, buckets 64-512, the kernel tick; its float32 truth
+    dropped; ``kw`` more EngineConfig fields."""
     from paddle_tpu_torch.models.gpt import GPT_SMALL, init_params
     from paddle_tpu_torch.serving import DecodeEngine, EngineConfig
 
-    params = init_params(GPT_SMALL, seed=0, device="cuda")
+    cfg = cfg or GPT_SMALL
+    params = init_params(cfg, seed=seed, device="cuda")
     ecfg = EngineConfig(max_batch=B, max_seq=S,
                         prefill_buckets=(64, 128, 256, 512),
-                        weight_dtype="bf16", fused_decode=True,
-                        kv_layout=kv_layout, page_size=PAGE)
-    eng = DecodeEngine(params, GPT_SMALL, ecfg, device="cuda")
+                        weight_dtype=weight_dtype, fused_decode=True,
+                        kv_layout=kv_layout, page_size=PAGE, **kw)
+    eng = DecodeEngine(params, cfg, ecfg, device="cuda")
     del params
-    warm = eng.warmup()
-    print(f"[{kv_layout}] warmup ms: " + ", ".join(
-        f"{k}={v:.1f}" for k, v in warm.items()))
+    eng.drop_reference_params()
+    if warm:
+        times = eng.warmup()
+        print(f"[{kv_layout} {weight_dtype}] warmup ms: " + ", ".join(
+            f"{k}={v:.1f}" for k, v in times.items()))
     return eng
+
+
+def _phase4_prompts(V: int):
+    """Phase 4's 16 seeded prompts of 16-400 tokens."""
+    rng = np.random.default_rng(0)
+    lens = rng.integers(16, 401, size=16)
+    return [rng.integers(0, V, size=int(n)).tolist() for n in lens]
 
 
 def phase_serving():
     """GPT_SMALL bf16, slab layout, through Scheduler + EngineLoop; returns
-    the launch counts of the run."""
+    the launch counts and the end-to-end numbers of the run."""
     eng = _serving_engine("slab")
-    rng = np.random.default_rng(0)
-    lens = rng.integers(16, 401, size=16)
-    prompts = [rng.integers(0, eng.cfg.vocab_size, size=int(n)).tolist()
-               for n in lens]
-    launches, _ = _serve(eng, prompts, "serving")
-    return launches
+    launches, _, e2e = _serve(eng, _phase4_prompts(eng.cfg.vocab_size),
+                              "serving")
+    return launches, e2e
 
 
 def phase_serving_paged():
@@ -710,7 +755,7 @@ def phase_serving_paged():
               for n in rng.integers(16, 401, size=8)]
     prompts = [(shared + unique)[i] for i in rng.permutation(16)]
     hits0, tok0 = eng.prefix.hits, smetrics.m_prefill_tokens.value
-    launches, _ = _serve(eng, prompts, "serve-paged")
+    launches, _, _ = _serve(eng, prompts, "serve-paged")
     hits = eng.prefix.hits - hits0
     prefilled = int(smetrics.m_prefill_tokens.value - tok0)
     want = sum(len(p) for p in prompts) - 7 * 256
@@ -834,6 +879,210 @@ def phase_parity():
         raise AssertionError("the 10-page pool never preempted")
     print(f"[parity] 10-page pool: {sched.preemptions} preemption(s), both "
           "64-token streams equal the slab engine's")
+
+
+SPEC_K = 3               # the spec lanes' proposals a window (W = 4)
+
+
+def phase_serving_spec(alone: dict):
+    """Phase 4s: speculative decoding at full width. Target GPT_SMALL bf16
+    (verify window 4), draft GPT_SMALL at 3 layers from seed 1 (the
+    reference's spec lane, tools/serve_bench.py:173-183), phase 4's 16
+    prompts x 64 greedy tokens through Scheduler + EngineLoop. Gates: every
+    request done with 64 in-vocabulary tokens; the kernels launch exactly
+    as the draft's ticks imply (fused_ln 2 x 3, decode_slab 3, logits_head
+    1 a tick) and the target's verify launches none of them; the spec
+    histogram's count moves by ``stats.windows``. Prints the end-to-end
+    numbers beside phase 4's (``alone``), the acceptance rate, tokens a
+    window, the verify step's ms and the draft tick's ms. Returns the
+    launch counts."""
+    from paddle_tpu_torch.models.gpt import GPT_SMALL
+    from paddle_tpu_torch.serving import SpecDecodeEngine
+    from paddle_tpu_torch.serving import metrics as smetrics
+    from paddle_tpu_torch.tools.profile_decode import _Clock
+
+    target = _serving_engine("slab", warm=False, verify_window=SPEC_K + 1)
+    draft = _serving_engine("slab", cfg=GPT_SMALL.scaled(num_layers=3),
+                            seed=1, warm=False)
+    spec = SpecDecodeEngine(target, draft)
+    spec.warmup()
+    hist0 = smetrics.m_spec_accepted._unlabeled().count
+    ticks0, verify0 = target.decode_ticks, target.verify_steps
+    dclock = _Clock(draft, "decode_step_sampled")
+    vclock = _Clock(target, "verify_step")
+    launches, _, e2e = _serve(spec, _phase4_prompts(GPT_SMALL.vocab_size),
+                              "serve-spec", ticker=draft)
+    st = spec.stats
+    dticks = draft.decode_ticks
+    nver = target.verify_steps - verify0
+    hist = smetrics.m_spec_accepted._unlabeled().count - hist0
+    if target.decode_ticks != ticks0 or nver <= 0 or hist != st.windows:
+        raise AssertionError(
+            f"spec: target ticks {target.decode_ticks - ticks0} (want 0), "
+            f"verify steps {nver}, histogram count {hist} != windows "
+            f"{st.windows}")
+    rec = {**e2e, "acceptance_rate": st.acceptance_rate,
+           "tokens_per_window": st.tokens_per_window,
+           "verify_ms": vclock.ms / nver,
+           "draft_tick_ms": dclock.ms / max(dticks, 1),
+           "verify_steps": nver, "draft_ticks": dticks}
+    print("[serve-spec] " + ", ".join(f"{k}={v:.6g}" for k, v in
+                                      rec.items()))
+    print("[serve-spec] target alone (phase 4): " + ", ".join(
+        f"{k}={v:.6g}" for k, v in alone.items()))
+    print(json.dumps({"serve_spec": rec, "serve_alone": alone}))
+    return launches
+
+
+def _teacher_stream(eng, seq):
+    """Decode logits [len(seq), V] of a teacher-forced token stream."""
+    slot, l0 = eng.start_sequence(seq[:1])
+    rows = [l0]
+    for t in seq[1:]:
+        rows.append(eng.decode_step({slot: t})[slot])
+    eng.free_sequence(slot)
+    return np.stack(rows)
+
+
+def _resident_weights(weight_dtype: str):
+    """(engine, weight_nbytes, growth of torch.cuda.memory_allocated()
+    across the construction of a GPT_SMALL slab engine with its float32
+    truth dropped, less its KV cache's bytes)."""
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated()
+    eng = _serving_engine("slab", weight_dtype, warm=False)
+    gc.collect()
+    torch.cuda.synchronize()
+    kv = eng.cache.k.nbytes + eng.cache.v.nbytes
+    return eng, eng.weight_nbytes, torch.cuda.memory_allocated() - m0 - kv
+
+
+def phase_serving_int8():
+    """Phase 4q: int8 serving weights at full width. Residency: the
+    weight_nbytes and the resident bytes (memory_allocated growth across
+    construction, f32 truth dropped, KV cache excluded) of GPT_SMALL at
+    int8 below bf16's / 1.9. Phase 4's traffic through an int8 slab
+    engine: every request done, phase 4's launch counts. Quality: a
+    256-token teacher-forced stream of decode logits against the f32
+    engine: max_rel_err < INT8_LOGIT_TOL (0.06), perplexity drift <
+    INT8_PPL_REL_TOL (0.02); top-1 agreement printed. Returns the launch
+    counts."""
+    from paddle_tpu_torch.serving import quant
+
+    bf16, b_nbytes, b_res = _resident_weights("bf16")
+    del bf16
+    eng, q_nbytes, q_res = _resident_weights("int8")
+    print(f"[serve-int8] weights: bf16 weight_nbytes={b_nbytes} resident="
+          f"{b_res}; int8 weight_nbytes={q_nbytes} resident={q_res}")
+    if not (q_nbytes < b_nbytes / 1.9 and q_res < b_res / 1.9):
+        raise AssertionError(f"int8 residency {q_nbytes} / {q_res} not "
+                             f"below bf16's {b_nbytes} / {b_res} / 1.9")
+    # the forward's dequantization into bf16 (one product a leaf) is the
+    # float32 dequantization rounded once, bit for bit, on the card
+    for name, leaf in eng.qparams["blocks"].items():
+        if not torch.equal(leaf.layer(0, torch.bfloat16),
+                           leaf.layer(0).to(torch.bfloat16)):
+            raise AssertionError(f"int8 {name}: the bf16 dequantization is "
+                                 "not the float32 one rounded once")
+    times = eng.warmup()
+    print("[serve-int8] warmup ms: " + ", ".join(
+        f"{k}={v:.1f}" for k, v in times.items()))
+    V = eng.cfg.vocab_size
+    launches, _, e2e = _serve(eng, _phase4_prompts(V), "serve-int8")
+    seq = np.random.default_rng(7).integers(0, V, size=256).tolist()
+    s8 = _teacher_stream(eng, seq)
+    del eng
+    f32 = _serving_engine("slab", "f32", warm=False)
+    ref = _teacher_stream(f32, seq)
+    del f32
+    stats = quant.logit_error_stats(ref, s8)
+    drift = abs(quant.perplexity(s8[:-1], seq[1:])
+                / quant.perplexity(ref[:-1], seq[1:]) - 1.0)
+    rec = {**e2e, **stats, "ppl_drift": drift, "weight_nbytes": q_nbytes,
+           "resident_bytes": q_res, "bf16_weight_nbytes": b_nbytes,
+           "bf16_resident_bytes": b_res}
+    print("[serve-int8] " + ", ".join(f"{k}={v:.6g}" for k, v in
+                                      rec.items()))
+    print(json.dumps({"serve_int8": rec}))
+    if not (stats["max_rel_err"] < quant.INT8_LOGIT_TOL
+            and drift < quant.INT8_PPL_REL_TOL):
+        raise AssertionError(f"int8 quality: {stats}, ppl drift {drift}")
+    return launches
+
+
+def phase_spec_parity():
+    """Phase 5s: a 2-layer GPT_SMALL in float32 (TF32 off), slab and
+    paged. A self-draft spec engine (draft = target) emits the target-
+    alone kernel engine's greedy tokens, accepts every proposal (rate
+    exactly 1.0) and emits k + 1 tokens a window; the kernel spec engine
+    with a 1-layer draft (seed 2) emits the plain spec engine's tokens
+    (``fused_decode=False``), token for token, and the target's."""
+    from paddle_tpu_torch.models.gpt import GPT_SMALL, init_params
+    from paddle_tpu_torch.serving import (GREEDY, DecodeEngine,
+                                          EngineConfig, SpecDecodeEngine)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = GPT_SMALL.scaled(num_layers=2, dtype=torch.float32)
+    dcfg = cfg.scaled(num_layers=1)
+    params = init_params(cfg, seed=1, device="cuda")
+    dparams = init_params(dcfg, seed=2, device="cuda")
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, size=int(n)).tolist()
+               for n in (5, 17, 40, 100)]
+    n_tok = 32
+
+    def engine(p, c, layout, fused, **kw):
+        return DecodeEngine(p, c, EngineConfig(
+            max_batch=4, max_seq=256, prefill_buckets=(64, 128),
+            kv_layout=layout, page_size=PAGE, fused_decode=fused, **kw),
+            device="cuda")
+
+    def streams(eng):
+        slots, toks = {}, {}
+        for i, p in enumerate(prompts):
+            slots[i], _l, tok = eng.start_sequence_sampled(p, GREEDY)
+            toks[i] = [tok]
+        while any(len(t) < n_tok for t in toks.values()):
+            live = {i: s for i, s in slots.items() if len(toks[i]) < n_tok}
+            out = eng.generate_step({s: toks[i][-1]
+                                     for i, s in live.items()})
+            for i, s in live.items():
+                toks[i].extend(out[s])
+        for s in slots.values():
+            eng.free_sequence(s)
+        return {i: t[:n_tok] for i, t in toks.items()}
+
+    W = SPEC_K + 1
+    for layout in ("slab", "paged"):
+        alone = streams(engine(params, cfg, layout, True))
+        self_spec = SpecDecodeEngine(
+            engine(params, cfg, layout, True, verify_window=W),
+            engine(params, cfg, layout, True))
+        got = streams(self_spec)
+        st = self_spec.stats
+        if (got != alone or st.acceptance_rate != 1.0
+                or st.tokens_per_window != W):
+            raise AssertionError(
+                f"spec parity {layout}: self-draft tokens equal "
+                f"{got == alone}, acceptance {st.acceptance_rate}, tokens "
+                f"a window {st.tokens_per_window} (want {W})")
+        runs = {}
+        for fused in (True, False):
+            spec = SpecDecodeEngine(
+                engine(params, cfg, layout, fused, verify_window=W),
+                engine(dparams, dcfg, layout, fused))
+            runs[fused] = (streams(spec), spec.stats.acceptance_rate)
+        if not runs[True][0] == runs[False][0] == alone:
+            raise AssertionError(f"spec parity {layout}: kernel spec, plain "
+                                 "spec and target-alone tokens differ")
+        print(f"[spec-parity] {layout}: self-draft acceptance 1.0, {W} "
+              f"tokens a window, tokens = target alone; 1-layer draft "
+              f"(acceptance {runs[True][1]:.3f}): kernel spec = plain spec "
+              f"= target alone, 4 prompts x {n_tok} tokens (f32)")
 
 
 def bf16_check(name, got, want) -> float:
@@ -1482,6 +1731,9 @@ def _sweep_check(mdt, time_it: bool):
 # plan (the streamed instance)
 WIDTH_FLASH_HDS = (24, 48, 80, 96)
 WIDTH_DECODE_HDS = (8, 20, 96)
+# head dims past 128 (what was left of ROADMAP C4): the split route of the
+# flash and decode kernels, at T 200 (flash) and the decode shapes above
+WIDE_HDS = (160, 256, 320)
 WIDTH_LN = ((3, 16384), (2, 20000), (2, 65536), (5, 2560), (4, 4096))
 WIDTH_LH_D = 8192
 
@@ -1570,6 +1822,108 @@ def logits_head_width_case(dtype, D, nb=8, V=4000) -> float:
     return err.max().item()
 
 
+def wide_flash_bias_cases(dtype, hd, g) -> float:
+    """The flash split route's bias forms at ``hd``: a random bias a head
+    with SQ = T, causal, and a padding bias a batch row with SQ = 1, full
+    (:func:`_flash_case`, T 200). Returns the max abs error."""
+    return max(_flash_case(dtype, hd, 200, True, False, True, "random", g),
+               _flash_case(dtype, hd, 200, False, True, False, "pad", g))
+
+
+WIDE_SHAPE = (16, 1024, 8, 256)      # causal GPT-style, hd 256
+WIDE_DECODE = (8, 1024, 4, 256, 4)   # B, max_seq, nh, hd, layers
+
+
+def wide_decode_timing() -> dict:
+    """The decode split route at hd 256: slab caches [8, 1024, 4, 256]
+    and pools [513, 16, 4, 256] (tables a seeded permutation of pages
+    1..512) over 4 layers, bf16, every lane at position 1023, graph-timed
+    beside SDPA on the slab (and the paged view gathered, and SDPA), with
+    each call's bound. Returns the record."""
+    from paddle_tpu_torch.ops import cuda_kernels as CK
+
+    Bd, Sd, nh, hd, L = WIDE_DECODE
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(257)
+    name = torch.cuda.get_device_name(0)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    qkv = randn(Bd, 3, nh, hd)
+    q, nk, nv = qkv[:, 0], qkv[:, 1], qkv[:, 2]
+    pos_np = np.full(Bd, Sd - 1, np.int32)
+    act_np = np.ones(Bd, np.int32)
+    pos = torch.from_numpy(pos_np).to(dev)
+    act = torch.from_numpy(act_np).to(dev)
+    kc, vc = randn(L, Bd, Sd, nh, hd), randn(L, Bd, Sd, nh, hd)
+    M = Sd // PAGE
+    tab_np = (1 + np.random.default_rng(257).permutation(Bd * M)).astype(
+        np.int32).reshape(Bd, M)
+    tables = torch.from_numpy(tab_np).to(dev)
+    kp, vp = (randn(L, Bd * M + 1, PAGE, nh, hd) for _ in range(2))
+    rec = {"decode_slab": {
+        "ms": _time_graph_ms(_over_layers(
+            lambda i: CK.fused_decode_attention(q, kc[i], vc[i], nk, nv, pos,
+                                                act), L), 2 * L),
+        "library_ms": _time_graph_ms(_over_layers(
+            _slab_sdpa(q, kc, vc, pos), L), 2 * L)},
+        "decode_paged": {
+        "ms": _time_graph_ms(_over_layers(
+            lambda i: CK.fused_paged_decode_attention(
+                q, kp[i], vp[i], nk, nv, tables, pos), L), 2 * L),
+        "library_ms": _time_graph_ms(_over_layers(
+            _gather_sdpa(q, kp, vp, tables, pos), L), 2 * L)}}
+    for kname, (b, by) in (
+            ("decode_slab", _slab_bound(pos_np, act_np, nh, hd, 2, name)),
+            ("decode_paged", _paged_bound(tab_np, pos_np, nh, hd, 2, name))):
+        rec[kname].update(bound_ms=b, bound_by=by)
+    print(f"[widths] decode split route hd 256 {list(WIDE_DECODE[:4])} "
+          f"pos {Sd - 1} bf16: " + json.dumps(rec))
+    return rec
+
+
+def wide_flash_timing() -> dict:
+    """The flash split route at hd 256, [16, 1024, 8, 256] causal bf16:
+    the forward, dQ and dK/dV (eager: each runs for milliseconds) beside
+    SDPA's forward and backward on the same inputs, with each kernel's
+    bound. Returns the record."""
+    from paddle_tpu_torch.observability.hw import bound_ms
+    from paddle_tpu_torch.ops import flash_attention as FA
+
+    Bw, Tw, nh, hd = WIDE_SHAPE
+    g = torch.Generator(device="cuda")
+    g.manual_seed(256)
+    q, k, v, do = (torch.randn(WIDE_SHAPE, generator=g, device="cuda")
+                   .to(torch.bfloat16) for _ in range(4))
+    o, lse = FA.flash_fwd(q, k, v)
+    _dq, di = FA.flash_bwd_dq(q, k, v, o, lse, do, return_di=True)
+    act = Bw * Tw * nh * hd * 2
+    lse_b = Bw * nh * Tw * 4
+    pairs = Bw * nh * Tw * (Tw + 1) // 2
+    name = torch.cuda.get_device_name(0)
+    rec = {}
+    for kname, n_act, n_f32, n_mm, fn in (
+            ("flash_fwd", 4, 1, 2, lambda: FA.flash_fwd(q, k, v)),
+            ("flash_bwd_dq", 6, 1, 3,
+             lambda: FA.flash_bwd_dq(q, k, v, o, lse, do)),
+            ("flash_bwd_dkv", 6, 2, 4,
+             lambda: FA.flash_bwd_dkv(q, k, v, o, lse, do, di=di))):
+        b, by = bound_ms(n_act * act + n_f32 * lse_b, 2 * hd * n_mm * pairs,
+                         "bf16", name)
+        rec[kname] = {"ms": _time_ms(fn, iters=5, warmup=1),
+                      "bound_ms": b, "bound_by": by}
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    rec["sdpa_fwd_ms"] = _time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True), iters=10, warmup=2)
+    rec["sdpa_bwd_ms"] = _sdpa_bwd_ms(qt, kt, vt, do.transpose(1, 2), True,
+                                      None)
+    print(f"[widths] flash split route hd 256 {list(WIDE_SHAPE)} causal "
+          f"bf16: " + json.dumps(rec))
+    return rec
+
+
 def phase_widths(dtype) -> float:
     """Phase 3w: every :data:`WIDTH_FLASH_HDS` / :data:`WIDTH_DECODE_HDS`
     / :data:`WIDTH_LN` / :data:`WIDTH_LH_D` case runs on a hand kernel and
@@ -1581,9 +1935,11 @@ def phase_widths(dtype) -> float:
     g = torch.Generator(device=torch.device("cuda"))
     g.manual_seed(31)
     err = {"flash": max(_flash_case(dtype, hd, 200, False, False, True, None,
-                                    g) for hd in WIDTH_FLASH_HDS),
+                                    g) for hd in WIDTH_FLASH_HDS + WIDE_HDS),
+           "flash_bias_wide": max(wide_flash_bias_cases(dtype, hd, g)
+                                  for hd in WIDE_HDS),
            "decode": max(decode_width_case(dtype, hd)
-                         for hd in WIDTH_DECODE_HDS),
+                         for hd in WIDTH_DECODE_HDS + WIDE_HDS),
            "fused_ln": max(ln_small_case(dtype, R, D, 0, 1e-5)
                            for R, D in WIDTH_LN),
            "logits_head": logits_head_width_case(dtype, WIDTH_LH_D)}
@@ -2271,12 +2627,16 @@ def main() -> int:
     f32 = phase_kernels(torch.float32, time_it=True)
     widths = {str(dt): phase_widths(dt)
               for dt in (torch.bfloat16, torch.float32)}
-    # each kernel's launches summed over the serving paths (slab, paged);
-    # each path printed and asserted its own counts above
-    launches = phase_serving()
-    for k, v in phase_serving_paged().items():
-        launches[k] += v
+    wide = {**wide_flash_timing(), **wide_decode_timing()}
+    # each kernel's launches summed over the serving paths (slab, paged,
+    # speculative, int8); each path printed and asserted its own counts
+    launches, alone = phase_serving()
+    for path in (phase_serving_paged, lambda: phase_serving_spec(alone),
+                 phase_serving_int8):
+        for k, v in path().items():
+            launches[k] += v
     phase_parity()
+    phase_spec_parity()
     decode_ln = recs["fused_ln"]
     recs.update(phase_train_kernels(torch.bfloat16, time_it=True))
     # the decode tick's plain form [8, 768] beside the training shapes
@@ -2322,7 +2682,7 @@ def main() -> int:
         if name in ("decode_slab", "decode_paged"):
             kernels[-1]["f32"] = {k: v for k, v in f32[name].items()
                                   if k != "sweep"}
-    print(json.dumps({"widths_max_abs_err": widths}))
+    print(json.dumps({"widths_max_abs_err": widths, "wide_hd256": wide}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -62,6 +62,16 @@
 // 1024 the grid is 1,536 blocks, of which only those whose chunk starts
 // at or before pos load rows), and the merge's serial loop over the
 // splits; the workspace traffic is (hd + 2) floats a chunk.
+//
+// Head dims past 128 (the reference's kernels take hd from the cache
+// shape) take the split route, decode_wide_kernel: the head dim is split
+// into column blocks of kWideCols = 128, a grid dimension (folded into x
+// beside the chunks) walks them, and each block scores its rows over the
+// whole hd (a warp a row, lanes over the columns, one shuffle sum) but
+// accumulates only its own 128 output columns; the scores are computed
+// again in every column block. Registers and shared memory stay at the
+// size of the HD-128 instance, so one instance a dtype pair serves every
+// hd. The merge runs one block per (head, lane, column block).
 #pragma once
 
 #include <type_traits>
@@ -297,6 +307,114 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// The split route for hd > 128: grid (nsplit * ncb, nh, B), block
+// (chunk s, column block cb) = blockIdx.x / ncb, % ncb. Every block of a
+// chunk scores the chunk's rows over all hd; warp w takes rows w, w + 4,
+// ..., its lanes columns lane, lane + 32, ... (one element each, any hd,
+// no alignment), and keeps an online softmax in float32 with the
+// accumulators of its column block's 128 columns (4 a lane). Column block
+// 0 writes the new row (every block substitutes it, rounded through the
+// cache dtype, wherever a row's address is the write address) and the
+// partial's (m, l); each block writes its columns of o.
+constexpr int kWideCols = 128;
+
+template <typename TQ, typename TC, typename Rows>
+__global__ void __launch_bounds__(kThreads)
+    decode_wide_kernel(const TQ* __restrict__ q, const TQ* __restrict__ new_k,
+                       const TQ* __restrict__ new_v, long long row_stride,
+                       TC* k_cache, TC* v_cache,
+                       const int* __restrict__ positions, const Rows rows_in,
+                       float* __restrict__ part, int nh, int hd, int chunk,
+                       int nsplit, int ncb, float sm_scale) {
+  constexpr int kPer = kWideCols / 32;   // output columns a lane
+  extern __shared__ int staged[];
+  __shared__ float wm[kWarps], wl[kWarps], wo[kWarps][kWideCols];
+
+  const int s = blockIdx.x / ncb, cb = blockIdx.x % ncb;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int pos = positions[b];
+  const int c0 = s * chunk;
+  Rows rows = rows_in;
+  if (pos < 0 || pos >= rows.rows() || c0 > pos) return;
+  const int W = hd + 2;
+  float* pp = part + ((static_cast<size_t>(b) * nh + h) * nsplit + s) * W;
+  if (!rows.bind(b, pos, c0, chunk, staged)) {
+    if (s == 0 && cb == 0 && threadIdx.x == 0) pp[1] = -1.f;
+    return;
+  }
+  const size_t head = static_cast<size_t>(h) * hd;
+  const size_t in_off = static_cast<size_t>(b) * row_stride + head;
+  const int end = min(chunk, pos + 1 - c0);
+  const bool wr = rows.writes(b);
+  if (wr && pos - c0 < chunk && cb == 0) {
+    const size_t w = rows.wrow + head;
+    for (int d = threadIdx.x; d < hd; d += kThreads) {
+      k_cache[w + d] = ptt::from_f32<TC>(ptt::to_f32(new_k[in_off + d]));
+      v_cache[w + d] = ptt::from_f32<TC>(ptt::to_f32(new_v[in_off + d]));
+    }
+  }
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int d0 = cb * kWideCols;
+  const TC* kh = k_cache + head;
+  const TC* vh = v_cache + head;
+  float m = -CUDART_INF_F, l = 0.f, o[kPer];
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) o[i] = 0.f;
+  for (int r = warp; r < end; r += kWarps) {
+    const size_t off = rows.row(r);
+    const bool sub = wr && off == rows.wrow;   // row pos, or an alias
+    float acc = 0.f;
+    for (int d = lane; d < hd; d += 32) {
+      const float kd =
+          sub ? ptt::to_f32(ptt::from_f32<TC>(ptt::to_f32(new_k[in_off + d])))
+              : ptt::to_f32(kh[off + d]);
+      acc = fmaf(ptt::to_f32(q[in_off + d]), kd, acc);
+    }
+    const float sc = ptt::warp_sum(acc) * sm_scale;
+    const float mn = fmaxf(m, sc);
+    const float corr = expf(m - mn);           // 0 while m is -inf
+    const float p = expf(sc - mn);
+    l = fmaf(l, corr, p);
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int d = d0 + lane + 32 * i;
+      float vd = 0.f;
+      if (d < hd)
+        vd = sub ? ptt::to_f32(
+                       ptt::from_f32<TC>(ptt::to_f32(new_v[in_off + d])))
+                 : ptt::to_f32(vh[off + d]);
+      o[i] = fmaf(p, vd, o[i] * corr);
+    }
+    m = mn;
+  }
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) wo[warp][lane + 32 * i] = o[i];
+  if (lane == 0) {
+    wm[warp] = m;
+    wl[warp] = l;
+  }
+  __syncthreads();
+  const int d = d0 + threadIdx.x;
+  if (threadIdx.x < kWideCols && d < hd) {
+    float M = -CUDART_INF_F;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) M = fmaxf(M, wm[w]);
+    float L = 0.f, O = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      if (wm[w] == -CUDART_INF_F) continue;   // a warp without rows
+      const float e = expf(wm[w] - M);
+      L = fmaf(wl[w], e, L);
+      O = fmaf(wo[w][threadIdx.x], e, O);
+    }
+    pp[2 + d] = O;
+    if (cb == 0 && threadIdx.x == 0) {
+      pp[0] = M;
+      pp[1] = L;
+    }
+  }
+}
+
 // One block per (head, lane), HD threads of which the first hd work: lane
 // b's partials 0..pos / chunk merged into out. The row policy rides along
 // for rows() and so that a profile can tell the slab's merge from the
@@ -308,7 +426,9 @@ __global__ void __launch_bounds__(HD)
                         TQ* __restrict__ out, int nh, int hd, int chunk,
                         int nsplit) {
   const int W = hd + 2;
-  const int h = blockIdx.x, b = blockIdx.y, d = threadIdx.x;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int d = blockIdx.z * HD + threadIdx.x;   // z: the wide route's
+                                                 // column blocks
   if (d >= hd) return;
   const int pos = positions[b];
   TQ* ob = out + (static_cast<size_t>(b) * nh + h) * hd;
@@ -350,14 +470,50 @@ int launch_typed(const Args& a, const Rows& rows, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// The split route for hd > 128 (decode_wide_kernel, then the merge at
+// HD 128 over the column blocks); returns the CUDA error.
+template <typename Rows>
+int launch_wide(const Args& a, const Rows& rows, int q_dtype, int c_dtype,
+                cudaStream_t stream) {
+  const int ncb = (a.hd + kWideCols - 1) / kWideCols;
+  if (static_cast<long long>(a.nsplit) * ncb > 0x7fffffffLL || ncb > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto go = [&](auto tq, auto tc) -> int {
+    using TQ = decltype(tq);
+    using TC = decltype(tc);
+    decode_wide_kernel<TQ, TC, Rows>
+        <<<dim3(a.nsplit * ncb, a.nh, a.B), kThreads,
+           Rows::smem_bytes(a.chunk), stream>>>(
+            static_cast<const TQ*>(a.q), static_cast<const TQ*>(a.new_k),
+            static_cast<const TQ*>(a.new_v), a.row_stride,
+            static_cast<TC*>(a.k_cache), static_cast<TC*>(a.v_cache),
+            a.positions, rows, a.part, a.nh, a.hd, a.chunk, a.nsplit, ncb,
+            a.sm_scale);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    decode_merge_kernel<TQ, kWideCols, Rows>
+        <<<dim3(a.nh, a.B, ncb), kWideCols, 0, stream>>>(
+            a.part, a.positions, rows, static_cast<TQ*>(a.out), a.nh, a.hd,
+            a.chunk, a.nsplit);
+    return static_cast<int>(cudaGetLastError());
+  };
+  using BF = __nv_bfloat16;
+  if (q_dtype == kF32 && c_dtype == kF32) return go(float{}, float{});
+  if (q_dtype == kBF16 && c_dtype == kBF16) return go(BF{}, BF{});
+  if (q_dtype == kF32 && c_dtype == kBF16) return go(float{}, BF{});
+  if (q_dtype == kBF16 && c_dtype == kF32) return go(BF{}, float{});
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 // The most shared memory a block's row staging may take (the static
 // arrays of the split kernel stay within the 48 KB default beside it).
 constexpr size_t kMaxStagingBytes = 32 * 1024;
 
 // Launch pass 1 and the merge for the four q-dtype / cache-dtype pairs and
-// any hd in 1..128: the instance HD is the power of two at or above hd (8
+// any hd: in 1..128 the instance HD is the power of two at or above hd (8
 // at least), with 16-byte row loads where hd fills whole vectors of cache
-// elements and scalar loads elsewhere; returns the CUDA error.
+// elements and scalar loads elsewhere; past 128 the split route
+// (launch_wide); returns the CUDA error.
 template <typename Rows>
 int launch(const Args& a, const Rows& rows, int q_dtype, int c_dtype,
            void* stream) {
@@ -367,7 +523,8 @@ int launch(const Args& a, const Rows& rows, int q_dtype, int c_dtype,
       Rows::smem_bytes(a.chunk) > kMaxStagingBytes)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (a.hd < 1 || a.hd > 128) return static_cast<int>(cudaErrorInvalidValue);
+  if (a.hd < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (a.hd > 128) return launch_wide(a, rows, q_dtype, c_dtype, st);
   int inst = 8;
   while (inst < a.hd) inst *= 2;
   const auto by_hd = [&](auto tq, auto tc) -> int {

@@ -80,8 +80,9 @@ struct PagedRows {
 // page < 2^31; tables: [B, M] int32 contiguous; positions: [B] int32;
 // out: [B, nh, hd] contiguous, dtype q_dtype; workspace: [B, nh, nsplit,
 // hd + 2] float32 with chunk a multiple of page, chunk * nsplit >= M *
-// page and chunk * 4 bytes of staging within 32 KB. hd is any of 1..128.
-// Enqueues the split pass and the merge.
+// page and chunk * 4 bytes of staging within 32 KB. hd is any of 1..128
+// (an instance) or past 128 (the split route). Enqueues the split pass
+// and the merge.
 extern "C" int ptt_decode_paged(const void* q, const void* new_k,
                                 const void* new_v, long long row_stride,
                                 void* k_pool, void* v_pool,

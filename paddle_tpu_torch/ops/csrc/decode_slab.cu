@@ -50,7 +50,8 @@ struct SlabRows {
 // contiguous and 16-byte aligned, dtype c_dtype, updated in place;
 // positions, active: [B] int32; out: [B, nh, hd] contiguous, dtype
 // q_dtype; workspace: [B, nh, nsplit, hd + 2] float32 with chunk * nsplit
-// >= S. hd is any of 1..128. Enqueues the split pass and the merge.
+// >= S. hd is any of 1..128 (an instance) or past 128 (the split route).
+// Enqueues the split pass and the merge.
 extern "C" int ptt_decode_slab(const void* q, const void* new_k,
                                const void* new_v, long long row_stride,
                                void* k_cache, void* v_cache,

@@ -61,6 +61,7 @@
 #include <cstdint>
 
 #include "flash_bwd.cuh"
+#include "flash_wide.cuh"
 
 namespace {
 
@@ -429,6 +430,13 @@ extern "C" int ptt_flash_bwd_dkv(const void* q, const void* k, const void* v,
                bias, dk, dv, T, nh, sb, st, sh, scale, causal, bias_heads,
                bias_rows};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (hd > 128) {   // the split route (flash_wide.cuh)
+    const fwide::Args w{q,  k,     v,      nullptr,    dout,
+                        static_cast<const float*>(lse),
+                        const_cast<float*>(di), bias, dk, dv, T, nh, hd,
+                        sb, st, sh, scale, causal, bias_heads, bias_rows};
+    return fwide::run<2>(dtype, w, B, s);
+  }
   switch (dtype) {
     case ptt::kF32:
       return fbwd::by_head_dim(hd, [&](auto H) {

@@ -53,6 +53,7 @@
 #include <cstdint>
 
 #include "flash_bwd.cuh"
+#include "flash_wide.cuh"
 
 namespace {
 
@@ -464,6 +465,13 @@ extern "C" int ptt_flash_bwd_dq(const void* q, const void* k, const void* v,
                nullptr, T, nh, sb, st, sh, scale, causal, bias_heads,
                bias_rows};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (hd > 128) {   // the split route (flash_wide.cuh)
+    const fwide::Args w{q,  k,     v,      o,          dout,
+                        static_cast<const float*>(lse), di, bias, dq,
+                        nullptr, T, nh, hd, sb, st, sh, scale, causal,
+                        bias_heads, bias_rows};
+    return fwide::run<1>(dtype, w, B, s);
+  }
   switch (dtype) {
     case ptt::kF32:
       return fbwd::by_head_dim(hd, [&](auto H) {

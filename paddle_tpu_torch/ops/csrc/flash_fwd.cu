@@ -62,6 +62,7 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "flash_wide.cuh"
 #include "mma.cuh"
 
 namespace {
@@ -453,6 +454,8 @@ int launch_hd(const Args& a, int B, int hd, cudaStream_t s) {
 // q, k, v: [B, T, nh, hd] with element strides (sb, st, sh, 1), 16-byte
 // aligned; o: contiguous [B, T, nh, hd]; lse: [B, nh, T] float32; bias:
 // nullptr or a contiguous float32 [B * nh / bias_heads, bias_rows, T].
+// hd 16, 32, 64 and 128 run their instances; any hd past 128 the split
+// route (flash_wide.cuh), which needs no alignment.
 extern "C" int ptt_flash_fwd(const void* q, const void* k, const void* v,
                              void* o, void* lse, const float* bias, int B,
                              int T, int nh, int hd, long long sb,
@@ -462,6 +465,13 @@ extern "C" int ptt_flash_fwd(const void* q, const void* k, const void* v,
   const Args a{q,  k,  v,  o,     lse,    bias,       T,        nh,
                sb, st, sh, scale, causal, bias_heads, bias_rows};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (hd > 128) {
+    const fwide::Args w{q,    k,      v,          nullptr,   nullptr,
+                        nullptr, nullptr, bias,   o,         lse,
+                        T,    nh,     hd,         sb,        st,
+                        sh,   scale,  causal,     bias_heads, bias_rows};
+    return fwide::run<0>(dtype, w, B, s);
+  }
   switch (dtype) {
     case ptt::kF32:
       return launch_hd<float>(a, B, hd, s);

@@ -275,7 +275,8 @@ def fused_decode_attention(q, k_cache, v_cache, new_k, new_v, positions,
     ``active[b] != 0``); positions/active: [B] int32 (``active`` None =
     every lane writes). Attention covers rows ``0..positions[b]``.
     Positions must lie in [0, S); on the card a lane outside answers zeros
-    and writes nothing. The kernel takes any hd up to 128.
+    and writes nothing. The kernel takes any hd (an instance up to 128,
+    the split route past it).
 
     Returns (out [B, nh, hd] in q.dtype, k_cache, v_cache) — the caches
     are the tensors passed in, returned for the JAX signature's sake.
@@ -313,7 +314,8 @@ def fused_decode_attention(q, k_cache, v_cache, new_k, new_v, positions,
 # The decode kernels' split pass (ops/csrc/decode_attention.cuh): 128
 # threads a block, each loading 4 rows' 16 bytes of K and of V a tile.
 # Instances at head widths 8..128 (powers of two) take the true hd at run
-# time: lanes past it load zeros and store nothing.
+# time: lanes past it load zeros and store nothing. Past 128 the split
+# route: column blocks of 128 over any hd, a warp a row.
 _DECODE_HDS = (8, 16, 32, 64, 128)
 _DECODE_MAX_SPLITS = 64     # chunks a lane at most: the merge's serial loop
 _DECODE_STAGING = 32 * 1024   # bytes of a paged chunk's staged rows (int32)
@@ -327,11 +329,12 @@ def _decode_instance(hd: int, cache_esz: int) -> Tuple[int, bool]:
     elements — the power of two at or above it, 8 at least — and whether
     its rows are whole 16-byte vectors of the cache's ``cache_esz``-byte
     elements (else the instance loads one element at a time). The caches
-    keep their true width. Raises past 128 (ROADMAP C4)."""
-    if not 0 < hd <= _DECODE_HDS[-1]:
-        raise ValueError(f"decode attention: head_dim {hd} outside "
-                         "1..128; the kernels have no instance past 128 "
-                         "(ROADMAP C4)")
+    keep their true width. Past 128, (128, False): the split route, whose
+    blocks each take 128 output columns and load one element a lane."""
+    if hd < 1:
+        raise ValueError(f"decode attention: head_dim {hd} < 1")
+    if hd > _DECODE_HDS[-1]:
+        return _DECODE_HDS[-1], False
     return (next(h for h in _DECODE_HDS if h >= hd),
             hd * cache_esz % 16 == 0)
 
@@ -367,10 +370,11 @@ def _check_decode_inputs(fn, q, new_k, new_v, k_cache, v_cache, cache_shape,
                          B):
     """The decode kernels' shared checks: dtypes, the caches' shape,
     contiguity and 16-byte alignment, q/new_k/new_v as [B, nh, hd] with
-    contiguous heads and one batch stride, and hd up to 128. Returns the
+    contiguous heads and one batch stride, and hd >= 1. Returns the
     dtype codes of q and the cache. A message is built only when a check
     fails: the engine calls this L times a tick."""
     nh, hd = cache_shape[-2:]
+    _decode_instance(hd, k_cache.element_size())   # raises below 1
     q_code = _dtype_code(q, f"{fn} q")
     c_code = _dtype_code(k_cache, f"{fn} cache")
     if not (k_cache.shape == cache_shape and v_cache.shape == cache_shape
@@ -390,7 +394,6 @@ def _check_decode_inputs(fn, q, new_k, new_v, k_cache, v_cache, cache_shape,
                 and t.stride(0) == bs):
             raise ValueError(f"{fn}: {name} needs contiguous heads and the "
                              "same batch stride as q")
-    _decode_instance(hd, k_cache.element_size())   # raises past 128
     return q_code, c_code
 
 
@@ -436,7 +439,8 @@ def fused_paged_decode_attention(q, k_pool, v_pool, new_k, new_v, tables,
     Attention covers logical rows ``0..positions[b]``. On the card a lane
     whose position lies outside [0, M * page) or whose table reaches a
     page outside [0, P) answers zeros and writes nothing. The kernel takes
-    any hd up to 128 and pages of up to 8,192 rows.
+    any hd (an instance up to 128, the split route past it) and pages of
+    up to 8,192 rows.
 
     Returns (out [B, nh, hd] in q.dtype, k_pool, v_pool) — the pools are
     the tensors passed in, returned for the JAX signature's sake.

@@ -3,9 +3,11 @@
 The port of ``paddle_tpu/ops/decode_attention.py`` for the slab and the
 paged layouts: ``cache_update`` (``:32``), ``decode_attention`` (``:63``),
 ``paged_gather`` (``:97``), ``paged_cache_update`` (``:120``),
-``paged_page_write`` (``:134``), ``paged_prefill_attention`` (``:144``)
-and ``prefill_attention`` (``:234``). The speculative-window helpers come
-with speculative decoding.
+``paged_page_write`` (``:134``), ``paged_prefill_attention`` (``:144``),
+``prefill_attention`` (``:234``) and the speculative-verify window's
+``window_cache_update`` (``:176``) and ``window_attention`` (``:205``).
+The reference computes the window without a Pallas kernel, so the port's
+verify forward runs these plain functions on the card too.
 
 The cache and pool writers update in place: JAX returned a new slab or
 pool and relied on buffer donation to make that an in-place HBM write;
@@ -23,7 +25,8 @@ import torch
 
 __all__ = ["cache_update", "decode_attention", "prefill_attention",
            "paged_gather", "paged_cache_update", "paged_page_write",
-           "paged_prefill_attention"]
+           "paged_prefill_attention", "window_cache_update",
+           "window_attention"]
 
 
 def cache_update(cache, new, positions, active=None):
@@ -127,6 +130,56 @@ def paged_prefill_attention(q, k_all, v_all, prefix_len: int,
     e = torch.where(mask, torch.exp(scores - m), torch.zeros_like(scores))
     probs = e / e.sum(-1, keepdim=True).clamp_min(1e-30)
     out = torch.einsum("bnqk,bknh->bqnh", probs, v_all.float())
+    return out.to(q.dtype)
+
+
+def window_cache_update(cache, new, starts, active=None):
+    """Write a W-token window per sequence into the slab cache IN PLACE
+    and return it.
+
+    cache: [B, S, nh, hd]; new: [B, W, nh, hd] (the verify window's K or
+    V, cast to the cache dtype); starts: [B] integer (first row written
+    per slot; the window must fit, rows starts..starts+W-1 < S); active:
+    [B] optional write mask, as in :func:`cache_update` — an inactive
+    lane keeps every row."""
+    B, W = new.shape[:2]
+    rows = (starts.to(device=cache.device, dtype=torch.long)[:, None]
+            + torch.arange(W, device=cache.device))          # [B, W]
+    idx = torch.arange(B, device=cache.device)[:, None]
+    val = new.to(cache.dtype)
+    if active is not None:
+        live = (active != 0).to(cache.device)[:, None, None, None]
+        val = torch.where(live, val, cache[idx, rows])
+    cache[idx, rows] = val
+    return cache
+
+
+def window_attention(q, k_cache, v_cache, starts,
+                     sm_scale: Optional[float] = None):
+    """W-query attention over the cache (the speculative-verify window).
+
+    q: [B, W, nh, hd], query w at global position ``starts[b] + w``;
+    k_cache/v_cache: [B, S, nh, hd] with the window rows written; starts:
+    [B] integer. Query w attends keys ``j <= starts + w``. Float32 scores,
+    the ``-inf`` mask, a row max of 0 where no key is visible and the sum
+    floored at 1e-30, as :func:`decode_attention`; returns [B, W, nh, hd]
+    in q's dtype. W = 1 is :func:`decode_attention` with lengths =
+    starts + 1."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    W, S = q.shape[1], k_cache.shape[1]
+    scores = torch.einsum("bwnh,bsnh->bnws", q.float(),
+                          k_cache.float()) * sm_scale
+    st = starts.to(device=q.device, dtype=torch.long)
+    mask = (torch.arange(S, device=q.device)[None, None, :]
+            <= st[:, None, None]
+            + torch.arange(W, device=q.device)[None, :, None])[:, None]
+    scores = scores.masked_fill(~mask, -math.inf)
+    m = scores.amax(-1, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    e = torch.where(mask, torch.exp(scores - m), torch.zeros_like(scores))
+    probs = e / e.sum(-1, keepdim=True).clamp_min(1e-30)
+    out = torch.einsum("bnws,bsnh->bwnh", probs, v_cache.float())
     return out.to(q.dtype)
 
 

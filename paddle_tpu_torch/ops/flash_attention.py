@@ -31,7 +31,11 @@ one value per row where the TPU kept 128 replicated lanes. The kernels
 are compiled for head_dim 16, 32, 64 and 128; any other head_dim up to
 128 (8, 24, 48, 80, 96, ...) runs the next instance on inputs padded with
 zero columns (:func:`pad_head_dim`), which add nothing to any dot
-product, and the outputs are sliced back.
+product, and the outputs are sliced back. Past 128 every head_dim runs
+the split route (``ops/csrc/flash_wide.cuh``): a grid dimension walks the
+output columns in blocks of 64, the reductions over hd loop over 64-column
+slabs, so one instance a dtype takes any hd as it is (no padding, no
+alignment).
 
 The bias, as the kernels take it, is float32 ``[BB, SQ, T]``: BB = B
 shares one bias among a batch row's heads (head ``bh`` reads row
@@ -65,17 +69,22 @@ _NEG_INF = -0.7 * float(np.finfo(np.float32).max)
 _HEAD_DIMS = (16, 32, 64, 128)
 
 
+def _wide(hd: int) -> bool:
+    """Whether a head_dim runs the split route (past the widest
+    instance)."""
+    return hd > _HEAD_DIMS[-1]
+
+
 def _padded_hd(hd: int) -> Optional[int]:
-    """The compiled instance a head_dim that has none runs on, padded with
-    zero columns (exact: the padded columns add 0 to every q·k and give
-    zero output columns, and the scale stays 1/sqrt(true hd)); None for
-    an instance. Past 128 no instance exists (ROADMAP C4)."""
-    if hd in _HEAD_DIMS:
+    """The compiled instance a head_dim up to 128 that has none runs on,
+    padded with zero columns (exact: the padded columns add 0 to every
+    q·k and give zero output columns, and the scale stays 1/sqrt(true
+    hd)); None for an instance and for the split route past 128, which
+    takes any hd as it is."""
+    if hd < 1:
+        raise ValueError(f"flash attention: head_dim {hd} < 1")
+    if hd in _HEAD_DIMS or _wide(hd):
         return None
-    if not 0 < hd <= _HEAD_DIMS[-1]:
-        raise ValueError(f"flash attention: head_dim {hd} outside 1..128; "
-                         "the kernels have no instance past 128 (ROADMAP "
-                         "C4)")
     return next(h for h in _HEAD_DIMS if h >= hd)
 
 
@@ -183,15 +192,16 @@ def _check_qkv(q, k, v, what: str):
     code = _ck._dtype_code(q, what)
     _ck._require(k.dtype == q.dtype and v.dtype == q.dtype,
                  f"{what}: q, k, v must share a dtype")
-    _ck._require(hd in _HEAD_DIMS,
-                 f"{what}: head_dim {hd} not in {_HEAD_DIMS} (the wrappers "
-                 "pad any other hd <= 128 to the next)")
+    _ck._require(hd in _HEAD_DIMS or _wide(hd),
+                 f"{what}: head_dim {hd} not in {_HEAD_DIMS} nor past 128 "
+                 "(the wrappers pad any other hd <= 128 to the next)")
     _ck._require(q.stride() == k.stride() == v.stride(),
                  f"{what}: q, k, v must share strides")
     _ck._require(q.stride(3) == 1, f"{what}: head_dim must be unit-stride")
     esz = q.element_size()
-    _ck._require(all(t.data_ptr() % 16 == 0 for t in (q, k, v))
-                 and all(s * esz % 16 == 0 for s in q.stride()[:3]),
+    _ck._require(_wide(hd) or (
+        all(t.data_ptr() % 16 == 0 for t in (q, k, v))
+        and all(s * esz % 16 == 0 for s in q.stride()[:3])),
                  f"{what}: q, k, v need 16-byte aligned rows")
     _ck._require(0 < B * nh <= 65535, f"{what}: B*nh={B * nh} outside "
                  "1..65535")
@@ -225,8 +235,9 @@ def _check_bias(bias, B: int, T: int, nh: int, what: str):
 def flash_fwd(q, k, v, causal: bool = True,
               sm_scale: Optional[float] = None, bias=None):
     """(o [B, T, nh, hd] in q's dtype, lse [B, nh, T] float32) for q, k, v
-    [B, T, nh, hd] float32 or bfloat16 (any hd up to 128: 16, 32, 64 and
-    128 are instances, any other pads to the next) and an
+    [B, T, nh, hd] float32 or bfloat16 (any hd: 16, 32, 64 and 128 are
+    instances, any other up to 128 pads to the next, past 128 the split
+    route) and an
     optional float32 ``bias`` [B or B·nh, 1 or T, T] — one launch of the
     forward kernel on the card."""
     if sm_scale is None:

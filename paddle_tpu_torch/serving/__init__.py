@@ -1,6 +1,7 @@
 """Serving on the card — the port of ``paddle_tpu.serving`` (slab and paged
-KV layouts): the decode engine with its Hopper kernels, the page pool and
-prefix cache, the continuous-batching scheduler and the HTTP front door."""
+KV layouts): the decode engine with its Hopper kernels (f32, bf16 or int8
+weights), the page pool and prefix cache, speculative decoding, the
+continuous-batching scheduler and the HTTP front door."""
 from .engine import (DecodeEngine, EngineConfig, PromptTooLongError,
                      default_bucket_ladder)
 from .kv_cache import CacheFullError, KVCache
@@ -8,9 +9,11 @@ from .paged_kv import PagedKVCache, PagePoolFullError, PrefixCache
 from .sampling import GREEDY, SamplingParams
 from .scheduler import QueueFullError, Request, Scheduler, SchedulerConfig
 from .server import EngineLoop, FrontDoor, shed_decision
+from .spec_decode import SpecDecodeEngine, SpecStats
 
 __all__ = ["DecodeEngine", "EngineConfig", "PromptTooLongError",
            "default_bucket_ladder", "CacheFullError", "KVCache",
            "PagedKVCache", "PagePoolFullError", "PrefixCache", "GREEDY",
            "SamplingParams", "QueueFullError", "Request", "Scheduler",
-           "SchedulerConfig", "EngineLoop", "FrontDoor", "shed_decision"]
+           "SchedulerConfig", "EngineLoop", "FrontDoor", "shed_decision",
+           "SpecDecodeEngine", "SpecStats"]

@@ -24,10 +24,22 @@
   dead decode lanes riding with zeroed page tables (their writes land on
   scratch page 0), and a recompute resume for preempted requests that
   replays past the bucket ladder through the decode tick.
-- **Weights** are cast once, at construction: matmul weights to the
-  compute dtype, layernorm parameters to float32, embeddings kept in the
-  storage dtype and summed in float32 — numerically what the JAX engine
-  computes with its per-call ``.astype``.
+- **Weights** (``weight_dtype`` "f32" or "bf16") are cast once, at
+  construction: matmul weights to the compute dtype, layernorm parameters
+  to float32, embeddings kept in the storage dtype and summed in float32 —
+  numerically what the JAX engine computes with its per-call ``.astype``.
+  With ``weight_dtype="int8"`` (``serving/quant.py``) the card holds only
+  the chunk-scaled payloads and scales, and every forward dequantizes one
+  layer's leaves at a time into the compute dtype, for the time that
+  layer runs (the embeddings only the gathered rows), as the reference
+  dequantizes inside its jitted functions. The reference computes the
+  dequantization without a Pallas kernel, so it stays plain PyTorch.
+- **Speculative verify** (``verify_window`` W >= 2, driven by
+  ``serving/spec_decode.py``): :meth:`DecodeEngine.verify_step` writes a
+  W-token window a slot and returns the logits and sampled target tokens
+  of every window position in one forward (``engine.py:518-600``,
+  ``:1088-1147``); it runs the plain layernorm, window attention and LM
+  head, as the reference's verify calls no Pallas kernel.
 - **The cache** is updated in place (JAX donated the slabs to the same
   end); nothing is allocated per request beyond activations.
 
@@ -54,17 +66,22 @@ from ..ops.decode_attention import (cache_update, decode_attention,
                                     paged_cache_update, paged_gather,
                                     paged_page_write,
                                     paged_prefill_attention,
-                                    prefill_attention)
+                                    prefill_attention, window_attention,
+                                    window_cache_update)
 from . import metrics as smetrics
 from .kv_cache import KVCache
 from .paged_kv import PagedKVCache, PagePoolFullError, PrefixCache
+from .quant import WEIGHT_DTYPES, quantize_params, quantized_nbytes
 from .sampling import (GREEDY, SamplingParams, batch_arrays, sample_batch,
-                       sample_token)
+                       sample_token, sample_window)
 
 __all__ = ["EngineConfig", "DecodeEngine", "PromptTooLongError",
            "default_bucket_ladder"]
 
 _STORAGE = {"f32": torch.float32, "bf16": torch.bfloat16}
+# a block's leaves the forward takes in float32 (the rest are matmul
+# operands, in the compute dtype)
+_F32_LEAVES = ("ln1_scale", "ln1_bias", "ln2_scale", "ln2_bias")
 
 
 class PromptTooLongError(ValueError):
@@ -88,14 +105,13 @@ class EngineConfig:
     """Serving geometry, field for field the JAX ``EngineConfig``.
 
     Refused so far (``NotImplementedError`` naming the ROADMAP item):
-    ``sharding="tp"`` (``tp``), ``weight_dtype="int8"`` (``quant_chunk``)
-    and ``verify_window > 0``. With ``kv_layout="paged"``, ``page_size``
+    ``sharding="tp"`` (``tp``). With ``kv_layout="paged"``, ``page_size``
     must divide every prefill bucket."""
     max_batch: int = 8               # decode slots (the static batch)
     max_seq: int = 256               # per-slot prompt+generation bound
     prefill_buckets: Tuple[int, ...] = ()   # () -> default_bucket_ladder
-    weight_dtype: str = "f32"        # "f32" | "bf16"
-    quant_chunk: int = 256
+    weight_dtype: str = "f32"        # "f32" | "bf16" | "int8"
+    quant_chunk: int = 256           # int8 scale granularity
     cache_dtype: Any = None          # None -> the model's compute dtype
     eos_id: Optional[int] = None     # decode stops on this token
     kv_layout: str = "slab"          # "slab" | "paged"
@@ -106,7 +122,7 @@ class EngineConfig:
     sharding: Optional[str] = None
     tp: int = 1
     role: str = "colocated"          # stamps the TTFT/TPOT metric labels
-    verify_window: int = 0
+    verify_window: int = 0           # W >= 2: verify_step takes W tokens
     # the hand-written kernels of the decode tick; False = plain PyTorch
     fused_decode: bool = True
 
@@ -134,18 +150,11 @@ def _refuse_unported(ecfg: EngineConfig) -> None:
     if ecfg.sharding is not None:
         raise ValueError(f"sharding {ecfg.sharding!r}: expected None or "
                          "'tp'")
-    if ecfg.weight_dtype == "int8":
-        raise NotImplementedError(
-            "weight_dtype='int8' waits for the port of serving/quant.py "
-            "(ROADMAP.md, queue A: int8 serving weights)")
-    if ecfg.weight_dtype not in _STORAGE:
+    if ecfg.weight_dtype not in WEIGHT_DTYPES:
         raise ValueError(f"weight_dtype {ecfg.weight_dtype!r}: expected "
                          "'f32', 'bf16' or 'int8'")
-    if ecfg.verify_window > 0:
-        raise NotImplementedError(
-            "verify_window > 0 (speculative decoding) waits for the port "
-            "of serving/spec_decode.py (ROADMAP.md, queue A: speculative "
-            "decoding)")
+    if ecfg.verify_window < 0:
+        raise ValueError(f"verify_window {ecfg.verify_window} < 0")
     if ecfg.role not in ("prefill", "decode", "colocated"):
         raise ValueError(f"role {ecfg.role!r}: expected 'prefill', "
                          "'decode' or 'colocated'")
@@ -178,7 +187,19 @@ class DecodeEngine:
                     f"multiples of page_size {ecfg.page_size}")
         self.role = ecfg.role
         self._ref_params = _to_device(params, self.device)  # f32 truth
-        self._cast_weights(self._ref_params)
+        # int8: the payloads and scales are all the card holds of the
+        # weights (once drop_reference_params() lets the f32 truth go)
+        self.qparams = None
+        if ecfg.weight_dtype == "int8":
+            self.qparams = quantize_params(self._ref_params, "int8",
+                                           ecfg.quant_chunk)
+            self.weight_nbytes = quantized_nbytes(self.qparams)
+        else:
+            self._cast_weights(self._ref_params)
+            # every leaf is float32 in the truth
+            self.weight_nbytes = (quantized_nbytes(self._ref_params)
+                                  * _STORAGE[ecfg.weight_dtype].itemsize
+                                  // 4)
         cache_dtype = ecfg.cache_dtype or cfg.dtype
         self.prefix: Optional[PrefixCache] = None
         if self.paged:
@@ -196,7 +217,13 @@ class DecodeEngine:
                                  ecfg.max_seq, cfg.num_heads, cfg.head_dim,
                                  dtype=cache_dtype, device=self.device)
         self.decode_ticks = 0
+        self.verify_steps = 0
         self._tokens_window: List[Tuple[float, int]] = []
+        # the slot headroom a generation step needs (SpecDecodeEngine
+        # raises its own to the verify window)
+        self.min_headroom = 1
+        # a speculative draft's tokens are proposals, not served output
+        self.meter_tokens = True
         # The reference donates its cache slabs to every executable; here
         # the caches are CUDA tensors that prefill and the decode kernels
         # write in place, and a CUDA fault is sticky for the context. So a
@@ -213,35 +240,81 @@ class DecodeEngine:
         float32 for layernorm parameters. The matmul weights are laid out
         as 2-D ``[in, out]`` matrices of the same contraction."""
         store = _STORAGE[self.ecfg.weight_dtype]
-        dt = self.cfg.dtype
-        D = self.cfg.d_model
-
-        def mm(t):
-            return t.to(store).to(dt).contiguous()
-
-        def f32(t):
-            return t.to(store).float().contiguous()
-
         self.wte = p["wte"].to(store)
         self.wpe = p["wpe"].to(store)
-        self.ln_f = (f32(p["ln_f_scale"]), f32(p["ln_f_bias"]))
-        self.lm_head = mm(p["lm_head"])
+        self._head_w = self._head_dict(
+            {k: p[k].to(store) for k in ("ln_f_scale", "ln_f_bias",
+                                         "lm_head")})
         blocks = p["blocks"]
-        self.layers = []
+        self.layers = [
+            self._layer_dict({k: v[i].to(store) for k, v in blocks.items()})
+            for i in range(self.cfg.num_layers)]
+
+    def _layer_dict(self, b) -> Dict[str, Any]:
+        """One layer's weights for the forward, from its leaves in the
+        storage dtype (or float32, dequantized): matmul weights in the
+        compute dtype as 2-D ``[in, out]`` matrices, layernorm parameters
+        in float32."""
+        dt, D = self.cfg.dtype, self.cfg.d_model
+
+        def mm(t):
+            return t.to(dt).contiguous()
+
+        def f32(t):
+            return t.float().contiguous()
+
+        return {
+            "ln1": (f32(b["ln1_scale"]), f32(b["ln1_bias"])),
+            "w_qkv": mm(b["w_qkv"]).reshape(D, -1),
+            "b_qkv": mm(b["b_qkv"]).reshape(-1),
+            "w_proj": mm(b["w_proj"]).reshape(-1, D),
+            "b_proj": mm(b["b_proj"]),
+            "ln2": (f32(b["ln2_scale"]), f32(b["ln2_bias"])),
+            "w_fc": mm(b["w_fc"]),
+            "b_fc": mm(b["b_fc"]),
+            "w_out": mm(b["w_out"]),
+            "b_out": mm(b["b_out"]),
+        }
+
+    def _head_dict(self, p) -> Dict[str, Any]:
+        return {"ln_f": (p["ln_f_scale"].float().contiguous(),
+                         p["ln_f_bias"].float().contiguous()),
+                "lm_head": p["lm_head"].to(self.cfg.dtype).contiguous()}
+
+    def _layer_weights(self):
+        """Each layer's weights in turn. int8: dequantized for the time
+        the layer runs, one product a leaf written in the dtype the
+        forward takes it in (the caller's loop lets the previous layer's
+        go)."""
+        if self.qparams is None:
+            yield from self.layers
+            return
+        blocks = self.qparams["blocks"]
+        dt = self.cfg.dtype
         for i in range(self.cfg.num_layers):
-            b = {k: v[i] for k, v in blocks.items()}
-            self.layers.append({
-                "ln1": (f32(b["ln1_scale"]), f32(b["ln1_bias"])),
-                "w_qkv": mm(b["w_qkv"]).reshape(D, -1),
-                "b_qkv": mm(b["b_qkv"]).reshape(-1),
-                "w_proj": mm(b["w_proj"]).reshape(-1, D),
-                "b_proj": mm(b["b_proj"]),
-                "ln2": (f32(b["ln2_scale"]), f32(b["ln2_bias"])),
-                "w_fc": mm(b["w_fc"]),
-                "b_fc": mm(b["b_fc"]),
-                "w_out": mm(b["w_out"]),
-                "b_out": mm(b["b_out"]),
-            })
+            yield self._layer_dict({
+                k: leaf.layer(i, torch.float32 if k in _F32_LEAVES else dt)
+                for k, leaf in blocks.items()})
+
+    def _head(self) -> Dict[str, Any]:
+        """The final layernorm and the LM head (int8: dequantized now)."""
+        if self.qparams is None:
+            return self._head_w
+        q = self.qparams
+        return self._head_dict({
+            "ln_f_scale": q["ln_f_scale"].dequantize(),
+            "ln_f_bias": q["ln_f_bias"].dequantize(),
+            "lm_head": q["lm_head"].dequantize(self.cfg.dtype)})
+
+    def _embed(self, tokens, positions) -> torch.Tensor:
+        """Token + position embeddings summed in float32, in the compute
+        dtype (int8: only the gathered rows are dequantized)."""
+        if self.qparams is None:
+            x = self.wte[tokens].float() + self.wpe[positions].float()
+        else:
+            x = (self.qparams["wte"].rows(tokens)
+                 + self.qparams["wpe"].rows(positions))
+        return x.to(self.cfg.dtype)
 
     # ------------------------------------------------------------------
     # forward passes
@@ -272,18 +345,16 @@ class DecodeEngine:
         writes the bucket's K/V rows of every layer into ``slot``."""
         T = tokens.shape[1]
         ln = self._ln(False)
-        pos = torch.arange(T, device=self.device)
-        x = (self.wte[tokens].float() + self.wpe[pos].float()).to(
-            self.cfg.dtype)
-        for i, lw in enumerate(self.layers):
+        x = self._embed(tokens, torch.arange(T, device=self.device))
+        for i, lw in enumerate(self._layer_weights()):
             qkv = self._qkv(ln(x, lw["ln1"]), lw)
             q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
             a = prefill_attention(q, k, v)
             x = self._block_tail(x, a, lw, ln)
             self.cache.k[i, slot, :T] = k[0]
             self.cache.v[i, slot, :T] = v[0]
-        h_last = ln(x[0, length - 1], self.ln_f)
-        return (h_last @ self.lm_head).float()
+        head = self._head()
+        return (ln(x[0, length - 1], head["ln_f"]) @ head["lm_head"]).float()
 
     @torch.no_grad()
     def _prefill_paged(self, tokens: torch.Tensor, length: int,
@@ -300,12 +371,11 @@ class DecodeEngine:
         ps = self.ecfg.page_size
         n_pages = T // ps
         ln = self._ln(False)
-        pos = prefix_len + torch.arange(T, device=self.device)
-        x = (self.wte[tokens].float() + self.wpe[pos].float()).to(
-            self.cfg.dtype)
+        x = self._embed(tokens, prefix_len + torch.arange(T,
+                                                          device=self.device))
         suffix_pages = table_row[prefix_len // ps:prefix_len // ps + n_pages]
         nh, hd = self.cfg.num_heads, self.cfg.head_dim
-        for i, lw in enumerate(self.layers):
+        for i, lw in enumerate(self._layer_weights()):
             qkv = self._qkv(ln(x, lw["ln1"]), lw)
             q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
             kp, vp = self.cache.k[i], self.cache.v[i]
@@ -317,8 +387,8 @@ class DecodeEngine:
                                         paged_gather(vp, table_row[None]),
                                         prefix_len)
             x = self._block_tail(x, a, lw, ln)
-        h_last = ln(x[0, length - 1], self.ln_f)
-        return (h_last @ self.lm_head).float()
+        head = self._head()
+        return (ln(x[0, length - 1], head["ln_f"]) @ head["lm_head"]).float()
 
     def _attend(self, i: int, q, k, v, positions, lanes, phys):
         """Layer ``i``'s KV row write + one-query attention of a decode
@@ -352,33 +422,72 @@ class DecodeEngine:
         row (paged) keeps every cached row."""
         fused = self.ecfg.fused_decode
         ln = self._ln(fused)
-        x = (self.wte[tokens].float()
-             + self.wpe[positions.long()].float()).to(self.cfg.dtype)
+        x = self._embed(tokens, positions.long())
         phys = None
         if self.paged and not fused:
             ps = self.ecfg.page_size
             pos = positions.long()
             phys = (lanes.long().gather(1, (pos // ps)[:, None])[:, 0],
                     pos % ps)
-        for i, lw in enumerate(self.layers):
+        for i, lw in enumerate(self._layer_weights()):
             qkv = self._qkv(ln(x, lw["ln1"]), lw)
             q, k, v = qkv[:, 0], qkv[:, 1], qkv[:, 2]
             a = self._attend(i, q, k, v, positions, lanes, phys)
             x = self._block_tail(x, a, lw, ln)
+        head = self._head()
         if fused:
-            logits = CK.fused_logits_head(x, *self.ln_f, self.lm_head)
+            logits = CK.fused_logits_head(x, *head["ln_f"], head["lm_head"])
         else:
-            logits = ln(x, self.ln_f) @ self.lm_head
+            logits = ln(x, head["ln_f"]) @ head["lm_head"]
         return logits.float()
+
+    @torch.no_grad()
+    def _verify(self, tokens: torch.Tensor, starts: torch.Tensor,
+                lanes: torch.Tensor) -> torch.Tensor:
+        """The speculative-verify window (``_verify_fn`` /
+        ``_verify_fn_paged``, ``engine.py:518-600``): tokens [B, W]
+        (int64) written at rows ``starts + w`` (starts int32 [B]), causal
+        window attention over each slot's cache, float32 logits [B, W, V]
+        of every window position. ``lanes``: the [B] write mask (slab) or
+        the [B, M] page tables with dead lanes zeroed (paged: the B*W rows
+        scatter through the tables, attention reads the gathered views).
+        Plain layernorm, attention and LM head, as the reference's."""
+        B, W = tokens.shape
+        ln = self._ln(False)
+        positions = (starts.long()[:, None]
+                     + torch.arange(W, device=self.device))      # [B, W]
+        x = self._embed(tokens, positions)
+        nh, hd = self.cfg.num_heads, self.cfg.head_dim
+        if self.paged:
+            ps = self.ecfg.page_size
+            phys = lanes.long().gather(1, positions // ps).reshape(-1)
+            rows = (positions % ps).reshape(-1)
+        for i, lw in enumerate(self._layer_weights()):
+            qkv = self._qkv(ln(x, lw["ln1"]), lw)
+            q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+            kc, vc = self.cache.k[i], self.cache.v[i]
+            if self.paged:
+                paged_cache_update(kc, k.reshape(B * W, nh, hd), phys, rows)
+                paged_cache_update(vc, v.reshape(B * W, nh, hd), phys, rows)
+                a = window_attention(q, paged_gather(kc, lanes),
+                                     paged_gather(vc, lanes), starts)
+            else:
+                window_cache_update(kc, k, starts, lanes)
+                window_cache_update(vc, v, starts, lanes)
+                a = window_attention(q, kc, vc, starts)
+            x = self._block_tail(x, a, lw, ln)
+        head = self._head()
+        return (ln(x, head["ln_f"]) @ head["lm_head"]).float()
 
     # ------------------------------------------------------------------
     def warmup(self) -> Dict[str, float]:
         """Run the decode tick (slab: every lane masked, nothing written;
         paged: every table row zeroed, the writes land on scratch page 0),
-        one prefill per bucket (paged: into page 0) and, paged, the page
-        read/write of page 0 once, so the first request pays no first-call
-        costs: the kernel build and load, library handles. Live slots'
-        rows are never touched. Returns {path: wall ms}."""
+        one prefill per bucket (paged: into page 0), the verify window
+        when ``verify_window >= 2`` (masked the same way) and, paged, the
+        page read/write of page 0 once, so the first request pays no
+        first-call costs: the kernel build and load, library handles. Live
+        slots' rows are never changed. Returns {path: wall ms}."""
         timings: Dict[str, float] = {}
         B = self.ecfg.max_batch
         zeros = torch.zeros((B,), dtype=torch.int32, device=self.device)
@@ -407,6 +516,11 @@ class DecodeEngine:
             else:
                 timed(f"prefill_b{bucket}",
                       lambda: self._prefill(toks, 1, 0))
+        W = self.ecfg.verify_window
+        if W >= 2:
+            toks = torch.zeros((B, W), dtype=torch.long, device=self.device)
+            timed(f"verify_w{W}", lambda: self._verify(
+                toks, zeros, table0 if self.paged else zeros))
         if self.paged:
             timed("page_io", lambda: self.cache.write_pages(
                 [0], *self.cache.read_pages([0])))
@@ -565,14 +679,15 @@ class DecodeEngine:
         tok, logits = out[slot]
         return slot, logits, tok
 
-    def ensure_decode_capacity(self, slot: int) -> bool:
-        """Make the next position of ``slot`` writable. Paged: maps a page
-        on demand (False = the pool is dry even after a prefix-cache
-        reclaim — the scheduler preempts). Slab: always True (the slab is
-        the capacity; headroom is checked apart)."""
+    def ensure_decode_capacity(self, slot: int, extra: int = 1) -> bool:
+        """Make the next ``extra`` positions of ``slot`` writable. Paged:
+        maps pages on demand (False = the pool is dry even after a
+        prefix-cache reclaim — the scheduler preempts). Slab: always True
+        (the slab is the capacity; headroom is checked apart)."""
         if not self.paged:
             return True
-        return self.cache.ensure_capacity(slot, self.cache.length(slot) + 1)
+        return self.cache.ensure_capacity(slot,
+                                          self.cache.length(slot) + extra)
 
     def _decode_feed(self, slot_tokens: Dict[int, int]) -> np.ndarray:
         """[2, max_batch] int32: tokens, positions (0 for absent lanes)."""
@@ -664,12 +779,80 @@ class DecodeEngine:
                 self.decode_step_sampled(slot_tokens,
                                          params_by_slot).items()}
 
+    def verify_step(
+            self, windows: Dict[int, Sequence[int]],
+            params_by_slot: Optional[Dict[int, SamplingParams]] = None
+    ) -> Dict[int, Tuple[np.ndarray, np.ndarray]]:
+        """Speculative verification (``engine.py:1088-1147``): {slot: [W
+        window tokens]} -> {slot: (logits [W, V], target tokens [W])} in
+        one forward. The window's rows land at ``length + w``; lengths do
+        not move — the caller commits the accepted rows with
+        :meth:`commit_window`. Paged: the pages of the W rows are mapped
+        first (PagePoolFullError before any launch). A failure after the
+        caches were written poisons the engine on the card."""
+        if not windows:
+            return {}
+        self._check_poisoned()
+        W = self.ecfg.verify_window
+        if W < 2:
+            raise RuntimeError("engine built without a verify window "
+                               "(EngineConfig.verify_window >= 2)")
+        B = self.ecfg.max_batch
+        tokens = np.zeros((B, W), np.int32)
+        starts = np.zeros((B,), np.int32)
+        for slot, win in windows.items():
+            if len(win) != W:
+                raise ValueError(f"slot {slot}: window {len(win)} != {W}")
+            if not self.cache.is_live(slot):
+                raise ValueError(f"slot {slot} is not live")
+            if self.cache.headroom(slot) < W:
+                raise ValueError(f"slot {slot}: headroom < window {W}")
+            tokens[slot] = np.asarray(win, np.int32)
+            starts[slot] = self.cache.length(slot)
+        if self.paged:
+            for slot in windows:
+                if not self.ensure_decode_capacity(slot, extra=W):
+                    raise PagePoolFullError(
+                        f"slot {slot}: no free pages for a {W}-token "
+                        "verify window")
+            lanes = self._masked_tables(windows)
+        else:
+            lanes = np.zeros((B,), np.int32)
+            lanes[list(windows)] = 1
+        sp = batch_arrays(params_by_slot or {}, B)
+        t0 = time.perf_counter_ns()
+        try:
+            feed = torch.from_numpy(np.concatenate(
+                [tokens.ravel(), starts, lanes.ravel()])).to(self.device)
+            n = B * W
+            logits = self._verify(feed[:n].view(B, W).long(),
+                                  feed[n:n + B],
+                                  feed[n + B:].view(lanes.shape)).cpu()
+        except Exception as e:
+            self._poison_on_donation_failure(f"verify_w{W}", e)
+            raise
+        toks = sample_window(logits, *sp,
+                             starts[:, None] + np.arange(W, dtype=np.int32))
+        smetrics.m_decode_ms.observe((time.perf_counter_ns() - t0) / 1e6)
+        self.verify_steps += 1
+        logits_np = logits.numpy()
+        return {slot: (logits_np[slot], toks[slot]) for slot in windows}
+
+    def commit_window(self, slot: int, n_accepted_rows: int) -> None:
+        """Advance ``slot`` past ``n_accepted_rows`` verified window rows
+        (their K/V are in the cache already; rejected rows are overwritten
+        by later writes)."""
+        self.cache.set_length(slot, self.cache.length(slot)
+                              + int(n_accepted_rows))
+
     def free_sequence(self, slot: int) -> None:
         self.cache.free(slot)
 
     def note_tokens(self, n: int, window_s: float = 5.0) -> None:
         """Count generated tokens and refresh the tokens/s gauge over the
-        trailing window."""
+        trailing window (a speculative draft meters nothing)."""
+        if not self.meter_tokens:
+            return
         now = time.monotonic()
         smetrics.m_tokens.inc(n)
         w = self._tokens_window
@@ -683,9 +866,17 @@ class DecodeEngine:
     # ------------------------------------------------------------------
     def reference_logits(self, tokens: Sequence[int]) -> np.ndarray:
         """Full-forward float32-weight logits [T, V] for a prompt — the
-        truth the cached decode path is held to."""
+        truth the cached decode path and the quantized weights are held
+        to."""
+        if self._ref_params is None:
+            raise RuntimeError("reference params were dropped")
         with torch.no_grad():
             out = gpt_mod.forward(self._ref_params,
                                   np.asarray(tokens, np.int64)[None],
                                   self.cfg)
         return out[0].float().cpu().numpy()
+
+    def drop_reference_params(self) -> None:
+        """Let the float32 truth go (it stays on the card otherwise), so
+        that only the serving weight set is resident."""
+        self._ref_params = None

@@ -1,7 +1,7 @@
 """Serving metric families — the port of the request, latency, token,
 prefill and decode families of ``paddle_tpu/serving/metrics.py:29-71`` and
-the paged-pool, prefix-cache, preemption and head-of-line families of
-``:74-110`` and the shed family of ``:116-118``. Same names as the JAX
+the paged-pool, prefix-cache, speculative-decoding, preemption and
+head-of-line families of ``:74-110`` and the shed family of ``:116-118``. Same names as the JAX
 package, registered in the port's own registry."""
 from __future__ import annotations
 
@@ -11,7 +11,8 @@ __all__ = ["m_requests", "m_queue_depth", "m_active", "m_occupancy",
            "m_ttft_ms", "m_tpot_ms", "m_tokens", "m_tokens_per_s",
            "m_prefill_ms", "m_prefill_tokens", "m_decode_ms",
            "m_evictions", "m_queue_wait_ms", "m_prefix_cache",
-           "m_page_occupancy", "m_page_fragmentation", "m_preemptions",
+           "m_page_occupancy", "m_page_fragmentation", "m_spec_accepted",
+           "m_spec_proposed", "m_spec_windows", "m_preemptions",
            "m_hol_admits", "m_shed", "request_code"]
 
 _REG = _obs.default_registry()
@@ -72,6 +73,17 @@ m_page_occupancy = _REG.gauge(
 m_page_fragmentation = _REG.gauge(
     "paddle_serve_page_pool_fragmentation",
     "Internal page waste: 1 - used rows / allocated rows")
+# speculative decoding (serving/spec_decode.py): the acceptance histogram
+# is the speedup meter — mean accepted a window against the draft + verify
+# cost
+m_spec_accepted = _REG.histogram(
+    "paddle_serve_spec_accepted_tokens",
+    "Draft tokens accepted per verify window")
+m_spec_proposed = _REG.counter(
+    "paddle_serve_spec_proposed_tokens_total",
+    "Draft tokens proposed to the verifier")
+m_spec_windows = _REG.counter(
+    "paddle_serve_spec_windows_total", "Speculative verify windows run")
 # scheduler preemptions (page pool dry mid-generation -> recompute
 # requeue) and head-of-line bypass admissions
 m_preemptions = _REG.counter(

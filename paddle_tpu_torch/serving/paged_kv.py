@@ -155,13 +155,15 @@ class PagedKVCache:
         self._note_pool_metrics()
 
     # -- slot bookkeeping --------------------------------------------------
-    def can_admit(self, prompt_len: int) -> bool:
-        """Would a prompt of ``prompt_len`` fit right now, a slot and all
-        of its pages? Counts the pages a prefix-cache reclaim could free
-        (a prefix hit only makes admission cheaper)."""
+    def can_admit(self, prompt_len: int, prefix_len: int = 0) -> bool:
+        """Would a prompt of ``prompt_len``, ``prefix_len`` tokens of it
+        already backed by cached pages, fit right now, a slot and all of
+        its own pages? The cached prefix's whole pages need no new ones
+        (``paddle_tpu/serving/paged_kv.py:183-193``). Counts the pages a
+        prefix-cache reclaim could free."""
         if not self._free_slots:
             return False
-        need = self.pages_for(prompt_len)
+        need = self.pages_for(prompt_len) - prefix_len // self.page_size
         avail = len(self._free_pages)
         if self.reclaimer is not None:
             avail += self.reclaimer.reclaimable()

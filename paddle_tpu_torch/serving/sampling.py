@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 __all__ = ["SamplingParams", "GREEDY", "sample_token", "sample_batch",
-           "batch_arrays", "adjusted_probs_np"]
+           "sample_window", "batch_arrays", "adjusted_probs_np"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,6 +97,22 @@ def sample_batch(logits, temps, top_ks, top_ps, seeds,
         toks[b] = sample_token(logits[b], float(temps[b]), int(top_ks[b]),
                                float(top_ps[b]), int(seeds[b]),
                                int(positions[b]))
+    return toks
+
+
+def sample_window(logits, temps, top_ks, top_ps, seeds,
+                  positions) -> np.ndarray:
+    """[B, W, V] logits + [B] per-slot params + [B, W] positions (numpy)
+    -> [B, W] int32 tokens: the speculative-verify window, each position
+    drawn from its own generator folded from (seed, position), as
+    :func:`sample_token` draws a decode step's."""
+    B, W = logits.shape[:2]
+    toks = torch.argmax(logits.float(), -1).cpu().numpy().astype(np.int32)
+    for b in np.nonzero(np.asarray(temps) > 0.0)[0]:
+        for w in range(W):
+            toks[b, w] = sample_token(logits[b, w], float(temps[b]),
+                                      int(top_ks[b]), float(top_ps[b]),
+                                      int(seeds[b]), int(positions[b, w]))
     return toks
 
 

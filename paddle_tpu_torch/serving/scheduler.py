@@ -374,9 +374,9 @@ class Scheduler:
             admitted += 1
             if self._should_finish(req, int(first)):
                 self._evict(slot, DONE)
-            elif self.engine.cache.headroom(slot) < 1:
-                # the prompt filled the slot: the prefill already produced
-                # the one token that fits
+            elif self.engine.cache.headroom(slot) < self._min_headroom():
+                # the prompt filled the slot (to within a speculative
+                # window): the prefill produced the one token that fits
                 self._evict(slot, DONE, "max_seq reached", reason="max_seq")
         return admitted
 
@@ -445,9 +445,15 @@ class Scheduler:
                     self._evict(slot, DONE)
                     finished = True
                     break
-            if not finished and self.engine.cache.headroom(slot) < 1:
+            if (not finished and self.engine.cache.headroom(slot)
+                    < self._min_headroom()):
                 self._evict(slot, DONE, "max_seq reached", reason="max_seq")
         return True
+
+    def _min_headroom(self) -> int:
+        """The slot headroom a generation step needs: 1, or a speculative
+        engine's verify window (``scheduler.py:600-606``, ``:693-696``)."""
+        return getattr(self.engine, "min_headroom", 1)
 
     def _should_finish(self, req: Request, last_token: int) -> bool:
         eos = self.engine.ecfg.eos_id

@@ -1,7 +1,8 @@
 """Where a serving decode tick's time goes on the card.
 
     python -m paddle_tpu_torch.tools.profile_decode [--ticks 30]
-        [--kv-layout {slab,paged}]
+        [--kv-layout {slab,paged}] [--weight-dtype int8]
+        [--spec-k N --draft-layers L]
 
 Builds two GPT_SMALL bf16 engines from seed weights (8 slots, max_seq
 1024, the given KV layout; paged: page 16, the default pool) — the kernel
@@ -16,6 +17,17 @@ tick (``fused_decode=True``) and the plain-PyTorch tick
   matrix products, the rest), and the union of kernel intervals — the
   device's busy time; idle share = 1 - busy / wall. Every time in the
   output is per tick.
+
+With ``--weight-dtype int8`` the two arms are kernel ticks of a bf16 and
+an int8 engine (their float32 truth dropped), timed bf16 / int8 / int8 /
+bf16, with each engine's ``weight_nbytes``. With ``--spec-k N`` the arms
+are the bf16 kernel tick alone and one speculative step
+(``SpecDecodeEngine``, target verify window N + 1, a draft of
+``--draft-layers`` layers at GPT_SMALL's width from seed 1): each step is
+split on the host clock into the draft's ticks (catch-up and proposals),
+the target's verify and the host's acceptance, with the tokens it emits a
+slot; ``ms_per_token`` is the step over its tokens a slot, the tick's
+counterpart.
 
 Prints one JSON line per arm and a last JSON line with both. Needs a CUDA
 device.
@@ -92,15 +104,40 @@ def trace_summary(prof, wall_us: float, n: int, per: str = "tick",
     }
 
 
-def _engine(fused: bool, kv_layout: str):
+def _build(fused: bool, kv_layout: str, weight_dtype: str = "bf16",
+           layers: int = 0, seed: int = 0, verify_window: int = 0):
+    """A GPT_SMALL engine (``layers`` > 0: that depth) from seed weights,
+    its float32 truth dropped, warmed up."""
     from paddle_tpu_torch.models.gpt import GPT_SMALL, init_params
     from paddle_tpu_torch.serving import DecodeEngine, EngineConfig
 
-    params = init_params(GPT_SMALL, seed=0, device="cuda")
-    eng = DecodeEngine(params, GPT_SMALL, EngineConfig(
+    cfg = GPT_SMALL.scaled(num_layers=layers) if layers else GPT_SMALL
+    params = init_params(cfg, seed=seed, device="cuda")
+    eng = DecodeEngine(params, cfg, EngineConfig(
         max_batch=8, max_seq=1024, prefill_buckets=(64, 128, 256, 512),
-        weight_dtype="bf16", fused_decode=fused, kv_layout=kv_layout,
-        page_size=16), device="cuda")
+        weight_dtype=weight_dtype, fused_decode=fused, kv_layout=kv_layout,
+        page_size=16, verify_window=verify_window), device="cuda")
+    del params
+    eng.drop_reference_params()
+    return eng
+
+
+def _engine(fused: bool, kv_layout: str, weight_dtype: str = "bf16",
+            spec=None):
+    """An engine (``spec`` = (k, draft layers): a SpecDecodeEngine) with
+    every slot holding a seeded prompt; returns (engine, {slot: next
+    token})."""
+    from paddle_tpu_torch.models.gpt import GPT_SMALL
+    from paddle_tpu_torch.serving import SpecDecodeEngine
+
+    if spec is None:
+        eng = _build(fused, kv_layout, weight_dtype)
+    else:
+        k, draft_layers = spec
+        eng = SpecDecodeEngine(
+            _build(fused, kv_layout, weight_dtype, verify_window=k + 1),
+            _build(fused, kv_layout, weight_dtype, layers=draft_layers,
+                   seed=1))
     eng.warmup()
     rng = np.random.default_rng(0)
     feed: Dict[int, int] = {}
@@ -134,27 +171,98 @@ def _arm(eng, feed, ticks: int) -> dict:
     return {"tick_ms": tick_ms, **trace_summary(prof, wall_us, ticks)}
 
 
+class _Clock:
+    """Host ms spent in one method of an object, summed (each engine call
+    ends in a device-to-host copy, so it waits for the device)."""
+
+    def __init__(self, obj, name: str):
+        self.ms = 0.0
+        fn = getattr(obj, name)
+
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                self.ms += (time.perf_counter() - t0) * 1e3
+
+        setattr(obj, name, timed)
+
+
+def _spec_arm(spec, feed, steps: int) -> dict:
+    """One speculative step a slot, ``steps`` times: the step's host ms
+    split into the draft's ticks, the target's verify and the rest (the
+    host's acceptance), and the tokens emitted a slot."""
+    def step():
+        out = spec.generate_step(feed)
+        for slot, toks in out.items():
+            feed[slot] = toks[-1]
+        return sum(len(t) for t in out.values()) / len(out)
+
+    for _ in range(3):
+        step()
+    draft = _Clock(spec.draft, "decode_step_sampled")
+    verify = _Clock(spec.target, "verify_step")
+    t0 = time.perf_counter()
+    emitted = sum(step() for _ in range(steps))
+    step_ms = (time.perf_counter() - t0) * 1e3 / steps
+    for obj, name in ((spec.draft, "decode_step_sampled"),
+                      (spec.target, "verify_step")):
+        del obj.__dict__[name]
+    per = emitted / steps
+    return {"step_ms": step_ms, "draft_ms": draft.ms / steps,
+            "draft_tick_ms": draft.ms / steps / spec.k,
+            "verify_ms": verify.ms / steps,
+            "accept_ms": step_ms - (draft.ms + verify.ms) / steps,
+            "tokens_per_window": per, "ms_per_token": step_ms / per,
+            "acceptance_rate": spec.stats.acceptance_rate}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ticks", type=int, default=30)
     ap.add_argument("--kv-layout", choices=("slab", "paged"), default="slab")
+    ap.add_argument("--weight-dtype", choices=("bf16", "int8"),
+                    default="bf16")
+    ap.add_argument("--spec-k", type=int, default=0)
+    ap.add_argument("--draft-layers", type=int, default=3)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_decode: no CUDA device available", file=sys.stderr)
         return 2
-    arms = {"plain": _engine(False, args.kv_layout),
-            "kernels": _engine(True, args.kv_layout)}
-    runs: Dict[str, List[dict]] = {"plain": [], "kernels": []}
-    for name in ("plain", "kernels", "kernels", "plain"):
+    lay = args.kv_layout
+    if args.spec_k:
+        arms = {"target": _engine(True, lay),
+                "spec": _engine(True, lay,
+                                spec=(args.spec_k, args.draft_layers))}
+        order = ("target", "spec", "spec", "target")
+    elif args.weight_dtype == "int8":
+        arms = {"bf16": _engine(True, lay), "int8": _engine(True, lay,
+                                                            "int8")}
+        order = ("bf16", "int8", "int8", "bf16")
+    else:
+        arms = {"plain": _engine(False, lay), "kernels": _engine(True, lay)}
+        order = ("plain", "kernels", "kernels", "plain")
+    runs: Dict[str, List[dict]] = {name: [] for name in arms}
+    for name in order:
         eng, feed = arms[name]
-        r = _arm(eng, feed, args.ticks)
+        if name == "spec":
+            r = _spec_arm(eng, feed, args.ticks)
+        else:
+            r = _arm(eng, feed, args.ticks)
+            r["weight_nbytes"] = eng.weight_nbytes
         r["arm"] = name
         runs[name].append(r)
         print(json.dumps(r))
+    key = {name: ("step_ms" if name == "spec" else "tick_ms")
+           for name in arms}
     print(json.dumps({"device": torch.cuda.get_device_name(0),
-                      "kv_layout": args.kv_layout, "ticks": args.ticks,
-                      "tick_ms": {k: [r["tick_ms"] for r in v]
-                                  for k, v in runs.items()}}))
+                      "kv_layout": lay, "ticks": args.ticks,
+                      "spec_k": args.spec_k,
+                      "draft_layers": args.draft_layers if args.spec_k
+                      else None,
+                      "ms": {k: [r[key[k]] for r in v]
+                             for k, v in runs.items()}}))
     return 0
 
 

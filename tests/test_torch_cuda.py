@@ -317,11 +317,12 @@ def test_wrappers_raise_on_inputs_the_kernels_do_not_take(card):
             q, pool.transpose(0, 1).contiguous().transpose(0, 1),
             pool.clone(), q, q, tables, pos)
     with pytest.raises(ValueError, match="head_dim"):
-        # any hd up to 128 has an instance (ROADMAP C4); past it none
-        p160 = torch.zeros((5, 8, 2, 160), device=card)
-        q160 = torch.zeros((2, 2, 160), device=card)
-        CK.fused_paged_decode_attention(q160, p160, p160.clone(), q160,
-                                        q160, tables, pos)
+        # every hd >= 1 runs a kernel (an instance up to 128, the split
+        # route past it: ROADMAP C4); an empty head runs none
+        p0 = torch.zeros((5, 8, 2, 0), device=card)
+        q0 = torch.zeros((2, 2, 0), device=card)
+        CK.fused_paged_decode_attention(q0, p0, p0.clone(), q0, q0, tables,
+                                        pos, sm_scale=1.0)
     with pytest.raises(ValueError, match="rows"):
         # a page past the split pass's staging: 16,384 rows a chunk
         big = torch.zeros((2, 16384, 2, 16), device=card)
@@ -566,11 +567,12 @@ def test_adamw_sweep_edges_bitwise(chip_smoke, mdt, n, offset):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
                          ids=["bf16", "f32"])
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
-@pytest.mark.parametrize("hd", [24, 48, 80, 96])
+@pytest.mark.parametrize("hd", [24, 48, 80, 96, 160, 256, 320])
 def test_flash_padded_head_dims_match_plain(chip_smoke, dtype, causal, hd):
     """Head dims without an instance run the next one on zero-padded
-    inputs (ROADMAP C4): o, lse, dq, dk, dv against the plain versions at
-    T 200 (f32 within 1e-5, bf16 per element), every output finite."""
+    inputs, and head dims past 128 the split route (ROADMAP C4): o, lse,
+    dq, dk, dv against the plain versions at T 200 (f32 within 1e-5, bf16
+    per element), every output finite."""
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator(device="cuda")
     g.manual_seed(hd)
@@ -580,31 +582,47 @@ def test_flash_padded_head_dims_match_plain(chip_smoke, dtype, causal, hd):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
                          ids=["bf16", "f32"])
-@pytest.mark.parametrize("hd", [8, 20, 24, 96])
+@pytest.mark.parametrize("hd", [8, 20, 24, 96, 160, 256, 320])
 def test_decode_kernels_any_head_dim(chip_smoke, dtype, hd):
     """The slab and paged decode kernels at head dims that are not 16, 32,
     64 or 128 (the next power-of-two instance; hd 20 at bf16 and float32
-    and hd 24 at bf16 are not whole 16-byte vectors: the scalar loads)
-    against their plain versions, caches bitwise."""
+    and hd 24 at bf16 are not whole 16-byte vectors: the scalar loads;
+    past 128 the split route) against their plain versions, caches
+    bitwise."""
     chip_smoke.decode_width_case(dtype, hd)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("hd", [160, 256, 320])
+def test_flash_wide_head_dims_bias_forms(chip_smoke, dtype, hd):
+    """The split route's bias forms: a random bias a head with SQ = T
+    (causal) and a padding bias a batch row with SQ = 1 (full), against
+    the plain versions at T 200."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda")
+    g.manual_seed(hd)
+    chip_smoke.wide_flash_bias_cases(dtype, hd, g)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("layout", ["slab", "paged"])
-@pytest.mark.parametrize("hd", [8, 96])
+@pytest.mark.parametrize("hd", [8, 96, 160])
 def test_engine_any_head_dim_kernel_tokens_equal_plain(card, layout, hd):
-    """A DecodeEngine over a model of head_dim 8 or 96, which raised at
-    its first tick before (ROADMAP C4): float32, the kernel engine's
-    greedy tokens equal the plain engine's, with L decode launches a
-    tick."""
+    """A DecodeEngine over a model of head_dim 8, 96 or 160 (the split
+    route), which raised at its first tick before (ROADMAP C4): float32,
+    the kernel engine's greedy tokens equal the plain engine's, with L
+    decode launches a tick."""
     from paddle_tpu_torch import serving as TS
     from paddle_tpu_torch.models import gpt as TG
     from paddle_tpu_torch.ops import cuda_kernels as CK
 
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = TG.GPT_TINY.scaled(num_layers=2, max_seq_len=64,
-                             num_heads={8: 8, 96: 2}[hd],
-                             d_model={8: 64, 96: 192}[hd], d_ff=256)
+                             num_heads={8: 8, 96: 2, 160: 2}[hd],
+                             d_model={8: 64, 96: 192, 160: 320}[hd],
+                             d_ff=256)
     assert cfg.head_dim == hd
     params = TG.init_params(cfg, seed=hd, device=card)
     ekw = dict(max_batch=4, max_seq=32, prefill_buckets=(8, 16),
@@ -887,9 +905,11 @@ def test_training_wrappers_raise_on_inputs_the_kernels_do_not_take(card):
     from paddle_tpu_torch.ops import cuda_kernels as CK
     from paddle_tpu_torch.ops import flash_attention as FA
 
-    x = torch.zeros((1, 64, 2, 160), device=card)
+    x = torch.zeros((1, 64, 2, 0), device=card)
     with pytest.raises(ValueError, match="head_dim"):
-        FA.flash_fwd(x, x, x)           # past 128: no instance (ROADMAP C4)
+        # every hd >= 1 runs a kernel (past 128 the split route: ROADMAP
+        # C4); an empty head runs none
+        FA.flash_fwd(x, x, x, sm_scale=1.0)
     x = torch.zeros((1, 64, 2, 64), device=card)
     with pytest.raises(TypeError):
         FA.flash_fwd(x.half(), x.half(), x.half())

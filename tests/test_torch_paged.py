@@ -585,6 +585,33 @@ def test_can_admit_counts_reclaimable_prefix_pages(tiny):
     assert tpool.can_admit(len(b_toks))
 
 
+@pytest.mark.parametrize("prefix_len", [0, 7, 8, 16, 23])
+def test_can_admit_takes_a_cached_prefix(prefix_len):
+    """``can_admit(prompt_len, prefix_len)``: a prompt whose first
+    ``prefix_len`` tokens sit on cached pages needs only its own pages,
+    pages_for(prompt_len) - prefix_len // page, as the reference computes
+    it (paged_kv.py:183-193). Pool of 5 usable pages of 8 rows with 3
+    taken by a live slot: a 30-token prompt needs 4 pages and fits only
+    behind a prefix of two whole pages or more. No reclaimer on either
+    pool, so the counts agree."""
+    pools = []
+    for make in (lambda: JPK.PagedKVCache(
+            num_layers=1, max_slots=2, max_seq=32, num_heads=1, head_dim=2,
+            page_size=8, num_pages=6),
+                 lambda: TPK.PagedKVCache(
+            num_layers=1, max_slots=2, max_seq=32, num_heads=1, head_dim=2,
+            page_size=8, num_pages=6, device="cpu")):
+        pool = make()
+        pool.alloc(length=24)
+        assert pool.free_page_count() == 2
+        pools.append(pool)
+    jpool, tpool = pools
+    want = jpool.can_admit(30, prefix_len=prefix_len)
+    assert tpool.can_admit(30, prefix_len=prefix_len) == want
+    assert want == (4 - prefix_len // 8 <= 2)
+    assert tpool.can_admit(30, prefix_len) == want
+
+
 def test_paged_engine_refuses_buckets_off_the_page_grid(tiny):
     with pytest.raises(ValueError, match="page_size"):
         _port_engine(tiny, kv_layout="paged", page_size=16)

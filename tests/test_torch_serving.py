@@ -394,15 +394,31 @@ def test_entry_points_need_a_card_unless_cpu_is_asked(tiny, monkeypatch):
                                 dict(verify_window=3)],
                          ids=["tp", "int8", "spec"])
 def test_unported_engine_options_refused(tiny, kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _port_engine(tiny, **kw)
+    """Tensor parallelism still waits for the multi-GPU slice; int8
+    weights and the verify window (once refused) now build and serve."""
+    if "sharding" in kw:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            _port_engine(tiny, **kw)
+        return
+    eng = _port_engine(tiny, **kw)
+    slot, logits = eng.start_sequence([1, 2, 3])
+    if "verify_window" in kw:
+        out = eng.verify_step({slot: [int(np.argmax(logits)), 4, 5]})
+        assert out[slot][0].shape == (3, 256) and out[slot][1].shape == (3,)
+        assert eng.cache.length(slot) == 3
+    else:
+        assert eng.qparams is not None and not hasattr(eng, "layers")
+        assert np.isfinite(eng.decode_step({slot: 7})[slot]).all()
+    eng.free_sequence(slot)
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     code = (
         "import sys\n"
         "import paddle_tpu_torch, paddle_tpu_torch.serving, chip_smoke\n"
-        "import paddle_tpu_torch.serving.paged_kv\n"
+        "import paddle_tpu_torch.serving.paged_kv, "
+        "paddle_tpu_torch.serving.spec_decode, "
+        "paddle_tpu_torch.serving.quant\n"
         "import paddle_tpu_torch.ops.cuda_kernels, "
         "paddle_tpu_torch.ops._build, paddle_tpu_torch.observability.hw, "
         "paddle_tpu_torch.tools.profile_decode\n"

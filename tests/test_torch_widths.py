@@ -8,8 +8,13 @@ repairs of ROADMAP C4 (head dims) and C5 (row widths), on the CPU.
   3e-4 (``tests/test_pallas.py:37, :57``). The route is what a CUDA
   tensor takes; here the wrappers' device test is patched so the padded
   call runs (each padded call then lands on the plain versions).
+- Past 128 every head_dim takes the split route as it is (no padding);
+  on the CPU it runs the plain versions, held at hd 256 against JAX's
+  interpret-mode kernel and at hd 160 and 320 against plain attention in
+  JAX: JAX's Pallas kernel takes hd up to 128 and whole multiples of 128
+  past it (``_bcast_lanes`` raises "width 160 not a multiple of 128").
 - The decode kernels' instance (the next power of two) and split plan
-  for any hd up to 128.
+  for any hd up to 128, and the split route's plan past it.
 - The fused-LN forward and backward plans and the logits-head plan give
   an instance at D = 2,560, 4,096, 16,384 and 20,000; the CE plan takes
   any D (it depends on rows and columns only) and covers the vocab.
@@ -77,17 +82,60 @@ def test_flash_padded_head_dims_match_jax(monkeypatch, hd, causal):
 
 
 def test_flash_head_dims_past_128_name_the_remainder():
+    """Up to 128 a head_dim without an instance pads to the next one;
+    past 128 none pads: every hd runs the split route as it is."""
     assert [TFA._padded_hd(h) for h in (1, 8, 16, 17, 48, 80, 128)] == [
         16, 16, None, 32, 64, 128, None]
-    with pytest.raises(ValueError, match="ROADMAP C4"):
-        TFA._padded_hd(160)
+    for hd in (129, 160, 250, 256, 320, 1000):
+        assert TFA._padded_hd(hd) is None and TFA._wide(hd)
+    assert not TFA._wide(128)
+    with pytest.raises(ValueError):
+        TFA._padded_hd(0)
+
+
+def _jax_attention(q, k, v, causal):
+    """Plain attention in JAX, [B, T, nh, hd] float32."""
+    s = jnp.einsum("bqnh,bknh->bnqk", q, k) / np.sqrt(q.shape[-1])
+    if causal:
+        T = q.shape[1]
+        s = jnp.where(jnp.tril(jnp.ones((T, T), bool)), s, -jnp.inf)
+    return jnp.einsum("bnqk,bknh->bqnh", jax.nn.softmax(s, -1), v)
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("hd", [160, 256, 320])
+def test_flash_wide_head_dims_match_jax(hd, causal):
+    """The wrappers past 128 (the plain versions on CPU tensors) against
+    JAX's interpret-mode kernel at hd 256 and plain JAX attention at 160
+    and 320: output to 2e-5, gradients to 3e-4."""
+    rng = np.random.default_rng(hd)
+    q, k, v, w = (rng.standard_normal((1, 128, 2, hd)).astype(np.float32)
+                  for _ in range(4))
+    if hd % 128 == 0:
+        jf = lambda q, k, v: PK.flash_attention(  # noqa: E731
+            q, k, v, causal=causal, block_q=64, block_k=64)
+    else:
+        jf = lambda q, k, v: _jax_attention(q, k, v, causal)  # noqa: E731
+    args = tuple(jnp.asarray(x) for x in (q, k, v))
+    want = jf(*args)
+    jg = jax.grad(lambda q, k, v: jnp.sum(jf(q, k, v) * w),
+                  argnums=(0, 1, 2))(*args)
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    got = TFA.flash_attention(tq, tk, tv, causal=causal)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               atol=2e-5, rtol=2e-5)
+    (got * torch.from_numpy(w)).sum().backward()
+    for a, b in zip((tq.grad, tk.grad, tv.grad), jg):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=3e-4,
+                                   rtol=3e-4)
 
 
 def test_decode_instances_cover_every_head_dim():
     """Every hd in 1..128 runs the power-of-two instance at or above it
     (8 at least); the 16-byte-vector instance where hd is a whole number
     of 16-byte cache vectors, else the scalar one; the split plan tiles
-    by the instance's width. Past 128 the wrappers raise."""
+    by the instance's width. Past 128 the split route: column blocks of
+    128, element loads, the plan of the HD-128 instance."""
     for hd in range(1, 129):
         for esz in (2, 4):
             inst, vec = CK._decode_instance(hd, esz)
@@ -98,8 +146,14 @@ def test_decode_instances_cover_every_head_dim():
             assert chunk * nsplit >= 1024
             assert chunk % (4 * 128 * (16 // esz) // inst) == 0
     assert CK._decode_split(1024, 64, 2) == CK._decode_split(1024, 48, 2)
-    with pytest.raises(ValueError, match="ROADMAP C4"):
-        CK._decode_instance(160, 2)
+    for hd in (129, 160, 256, 320, 1000):
+        for esz in (2, 4):
+            assert CK._decode_instance(hd, esz) == (128, False)
+            chunk, nsplit = CK._decode_split(1024, hd, esz)
+            assert chunk * nsplit >= 1024 and nsplit <= 64
+            assert (chunk, nsplit) == CK._decode_split(1024, 128, esz)
+    with pytest.raises(ValueError):
+        CK._decode_instance(0, 2)
 
 
 @pytest.mark.parametrize("D", WIDE)
