@@ -71,6 +71,20 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              a 256-token teacher-forced stream of decode logits against
              the f32 engine within the reference's bars (max_rel_err <
              0.06, perplexity drift < 0.02), top-1 agreement printed;
+4d. serve-disagg — phase 4b's engine twice, as a prefill and a decode
+             replica (``LocalReplica``) behind a ``DisaggRouter`` with a
+             ``SharedPrefixIndex``: phase 4b's 16 requests, one thread a
+             request, migrate at their first token (KV pages CRC-stamped
+             and fingerprinted, 4-page chunks); every request done, 16
+             migrated, 0 fallbacks, both pools whole after the prefix
+             caches are cleared, ``paddle_kv_transfer_bytes_total`` out ==
+             in == the handoffs' page bytes from ``pages_for(len)``, no
+             decode tick on the prefill engine and launches exactly
+             fused_ln 2L, decode_paged L, logits_head 1 a tick of the
+             decode engine; TTFT, TPOT, tokens/s, handoff ms, export and
+             adopt ms (CRC and copy shares), the prefix counts and the
+             token agreement with 4b printed beside 4b's numbers (both
+             replicas share the one card);
 5. parity  — a 2-layer GPT_SMALL in float32 (TF32 off): prefill logits
              within 1e-4 of the full forward, and the slab and paged
              kernel engines and the plain-PyTorch engines must emit
@@ -84,6 +98,13 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              with acceptance exactly 1.0 and 4 tokens a window; the kernel
              spec engine with a 1-layer draft emits the plain spec
              engine's (fused_decode=False) tokens, token for token;
+5d. disagg-parity — the same model, slab and paged, one request at a
+             time: the router's greedy tokens equal the colocated kernel
+             engine's, token for token; an exported and adopted slot reads
+             back bitwise from both pools; a page_size mismatch raises
+             ``CacheConfigMismatch`` naming the field and keeps no page; a
+             router without a decode replica degrades with
+             ``no_phase_fleet`` and emits the same tokens;
 6. train kernels — flash forward, dQ, dK/dV against their plain versions
              at the training path's shapes (q/k/v [16, 1024, 12, 64]
              sliced from one packed qkv, causal) in bf16 (each element
@@ -735,6 +756,18 @@ def phase_serving():
     return launches, e2e
 
 
+def _phase4b_prompts(V: int):
+    """Phase 4b's 16 prompts in their seeded order: 8 behind one 256-token
+    system prompt (tails of 16-144 tokens), 8 unique (16-400 tokens)."""
+    rng = np.random.default_rng(3)
+    system = rng.integers(0, V, size=256).tolist()
+    shared = [system + rng.integers(0, V, size=int(n)).tolist()
+              for n in rng.integers(16, 145, size=8)]
+    unique = [rng.integers(0, V, size=int(n)).tolist()
+              for n in rng.integers(16, 401, size=8)]
+    return [(shared + unique)[i] for i in rng.permutation(16)]
+
+
 def phase_serving_paged():
     """GPT_SMALL bf16, paged layout with the prefix cache, through
     Scheduler + EngineLoop: 8 requests behind one 256-token system prompt
@@ -742,20 +775,14 @@ def phase_serving_paged():
     the loop thread and each prefill publishes its pages before the next
     lookup, so any order gives exactly 7 hits; the default pool (512
     usable pages) holds the cache (under 300 pages) and the live slots
-    without a reclaim. Returns the launch counts of the run."""
+    without a reclaim. Returns the launch counts of the run and its
+    end-to-end numbers and token streams (``{"e2e", "tokens"}``)."""
     from paddle_tpu_torch.serving import metrics as smetrics
 
     eng = _serving_engine("paged")
-    V = eng.cfg.vocab_size
-    rng = np.random.default_rng(3)
-    system = rng.integers(0, V, size=256).tolist()
-    shared = [system + rng.integers(0, V, size=int(n)).tolist()
-              for n in rng.integers(16, 145, size=8)]
-    unique = [rng.integers(0, V, size=int(n)).tolist()
-              for n in rng.integers(16, 401, size=8)]
-    prompts = [(shared + unique)[i] for i in rng.permutation(16)]
+    prompts = _phase4b_prompts(eng.cfg.vocab_size)
     hits0, tok0 = eng.prefix.hits, smetrics.m_prefill_tokens.value
-    launches, _, _ = _serve(eng, prompts, "serve-paged")
+    launches, reqs, e2e = _serve(eng, prompts, "serve-paged")
     hits = eng.prefix.hits - hits0
     prefilled = int(smetrics.m_prefill_tokens.value - tok0)
     want = sum(len(p) for p in prompts) - 7 * 256
@@ -772,6 +799,142 @@ def phase_serving_paged():
     print(f"[serve-paged] prefix hits {hits}, prompt tokens prefilled "
           f"{prefilled} of {want + 7 * 256}, cache held {held} pages; all "
           f"{free} pages free after clear()")
+    return launches, {"e2e": e2e, "tokens": [list(r.tokens) for r in reqs]}
+
+
+def phase_serving_disagg(colocated: dict):
+    """Phase 4d: phase 4b's 16 requests through a prefill and a decode
+    replica (GPT_SMALL bf16, paged, each engine phase 4b's) behind a
+    ``DisaggRouter`` with a ``SharedPrefixIndex``, one thread a request,
+    every launch count zeroed just before. Gates: every request done, 16
+    migrated, no fallback; both pools whole after the prefix caches are
+    cleared; ``paddle_kv_transfer_bytes_total`` out == in == the handoffs'
+    page bytes from ``pages_for(len)``; the prefill engine ran no decode
+    tick (so launched no kernel of the tick) and the launches are exactly
+    fused_ln 2L, decode_paged L, logits_head 1 a tick of the decode
+    engine. Printed beside phase 4b's numbers (``colocated``): TTFT
+    p50/p99, TPOT p50, tokens/s, handoff ms p50/p99, export and adopt ms
+    a handoff and the prefix index's publish exports (``prefix_export``,
+    on the prefill loop after each prefill) with their CRC and copy
+    shares, the prefix index's and the
+    prefill engine's prefix counts, and the token agreement with 4b (not
+    gated: which requests hit the prefix cache depends on the threads'
+    order, and a hit prefills its suffix in another bucket shape). Returns
+    the launch counts."""
+    import threading
+
+    from paddle_tpu_torch.ops import cuda_kernels as CK
+    from paddle_tpu_torch.serving import kv_transfer
+    from paddle_tpu_torch.serving import metrics as smetrics
+    from paddle_tpu_torch.serving.disagg import (DisaggRouter, LocalReplica,
+                                                 SharedPrefixIndex)
+
+    pre = _serving_engine("paged", role="prefill")
+    dec = _serving_engine("paged", role="decode")
+    cfg = dec.cfg
+    prompts = _phase4b_prompts(cfg.vocab_size)
+    index = SharedPrefixIndex()
+    out0 = smetrics.m_kv_transfer_bytes.labels("out").value
+    in0 = smetrics.m_kv_transfer_bytes.labels("in").value
+    ticks0, pre_ticks0, hits0 = dec.decode_ticks, pre.decode_ticks, \
+        pre.prefix.hits
+    results = [None] * len(prompts)
+    torch.cuda.synchronize()
+    kv_transfer.transfer_history(clear=True)
+    CK.reset_launches()
+    reps = [LocalReplica(pre, prefix_index=index),
+            LocalReplica(dec, prefix_index=index)]
+    router = DisaggRouter(reps, prefix_index=index)
+    t0 = time.perf_counter()
+    try:
+        threads = [threading.Thread(
+            target=lambda i=i, p=p: results.__setitem__(
+                i, router.generate(p, max_new_tokens=64, timeout_s=300.0)),
+            daemon=True) for i, p in enumerate(prompts)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600.0)
+    finally:
+        for r in reps:
+            r.stop()
+    wall = time.perf_counter() - t0
+    launches = dict(CK.LAUNCHES)
+    ticks = dec.decode_ticks - ticks0
+    bad = [(i, r and r.state, r and r.error) for i, r in enumerate(results)
+           if r is None or r.state != "done" or len(r.tokens) != 64]
+    if bad or router.migrated != 16 or router.fallbacks:
+        raise AssertionError(f"disagg: not done {bad}, migrated "
+                             f"{router.migrated}, fallbacks "
+                             f"{router.fallbacks}")
+    if not all(0 <= t < cfg.vocab_size for r in results for t in r.tokens):
+        raise AssertionError("a generated token lies outside the vocabulary")
+    L = cfg.num_layers
+    want = dict.fromkeys(CK.LAUNCHES, 0)
+    want.update({"fused_ln": 2 * L * ticks, "decode_paged": L * ticks,
+                 "logits_head": ticks})
+    if pre.decode_ticks != pre_ticks0 or ticks <= 0 or launches != want:
+        raise AssertionError(
+            f"launch counts {launches} != {want} for {ticks} decode ticks "
+            f"of the decode engine; the prefill engine ran "
+            f"{pre.decode_ticks - pre_ticks0} ticks (want 0)")
+    page_bytes = (2 * L * PAGE * cfg.num_heads * cfg.head_dim
+                  * dec.cache.k.element_size())
+    want_bytes = sum(dec.cache.pages_for(len(p)) for p in prompts) \
+        * page_bytes
+    moved = (smetrics.m_kv_transfer_bytes.labels("out").value - out0,
+             smetrics.m_kv_transfer_bytes.labels("in").value - in0)
+    if moved != (want_bytes, want_bytes):
+        raise AssertionError(f"kv transfer bytes out/in {moved} != "
+                             f"{want_bytes} each")
+    pre_hits = pre.prefix.hits - hits0
+    for eng in (pre, dec):
+        eng.prefix.clear()
+        free = eng.cache.free_page_count()
+        if eng.cache.live_slots() or free != eng.cache.num_pages - 1:
+            raise AssertionError(
+                f"{eng.role} pool not returned: {free} of "
+                f"{eng.cache.num_pages - 1} pages free, live slots "
+                f"{eng.cache.live_slots()}")
+    ntok = sum(len(r.tokens) for r in results)
+    ttft = [r.ttft_ms for r in results]
+    tpot = [r.tpot_ms for r in results]
+    hand = [r.handoff_ms for r in results]
+    e2e = {"tok_s": ntok / wall, "ttft_ms_p50": _pct(ttft, 50),
+           "ttft_ms_p99": _pct(ttft, 99), "tpot_ms_p50": _pct(tpot, 50)}
+    same = sum(r.tokens == t for r, t in zip(results, colocated["tokens"]))
+    same_tok = sum(a == b for r, t in zip(results, colocated["tokens"])
+                   for a, b in zip(r.tokens, t))
+    hs = kv_transfer.summarize_stats(kv_transfer.transfer_history())
+    print(f"[serve-disagg] {len(prompts)} requests done, {ntok} tokens in "
+          f"{wall:.3f} s, 16 migrated, 0 fallbacks, {ticks} decode ticks "
+          f"(all on the decode engine); both replicas on one card")
+    for tag, d in (("disagg", e2e), ("colocated 4b", colocated["e2e"])):
+        print(f"[serve-disagg] {tag}: tok/s={d['tok_s']:.1f} ttft_ms "
+              f"p50={d['ttft_ms_p50']:.3f} p99={d['ttft_ms_p99']:.3f} "
+              f"tpot_ms p50={d['tpot_ms_p50']:.3f}")
+    print(f"[serve-disagg] handoff_ms p50={_pct(hand, 50):.3f} "
+          f"p99={_pct(hand, 99):.3f}; kv bytes out=in={want_bytes}")
+    for kind in ("export", "adopt", "prefix_export"):
+        h = hs[kind]
+        print(f"[serve-disagg] {kind}: n={h['n']} ms p50={h['ms_p50']:.3f} "
+              f"p99={h['ms_p99']:.3f} crc p50={h['crc_ms_p50']:.3f} "
+              f"(share {h['crc_share']:.3f}) copy p50="
+              f"{h['copy_ms_p50']:.3f} (share {h['copy_share']:.3f}) "
+              f"bytes mean={h['bytes_mean']:.0f}")
+    print(f"[serve-disagg] prefix index hits={index.hits} misses="
+          f"{index.misses} published={index.published}; prefill engine "
+          f"prefix hits {pre_hits}; streams equal to 4b's: {same} of 16, "
+          f"tokens {same_tok} of {ntok}")
+    print(json.dumps({"serve_disagg": {
+        "e2e": e2e, "colocated_4b": colocated["e2e"],
+        "handoff_ms_p50": _pct(hand, 50), "handoff_ms_p99": _pct(hand, 99),
+        "handoff_stats": hs, "kv_transfer_bytes": want_bytes,
+        "decode_ticks": ticks, "launches": launches,
+        "pool_prefix": {"hits": index.hits, "misses": index.misses,
+                        "published": index.published},
+        "prefill_prefix_hits": pre_hits, "streams_equal_4b": same,
+        "tokens_equal_4b": same_tok}}))
     return launches
 
 
@@ -879,6 +1042,149 @@ def phase_parity():
         raise AssertionError("the 10-page pool never preempted")
     print(f"[parity] 10-page pool: {sched.preemptions} preemption(s), both "
           "64-token streams equal the slab engine's")
+
+
+def _greedy_tokens(eng, prompt, n: int):
+    """``n`` greedy tokens of ``prompt`` on one engine, one request."""
+    slot, logits = eng.start_sequence(prompt)
+    toks = [int(np.argmax(logits))]
+    for _ in range(n - 1):
+        toks.append(int(np.argmax(eng.decode_step({slot: toks[-1]})[slot])))
+    eng.free_sequence(slot)
+    return toks
+
+
+def concurrent_greedy(engines, prompts, n: int):
+    """Each engine on a thread of its own serves ``prompts`` one at a time
+    (``n`` greedy tokens each), all threads at once, engine i starting at
+    prompt i: their decode calls interleave on the card's default stream,
+    different prompts side by side. Returns each engine's streams in the
+    order of ``prompts`` (None for an engine whose thread raised)."""
+    import threading
+
+    out = [None] * len(engines)
+
+    def run(i):
+        order = [(i + j) % len(prompts) for j in range(len(prompts))]
+        got = {j: _greedy_tokens(engines[i], prompts[j], n) for j in order}
+        out[i] = [got[j] for j in range(len(prompts))]
+
+    threads = [threading.Thread(target=run, args=(i,), daemon=True)
+               for i in range(len(engines))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600.0)
+    return out
+
+
+def phase_disagg_parity():
+    """Phase 5d: the KV handoff and the router on the card, a 2-layer
+    GPT_SMALL in float32 (TF32 off), slab and paged, requests one at a
+    time: the router's greedy tokens equal the colocated kernel engine's,
+    token for token; three kernel engines decoding at once, each on a
+    thread of its own (as two replicas' loop threads do), emit those same
+    tokens; a slot exported and adopted reads back bitwise from both pools
+    (before the prefill slot is freed); a page_size mismatch raises
+    ``CacheConfigMismatch`` naming the field; a router with no decode
+    replica degrades with ``no_phase_fleet`` and emits the same tokens."""
+    from paddle_tpu_torch.models.gpt import GPT_SMALL, init_params
+    from paddle_tpu_torch.serving import (CacheConfigMismatch, DecodeEngine,
+                                          EngineConfig)
+    from paddle_tpu_torch.serving.disagg import DisaggRouter, LocalReplica
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = GPT_SMALL.scaled(num_layers=2, dtype=torch.float32)
+    params = init_params(cfg, seed=1, device="cuda")
+    ekw = dict(max_batch=4, max_seq=256, prefill_buckets=(64, 128),
+               page_size=PAGE)
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, cfg.vocab_size, size=int(n)).tolist()
+               for n in (5, 17, 40, 100)]
+
+    def engine(layout, **kw):
+        return DecodeEngine(params, cfg, EngineConfig(
+            kv_layout=layout, **{**ekw, **kw}), device="cuda")
+
+    for layout in ("slab", "paged"):
+        colo = engine(layout)
+        want = [_greedy_tokens(colo, p, 32) for p in prompts]
+        # the decode kernels' workspace is one a stream: engines ticking on
+        # threads of their own must not read each other's partials
+        side = concurrent_greedy([colo, engine(layout), engine(layout)],
+                                 prompts, 32)
+        for i, got in enumerate(side):
+            if got != want:
+                raise AssertionError(f"{layout}: engine {i} decoding beside "
+                                     f"two others: {got} != one at a time "
+                                     f"{want}")
+        # the handoff itself: pages or rows read back bitwise
+        src, dst = engine(layout, role="prefill"), engine(layout,
+                                                         role="decode")
+        for p in prompts:
+            slot, _ = src.start_sequence(p)
+            dslot = dst.adopt_request_kv(src.export_request_kv(slot,
+                                                               tokens=p))
+            for a, b in ((src, slot), (dst, dslot)):
+                if a.cache.length(b) != len(p):
+                    raise AssertionError(f"{layout}: length "
+                                         f"{a.cache.length(b)} != {len(p)}")
+            if layout == "paged":
+                n = src.cache.pages_for(len(p))
+                got = dst.cache.read_pages(dst.cache.table_row(dslot)[:n])
+                exp = src.cache.read_pages(src.cache.table_row(slot)[:n])
+            else:
+                got = dst.cache.read_rows(dslot, 0, len(p))
+                exp = src.cache.read_rows(slot, 0, len(p))
+            if not all(torch.equal(g, e) for g, e in zip(got, exp)):
+                raise AssertionError(f"{layout}: adopted KV of a "
+                                     f"{len(p)}-token prompt not bitwise")
+            src.free_sequence(slot)
+            dst.free_sequence(dslot)
+        reps = [LocalReplica(src), LocalReplica(dst)]
+        router = DisaggRouter(reps)
+        try:
+            got = [router.generate(p, max_new_tokens=32, timeout_s=300.0)
+                   for p in prompts]
+        finally:
+            for r in reps:
+                r.stop()
+        for r, w in zip(got, want):
+            if r.state != "done" or not r.migrated or r.tokens != w:
+                raise AssertionError(
+                    f"{layout} router ({r.state}, migrated {r.migrated}, "
+                    f"{r.error}): {r.tokens} != colocated {w}")
+        # an empty decode fleet: colocated dispatch on the prefill engine
+        alone = LocalReplica(engine(layout, role="prefill"))
+        try:
+            router = DisaggRouter([alone])
+            got = [router.generate(p, max_new_tokens=32, timeout_s=300.0)
+                   for p in prompts]
+        finally:
+            alone.stop()
+        if any(r.fallback_reason != "no_phase_fleet" or r.tokens != w
+               for r, w in zip(got, want)):
+            raise AssertionError(f"{layout}: the empty decode fleet did not "
+                                 "degrade to the same tokens")
+        print(f"[disagg-parity] {layout}: 4 prompts x 32 greedy tokens "
+              f"through prefill -> decode equal the colocated kernel "
+              f"engine's (f32, 2 layers), and so do 3 engines decoding at "
+              f"once on 3 threads; adopted KV bitwise; no decode fleet -> "
+              f"no_phase_fleet, same tokens")
+    src = engine("paged", role="prefill")
+    dst = engine("paged", role="decode", page_size=2 * PAGE)
+    slot, _ = src.start_sequence(prompts[2])
+    try:
+        dst.adopt_request_kv(src.export_request_kv(slot))
+    except CacheConfigMismatch as e:
+        if "page_size" not in str(e):
+            raise AssertionError(f"mismatch names no page_size: {e}")
+        print(f"[disagg-parity] page {PAGE} -> {2 * PAGE}: {e}")
+    else:
+        raise AssertionError("a page_size mismatch was adopted")
+    if dst.cache.free_page_count() != dst.cache.num_pages - 1:
+        raise AssertionError("a refused adoption kept pages")
 
 
 SPEC_K = 3               # the spec lanes' proposals a window (W = 4)
@@ -2631,12 +2937,14 @@ def main() -> int:
     # each kernel's launches summed over the serving paths (slab, paged,
     # speculative, int8); each path printed and asserted its own counts
     launches, alone = phase_serving()
-    for path in (phase_serving_paged, lambda: phase_serving_spec(alone),
-                 phase_serving_int8):
+    paged_launches, paged = phase_serving_paged()
+    for path in (lambda: paged_launches, lambda: phase_serving_spec(alone),
+                 phase_serving_int8, lambda: phase_serving_disagg(paged)):
         for k, v in path().items():
             launches[k] += v
     phase_parity()
     phase_spec_parity()
+    phase_disagg_parity()
     decode_ln = recs["fused_ln"]
     recs.update(phase_train_kernels(torch.bfloat16, time_it=True))
     # the decode tick's plain form [8, 768] beside the training shapes

@@ -39,6 +39,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import threading
 from typing import Dict, Tuple
 
 import torch
@@ -300,13 +301,14 @@ def fused_decode_attention(q, k_cache, v_cache, new_k, new_v, positions,
         return out, k_cache, v_cache
     chunk, nsplit = _decode_split(S, hd, k_cache.element_size())
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    ws = _workspace(q.device, stream, B * nh * nsplit * (hd + 2))
     lib = _lib()
-    err = lib.ptt_decode_slab(
-        q.data_ptr(), new_k.data_ptr(), new_v.data_ptr(), q.stride(0),
-        k_cache.data_ptr(), v_cache.data_ptr(), positions.data_ptr(),
-        active.data_ptr(), out.data_ptr(), ws.data_ptr(), B, S, nh, hd,
-        chunk, nsplit, float(sm_scale), q_code, c_code, stream)
+    with _WORKSPACE_LOCK:
+        ws = _workspace(q.device, stream, B * nh * nsplit * (hd + 2))
+        err = lib.ptt_decode_slab(
+            q.data_ptr(), new_k.data_ptr(), new_v.data_ptr(), q.stride(0),
+            k_cache.data_ptr(), v_cache.data_ptr(), positions.data_ptr(),
+            active.data_ptr(), out.data_ptr(), ws.data_ptr(), B, S, nh, hd,
+            chunk, nsplit, float(sm_scale), q_code, c_code, stream)
     _check_launch(lib, err, "decode_slab")
     return out, k_cache, v_cache
 
@@ -321,6 +323,12 @@ _DECODE_MAX_SPLITS = 64     # chunks a lane at most: the merge's serial loop
 _DECODE_STAGING = 32 * 1024   # bytes of a paged chunk's staged rows (int32)
 # (device index, stream) -> the float32 partials of the split pass
 _WORKSPACE: Dict[Tuple[int, int], torch.Tensor] = {}
+# held from taking a workspace to the return of the one C call that queues
+# the split pass (which writes the partials) and the merge (which reads
+# them): that call releases the GIL, and another thread's split queued on
+# the same stream between the two would overwrite the partials the merge
+# reads (two engines' loop threads on one card share the default stream)
+_WORKSPACE_LOCK = threading.Lock()
 
 
 @functools.lru_cache(maxsize=64)
@@ -357,7 +365,8 @@ def _decode_split(rows: int, hd: int, cache_esz: int,
 def _workspace(dev, stream: int, n: int) -> torch.Tensor:
     """At least ``n`` float32 elements of scratch for (device, stream),
     kept across calls: calls on one stream run in order, so one buffer
-    serves them all, and a call allocates only when it needs more."""
+    serves them all, and a call allocates only when it needs more. Taken
+    and used under ``_WORKSPACE_LOCK``."""
     key = (dev.index, stream)
     buf = _WORKSPACE.get(key)
     if buf is None or buf.numel() < n:
@@ -467,13 +476,15 @@ def fused_paged_decode_attention(q, k_pool, v_pool, new_k, new_v, tables,
     if B == 0:
         return out, k_pool, v_pool
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    ws = _workspace(q.device, stream, B * nh * nsplit * (hd + 2))
     lib = _lib()
-    err = lib.ptt_decode_paged(
-        q.data_ptr(), new_k.data_ptr(), new_v.data_ptr(), q.stride(0),
-        k_pool.data_ptr(), v_pool.data_ptr(), tables.data_ptr(),
-        positions.data_ptr(), out.data_ptr(), ws.data_ptr(), B, M, page, P,
-        nh, hd, chunk, nsplit, float(sm_scale), q_code, c_code, stream)
+    with _WORKSPACE_LOCK:
+        ws = _workspace(q.device, stream, B * nh * nsplit * (hd + 2))
+        err = lib.ptt_decode_paged(
+            q.data_ptr(), new_k.data_ptr(), new_v.data_ptr(), q.stride(0),
+            k_pool.data_ptr(), v_pool.data_ptr(), tables.data_ptr(),
+            positions.data_ptr(), out.data_ptr(), ws.data_ptr(), B, M, page,
+            P, nh, hd, chunk, nsplit, float(sm_scale), q_code, c_code,
+            stream)
     _check_launch(lib, err, "decode_paged")
     return out, k_pool, v_pool
 

@@ -42,6 +42,13 @@
   head, as the reference's verify calls no Pallas kernel.
 - **The cache** is updated in place (JAX donated the slabs to the same
   end); nothing is allocated per request beyond activations.
+- **KV handoff** (disaggregated serving, ``engine.py:211-250``):
+  :meth:`DecodeEngine.export_request_kv` serializes a live slot's pages or
+  rows (``serving/kv_transfer.py``), :meth:`~DecodeEngine.adopt_request_kv`
+  writes a migrated request's into a fresh slot on the loop thread, and a
+  ``prefix_store`` (duck-typed: ``maybe_publish``, ``restore_into``) sees
+  every prefix the paged prefill publishes — the gang-shared prefix index
+  of ``serving/disagg.py`` plugs in there.
 
 PyTorch runs eagerly, so there is nothing to compile: ``warmup`` runs
 each path once so the first request pays no first-call costs (library
@@ -68,8 +75,9 @@ from ..ops.decode_attention import (cache_update, decode_attention,
                                     paged_prefill_attention,
                                     prefill_attention, window_attention,
                                     window_cache_update)
+from . import kv_transfer
 from . import metrics as smetrics
-from .kv_cache import KVCache
+from .kv_cache import CacheFullError, KVCache
 from .paged_kv import PagedKVCache, PagePoolFullError, PrefixCache
 from .quant import WEIGHT_DTYPES, quantize_params, quantized_nbytes
 from .sampling import (GREEDY, SamplingParams, batch_arrays, sample_batch,
@@ -86,6 +94,13 @@ _F32_LEAVES = ("ln1_scale", "ln1_bias", "ln2_scale", "ln2_bias")
 
 class PromptTooLongError(ValueError):
     """Prompt exceeds the largest prefill bucket."""
+
+
+# what a refused adoption raises: it wrote no live slot's rows (at most
+# pages it had claimed, which it gives back)
+_ADOPT_REFUSALS = (kv_transfer.CacheConfigMismatch, CacheFullError,
+                   PagePoolFullError, ValueError, KeyError, TypeError,
+                   AssertionError)
 
 
 def default_bucket_ladder(max_seq: int, smallest: int = 16) -> Tuple[int, ...]:
@@ -233,6 +248,48 @@ class DecodeEngine:
         # the caches usable, as the reference's are without donation.
         self._in_place = self.device.type == "cuda"
         self.poisoned: Optional[str] = None
+        # a prefix store sees every prefix publish (attach_prefix_store)
+        self.prefix_store = None
+
+    def attach_prefix_store(self, store) -> int:
+        """Restore the store's committed prefix records into the pool and
+        prefix cache now (call before :meth:`warmup`), and hand every later
+        publish to it (``store.maybe_publish(tokens, table_row, cache)``).
+        Returns how many records were restored."""
+        if not self.paged or self.prefix is None:
+            raise ValueError("prefix store needs kv_layout='paged' with "
+                             "prefix_cache enabled")
+        self.prefix_store = store
+        return store.restore_into(self)
+
+    # -- KV handoff surface (serving/kv_transfer.py) ---------------------
+    def cache_fingerprint(self) -> Dict[str, Any]:
+        """Geometry fingerprint of this engine's KV cache — the
+        compatibility check of every handoff."""
+        return kv_transfer.cache_fingerprint(self.cache)
+
+    def export_request_kv(self, slot: int, tokens=None) -> dict:
+        """Serialize a live slot's KV state for migration to a decode
+        replica (chunked, CRC-stamped, fingerprinted). The slot stays live
+        until the caller frees it."""
+        self._check_poisoned()
+        return kv_transfer.export_slot(self, slot, tokens=tokens)
+
+    def adopt_request_kv(self, handoff: dict) -> int:
+        """Write a migrated request's KV state into a fresh slot (the decode
+        half of a handoff) and return the slot. Runs on the serving loop
+        thread, between ticks. A refusal — a fingerprint mismatch, a bad
+        CRC, an uncommitted handoff, no free slot or page — writes nothing
+        and leaves the engine as it was; a failure while writing the cache
+        on the card poisons it, as a failed prefill does."""
+        self._check_poisoned()
+        try:
+            return kv_transfer.adopt_into_engine(self, handoff)
+        except _ADOPT_REFUSALS:
+            raise
+        except Exception as e:
+            self._poison_on_donation_failure("kv_adopt", e)
+            raise
 
     def _cast_weights(self, p) -> None:
         """Serving weights, cast once: storage rounding (bf16 weights
@@ -484,8 +541,9 @@ class DecodeEngine:
         """Run the decode tick (slab: every lane masked, nothing written;
         paged: every table row zeroed, the writes land on scratch page 0),
         one prefill per bucket (paged: into page 0), the verify window
-        when ``verify_window >= 2`` (masked the same way) and, paged, the
-        page read/write of page 0 once, so the first request pays no
+        when ``verify_window >= 2`` (masked the same way) and the KV
+        handoff's copies once (paged: page 0 read and written back; slab: a
+        chunk of a free slot's rows), so the first request pays no
         first-call costs: the kernel build and load, library handles. Live
         slots' rows are never changed. Returns {path: wall ms}."""
         timings: Dict[str, float] = {}
@@ -521,9 +579,16 @@ class DecodeEngine:
             toks = torch.zeros((B, W), dtype=torch.long, device=self.device)
             timed(f"verify_w{W}", lambda: self._verify(
                 toks, zeros, table0 if self.paged else zeros))
+        # the KV handoff's copies: paged, page 0 out and back; slab, a
+        # chunk of the first free slot's rows (never a live slot's)
         if self.paged:
             timed("page_io", lambda: self.cache.write_pages(
                 [0], *self.cache.read_pages([0])))
+        elif self.cache.free_slot_count():
+            free = next(i for i in range(B) if not self.cache.is_live(i))
+            n = min(kv_transfer.DEFAULT_CHUNK_ROWS, self.ecfg.max_seq)
+            timed("kv_transfer", lambda: self.cache.write_rows(
+                free, 0, *self.cache.read_rows(free, 0, n)))
         return timings
 
     # ------------------------------------------------------------------
@@ -649,7 +714,10 @@ class DecodeEngine:
                                              row_t))
         smetrics.m_prefill_tokens.inc(len(suffix))
         if self.prefix is not None:
-            self.prefix.insert(tokens, table_row)
+            added = self.prefix.insert(tokens, table_row)
+            if added and self.prefix_store is not None:
+                self.prefix_store.maybe_publish(tokens, table_row,
+                                                self.cache)
         return slot, logits, tok
 
     def resume_sequence_sampled(

@@ -9,13 +9,15 @@ donation to the same effect), so steady-state serving never allocates.
 What this class owns besides the tensors is the host truth the scheduler
 plans against: which slots are live, how long each slot's valid prefix
 is, and a per-slot generation counter that makes slot reuse visible.
-The transfer-path row I/O of the JAX class belongs to the KV handoff and
-is still to be ported.
+``read_rows`` / ``write_rows`` move a slot's rows ``[start, start + n)``
+of every layer between the slabs and the host, one chunk at a time: the
+slab layout's side of the KV handoff (``serving/kv_transfer.py``
+``export_slot`` / ``adopt_into_engine``).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List
+from typing import List, Tuple
 
 import numpy as np
 import torch
@@ -120,3 +122,32 @@ class KVCache:
     def headroom(self, slot: int) -> int:
         """Tokens this slot can still grow by before hitting max_seq."""
         return self.max_seq - self._slots[slot].length
+
+    # -- row content I/O (serving/kv_transfer.py handoff) ------------------
+    def _check_window(self, what: str, start: int, n: int) -> None:
+        if start < 0 or n < 0 or start + n > self.max_seq:
+            raise ValueError(
+                f"{what} window [{start}, {start + n}) exceeds max_seq "
+                f"{self.max_seq}")
+
+    def read_rows(self, slot: int, start: int, n: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Host copies of ``n`` cache rows of ``slot`` from position
+        ``start``: ``([L, n, nh, hd] k, the same for v)`` — the slab
+        analogue of :meth:`PagedKVCache.read_pages`, chunk-sized so a KV
+        handoff never copies a whole slot at once."""
+        self._check_window("read_rows", start, n)
+        rows = slice(int(start), int(start) + int(n))
+        return (self.k[:, slot, rows].to("cpu", copy=True),
+                self.v[:, slot, rows].to("cpu", copy=True))
+
+    def write_rows(self, slot: int, start: int, k_rows, v_rows) -> None:
+        """Write transferred K/V rows (``[L, n, nh, hd]``, tensors or numpy
+        arrays) into ``slot`` from position ``start``, in place."""
+        k_rows = torch.as_tensor(k_rows)
+        v_rows = torch.as_tensor(v_rows)
+        n = int(k_rows.shape[1])
+        self._check_window("write_rows", start, n)
+        rows = slice(int(start), int(start) + n)
+        self.k[:, slot, rows] = k_rows.to(self.k)
+        self.v[:, slot, rows] = v_rows.to(self.v)

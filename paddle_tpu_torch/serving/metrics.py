@@ -1,7 +1,8 @@
 """Serving metric families — the port of the request, latency, token,
 prefill and decode families of ``paddle_tpu/serving/metrics.py:29-71`` and
 the paged-pool, prefix-cache, speculative-decoding, preemption and
-head-of-line families of ``:74-110`` and the shed family of ``:116-118``. Same names as the JAX
+head-of-line families of ``:74-110``, the shed family of ``:116-118`` and
+the disaggregation families of ``:142-160``. Same names as the JAX
 package, registered in the port's own registry."""
 from __future__ import annotations
 
@@ -13,7 +14,9 @@ __all__ = ["m_requests", "m_queue_depth", "m_active", "m_occupancy",
            "m_evictions", "m_queue_wait_ms", "m_prefix_cache",
            "m_page_occupancy", "m_page_fragmentation", "m_spec_accepted",
            "m_spec_proposed", "m_spec_windows", "m_preemptions",
-           "m_hol_admits", "m_shed", "request_code"]
+           "m_hol_admits", "m_shed", "m_kv_transfer_bytes",
+           "m_kv_transfer_ms", "m_pool_prefix", "m_disagg_fallback",
+           "request_code"]
 
 _REG = _obs.default_registry()
 
@@ -98,6 +101,26 @@ m_hol_admits = _REG.counter(
 m_shed = _REG.counter(
     "paddle_serve_shed_total",
     "Requests shed by the overload control, by reason", ("reason",))
+
+# disaggregated serving (serving/kv_transfer.py, serving/disagg.py): the KV
+# handoff's volume and latency between prefill and decode replicas (they
+# move only on disaggregated runs), the gang-shared prefix index by phase,
+# and the router's degradations to colocated dispatch
+m_kv_transfer_bytes = _REG.counter(
+    "paddle_kv_transfer_bytes_total",
+    "KV page bytes shipped between replicas, by direction",
+    ("direction",))
+m_kv_transfer_ms = _REG.histogram(
+    "paddle_kv_transfer_ms",
+    "Wall time of one request's KV handoff (export+ship+adopt), ms")
+m_pool_prefix = _REG.counter(
+    "paddle_serve_pool_prefix_cache_total",
+    "Pool-level (gang-shared) prefix index events, by phase",
+    ("event", "phase"))
+m_disagg_fallback = _REG.counter(
+    "paddle_serve_disagg_fallback_total",
+    "Disagg requests degraded to colocated dispatch, by reason",
+    ("reason",))
 
 
 def request_code(code: int) -> None:

@@ -34,8 +34,12 @@ count is always 0 and a prompt that a reclaim would fit is never admitted
 ``_take_pages`` calls its ``reclaim`` and ``can_admit`` its
 ``reclaimable``.
 
-The KV-handoff surface of the JAX class (``claim_pages``, ``adopt_slot``,
-``PrefixCache.adopt_nested``/``has``) comes with disaggregated serving.
+The KV handoff (``serving/kv_transfer.py``) moves page contents with
+``read_pages`` / ``write_pages``; the receiving side claims pages with one
+reference each (``claim_pages``, ``paged_kv.py:313``), binds them to a slot
+(``adopt_slot``, ``:362``) or registers them as a cached prefix
+(``PrefixCache.adopt_nested``, ``:500``; ``PrefixCache.has``, ``:472``,
+probes without counting).
 """
 from __future__ import annotations
 
@@ -117,6 +121,10 @@ class PagedKVCache:
     def pages_for(self, n_tokens: int) -> int:
         """Pages needed to back ``n_tokens`` cache rows."""
         return -(-int(n_tokens) // self.page_size)
+
+    @property
+    def nbytes(self) -> int:
+        return int(self.k.numel() + self.v.numel()) * self.k.element_size()
 
     # -- page plumbing -----------------------------------------------------
     def free_page_count(self) -> int:
@@ -276,6 +284,47 @@ class PagedKVCache:
         return self.max_seq - self._slots[slot].length
 
     # -- page contents -----------------------------------------------------
+    def claim_pages(self, n: int) -> List[int]:
+        """Take ``n`` pages off the free list with ONE reference each — the
+        slot's reference after :meth:`adopt_slot`, or the prefix cache's
+        after ``PrefixCache.adopt_nested``. Raises
+        :class:`PagePoolFullError` (after the reclaimer) when the pool
+        cannot cover it."""
+        return self._take_pages(int(n))
+
+    def adopt_slot(self, length: int, pages: Sequence[int]) -> int:
+        """Bind claimed, already-written ``pages`` to a fresh slot with
+        ``length`` valid positions — the receiving half of a KV handoff.
+        The pages' single reference (:meth:`claim_pages`) becomes the
+        slot's, so :meth:`free` returns them to the pool. Raises
+        :class:`CacheFullError` when no slot is free (the caller still owns
+        the pages and must deref them)."""
+        pages = [int(p) for p in pages]
+        if length > self.max_seq:
+            raise ValueError(
+                f"sequence length {length} exceeds max_seq {self.max_seq}")
+        if len(pages) != self.pages_for(length):
+            raise ValueError(
+                f"adopting {len(pages)} page(s) for length {length}; "
+                f"need {self.pages_for(length)}")
+        for p in pages:
+            if p == 0 or self._ref[p] <= 0:
+                raise ValueError(f"adopting unclaimed page {p}")
+        if not self._free_slots:
+            raise CacheFullError(
+                f"all {self.max_slots} decode slots are live")
+        slot = self._free_slots.pop(0)
+        st = self._slots[slot]
+        st.live = True
+        st.length = int(length)
+        st.prefix_len = 0
+        st.mapped = len(pages)
+        row = self._tables[slot]
+        row[:] = 0
+        row[:len(pages)] = pages
+        self._note_pool_metrics()
+        return slot
+
     def read_pages(self, pages: Sequence[int]
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Host copies of the K/V contents of ``pages``: ``([L, n, page,
@@ -359,6 +408,35 @@ class PrefixCache:
         """Pages a full reclaim could hand back to the pool (those only
         the cache still holds)."""
         return sum(1 for p in self._held_pages() if self.pool._ref[p] == 1)
+
+    def has(self, tokens: Sequence[int]) -> bool:
+        """Exact-entry probe WITHOUT metric counts or LRU freshening — the
+        prefix index's "is it already here?" check."""
+        prefix = tuple(int(t) for t in tokens)
+        ent = self._entries.get(self._key(prefix))
+        return ent is not None and ent[0] == prefix
+
+    def adopt_nested(self, tokens: Sequence[int],
+                     pages: Sequence[int]) -> int:
+        """Register an adopted page-aligned prefix: ``pages`` already hold
+        their single cache reference (:meth:`PagedKVCache.claim_pages`) and
+        their contents. As :meth:`insert` publishes, every page-boundary
+        prefix of ``tokens`` becomes an entry sharing those pages. Returns
+        how many entries were registered (existing keys are skipped)."""
+        ps = self.pool.page_size
+        pages = tuple(int(p) for p in pages)
+        if len(tokens) < len(pages) * ps:
+            raise ValueError("adopted pages cover more than the tokens")
+        registered = 0
+        for j in range(1, len(pages) + 1):
+            prefix = tuple(int(t) for t in tokens[:j * ps])
+            key = self._key(prefix)
+            if key in self._entries:
+                continue
+            self._entries[key] = (prefix, pages[:j])
+            registered += 1
+        self._evict_over_capacity()
+        return registered
 
     def lookup(self, tokens: Sequence[int]
                ) -> Tuple[int, Tuple[int, ...]]:

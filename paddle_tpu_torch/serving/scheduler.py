@@ -32,9 +32,20 @@ one loop thread. Completion is signaled through a per-request
 under the queue lock before draining the queue, so a racing submit is
 either failed with the rest or refused — never parked.
 
-The KV handoff and prefix blobs (disaggregated serving), the spans,
-goodput and trace context of the JAX scheduler are still to be ported
-(ROADMAP.md, queue A).
+Disaggregated serving (``scheduler.py:94-102``, ``:187-362``, ``:514-590``
+of the reference): a ``prefill_only`` request finishes at its first token
+with its KV state exported into ``req.handoff`` and its slot freed; the
+router hands that payload to a decode replica's
+:meth:`Scheduler.submit_handoff`, whose loop adopts it at the START of
+its next tick (the only context that may write the cache), retrying
+while no slot or page is free and expiring it when its deadline passes
+first. A migrated request carries its prompt, so a preemption on the
+decode replica re-prefills ``gen_prompt()`` like any other. A
+``prefix_blob`` (a gang-shared prefix record) is adopted into the local
+pool just before the request prefills.
+
+The spans, goodput and trace context of the JAX scheduler are still to be
+ported (ROADMAP.md, queue A4).
 """
 from __future__ import annotations
 
@@ -51,6 +62,7 @@ from ..device import resolve_device
 from . import metrics as smetrics
 from .engine import DecodeEngine
 from .kv_cache import CacheFullError
+from .kv_transfer import adopt_prefix
 from .paged_kv import PagePoolFullError
 from .sampling import GREEDY, SamplingParams
 
@@ -87,6 +99,13 @@ class Request:
     hol_skips: int = 0
     # preempted (page pool dry): resumes by re-prefilling gen_prompt()
     preempted: bool = False
+    # disaggregated serving: a prefill_only request finishes at the first
+    # token with its KV serialized into ``handoff``; on the decode side the
+    # same field carries the payload awaiting adoption. ``prefix_blob`` is
+    # a gang-shared prefix record adopted before this request prefills.
+    prefill_only: bool = False
+    handoff: Optional[dict] = None
+    prefix_blob: Optional[dict] = None
     finished: threading.Event = dataclasses.field(
         default_factory=threading.Event)
 
@@ -138,6 +157,9 @@ class Scheduler:
         # _finish runs under self._lock on some paths)
         self._rate_lock = threading.Lock()
         self._done_times: Deque[float] = deque(maxlen=256)
+        # migrated requests awaiting KV adoption, taken at the START of a
+        # tick on the loop thread (adoption writes the cache)
+        self._pending_handoffs: Deque[Request] = deque()
         role = getattr(engine, "role", "colocated")
         self._ttft_hist = smetrics.m_ttft_ms.labels("prefill", role)
         self._tpot_hist = smetrics.m_tpot_ms.labels("decode", role)
@@ -147,10 +169,18 @@ class Scheduler:
     # ------------------------------------------------------------------
     def submit(self, prompt: Sequence[int], max_new_tokens: int = 16,
                timeout_s: Optional[float] = None,
-               sampling: Optional[SamplingParams] = None) -> Request:
+               sampling: Optional[SamplingParams] = None,
+               prefill_only: bool = False,
+               prefix_blob: Optional[dict] = None) -> Request:
         """Enqueue a request; raises QueueFullError on backpressure,
         PromptTooLongError for prompts above the bucket ladder, and
-        RuntimeError once draining or refusing."""
+        RuntimeError once draining or refusing.
+
+        ``prefill_only=True`` stops the request at its first token: its KV
+        state is exported into ``req.handoff`` and the slot released, for
+        the caller to migrate to a decode replica (:meth:`submit_handoff`).
+        ``prefix_blob`` is a gang-shared prefix record adopted into the
+        local pool right before the prefill (best effort)."""
         prompt = [int(t) for t in prompt]
         if not prompt:
             raise ValueError("empty prompt")
@@ -161,18 +191,59 @@ class Scheduler:
                    else float(timeout_s))
         req = Request(prompt=prompt, max_new_tokens=max_new,
                       deadline=time.monotonic() + timeout,
-                      sampling=sampling or GREEDY)
+                      sampling=sampling or GREEDY,
+                      prefill_only=bool(prefill_only),
+                      prefix_blob=prefix_blob)
         with self._lock:
-            if self._refusing is not None:
-                raise RuntimeError(self._refusing)
-            if self._draining:
-                raise RuntimeError("scheduler is draining")
+            self._check_open()
             if len(self._queue) >= self.cfg.max_queue:
                 raise QueueFullError(
                     f"admission queue at capacity ({self.cfg.max_queue})")
             self._queue.append(req)
             smetrics.m_queue_depth.set(len(self._queue))
         return req
+
+    def submit_handoff(self, handoff: dict, first_token: int,
+                       max_new_tokens: int = 16,
+                       timeout_s: Optional[float] = None,
+                       sampling: Optional[SamplingParams] = None,
+                       prompt: Optional[Sequence[int]] = None) -> Request:
+        """Enqueue a MIGRATED request: the prefill replica produced
+        ``first_token`` and exported its KV into ``handoff``; this
+        scheduler adopts the payload at the start of its next tick and
+        decodes from there. The request is seeded with the first token, so
+        its finish counting and greedy stream are the colocated path's. Its
+        prompt (``prompt``, else the handoff's ``tokens``) is required: a
+        preemption here re-prefills it. The pending handoffs are capped at
+        ``max_queue`` (QueueFullError)."""
+        prompt = [int(t) for t in (prompt if prompt is not None
+                                   else (handoff.get("tokens") or []))]
+        if not prompt:
+            raise ValueError("handoff carries no prompt tokens — "
+                             "preemption resume would be impossible")
+        max_new = max(1, min(int(max_new_tokens),
+                             self.cfg.max_new_tokens_cap))
+        timeout = (self.cfg.default_timeout_s if timeout_s is None
+                   else float(timeout_s))
+        req = Request(prompt=prompt, max_new_tokens=max_new,
+                      deadline=time.monotonic() + timeout,
+                      sampling=sampling or GREEDY, handoff=handoff)
+        req.tokens.append(int(first_token))
+        req.token_times.append(time.monotonic())
+        with self._lock:
+            self._check_open()
+            if len(self._pending_handoffs) >= self.cfg.max_queue:
+                raise QueueFullError(
+                    f"handoff queue at capacity ({self.cfg.max_queue})")
+            self._pending_handoffs.append(req)
+        return req
+
+    def _check_open(self) -> None:
+        """Under ``self._lock``: refuse while refusing or draining."""
+        if self._refusing is not None:
+            raise RuntimeError(self._refusing)
+        if self._draining:
+            raise RuntimeError("scheduler is draining")
 
     def cancel(self, req: Request) -> bool:
         """Cancel a QUEUED request (active ones finish their current
@@ -189,15 +260,54 @@ class Scheduler:
     # loop side (one thread)
     # ------------------------------------------------------------------
     def step(self) -> bool:
-        """One serving tick: expire -> admit -> decode. Returns True when
-        any work happened (False = idle, the loop may sleep)."""
+        """One serving tick: expire -> adopt handoffs -> admit -> decode.
+        Returns True when any work happened (False = idle, the loop may
+        sleep)."""
         now = time.monotonic()
         self._expire_queued(now)
+        ingested = self._ingest_handoffs(now)
         admitted = self._admit()
         decoded = self._decode(now)
         smetrics.m_occupancy.set(self.engine.cache.occupancy)
         smetrics.m_active.set(len(self._active))
-        return bool(admitted or decoded)
+        return bool(ingested or admitted or decoded)
+
+    def _ingest_handoffs(self, now: float) -> int:
+        """Adopt migrated requests' KV into the cache, oldest first, at the
+        tick's start on the loop thread. One past its deadline expires; no
+        free slot or page leaves it (and those behind it) for the next
+        tick; any other failure fails it."""
+        n = 0
+        while True:
+            with self._lock:
+                if not self._pending_handoffs:
+                    break
+                req = self._pending_handoffs[0]
+            if req.deadline <= now:
+                with self._lock:
+                    self._pending_handoffs.popleft()
+                self._finish(req, EXPIRED,
+                             "deadline exceeded before KV adoption")
+                continue
+            try:
+                slot = self.engine.adopt_request_kv(req.handoff)
+            except (CacheFullError, PagePoolFullError):
+                break              # slot or pool pressure: retry next tick
+            except Exception as e:
+                with self._lock:
+                    self._pending_handoffs.popleft()
+                self._finish(req, FAILED, f"{type(e).__name__}: {e}")
+                continue
+            with self._lock:
+                self._pending_handoffs.popleft()
+            req.handoff = None
+            req.state = ACTIVE
+            req.slot = slot
+            self._active[slot] = req
+            self._next_token[slot] = req.tokens[-1]
+            self._admit_order.append(slot)
+            n += 1
+        return n
 
     def begin_drain(self) -> None:
         """Refuse every later submit; queued and active requests stay."""
@@ -222,8 +332,9 @@ class Scheduler:
         with self._lock:
             if refuse_new:
                 self._refusing = reason
-            queued = list(self._queue)
+            queued = list(self._queue) + list(self._pending_handoffs)
             self._queue.clear()
+            self._pending_handoffs.clear()
             smetrics.m_queue_depth.set(0)
         n = 0
         for slot in list(self._active):
@@ -246,8 +357,10 @@ class Scheduler:
         return self._refusing
 
     def pending(self) -> int:
+        """Queued, pending-handoff and active requests."""
         with self._lock:
-            return len(self._queue) + len(self._active)
+            return (len(self._queue) + len(self._pending_handoffs)
+                    + len(self._active))
 
     def queue_depth(self) -> int:
         with self._lock:
@@ -333,6 +446,15 @@ class Scheduler:
             if req is None:
                 break
             t_admit = time.monotonic()
+            if req.prefix_blob is not None:
+                # a gang-shared prefix record: adopt it into the local pool
+                # so the prefill below hits it. Best effort — a failure
+                # means a cold prefill, nothing worse.
+                blob, req.prefix_blob = req.prefix_blob, None
+                try:
+                    adopt_prefix(self.engine, blob)
+                except Exception:
+                    pass
             try:
                 if req.preempted:
                     # may exceed the ladder: the engine replays the known
@@ -369,6 +491,19 @@ class Scheduler:
                 self._ttft_hist.observe(req.ttft_ms)
                 self.engine.note_tokens(1)
             self._active[slot] = req
+            if req.prefill_only:
+                # the first-token boundary of a disaggregated request:
+                # export the prompt's KV here on the loop thread, free the
+                # slot and finish — the router migrates req.handoff
+                admitted += 1
+                try:
+                    req.handoff = self.engine.export_request_kv(
+                        slot, tokens=req.prompt)
+                except Exception as e:
+                    self._evict(slot, FAILED, f"{type(e).__name__}: {e}")
+                    continue
+                self._evict(slot, DONE, reason="handoff")
+                continue
             self._next_token[slot] = int(first)
             self._admit_order.append(slot)
             admitted += 1

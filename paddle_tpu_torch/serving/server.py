@@ -20,9 +20,23 @@ backend of ``paddle_tpu/serving/server.py``.
 - internal failure -> **500**, always with a JSON body.
 
 ``GET /health`` reports the phase, queue depth, active slots and the
-loop's fault count, and status ``poisoned`` once the engine is. The
-predictor route, ``/prefill``/``/resume`` and ``/metrics`` are still to
-be ported (ROADMAP.md, queue A).
+loop's fault count, and status ``poisoned`` once the engine is.
+
+The disaggregated phases (``server.py:255-380`` of the reference):
+
+- ``POST /prefill`` runs a request to its first token and answers with
+  the KV handoff inline (``"kv"``, ``kv_transfer.handoff_to_jsonable``), or
+  pushes it to the ``kv_target`` the caller names (``{"host", "port",
+  "transfer_id"}``, a decode replica's :class:`~.kv_transfer.
+  KVTransferServer`) and answers ``"transferred": true``; a failed push
+  answers **502** with the first token, the caller's cue to degrade to
+  colocated dispatch;
+- ``POST /resume`` decodes a migrated request from ``"first_token"``,
+  adopting its handoff inline (``"kv"``) or popping ``"transfer_id"`` from
+  this front door's ``kv_server``.
+
+The predictor route and ``/metrics`` are still to be ported (ROADMAP.md,
+queue A4).
 """
 from __future__ import annotations
 
@@ -32,6 +46,7 @@ import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Dict, Optional
 
+from . import kv_transfer
 from . import metrics as smetrics
 from .engine import PromptTooLongError
 from .sampling import SamplingParams
@@ -193,8 +208,10 @@ class _Handler(BaseHTTPRequestHandler):
         self._json(404, {"error": f"unknown path {self.path!r}"})
 
     def do_POST(self):
-        if self.path == "/generate":
-            return self._generate(self.server.front)
+        route = {"/generate": self._generate, "/prefill": self._prefill,
+                 "/resume": self._resume}.get(self.path)
+        if route is not None:
+            return route(self.server.front)
         self._json(404, {"error": f"unknown path {self.path!r}"})
 
     @staticmethod
@@ -235,23 +252,11 @@ class _Handler(BaseHTTPRequestHandler):
                     "error": f"queue drain ETA exceeds the request "
                              f"deadline ({timeout_s:.1f}s) — shed "
                              f"({reason})"}, retry_after=after)
-        try:
-            request = front.scheduler.submit(
-                prompt, max_new_tokens=int(req_obj.get("max_new_tokens",
-                                                       16)),
-                timeout_s=timeout_s, sampling=self._parse_sampling(req_obj))
-        except QueueFullError as e:
-            smetrics.m_shed.labels("queue_full").inc()
-            return self._json(429, {"error": str(e)},
-                              retry_after=front._retry_after())
-        except PromptTooLongError as e:
-            return self._json(400, {"error": str(e)})
-        except (TypeError, ValueError) as e:
-            return self._json(400, {"error": f"{type(e).__name__}: {e}"})
-        except RuntimeError as e:
-            # draining raced the check above, or the scheduler refuses
-            return self._json(503, {"error": str(e)},
-                              retry_after=front._retry_after())
+        request = self._submitted(front, lambda: front.scheduler.submit(
+            prompt, max_new_tokens=int(req_obj.get("max_new_tokens", 16)),
+            timeout_s=timeout_s, sampling=self._parse_sampling(req_obj)))
+        if request is None:
+            return
         front.loop.wake()
         # the scheduler owns the deadline; +1 s covers the loop's wakeup
         request.wait(timeout=timeout_s + 1.0)
@@ -270,20 +275,161 @@ class _Handler(BaseHTTPRequestHandler):
         return self._json(500, {"error": request.error
                                 or f"request {request.state}"})
 
+    # -- disaggregated phases ------------------------------------------
+    def _timeout(self, front: "FrontDoor", req_obj) -> float:
+        timeout_s = req_obj.get("timeout_s")
+        return (front.request_timeout_s if timeout_s is None
+                else float(timeout_s))
+
+    def _submitted(self, front: "FrontDoor", submit):
+        """``submit()`` -> the request, or None after answering its
+        refusal: 429 queue full, 400 bad input, 503 when draining raced
+        the route's check or the scheduler refuses."""
+        try:
+            return submit()
+        except QueueFullError as e:
+            smetrics.m_shed.labels("queue_full").inc()
+            self._json(429, {"error": str(e)},
+                       retry_after=front._retry_after())
+        except PromptTooLongError as e:
+            self._json(400, {"error": str(e)})
+        except (TypeError, ValueError) as e:
+            self._json(400, {"error": f"{type(e).__name__}: {e}"})
+        except RuntimeError as e:
+            self._json(503, {"error": str(e)},
+                       retry_after=front._retry_after())
+        return None
+
+    def _prefill(self, front: "FrontDoor"):
+        """Prefill only: run to the first token, then push the KV handoff
+        to the caller's ``kv_target`` or return it inline (base64)."""
+        if front.draining:
+            return self._json(503, {"error": "server is draining"},
+                              retry_after=front._retry_after())
+        req_obj = self._read_json()
+        if req_obj is None:
+            return
+        prompt = req_obj.get("prompt") or req_obj.get("tokens")
+        if not isinstance(prompt, list) or not prompt:
+            return self._json(
+                400, {"error": "body must carry a non-empty token list "
+                               "under 'prompt'"})
+        timeout_s = self._timeout(front, req_obj)
+        request = self._submitted(front, lambda: front.scheduler.submit(
+            prompt, max_new_tokens=int(req_obj.get("max_new_tokens", 16)),
+            timeout_s=timeout_s, sampling=self._parse_sampling(req_obj),
+            prefill_only=True))
+        if request is None:
+            return
+        front.loop.wake()
+        request.wait(timeout=timeout_s + 1.0)
+        if request.state != "done" or request.handoff is None:
+            if request.state in ("expired", "queued", "active"):
+                return self._json(504, {
+                    "error": request.error or "deadline exceeded"})
+            return self._json(500, {"error": request.error
+                                    or f"request {request.state}"})
+        handoff = request.handoff
+        resp = {"first_token": int(request.tokens[0]),
+                "ttft_ms": round(request.ttft_ms, 3),
+                "transfer_id": handoff["transfer_id"]}
+        kv_target = req_obj.get("kv_target")
+        if kv_target:
+            handoff = dict(handoff, transfer_id=str(
+                kv_target.get("transfer_id") or handoff["transfer_id"]))
+            try:
+                kv_transfer.send_handoff(kv_target["host"],
+                                         int(kv_target["port"]), handoff,
+                                         timeout_s=timeout_s)
+            except Exception as e:
+                # the prefill succeeded, the channel did not: 502 tells
+                # the router to degrade to colocated dispatch
+                return self._json(502, {
+                    "error": f"KV push failed: {type(e).__name__}: {e}",
+                    "first_token": int(request.tokens[0])})
+            resp["transfer_id"] = handoff["transfer_id"]
+            resp["transferred"] = True
+        else:
+            resp["kv"] = kv_transfer.handoff_to_jsonable(handoff)
+        return self._json(200, resp)
+
+    def _resume(self, front: "FrontDoor"):
+        """Decode a migrated request: adopt its KV handoff (by transfer id
+        from the socket channel, or inline) and generate from its first
+        token."""
+        if front.draining:
+            return self._json(503, {"error": "server is draining"},
+                              retry_after=front._retry_after())
+        req_obj = self._read_json()
+        if req_obj is None:
+            return
+        if "first_token" not in req_obj:
+            return self._json(400, {"error": "body must carry "
+                                             "'first_token'"})
+        prompt = req_obj.get("prompt") or []
+        timeout_s = self._timeout(front, req_obj)
+        if req_obj.get("transfer_id"):
+            if front.kv_server is None:
+                return self._json(400, {
+                    "error": "no KV transfer server on this replica"})
+            try:
+                handoff = front.kv_server.pop(
+                    str(req_obj["transfer_id"]),
+                    timeout_s=min(timeout_s, 10.0))
+            except TimeoutError as e:
+                return self._json(504, {"error": str(e)})
+        elif req_obj.get("kv"):
+            try:
+                handoff = kv_transfer.handoff_from_jsonable(req_obj["kv"])
+            except Exception as e:
+                return self._json(400, {
+                    "error": f"malformed inline handoff: {e}"})
+        else:
+            return self._json(400, {"error": "body must carry "
+                                             "'transfer_id' or 'kv'"})
+        request = self._submitted(
+            front, lambda: front.scheduler.submit_handoff(
+                handoff, int(req_obj["first_token"]),
+                max_new_tokens=int(req_obj.get("max_new_tokens", 16)),
+                timeout_s=timeout_s,
+                sampling=self._parse_sampling(req_obj),
+                prompt=prompt or None))
+        if request is None:
+            return
+        front.loop.wake()
+        request.wait(timeout=timeout_s + 1.0)
+        if request.state == "done":
+            return self._json(200, {
+                "tokens": request.tokens,
+                "num_tokens": len(request.tokens),
+                "tpot_ms": (round(request.tpot_ms, 3)
+                            if request.tpot_ms is not None else None),
+            })
+        if request.state in ("expired", "queued", "active"):
+            return self._json(504, {
+                "error": request.error or "deadline exceeded",
+                "partial_tokens": request.tokens})
+        return self._json(500, {"error": request.error
+                                or f"request {request.state}"})
+
 
 class FrontDoor:
     """The serving HTTP server over one scheduler (and its engine).
     ``shed_deadline_aware`` sheds requests whose deadline the queue's
     measured drain ETA already exceeds; ``retry_after_cap_s`` caps the
     ``Retry-After`` of every 429 and 503; ``on_poison(reason)`` is called
-    once when the engine is found poisoned (:class:`EngineLoop`)."""
+    once when the engine is found poisoned (:class:`EngineLoop`);
+    ``kv_server`` is the :class:`~.kv_transfer.KVTransferServer` that
+    ``/resume`` pops socket handoffs from (None: inline handoffs only)."""
 
     def __init__(self, scheduler: Scheduler, host: str = "127.0.0.1",
                  port: int = 0, request_timeout_s: float = 30.0,
-                 max_body_bytes: int = 16 << 20, verbose: bool = False,
+                 max_body_bytes: int = 256 << 20, verbose: bool = False,
                  shed_deadline_aware: bool = True,
-                 retry_after_cap_s: float = 60.0, on_poison=None):
+                 retry_after_cap_s: float = 60.0, on_poison=None,
+                 kv_server=None):
         self.scheduler = scheduler
+        self.kv_server = kv_server
         self.request_timeout_s = float(request_timeout_s)
         self.max_body_bytes = int(max_body_bytes)
         self.verbose = verbose

@@ -4,6 +4,7 @@ card. Every test here is marked ``cuda`` and skips without an NVIDIA GPU
 
     python -m pytest tests/test_torch_cuda.py -q
 """
+import json
 import sys
 from pathlib import Path
 
@@ -1098,3 +1099,99 @@ def test_opt_kind_wrappers_raise_on_inputs_the_kernels_do_not_take(card):
                            f.clone(), f.clone(), 0.1, 0.9, 0.999)
     with pytest.raises(ValueError, match="mixed"):
         CK.megakernel_sgd(f.clone(), f.cpu(), 0.1)
+
+
+def _handoff_engines(dev, layout, wd):
+    """(prefill, decode) GPT_TINY engines (2 layers) on ``dev`` from one set
+    of seed-0 weights, bf16 or f32 throughout, page 8 on the paged
+    layout."""
+    from paddle_tpu_torch.models.gpt import GPT_TINY, init_params
+    from paddle_tpu_torch.serving import DecodeEngine, EngineConfig
+
+    dt = {"bf16": torch.bfloat16, "f32": torch.float32}[wd]
+    cfg = GPT_TINY.scaled(num_layers=2, max_seq_len=64, dtype=dt)
+
+    def to(tree):
+        if isinstance(tree, dict):
+            return {k: to(v) for k, v in tree.items()}
+        return tree.to(dev)
+
+    params = to(init_params(cfg, seed=0, device="cpu"))
+    kw = dict(max_batch=4, max_seq=32, prefill_buckets=(8, 16),
+              weight_dtype=wd, kv_layout=layout, page_size=8)
+    return tuple(DecodeEngine(params, cfg, EngineConfig(role=r, **kw),
+                              device=dev) for r in ("prefill", "decode"))
+
+
+def _slot_kv(eng, slot):
+    """The slot's valid pages or rows, (k, v) on the host."""
+    n = eng.cache.length(slot)
+    if eng.paged:
+        return eng.cache.read_pages(
+            eng.cache.table_row(slot)[:eng.cache.pages_for(n)])
+    return eng.cache.read_rows(slot, 0, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["slab", "paged"])
+@pytest.mark.parametrize("wd", ["bf16", "f32"])
+def test_kv_handoff_between_card_engines_bitwise(card, layout, wd):
+    """A card prefill engine hands a 13-token prompt's KV to a card decode
+    engine: pages or rows bitwise and the same 4 greedy tokens on both
+    sides; the card's frames adopt into a CPU engine bitwise, and the CPU
+    engine's export adopts back on the card bitwise."""
+    from paddle_tpu_torch.serving import kv_transfer as kvt
+
+    src, dst = _handoff_engines(card, layout, wd)
+    prompt = list(range(3, 16))
+    slot, logits = src.start_sequence(prompt)
+    handoff = src.export_request_kv(slot, tokens=prompt)
+    assert handoff["fingerprint"]["dtype"] == {"bf16": "bfloat16",
+                                               "f32": "float32"}[wd]
+    dslot = dst.adopt_request_kv(handoff)
+    want = _slot_kv(src, slot)
+    for a, b in zip(_slot_kv(dst, dslot), want):
+        assert torch.equal(a, b)
+    a_tok = b_tok = int(np.argmax(logits))
+    for _ in range(4):
+        a_tok = int(np.argmax(src.decode_step({slot: a_tok})[slot]))
+        b_tok = int(np.argmax(dst.decode_step({dslot: b_tok})[dslot]))
+        assert a_tok == b_tok
+    # card -> CPU (through JSON) -> card
+    _, host = _handoff_engines(torch.device("cpu"), layout, wd)
+    hslot = host.adopt_request_kv(kvt.handoff_from_jsonable(json.loads(
+        json.dumps(kvt.handoff_to_jsonable(handoff)))))
+    for a, b in zip(_slot_kv(host, hslot), want):
+        assert torch.equal(a, b)
+    back = dst.adopt_request_kv(host.export_request_kv(hslot))
+    for a, b in zip(_slot_kv(dst, back), want):
+        assert torch.equal(a, b)
+    assert kvt.last_stats("adopt").peak_bytes <= \
+        kvt.last_stats("adopt").budget_bytes
+
+
+@pytest.mark.cuda
+def test_disagg_parity_on_card(chip_smoke):
+    """Phase 5d: router tokens equal the colocated kernel engine's (f32,
+    slab and paged), adopted KV bitwise, the page_size mismatch refused
+    by name, the empty decode fleet degrading to the same tokens."""
+    chip_smoke.phase_disagg_parity()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["slab", "paged"])
+def test_engines_decoding_at_once_match_one_at_a_time(card, chip_smoke,
+                                                      layout):
+    """Two f32 kernel engines (TF32 off, GPT_TINY at 2 layers; their roles
+    only label metrics), each on a thread of its own, decode different
+    prompts at once on the default stream, as two replicas' loop threads
+    do: each emits the greedy tokens the first emitted alone. The decode
+    kernels' workspace is one a stream, so a split pass of one engine
+    queued between another's split and merge would show here as other
+    tokens."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    engines = _handoff_engines(card, layout, "f32")
+    prompts = [list(range(3, 3 + n)) for n in (3, 5, 9, 14)]
+    want = [chip_smoke._greedy_tokens(engines[0], p, 16) for p in prompts]
+    for got in chip_smoke.concurrent_greedy(engines, prompts, 16):
+        assert got == want

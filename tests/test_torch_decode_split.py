@@ -10,6 +10,10 @@ as the kernel does it) is held against the JAX package's
 ``decode_attention``, and the wrappers' host-side checks and workspace
 are exercised on CPU tensors.
 """
+import threading
+import time
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -150,3 +154,60 @@ def test_workspace_is_kept_per_stream_and_grows():
         assert CK._workspace(dev, 2, 100) is not b
     finally:
         CK._WORKSPACE.clear()
+
+
+class _SlowLib:
+    """A stand-in for the kernel library whose decode entry points sleep
+    without the GIL, as the real C call runs with it released, and record
+    how many calls were inside at once."""
+
+    def __init__(self):
+        self.inside = self.most = 0
+        self.guard = threading.Lock()
+
+    def _call(self, *args):
+        with self.guard:
+            self.inside += 1
+            self.most = max(self.most, self.inside)
+        time.sleep(0.002)
+        with self.guard:
+            self.inside -= 1
+        return 0
+
+    ptt_decode_slab = ptt_decode_paged = _call
+
+
+@pytest.mark.parametrize("layout", ["slab", "paged"])
+def test_decode_calls_of_two_threads_never_overlap(layout, monkeypatch):
+    """The call that queues a decode kernel's split pass and its merge
+    holds the workspace lock: two engines' loop threads launching on one
+    stream share one workspace, and another split queued between a
+    split and its merge would overwrite the partials the merge reads.
+    Driven on CPU tensors with the card's route forced and the library
+    replaced, from two threads at once: at most one call inside at any
+    time, and every call counted."""
+    lib = _SlowLib()
+    monkeypatch.setattr(CK, "_on_card", lambda *t: True)
+    monkeypatch.setattr(CK, "_lib", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev=None: types.SimpleNamespace(cuda_stream=7))
+    monkeypatch.setattr(CK, "_WORKSPACE", {})
+    monkeypatch.setattr(CK, "LAUNCHES", dict.fromkeys(CK.LAUNCHES, 0))
+    q, nk, nv, kc, vc, (B, S, nh, hd) = _decode_tensors()
+    pos = torch.zeros(B, dtype=torch.int32)
+    if layout == "slab":
+        call = lambda: CK.fused_decode_attention(  # noqa: E731
+            q, kc, vc, nk, nv, pos, torch.ones(B, dtype=torch.int32))
+    else:
+        pool = kc.reshape(B * S // 8, 8, nh, hd)
+        tables = torch.arange(B * S // 8, dtype=torch.int32).reshape(B, -1)
+        call = lambda: CK.fused_paged_decode_attention(  # noqa: E731
+            q, pool, pool.clone(), nk, nv, tables, pos)
+    threads = [threading.Thread(target=lambda: [call() for _ in range(10)])
+               for _ in range(2)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    assert lib.most == 1
+    assert CK.LAUNCHES[f"decode_{layout}"] == 20
