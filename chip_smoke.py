@@ -202,6 +202,48 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              card, exactly one ``opt_momentum`` launch a step; then the
              ``--no-fuse`` arm; img/s, ms a step, MFU, peak GB printed.
 
+11k. parallel-kernels — before the gangs, each kernel of phase 11's
+             path at every gloo layout's per-rank shapes against its plain
+             version, bf16: flash forward, dQ and dK/dV at [B/dp/M, 1024,
+             nh/tp, 64] (bf16_check; lse and D within 2e-5), the fused-LN
+             ln2 and plain forms and the backward with and without dsx on
+             the B·1024/(dp·M·tp) rows of a microbatch (bf16_check; s
+             bitwise; dscale / dbias within 2^-18 x sum |term|), ce_fwd on
+             the last stage's row chunk with a GPT_SMALL head (1e-4), the
+             AdamW sweep at (b)'s dp shard (bf16 and float32 moments,
+             bitwise); each kernel's largest error goes into its record as
+             ``parallel_max_abs_err``.
+
+11. train-parallel — GPT training over ranks that share the one card
+             over gloo (each collective staged through host memory): three
+             ``python -m paddle_tpu_torch.parallel.launch`` gangs running
+             ``train_bench``'s parallel lane (a nonzero exit fails the
+             run), two ranks for (a)-(d) in turn, eight for (e), one NCCL
+             rank for (f). GPT_SMALL at full width, bf16, flash, fused
+             LN, vocab chunk 1024, dots remat, global batch 16 x 1024, 1
+             warm-up + 3 timed steps, in (a) dp 2 psum, (b) dp 2
+             reduce-scatter with the flat sweep and a bf16 wire, (c) tp 2
+             with sequence parallelism at 6 layers, (d) pp 2 with 4
+             microbatches, (e) dp 2 x pp 2 x tp 2 with 2 microbatches at 4
+             layers (depth is the only cut, to keep the phase near 3
+             minutes), (f) one rank over an NCCL world of one. Every
+             rank's launches a step are exactly its path's (flash 2L·M /
+             L·M / L·M, fused LN 4L·M and its backward 2L·M plus M each on
+             the last stage, ce_fwd there once a 2048-row chunk, the
+             AdamW sweep once in (b) and (f); L and M the rank's layers
+             and microbatches), its losses finite and falling, and its
+             wire-byte counter equal to the ring model's bytes for the
+             layout; 11p, first in each layout: 3 float32 steps at lr
+             1e-2 of a 2-layer GPT_SMALL (TF32 off, global batch 8 x 256)
+             held against the world-1 run (``train_bench.parity_ok``):
+             each step's loss within 2e-4 and grad norm within 1e-3, the
+             rank's update (p - p0) and its moments (under reduce-scatter
+             its flat shard against the same slice of the world-1
+             moments) within 1e-3 in the 2-norm, each leaf's update
+             within 1e-2, the params within 2e-4 + 2e-3·|p| on all but
+             1e-4 of the elements; ms a step, tokens/s and wire bytes
+             printed a configuration.
+
 The last lines are the kernels' JSON record, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script
 exits non-zero before printing any result.
@@ -2921,6 +2963,338 @@ def phase_resnet50():
     return recs[True]
 
 
+# phase 11: gangs of ranks (name, ranks, backend), each running its
+# layouts (tag, train_bench --layout spec) in turn
+TRAIN_PARALLEL = (
+    ("two", 2, "gloo", (
+        ("dp2", "dp=2"),
+        ("dp2-rs", "dp=2,grad_reduce=reduce_scatter,comm_dtype=bf16"),
+        ("tp2", "tp=2,layers=6"),
+        ("pp2", "pp=2,microbatches=4"))),
+    ("eight", 8, "gloo", (
+        ("3d", "dp=2,pp=2,tp=2,microbatches=2,layers=4"),)),
+    ("nccl1", 1, "nccl", (("nccl1", ""),)),
+)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _parallel_shapes() -> dict:
+    """The per-rank shapes phase 11's gloo layouts give the kernels:
+    flash (batch, heads), LN rows, the CE call's rows and the dp-2
+    reduce-scatter shard's length, each set sorted."""
+    from paddle_tpu_torch.models.gpt import GPT_SMALL
+    from paddle_tpu_torch.parallel import parallelize as PZ
+    from paddle_tpu_torch.tools import train_bench as TB
+
+    cfg = TB.bench_config(fused_ln=True, ce_vchunk=1024)
+    flash, rows, ce, sweep = set(), set(), set(), set()
+    for _gang, _n, backend, layouts in TRAIN_PARALLEL:
+        if backend != "gloo":
+            continue
+        for _tag, spec in layouts:
+            lay = TB.layout_dict(spec)
+            dp, tp, M = lay["dp"], lay["tp"], lay["microbatches"]
+            mb = TB.BATCH // M // dp
+            flash.add((mb, GPT_SMALL.num_heads // tp))
+            rows.add(mb * TB.SEQ // tp)
+            ce.add(min(cfg.ce_chunk, mb * TB.SEQ // tp))
+            if lay["grad_reduce"] == "reduce_scatter":
+                pcfg = PZ.ParallelConfig(dp=dp, pp=lay["pp"], tp=tp,
+                                         microbatches=M)
+                layout, _ = PZ.rs_param_layout(
+                    cfg.scaled(num_layers=lay["layers"] or cfg.num_layers),
+                    pcfg, comm_dtype=lay["comm_dtype"])
+                sweep.add(layout.shard_len)
+    return {k: sorted(v) for k, v in (("flash", flash), ("rows", rows),
+                                      ("ce", ce), ("sweep", sweep))}
+
+
+def phase_parallel_kernels() -> dict:
+    """Phase 11k (see the module docstring): each kernel of phase 11's
+    path at the gloo layouts' per-rank shapes against its plain version;
+    returns {kernel: largest |kernel - plain|}."""
+    from paddle_tpu_torch.models.gpt import GPT_SMALL
+    from paddle_tpu_torch.ops import chunked_ce as CE
+    from paddle_tpu_torch.ops import flash_attention as FA
+    from paddle_tpu_torch.ops import fused_ln as FL
+    from paddle_tpu_torch.tools import train_bench as TB
+
+    shapes = _parallel_shapes()
+    print(f"[parallel-kernels] per-rank shapes: {shapes}")
+    dev = torch.device("cuda")
+    dt = torch.bfloat16
+    hd, D, V = GPT_SMALL.head_dim, GPT_SMALL.d_model, GPT_SMALL.vocab_size
+    g = torch.Generator(device=dev)
+    g.manual_seed(1114)
+
+    def randn(*shape, d=dt, s=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * s).to(d)
+
+    def f32(what, got, want):
+        return _check_close(what, got, want, torch.float32, 2e-5)
+
+    err = {}
+
+    def keep(name, e):
+        err[name] = max(err.get(name, 0.0), e)
+
+    for Bm, nh in shapes["flash"]:
+        tag = f"[{Bm}, {TB.SEQ}, {nh}, {hd}]"
+        qkv = randn(Bm, TB.SEQ, 3, nh, hd)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        do = randn(Bm, TB.SEQ, nh, hd)
+        o, lse = FA.flash_fwd(q, k, v)
+        o_p, lse_p = FA.flash_fwd_plain(q, k, v)
+        torch.cuda.synchronize()
+        keep("flash_fwd", max(bf16_check(f"flash_fwd o {tag}", o, o_p),
+                              f32(f"flash_fwd lse {tag}", lse, lse_p)))
+        dq, di = FA.flash_bwd_dq(q, k, v, o_p, lse_p, do, return_di=True)
+        dq_p, di_p = FA.flash_bwd_dq_plain(q, k, v, o_p, lse_p, do,
+                                           return_di=True)
+        torch.cuda.synchronize()
+        keep("flash_bwd_dq", bf16_check(f"flash_bwd_dq {tag}", dq, dq_p))
+        f32(f"flash_bwd_dq D {tag}", di, di_p)
+        dk, dv = FA.flash_bwd_dkv(q, k, v, o_p, lse_p, do, di=di)
+        dk_p, dv_p = FA.flash_bwd_dkv_plain(q, k, v, o_p, lse_p, do)
+        torch.cuda.synchronize()
+        keep("flash_bwd_dkv", max(
+            bf16_check(f"flash_bwd_dkv dk {tag}", dk, dk_p),
+            bf16_check(f"flash_bwd_dkv dv {tag}", dv, dv_p)))
+        del qkv, q, k, v, do, o, lse, o_p, lse_p, dq, di, dq_p, di_p
+        del dk, dv, dk_p, dv_p
+    for R in shapes["rows"]:
+        x, res, dy, dsx = randn(R, D), randn(R, D), randn(R, D), randn(R, D)
+        badd = randn(D, s=0.1)
+        scale = 1.0 + randn(D, d=torch.float32, s=0.1)
+        bias = randn(D, d=torch.float32, s=0.1)
+        for form, kw in (("ln2", dict(residual=res, bias_add=badd)),
+                         ("plain", {})):
+            got = FL.fused_ln_fwd(x, scale, bias, eps=1e-5, **kw)
+            want = FL.fused_ln_fwd_plain(x, scale, bias, eps=1e-5, **kw)
+            torch.cuda.synchronize()
+            if form == "ln2" and not torch.equal(got[1], want[1]):
+                raise AssertionError(f"fused_ln ln2 [{R}, {D}]: s differs")
+            keep("fused_ln", bf16_check(f"fused_ln {form} y [{R}, {D}]",
+                                        got[0], want[0]))
+            for i, stat in ((2, "mu"), (3, "rstd")):
+                _check_close(f"fused_ln {form} {stat} [{R}, {D}]", got[i],
+                             want[i], torch.float32, 1e-5)
+            if form == "ln2":
+                s_, mu, rstd = want[1], want[2], want[3]
+        xhat = (s_.float() - mu[:, None]) * rstd[:, None]
+        sums = ((dy.float() * xhat).abs().sum(0), dy.float().abs().sum(0))
+        for form, kw in (("dsx", dict(dsx=dsx)), ("plain", {})):
+            got = FL.fused_ln_bwd(s_, mu, rstd, scale, dy, **kw)
+            want = FL.fused_ln_bwd_plain(s_, mu, rstd, scale, dy, **kw)
+            torch.cuda.synchronize()
+            keep("fused_ln_bwd", bf16_check(
+                f"fused_ln_bwd {form} ds [{R}, {D}]", got[0], want[0]))
+            for i, what, tot in ((2, "dscale", sums[0]),
+                                 (3, "dbias", sums[1])):
+                diff = (got[i] - want[i]).abs()
+                ratio = (diff / (2.0 ** -18 * tot + 1e-30)).max().item()
+                if not ratio <= 1.0:
+                    raise AssertionError(f"fused_ln_bwd {form} {what} "
+                                         f"[{R}, {D}]: worst diff/bound "
+                                         f"{ratio:.4g}")
+                keep("fused_ln_bwd", diff.max().item())
+    for n in shapes["ce"]:
+        vc = 1024
+        vp = -(-V // vc) * vc
+        ins = _ce_inputs(dt, n, D, vp, V, "dv", False, 0, 1114 + n)
+        want = CE.ce_fwd_plain(*ins, vc, V, "dv")
+        got = CE.ce_fwd(*ins, vc, V, "dv")
+        torch.cuda.synchronize()
+        keep("ce_fwd", _ce_close(f"ce_fwd [{n}, {D}] x [{D}, {vp}]", got,
+                                 want))
+    sc = [torch.tensor(x, dtype=torch.float32, device=dev)
+          for x in (1e-4, 0.7, 1 - 0.9 ** 3, 1 - 0.95 ** 3)]
+    hp = dict(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1)
+    for n in shapes["sweep"]:
+        for mdt in (torch.bfloat16, torch.float32):
+            _sweep_bitwise(f"{mdt} dp shard n {n}",
+                           _sweep_inputs(n, mdt, 0, n), sc, hp)
+            torch.cuda.empty_cache()
+        keep("opt_adamw_flat", 0.0)
+    print("[parallel-kernels] every kernel at every per-rank shape within "
+          "its tolerance: " + ", ".join(f"{k}={v:.4g}"
+                                        for k, v in err.items()))
+    torch.cuda.empty_cache()
+    return err
+
+
+def _parallel_want(cfg, lay, coords, batch, T):
+    """(launches a step, wire bytes a step by "op/dtype") that one rank of
+    a phase-11 layout must show, from the layout alone."""
+    from paddle_tpu_torch.models import gpt as G
+    from paddle_tpu_torch.parallel import comm_opt as C
+    from paddle_tpu_torch.parallel import mesh as mesh_mod
+    from paddle_tpu_torch.parallel import parallelize as PZ
+
+    dp, pp, tp, M = lay["dp"], lay["pp"], lay["tp"], lay["microbatches"]
+    rs = lay["grad_reduce"] == "reduce_scatter"
+    wire_dt = C.normalize_comm_dtype(lay["comm_dtype"])
+    pcfg = PZ.ParallelConfig(dp=dp, pp=pp, tp=tp, microbatches=M)
+    sizes = {"dp": dp, "pp": pp, "tp": tp}
+    Ll, last = cfg.num_layers // pp, coords["pp"] == pp - 1
+    mb, Ts = batch // M // dp, T // tp
+    launches = {"flash_fwd": 2 * Ll * M, "flash_bwd_dq": Ll * M,
+                "flash_bwd_dkv": Ll * M,
+                "fused_ln": 4 * Ll * M + (M if last else 0),
+                "fused_ln_bwd": 2 * Ll * M + (M if last else 0)}
+    if last:
+        launches["ce_fwd"] = M * -(-mb * Ts // cfg.ce_chunk)
+    if rs or pcfg.n_devices == 1:
+        launches["opt_adamw_flat"] = 1
+    wire = {}
+
+    def add(op, dtype, payload, ranks):
+        b = C.wire_bytes(op, payload, ranks)
+        if b:
+            wire[f"{op}/{dtype}"] = wire.get(f"{op}/{dtype}", 0) + b
+
+    add("psum", "float32", 4, pcfg.n_devices)          # the loss
+    for shape, spec in zip(PZ.flat_leaves(G.param_shapes(cfg)),
+                           PZ.flat_specs(cfg, pcfg)):
+        used = mesh_mod.spec_axes(spec)
+        n = int(np.prod(mesh_mod.local_shape(shape, spec, sizes)))
+        ranks = int(np.prod([sizes[a] for a in sizes if a not in used
+                             and not (rs and a == "dp")]))
+        add("psum", "float32", 4 * n, ranks)
+    if rs:
+        layout, _ = PZ.rs_param_layout(cfg, pcfg, comm_dtype=wire_dt)
+        for b in layout.buckets:
+            if wire_dt == "bf16":
+                add("all_to_all", "bfloat16", 2 * b.size, dp)
+            else:
+                add("psum_scatter", "float32", 4 * b.size, dp)
+            add("all_gather", "float32", 4 * b.size, dp)
+    act = M * mb * Ts * cfg.d_model * 2                # bf16 activations
+    for sends in (coords["pp"] < pp - 1, coords["pp"] > 0):
+        if sends:
+            add("ppermute", "bfloat16", act, pp)
+    return launches, wire
+
+
+def _check_parallel_rank(tag, rec, cfg, lay):
+    """11p, the losses, the launches and the wire bytes of one rank's
+    record; returns the launches of its timed steps."""
+    from paddle_tpu_torch.tools import train_bench as TB
+
+    par, losses = rec["parity"], rec["losses"]
+    if not TB.parity_ok(par):
+        raise AssertionError(f"11p {tag} rank {rec['rank']}: {par}")
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"{tag} rank {rec['rank']} losses {losses}")
+    want_l, want_w = _parallel_want(
+        cfg.scaled(num_layers=lay["layers"] or cfg.num_layers), lay,
+        rec["coords"], TB.BATCH, TB.SEQ)
+    if rec["launches_per_step"] != want_l:
+        raise AssertionError(f"{tag} rank {rec['rank']} launches "
+                             f"{rec['launches_per_step']} != {want_l}")
+    if rec["wire_bytes_per_step"] != want_w:
+        raise AssertionError(f"{tag} rank {rec['rank']} wire bytes "
+                             f"{rec['wire_bytes_per_step']} != {want_w}")
+    return {k: round(v * rec["steps"])
+            for k, v in rec["launches_per_step"].items()}
+
+
+def phase_train_parallel(timeout_s: float = 600.0) -> dict:
+    """Phase 11 and 11p (see the module docstring); returns each kernel's
+    launches summed over every rank's timed steps."""
+    import os
+    import shutil
+    import signal
+
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.tools import train_bench as TB
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(str(_build.BUILD_DIR), "train_parallel")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    ref_path = os.path.join(work, "ref.pt")
+    t_phase = time.perf_counter()
+    ref = TB.parity_reference(ref_path, "cuda")
+    torch.cuda.empty_cache()
+    print(f"[train-parallel] 11p world-1 run, {TB.PARITY_STEPS} steps at "
+          f"lr {TB.PARITY_LR}: losses {ref['losses']} gnorms "
+          f"{ref['gnorms']}")
+    cfg = TB.bench_config(fused_ln=True, ce_vchunk=1024)
+    launches: dict = {}
+    for gang, n, backend, layouts in TRAIN_PARALLEL:
+        out = os.path.join(work, gang)
+        cmd = [sys.executable, "-m", "paddle_tpu_torch.parallel.launch",
+               "--nproc_per_node", str(n), "--backend", backend,
+               "--started_port", str(_free_port()), "--grace_period",
+               "10", "-m", "paddle_tpu_torch.tools.train_bench",
+               "--fused-ln", "--ce-vchunk", "1024", "--steps", "3",
+               "--warmup", "1", "--out-dir", out, "--parity-ref", ref_path]
+        for _, spec in layouts:
+            cmd += ["--layout", spec]
+        if backend == "gloo":
+            cmd += ["--device", "cuda:0"]        # every rank on the card
+        where = ("ranks share one card over gloo" if backend == "gloo"
+                 else "one rank, NCCL world of one")
+        t0 = time.time()
+        # its own session: a gang that outlives the timeout is killed whole
+        proc = subprocess.Popen(cmd, cwd=root, start_new_session=True,
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        try:
+            log, _ = proc.communicate(timeout=timeout_s)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.communicate()
+            raise
+        if proc.returncode != 0:
+            print(log[-6000:])
+            raise RuntimeError(f"train-parallel gang {gang}: launch exited "
+                               f"{proc.returncode}")
+        print(f"[train-parallel] gang {gang}: {n} rank(s), {backend}, "
+              f"launch wall {time.time() - t0:.1f} s ({where})")
+        for i, (tag, spec) in enumerate(layouts):
+            lay = TB.layout_dict(spec)
+            recs = []
+            for r in range(n):
+                with open(os.path.join(out, f"layout{i}.rank{r}.json")) as f:
+                    recs.append(json.load(f))
+            for rec in recs:
+                for k, v in _check_parallel_rank(tag, rec, cfg, lay).items():
+                    launches[k] = launches.get(k, 0) + v
+            st = recs[0]["stamps"]
+            print(f"[train-parallel] {tag} ({where}): {recs[0]['config']}: "
+                  f"ms/step {max(r['ms_per_step'] for r in recs):.3f}, "
+                  f"tokens/s {min(r['tokens_per_s'] for r in recs):.1f} "
+                  f"({min(r['tokens_per_s_per_rank'] for r in recs):.1f} a "
+                  f"rank); rank 0 s after launch: init "
+                  f"{st['init'] - t0:.1f}, mesh {st['mesh'] - t0:.1f}, "
+                  f"11p {st['parity'] - t0:.1f}, warm-up "
+                  f"{st['warmup'] - t0:.1f}, timed {st['timed'] - t0:.1f}")
+            for rec in recs:
+                par = dict(rec["parity"])
+                leaf = par.pop("leaf_update_rel_err")
+                worst = max(leaf, key=leaf.get)
+                par["worst_leaf_update_rel_err"] = (worst, leaf[worst])
+                print(f"[train-parallel] {tag} rank {rec['rank']} "
+                      f"{rec['coords']}: ms/step {rec['ms_per_step']:.3f}, "
+                      f"wire bytes/step {rec['wire_bytes_per_step']}, "
+                      f"staged ms/step {rec['staged_ms_per_step']}, losses "
+                      f"{[round(x, 5) for x in rec['losses']]}, 11p "
+                      f"{par}, peak GB "
+                      f"{rec['peak_mem_bytes'] / 1e9:.2f} ({where})")
+    shutil.rmtree(work, ignore_errors=True)
+    print(f"[train-parallel] phase wall {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2974,6 +3348,12 @@ def main() -> int:
     resnet = phase_resnet50()
     for k, v in resnet["launches_per_step"].items():
         launches[k] = launches.get(k, 0) + round(v * resnet["steps"])
+    # GPT training over ranks: the kernels at the ranks' shapes (11k),
+    # then every rank's timed steps (phase 11)
+    for k, v in phase_parallel_kernels().items():
+        recs[k]["parallel_max_abs_err"] = v
+    for k, v in phase_train_parallel().items():
+        launches[k] = launches.get(k, 0) + v
     kernels = []
     for name, meta in CK.KERNELS.items():
         r = recs[name]

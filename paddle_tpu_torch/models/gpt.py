@@ -14,6 +14,13 @@ here: flash attention (``use_flash``), the fused-layernorm block
 ``ops/fused_ln.py``, ln2 taking the ``(x + o) + b_proj`` residual in the
 same launch) and the vocab-chunked CE (``ce_vocab_chunk > 0``, through
 ``ops/chunked_ce.py``).
+
+Tensor parallelism (``param_specs``, ``block_fn(tp_group=)``) is the
+reference's Megatron split with sequence parallelism (``gpt.py:135-271``):
+QKV and ``fc`` column-split, ``proj`` and ``out`` row-split, and between
+blocks the activation stays sharded on the sequence axis, all-gathered
+before each column-parallel product and sum-scattered after each
+row-parallel one (two autograd Functions, each the other's transpose).
 """
 from __future__ import annotations
 
@@ -32,7 +39,7 @@ from ..ops.fused_ln import fused_ln
 from ..parallel import remat as remat_mod
 
 __all__ = ["GPTConfig", "GPT_SMALL", "GPT_TINY", "init_params",
-           "params_from_numpy", "embed", "block_fn", "run_blocks",
+           "params_from_numpy", "param_shapes", "param_specs", "embed", "block_fn", "run_blocks",
            "logits_fn", "forward", "token_ce", "ce_from_hidden", "loss_fn",
            "num_params", "train_flops_per_token"]
 
@@ -127,6 +134,24 @@ def init_params(cfg: GPTConfig, seed: int = 0,
     }
 
 
+def param_shapes(cfg: GPTConfig) -> Dict[str, Any]:
+    """The shape of every leaf of :func:`init_params`, without making it."""
+    L, D, Fd = cfg.num_layers, cfg.d_model, cfg.d_ff
+    nh, hd, V = cfg.num_heads, cfg.head_dim, cfg.vocab_size
+    return {
+        "wte": (V, D), "wpe": (cfg.max_seq_len, D), "lm_head": (D, V),
+        "ln_f_scale": (D,), "ln_f_bias": (D,),
+        "blocks": {
+            "ln1_scale": (L, D), "ln1_bias": (L, D),
+            "w_qkv": (L, D, 3, nh, hd), "b_qkv": (L, 3, nh, hd),
+            "w_proj": (L, nh, hd, D), "b_proj": (L, D),
+            "ln2_scale": (L, D), "ln2_bias": (L, D),
+            "w_fc": (L, D, Fd), "b_fc": (L, Fd),
+            "w_out": (L, Fd, D), "b_out": (L, D),
+        },
+    }
+
+
 def params_from_numpy(tree, device="cuda") -> Dict[str, Any]:
     """Nested dict of array-likes (e.g. a JAX parameter tree passed
     through ``np.asarray``) -> the same nesting of float32 tensors."""
@@ -138,6 +163,78 @@ def params_from_numpy(tree, device="cuda") -> Dict[str, Any]:
         return torch.from_numpy(np.array(leaf, dtype=np.float32)).to(dev)
 
     return conv(tree)
+
+
+def param_specs(cfg: GPTConfig, pp: str = "pp", tp: str = "tp"
+                ) -> Dict[str, Any]:
+    """The spec of every leaf over the mesh axes (pp, tp); dp never shards
+    params. Block leaves are stage-sharded on the stacked layer axis (pp)
+    and head/ffn-sharded (tp) where Megatron splits them; embeddings, the
+    final LN and the head are replicated (their grads on the stages that
+    do not use them are exact zeros)."""
+    del cfg
+    return {
+        "wte": (),
+        "wpe": (),
+        "lm_head": (),
+        "ln_f_scale": (),
+        "ln_f_bias": (),
+        "blocks": {
+            "ln1_scale": (pp, None),
+            "ln1_bias": (pp, None),
+            "w_qkv": (pp, None, None, tp, None),
+            "b_qkv": (pp, None, tp, None),
+            "w_proj": (pp, tp, None, None),
+            "b_proj": (pp, None),
+            "ln2_scale": (pp, None),
+            "ln2_bias": (pp, None),
+            "w_fc": (pp, None, tp),
+            "b_fc": (pp, tp),
+            "w_out": (pp, tp, None),
+            "b_out": (pp, None),
+        },
+    }
+
+
+def _gather_seq(y, axis):
+    """[B, T/tp, ...] on each rank of ``axis`` -> [B, T, ...]."""
+    full = axis.all_gather(y.transpose(0, 1).contiguous())
+    return full.transpose(0, 1).contiguous()
+
+
+def _scatter_seq(y, axis):
+    """[B, T, ...] -> this rank's [B, T/tp, ...] block of the sum over
+    ``axis``."""
+    part = axis.reduce_scatter(y.transpose(0, 1).contiguous())
+    return part.transpose(0, 1).contiguous()
+
+
+class _SeqAllGather(torch.autograd.Function):
+    """all_gather on the sequence axis; its transpose, the backward, is
+    the sum-scatter."""
+
+    @staticmethod
+    def forward(ctx, y, axis):
+        ctx.axis = axis
+        return _gather_seq(y, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _scatter_seq(g, ctx.axis), None
+
+
+class _SeqReduceScatter(torch.autograd.Function):
+    """Sum-scatter on the sequence axis; its transpose, the backward, is
+    the all_gather."""
+
+    @staticmethod
+    def forward(ctx, y, axis):
+        ctx.axis = axis
+        return _scatter_seq(y, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather_seq(g, ctx.axis), None
 
 
 def _layer_norm(x, scale, bias, eps: float = 1e-5):
@@ -167,18 +264,38 @@ def _causal_attention(q, k, v, cfg: GPTConfig):
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
-def block_fn(p, x, cfg: GPTConfig):
-    """One transformer block on one layer's leaves (no L axis)."""
+def block_fn(p, x, cfg: GPTConfig, tp_group=None):
+    """One transformer block on one layer's leaves (no L axis; tp-local
+    shards under tensor parallelism).
+
+    With ``tp_group`` (the tp line, ``parallel.mesh.AxisGroup``) ``x``
+    arrives sequence-sharded, [B, T/tp, D]: all-gathered on the sequence
+    before QKV and ``fc``, sum-scattered after ``proj`` and ``out``. The
+    biases are added on the sequence-sharded side, so every replicated
+    leaf's grad is a partial sum over tp."""
     dt = cfg.dtype
+    if tp_group is None or tp_group.size == 1:
+        def gather(y):
+            return y
+
+        scatter_sum = gather
+    else:
+        def gather(y):
+            return _SeqAllGather.apply(y, tp_group)
+
+        def scatter_sum(y):
+            return _SeqReduceScatter.apply(y, tp_group)
+
     if cfg.fused_ln:
         h = fused_ln(x, p["ln1_scale"], p["ln1_bias"], eps=1e-5)
     else:
         h = _layer_norm(x, p["ln1_scale"], p["ln1_bias"])
+    h = gather(h)
     qkv = torch.einsum("btd,dcnh->btcnh", h, p["w_qkv"].to(dt))
     qkv = qkv + p["b_qkv"].to(dt)
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
     a = _causal_attention(q, k, v, cfg)
-    o = torch.einsum("btnh,nhd->btd", a, p["w_proj"].to(dt))
+    o = scatter_sum(torch.einsum("btnh,nhd->btd", a, p["w_proj"].to(dt)))
     if cfg.fused_ln:
         # one launch for the (x + o) + b_proj residual and ln2; the summed
         # stream comes back as the next residual input
@@ -188,20 +305,22 @@ def block_fn(p, x, cfg: GPTConfig):
     else:
         x = x + o + p["b_proj"].to(dt)
         h = _layer_norm(x, p["ln2_scale"], p["ln2_bias"])
+    h = gather(h)
     h = torch.einsum("btd,df->btf", h, p["w_fc"].to(dt)) + p["b_fc"].to(dt)
     h = F.gelu(h, approximate="tanh")
-    o = torch.einsum("btf,fd->btd", h, p["w_out"].to(dt))
+    o = scatter_sum(torch.einsum("btf,fd->btd", h, p["w_out"].to(dt)))
     return x + o + p["b_out"].to(dt)
 
 
-def run_blocks(blocks, x, cfg: GPTConfig):
+def run_blocks(blocks, x, cfg: GPTConfig, tp_group=None):
     """The stacked layers of ``blocks`` over ``x``, each block under the
-    config's remat policy. The [L, ...] leaves are unbound once, so the
-    backward stacks each leaf's gradient in one piece."""
+    config's remat policy (``tp_group`` as :func:`block_fn`). The [L, ...]
+    leaves are unbound once, so the backward stacks each leaf's gradient
+    in one piece."""
     f = remat_mod.resolve(cfg.remat_policy, remat=cfg.remat).wrap(block_fn)
     layers = {k: v.unbind(0) for k, v in blocks.items()}
     for i in range(len(next(iter(layers.values())))):
-        x = f({k: v[i] for k, v in layers.items()}, x, cfg)
+        x = f({k: v[i] for k, v in layers.items()}, x, cfg, tp_group)
     return x
 
 

@@ -1,23 +1,42 @@
-"""The GPT train step on one device — the port of the single-device path of
-``paddle_tpu/parallel/parallelize.py`` (``ParallelConfig`` :83-95, the
-AdamW state and updates :258-374, ``make_train_step`` :706-897 and
-``init_sharded`` :1003).
+"""GPT training over dp x pp x tp ranks on ``torch.distributed`` — the port
+of ``paddle_tpu/parallel/parallelize.py``.
 
-With dp = pp = tp = microbatches = 1 the JAX step is
-``value_and_grad(loss_fn)`` followed by the AdamW update: ``_pipeline_loss``
-divides the CE sum by ``M·mb·T·dp`` = ``labels.size``, which is
-``loss_fn``'s mean. Multi-GPU parallelism (``dp``/``pp``/``tp`` > 1,
-microbatches) is still to be ported and raises.
+- **dp**: the batch is split over the ``dp`` ranks; grads are reduced by
+  one all-reduce a leaf (``psum_grads_by_spec``) or by the bucketed
+  reduce-scatter (``grad_reduce="reduce_scatter"``: each dp rank runs
+  AdamW on its flat shard against dp-sharded moments — on the card the
+  ``adamw_mask`` sweep, ``opt_adamw_flat`` — and the updated shards are
+  all-gathered back), with optional bf16 / int8 wire payloads and error
+  feedback (``comm_opt``).
+- **pp**: GPipe. Block leaves are stage-sharded on the stacked layer
+  axis; the schedule runs M + S - 1 ticks (a stage skips the ticks JAX
+  masks), stage 0 embeds, the last stage takes the CE, and activations go
+  stage to stage by point-to-point send / recv inside autograd Functions
+  whose backward sends the gradient back. Every stage runs its
+  microbatches' backward in the same order (last first), so the sends
+  match in order on every backend.
+- **tp + sp**: Megatron tensor parallelism with sequence parallelism
+  (``models/gpt.block_fn(tp_group=)``).
 
-Where JAX donated the params and the optimizer state, the port updates
-them IN PLACE: ``step`` returns the same tensors it was given.
-Parameter trees flatten in JAX's ``tree_flatten`` order (dict keys
-sorted at every level), so a flat moment buffer lines up element for
-element with the JAX one (:func:`opt_state_from_numpy`).
+Gradient rule, as the reference's (``parallelize.py:20-28``): each rank
+differentiates its partial loss (normalised by the global token count
+M·mb·T·dp) w.r.t. its shards, then every leaf's grad is summed over the
+mesh axes its spec does not name. Leaves a stage never uses (the
+embeddings off stage 0, the head and ``ln_f`` off the last stage) have
+exact zero grads there.
+
+The port's step is eager: one Python function a rank, collectives on the
+mesh lines of ``parallel/mesh.py``. Where JAX donated the params and the
+optimizer state, the port updates them IN PLACE: ``step`` returns the
+same tensors it was given. Parameter trees flatten in JAX's
+``tree_flatten`` order (dict keys sorted at every level), so a flat
+moment buffer lines up element for element with the JAX one
+(:func:`opt_state_from_numpy`). With ``mesh=None`` and one device the
+step is the single-device path of earlier slices.
 """
 import dataclasses
 import functools
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -25,16 +44,20 @@ import torch
 from ..device import resolve_device
 from ..models import gpt as G
 from ..ops import cuda_kernels as CK
-from . import health
+from . import comm_opt, health
+from . import mesh as mesh_mod
+from .comm_opt import CommConfig
 
-__all__ = ["ParallelConfig", "init_adamw_state", "opt_state_from_numpy",
-           "init_sharded", "make_train_step", "flat_leaves"]
+__all__ = ["ParallelConfig", "build_mesh", "psum_grads_by_spec",
+           "shard_params", "init_adamw_state", "opt_state_from_numpy",
+           "init_sharded", "make_train_step", "make_forward",
+           "rs_param_layout", "flat_leaves", "flat_specs"]
 
 
 @dataclasses.dataclass(frozen=True)
 class ParallelConfig:
-    """The JAX ``ParallelConfig``; the port runs dp = pp = tp =
-    microbatches = 1 only and raises for anything else."""
+    """The rank grid of a train step: dp x pp x tp ranks, GPipe
+    microbatches (>= pp for a low bubble), and the axis names."""
     dp: int = 1
     pp: int = 1
     tp: int = 1
@@ -42,12 +65,37 @@ class ParallelConfig:
     axis_names: Tuple[str, str, str] = ("dp", "pp", "tp")
 
     def __post_init__(self):
-        if (self.dp, self.pp, self.tp, self.microbatches) != (1, 1, 1, 1):
-            raise NotImplementedError(
-                f"dp={self.dp} pp={self.pp} tp={self.tp} microbatches="
-                f"{self.microbatches}: multi-GPU parallelism is still to be "
-                "ported (ROADMAP.md, queue A: multi-GPU parallelism); the "
-                "port trains on one device")
+        for name in ("dp", "pp", "tp", "microbatches"):
+            v = getattr(self, name)
+            if not isinstance(v, int) or v < 1:
+                raise ValueError(f"{name}={v!r}: expected an int >= 1")
+        if len(set(self.axis_names)) != 3:
+            raise ValueError(f"axis_names {self.axis_names}: expected three "
+                             "distinct names")
+
+    @property
+    def n_devices(self) -> int:
+        return self.dp * self.pp * self.tp
+
+
+def build_mesh(pcfg: ParallelConfig, device=None) -> mesh_mod.Mesh:
+    """The (dp, pp, tp) mesh over the initialised world, which must hold
+    exactly ``pcfg.n_devices`` ranks; ``device`` as ``mesh.build_mesh``
+    (the current card unless the caller names another, or ``"cpu"``)."""
+    return mesh_mod.build_mesh(
+        list(zip(pcfg.axis_names, (pcfg.dp, pcfg.pp, pcfg.tp))), device)
+
+
+def _step_device(mesh: Optional[mesh_mod.Mesh], device) -> torch.device:
+    """The device of an entry point: the mesh's, where a ``device`` passed
+    beside it must name the same one; without a mesh ``device`` (default
+    the card)."""
+    if mesh is None:
+        return resolve_device("cuda" if device is None else device)
+    if device is not None and resolve_device(device) != mesh.device:
+        raise ValueError(f"device {str(device)!r} disagrees with the "
+                         f"mesh's device {mesh.device}")
+    return mesh.device
 
 
 def flat_leaves(tree) -> List[torch.Tensor]:
@@ -124,13 +172,15 @@ def _bias_corrections(opt, b1, b2):
 
 
 def _adamw_update(params, grads, opt, lr, b1=0.9, b2=0.95, eps=1e-8,
-                  weight_decay=0.1, grad_clip=1.0):
+                  weight_decay=0.1, grad_clip=1.0, gnorm=None):
     """Per-leaf AdamW, IN PLACE on params and opt (JAX returns new ones).
-    No decay on 1-D leaves (biases, layernorm scales). Returns (params,
-    opt, gnorm)."""
+    No decay on 1-D leaves (biases, layernorm scales). ``gnorm`` may pass
+    the global grad norm of sharded leaves (else it is taken over
+    ``grads``). Returns (params, opt, gnorm)."""
     flat_g = flat_leaves(grads)
-    gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                           for g in flat_g))
+    if gnorm is None:
+        gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                               for g in flat_g))
     scale = _clip_scale(gnorm, grad_clip)
     step, c1, c2 = _bias_corrections(opt, b1, b2)
     for p, g, m, v in zip(flat_leaves(params), flat_g,
@@ -171,7 +221,7 @@ def _wd_mask(leaves) -> torch.Tensor:
 
 def _adamw_update_fused(params, grads, opt, lr, b1=0.9, b2=0.95, eps=1e-8,
                         weight_decay=0.1, grad_clip=1.0, use_kernel=None,
-                        wd_mask=None):
+                        wd_mask=None, gnorm=None):
     """Flat-buffer AdamW: every grad is concatenated into one float32
     buffer and the moments live flat (``init_adamw_state(fused=True)``);
     the elementwise sweep is ONE pass — the AdamW kernel
@@ -183,8 +233,8 @@ def _adamw_update_fused(params, grads, opt, lr, b1=0.9, b2=0.95, eps=1e-8,
     consecutive views of one flat buffer (:func:`init_sharded` with
     ``fused_opt=True``) the sweep runs on that buffer directly; otherwise
     the params are concatenated and copied back. The grad norm and clip
-    scale are torch ops outside the sweep. ``wd_mask`` may pass a cached
-    :func:`_wd_mask`. Returns (params, opt, gnorm)."""
+    scale are torch ops outside the sweep (``gnorm`` may pass it). ``wd_mask``
+    may pass a cached :func:`_wd_mask`. Returns (params, opt, gnorm)."""
     flat_p = flat_leaves(params)
     gf = torch.cat([g.float().reshape(-1) for g in flat_leaves(grads)])
     pf = _flat_base(flat_p)
@@ -193,7 +243,8 @@ def _adamw_update_fused(params, grads, opt, lr, b1=0.9, b2=0.95, eps=1e-8,
         pf = torch.cat([p.float().reshape(-1) for p in flat_p])
     if wd_mask is None:
         wd_mask = _wd_mask(flat_p)
-    gnorm = torch.sqrt(torch.sum(torch.square(gf)))
+    if gnorm is None:
+        gnorm = torch.sqrt(torch.sum(torch.square(gf)))
     scale = _clip_scale(gnorm, grad_clip)
     step, c1, c2 = _bias_corrections(opt, b1, b2)
     sweep = (CK.megakernel_adamw_flat_plain if use_kernel is False
@@ -224,14 +275,303 @@ def _flatten_into_views(params):
     return _unflatten(params, views)
 
 
+def flat_specs(cfg: G.GPTConfig, pcfg: ParallelConfig) -> list:
+    """``G.param_specs`` in tree-flatten order, on ``pcfg``'s axis names."""
+    _, pp_ax, tp_ax = pcfg.axis_names
+    return flat_leaves(G.param_specs(cfg, pp=pp_ax, tp=tp_ax))
+
+
+def _axes_not_in_spec(spec, axis_names) -> Tuple[str, ...]:
+    used = mesh_mod.spec_axes(spec)
+    return tuple(a for a in axis_names if a not in used)
+
+
+def psum_grads_by_spec(grads, specs, mesh: mesh_mod.Mesh, skip_axes=(),
+                       comm_dtype=None, quant_chunk: int = 256):
+    """Sum each grad leaf over the mesh axes its param is replicated on.
+    ``grads`` and ``specs`` are trees of one structure (or flat lists);
+    the leaves are reduced IN PLACE on the float32 path.
+
+    ``skip_axes`` leaves named axes un-reduced (the reduce-scatter path
+    handles dp itself, bucketed). ``comm_dtype`` routes the reduction
+    through :func:`comm_opt.quantized_allreduce`, one axis after another
+    (a hierarchical all-reduce)."""
+    is_tree = isinstance(grads, dict)
+    flat_g = flat_leaves(grads) if is_tree else list(grads)
+    flat_s = flat_leaves(specs) if isinstance(specs, dict) else list(specs)
+    out = []
+    for g, s in zip(flat_g, flat_s):
+        axes = tuple(a for a in _axes_not_in_spec(s, mesh.axis_names)
+                     if a not in skip_axes and mesh.sizes[a] > 1)
+        if axes and comm_dtype is not None:
+            for a in axes:
+                g = comm_opt.quantized_allreduce(g, mesh.group(a),
+                                                 comm_dtype, quant_chunk)
+        elif axes:
+            group = mesh.group(*axes)
+            comm_opt.record_collective(
+                "psum", g.dtype, g.numel() * g.element_size(), group.size)
+            group.all_reduce(g)
+        out.append(g)
+    return _unflatten(grads, out) if is_tree else out
+
+
+def shard_params(params, specs, mesh: mesh_mod.Mesh, device=None):
+    """This rank's shards of a full parameter tree (tensors, or numpy
+    arrays such as a JAX tree passed through ``np.asarray``) by
+    ``specs``: contiguous float32 tensors on ``device`` (the mesh's by
+    default)."""
+    dev = torch.device(device) if device is not None else mesh.device
+
+    def one(x, spec):
+        x = mesh_mod.local_shard(x, spec, mesh)
+        if not isinstance(x, torch.Tensor):
+            x = torch.from_numpy(np.array(x, dtype=np.float32))
+        return x.to(device=dev, dtype=torch.float32).contiguous()
+
+    return _unflatten(params, [one(x, s) for x, s in
+                               zip(flat_leaves(params), flat_leaves(specs))])
+
+
+# ---------------------------------------------------------------------------
+# The per-rank loss: the GPipe / tp / sp forward and its backward.
+# ---------------------------------------------------------------------------
+
+class _StageLink:
+    """The pp line through this rank and its sends, which are
+    asynchronous: the serial schedule waits for each at once,
+    ``double_buffer`` at the next send (the activation is in flight while
+    this stage computes) or at :meth:`flush`."""
+
+    def __init__(self, group: mesh_mod.AxisGroup, stage: int,
+                 double_buffer: bool):
+        self.group, self.stage = group, stage
+        self.double_buffer = double_buffer
+        self.pending: List[Any] = []
+
+    def send(self, t: torch.Tensor, peer: int, tag: int) -> None:
+        comm_opt.record_collective("ppermute", t.dtype,
+                                   t.numel() * t.element_size(),
+                                   self.group.size)
+        self.flush()
+        self.pending.append(self.group.isend(t, peer, tag))
+        if not self.double_buffer:
+            self.flush()
+
+    def flush(self) -> None:
+        while self.pending:
+            self.pending.pop(0).wait()
+
+
+class _StageRecv(torch.autograd.Function):
+    """The previous stage's activation; the backward sends its gradient
+    back. ``anchor`` is an empty tensor that requires grad, which puts the
+    received activation in the graph."""
+
+    @staticmethod
+    def forward(ctx, anchor, link, shape, dtype, tag):
+        ctx.link, ctx.tag = link, tag
+        return link.group.recv(shape, dtype, anchor.device, link.stage - 1,
+                               tag)
+
+    @staticmethod
+    def backward(ctx, g):
+        ctx.link.send(g, ctx.link.stage - 1, ctx.tag)
+        return None, None, None, None, None
+
+
+class _StageSend(torch.autograd.Function):
+    """Sends the activation to the next stage and returns a 0-d zero, the
+    root of this microbatch's backward, which receives the activation's
+    gradient from the next stage."""
+
+    @staticmethod
+    def forward(ctx, x, link, tag):
+        ctx.link, ctx.tag = link, tag
+        ctx.shape, ctx.dtype = tuple(x.shape), x.dtype
+        link.send(x, link.stage + 1, tag)
+        return x.new_zeros((), dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, _g):
+        g = ctx.link.group.recv(ctx.shape, ctx.dtype, _g.device,
+                                ctx.link.stage + 1, ctx.tag)
+        return g, None, None
+
+
+def _pipeline_loss(params, tokens, labels, cfg: G.GPTConfig,
+                   pcfg: ParallelConfig, mesh: mesh_mod.Mesh,
+                   double_buffer: bool = False
+                   ) -> Tuple[torch.Tensor, Callable[[], None]]:
+    """The GPipe forward of this rank on its shards: tokens/labels
+    [M, mb, T] (this dp rank's batch), ``params`` the rank's leaves.
+    Returns (the rank-local partial loss normalised by the global token
+    count M·mb·T·dp, detached; ``backward``, which runs the schedule's
+    backward and leaves each leaf's grad in ``.grad``).
+
+    Tick t runs microbatch t - stage on every stage that has one; the
+    reference's masked ticks are skipped. Stage 0 embeds its sequence
+    chunk (``pos_offset = tp_idx·T/tp``), the last stage takes the CE of
+    its sequence chunk of the labels. ``backward`` runs the microbatches
+    last first on every stage, so each send meets its receive in order;
+    ``double_buffer`` overlaps each send with the next tick (same
+    values)."""
+    _, pp_ax, tp_ax = pcfg.axis_names
+    S, tp = pcfg.pp, pcfg.tp
+    stage, tp_idx = mesh.axis_index(pp_ax), mesh.axis_index(tp_ax)
+    tp_group = mesh.group(tp_ax) if tp > 1 else None
+    M, mb, T = tokens.shape
+    Ts = T // tp
+    seq = slice(tp_idx * Ts, (tp_idx + 1) * Ts)
+    denom = M * mb * T * pcfg.dp
+    link = _StageLink(mesh.group(pp_ax), stage, double_buffer)
+    dev = params["wte"].device
+    roots, ce_sum = [], torch.zeros((), dtype=torch.float32, device=dev)
+    for t in range(M + S - 1):
+        m = t - stage
+        if not 0 <= m < M:
+            continue
+        if stage == 0:
+            x = G.embed(params, tokens[m][:, seq], cfg, pos_offset=tp_idx * Ts)
+        else:
+            anchor = torch.empty(0, device=dev, requires_grad=True)
+            x = _StageRecv.apply(anchor, link, (mb, Ts, cfg.d_model),
+                                 cfg.dtype, m)
+        out = G.run_blocks(params["blocks"], x, cfg, tp_group)
+        if stage == S - 1:
+            ce = G.ce_from_hidden(params, out, labels[m][:, seq], cfg)
+            ce_sum = ce_sum + ce.detach()
+            roots.append(ce / denom)
+        else:
+            roots.append(_StageSend.apply(out, link, m))
+    link.flush()
+
+    def backward():
+        for root in reversed(roots):
+            torch.autograd.backward(root)
+        link.flush()
+
+    return ce_sum / denom, backward
+
+
+def _value_and_grad(params, tokens, labels, cfg, pcfg, mesh, double_buffer
+                    ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """(rank-local partial loss, the rank's grads in tree-flatten order;
+    exact zeros for leaves this rank does not use)."""
+    live = [p.detach().requires_grad_() for p in flat_leaves(params)]
+    loss, backward = _pipeline_loss(_unflatten(params, live), tokens, labels,
+                                    cfg, pcfg, mesh, double_buffer)
+    backward()
+    return loss, [p.grad if p.grad is not None else torch.zeros_like(p)
+                  for p in live]
+
+
+# ---------------------------------------------------------------------------
+# Public API
+# ---------------------------------------------------------------------------
+
+def _check_layout(cfg: G.GPTConfig, pcfg: ParallelConfig) -> None:
+    for what, n, ways in (("num_layers", cfg.num_layers, pcfg.pp),
+                          ("num_heads", cfg.num_heads, pcfg.tp),
+                          ("d_ff", cfg.d_ff, pcfg.tp)):
+        if n % ways:
+            raise ValueError(f"{what} {n} is not a multiple of {ways}")
+
+
+def _rs_param_layout(cfg: G.GPTConfig, pcfg: ParallelConfig,
+                     ccfg: CommConfig):
+    """Bucket layout over the rank-LOCAL param shard shapes (tree-flatten
+    order) for the reduce-scatter path; deterministic in (cfg, pcfg,
+    ccfg), so ``init_sharded`` and ``make_train_step`` agree."""
+    _check_layout(cfg, pcfg)
+    sizes = dict(zip(pcfg.axis_names, (pcfg.dp, pcfg.pp, pcfg.tp)))
+    specs = flat_specs(cfg, pcfg)
+    shapes = flat_leaves(G.param_shapes(cfg))
+    if any(pcfg.axis_names[0] in mesh_mod.spec_axes(s) for s in specs):
+        raise NotImplementedError(
+            "reduce_scatter grad path expects dp-replicated params")
+    pad_multiple = ccfg.quant_chunk if ccfg.comm_dtype == "int8" else 1
+    layout = comm_opt.build_bucket_layout(
+        [(mesh_mod.local_shape(sh, s, sizes), np.float32)
+         for sh, s in zip(shapes, specs)],
+        ranks=pcfg.dp, cap_bytes=int(ccfg.bucket_mb * (1 << 20)),
+        pad_multiple=pad_multiple)
+    return layout, specs
+
+
+def rs_param_layout(cfg: G.GPTConfig, pcfg: ParallelConfig,
+                    comm: Optional[CommConfig] = None,
+                    **comm_kw) -> Tuple[comm_opt.BucketLayout, int]:
+    """The reduce-scatter bucket layout and ``repl`` (= pp·tp), how many
+    times each dp shard repeats over the mesh."""
+    ccfg = comm if comm is not None else CommConfig(
+        grad_reduce="reduce_scatter", **comm_kw)
+    layout, _ = _rs_param_layout(cfg, pcfg, ccfg)
+    return layout, pcfg.pp * pcfg.tp
+
+
+def _comm_config(comm, grad_reduce, grad_allreduce_dtype, bucket_mb,
+                 error_feedback) -> CommConfig:
+    return comm if comm is not None else CommConfig(
+        grad_reduce=grad_reduce, comm_dtype=grad_allreduce_dtype,
+        bucket_mb=bucket_mb, error_feedback=error_feedback)
+
+
+def _refuse(sharding, tuned) -> None:
+    if sharding is not None:
+        raise NotImplementedError(
+            "sharding= (the GSPMD plans of paddle_tpu/sharding) is still to "
+            "be ported (ROADMAP A3 (a): sharding/)")
+    if tuned is not None:
+        raise NotImplementedError(
+            "tuned= (TUNED.json from tools/autotune.py) is still to be "
+            "ported (ROADMAP A4)")
+
+
 def init_sharded(cfg: G.GPTConfig, pcfg: Optional[ParallelConfig] = None,
-                 seed: int = 0, moment_dtype=None, fused_opt: bool = False,
-                 device="cuda"):
-    """(params, AdamW state) on one device. With ``fused_opt`` the params
-    are views into one flat float32 buffer, which the fused sweep updates
-    in place without a concatenation, and the moments are flat."""
+                 mesh: Optional[mesh_mod.Mesh] = None, seed: int = 0,
+                 moment_dtype=None, fused_opt: bool = False,
+                 grad_reduce: str = "psum", bucket_mb: float = 32.0,
+                 error_feedback: bool = False, grad_allreduce_dtype=None,
+                 comm: Optional[CommConfig] = None, sharding=None,
+                 tuned=None, device=None):
+    """(params, AdamW state) of this rank. Every rank makes the full tree
+    from ``seed`` on its device and keeps its shards by ``param_specs``.
+
+    ``grad_reduce="reduce_scatter"`` (pass the same comm kwargs as
+    ``make_train_step``) lays the moments out as this dp rank's flat
+    shard of the bucket layout (float32 ``shard_len``, plus the error
+    feedback residual over the whole layout); ``fused_opt`` on one device
+    makes the params views of one flat float32 buffer with flat moments;
+    otherwise the moments are per leaf. ``mesh=None`` is one device
+    (``device``, default the card); with a mesh the params live on
+    ``mesh.device`` and a ``device`` that names another raises."""
+    _refuse(sharding, tuned)
+    dev = _step_device(mesh, device)
     pcfg = pcfg or ParallelConfig()
-    params = G.init_params(cfg, seed=seed, device=device)
+    ccfg = _comm_config(comm, grad_reduce, grad_allreduce_dtype, bucket_mb,
+                        error_feedback)
+    if mesh is None:
+        if pcfg.n_devices > 1 or ccfg.grad_reduce != "psum":
+            raise ValueError(f"{pcfg} with grad_reduce={ccfg.grad_reduce!r} "
+                             "needs mesh=build_mesh(pcfg)")
+        params = G.init_params(cfg, seed=seed, device=dev)
+    else:
+        _check_layout(cfg, pcfg)
+        full = G.init_params(cfg, seed=seed, device=dev)
+        params = shard_params(full, G.param_specs(cfg, *pcfg.axis_names[1:]),
+                              mesh)
+        del full
+    if ccfg.grad_reduce == "reduce_scatter":
+        layout, _ = _rs_param_layout(cfg, pcfg, ccfg)
+        mdt = moment_dtype or torch.float32
+        opt = {"m": torch.zeros(layout.shard_len, dtype=mdt, device=dev),
+               "v": torch.zeros(layout.shard_len, dtype=mdt, device=dev),
+               "step": torch.zeros((), dtype=torch.int32, device=dev)}
+        if ccfg.error_feedback:
+            opt["ef"] = torch.zeros(layout.total_len, dtype=torch.float32,
+                                    device=dev)
+        return params, opt
     if fused_opt:
         params = _flatten_into_views(params)
     return params, init_adamw_state(params, moment_dtype, fused=fused_opt)
@@ -246,25 +586,231 @@ def _batch(x, dev) -> torch.Tensor:
     return x[0].to(device=dev, dtype=torch.long)
 
 
+def _rank_batch(x, pcfg: ParallelConfig, mesh: mesh_mod.Mesh, cfg
+                ) -> torch.Tensor:
+    """The global [M, B, T] tokens or labels -> this dp rank's int64
+    [M, B/dp, T] on the mesh's device."""
+    x = torch.as_tensor(x)
+    if x.dim() != 3 or x.shape[0] != pcfg.microbatches:
+        raise ValueError(f"expected [{pcfg.microbatches}, B, T], got "
+                         f"{tuple(x.shape)}")
+    M, B, T = x.shape
+    if B % pcfg.dp or T % pcfg.tp:
+        raise ValueError(f"batch {B} / seq {T} not divisible by dp "
+                         f"{pcfg.dp} / tp {pcfg.tp}")
+    mb = B // pcfg.dp
+    d = mesh.axis_index(pcfg.axis_names[0])
+    return x[:, d * mb:(d + 1) * mb].to(device=mesh.device, dtype=torch.long)
+
+
+def _repl_weight(spec, pcfg: ParallelConfig, axes) -> float:
+    """1 / how many ranks along ``axes`` hold the same copy of a leaf."""
+    sizes = dict(zip(pcfg.axis_names, (pcfg.dp, pcfg.pp, pcfg.tp)))
+    used = mesh_mod.spec_axes(spec)
+    return 1.0 / int(np.prod([sizes[a] for a in axes if a not in used]))
+
+
+def _global_norm(sq_sum: torch.Tensor, mesh: mesh_mod.Mesh) -> torch.Tensor:
+    """sqrt of a replication-weighted sum of squares summed over the
+    world."""
+    return torch.sqrt(mesh.group(*mesh.axis_names).all_reduce(sq_sum))
+
+
 def make_train_step(cfg: G.GPTConfig, pcfg: Optional[ParallelConfig] = None,
+                    mesh: Optional[mesh_mod.Mesh] = None,
                     lr: float = 3e-4, weight_decay: float = 0.1,
                     fused_opt: bool = False, fused_opt_kernel=None,
-                    grad_clip=1.0, skip_nonfinite: bool = False,
-                    device="cuda"):
+                    grad_reduce: str = "psum", grad_allreduce_dtype=None,
+                    bucket_mb: float = 32.0, error_feedback: bool = False,
+                    grad_clip=1.0, comm: Optional[CommConfig] = None,
+                    skip_nonfinite: bool = False, sharding=None, tuned=None,
+                    device=None):
     """The training step: ``step(params, opt, tokens, labels) -> (params,
-    opt, loss, gnorm)`` with tokens/labels [1, B, T] and loss/gnorm 0-d
-    float32 tensors on the device. params and opt are updated IN PLACE.
+    opt, loss, gnorm)`` with tokens/labels the GLOBAL batch [M, B, T] (every
+    rank is given all of it and takes its dp rows) and loss/gnorm 0-d
+    float32 tensors, the same on every rank. params and opt are updated
+    IN PLACE.
 
     ``fused_opt`` runs the flat-buffer sweep (opt state from
-    ``init_sharded(fused_opt=True)``); ``fused_opt_kernel`` is JAX's
-    ``fused_opt_pallas``: None or True = the AdamW kernel on a card (its
-    plain version on CPU tensors), False = the plain PyTorch sweep.
+    ``init_sharded(fused_opt=True)``) — on one device only, or under
+    reduce-scatter, as the reference refuses; ``fused_opt_kernel`` is
+    JAX's ``fused_opt_pallas``: None or True = the AdamW kernel on a card
+    (its plain version on CPU tensors), False = the plain PyTorch sweep.
 
-    ``skip_nonfinite`` keeps params and opt (step counter included) when
-    the loss or the grad norm is NaN/Inf: the grad norm is taken before
-    the sweep and one flag is read on the host (the step's only sync)."""
-    dev = resolve_device(device)
+    Communication levers (or pass a ready :class:`CommConfig` as
+    ``comm``): ``grad_reduce="reduce_scatter"`` — size-capped flat buckets
+    reduce-scattered over dp, AdamW on the rank's shard (the flat sweep,
+    the kernel on a card) against dp-sharded moments, the updated shards
+    all-gathered (opt state from ``init_sharded(grad_reduce=
+    "reduce_scatter")``); ``grad_allreduce_dtype="bf16"|"int8"`` —
+    chunk-scaled quantized wire payload with float32 accumulation;
+    ``error_feedback`` (reduce-scatter only) carries each rank's
+    quantization residual in ``opt["ef"]``. ``grad_clip=None`` disables
+    clipping with an exact scale of 1.0. ``sharding=`` and ``tuned=``
+    raise (still to be ported).
+
+    ``skip_nonfinite`` keeps params and opt (step counter and residual
+    included) when the summed loss or the global grad norm is NaN/Inf:
+    both are reduced over the world, so every rank decides alike, before
+    the sweep, by one flag read on the host.
+
+    ``mesh=None`` is one device (``device``, default the card); with a
+    mesh the step runs on ``mesh.device`` and a ``device`` that names
+    another raises."""
+    _refuse(sharding, tuned)
     pcfg = pcfg or ParallelConfig()
+    ccfg = _comm_config(comm, grad_reduce, grad_allreduce_dtype, bucket_mb,
+                        error_feedback)
+    rs = ccfg.grad_reduce == "reduce_scatter"
+    if fused_opt and pcfg.n_devices > 1 and not rs:
+        raise NotImplementedError(
+            "fused_opt on a multi-device mesh requires "
+            "grad_reduce='reduce_scatter' (the bucketed flat sweep) "
+            f"(got dp={pcfg.dp} pp={pcfg.pp} tp={pcfg.tp})")
+    if ccfg.error_feedback and not rs:
+        raise NotImplementedError(
+            "error_feedback requires grad_reduce='reduce_scatter' "
+            "(the residual rides the sharded train state)")
+    dev = _step_device(mesh, device)
+    if mesh is None:
+        if pcfg.n_devices > 1 or pcfg.microbatches > 1 or rs \
+                or ccfg.comm_dtype is not None:
+            raise ValueError(f"{pcfg} with {ccfg} needs "
+                             "mesh=build_mesh(pcfg)")
+        return _single_device_step(cfg, lr, weight_decay, fused_opt,
+                                   fused_opt_kernel, grad_clip,
+                                   skip_nonfinite, dev)
+    _check_layout(cfg, pcfg)
+    if rs:
+        return _make_rs_step(cfg, pcfg, mesh, ccfg, lr, weight_decay,
+                             fused_opt_kernel, grad_clip, skip_nonfinite)
+    specs = flat_specs(cfg, pcfg)
+    weights = [_repl_weight(s, pcfg, pcfg.axis_names) for s in specs]
+    cache: Dict[str, Any] = {}
+
+    def step(params, opt, tokens, labels):
+        tokens = _rank_batch(tokens, pcfg, mesh, cfg)
+        labels = _rank_batch(labels, pcfg, mesh, cfg)
+        loss, grads = _value_and_grad(params, tokens, labels, cfg, pcfg,
+                                      mesh, ccfg.pipeline_double_buffer)
+        with torch.no_grad():
+            loss = _psum_loss(loss, mesh)
+            grads = psum_grads_by_spec(grads, specs, mesh,
+                                       comm_dtype=ccfg.comm_dtype,
+                                       quant_chunk=ccfg.quant_chunk)
+            gnorm = _global_norm(sum(w * torch.sum(torch.square(g.float()))
+                                     for w, g in zip(weights, grads)), mesh)
+            if skip_nonfinite and health.nonfinite_guard(loss, gnorm):
+                return params, opt, loss, gnorm
+            gtree = _unflatten(params, grads)
+            if fused_opt:
+                if "wd_mask" not in cache:
+                    cache["wd_mask"] = _wd_mask(flat_leaves(params))
+                params, opt, _ = _adamw_update_fused(
+                    params, gtree, opt, lr, weight_decay=weight_decay,
+                    grad_clip=grad_clip, use_kernel=fused_opt_kernel,
+                    wd_mask=cache["wd_mask"], gnorm=gnorm)
+            else:
+                params, opt, _ = _adamw_update(
+                    params, gtree, opt, lr, weight_decay=weight_decay,
+                    grad_clip=grad_clip, gnorm=gnorm)
+        return params, opt, loss, gnorm
+
+    return step
+
+
+def _psum_loss(loss: torch.Tensor, mesh: mesh_mod.Mesh) -> torch.Tensor:
+    """The rank partials summed over the world: the global mean loss."""
+    world = mesh.group(*mesh.axis_names)
+    comm_opt.record_collective("psum", torch.float32, 4, world.size)
+    return world.all_reduce(loss.clone())
+
+
+def _make_rs_step(cfg, pcfg: ParallelConfig, mesh: mesh_mod.Mesh,
+                  ccfg: CommConfig, lr, weight_decay, fused_opt_kernel,
+                  grad_clip, skip_nonfinite):
+    """The reduce-scatter train step (reference ``_make_rs_step``): grads
+    flat-concatenated into the bucket layout over the rank-local leaf
+    shards, each bucket reduce-scattered over dp (or the quantized
+    ``all_to_all`` exchange), AdamW on this rank's shard against its flat
+    moments in ONE sweep (``megakernel_adamw_flat``: the kernel on a card),
+    the updated shards all-gathered back into the leaves in place."""
+    dp_ax = pcfg.axis_names[0]
+    dp_group = mesh.group(dp_ax)
+    layout, specs = _rs_param_layout(cfg, pcfg, ccfg)
+    buckets = layout.buckets
+    d = dp_group.index
+    # this rank's slice of each bucket's weight-decay mask and grad-norm
+    # weight (1 / replication over pp and tp: the world sum then counts
+    # each unique element once)
+    wd, repl = [], []
+    for b in buckets:
+        blen = b.size // pcfg.dp
+        parts = [np.full((numel,), _repl_weight(specs[idx], pcfg,
+                                                pcfg.axis_names[1:]),
+                         np.float32) for idx, _, numel in b.entries]
+        parts.append(np.zeros((b.pad,), np.float32))
+        repl.append(np.concatenate(parts)[d * blen:(d + 1) * blen])
+        wd.append(comm_opt.bucket_wd_mask(b)[d * blen:(d + 1) * blen])
+    wd_mask = torch.from_numpy(np.concatenate(wd)).to(mesh.device)
+    repl_w = torch.from_numpy(np.concatenate(repl)).to(mesh.device)
+    b1, b2, eps = 0.9, 0.95, 1e-8
+    sweep = (CK.megakernel_adamw_flat_plain if fused_opt_kernel is False
+             else CK.megakernel_adamw_flat)
+
+    def step(params, opt, tokens, labels):
+        tokens = _rank_batch(tokens, pcfg, mesh, cfg)
+        labels = _rank_batch(labels, pcfg, mesh, cfg)
+        loss, grads = _value_and_grad(params, tokens, labels, cfg, pcfg,
+                                      mesh, ccfg.pipeline_double_buffer)
+        with torch.no_grad():
+            loss = _psum_loss(loss, mesh)
+            # pp/tp replication is still a per-leaf sum; dp is the
+            # bucketed scatter below
+            grads = psum_grads_by_spec(
+                grads, specs, mesh, skip_axes=(dp_ax,),
+                comm_dtype=ccfg.comm_dtype, quant_chunk=ccfg.quant_chunk)
+            flat_p = flat_leaves(params)
+            g_shards, p_shards, ef_out = [], [], []
+            off = 0
+            for b in buckets:
+                blen = b.size // pcfg.dp
+                vec = comm_opt.flatten_bucket(grads, b)
+                if ccfg.error_feedback:
+                    vec = vec + opt["ef"][off:off + b.size]
+                shard, resid = comm_opt.reduce_scatter_flat(vec, dp_group,
+                                                            ccfg)
+                g_shards.append(shard)
+                ef_out.append(resid)
+                p_shards.append(comm_opt.flatten_bucket(flat_p, b)[
+                    d * blen:(d + 1) * blen])
+                off += b.size
+            gf, pf = torch.cat(g_shards), torch.cat(p_shards)
+            gnorm = _global_norm(torch.sum(torch.square(gf) * repl_w), mesh)
+            if skip_nonfinite and health.nonfinite_guard(loss, gnorm):
+                return params, opt, loss, gnorm
+            step_no, c1, c2 = _bias_corrections(opt, b1, b2)
+            sweep(pf, gf, opt["m"], opt["v"], wd_mask, lr,
+                  _clip_scale(gnorm, grad_clip), c1, c2, b1=b1, b2=b2,
+                  eps=eps, weight_decay=weight_decay)
+            opt["step"].copy_(step_no)
+            if ccfg.error_feedback:
+                opt["ef"].copy_(torch.cat(ef_out))
+            off = 0
+            for b in buckets:
+                blen = b.size // pcfg.dp
+                full = comm_opt.all_gather_flat(pf[off:off + blen], dp_group)
+                for idx, view in comm_opt.unflatten_bucket(full, b).items():
+                    flat_p[idx].copy_(view)
+                off += blen
+        return params, opt, loss, gnorm
+
+    return step
+
+
+def _single_device_step(cfg, lr, weight_decay, fused_opt, fused_opt_kernel,
+                        grad_clip, skip_nonfinite, dev):
+    """The one-device step without a mesh: tokens/labels [1, B, T]."""
     cache: Dict[str, Any] = {}
 
     if fused_opt:
@@ -297,3 +843,44 @@ def make_train_step(cfg: G.GPTConfig, pcfg: Optional[ParallelConfig] = None,
         return params, opt, loss, gnorm
 
     return step
+
+
+def make_forward(cfg: G.GPTConfig, pcfg: ParallelConfig,
+                 mesh: mesh_mod.Mesh):
+    """Inference forward over the mesh: ``fwd(params, tokens [B, T]) ->
+    logits [B, T, V]`` (the compute dtype) on every rank. Each dp rank runs
+    its rows, the stages pass the activation on, tp runs sequence-
+    parallel; the last stage gathers the logits over tp and dp and sends
+    them to the other stages."""
+    _check_layout(cfg, pcfg)
+    dp_ax, pp_ax, tp_ax = pcfg.axis_names
+    S = pcfg.pp
+    stage, tp_idx = mesh.axis_index(pp_ax), mesh.axis_index(tp_ax)
+    tp_group = mesh.group(tp_ax) if pcfg.tp > 1 else None
+    pp_group = mesh.group(pp_ax)
+
+    def fwd(params, tokens):
+        tokens = _rank_batch(torch.as_tensor(tokens)[None], ParallelConfig(
+            pcfg.dp, pcfg.pp, pcfg.tp, 1, pcfg.axis_names), mesh, cfg)[0]
+        mb, T = tokens.shape
+        Ts = T // pcfg.tp
+        with torch.no_grad():
+            if stage == 0:
+                x = G.embed(params, tokens[:, tp_idx * Ts:(tp_idx + 1) * Ts],
+                            cfg, pos_offset=tp_idx * Ts)
+            else:
+                x = pp_group.recv((mb, Ts, cfg.d_model), cfg.dtype,
+                                  mesh.device, stage - 1, 0)
+            x = G.run_blocks(params["blocks"], x, cfg, tp_group)
+            out = torch.empty((mb * pcfg.dp, T, cfg.vocab_size),
+                              dtype=cfg.dtype, device=mesh.device)
+            if stage < S - 1:
+                pp_group.isend(x, stage + 1, 0).wait()
+            else:
+                logits = G.logits_fn(params, x, cfg)
+                if tp_group is not None:
+                    logits = G._gather_seq(logits, tp_group)
+                out.copy_(mesh.group(dp_ax).all_gather(logits))
+            return pp_group.broadcast(out, S - 1)
+
+    return fwd

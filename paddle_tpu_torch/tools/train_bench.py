@@ -64,10 +64,13 @@ under ``cProfile``. ``--compare`` runs the no-fuse and fused arms in
 turns.
 """
 import argparse
+import contextlib
+import functools
 import json
+import os
 import sys
 import time
-from typing import Any, Dict
+from typing import Any, Dict, List
 
 import numpy as np
 import torch
@@ -81,6 +84,8 @@ from ..models import resnet as R
 from ..observability import hw
 from ..ops import cuda_kernels as CK
 from ..ops.chunked_ce import CE_BWD_RANGE
+from ..parallel import comm_opt
+from ..parallel import mesh as mesh_mod
 from ..parallel import parallelize as PZ
 from .profile_decode import trace_summary
 
@@ -442,7 +447,353 @@ def resnet_fixed_batch(steps: int = 6, fuse: bool = True, seed: int = 0):
                           scope=scope)[0]) for _ in range(steps)]
 
 
-def main(argv=None) -> int:
+# ---------------------------------------------------------------------------
+# the parallel lane: one rank of a dp x pp x tp gang under parallel.launch
+# ---------------------------------------------------------------------------
+
+# 11p: PARITY_STEPS steps at lr 1e-2, as the CPU step tests
+# (tests/test_torch_parallel_step.py) take them, so that each step moves a
+# param by about lr and the moments, not only the update's sign, decide
+# the params after the last
+PARITY_SEED, PARITY_LR, PARITY_STEPS = 11, 1e-2, 3
+PARITY_ROWS, PARITY_SEQ = 8, 256     # the 11p global batch, [1, 8, 256]
+# the 11p gates: loss at every step within the reference's rtol 2e-4;
+# grad norm within the step tests' rtol 1e-3; this rank's whole update
+# (p - p0) and its moments within PARITY_REL_TOL of the world-1 run's in
+# the 2-norm, and each leaf's update within PARITY_LEAF_TOL (an update
+# or moment shard that is missing or misplaced is off by about 1, a
+# layernorm scale decayed by mistake by about 0.1); the params within
+# the step tests' 2e-4 + 2e-3·|p| on all but PARITY_OUTSIDE of the
+# elements. Not on all: where a gradient is zero but for rounding (the
+# k bias, to which attention is invariant), Adam's normalised step
+# follows the rounding, which differs between layouts.
+PARITY_REL_TOL, PARITY_LEAF_TOL, PARITY_OUTSIDE = 1e-3, 1e-2, 1e-4
+
+
+@contextlib.contextmanager
+def _no_tf32():
+    """float32 products in float32 (TF32 off) inside, the flags restored
+    after."""
+    old = (torch.backends.cuda.matmul.allow_tf32,
+           torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = old
+
+
+def parity_config(tiny: bool = False) -> G.GPTConfig:
+    """The 11p model: GPT_SMALL's widths at 2 layers in float32, every
+    kernel lever on (flash, fused LN, vocab chunk 1024, dots remat);
+    ``tiny`` is a CPU rehearsal's shape."""
+    cfg = G.GPT_SMALL.scaled(num_layers=2, dtype=torch.float32,
+                             use_flash=True, fused_ln=True,
+                             ce_vocab_chunk=1024, ce_direct_bytes_limit=0,
+                             remat=True, remat_policy="dots")
+    if tiny:
+        cfg = cfg.scaled(vocab_size=512, d_model=64, num_heads=4, d_ff=128,
+                         ce_vocab_chunk=128, max_seq_len=PARITY_SEQ)
+    return cfg
+
+
+def parity_batch(vocab: int) -> np.ndarray:
+    """tokens and labels [2, 1, PARITY_ROWS, PARITY_SEQ] from numpy seed 5."""
+    return np.random.default_rng(5).integers(
+        0, vocab, (2, 1, PARITY_ROWS, PARITY_SEQ))
+
+
+def _parity_steps(step, params, opt, shape, vocab):
+    """PARITY_STEPS steps on the 11p batch (TF32 off): losses, gnorms."""
+    toks, labs = (x.reshape(shape) for x in parity_batch(vocab))
+    losses, gnorms = [], []
+    with _no_tf32():
+        for _ in range(PARITY_STEPS):
+            _, _, loss, gnorm = step(params, opt, toks, labs)
+            losses.append(float(loss))
+            gnorms.append(float(gnorm))
+    return losses, gnorms
+
+
+def parity_reference(path: str, device, tiny: bool = False) -> Dict:
+    """The world-1 run of 11p (one device, no mesh, the flat AdamW sweep;
+    TF32 off): writes the losses and grad norms of its PARITY_STEPS steps
+    and the params and moments (as leaves) after them to ``path``."""
+    cfg = parity_config(tiny=tiny)
+    params, opt = PZ.init_sharded(cfg, seed=PARITY_SEED, fused_opt=True,
+                                  device=device)
+    step = PZ.make_train_step(cfg, lr=PARITY_LR, fused_opt=True,
+                              device=device)
+    losses, gnorms = _parity_steps(step, params, opt,
+                                   (1, PARITY_ROWS, PARITY_SEQ),
+                                   cfg.vocab_size)
+    leaves = PZ.flat_leaves(params)
+    ref = {"losses": losses, "gnorms": gnorms,
+           "params": [p.detach().cpu().clone() for p in leaves]}
+    for k in ("m", "v"):
+        flat = opt[k].float().cpu()
+        ref[k] = [x.view(p.shape).clone() for x, p in zip(
+            flat.split([p.numel() for p in leaves]), leaves)]
+    torch.save(ref, path)
+    return {"losses": losses, "gnorms": gnorms}
+
+
+@functools.lru_cache(maxsize=1)
+def _load_ref(path: str) -> Dict:
+    return torch.load(path, mmap=True, weights_only=False)
+
+
+def _rel(got: List[torch.Tensor], want: List[torch.Tensor]) -> float:
+    num = sum(float(torch.sum(torch.square(a.float() - b.float())))
+              for a, b in zip(got, want))
+    den = sum(float(torch.sum(torch.square(b.float()))) for b in want)
+    return (num / den) ** 0.5 if den else float(num > 0)
+
+
+def _leaf_names(tree, prefix: str = "") -> List[str]:
+    """The dotted key paths of a nested dict's leaves, in
+    ``PZ.flat_leaves`` order."""
+    out = []
+    for k in sorted(tree):
+        v = tree[k]
+        out.extend(_leaf_names(v, f"{prefix}{k}.") if isinstance(v, dict)
+                   else [prefix + k])
+    return out
+
+
+def _ref_moment(leaves, cfg, pcfg, mesh, rs, dev) -> List[torch.Tensor]:
+    """The world-1 moment ``leaves`` laid out as this rank's: its leaf
+    shards, or under reduce-scatter its slice of every bucket, in the
+    step's order."""
+    local = [mesh_mod.local_shard(x, spec, mesh).to(dev)
+             for x, spec in zip(leaves, PZ.flat_specs(cfg, pcfg))]
+    if not rs:
+        return local
+    layout, _ = PZ.rs_param_layout(cfg, pcfg)
+    d = mesh.axis_index(pcfg.axis_names[0])
+    out = []
+    for b in layout.buckets:
+        blen = b.size // pcfg.dp
+        out.append(comm_opt.flatten_bucket(local, b)[d * blen:
+                                                     (d + 1) * blen])
+    return [torch.cat(out)]
+
+
+def _parity_check(args, pcfg, mesh, dev) -> Dict[str, Any]:
+    """PARITY_STEPS 11p steps of this layout (float32 wire) against the
+    world-1 run at ``args.parity_ref``: the losses' and grad norms'
+    largest relative errors, the params' largest error, whether all are
+    within the step tests' tolerance and the share that is, the relative
+    2-norm error of this rank's update (p - p0), of each leaf's and of
+    its moments, and the share of elements whose update has the world-1
+    update's sign."""
+    cfg = parity_config(tiny=args.tiny)
+    rs = args.grad_reduce == "reduce_scatter"
+    params, opt = PZ.init_sharded(cfg, pcfg, mesh, seed=PARITY_SEED,
+                                  fused_opt=rs, grad_reduce=args.grad_reduce)
+    p0 = [p.clone() for p in PZ.flat_leaves(params)]
+    step = PZ.make_train_step(cfg, pcfg, mesh, lr=PARITY_LR, fused_opt=rs,
+                              grad_reduce=args.grad_reduce)
+    M = pcfg.microbatches
+    losses, gnorms = _parity_steps(step, params, opt,
+                                   (M, PARITY_ROWS // M, PARITY_SEQ),
+                                   cfg.vocab_size)
+    ref = _load_ref(args.parity_ref)
+    worst, ok, within, agree, n = 0.0, True, 0, 0, 0
+    got_d, want_d, by_leaf = [], [], {}
+    for name, p, q0, full, spec in zip(
+            _leaf_names(G.param_shapes(cfg)), PZ.flat_leaves(params), p0,
+            ref["params"], PZ.flat_specs(cfg, pcfg)):
+        want = mesh_mod.local_shard(full, spec, mesh).to(dev)
+        worst = max(worst, (p - want).abs().max().item())
+        close = torch.isclose(p, want, rtol=2e-3, atol=2e-4)
+        ok = ok and bool(close.all())
+        within += int(close.sum())
+        agree += int((torch.sign(p - q0) == torch.sign(want - q0)).sum())
+        n += p.numel()
+        got_d.append(p - q0)
+        want_d.append(want - q0)
+        by_leaf[name] = _rel(got_d[-1:], want_d[-1:])
+    moments = {}
+    for k in ("m", "v"):
+        got = [opt[k]] if rs else PZ.flat_leaves(opt[k])
+        moments[k] = _rel(got, _ref_moment(ref[k], cfg, pcfg, mesh, rs,
+                                           dev))
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref["losses"])]
+    grel = [abs(a - b) / b for a, b in zip(gnorms, ref["gnorms"])]
+    return {"losses": losses, "ref_losses": ref["losses"],
+            "loss_rel_err": max(rel), "gnorm_rel_err": max(grel),
+            "params_max_abs_err": worst, "params_within_tol": ok,
+            "params_within_tol_share": within / n,
+            "update_rel_err": _rel(got_d, want_d),
+            "leaf_update_rel_err": by_leaf,
+            "m_rel_err": moments["m"], "v_rel_err": moments["v"],
+            "update_sign_agreement": agree / n}
+
+
+def parity_ok(par: Dict[str, Any]) -> bool:
+    """The 11p gates (see PARITY_REL_TOL) on a ``_parity_check`` record."""
+    return (par["loss_rel_err"] <= 2e-4 and par["gnorm_rel_err"] <= 1e-3
+            and max(par["update_rel_err"], par["m_rel_err"],
+                    par["v_rel_err"]) <= PARITY_REL_TOL
+            and max(par["leaf_update_rel_err"].values()) <= PARITY_LEAF_TOL
+            and par["params_within_tol_share"] >= 1 - PARITY_OUTSIDE)
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _counter_snapshot(name: str) -> Dict[str, float]:
+    from ..observability import metrics as M
+
+    fam = M.default_registry().snapshot().get(name, {"series": []})
+    return {"/".join(s["labels"]): s["value"] for s in fam["series"]}
+
+
+def _per_step(before, after, steps) -> Dict[str, float]:
+    return {k: (v - before.get(k, 0)) / steps for k, v in after.items()
+            if v != before.get(k, 0)}
+
+
+# a --layout SPEC's keys: the parallel lane's flags, as key=value
+LAYOUT_KEYS = {"dp": int, "pp": int, "tp": int, "microbatches": int,
+               "layers": int, "grad_reduce": str, "comm_dtype": str}
+
+
+def parse_layout(spec: str, args) -> argparse.Namespace:
+    """``args`` with a layout's keys ("dp=2,grad_reduce=reduce_scatter")
+    replaced."""
+    out = argparse.Namespace(**vars(args))
+    for item in filter(None, spec.split(",")):
+        key, _, val = item.partition("=")
+        if key not in LAYOUT_KEYS:
+            raise ValueError(f"layout key {key!r} not in {sorted(LAYOUT_KEYS)}")
+        setattr(out, key, LAYOUT_KEYS[key](val))
+    return out
+
+
+def layout_dict(spec: str) -> Dict[str, Any]:
+    """A layout's LAYOUT_KEYS over the lane's flag defaults."""
+    args = parse_layout(spec, _parser().parse_args([]))
+    return {k: getattr(args, k) for k in LAYOUT_KEYS}
+
+
+def run_parallel(args, dev) -> Dict[str, Any]:
+    """This rank's part of one layout of the parallel lane (its process
+    group joined, its device ``dev``): the 11p check when
+    ``--parity-ref`` is given, then ``--warmup`` + ``--steps`` train steps of
+    GPT_SMALL (bf16, flash, dots remat; ``--fused-ln``, ``--ce-vchunk``;
+    ``--layers`` cuts the depth) on the global batch ``--batch`` x 1024 in
+    ``--microbatches`` microbatches, with the launch counts and the wire
+    bytes counted over the timed steps only. ``stamps`` holds the host
+    clock (``time.time()``) after each part."""
+    stamps = {"begin": time.time()}
+    pcfg = PZ.ParallelConfig(dp=args.dp, pp=args.pp, tp=args.tp,
+                             microbatches=args.microbatches)
+    mesh = PZ.build_mesh(pcfg, device=dev)
+    stamps["mesh"] = time.time()
+    rec: Dict[str, Any] = {"rank": mesh.rank, "coords": mesh.coords,
+                           "backend": mesh.backend, "device": str(dev),
+                           "stamps": stamps}
+    if args.parity_ref:
+        rec["parity"] = _parity_check(args, pcfg, mesh, dev)
+        stamps["parity"] = time.time()
+    cfg = bench_config(args.remat, args.fused_ln, args.ce_vchunk)
+    T = SEQ
+    if args.layers:
+        cfg = cfg.scaled(num_layers=args.layers)
+    if args.tiny:
+        T = 64
+        cfg = cfg.scaled(vocab_size=512, d_model=64, num_heads=4, d_ff=128,
+                         max_seq_len=T, dtype=torch.float32,
+                         ce_vocab_chunk=128 if args.ce_vchunk else 0)
+    rs = args.grad_reduce == "reduce_scatter"
+    fused = rs or pcfg.n_devices == 1
+    comm = dict(grad_reduce=args.grad_reduce,
+                grad_allreduce_dtype=args.comm_dtype)
+    params, opt = PZ.init_sharded(cfg, pcfg, mesh, seed=0,
+                                  moment_dtype=torch.bfloat16,
+                                  fused_opt=fused, device=dev, **comm)
+    step = PZ.make_train_step(cfg, pcfg, mesh, lr=1e-4, weight_decay=0.1,
+                              fused_opt=fused, grad_clip=1.0, device=dev,
+                              **comm)
+    M = pcfg.microbatches
+    rng = np.random.default_rng(0)
+    toks, labs = (torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (M, args.batch // M, T))) for _ in range(2))
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(args.warmup):
+        losses.append(float(step(params, opt, toks, labs)[2]))
+    _sync(dev)
+    warm_s = time.perf_counter() - t0
+    stamps["warmup"] = time.time()
+    CK.reset_launches()
+    counters = ("paddle_collective_bytes_total",
+                "paddle_collective_staged_seconds_total")
+    before = [_counter_snapshot(c) for c in counters]
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    outs = [step(params, opt, toks, labs) for _ in range(args.steps)]
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    stamps["timed"] = time.time()
+    wire, staged = (_per_step(b, _counter_snapshot(c), args.steps)
+                    for b, c in zip(before, counters))
+    losses += [float(o[2]) for o in outs]
+    tokens = args.batch * T * args.steps
+    rec.update({
+        "config": (f"gpt_small_L{cfg.num_layers}_b{args.batch}x{T}_dp"
+                   f"{pcfg.dp}pp{pcfg.pp}tp{pcfg.tp}m{M}_{args.grad_reduce}"
+                   + (f"_{args.comm_dtype}" if args.comm_dtype else "")),
+        "world": pcfg.n_devices, "steps": args.steps,
+        "warmup": args.warmup, "warmup_s": warm_s,
+        "ms_per_step": wall / args.steps * 1e3,
+        "tokens_per_s": tokens / wall,
+        "tokens_per_s_per_rank": tokens / wall / pcfg.n_devices,
+        "wire_bytes_per_step": wire,
+        # host seconds in gloo-staged collectives (copies + exchange, and
+        # a receive's wait for its peer), by op
+        "staged_ms_per_step": {k: v * 1e3 for k, v in staged.items()},
+        "launches_per_step": {k: v / args.steps
+                              for k, v in CK.LAUNCHES.items() if v},
+        "losses": losses,
+        "peak_mem_bytes": (torch.cuda.max_memory_allocated(dev)
+                           if dev.type == "cuda" else 0),
+    })
+    return rec
+
+
+def main_parallel(args) -> int:
+    """Join the gang, then run each ``--layout`` (or the one the flags
+    give) in turn over the same ranks; each rank's record goes to stdout
+    and to ``<out-dir>/layout<i>.rank<r>.json``."""
+    from ..parallel import env
+
+    t0 = time.time()
+    dev = env.init_distributed_env(device=args.device)
+    t_init = time.time()
+    for i, spec in enumerate(args.layout or [""]):
+        rec = run_parallel(parse_layout(spec, args), dev)
+        rec["stamps"].update(start=t0, init=t_init)
+        line = json.dumps(rec)
+        print(f"[train-parallel layout {i} rank {rec['rank']}] {line}",
+              flush=True)
+        if args.out_dir:
+            os.makedirs(args.out_dir, exist_ok=True)
+            with open(os.path.join(args.out_dir,
+                                   f"layout{i}.rank{rec['rank']}.json"),
+                      "w") as f:
+                f.write(line)
+    return 0
+
+
+def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", default="gpt",
                     choices=("gpt", "ernie", "resnet50"))
@@ -463,7 +814,44 @@ def main(argv=None) -> int:
                          "a step by function)")
     ap.add_argument("--compare", action="store_true",
                     help="plain and kernel arms in turns: P, K, K, P")
-    args = ap.parse_args(argv)
+    par = ap.add_argument_group(
+        "parallel lane (one rank; run under python -m "
+        "paddle_tpu_torch.parallel.launch)")
+    for flag in ("--dp", "--pp", "--tp", "--microbatches"):
+        par.add_argument(flag, type=int, default=1)
+    par.add_argument("--grad-reduce", default="psum",
+                     choices=("psum", "reduce_scatter"))
+    par.add_argument("--comm-dtype", default=None,
+                     choices=("f32", "bf16", "int8"))
+    par.add_argument("--layers", type=int, default=0,
+                     help="cut GPT_SMALL's depth to this many layers")
+    par.add_argument("--batch", type=int, default=BATCH,
+                     help="global batch (rows of 1024 tokens)")
+    par.add_argument("--steps", type=int, default=STEPS)
+    par.add_argument("--warmup", type=int, default=WARMUP)
+    par.add_argument("--device", default=None,
+                     help="this rank's device (default cuda:LOCAL_RANK); "
+                          "name one card to put every rank on it")
+    par.add_argument("--parity-ref", default=None, metavar="PATH",
+                     help="run the 11p check against this world-1 step "
+                          "(parity_reference) first")
+    par.add_argument("--layout", action="append", metavar="SPEC",
+                     help="run this layout (key=value,...: dp, pp, tp, "
+                          "microbatches, layers, grad_reduce, comm_dtype "
+                          "over the flags above); repeat to run several "
+                          "over one gang, in turn")
+    par.add_argument("--out-dir", default=None,
+                     help="write each rank's record to "
+                          "layout<i>.rank<r>.json here")
+    par.add_argument("--tiny", action="store_true",
+                     help="a CPU rehearsal's widths (with --device cpu)")
+    return ap
+
+
+def main(argv=None) -> int:
+    args = _parser().parse_args(argv)
+    if "PADDLE_TRAINERS_NUM" in os.environ:
+        return main_parallel(args)
     if not torch.cuda.is_available():
         print("train_bench: no CUDA device available", file=sys.stderr)
         return 2

@@ -1195,3 +1195,83 @@ def test_engines_decoding_at_once_match_one_at_a_time(card, chip_smoke,
     want = [chip_smoke._greedy_tokens(engines[0], p, 16) for p in prompts]
     for got in chip_smoke.concurrent_greedy(engines, prompts, 16):
         assert got == want
+
+
+def _world_one_step(cfg, params_np, tokens, labels, steps, card):
+    """The one-device step (no mesh) from ``params_np`` on the card."""
+    from paddle_tpu_torch.parallel import parallelize as PZ
+
+    params, opt = PZ.init_sharded(cfg, device=card)
+    for dst, src in zip(PZ.flat_leaves(params), PZ.flat_leaves(params_np)):
+        dst.copy_(torch.from_numpy(src))
+    step = PZ.make_train_step(cfg, lr=1e-2, device=card)
+    losses = []
+    for _ in range(steps):
+        params, opt, loss, _g = step(params, opt, tokens.reshape(
+            1, -1, tokens.shape[-1]), labels.reshape(1, -1, labels.shape[-1]))
+        losses.append(float(loss))
+    return losses, [p.cpu().numpy() for p in PZ.flat_leaves(params)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", [dict(dp=2), dict(tp=2),
+                                    dict(pp=2, microbatches=2)],
+                         ids=["dp2", "tp2", "pp2"])
+def test_world_two_on_one_card_matches_world_one(card, tmp_path, layout):
+    """Two gloo ranks on cuda:0 (each collective staged through host
+    memory) train 3 steps of a float32 GPT_TINY with the flash and
+    fused-LN kernels; losses and every rank's param shards equal the
+    one-device step's within the reference's tolerances (losses rtol
+    2e-4, params rtol 2e-3 / atol 2e-4)."""
+    sys.path.insert(0, str(REPO / "tests"))
+    import torch_dist_worker as W
+    from paddle_tpu_torch.models import gpt as G
+    from paddle_tpu_torch.parallel import mesh as mesh_mod
+    from paddle_tpu_torch.parallel import parallelize as PZ
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg_kw = dict(vocab_size=64, num_layers=2, num_heads=4, d_model=64,
+                  d_ff=128, use_flash=True, fused_ln=True)
+    cfg = G.GPT_TINY.scaled(**cfg_kw)
+    params = G.init_params(cfg, seed=0, device="cpu")
+    pnp = PZ._unflatten(params, [p.numpy() for p in PZ.flat_leaves(params)])
+    m = layout.get("microbatches", 1)
+    rng = np.random.default_rng(3)
+    tokens, labels = (rng.integers(0, 64, (m, 4 // m, 64)) for _ in "tl")
+    ranks = [r[0] for r in W.spawn(
+        W.step_worker, 2, cfg_kw, layout, pnp, tokens, labels,
+        [dict(step_kw=dict(lr=1e-2), steps=3)], out_dir=str(tmp_path),
+        device="cuda:0", timeout=300)]
+    want_losses, want = _world_one_step(cfg, pnp, tokens, labels, 3, card)
+    pcfg = PZ.ParallelConfig(**layout)
+    sizes = dict(dp=pcfg.dp, pp=pcfg.pp, tp=pcfg.tp)
+    for r in ranks:
+        np.testing.assert_allclose(r["losses"], want_losses, rtol=2e-4)
+        mesh = type("M", (), {"sizes": sizes, "coords": r["coords"]})
+        for got, full, spec in zip(r["params"], want,
+                                   PZ.flat_specs(cfg, pcfg)):
+            np.testing.assert_allclose(
+                got, mesh_mod.local_shard(full, spec, mesh), rtol=2e-3,
+                atol=2e-4)
+
+
+@pytest.mark.cuda
+def test_adamw_sweep_on_shards_at_odd_offsets(card):
+    """The reduce-scatter step's sweep runs on a dp shard of the bucket
+    layout, which may start at any element: the kernel on views at odd
+    offsets of one buffer (n odd, so no 16-byte vector lines up) equals
+    the plain sweep bitwise at float32 moments."""
+    from paddle_tpu_torch.ops import cuda_kernels as CK
+
+    gen = torch.Generator(device=card).manual_seed(4)
+    n, total = 100_003, 300_017
+    bufs = [torch.randn(total, generator=gen, device=card) for _ in range(5)]
+    bufs[3] = bufs[3].abs()
+    bufs[4] = (bufs[4] > 0).float()
+    for off in (1, 353, 100_005):
+        ins = [b[off:off + n] for b in bufs]
+        want = [t.clone() for t in ins]
+        CK.megakernel_adamw_flat(*ins, 1e-3, 0.7, 0.1, 0.05)
+        CK.megakernel_adamw_flat_plain(*want, 1e-3, 0.7, 0.1, 0.05)
+        for a, b in zip(ins, want):
+            assert torch.equal(a, b), off

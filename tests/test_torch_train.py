@@ -309,8 +309,14 @@ def test_skip_nonfinite_keeps_state():
 def test_refusals_and_defaults():
     with pytest.raises(ValueError):
         TG.GPT_TINY.scaled(remat_policy="sometimes")
+    # multi-rank layouts are ported (tests/test_torch_parallel*.py); the
+    # GSPMD plans are not yet, and a multi-rank layout needs a mesh
+    assert TPZ.ParallelConfig(dp=2).n_devices == 2
     with pytest.raises(NotImplementedError):
-        TPZ.ParallelConfig(dp=2)
+        TPZ.make_train_step(TG.GPT_TINY, sharding="dp", device="cpu")
+    with pytest.raises(ValueError):
+        TPZ.make_train_step(TG.GPT_TINY, TPZ.ParallelConfig(dp=2),
+                            device="cpu")
     # ce_vocab_chunk is ported: the chunked loss equals the direct one
     cfg = TG.GPT_TINY.scaled(num_layers=1)
     p = TG.init_params(cfg, seed=0, device="cpu")

@@ -1,0 +1,253 @@
+"""Spawned ranks for the port's multi-rank tests.
+
+Each world is ``torch.multiprocessing`` processes joined over gloo on the
+CPU; a rank imports only torch and ``paddle_tpu_torch`` (never jax), runs
+one of the ``*_worker`` functions below and saves what it returns (numpy
+arrays and floats) for the parent test, which holds it against the JAX
+package. The rendezvous and every collective time out after
+``GLOO_TIMEOUT_S`` and the parent stops waiting after ``timeout`` seconds
+(killing the ranks), so a hang fails one test.
+"""
+import os
+import time
+import traceback
+
+import torch
+import torch.multiprocessing as mp
+
+GLOO_TIMEOUT_S = 60
+DEVICE = "cpu"          # this rank's device, set by _entry
+
+
+def _entry(rank, fn, world, out_dir, device):
+    global DEVICE
+    DEVICE = device
+    os.environ.update({
+        "PADDLE_TRAINER_ID": str(rank), "PADDLE_TRAINERS_NUM": str(world),
+        "LOCAL_RANK": str(rank)})
+    torch.set_num_threads(1)
+    import torch.distributed as dist
+    from paddle_tpu_torch.parallel import env
+
+    # a file store: no TCP rendezvous (whose server looks up every
+    # client's host name, one at a time)
+    env.init_distributed_env(
+        backend="gloo", device=device, timeout_s=GLOO_TIMEOUT_S,
+        init_method="file://" + os.path.join(out_dir, "store"))
+    try:
+        args = torch.load(os.path.join(out_dir, "args.pt"),
+                          weights_only=False)
+        res = fn(rank, *args)
+        torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+    except BaseException:
+        with open(os.path.join(out_dir, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn(fn, world: int, *args, out_dir: str, timeout: float = 120.0,
+          device: str = "cpu"):
+    """Run ``fn(rank, *args)`` on ``world`` gloo ranks, each on ``device``
+    (all on one card when it names one); returns the list of their
+    results in rank order. Raises on a failed rank (with its traceback)
+    or when the world has not ended within ``timeout``."""
+    os.makedirs(out_dir, exist_ok=True)
+    # the arguments go by file: pickling arrays into the spawn call costs
+    # seconds a rank
+    torch.save(args, os.path.join(out_dir, "args.pt"))
+    ctx = mp.start_processes(_entry, args=(fn, world, out_dir, device),
+                             nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + timeout
+    try:
+        while not ctx.join(timeout=max(0.1, deadline - time.monotonic())):
+            if time.monotonic() >= deadline:
+                raise TimeoutError(f"world of {world} did not end within "
+                                   f"{timeout} s")
+    except Exception as e:
+        errs = [open(os.path.join(out_dir, f)).read()
+                for f in sorted(os.listdir(out_dir)) if f.endswith(".err")]
+        raise RuntimeError(f"{e}\n" + "\n".join(errs)) from None
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+            p.join()
+    return [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
+                       weights_only=False) for r in range(world)]
+
+
+# ---------------------------------------------------------------------------
+# the ranks' work
+# ---------------------------------------------------------------------------
+
+def _setup(cfg_kw, pcfg_kw):
+    from paddle_tpu_torch.models import gpt as G
+    from paddle_tpu_torch.parallel import parallelize as PZ
+
+    cfg = G.GPT_TINY.scaled(**cfg_kw)
+    pcfg = PZ.ParallelConfig(**pcfg_kw)
+    return cfg, pcfg, PZ.build_mesh(pcfg, device=DEVICE)
+
+
+def _numpy(leaves):
+    return [t.detach().float().cpu().numpy().copy() for t in leaves]
+
+
+def grads_worker(rank, cfg_kw, pcfg_kw, params_np, tokens, labels,
+                 variants=((False, ()),)):
+    """The summed loss and this rank's grad shards after the spec rule
+    (and before it, ``raw``), once per variant ``(double_buffer, config
+    overrides as key-value pairs)``, keyed by the variant."""
+    from paddle_tpu_torch.parallel import parallelize as PZ
+
+    cfg, pcfg, mesh = _setup(cfg_kw, pcfg_kw)
+    specs = PZ.flat_specs(cfg, pcfg)
+    params = PZ.shard_params(params_np, PZ._unflatten(params_np, specs),
+                             mesh)
+    toks = PZ._rank_batch(tokens, pcfg, mesh, cfg)
+    labs = PZ._rank_batch(labels, pcfg, mesh, cfg)
+    out = {"coords": mesh.coords}
+    for db, over in variants:
+        loss, grads = PZ._value_and_grad(params, toks, labs,
+                                         cfg.scaled(**dict(over)), pcfg,
+                                         mesh, db)
+        raw = _numpy(grads)
+        with torch.no_grad():
+            loss = PZ._psum_loss(loss, mesh)
+            grads = PZ.psum_grads_by_spec(grads, specs, mesh)
+        out[(db, over)] = {"loss": float(loss), "grads": _numpy(grads),
+                           "raw": raw}
+    return out
+
+
+def step_worker(rank, cfg_kw, pcfg_kw, params_np, tokens, labels, runs):
+    """For each run ``{"step_kw": ..., "steps": n, "nan_step": k}`` in
+    turn: ``n`` train steps of ``make_train_step(**step_kw)`` from the
+    given params (``init_sharded`` with the same comm kwargs lays out the
+    optimizer state). Returns, a run each, the losses, grad norms, this
+    rank's param shards, the optimizer state and the wire bytes counted.
+    ``nan_step`` poisons the embedding with NaN for that step (and
+    restores it after), recording whether the step kept params and
+    optimizer state (``kept``)."""
+    cfg, pcfg, mesh = _setup(cfg_kw, pcfg_kw)
+    return [_train(cfg, pcfg, mesh, params_np, tokens, labels,
+                   run["step_kw"], run.get("steps", 3), run.get("nan_step"))
+            for run in runs]
+
+
+def _train(cfg, pcfg, mesh, params_np, tokens, labels, step_kw, steps,
+           nan_step):
+    from paddle_tpu_torch.observability import metrics as M
+    from paddle_tpu_torch.parallel import parallelize as PZ
+
+    init_kw = {k: v for k, v in step_kw.items()
+               if k in ("grad_reduce", "bucket_mb", "error_feedback",
+                        "grad_allreduce_dtype", "fused_opt", "moment_dtype")}
+    step_kw = {k: v for k, v in step_kw.items() if k != "moment_dtype"}
+    params, opt = PZ.init_sharded(cfg, pcfg, mesh, device=DEVICE, **init_kw)
+    src = PZ.shard_params(params_np, PZ._unflatten(
+        params_np, PZ.flat_specs(cfg, pcfg)), mesh)
+    for dst, s in zip(PZ.flat_leaves(params), PZ.flat_leaves(src)):
+        dst.copy_(s)
+    step = PZ.make_train_step(cfg, pcfg, mesh, **step_kw)
+
+    def wire():
+        fam = M.default_registry().snapshot().get(
+            "paddle_collective_bytes_total", {"series": []})
+        return {tuple(s["labels"]): s["value"] for s in fam["series"]}
+
+    before = wire()
+    losses, gnorms, kept = [], [], []
+    for i in range(steps):
+        if i == nan_step:
+            clean = params["wte"].clone()
+            params["wte"].mul_(float("nan"))
+            saved = [t.clone() for t in PZ.flat_leaves(params)]
+            saved_opt = {k: v.clone() for k, v in opt.items()
+                         if isinstance(v, torch.Tensor)}
+        params, opt, loss, gnorm = step(params, opt, tokens, labels)
+        if i == nan_step:
+            kept.append(all(torch.equal(a.nan_to_num(), b.nan_to_num())
+                            for a, b in zip(PZ.flat_leaves(params), saved)))
+            kept.append(all(torch.equal(opt[k], v)
+                            for k, v in saved_opt.items()))
+            params["wte"].copy_(clean)
+        losses.append(float(loss))
+        gnorms.append(float(gnorm))
+    after = wire()
+    return {"coords": mesh.coords, "losses": losses, "gnorms": gnorms,
+            "params": _numpy(PZ.flat_leaves(params)),
+            "opt": {k: v.float().cpu().numpy() if v.dim() else float(v)
+                    for k, v in opt.items() if isinstance(v, torch.Tensor)},
+            "kept": kept,
+            "wire": {k: after[k] - before.get(k, 0) for k in after}}
+
+
+def collective_worker(rank, xs, chunk):
+    """The quantized all-reduce (bf16 and int8) and the float32 sum of
+    ``xs[rank]`` over a dp line of the whole world; the mesh's
+    ``axis_index`` / ``axis_size`` under ``mesh_guard``."""
+    from paddle_tpu_torch.parallel import comm_opt, mesh as mesh_mod
+
+    mesh = mesh_mod.build_mesh([("dp", len(xs))], device="cpu")
+    with mesh_mod.mesh_guard(mesh):
+        guard = (mesh_mod.current_mesh() is mesh, mesh_mod.axis_index("dp"),
+                 mesh_mod.axis_size("dp"))
+    g = mesh.group("dp")
+    x = torch.from_numpy(xs[rank])
+    exact = g.all_reduce(x.clone())
+    bf16 = comm_opt.quantized_allreduce(x, g, "bf16")
+    i8 = comm_opt.quantized_allreduce(x, g, "int8", quant_chunk=chunk)
+    rs = comm_opt.quantized_reduce_scatter_op(x.reshape(len(xs), -1), g,
+                                              "int8", quant_chunk=chunk)
+    return {"exact": exact.numpy(), "bf16": bf16.numpy(), "int8": i8.numpy(),
+            "rs": rs.numpy(), "guard": guard,
+            "unguarded": mesh_mod.current_mesh() is None}
+
+
+def device_worker(rank, cfg_kw):
+    """Where a dp-2 mesh and its entry points put this rank: ``build_mesh``
+    without a device (its device, or the error's name), the entry points
+    given another device than the mesh's, and their devices without one."""
+    from paddle_tpu_torch.models import gpt as G
+    from paddle_tpu_torch.parallel import parallelize as PZ
+
+    cfg, pcfg = G.GPT_TINY.scaled(**cfg_kw), PZ.ParallelConfig(dp=2)
+    out = {"card": torch.cuda.is_available()}
+    try:
+        out["default"] = str(PZ.build_mesh(pcfg).device)
+    except RuntimeError as e:
+        out["default"] = type(e).__name__
+    mesh = PZ.build_mesh(pcfg, device="cpu")
+    out["named"] = {}
+    for name, fn in (("init_sharded", PZ.init_sharded),
+                     ("make_train_step", PZ.make_train_step)):
+        try:
+            fn(cfg, pcfg, mesh, device="cuda:0")
+            out["named"][name] = "ran"
+        except (RuntimeError, ValueError):
+            out["named"][name] = "raised"
+    params, opt = PZ.init_sharded(cfg, pcfg, mesh)
+    out["follows"] = [str(params["wte"].device), str(opt["step"].device)]
+    PZ.make_train_step(cfg, pcfg, mesh)
+    return out
+
+
+def forward_worker(rank, cfg_kw, pcfg_kw, params_np, tokens):
+    """``make_forward``'s logits on this rank."""
+    from paddle_tpu_torch.parallel import parallelize as PZ
+
+    cfg, pcfg, mesh = _setup(cfg_kw, pcfg_kw)
+    params = PZ.shard_params(params_np, PZ._unflatten(
+        params_np, PZ.flat_specs(cfg, pcfg)), mesh)
+    return {"logits": PZ.make_forward(cfg, pcfg, mesh)(params, tokens
+                                                        ).numpy()}
+
+
+def jobs_worker(rank, jobs):
+    """Each ``(worker name, args)`` of ``jobs`` in turn over the same world
+    (each builds its own mesh, whose rank count is the world's); their
+    results in order. One spawn for many cases."""
+    return [globals()[name](rank, *args) for name, args in jobs]
