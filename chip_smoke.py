@@ -244,6 +244,34 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              1e-4 of the elements; ms a step, tokens/s and wire bytes
              printed a configuration.
 
+12. elastic — fault-tolerant GPT training (``python -m
+             paddle_tpu_torch.tools.fault_bench --device cuda``, every job
+             supervised by ``parallel.launch``): GPT_SMALL at full width
+             and depth with phase 7b's levers (bf16, flash, fused LN,
+             vocab chunk 1024, dots remat, the flat AdamW sweep, bf16
+             moments), batch 16 x 1024, lr 1e-4, 6 steps saving every 3,
+             one rank an NCCL world of one. Scenarios: baseline; aa (a
+             second uninterrupted run, bitwise equal: the step's
+             determinism); sigkill_midstep (restart cause crash, restore
+             step 3); sigterm_preempt
+             (SIGTERM on the launcher CLI, forwarded; launcher exit 0,
+             the relaunch restores step 4); corrupt_shard (a truncated
+             leaf and a planted uncommitted step; restore step 3); hang
+             (the watchdog fires past its 10 s deadline, exit 43, cause
+             hang); dp_reshard (a dp-2 save by two gloo ranks sharing the
+             card, restored at dp 1: the params' crc32 and every moment
+             leaf's equal to the save's, the loss within 5% of the
+             baseline's). Each recovery ends on the
+             baseline's params crc32 bit for bit; every completed
+             incarnation's launches are exactly its steps x its path's
+             (phase 11's counts); the save (snapshot and write apart),
+             bytes, restore, reshard and recovery times are printed.
+12r. ring  — ring attention at cp 2 over gloo on the card (two ranks
+             sharing cuda:0) at GPT_SMALL's attention shape [16, 1024,
+             12, 64], float32, causal: the output within 1e-5 and the
+             gradients through the reverse ring within 1e-4 of plain
+             full-sequence attention (|a - b| <= tol + tol·|b|).
+
 The last lines are the kernels' JSON record, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script
 exits non-zero before printing any result.
@@ -3295,6 +3323,174 @@ def phase_train_parallel(timeout_s: float = 600.0) -> dict:
     return launches
 
 
+# phase 12: the fault bench's card subset, in the order it runs
+ELASTIC_SCENARIOS = ("baseline", "aa", "sigkill_midstep", "sigterm_preempt",
+                     "corrupt_shard", "hang", "dp_reshard")
+
+
+def phase_elastic(timeout_s: float = 600.0) -> dict:
+    """Phase 12 (see the module docstring); returns each kernel's launches
+    summed over the completed incarnations (rank 0's)."""
+    import os
+    import shutil
+    import signal
+
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.tools import train_bench as TB
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(str(_build.BUILD_DIR), "elastic")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    out = os.path.join(work, "fault_bench.json")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "paddle_tpu_torch.tools.fault_bench",
+         "--device", "cuda", "--out", out], cwd=root,
+        start_new_session=True, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    try:
+        log, _ = proc.communicate(timeout=timeout_s)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        log, _ = proc.communicate()
+    wall = time.perf_counter() - t0
+    if not os.path.exists(out):
+        print(log[-8000:])
+        raise RuntimeError(f"elastic: fault_bench exited {proc.returncode} "
+                           "without a record")
+    with open(out) as f:
+        rec = json.load(f)
+    sc = rec["scenarios"]
+    for name in ELASTIC_SCENARIOS:
+        s = sc.get(name, {"pass": False})
+        show = {k: s.get(k) for k in (
+            "rc", "rc_preempted", "rc_resumed", "match_baseline",
+            "params_match", "restored_from", "expected_restore",
+            "restarts", "detection_s", "last_progress_age_s", "deadline_s",
+            "reshard", "save", "restore_ms", "restore",
+            "recovery", "startup", "step_s", "loss_rel_diff_by_step",
+            "exits")
+            if s.get(k) is not None}
+        print(f"[elastic] {name}: pass={s['pass']} {json.dumps(show)}")
+    if proc.returncode != 0 or not rec["pass"] or \
+            set(sc) != set(ELASTIC_SCENARIOS):
+        print(log[-8000:])
+        raise AssertionError("elastic: "
+                             + ", ".join(n for n in ELASTIC_SCENARIOS
+                                         if not sc.get(n, {}).get("pass"))
+                             + " failed")
+    cfg = TB.bench_config(fused_ln=True, ce_vchunk=1024)
+    for inc in rec["incarnations"]:
+        lay = TB.layout_dict(f"dp={inc['dp']},grad_reduce=reduce_scatter")
+        want, _ = _parallel_want(cfg, lay, {"dp": 0, "pp": 0, "tp": 0},
+                                 TB.BATCH, TB.SEQ)
+        want = {k: v * inc["steps"] for k, v in want.items()}
+        if inc["launches"] != want:
+            raise AssertionError(f"elastic {inc['scenario']} (dp "
+                                 f"{inc['dp']}, {inc['steps']} steps): "
+                                 f"launches {inc['launches']} != {want}")
+    print(f"[elastic] {len(rec['incarnations'])} completed incarnations, "
+          f"launches exact; launches {rec['launches']}; fault_bench "
+          f"{rec['elapsed_s']} s, phase wall {wall:.1f} s")
+    shutil.rmtree(work, ignore_errors=True)
+    return rec["launches"]
+
+
+RING_SHAPE = (16, 1024, 12, 64)     # GPT_SMALL's attention, [B, T, nh, hd]
+
+
+def _ring_inputs(dev):
+    g = torch.Generator(device=dev)
+    g.manual_seed(1215)
+    return [torch.randn(RING_SHAPE, generator=g, device=dev)
+            for _ in range(4)]
+
+
+def _ring_rank(rank, world, store, out_dir):
+    """One rank of 12r: its sequence chunk through ``ring_attention`` and
+    the chunks' gradients of sum(out · w), saved for the parent."""
+    import os
+
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.parallel import env
+    from paddle_tpu_torch.parallel.ring_attention import ring_attention
+
+    os.environ.update({"PADDLE_TRAINER_ID": str(rank),
+                       "PADDLE_TRAINERS_NUM": str(world)})
+    dev = env.init_distributed_env(backend="gloo", device="cuda:0",
+                                   timeout_s=300, init_method=store)
+    tl = RING_SHAPE[1] // world
+    q, k, v, w = (t[:, rank * tl:(rank + 1) * tl].contiguous()
+                  for t in _ring_inputs(dev))
+    for t in (q, k, v):
+        t.requires_grad_()
+    t0 = time.perf_counter()
+    o = ring_attention(q, k, v, causal=True)
+    (o * w).sum().backward()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    torch.save({"o": o.detach().cpu(), "grads": [t.grad.cpu()
+                                                 for t in (q, k, v)],
+                "ms": ms}, os.path.join(out_dir, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def phase_ring(world: int = 2) -> dict:
+    """Phase 12r (see the module docstring): the largest |ring - plain| of
+    the output and of the gradients."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    work = tempfile.mkdtemp(prefix="ring_")
+    store = "file://" + os.path.join(work, "store")
+    t0 = time.perf_counter()
+    mp.start_processes(_ring_rank, args=(world, store, work), nprocs=world,
+                       join=True, start_method="spawn")
+    wall = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(work, f"rank{r}.pt"))
+             for r in range(world)]
+    shutil.rmtree(work, ignore_errors=True)
+    dev = torch.device("cuda")
+    allow = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, w = _ring_inputs(dev)
+    for t in (q, k, v):
+        t.requires_grad_()
+    T = RING_SHAPE[1]
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) / RING_SHAPE[3] ** 0.5
+    s = s.masked_fill(~torch.ones(T, T, dtype=torch.bool,
+                                  device=dev).tril(), -1e30)
+    o = torch.einsum("bhqk,bkhd->bqhd", s.softmax(-1), v)
+    (o * w).sum().backward()
+    torch.backends.cuda.matmul.allow_tf32 = allow
+
+    def worst(got, want, tol):
+        got = got.to(dev)
+        ratio = ((got - want).abs() / (tol + tol * want.abs())).max().item()
+        if not ratio <= 1.0:
+            raise AssertionError(f"ring: |ring - plain| over {tol} + "
+                                 f"{tol}·|plain| by {ratio:.3g}x")
+        return (got - want).abs().max().item()
+
+    err = worst(torch.cat([r["o"] for r in ranks], 1), o.detach(), 1e-5)
+    gerr = max(worst(torch.cat([r["grads"][i] for r in ranks], 1),
+                     t.grad, 1e-4) for i, t in enumerate((q, k, v)))
+    rec = {"max_abs_err": err, "grad_max_abs_err": gerr,
+           "rank_ms": [round(r["ms"], 3) for r in ranks], "wall_s": wall}
+    print(f"[ring] cp {world} over gloo on one card at {list(RING_SHAPE)} "
+          f"causal f32: max |ring - plain| out {err:.3g} (1e-5), grads "
+          f"{gerr:.3g} (1e-4); forward + backward ms a rank "
+          f"{rec['rank_ms']}; wall {wall:.1f} s")
+    del q, k, v, w, s, o
+    torch.cuda.empty_cache()
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3354,6 +3550,11 @@ def main() -> int:
         recs[k]["parallel_max_abs_err"] = v
     for k, v in phase_train_parallel().items():
         launches[k] = launches.get(k, 0) + v
+    # fault-tolerant training (phase 12): counts zeroed in each worker
+    # just before its steps; then ring attention (12r, no kernel)
+    for k, v in phase_elastic().items():
+        launches[k] = launches.get(k, 0) + v
+    phase_ring()
     kernels = []
     for name, meta in CK.KERNELS.items():
         r = recs[name]

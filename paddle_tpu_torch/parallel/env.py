@@ -8,7 +8,9 @@ its node) and ``PADDLE_DIST_BACKEND`` (``nccl`` or ``gloo``, when the
 launcher was given one). Where JAX bootstraps through
 ``jax.distributed.initialize``, the port calls
 ``torch.distributed.init_process_group`` with ``tcp://<endpoints[0]>`` as
-the rendezvous.
+the rendezvous, through ``launch.init_collective_with_retry`` (a
+restarted gang rendezvouses again on the same endpoints, and a port not
+yet free fails a first attempt).
 
 The default is NCCL with rank r on ``cuda:LOCAL_RANK``; a worker whose
 ``LOCAL_RANK`` has no card of its own raises. gloo, the CPU, or two
@@ -20,12 +22,14 @@ from __future__ import annotations
 import datetime
 import os
 import socket
+import sys
 from typing import List, Optional
 
 import torch
 import torch.distributed as dist
 
 from ..device import resolve_device
+from . import health, launch
 
 __all__ = ["trainer_id", "trainer_num", "trainer_endpoints",
            "current_endpoint", "local_rank", "init_distributed_env",
@@ -83,8 +87,17 @@ def init_distributed_env(coordinator: Optional[str] = None,
     the TCP rendezvous. ``timeout_s`` bounds the rendezvous and every
     collective, so a missing peer raises instead of hanging. Calling it
     again in an initialised process returns the device without
-    re-joining."""
+    re-joining. A hang-watchdog deadline (``PADDLE_HEALTH_DEADLINE_S``)
+    must be shorter than ``timeout_s``: a rank blocked in a collective
+    stamps no progress, and only a watchdog that fires first turns the
+    wait into a ``hang`` restart rather than a collective timeout."""
     backend = backend or os.getenv("PADDLE_DIST_BACKEND") or "nccl"
+    deadline = os.getenv(health.ENV_DEADLINE)
+    if deadline and float(deadline) >= timeout_s:
+        raise ValueError(
+            f"hang deadline {deadline} s must be shorter than the process "
+            f"group's timeout {timeout_s} s, or a stuck collective ends as "
+            "a crash before the watchdog fires")
     if backend not in BACKENDS:
         raise ValueError(f"backend {backend!r}: expected one of {BACKENDS}")
     if device is None:
@@ -115,8 +128,10 @@ def init_distributed_env(coordinator: Optional[str] = None,
     kw = {}
     if backend == "nccl":
         kw["device_id"] = dev
-    dist.init_process_group(
-        backend=backend, init_method=init_method or f"tcp://{coordinator}",
-        world_size=world, rank=rank,
-        timeout=datetime.timedelta(seconds=timeout_s), **kw)
+    launch.init_collective_with_retry(
+        lambda: dist.init_process_group(
+            backend=backend, init_method=init_method or f"tcp://{coordinator}",
+            world_size=world, rank=rank,
+            timeout=datetime.timedelta(seconds=timeout_s), **kw),
+        log=lambda m: sys.stderr.write(f"rank {rank}: {m}\n"))
     return dev

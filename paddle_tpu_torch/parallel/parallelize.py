@@ -629,7 +629,9 @@ def make_train_step(cfg: G.GPTConfig, pcfg: Optional[ParallelConfig] = None,
     opt, loss, gnorm)`` with tokens/labels the GLOBAL batch [M, B, T] (every
     rank is given all of it and takes its dp rows) and loss/gnorm 0-d
     float32 tensors, the same on every rank. params and opt are updated
-    IN PLACE.
+    IN PLACE. Each call stamps the hang watchdog's progress
+    (``health.progress("train_step")``), and the first runs under
+    ``health.suspend()`` (:func:`_watched`).
 
     ``fused_opt`` runs the flat-buffer sweep (opt state from
     ``init_sharded(fused_opt=True)``) — on one device only, or under
@@ -677,13 +679,14 @@ def make_train_step(cfg: G.GPTConfig, pcfg: Optional[ParallelConfig] = None,
                 or ccfg.comm_dtype is not None:
             raise ValueError(f"{pcfg} with {ccfg} needs "
                              "mesh=build_mesh(pcfg)")
-        return _single_device_step(cfg, lr, weight_decay, fused_opt,
-                                   fused_opt_kernel, grad_clip,
-                                   skip_nonfinite, dev)
+        return _watched(_single_device_step(
+            cfg, lr, weight_decay, fused_opt, fused_opt_kernel, grad_clip,
+            skip_nonfinite, dev))
     _check_layout(cfg, pcfg)
     if rs:
-        return _make_rs_step(cfg, pcfg, mesh, ccfg, lr, weight_decay,
-                             fused_opt_kernel, grad_clip, skip_nonfinite)
+        return _watched(_make_rs_step(cfg, pcfg, mesh, ccfg, lr,
+                                      weight_decay, fused_opt_kernel,
+                                      grad_clip, skip_nonfinite))
     specs = flat_specs(cfg, pcfg)
     weights = [_repl_weight(s, pcfg, pcfg.axis_names) for s in specs]
     cache: Dict[str, Any] = {}
@@ -716,7 +719,29 @@ def make_train_step(cfg: G.GPTConfig, pcfg: Optional[ParallelConfig] = None,
                     grad_clip=grad_clip, gnorm=gnorm)
         return params, opt, loss, gnorm
 
-    return step
+    return _watched(step)
+
+
+def _watched(step):
+    """``step`` with the hang watchdog's ``train_step`` stamp at every
+    call, and its first call under ``health.suspend()``: that call carries
+    the process's one-time host work — the kernel library's build or
+    load, torch's lazy imports behind the first custom-op dispatch under
+    remat, cuBLAS set-up (about 10 s on the H100's machine: ``PERF.md``
+    §6) — the port's counterpart of the reference's first-call compile,
+    which it suspends the same way (``parallelize.py:929-931``)."""
+    first = [True]
+
+    @functools.wraps(step)
+    def run(params, opt, tokens, labels):
+        health.progress("train_step")
+        if first[0]:
+            first[0] = False
+            with health.suspend():
+                return step(params, opt, tokens, labels)
+        return step(params, opt, tokens, labels)
+
+    return run
 
 
 def _psum_loss(loss: torch.Tensor, mesh: mesh_mod.Mesh) -> torch.Tensor:

@@ -1275,3 +1275,54 @@ def test_adamw_sweep_on_shards_at_odd_offsets(card):
         CK.megakernel_adamw_flat_plain(*want, 1e-3, 0.7, 0.1, 0.05)
         for a, b in zip(ins, want):
             assert torch.equal(a, b), off
+
+
+@pytest.mark.cuda
+def test_ring_attention_on_card(chip_smoke):
+    """Phase 12r: ring attention at cp 2 over gloo on the card at
+    GPT_SMALL's attention shape [16, 1024, 12, 64] against plain
+    full-sequence float32 attention: output within 1e-5, gradients within
+    1e-4."""
+    rec = chip_smoke.phase_ring()
+    assert rec["max_abs_err"] <= 1e-5 and rec["grad_max_abs_err"] <= 1e-4
+
+
+@pytest.mark.cuda
+def test_checkpoint_round_trip_gpt_small_bitwise(card, tmp_path):
+    """GPT_SMALL (phase 7b's levers, bf16 moments, params views of one flat
+    buffer): an async save, then at once an in-place step, then the
+    restore: every param and moment is the pre-step state bit for bit,
+    the params are still views of the flat buffer the sweep updates, and
+    the next step reproduces the first step's state bit for bit."""
+    from paddle_tpu_torch.parallel import checkpoint as C
+    from paddle_tpu_torch.parallel import parallelize as PZ
+    from paddle_tpu_torch.tools import train_bench as TB
+
+    cfg = TB.bench_config(fused_ln=True, ce_vchunk=1024)
+    params, opt = PZ.init_sharded(cfg, seed=0, moment_dtype=torch.bfloat16,
+                                  fused_opt=True, device=card)
+    step = PZ.make_train_step(cfg, lr=1e-3, fused_opt=True, device=card)
+    rng = np.random.default_rng(0)
+    toks, labs = (torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                                (1, 2, 1024))).to(card)
+                  for _ in "tl")
+    step(params, opt, toks, labs)          # nonzero moments
+
+    def snapshot():
+        return [t.clone() for _, t in C.flatten_with_keys(
+            {"params": params, "opt": opt})]
+
+    before = snapshot()
+    ck = C.ElasticCheckpointer(tmp_path / "ckpt", use_async=True)
+    ck.save(1, {"params": params, "opt": opt})
+    step(params, opt, toks, labs)          # in place, while the write runs
+    after = snapshot()
+    ck.wait()
+    C.restore_train_state(ck, params, opt, step=1)
+    for a, b in zip(snapshot(), before):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert PZ._flat_base(PZ.flat_leaves(params)) is not None
+    step(params, opt, toks, labs)
+    for a, b in zip(snapshot(), after):
+        assert torch.equal(a, b)
+    ck.close()

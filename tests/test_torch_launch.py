@@ -104,22 +104,26 @@ def test_failing_worker_stops_the_gang_within_grace(tmp_path):
 
 def test_cli_module_mode_and_refusals(tmp_path):
     """``python -m paddle_tpu_torch.parallel.launch -m module`` runs the
-    workers as modules and exits with their code; restarts and the hang
-    watchdog wait for the next slice and raise."""
+    workers as modules and exits with their code (``--max_restarts`` on
+    the CLI restarts the gang, which fails again); the goodput report and
+    the flight recorder wait for the observability port and raise."""
     pkg = tmp_path / "wmod.py"
     pkg.write_text("import os, sys\n"
-                   "sys.exit(int(os.environ['PADDLE_TRAINERS_NUM']) + 40)\n")
+                   "sys.exit(int(os.environ['PADDLE_TRAINERS_NUM']) + 40\n"
+                   "         + int(os.environ['PADDLE_RESTART_ATTEMPT']))\n")
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [str(tmp_path), os.getcwd()] + sys.path))
     res = subprocess.run(
         [sys.executable, "-m", "paddle_tpu_torch.parallel.launch",
-         "--nproc_per_node", "2", "--grace_period", "1", "-m", "wmod"],
+         "--nproc_per_node", "2", "--grace_period", "1", "--max_restarts",
+         "1", "--restart_backoff", "0.1", "-m", "wmod"],
         env=env, capture_output=True, timeout=120)
-    assert res.returncode == 42, res.stderr.decode()
-    with pytest.raises(NotImplementedError, match="health.py"):
-        L.launch("x.py", max_restarts=1)
-    with pytest.raises(NotImplementedError):
-        L.launch("x.py", hang_deadline_s=10.0)
+    assert res.returncode == 43, res.stderr.decode()
+    assert "cause hang" in res.stderr.decode()
+    with pytest.raises(NotImplementedError, match="A4"):
+        L.launch("x.py", goodput_dir=str(tmp_path))
+    with pytest.raises(NotImplementedError, match="A4"):
+        L.launch("x.py", flight_dir=str(tmp_path))
 
 
 def test_train_bench_parallel_lane_rehearsal(tmp_path):

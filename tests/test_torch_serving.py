@@ -426,6 +426,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "paddle_tpu_torch.parallel.parallelize, "
         "paddle_tpu_torch.parallel.remat, paddle_tpu_torch.parallel.health, "
         "paddle_tpu_torch.tools.train_bench\n"
+        "import paddle_tpu_torch.parallel.checkpoint, "
+        "paddle_tpu_torch.parallel.launch, "
+        "paddle_tpu_torch.parallel.ring_attention, "
+        "paddle_tpu_torch.tools.fault_bench\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'paddle_tpu'))\n"
         "print(bad)\n"

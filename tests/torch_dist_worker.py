@@ -251,3 +251,102 @@ def jobs_worker(rank, jobs):
     (each builds its own mesh, whose rank count is the world's); their
     results in order. One spawn for many cases."""
     return [globals()[name](rank, *args) for name, args in jobs]
+
+
+def ring_worker(rank, q, k, v, w, cases, mesh_axes=None):
+    """``ring_attention`` on this rank's sequence chunk of the global q, k,
+    v [B, T, nh, hd] (on this rank's device): for each ``(causal, grads)``
+    case the output chunk and, with ``grads``, the chunks' gradients of
+    sum(out · w). With ``mesh_axes`` (pairs ending in ("cp", n)) the ring
+    is the cp line of that mesh and the chunk is this rank's cp index."""
+    from paddle_tpu_torch.parallel import mesh as mesh_mod
+    from paddle_tpu_torch.parallel.ring_attention import ring_attention
+
+    group, idx = None, rank
+    if mesh_axes is not None:
+        mesh = mesh_mod.build_mesh(mesh_axes, device=DEVICE)
+        group, idx = mesh.group("cp"), mesh.axis_index("cp")
+        cp = mesh.axis_size("cp")
+    else:
+        cp = torch.distributed.get_world_size()
+    tl = q.shape[1] // cp
+    sl = slice(idx * tl, (idx + 1) * tl)
+
+    def chunk(a):
+        return torch.from_numpy(a[:, sl].copy()).to(DEVICE)
+
+    out = {"index": idx}
+    for causal, grads in cases:
+        qs, ks, vs = [chunk(a).requires_grad_(grads) for a in (q, k, v)]
+        o = ring_attention(qs, ks, vs, group, causal=causal)
+        rec = {"o": o.detach().cpu().numpy()}
+        if grads:
+            (o * chunk(w)).sum().backward()
+            rec["grads"] = [t.grad.cpu().numpy() for t in (qs, ks, vs)]
+        out[(causal, grads)] = rec
+    return out
+
+
+def elastic_cross_worker(rank, cfg_kw, dp, jax_dir, port_dir, tokens,
+                         labels, moment_dtype):
+    """Restore a checkpoint the JAX package wrote (``jax_dir``) into this
+    rank's reduce-scatter train state, save it again with the port's gang
+    store (``port_dir``, step 3), then take one step: the loss before the
+    update, the live layout's manifest entry, and the restored opt step."""
+    from paddle_tpu_torch.parallel import checkpoint as C
+    from paddle_tpu_torch.parallel import parallelize as PZ
+
+    cfg, pcfg, mesh = _setup(cfg_kw, dict(dp=dp))
+    params, opt = PZ.init_sharded(cfg, pcfg, mesh, seed=5,
+                                  moment_dtype=moment_dtype,
+                                  grad_reduce="reduce_scatter")
+    layout, repl = PZ.rs_param_layout(cfg, pcfg)
+    specs = C.train_state_specs(cfg, pcfg, opt)
+    ck = C.ElasticCheckpointer(jax_dir, mesh=mesh)
+    params, opt, man = C.restore_train_state(
+        ck, params, opt, layout=layout, layout_repl=repl, mesh=mesh,
+        specs=specs)
+    mine = C.ElasticCheckpointer(port_dir, mesh=mesh)
+    mine.save(3, {"params": params, "opt": opt}, layout=layout,
+              layout_repl=repl, specs=specs)
+    mine.wait()
+    step = PZ.make_train_step(cfg, pcfg, mesh, lr=1e-2,
+                              grad_reduce="reduce_scatter")
+    _, _, loss, _ = step(params, opt, tokens, labels)
+    return {"loss": float(loss), "step": int(opt["step"]),
+            "layout": C.serialize_layout(layout, repl),
+            "manifest_layout": man["layout"]}
+
+
+def elastic_reshard_worker(rank, cfg_kw, dp, ckpt_dir, tokens, labels,
+                           save):
+    """``save``: dp ranks take one reduce-scatter step and save (bf16
+    moments) to ``ckpt_dir``; else restore that save at this world's dp
+    and return the moments resharded back into the saved layout, with the
+    params' bytes."""
+    from paddle_tpu_torch.parallel import checkpoint as C
+    from paddle_tpu_torch.parallel import parallelize as PZ
+
+    cfg, pcfg, mesh = _setup(cfg_kw, dict(dp=dp))
+    params, opt = PZ.init_sharded(cfg, pcfg, mesh, seed=1 if save else 9,
+                                  moment_dtype=torch.bfloat16,
+                                  grad_reduce="reduce_scatter")
+    layout, repl = PZ.rs_param_layout(cfg, pcfg)
+    specs = C.train_state_specs(cfg, pcfg, opt)
+    ck = C.ElasticCheckpointer(ckpt_dir, mesh=mesh)
+    if save:
+        step = PZ.make_train_step(cfg, pcfg, mesh, lr=1e-2,
+                                  grad_reduce="reduce_scatter")
+        step(params, opt, tokens, labels)
+        ck.save(1, {"params": params, "opt": opt}, layout=layout,
+                layout_repl=repl, specs=specs)
+        ck.wait()
+        return {"layout": C.serialize_layout(layout, repl)}
+    params, opt, man = C.restore_train_state(
+        ck, params, opt, layout=layout, layout_repl=repl, mesh=mesh,
+        specs=specs)
+    src, src_repl = C.deserialize_layout(man["layout"])
+    back = {k: C.reshard_flat(opt[k], layout, src, repl, src_repl)
+            .view(torch.int16).numpy() for k in ("m", "v")}
+    return {"back": back, "step": int(opt["step"]),
+            "params": _numpy(PZ.flat_leaves(params))}
