@@ -233,9 +233,13 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              AdamW sweep once in (b) and (f); L and M the rank's layers
              and microbatches), its losses finite and falling, and its
              wire-byte counter equal to the ring model's bytes for the
-             layout; 11p, first in each layout: 3 float32 steps at lr
-             1e-2 of a 2-layer GPT_SMALL (TF32 off, global batch 8 x 256)
-             held against the world-1 run (``train_bench.parity_ok``):
+             layout (under tp the sequence collectives too: 6 all-gathers
+             and 5 sum-scatters of [mb, 1024, 768] bf16 a layer a
+             microbatch, the remat recompute's included); 11p, first in
+             each layout: 3 float32 steps at lr 1e-2 of a 2-layer
+             GPT_SMALL (TF32 off, global batch 8 x 256) held against the
+             world-1 run, which each rank runs itself first
+             (``train_bench.parity_reference``, ``parity_ok``):
              each step's loss within 2e-4 and grad norm within 1e-3, the
              rank's update (p - p0) and its moments (under reduce-scatter
              its flat shard against the same slice of the world-1
@@ -271,6 +275,48 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              12, 64], float32, causal: the output within 1e-5 and the
              gradients through the reverse ring within 1e-4 of plain
              full-sequence attention (|a - b| <= tol + tol·|b|).
+
+13k. sharded-kernels — the kernels at the per-rank shapes phase 13 adds,
+             against their plain versions (bf16_check; lse and D within
+             2e-5): the flash bias forms at ERNIE-base tp 2's [48, 512, 6,
+             64] with a padding bias [48, 1, 1, 512], the fused-LN pair in
+             ERNIE's post-LN form (residual, eps 1e-12; s bitwise, the
+             backward without dsx: dscale / dbias within 2^-18 x sum
+             |term|) on a tp-2 rank's 12,288 rows; GPT fsdp at dp 2 runs
+             11k's dp-2 shapes. Each largest error goes into its record as
+             ``sharded_max_abs_err``.
+13. train-sharded — two ``parallel.launch`` gangs of two gloo ranks
+             sharing the card, ``train_bench``'s parallel lane, 1 warm-up
+             + 3 timed steps (a nonzero exit fails the run): (a) GPT_SMALL
+             at full width and depth under ``--sharding fsdp`` at dp 2
+             with 7b's levers (bf16, flash, fused LN, vocab chunk 1024,
+             dots remat; bf16 moments), global batch 16 x 1024: launches a
+             step exactly flash 2L / L / L, fused LN 4L + 1 and its
+             backward 2L + 1, ce_fwd once a 2048-row chunk and no
+             optimizer kernel (the per-leaf AdamW, as the reference's
+             GSPMD step); each rank's param and moment bytes exactly the
+             plan's shards (half the sharded leaves plus the replicated
+             tail); wire bytes the ring model's all-gather and
+             reduce-scatter of every sharded leaf and psum of the rest;
+             then in the same gang the same step under ``--sharding
+             dp`` (every leaf whole, psum'd), so that each rank's peak
+             memory stands beside fsdp's; (b)
+             ERNIE-base at full width and depth at tp 2 (dp 1), batch
+             48 x 512, flash with the padding bias, fused LN, remat off:
+             launches a step exactly 3 flash bias kernels and 2 + 2 fused
+             LN a layer, wire bytes the psum of every replicated leaf and
+             the sequence collectives of [48, 512, 768] bf16 (4L + 1
+             all-gathers and as many sum-scatters). Losses finite and
+             falling. 13p, first in each layout: (a) 3
+             float32 steps of a 2-layer GPT_SMALL against the world-1 run
+             (11p's ``parity_ok``), (b) 3 float32 steps of a 2-layer
+             ERNIE_BASE (batch 4 x 512, padded lengths) against the
+             one-device step in the same process (``ernie_parity_ok``).
+             Nothing cut. 13c: (a)'s dp-2 state, saved after its timed
+             steps by ``ShardedCheckpointer`` (async, then ``wait``), is
+             restored whole at dp 1 on the card in this process: every
+             rank's saved param and moment leaf has the crc32 of its
+             block of the restore; save, wait and restore ms printed.
 
 The last lines are the kernels' JSON record, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script
@@ -3204,6 +3250,16 @@ def _parallel_want(cfg, lay, coords, batch, T):
             else:
                 add("psum_scatter", "float32", 4 * b.size, dp)
             add("all_gather", "float32", 4 * b.size, dp)
+    # tp's sequence collectives of [mb, T, D] bf16, a layer a microbatch:
+    # 2 all-gathers and 2 sum-scatters forward, their transposes backward,
+    # and under remat the recompute's 2 all-gathers and first sum-scatter
+    # (the checkpoint stops recomputing at the last tensor it saved)
+    seq = mb * T * cfg.d_model * 2
+    for _ in range(Ll * M):
+        for _ in range(4 + 2 * cfg.remat):
+            add("all_gather", "bfloat16", seq, tp)
+        for _ in range(4 + cfg.remat):
+            add("psum_scatter", "bfloat16", seq, tp)
     act = M * mb * Ts * cfg.d_model * 2                # bf16 activations
     for sends in (coords["pp"] < pp - 1, coords["pp"] > 0):
         if sends:
@@ -3248,13 +3304,7 @@ def phase_train_parallel(timeout_s: float = 600.0) -> dict:
     work = os.path.join(str(_build.BUILD_DIR), "train_parallel")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
-    ref_path = os.path.join(work, "ref.pt")
     t_phase = time.perf_counter()
-    ref = TB.parity_reference(ref_path, "cuda")
-    torch.cuda.empty_cache()
-    print(f"[train-parallel] 11p world-1 run, {TB.PARITY_STEPS} steps at "
-          f"lr {TB.PARITY_LR}: losses {ref['losses']} gnorms "
-          f"{ref['gnorms']}")
     cfg = TB.bench_config(fused_ln=True, ce_vchunk=1024)
     launches: dict = {}
     for gang, n, backend, layouts in TRAIN_PARALLEL:
@@ -3264,7 +3314,7 @@ def phase_train_parallel(timeout_s: float = 600.0) -> dict:
                "--started_port", str(_free_port()), "--grace_period",
                "10", "-m", "paddle_tpu_torch.tools.train_bench",
                "--fused-ln", "--ce-vchunk", "1024", "--steps", "3",
-               "--warmup", "1", "--out-dir", out, "--parity-ref", ref_path]
+               "--warmup", "1", "--out-dir", out, "--parity"]
         for _, spec in layouts:
             cmd += ["--layout", spec]
         if backend == "gloo":
@@ -3491,10 +3541,398 @@ def phase_ring(world: int = 2) -> dict:
     return rec
 
 
+# phase 13: the sharded training path's gangs of two gloo ranks sharing
+# the card (name, flags, layouts (tag, --layout spec) run in turn): (a) GPT
+# fsdp at dp 2 with 7b's levers, its state saved, then the same step
+# under the dp plan (its peak memory beside fsdp's); (b) ERNIE-base at tp 2
+TRAIN_SHARDED = (
+    ("gpt", ["--fused-ln", "--ce-vchunk", "1024", "--parity"],
+     (("fsdp2", "sharding=fsdp,dp=2,ckpt_dir={ckpt}"),
+      ("dp2", "sharding=dp,dp=2"))),
+    ("ernie", ["--model", "ernie", "--fused-ln", "--parity"],
+     (("ernie-tp2", "tp=2"),)),
+)
+ERNIE_TP = 2                       # (b)'s tp: flash at nh / tp heads a rank
+
+
+def phase_sharded_kernels() -> dict:
+    """Phase 13k: the kernels at the per-rank shapes phase 13 gives them
+    that no earlier phase checks, each against its plain version (bf16):
+    the flash bias forms (forward, dQ with its D, dK/dV fed that D) at
+    ERNIE-base tp 2's [48, 512, 6, 64] with the padding bias
+    [48, 1, 1, 512], and the fused-LN pair in ERNIE's post-LN form
+    (residual, eps 1e-12; the backward without dsx) on a tp-2 rank's
+    48·512/2 rows. GPT fsdp at dp 2 runs phase 11k's dp-2 shapes. Returns
+    {kernel: largest |kernel - plain|}."""
+    from paddle_tpu_torch.ops import flash_attention as FA
+    from paddle_tpu_torch.ops import fused_ln as FL
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(1316)
+    B, T, nh, hd = ERNIE_SHAPE
+    nh //= ERNIE_TP
+    tag = f"[{B}, {T}, {nh}, {hd}]"
+    qkv = torch.randn((B, T, 3, nh, hd), generator=g, device=dev).to(
+        torch.bfloat16)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    do = torch.randn((B, T, nh, hd), generator=g, device=dev).to(
+        torch.bfloat16)
+    lens = np.random.default_rng(13).integers(128, T + 1, size=B)
+    pad = torch.from_numpy(np.arange(T)[None, :] < lens[:, None]).to(dev)
+    bias = torch.where(pad, 0.0, -0.5 * torch.finfo(torch.float32).max
+                       ).float().reshape(B, 1, T)
+    err = {}
+    o, lse = FA.flash_fwd(q, k, v, False, bias=bias)
+    o_p, lse_p = FA.flash_fwd_plain(q, k, v, False, bias=bias)
+    torch.cuda.synchronize()
+    err["flash_fwd_bias"] = max(
+        bf16_check(f"flash_fwd_bias {tag} o", o, o_p),
+        _check_close(f"flash_fwd_bias {tag} lse", lse, lse_p,
+                     torch.float32, 2e-5))
+    dq, di = FA.flash_bwd_dq(q, k, v, o_p, lse_p, do, False, bias=bias,
+                             return_di=True)
+    dq_p, di_p = FA.flash_bwd_dq_plain(q, k, v, o_p, lse_p, do, False,
+                                       bias=bias, return_di=True)
+    torch.cuda.synchronize()
+    err["flash_bwd_dq_bias"] = bf16_check(f"flash_bwd_dq_bias {tag} dq", dq,
+                                          dq_p)
+    _check_close(f"flash_bwd_dq_bias {tag} D", di, di_p, torch.float32, 2e-5)
+    dkv = FA.flash_bwd_dkv(q, k, v, o_p, lse_p, do, False, bias=bias, di=di)
+    dkv_p = FA.flash_bwd_dkv_plain(q, k, v, o_p, lse_p, do, False, bias=bias)
+    torch.cuda.synchronize()
+    err["flash_bwd_dkv_bias"] = max(
+        bf16_check(f"flash_bwd_dkv_bias {tag} {w}", a, b)
+        for w, a, b in zip(("dk", "dv"), dkv, dkv_p))
+    del qkv, q, k, v, do, o, lse, o_p, lse_p, dq, di, dq_p, di_p, dkv, dkv_p
+    R, D = B * T // ERNIE_TP, ERNIE_SHAPE[2] * hd
+
+    def randn(*shape, d=torch.bfloat16, s=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * s).to(d)
+
+    x, res, dy = randn(R, D), randn(R, D), randn(R, D)
+    scale = 1.0 + randn(D, d=torch.float32, s=0.1)
+    lnb = randn(D, d=torch.float32, s=0.1)
+    got = FL.fused_ln_fwd(x, scale, lnb, residual=res, eps=1e-12)
+    want = FL.fused_ln_fwd_plain(x, scale, lnb, residual=res, eps=1e-12)
+    torch.cuda.synchronize()
+    if not torch.equal(got[1], want[1]):
+        raise AssertionError(f"fused_ln post-LN [{R}, {D}]: s differs")
+    err["fused_ln"] = bf16_check(f"fused_ln post-LN y [{R}, {D}]", got[0],
+                                 want[0])
+    for i, stat in ((2, "mu"), (3, "rstd")):
+        _check_close(f"fused_ln post-LN {stat} [{R}, {D}]", got[i], want[i],
+                     torch.float32, 1e-5)
+    s_, mu, rstd = want[1], want[2], want[3]
+    gb = FL.fused_ln_bwd(s_, mu, rstd, scale, dy)
+    wb = FL.fused_ln_bwd_plain(s_, mu, rstd, scale, dy)
+    torch.cuda.synchronize()
+    err["fused_ln_bwd"] = bf16_check(f"fused_ln_bwd ds [{R}, {D}]", gb[0],
+                                     wb[0])
+    xhat = (s_.float() - mu[:, None]) * rstd[:, None]
+    for i, what, tot in ((2, "dscale", (dy.float() * xhat).abs().sum(0)),
+                         (3, "dbias", dy.float().abs().sum(0))):
+        diff = (gb[i] - wb[i]).abs()
+        ratio = (diff / (2.0 ** -18 * tot + 1e-30)).max().item()
+        if not ratio <= 1.0:
+            raise AssertionError(f"fused_ln_bwd {what} [{R}, {D}]: worst "
+                                 f"diff/bound {ratio:.4g}")
+        err["fused_ln_bwd"] = max(err["fused_ln_bwd"], diff.max().item())
+    print("[sharded-kernels] every kernel at phase 13's new per-rank shapes "
+          "within its tolerance: " + ", ".join(f"{k}={v:.4g}"
+                                               for k, v in err.items()))
+    del x, res, dy, got, want, gb, wb, xhat
+    torch.cuda.empty_cache()
+    return err
+
+
+def _plan_want(cfg, T, mode):
+    """(launches a step, wire bytes a step by "op/dtype", param bytes,
+    moment bytes, plan) of one rank of (a): GPT at dp 2 under the
+    ``mode`` plan, bf16 moments."""
+    from paddle_tpu_torch.models import gpt as G
+    from paddle_tpu_torch.parallel import comm_opt as C
+    from paddle_tpu_torch.parallel import mesh as mesh_mod
+    from paddle_tpu_torch.parallel import parallelize as PZ
+    from paddle_tpu_torch.sharding import make_gpt_plan
+    from paddle_tpu_torch.tools import train_bench as TB
+
+    dp, L = 2, cfg.num_layers
+    rows = TB.BATCH // dp * T
+    launches = {"flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkv": L,
+                "fused_ln": 4 * L + 1, "fused_ln_bwd": 2 * L + 1,
+                "ce_fwd": -(-rows // cfg.ce_chunk)}
+    plan = make_gpt_plan(cfg, PZ.ParallelConfig(dp=dp), mode)
+    wire, n_local = {}, 0
+
+    def add(op, payload):
+        b = C.wire_bytes(op, payload, dp)
+        wire[f"{op}/float32"] = wire.get(f"{op}/float32", 0) + b
+
+    add("psum", 4)                                       # the loss
+    for shape, spec in zip(PZ.flat_leaves(G.param_shapes(cfg)),
+                           PZ.flat_leaves(plan.param_specs)):
+        nbytes = 4 * int(np.prod(shape))
+        n_local += int(np.prod(mesh_mod.local_shape(shape, spec,
+                                                    {"dp": dp, "pp": 1,
+                                                     "tp": 1})))
+        if "dp" in spec:
+            add("all_gather", nbytes)
+            add("psum_scatter", nbytes)
+        else:
+            add("psum", nbytes)
+    return launches, wire, 4 * n_local, 2 * 2 * n_local, plan
+
+
+def _ernie_want(cfg):
+    """(launches a step, wire bytes a step) of one rank of (b): ERNIE-base
+    at tp 2, flash with the padding bias, fused LN, remat off: the loss's
+    psum, one of every leaf the tp split replicates, and the sequence
+    collectives of [48, 512, 768] bf16 — 2 all-gathers and 2
+    sum-scatters a layer forward, their transposes backward, and the
+    encoder's last all-gather and its transpose."""
+    from paddle_tpu_torch.models import ernie as E
+    from paddle_tpu_torch.parallel import comm_opt as C
+    from paddle_tpu_torch.parallel import parallelize as PZ
+    from paddle_tpu_torch.tools import train_bench as TB
+
+    L = cfg.num_layers
+    launches = {"flash_fwd_bias": L, "flash_bwd_dq_bias": L,
+                "flash_bwd_dkv_bias": L, "fused_ln": 2 * L,
+                "fused_ln_bwd": 2 * L}
+    wire = C.wire_bytes("psum", 4, ERNIE_TP)
+    for shape, spec in zip(PZ.flat_leaves(E.param_shapes(cfg)),
+                           PZ.flat_leaves(E.param_specs(cfg))):
+        if "tp" not in spec:
+            wire += C.wire_bytes("psum", 4 * int(np.prod(shape)), ERNIE_TP)
+    seq = (4 * L + 1) * C.wire_bytes(
+        "all_gather", TB.ERNIE_BATCH * TB.ERNIE_SEQ * cfg.d_model * 2,
+        ERNIE_TP)
+    return launches, {"psum/float32": wire, "all_gather/bfloat16": seq,
+                      "psum_scatter/bfloat16": seq}
+
+
+def _gang(tag, args, n_layouts, work, timeout_s):
+    """One phase-13 gang: two ranks of ``train_bench``'s parallel lane
+    sharing the card over gloo under ``parallel.launch``; returns, a
+    layout each, the two ranks' records, and the launch wall seconds."""
+    import os
+    import signal
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = os.path.join(work, tag)
+    cmd = [sys.executable, "-m", "paddle_tpu_torch.parallel.launch",
+           "--nproc_per_node", "2", "--backend", "gloo", "--started_port",
+           str(_free_port()), "--grace_period", "10", "-m",
+           "paddle_tpu_torch.tools.train_bench", "--steps", "3",
+           "--warmup", "1", "--device", "cuda:0", "--out-dir", out] + args
+    t0 = time.time()
+    proc = subprocess.Popen(cmd, cwd=root, start_new_session=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    try:
+        log, _ = proc.communicate(timeout=timeout_s)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise
+    if proc.returncode != 0:
+        print(log[-6000:])
+        raise RuntimeError(f"train-sharded {tag}: launch exited "
+                           f"{proc.returncode}")
+    recs = []
+    for i in range(n_layouts):
+        recs.append([])
+        for r in range(2):
+            with open(os.path.join(out, f"layout{i}.rank{r}.json")) as f:
+                recs[i].append(json.load(f))
+    return recs, time.time() - t0
+
+
+def _print_rank(tag, rec, extra=""):
+    par = dict(rec["parity"])
+    leaf = par.pop("leaf_update_rel_err")
+    worst = max(leaf, key=leaf.get)
+    par["worst_leaf_update_rel_err"] = (worst, leaf[worst])
+    rate = (f"tokens/s {rec['tokens_per_s']:.1f}" if "samples_per_s" not in
+            rec else f"samples/s {rec['samples_per_s']:.2f}")
+    print(f"[train-sharded] {tag} rank {rec['rank']} {rec['coords']}: "
+          f"{rec['config']}: ms/step {rec['ms_per_step']:.3f}, {rate}, "
+          f"param bytes {rec['param_bytes']}, moment bytes "
+          f"{rec['moment_bytes']}, wire bytes/step "
+          f"{rec['wire_bytes_per_step']}, staged ms/step "
+          f"{rec['staged_ms_per_step']}, peak GB "
+          f"{rec['peak_mem_bytes'] / 1e9:.2f}, losses "
+          f"{[round(x, 5) for x in rec['losses']]}, 13p {par}{extra} "
+          "(ranks share one card over gloo)")
+
+
+def _restore_dp1(work, cfg, plan, recs) -> dict:
+    """13c: (a)'s dp-2 save restored whole at dp 1 on the card, in this
+    process: every rank's saved local leaf (params and each moment) must
+    have the crc32 of its block of the restored leaf. Returns the
+    restore ms and the params' crc32."""
+    import os
+    import zlib
+
+    from paddle_tpu_torch.models import gpt as G
+    from paddle_tpu_torch.parallel import checkpoint as C
+    from paddle_tpu_torch.parallel import parallelize as PZ
+
+    def abstract(tree, dtype):
+        return {k: abstract(v, dtype) if isinstance(v, dict) else
+                C.AbstractLeaf(tuple(v), dtype, device="cuda")
+                for k, v in tree.items()}
+
+    shapes = G.param_shapes(cfg)
+    mdt = getattr(torch, recs[0]["ckpt"]["dtypes"]["['opt']['m']['wte']"])
+    target = {"params": abstract(shapes, torch.float32),
+              "opt": {"m": abstract(shapes, mdt), "v": abstract(shapes, mdt),
+                      "step": C.AbstractLeaf((), torch.int32,
+                                             device="cuda")}}
+    ck = C.ShardedCheckpointer(os.path.join(work, "ckpt"), use_async=False)
+    step = recs[0]["ckpt"]["step"]
+    if ck.all_steps() != [step]:
+        raise AssertionError(f"13c: committed steps {ck.all_steps()}, "
+                             f"saved {step}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = ck.restore(step, target)
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    spec_of = dict(C.flatten_with_keys(
+        {"params": plan.param_specs, "opt": {"m": plan.param_specs,
+                                             "v": plan.param_specs}},
+        is_leaf=lambda x: isinstance(x, tuple)))
+
+    def crc(t):
+        return zlib.crc32(t.contiguous().reshape(-1).view(torch.uint8)
+                          .cpu().numpy().tobytes())
+
+    full = dict(C.flatten_with_keys(got))
+    sizes = {"dp": 2, "pp": 1, "tp": 1}
+    for rec in recs:
+        coords = rec["coords"]
+        for key, want in rec["ckpt"]["crc32"].items():
+            t = full[key]
+            spec = spec_of.get(key, ())
+            for d, e in enumerate(spec):
+                if e is not None and sizes[e] > 1:
+                    n = t.shape[d] // sizes[e]
+                    t = t.narrow(d, coords[e] * n, n)
+            if crc(t) != want:
+                raise AssertionError(f"13c: rank {rec['rank']} {key}: crc32 "
+                                     "of the restore != the save's")
+    params_crc = 0
+    for t in PZ.flat_leaves(got["params"]):
+        params_crc = zlib.crc32(t.contiguous().reshape(-1).view(torch.uint8)
+                                .cpu().numpy().tobytes(), params_crc)
+    nbytes = sum(t.numel() * t.element_size() for t in full.values())
+    del got, full
+    torch.cuda.empty_cache()
+    return {"restore_ms": restore_ms, "params_crc32": params_crc,
+            "bytes": nbytes}
+
+
+def phase_train_sharded(timeout_s: float = 600.0) -> dict:
+    """Phases 13, 13p and 13c (see the module docstring); returns each
+    kernel's launches summed over both gangs' ranks' timed steps."""
+    import os
+    import shutil
+
+    from paddle_tpu_torch.ops import _build
+
+    work = os.path.join(str(_build.BUILD_DIR), "train_sharded")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    t_phase = time.perf_counter()
+    launches: dict = {}
+    peaks = {}
+    for gang, flags, layouts in TRAIN_SHARDED:
+        for tag, spec in layouts:
+            flags = flags + ["--layout", spec.format(
+                ckpt=os.path.join(work, "ckpt"))]
+        by_layout, wall = _gang(gang, flags, len(layouts), work, timeout_s)
+        print(f"[train-sharded] gang {gang}: launch wall {wall:.1f} s")
+        for (tag, _), recs in zip(layouts, by_layout):
+            _check_sharded(tag, recs, work, launches, peaks)
+    print(f"[train-sharded] peak GB a rank, the same step and batch: "
+          f"fsdp2 {peaks['fsdp2'] / 1e9:.3f}, dp2 {peaks['dp2'] / 1e9:.3f} "
+          "(fsdp gathers every sharded leaf once a step, up front)")
+    shutil.rmtree(work, ignore_errors=True)
+    print(f"[train-sharded] phase wall {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def _check_sharded(tag, recs, work, launches, peaks):
+    """13 and 13p on the two ranks' records of one layout, and 13c after
+    fsdp2's; adds the timed steps' launches to ``launches`` and the
+    layout's peak to ``peaks``."""
+    from paddle_tpu_torch.models import gpt as G
+    from paddle_tpu_torch.parallel import parallelize as PZ
+    from paddle_tpu_torch.tools import train_bench as TB
+
+    peaks[tag] = max(r["peak_mem_bytes"] for r in recs)
+    if tag != "ernie-tp2":
+        cfg = TB.bench_config(fused_ln=True, ce_vchunk=1024)
+        want_l, want_w, p_bytes, m_bytes, plan = _plan_want(
+            cfg, TB.SEQ, tag[:-1])
+        ok = TB.parity_ok
+    else:
+        cfg = TB.ernie_config(fused_ln=True)
+        want_l, want_w = _ernie_want(cfg)
+        p_bytes = m_bytes = None
+        ok = TB.ernie_parity_ok
+    for rec in recs:
+        if not ok(rec["parity"]):
+            raise AssertionError(f"13p {tag} rank {rec['rank']}: "
+                                 f"{rec['parity']}")
+        losses = rec["losses"]
+        if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+            raise AssertionError(f"{tag} rank {rec['rank']} losses "
+                                 f"{losses}")
+        if rec["launches_per_step"] != want_l:
+            raise AssertionError(f"{tag} rank {rec['rank']} launches "
+                                 f"{rec['launches_per_step']} != "
+                                 f"{want_l}")
+        if rec["wire_bytes_per_step"] != want_w:
+            raise AssertionError(f"{tag} rank {rec['rank']} wire bytes "
+                                 f"{rec['wire_bytes_per_step']} != "
+                                 f"{want_w}")
+        if p_bytes is not None and (rec["param_bytes"], rec[
+                "moment_bytes"]) != (p_bytes, m_bytes):
+            raise AssertionError(
+                f"{tag} rank {rec['rank']} resident bytes "
+                f"{rec['param_bytes']} / {rec['moment_bytes']} != the "
+                f"plan's {p_bytes} / {m_bytes}")
+        for k, v in rec["launches_per_step"].items():
+            launches[k] = launches.get(k, 0) + round(v * rec["steps"])
+        extra = ""
+        if "ckpt" in rec:
+            extra = (f", 13c save ms {rec['ckpt']['save_ms']:.1f}, wait "
+                     f"ms {rec['ckpt']['wait_ms']:.1f}")
+        _print_rank(tag, rec, extra)
+    print(f"[train-sharded] {tag}: launches a step exact {want_l}, wire "
+          f"bytes a step exact")
+    if tag == "fsdp2":
+        full = 4 * sum(int(np.prod(s)) for s in PZ.flat_leaves(
+            G.param_shapes(cfg)))
+        print(f"[train-sharded] fsdp2: a rank holds {p_bytes} param "
+              f"bytes and {m_bytes} moment bytes (bf16 m + v) of the "
+              f"full tree's {full} f32 param bytes")
+        rc = _restore_dp1(work, cfg, plan, recs)
+        print(f"[train-sharded] 13c: the dp-2 save restored at dp 1: "
+              f"every rank's params and moment leaves' crc32 = the "
+              f"save's; params crc32 {rc['params_crc32']}, "
+              f"{rc['bytes']} bytes, restore ms "
+              f"{rc['restore_ms']:.1f}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     from paddle_tpu_torch.ops import cuda_kernels as CK
 
     smi = phase_device()
@@ -3555,6 +3993,12 @@ def main() -> int:
     for k, v in phase_elastic().items():
         launches[k] = launches.get(k, 0) + v
     phase_ring()
+    # sharded training (phase 13): the kernels at its new per-rank shapes
+    # (13k), then the fsdp and ERNIE tp gangs' timed steps
+    for k, v in phase_sharded_kernels().items():
+        recs[k]["sharded_max_abs_err"] = v
+    for k, v in phase_train_sharded().items():
+        launches[k] = launches.get(k, 0) + v
     kernels = []
     for name, meta in CK.KERNELS.items():
         r = recs[name]
@@ -3571,6 +4015,8 @@ def main() -> int:
         if name in ("decode_slab", "decode_paged"):
             kernels[-1]["f32"] = {k: v for k, v in f32[name].items()
                                   if k != "sweep"}
+    print(f"[chip_smoke] wall {time.perf_counter() - t_start:.1f} s, the "
+          "build included")
     print(json.dumps({"widths_max_abs_err": widths, "wide_hd256": wide}))
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -18,7 +18,9 @@ ERNIE pretraining — ``models.ernie``; the fluid static-graph path —
 ``framework`` (Program IR, backward, Executor), ``layers``, the op
 lowerings ``ops.math``/``nn``/``tensor``/``optimizer_ops`` (the fused
 optimizers through the sgd, momentum and adam sweeps of
-``ops.cuda_kernels``), ``optimizer`` and ``models.resnet``.
+``ops.cuda_kernels``), ``optimizer`` and ``models.resnet``; training
+over ranks — ``parallel`` (dp x pp x tp, the plans of ``sharding``,
+elastic and sharded checkpoints) and ERNIE's (dp, tp) mesh step.
 
 The fluid names (``Program``, ``program_guard``, ``layers``,
 ``optimizer``, ``Executor``, ...) load at first use, so importing the

@@ -15,7 +15,13 @@ when ``ce_vocab_chunk``) plus next-sentence prediction. ``fused_ln`` sends
 each post-LN residual add through ``ops/fused_ln.py``. The layer loop is a
 Python loop where JAX used ``lax.scan``, each block under its remat
 policy (``parallel/remat.py``). :func:`make_pretrain_step` is the
-single-device step: momentum 0.9 on every leaf, updated in place.
+momentum-0.9 step, updated in place: on one device, or on a (dp, tp)
+mesh of ranks (``mesh=``): the batch split over dp, the blocks Megatron-
+split over tp (:func:`param_specs`: QKV and ``fc`` by columns over heads
+and ffn, ``proj`` and ``out`` by rows, summed after) with sequence
+parallelism between them (``models/gpt``'s autograd pair), the
+embeddings, heads and pooler replicated, and every gradient summed over
+the mesh axes its spec does not name.
 """
 from __future__ import annotations
 
@@ -33,10 +39,12 @@ from ..ops.flash_attention import flash_attention
 from ..ops.fused_ln import fused_ln
 from ..parallel import remat as remat_mod
 from ..parallel.parallelize import _unflatten, flat_leaves
-from .gpt import _layer_norm, num_params, params_from_numpy
+from .gpt import (_SeqAllGather, _SeqReduceScatter, _layer_norm, num_params,
+                  params_from_numpy)
 
 __all__ = ["ErnieConfig", "ERNIE_BASE", "ERNIE_TINY", "init_params",
-           "params_from_numpy", "batch_to_device", "encode",
+           "params_from_numpy", "param_shapes", "param_specs",
+           "batch_to_device", "encode",
            "pretrain_loss", "make_pretrain_step", "init_opt", "num_params",
            "pretrain_flops_per_token"]
 
@@ -138,6 +146,53 @@ def init_params(cfg: ErnieConfig, seed: int = 0,
     }
 
 
+def param_shapes(cfg: ErnieConfig) -> Dict[str, Any]:
+    """The shape of every leaf of :func:`init_params`, without making it."""
+    L, D, Fd = cfg.num_layers, cfg.d_model, cfg.d_ff
+    nh, hd, V = cfg.num_heads, cfg.head_dim, cfg.vocab_size
+    return {
+        "wte": (V, D), "wpe": (cfg.max_seq_len, D),
+        "wse": (cfg.type_vocab_size, D), "ln_emb_scale": (D,),
+        "ln_emb_bias": (D,),
+        "blocks": {
+            "w_qkv": (L, D, 3, nh, hd), "b_qkv": (L, 3, nh, hd),
+            "w_proj": (L, nh, hd, D), "b_proj": (L, D),
+            "ln1_scale": (L, D), "ln1_bias": (L, D),
+            "w_fc": (L, D, Fd), "b_fc": (L, Fd),
+            "w_out": (L, Fd, D), "b_out": (L, D),
+            "ln2_scale": (L, D), "ln2_bias": (L, D),
+        },
+        "mlm_w": (D, D), "mlm_b": (D,), "mlm_ln_scale": (D,),
+        "mlm_ln_bias": (D,), "mlm_dec_bias": (V,), "pool_w": (D, D),
+        "pool_b": (D,), "nsp_w": (D, 2), "nsp_b": (2,),
+    }
+
+
+def param_specs(cfg: ErnieConfig, tp: str = "tp") -> Dict[str, Any]:
+    """The spec of every leaf on a (dp, tp) mesh (``ernie.py:109-130``):
+    the embeddings and heads replicated, the blocks Megatron-split on
+    heads / ffn; the layer axis is not sharded."""
+    del cfg
+    rep = ()
+    return {
+        "wte": rep, "wpe": rep, "wse": rep,
+        "ln_emb_scale": rep, "ln_emb_bias": rep,
+        "blocks": {
+            "w_qkv": (None, None, None, tp, None),
+            "b_qkv": (None, None, tp, None),
+            "w_proj": (None, tp, None, None),
+            "b_proj": (None, None),
+            "ln1_scale": (None, None), "ln1_bias": (None, None),
+            "w_fc": (None, None, tp), "b_fc": (None, tp),
+            "w_out": (None, tp, None), "b_out": (None, None),
+            "ln2_scale": (None, None), "ln2_bias": (None, None),
+        },
+        "mlm_w": rep, "mlm_b": rep, "mlm_ln_scale": rep, "mlm_ln_bias": rep,
+        "mlm_dec_bias": rep, "pool_w": rep, "pool_b": rep,
+        "nsp_w": rep, "nsp_b": rep,
+    }
+
+
 def batch_to_device(batch, device="cuda") -> Dict[str, torch.Tensor]:
     """A pretraining batch of arrays or tensors (tokens, seg_ids, pad_mask,
     mlm_pos, mlm_ids, mlm_valid, nsp_label) -> tensors on ``device``:
@@ -187,36 +242,62 @@ def _post_ln(res, o, scale, bias, cfg: ErnieConfig):
     return _ln(res + o, scale, bias)
 
 
-def _block(p, x, mask, cfg: ErnieConfig):
+def _block(p, x, mask, cfg: ErnieConfig, tp_group=None):
     """One post-LN encoder block on one layer's leaves (no L axis);
-    ``mask`` as :func:`_key_mask` gives it."""
+    ``mask`` as :func:`_key_mask` gives it. With ``tp_group`` the leaves
+    are the rank's Megatron shards and ``x`` arrives sequence-sharded
+    [B, T/tp, D]: all-gathered before QKV and ``fc``, sum-scattered after
+    ``proj`` and ``out``, the biases and LNs on the sequence shard."""
     dt = cfg.dtype
-    qkv = torch.einsum("btd,dcnh->btcnh", x, p["w_qkv"].to(dt)) \
+    if tp_group is None or tp_group.size == 1:
+        def gather(y):
+            return y
+
+        scatter_sum = gather
+    else:
+        def gather(y):
+            return _SeqAllGather.apply(y, tp_group)
+
+        def scatter_sum(y):
+            return _SeqReduceScatter.apply(y, tp_group)
+
+    qkv = torch.einsum("btd,dcnh->btcnh", gather(x), p["w_qkv"].to(dt)) \
         + p["b_qkv"].to(dt)
     a = _attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], mask, cfg)
-    o = torch.einsum("btnh,nhd->btd", a, p["w_proj"].to(dt)) \
+    o = scatter_sum(torch.einsum("btnh,nhd->btd", a, p["w_proj"].to(dt))) \
         + p["b_proj"].to(dt)
     x = _post_ln(x, o, p["ln1_scale"], p["ln1_bias"], cfg)
-    h = torch.einsum("btd,df->btf", x, p["w_fc"].to(dt)) + p["b_fc"].to(dt)
+    h = torch.einsum("btd,df->btf", gather(x), p["w_fc"].to(dt)) \
+        + p["b_fc"].to(dt)
     h = F.gelu(h, approximate="none")
-    o = torch.einsum("btf,fd->btd", h, p["w_out"].to(dt)) \
+    o = scatter_sum(torch.einsum("btf,fd->btd", h, p["w_out"].to(dt))) \
         + p["b_out"].to(dt)
     return _post_ln(x, o, p["ln2_scale"], p["ln2_bias"], cfg)
 
 
-def encode(params, tokens, seg_ids, pad_mask, cfg: ErnieConfig):
+def encode(params, tokens, seg_ids, pad_mask, cfg: ErnieConfig,
+           tp_group=None):
     """tokens / seg_ids int [B, T], pad_mask bool [B, T] (or None) ->
-    hidden [B, T, D] in the compute dtype."""
+    hidden [B, T, D] in the compute dtype. With ``tp_group`` (the tp line
+    of a mesh; the block leaves its Megatron shards) each rank embeds its
+    sequence chunk, the blocks run sequence-parallel and the hidden
+    states are all-gathered on the sequence at the end (the gather's
+    backward sum-scatters)."""
     T = tokens.shape[1]
     pos = torch.arange(T, device=tokens.device)
+    sp = tp_group is not None and tp_group.size > 1
+    if sp:
+        n = T // tp_group.size
+        seq = slice(tp_group.index * n, (tp_group.index + 1) * n)
+        tokens, seg_ids, pos = tokens[:, seq], seg_ids[:, seq], pos[seq]
     x = params["wte"][tokens] + params["wpe"][pos] + params["wse"][seg_ids]
     x = _ln(x.to(cfg.dtype), params["ln_emb_scale"], params["ln_emb_bias"])
     f = remat_mod.resolve(cfg.remat_policy, remat=cfg.remat).wrap(_block)
     layers = {k: v.unbind(0) for k, v in params["blocks"].items()}
     mask = _key_mask(pad_mask, cfg)
     for i in range(cfg.num_layers):
-        x = f({k: v[i] for k, v in layers.items()}, x, mask, cfg)
-    return x
+        x = f({k: v[i] for k, v in layers.items()}, x, mask, cfg, tp_group)
+    return _SeqAllGather.apply(x, tp_group) if sp else x
 
 
 def _ce(logits, gold_ids):
@@ -227,14 +308,19 @@ def _ce(logits, gold_ids):
     return lse - gold
 
 
-def pretrain_loss(params, batch, cfg: ErnieConfig):
+def pretrain_loss(params, batch, cfg: ErnieConfig, tp_group=None,
+                  n_masked=None, n_rows=None):
     """ERNIE/BERT pretraining loss: masked LM over the ``max_masked``
     gathered positions plus next-sentence prediction on the pooled [CLS].
     ``batch`` as :func:`batch_to_device` gives it. Returns (loss,
-    {"mlm": ..., "nsp": ...}), float32 scalars."""
+    {"mlm": ..., "nsp": ...}), float32 scalars.
+
+    On a rank of a mesh (``tp_group`` as :func:`encode`), ``n_masked`` and
+    ``n_rows`` are the GLOBAL batch's valid MLM positions and rows, so the
+    ranks' losses over their dp rows add up to the global loss."""
     dt = cfg.dtype
     h = encode(params, batch["tokens"], batch["seg_ids"], batch["pad_mask"],
-               cfg)
+               cfg, tp_group)
     B = h.shape[0]
     valid = batch["mlm_valid"]
     b_idx = torch.arange(B, device=h.device)[:, None]
@@ -242,7 +328,8 @@ def pretrain_loss(params, batch, cfg: ErnieConfig):
     hm = F.gelu(torch.einsum("bmd,de->bme", hm, params["mlm_w"].to(dt))
                 + params["mlm_b"].to(dt), approximate="none")
     hm = _ln(hm, params["mlm_ln_scale"], params["mlm_ln_bias"])
-    n_masked = valid.sum().clamp(min=1)
+    if n_masked is None:
+        n_masked = valid.sum().clamp(min=1)
     if cfg.ce_vocab_chunk:
         # the tied decoder's CE, vocab-chunked over the "vd" table: the
         # [B, M, V] float32 logits never materialise
@@ -259,34 +346,86 @@ def pretrain_loss(params, batch, cfg: ErnieConfig):
     pooled = torch.tanh(h[:, 0] @ params["pool_w"].to(dt)
                         + params["pool_b"].to(dt))
     nsp_logits = pooled @ params["nsp_w"].to(dt) + params["nsp_b"].to(dt)
-    nsp_loss = _ce(nsp_logits, batch["nsp_label"]).mean()
+    nsp_ce = _ce(nsp_logits, batch["nsp_label"])
+    nsp_loss = nsp_ce.mean() if n_rows is None else nsp_ce.sum() / n_rows
     return mlm_loss + nsp_loss, {"mlm": mlm_loss, "nsp": nsp_loss}
 
 
-def make_pretrain_step(cfg: ErnieConfig, mesh=None, lr: float = 1e-4,
-                       device="cuda"):
-    """The pretrain step on one device: ``step(params, opt, batch) ->
-    (params, opt, loss)`` with momentum 0.9 on every leaf, ``m = 0.9·m +
-    g`` then ``p -= lr·m`` (``ernie.py:276-283``). params and opt are
-    updated IN PLACE (JAX donates them). A mesh (dp/tp sharding) raises:
-    multi-GPU parallelism is still to be ported."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "make_pretrain_step(mesh=...): multi-GPU parallelism is still "
-            "to be ported (ROADMAP.md, queue A: multi-GPU parallelism); "
-            "the port pretrains on one device")
-    dev = resolve_device(device)
+def make_pretrain_step(cfg: ErnieConfig, mesh=None, dp: str = "dp",
+                       tp: str = "tp", lr: float = 1e-4, device=None):
+    """The pretrain step: ``step(params, opt, batch) -> (params, opt,
+    loss)`` with momentum 0.9 on every leaf, ``m = 0.9·m + g`` then
+    ``p -= lr·m`` (``ernie.py:276-283``), params and opt updated IN PLACE
+    (JAX donates them). Without a mesh: one device (``device``, default
+    the card).
 
+    ``mesh`` (a ``parallel.mesh.Mesh`` with axes ``dp`` and ``tp``; others
+    of size 1 may be there) is the reference's (dp, tp) step
+    (``ernie.py:264-298``): params and moments are this rank's shards by
+    :func:`param_specs` (``parallel.parallelize.shard_params``), ``batch``
+    is the GLOBAL batch, of which the rank takes its dp rows; the loss is
+    the global one on every rank. Each rank's loss is its rows' share
+    (divided by the global valid-position and row counts), and over tp a
+    tp-th of it (the heads run on the gathered hidden states on every tp
+    rank), so the sum over the world is the global loss and every
+    gradient, summed over the axes its spec does not name, the global
+    gradient."""
+    if mesh is None:
+        return _single_device_step(cfg, lr, resolve_device(
+            "cuda" if device is None else device))
+    from ..parallel import mesh as mesh_mod
+    from ..parallel import parallelize as PZ
+
+    if not isinstance(mesh, mesh_mod.Mesh):
+        raise TypeError(f"mesh must be a parallel.mesh.Mesh, got "
+                        f"{type(mesh).__name__}")
+    if device is not None and resolve_device(device) != mesh.device:
+        raise ValueError(f"device {str(device)!r} disagrees with the "
+                         f"mesh's device {mesh.device}")
+    ndp, ntp = mesh.axis_size(dp), mesh.axis_size(tp)
+    for what, n in (("num_heads", cfg.num_heads), ("d_ff", cfg.d_ff)):
+        if n % ntp:
+            raise ValueError(f"{what} {n} is not a multiple of tp {ntp}")
+    specs = flat_leaves(param_specs(cfg, tp=tp))
+    tp_group = mesh.group(tp) if ntp > 1 else None
+    d = mesh.axis_index(dp)
+
+    def step(params, opt, batch):
+        batch = batch_to_device(batch, mesh.device)
+        rows, T = batch["tokens"].shape
+        if rows % ndp or T % ntp:
+            raise ValueError(f"batch {rows} / seq {T} not divisible by dp "
+                             f"{ndp} / tp {ntp}")
+        n_masked = batch["mlm_valid"].sum().clamp(min=1)
+        b = rows // ndp
+        local = {k: v[d * b:(d + 1) * b] for k, v in batch.items()}
+        live = [p.detach().requires_grad_() for p in flat_leaves(params)]
+        loss = pretrain_loss(_unflatten(params, live), local, cfg, tp_group,
+                             n_masked=n_masked, n_rows=rows)[0] / ntp
+        grads = torch.autograd.grad(loss, live)
+        with torch.no_grad():
+            loss = PZ._psum_loss(loss.detach(), mesh)
+            grads = PZ.psum_grads_by_spec(list(grads), specs, mesh)
+            _momentum(params, opt, grads, lr)
+        return params, opt, loss
+
+    return step
+
+
+def _momentum(params, opt, grads, lr) -> None:
+    for p, m, g in zip(flat_leaves(params), flat_leaves(opt["m"]), grads):
+        m.mul_(0.9).add_(g.to(m.dtype))
+        p.sub_(lr * m.to(p.dtype))
+
+
+def _single_device_step(cfg: ErnieConfig, lr: float, dev):
     def step(params, opt, batch):
         batch = batch_to_device(batch, dev)
         live = [p.detach().requires_grad_() for p in flat_leaves(params)]
         loss = pretrain_loss(_unflatten(params, live), batch, cfg)[0]
         grads = torch.autograd.grad(loss, live)
         with torch.no_grad():
-            for p, m, g in zip(flat_leaves(params), flat_leaves(opt["m"]),
-                               grads):
-                m.mul_(0.9).add_(g.to(m.dtype))
-                p.sub_(lr * m.to(p.dtype))
+            _momentum(params, opt, grads, lr)
         return params, opt, loss.detach()
 
     return step

@@ -36,6 +36,7 @@ from torch.utils.checkpoint import checkpoint
 from ..device import resolve_device
 from ..ops.chunked_ce import chunked_lm_loss
 from ..ops.fused_ln import fused_ln
+from ..parallel import comm_opt
 from ..parallel import remat as remat_mod
 
 __all__ = ["GPTConfig", "GPT_SMALL", "GPT_TINY", "init_params",
@@ -197,14 +198,19 @@ def param_specs(cfg: GPTConfig, pp: str = "pp", tp: str = "tp"
 
 
 def _gather_seq(y, axis):
-    """[B, T/tp, ...] on each rank of ``axis`` -> [B, T, ...]."""
+    """[B, T/tp, ...] on each rank of ``axis`` -> [B, T, ...]. Counted
+    into the wire-byte counter at the gathered tensor's bytes."""
     full = axis.all_gather(y.transpose(0, 1).contiguous())
+    comm_opt.record_collective("all_gather", full.dtype,
+                               full.numel() * full.element_size(), axis.size)
     return full.transpose(0, 1).contiguous()
 
 
 def _scatter_seq(y, axis):
     """[B, T, ...] -> this rank's [B, T/tp, ...] block of the sum over
-    ``axis``."""
+    ``axis``. Counted at the summed tensor's bytes."""
+    comm_opt.record_collective("psum_scatter", y.dtype,
+                               y.numel() * y.element_size(), axis.size)
     part = axis.reduce_scatter(y.transpose(0, 1).contiguous())
     return part.transpose(0, 1).contiguous()
 
@@ -261,7 +267,9 @@ def _causal_attention(q, k, v, cfg: GPTConfig):
     mask = torch.ones((T, T), dtype=torch.bool, device=q.device).tril()
     logits = logits.masked_fill(~mask, torch.finfo(torch.float32).min)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
-    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+    # tagged so the save_only_flash remat policy keeps it (gpt.py:196)
+    return remat_mod.checkpoint_name(torch.einsum("bhqk,bkhd->bqhd", probs,
+                                                  v))
 
 
 def block_fn(p, x, cfg: GPTConfig, tp_group=None):

@@ -34,10 +34,19 @@ Save metrics ride the port's registry: ``paddle_checkpoint_save_ms`` and
 ``paddle_checkpoint_bytes_total``. Each leaf gathered, written, verified
 or read stamps the hang watchdog's progress (``checkpoint/save``,
 ``/write``, ``/verify``, ``/restore``): a store that moves is not hung,
-and one that stops moving is. ``ShardedCheckpointer``,
-``abstract_like`` and ``abstract_for_mesh`` (orbax / GSPMD) come with
-``sharding/`` and ``build_restore_broadcast_program`` with the fluid
-datasets; each raises ``NotImplementedError`` naming its queue.
+and one that stops moving is.
+
+:class:`ShardedCheckpointer` is the counterpart of the reference's orbax
+store (``checkpoint.py:727-861``), built on ``torch.distributed.checkpoint``
+(DCP): every rank writes only its own shards, each leaf going in as a
+``DTensor`` on a ``DeviceMesh`` laid out like the port's row-major mesh,
+so a load into another layout reshards. A step is committed once DCP's
+``.metadata`` has landed (or the port's ``COMMIT`` marker);
+:func:`abstract_like` and :func:`abstract_for_mesh` give the restore
+targets (:class:`AbstractLeaf`: global shape, dtype, spec, mesh). It is
+held to the reference by behaviour and restored values, not by bytes.
+``build_restore_broadcast_program`` comes with the fluid datasets and
+raises ``NotImplementedError`` naming its queue.
 """
 from __future__ import annotations
 
@@ -49,6 +58,7 @@ import shutil
 import threading
 import time
 import zlib
+import dataclasses
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -61,7 +71,7 @@ from . import mesh as mesh_mod
 __all__ = [
     "CheckpointError", "CheckpointCorruptError", "MeshMismatchError",
     "LayoutReshardError", "check_mesh_compatible",
-    "ElasticCheckpointer", "ShardedCheckpointer",
+    "ElasticCheckpointer", "ShardedCheckpointer", "AbstractLeaf",
     "abstract_for_mesh", "abstract_like",
     "serialize_layout", "deserialize_layout", "reshard_flat",
     "restore_train_state", "train_state_specs",
@@ -829,26 +839,340 @@ def restore_train_state(ckpt: ElasticCheckpointer, params, opt, *,
 
 
 # ---------------------------------------------------------------------------
-# Still to be ported
+# ShardedCheckpointer: every rank writes its shards (DCP)
 # ---------------------------------------------------------------------------
 
-def _sharding_queue(name: str):
-    raise NotImplementedError(
-        f"{name} (orbax OCDBT shards / GSPMD abstract targets) is still to "
-        "be ported with sharding/ (ROADMAP A3 (a))")
+@dataclasses.dataclass(frozen=True)
+class AbstractLeaf:
+    """A restore target: the leaf's global shape and dtype, its spec over
+    ``mesh`` (None: the whole leaf on one process) and the device its
+    local shard lands on."""
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+    spec: tuple = ()
+    mesh: Any = None
+    device: Any = "cpu"
+
+    def local_shape(self) -> Tuple[int, ...]:
+        if self.mesh is None:
+            return tuple(self.shape)
+        return mesh_mod.local_shape(self.shape, self.spec, self.mesh.sizes)
+
+
+def _ways(spec, mesh, rank: int) -> List[int]:
+    """How many ways each of ``rank`` dims is split by ``spec``."""
+    out = [1] * rank
+    for d, e in enumerate(spec):
+        for a in (e if isinstance(e, (tuple, list)) else (e,)):
+            if a is not None:
+                out[d] *= mesh.sizes[a]
+    return out
+
+
+def _placements(spec, mesh, path: str):
+    """The DTensor placements (one a mesh axis, in mesh order) of a spec.
+    A dim over several axes must list them in mesh order (DTensor splits
+    a dim by its mesh dims left to right, as the port's row-major mesh
+    lays out the shards)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    out = [Replicate()] * len(mesh.axis_names)
+    for d, e in enumerate(spec):
+        axes = [a for a in (e if isinstance(e, (tuple, list)) else (e,))
+                if a is not None]
+        idx = [mesh.axis_names.index(a) for a in axes]
+        if idx != sorted(idx):
+            raise NotImplementedError(
+                f"leaf {path!r}: spec {spec} splits dim {d} over axes out "
+                f"of the mesh's order {mesh.axis_names}")
+        for i in idx:
+            out[i] = Shard(d)
+    return out
+
+
+def _contiguous_stride(shape) -> Tuple[int, ...]:
+    stride, acc = [], 1
+    for n in reversed(shape):
+        stride.append(acc)
+        acc *= int(n)
+    return tuple(reversed(stride))
 
 
 class ShardedCheckpointer:
-    def __init__(self, *args, **kw):
-        _sharding_queue("ShardedCheckpointer")
+    """Save and restore a training state (a tree of tensors) with
+    ``torch.distributed.checkpoint``: every rank writes only its shards.
+
+    ``mesh`` (the port's :class:`~.mesh.Mesh`) is the layout ``save``
+    describes its leaves on, with ``specs`` (a tree like the state's;
+    missing or None = replicated); without a mesh the state is whole on
+    this process, and ``save`` raises in a world of several ranks (each
+    would write the same files: pass the mesh, whose replicated leaves
+    DCP writes once). ``save`` is asynchronous with ``use_async`` (DCP's
+    ``async_save``: the shards are copied to host memory before it
+    returns, the write overlaps the next steps; ``wait`` or the next
+    save joins it); ``keep_last=N`` keeps the N newest committed steps.
+    ``restore`` takes the TARGET layout as :class:`AbstractLeaf` records
+    (:func:`abstract_like`, :func:`abstract_for_mesh`) and returns each
+    rank's local shards, so a (dp 2, tp 2) save restores at (dp 4, tp 1).
+    Step selection skips uncommitted directories (no ``.metadata``, no
+    ``COMMIT``). In a world of several ranks ``save``, ``wait`` and a
+    restore onto a mesh are collective; DCP's own collectives run on a
+    gloo group of the checkpointer's (a background write must not share
+    a group with the training step's collectives); rank 0 removes
+    directories."""
+
+    METADATA = ".metadata"
+
+    def __init__(self, dirname: str, use_async: bool = True, mesh=None):
+        self.dirname = os.path.abspath(str(dirname))
+        os.makedirs(self.dirname, exist_ok=True)
+        self.use_async = use_async
+        self.mesh = mesh
+        self._pending = None
+        self._pg = None
+        self._device_meshes: Dict[Tuple, Any] = {}
+
+    # -- the world ----------------------------------------------------------
+
+    @staticmethod
+    def _dist() -> bool:
+        import torch.distributed as dist
+
+        return dist.is_available() and dist.is_initialized() \
+            and dist.get_world_size() > 1
+
+    def _group(self):
+        """The checkpointer's gloo group over the world (made at its first
+        collective use; every rank makes it in the same call)."""
+        import torch.distributed as dist
+
+        if self._pg is None:
+            self._pg = dist.new_group(backend="gloo")
+        return self._pg
+
+    def _coordinator(self) -> bool:
+        import torch.distributed as dist
+
+        return not self._dist() or dist.get_rank() == 0
+
+    def _barrier(self) -> None:
+        import torch.distributed as dist
+
+        if self._dist():
+            dist.barrier(group=self._group())
+
+    def _device_mesh(self, mesh):
+        """A CPU ``DeviceMesh`` laid out like ``mesh`` (row-major ranks,
+        its axis names): the shards are host copies, so DCP's collectives
+        never touch the card."""
+        from torch.distributed.device_mesh import DeviceMesh
+
+        key = (mesh.axis_names, mesh.shape)
+        if key not in self._device_meshes:
+            self._device_meshes[key] = DeviceMesh(
+                "cpu", torch.arange(mesh.size).reshape(mesh.shape),
+                mesh_dim_names=mesh.axis_names)
+        return self._device_meshes[key]
+
+    def _dtensor(self, local: torch.Tensor, shape, spec, mesh, path):
+        from torch.distributed.tensor import DTensor
+
+        return DTensor.from_local(
+            local, self._device_mesh(mesh), _placements(spec, mesh, path),
+            run_check=False, shape=torch.Size(shape),
+            stride=_contiguous_stride(shape))
+
+    # -- paths / bookkeeping ------------------------------------------------
+
+    def _path(self, step: int) -> str:
+        return os.path.join(self.dirname, f"step_{int(step):08d}")
+
+    def _is_committed(self, name: str) -> Optional[int]:
+        """The step number iff ``name`` is a committed step directory."""
+        m = _STEP_RX.match(name)
+        if not m:
+            return None
+        d = os.path.join(self.dirname, name)
+        if not os.path.isdir(d):
+            return None
+        if os.path.exists(os.path.join(d, self.METADATA)) or \
+                os.path.exists(os.path.join(d, COMMIT_NAME)):
+            return int(m.group(1))
+        return None
+
+    def all_steps(self) -> List[int]:
+        if not os.path.isdir(self.dirname):
+            return []
+        return sorted(s for s in map(self._is_committed,
+                                     os.listdir(self.dirname))
+                      if s is not None)
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def gc(self, keep_last: Optional[int] = None) -> List[str]:
+        """Remove uncommitted step directories (a save killed midway) and,
+        with ``keep_last``, committed steps past the N newest; rank 0
+        removes, the others return []."""
+        removed: List[str] = []
+        if not self._coordinator() or not os.path.isdir(self.dirname):
+            return removed
+        committed = self.all_steps()
+        drop = set()
+        if keep_last is not None and keep_last >= 0:
+            drop = set(committed[:max(0, len(committed) - keep_last)])
+        for name in sorted(os.listdir(self.dirname)):
+            full = os.path.join(self.dirname, name)
+            if not (os.path.isdir(full) and _STEP_RX.match(name)):
+                continue
+            step = self._is_committed(name)
+            if step is None or step in drop:
+                shutil.rmtree(full, ignore_errors=True)
+                removed.append(full)
+        return removed
+
+    # -- save ---------------------------------------------------------------
+
+    def _state_dict(self, state, specs) -> Dict[str, Any]:
+        """{keystr: host copy of the leaf}, each leaf a DTensor of its
+        global shape on the checkpointer's mesh (whole tensors without
+        one)."""
+        spec_of = dict(flatten_with_keys(specs, is_leaf=lambda x: isinstance(
+            x, tuple))) if specs is not None else {}
+        out = {}
+        for key, leaf in flatten_with_keys(state):
+            local = _to_host(leaf)
+            if self.mesh is None:
+                out[key] = local
+                continue
+            spec = tuple(spec_of.get(key) or ())
+            shape = [n * w for n, w in zip(
+                local.shape, _ways(spec, self.mesh, local.dim()))]
+            out[key] = self._dtensor(local, shape, spec, self.mesh, key)
+        return out
+
+    def save(self, step: int, state: Any, force: bool = False,
+             keep_last: Optional[int] = None, specs: Any = None) -> str:
+        """Write ``state`` (this rank's shards by ``specs`` on the
+        checkpointer's mesh) as step ``step``. A committed step is kept
+        unless ``force``; an uncommitted one is debris and is replaced."""
+        import torch.distributed.checkpoint as dcp
+
+        if self.mesh is None and self._dist():
+            raise CheckpointError(
+                f"save of step {step} under {self.dirname}: a checkpointer "
+                "without a mesh in a world of several ranks would have every "
+                "rank write the same files; pass mesh= (replicated specs are "
+                "written once)")
+        self.wait()
+        path = self._path(step)
+        if self._is_committed(os.path.basename(path)) is not None \
+                and not force:
+            raise CheckpointError(f"step {step} under {self.dirname} is "
+                                  "already committed (force=True replaces "
+                                  "it)")
+        if self._coordinator() and os.path.isdir(path):
+            shutil.rmtree(path)
+        self._barrier()
+        sd = self._state_dict(state, specs)
+        kw = dict(checkpoint_id=path)
+        if self.mesh is not None and self._dist():
+            kw["process_group"] = self._group()
+        else:
+            kw["no_dist"] = True
+        if self.use_async:
+            self._pending = dcp.async_save(sd, **kw)
+        else:
+            dcp.save(sd, **kw)
+        if keep_last is not None:
+            # join the write first: a GC during it could remove the step
+            self.wait()
+            self.gc(keep_last=keep_last)
+        return path
+
+    def wait(self) -> None:
+        """Join the asynchronous save in flight, if any (its error raises
+        here)."""
+        pending, self._pending = self._pending, None
+        if pending is None:
+            return
+        done = getattr(pending, "upload_completion", pending)
+        done.result()
+
+    # -- restore ------------------------------------------------------------
+
+    def restore(self, step: int, abstract_state: Any) -> Any:
+        """The state of step ``step`` in the TARGET layout of
+        ``abstract_state`` (a tree of :class:`AbstractLeaf`): each leaf
+        this rank's shard on its record's device. Targets on a mesh load
+        collectively (every rank calls), others on this process alone."""
+        import torch.distributed.checkpoint as dcp
+
+        self.wait()
+        if self._is_committed(f"step_{int(step):08d}") is None:
+            raise CheckpointError(
+                f"step {step} under {self.dirname} is missing or "
+                "uncommitted (killed mid-save?) — pick one of "
+                f"{self.all_steps()}")
+        leaves = flatten_with_keys(abstract_state, is_leaf=lambda x:
+                                   isinstance(x, AbstractLeaf))
+        sd, on_mesh = {}, False
+        for key, a in leaves:
+            local = torch.empty(a.local_shape(), dtype=a.dtype)
+            if a.mesh is None:
+                sd[key] = local
+            else:
+                on_mesh = True
+                sd[key] = self._dtensor(local, a.shape, a.spec, a.mesh, key)
+        kw = dict(checkpoint_id=self._path(step))
+        if on_mesh and self._dist():
+            kw["process_group"] = self._group()
+        else:
+            kw["no_dist"] = True
+        dcp.load(sd, **kw)
+        out = {}
+        for key, a in leaves:
+            t = sd[key]
+            t = t.to_local() if a.mesh is not None else t
+            out[key] = t.to(a.device)
+        return _rebuild(abstract_state, out)
+
+    def close(self) -> None:
+        self.wait()
 
 
-def abstract_like(tree: Any) -> Any:
-    _sharding_queue("abstract_like")
+def abstract_like(tree: Any, specs: Any = None, mesh=None) -> Any:
+    """Live leaves (this rank's shards by ``specs`` on ``mesh``; whole
+    tensors without a mesh) -> their :class:`AbstractLeaf` records: the
+    restore target of the same layout."""
+    spec_of = dict(flatten_with_keys(specs, is_leaf=lambda x: isinstance(
+        x, tuple))) if specs is not None else {}
+    out = {}
+    for key, x in flatten_with_keys(tree):
+        t = x if isinstance(x, torch.Tensor) else torch.as_tensor(x)
+        spec = tuple(spec_of.get(key) or ())
+        shape = tuple(t.shape)
+        if mesh is not None:
+            shape = tuple(n * w for n, w in zip(
+                shape, _ways(spec, mesh, t.dim())))
+        out[key] = AbstractLeaf(shape, t.dtype, spec, mesh, t.device)
+    return _rebuild(tree, out)
 
 
 def abstract_for_mesh(tree: Any, specs: Any, mesh) -> Any:
-    _sharding_queue("abstract_for_mesh")
+    """Restore targets on ``mesh`` by ``specs``: ``tree``'s leaves give the
+    GLOBAL shape and dtype (:class:`AbstractLeaf` records, e.g. from
+    :func:`abstract_like`, or whole tensors), the shards land on the
+    mesh's device. The cross-topology restore: pass the NEW mesh."""
+    spec_of = dict(flatten_with_keys(specs, is_leaf=lambda x: isinstance(
+        x, tuple)))
+    out = {key: AbstractLeaf(tuple(x.shape), x.dtype,
+                             tuple(spec_of.get(key) or ()), mesh,
+                             mesh.device)
+           for key, x in flatten_with_keys(
+               tree, is_leaf=lambda x: isinstance(x, AbstractLeaf))}
+    return _rebuild(tree, out)
 
 
 def build_restore_broadcast_program(var_specs, ring_id: int = 0,

@@ -17,6 +17,13 @@ of ``paddle_tpu/parallel/parallelize.py``.
   match in order on every backend.
 - **tp + sp**: Megatron tensor parallelism with sequence parallelism
   (``models/gpt.block_fn(tp_group=)``).
+- **sharding plans** (``sharding=``: ``"dp"``, ``"fsdp"``, ``"tp"``,
+  ``"dp+tp"``, an annotation dict or a ``sharding.ShardingPlan``; pp 1):
+  the counterpart of the reference's GSPMD step. GSPMD is not there to
+  insert the collectives a plan implies, so the step writes them: a leaf
+  sharded over dp (fsdp) lives as the rank's shard with its moments, is
+  all-gathered over dp before use and its gradient reduce-scattered
+  back (one autograd Function); tp entries run the Megatron path above.
 
 Gradient rule, as the reference's (``parallelize.py:20-28``): each rank
 differentiates its partial loss (normalised by the global token count
@@ -51,7 +58,8 @@ from .comm_opt import CommConfig
 __all__ = ["ParallelConfig", "build_mesh", "psum_grads_by_spec",
            "shard_params", "init_adamw_state", "opt_state_from_numpy",
            "init_sharded", "make_train_step", "make_forward",
-           "rs_param_layout", "flat_leaves", "flat_specs"]
+           "rs_param_layout", "flat_leaves", "flat_specs", "plan_layout",
+           "resident_bytes"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -517,11 +525,7 @@ def _comm_config(comm, grad_reduce, grad_allreduce_dtype, bucket_mb,
         bucket_mb=bucket_mb, error_feedback=error_feedback)
 
 
-def _refuse(sharding, tuned) -> None:
-    if sharding is not None:
-        raise NotImplementedError(
-            "sharding= (the GSPMD plans of paddle_tpu/sharding) is still to "
-            "be ported (ROADMAP A3 (a): sharding/)")
+def _refuse(tuned) -> None:
     if tuned is not None:
         raise NotImplementedError(
             "tuned= (TUNED.json from tools/autotune.py) is still to be "
@@ -545,12 +549,25 @@ def init_sharded(cfg: G.GPTConfig, pcfg: Optional[ParallelConfig] = None,
     makes the params views of one flat float32 buffer with flat moments;
     otherwise the moments are per leaf. ``mesh=None`` is one device
     (``device``, default the card); with a mesh the params live on
-    ``mesh.device`` and a ``device`` that names another raises."""
-    _refuse(sharding, tuned)
+    ``mesh.device`` and a ``device`` that names another raises.
+
+    ``sharding=`` (a preset, an annotation dict or a ``ShardingPlan``)
+    keeps each leaf's shard by the plan's specs, with per-leaf moments of
+    the same shape (``fused_opt`` is not used, as in the reference); with
+    comm levers the plan must be dp-replicated and the state is laid out
+    as without one."""
+    _refuse(tuned)
     dev = _step_device(mesh, device)
     pcfg = pcfg or ParallelConfig()
     ccfg = _comm_config(comm, grad_reduce, grad_allreduce_dtype, bucket_mb,
                         error_feedback)
+    plan = _sharding_route(sharding, cfg, pcfg, mesh, ccfg)
+    if plan is not None:
+        plan_layout(cfg, pcfg, plan)          # refuses what it cannot run
+        full = G.init_params(cfg, seed=seed, device=dev)
+        params = shard_params(full, plan.param_specs, mesh)
+        del full
+        return params, init_adamw_state(params, moment_dtype)
     if mesh is None:
         if pcfg.n_devices > 1 or ccfg.grad_reduce != "psum":
             raise ValueError(f"{pcfg} with grad_reduce={ccfg.grad_reduce!r} "
@@ -648,8 +665,17 @@ def make_train_step(cfg: G.GPTConfig, pcfg: Optional[ParallelConfig] = None,
     chunk-scaled quantized wire payload with float32 accumulation;
     ``error_feedback`` (reduce-scatter only) carries each rank's
     quantization residual in ``opt["ef"]``. ``grad_clip=None`` disables
-    clipping with an exact scale of 1.0. ``sharding=`` and ``tuned=``
-    raise (still to be ported).
+    clipping with an exact scale of 1.0. ``tuned=`` raises (still to be
+    ported).
+
+    ``sharding=`` (pp 1; a preset of ``sharding.PRESETS``, an annotation
+    dict or a ``ShardingPlan``) runs the plan's step (state from
+    ``init_sharded(sharding=)`` with the same plan): see
+    :func:`_make_sharded_step`. With comm levers (reduce-scatter or a
+    wire dtype) a dp-replicated plan takes the hand-written comm_opt path
+    and a plan that shards over dp raises, as in the reference. The
+    step's ``report_name`` is the reference's
+    (``parallel_train_step/dp{dp}pp1tp{tp}mb{M}_gspmd-{mode}``).
 
     ``skip_nonfinite`` keeps params and opt (step counter and residual
     included) when the summed loss or the global grad norm is NaN/Inf:
@@ -659,10 +685,21 @@ def make_train_step(cfg: G.GPTConfig, pcfg: Optional[ParallelConfig] = None,
     ``mesh=None`` is one device (``device``, default the card); with a
     mesh the step runs on ``mesh.device`` and a ``device`` that names
     another raises."""
-    _refuse(sharding, tuned)
+    _refuse(tuned)
     pcfg = pcfg or ParallelConfig()
     ccfg = _comm_config(comm, grad_reduce, grad_allreduce_dtype, bucket_mb,
                         error_feedback)
+    plan = _sharding_route(sharding, cfg, pcfg, mesh, ccfg)
+    if plan is not None:
+        _step_device(mesh, device)
+        _check_layout(cfg, pcfg)
+        step = _watched(_make_sharded_step(cfg, pcfg, mesh, plan, lr,
+                                           weight_decay, grad_clip,
+                                           skip_nonfinite))
+        step.report_name = (f"parallel_train_step/dp{pcfg.dp}pp{pcfg.pp}"
+                            f"tp{pcfg.tp}mb{pcfg.microbatches}"
+                            f"_gspmd-{plan.mode}")
+        return step
     rs = ccfg.grad_reduce == "reduce_scatter"
     if fused_opt and pcfg.n_devices > 1 and not rs:
         raise NotImplementedError(
@@ -828,6 +865,199 @@ def _make_rs_step(cfg, pcfg: ParallelConfig, mesh: mesh_mod.Mesh,
                 for idx, view in comm_opt.unflatten_bucket(full, b).items():
                     flat_p[idx].copy_(view)
                 off += blen
+        return params, opt, loss, gnorm
+
+    return step
+
+
+# ---------------------------------------------------------------------------
+# Sharding plans: the step the reference leaves to GSPMD, written out
+# ---------------------------------------------------------------------------
+
+def _sharding_route(sharding, cfg, pcfg: ParallelConfig,
+                    mesh: Optional[mesh_mod.Mesh], ccfg: CommConfig):
+    """The plan that ``sharding=`` selects, or None when there is none or
+    when comm levers send a dp-replicated plan down the hand-written
+    comm_opt path (the reference's routing, ``parallelize.py:788-815``)."""
+    if sharding is None:
+        return None
+    from ..sharding import resolve_plan
+
+    plan = resolve_plan(sharding, cfg, pcfg)
+    if pcfg.pp > 1:
+        raise NotImplementedError(
+            "sharding= plans do not cover GPipe pipeline stages; use "
+            "the hand-written pp path (pp=1 required)")
+    if ccfg.grad_reduce == "reduce_scatter" or ccfg.comm_dtype is not None:
+        if not plan.params_replicated_over(pcfg.axis_names[0]):
+            raise NotImplementedError(
+                "comm_opt grad reduction (reduce_scatter / quantized "
+                "wire dtypes) needs dp-replicated params; plan "
+                f"{plan.mode!r} shards params over "
+                f"{pcfg.axis_names[0]!r} — drop the comm levers or use "
+                "sharding='dp'")
+        return None
+    if mesh is None:
+        raise ValueError("sharding= needs mesh=build_mesh(pcfg)")
+    return plan
+
+
+@dataclasses.dataclass(frozen=True)
+class LeafPlan:
+    """How one leaf of a plan runs: its spec (full rank), the dim it is
+    sharded on over dp (fsdp; None if dp-replicated) and the dim the
+    Megatron split needs it cut on over tp where the plan keeps it whole
+    (None if the plan shards it there, or it is not split)."""
+    path: str
+    spec: tuple
+    dp_dim: Optional[int]
+    tp_cut: Optional[int]
+
+
+def plan_layout(cfg: G.GPTConfig, pcfg: ParallelConfig, plan
+                ) -> List[LeafPlan]:
+    """Each leaf's :class:`LeafPlan` in tree-flatten order. Raises
+    ``NotImplementedError`` naming the leaf and its spec for a layout the
+    port cannot lower: an entry over several axes, an axis named twice or
+    not in the mesh, or (tp > 1) a tp entry on a dim the Megatron split
+    of ``G.param_specs`` does not shard over tp."""
+    from ..sharding.plan import _flatten
+    from ..sharding.spec import pad_spec, spec_str
+
+    dp_ax, _, tp_ax = pcfg.axis_names
+    megatron = flat_leaves(G.param_specs(cfg, pp=None, tp=tp_ax))
+    shapes = flat_leaves(G.param_shapes(cfg))
+    out = []
+    for (path, spec), shape, meg in zip(_flatten(plan.param_specs), shapes,
+                                        megatron):
+        spec = pad_spec(spec, len(shape))
+        meg = pad_spec(meg, len(shape))
+
+        def refuse(why):
+            raise NotImplementedError(
+                f"sharding plan {plan.mode!r}: leaf {path!r} spec "
+                f"{spec_str(spec)}: {why}")
+
+        named = [e for e in spec if e is not None]
+        if any(isinstance(e, tuple) for e in named):
+            refuse("an entry over several mesh axes is not lowered")
+        if len(set(named)) != len(named):
+            refuse("a mesh axis names two dims")
+        unknown = set(named) - set(pcfg.axis_names)
+        if unknown:
+            refuse(f"axes {sorted(unknown)} are not in the mesh "
+                   f"{pcfg.axis_names}")
+        dp_dim = spec.index(dp_ax) if dp_ax in spec and pcfg.dp > 1 \
+            else None
+        tp_cut = None
+        if pcfg.tp > 1:
+            for d, (e, m) in enumerate(zip(spec, meg)):
+                if e == tp_ax and m != tp_ax:
+                    refuse(f"tp on dim {d}, where the Megatron split "
+                           f"{spec_str(meg)} does not shard it; the port "
+                           "runs tp only as Megatron's split")
+                if m == tp_ax and e != tp_ax:
+                    tp_cut = d
+        out.append(LeafPlan(path, spec, dp_dim, tp_cut))
+    return out
+
+
+class _DpGather(torch.autograd.Function):
+    """An fsdp leaf's shard -> the leaf, all-gathered over the dp line
+    along ``dim``; the backward reduce-scatters (sums) the gradient back
+    to the shard, so the gradient the step keeps is the shard's. (The
+    full-size gradient still builds up inside the backward until this
+    Function's backward runs: for a stacked [L, ...] leaf, until the
+    first layer's.) Both collectives count into the wire-byte counter at
+    the full leaf's bytes."""
+
+    @staticmethod
+    def forward(ctx, x, group: mesh_mod.AxisGroup, dim: int):
+        ctx.group, ctx.dim = group, dim
+        full = group.all_gather(x.movedim(dim, 0).contiguous())
+        comm_opt.record_collective("all_gather", full.dtype,
+                                   full.numel() * full.element_size(),
+                                   group.size)
+        return full.movedim(0, dim).contiguous() if dim else full
+
+    @staticmethod
+    def backward(ctx, g):
+        group, dim = ctx.group, ctx.dim
+        g = g.movedim(dim, 0).contiguous()
+        comm_opt.record_collective("psum_scatter", g.dtype,
+                                   g.numel() * g.element_size(), group.size)
+        part = group.reduce_scatter(g)
+        return (part.movedim(0, dim).contiguous() if dim else part), \
+            None, None
+
+
+def _materialize(leaf: torch.Tensor, lp: LeafPlan, mesh: mesh_mod.Mesh,
+                 pcfg: ParallelConfig) -> torch.Tensor:
+    """The tensor the rank's forward uses for a leaf stored as its plan's
+    shard: gathered over dp where the plan shards it there (fsdp), then
+    cut to the rank's Megatron block over tp where the plan keeps it
+    whole (the cut's backward puts the gradient in its block of zeros,
+    and the leaf's sum over tp completes it)."""
+    dp_ax, _, tp_ax = pcfg.axis_names
+    if lp.dp_dim is not None:
+        leaf = _DpGather.apply(leaf, mesh.group(dp_ax), lp.dp_dim)
+    if lp.tp_cut is not None:
+        n = leaf.shape[lp.tp_cut] // pcfg.tp
+        leaf = leaf.narrow(lp.tp_cut, mesh.axis_index(tp_ax) * n, n)
+    return leaf
+
+
+def resident_bytes(tree) -> int:
+    """The bytes of a tree's tensors (a rank's params or moments)."""
+    if isinstance(tree, dict):
+        return sum(resident_bytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size() \
+        if isinstance(tree, torch.Tensor) else 0
+
+
+def _make_sharded_step(cfg, pcfg: ParallelConfig, mesh: mesh_mod.Mesh, plan,
+                       lr, weight_decay, grad_clip, skip_nonfinite):
+    """The plan's train step (reference ``_make_gspmd_step``,
+    ``parallelize.py:594-703``) with the collectives its specs imply
+    written out: every leaf is materialised for the forward
+    (:func:`_materialize`: fsdp leaves all-gathered over dp, all of them
+    once a step, up front, and alive until the backward ends — fsdp
+    halves the stored params and moments, not the step's working set of
+    gathered params and their gradients), the rank
+    runs the pp-1 loss of its dp rows (``_pipeline_loss``: CE over the
+    rank's rows divided by the global token count, the tp ranks on their
+    sequence chunks — the reference groups its loss by dp rank in the
+    same order), each grad is summed over the axes its spec does not name
+    (an fsdp leaf's reduce-scatter was its dp sum), the global grad norm
+    counts each replicated element once, and the per-leaf AdamW updates
+    each rank's shards and moments in place (the reference's GSPMD step
+    calls ``_adamw_update``, not the fused sweep)."""
+    layout = plan_layout(cfg, pcfg, plan)
+    specs = [lp.spec for lp in layout]
+    weights = [_repl_weight(s, pcfg, pcfg.axis_names) for s in specs]
+
+    def step(params, opt, tokens, labels):
+        tokens = _rank_batch(tokens, pcfg, mesh, cfg)
+        labels = _rank_batch(labels, pcfg, mesh, cfg)
+        live = [p.detach().requires_grad_() for p in flat_leaves(params)]
+        used = [_materialize(p, lp, mesh, pcfg)
+                for p, lp in zip(live, layout)]
+        loss, backward = _pipeline_loss(_unflatten(params, used), tokens,
+                                        labels, cfg, pcfg, mesh)
+        backward()
+        del used
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                 for p in live]
+        with torch.no_grad():
+            loss = _psum_loss(loss, mesh)
+            grads = psum_grads_by_spec(grads, specs, mesh)
+            gnorm = _global_norm(sum(w * torch.sum(torch.square(g.float()))
+                                     for w, g in zip(weights, grads)), mesh)
+            if skip_nonfinite and health.nonfinite_guard(loss, gnorm):
+                return params, opt, loss, gnorm
+            params, opt, _ = _adamw_update(
+                params, _unflatten(params, grads), opt, lr,
+                weight_decay=weight_decay, grad_clip=grad_clip, gnorm=gnorm)
         return params, opt, loss, gnorm
 
     return step

@@ -4,11 +4,12 @@
 
 ==================  ========================================================
 ``none``            no checkpointing: autograd saves every intermediate
-``save_only_flash`` selective checkpoint that saves the flash-attention
-                    forward (the ``paddle_tpu_torch::flash_fwd`` op, o and
-                    lse) and recomputes the rest. JAX also tags the plain
-                    attention output; the port does not, so without
-                    ``use_flash`` this policy recomputes everything
+``save_only_flash`` selective checkpoint that saves the attention output
+                    and recomputes the rest: on the flash path the
+                    forward kernel's op (``paddle_tpu_torch::flash_fwd``,
+                    o and lse), on the plain path the output tagged by
+                    :func:`checkpoint_name` (``paddle_tpu_torch::attn_out``),
+                    as JAX's ``checkpoint_name`` tags it
 ``dots``            selective checkpoint that saves exactly the matrix
                     products without batch dimensions (JAX's
                     ``dots_with_no_batch_dims_saveable``) and recomputes
@@ -34,7 +35,8 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-__all__ = ["POLICY_NAMES", "RematPolicy", "resolve"]
+__all__ = ["POLICY_NAMES", "RematPolicy", "resolve", "checkpoint_name",
+           "ATTN_OUT_OP"]
 
 POLICY_NAMES: Tuple[str, ...] = ("none", "full", "dots", "save_only_flash")
 
@@ -52,6 +54,29 @@ _ALIASES = {
 _aten = torch.ops.aten
 
 
+@torch.library.custom_op("paddle_tpu_torch::attn_out", mutates_args=())
+def _attn_out(x: torch.Tensor) -> torch.Tensor:
+    return x.clone()
+
+
+@_attn_out.register_fake
+def _(x):
+    return torch.empty_like(x)
+
+
+_attn_out.register_autograd(lambda ctx, g: g)
+
+# the tag as the dispatcher sees it (save_only_flash matches on it)
+ATTN_OUT_OP = torch.ops.paddle_tpu_torch.attn_out.default
+
+
+def checkpoint_name(x: torch.Tensor) -> torch.Tensor:
+    """``x`` through an identity op that ``save_only_flash`` saves: the
+    port of JAX's ``checkpoint_name`` tag (a copy of ``x``, same
+    values)."""
+    return ATTN_OUT_OP(x)
+
+
 def _dots_policy(ctx, op, *args, **kwargs):
     if op in (_aten.mm.default, _aten.addmm.default) or (
             op is _aten.bmm.default and args[0].shape[0] == 1):
@@ -62,7 +87,7 @@ def _dots_policy(ctx, op, *args, **kwargs):
 def _flash_policy(ctx, op, *args, **kwargs):
     from ..ops.flash_attention import FLASH_FWD_OP
 
-    if op is FLASH_FWD_OP:
+    if op is FLASH_FWD_OP or op is ATTN_OUT_OP:
         return CheckpointPolicy.MUST_SAVE
     return CheckpointPolicy.PREFER_RECOMPUTE
 

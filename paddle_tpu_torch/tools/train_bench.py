@@ -9,6 +9,11 @@ its ResNet lane (``resnet_worker``, ``:254-323``).
         [--profile 3] [--compare]
     python -m paddle_tpu_torch.tools.train_bench --model resnet50
         [--no-fuse] [--profile 3] [--host-profile 5] [--compare]
+    python -m paddle_tpu_torch.parallel.launch --nproc_per_node 2 -m \
+        paddle_tpu_torch.tools.train_bench [--sharding fsdp] [--dp 2]
+        [--tp 2] [--pp 2] [--layout SPEC ...]      (the parallel lane)
+    python -m paddle_tpu_torch.parallel.launch --nproc_per_node 2 -m \
+        paddle_tpu_torch.tools.train_bench --model ernie --tp 2 [--dp N]
 
 The configuration is GPT_SMALL at full width and depth, batch 16 x 1024,
 bf16 compute with float32 master weights and bf16 Adam moments,
@@ -66,6 +71,7 @@ turns.
 import argparse
 import contextlib
 import functools
+import gc
 import json
 import os
 import sys
@@ -84,9 +90,11 @@ from ..models import resnet as R
 from ..observability import hw
 from ..ops import cuda_kernels as CK
 from ..ops.chunked_ce import CE_BWD_RANGE
+from ..parallel import checkpoint as ckpt_mod
 from ..parallel import comm_opt
 from ..parallel import mesh as mesh_mod
 from ..parallel import parallelize as PZ
+from ..sharding import resolve_plan
 from .profile_decode import trace_summary
 
 # the training kernels' names in a trace (ops/csrc), each its own group;
@@ -246,11 +254,12 @@ def run(cfg: G.GPTConfig, fused_opt_kernel=None,
     return rec
 
 
-def ernie_config() -> E.ErnieConfig:
+def ernie_config(fused_ln: bool = False) -> E.ErnieConfig:
     """bench.py's ERNIE lane: ERNIE_BASE, bf16 compute, flash on, remat
-    off."""
+    off; the post-LN residual adds through the fused-LN kernels when
+    asked."""
     return E.ERNIE_BASE.scaled(dtype=torch.bfloat16, use_flash=True,
-                               remat=False)
+                               remat=False, fused_ln=fused_ln)
 
 
 def ernie_batch(cfg: E.ErnieConfig, batch: int, T: int,
@@ -517,10 +526,12 @@ def _parity_steps(step, params, opt, shape, vocab):
     return losses, gnorms
 
 
-def parity_reference(path: str, device, tiny: bool = False) -> Dict:
-    """The world-1 run of 11p (one device, no mesh, the flat AdamW sweep;
-    TF32 off): writes the losses and grad norms of its PARITY_STEPS steps
-    and the params and moments (as leaves) after them to ``path``."""
+@functools.lru_cache(maxsize=2)
+def parity_reference(device: str, tiny: bool = False) -> Dict:
+    """The world-1 run of 11p in this process (one device, no mesh, the
+    flat AdamW sweep; TF32 off), once a process: the losses and grad
+    norms of its PARITY_STEPS steps and the params and moments (host
+    leaves) after them."""
     cfg = parity_config(tiny=tiny)
     params, opt = PZ.init_sharded(cfg, seed=PARITY_SEED, fused_opt=True,
                                   device=device)
@@ -536,13 +547,7 @@ def parity_reference(path: str, device, tiny: bool = False) -> Dict:
         flat = opt[k].float().cpu()
         ref[k] = [x.view(p.shape).clone() for x, p in zip(
             flat.split([p.numel() for p in leaves]), leaves)]
-    torch.save(ref, path)
-    return {"losses": losses, "gnorms": gnorms}
-
-
-@functools.lru_cache(maxsize=1)
-def _load_ref(path: str) -> Dict:
-    return torch.load(path, mmap=True, weights_only=False)
+    return ref
 
 
 def _rel(got: List[torch.Tensor], want: List[torch.Tensor]) -> float:
@@ -563,12 +568,13 @@ def _leaf_names(tree, prefix: str = "") -> List[str]:
     return out
 
 
-def _ref_moment(leaves, cfg, pcfg, mesh, rs, dev) -> List[torch.Tensor]:
+def _ref_moment(leaves, specs, cfg, pcfg, mesh, rs, dev
+                ) -> List[torch.Tensor]:
     """The world-1 moment ``leaves`` laid out as this rank's: its leaf
-    shards, or under reduce-scatter its slice of every bucket, in the
-    step's order."""
+    shards by ``specs``, or under reduce-scatter its slice of every
+    bucket, in the step's order."""
     local = [mesh_mod.local_shard(x, spec, mesh).to(dev)
-             for x, spec in zip(leaves, PZ.flat_specs(cfg, pcfg))]
+             for x, spec in zip(leaves, specs)]
     if not rs:
         return local
     layout, _ = PZ.rs_param_layout(cfg, pcfg)
@@ -583,7 +589,7 @@ def _ref_moment(leaves, cfg, pcfg, mesh, rs, dev) -> List[torch.Tensor]:
 
 def _parity_check(args, pcfg, mesh, dev) -> Dict[str, Any]:
     """PARITY_STEPS 11p steps of this layout (float32 wire) against the
-    world-1 run at ``args.parity_ref``: the losses' and grad norms'
+    world-1 run (:func:`parity_reference`): the losses' and grad norms'
     largest relative errors, the params' largest error, whether all are
     within the step tests' tolerance and the share that is, the relative
     2-norm error of this rank's update (p - p0), of each leaf's and of
@@ -591,21 +597,31 @@ def _parity_check(args, pcfg, mesh, dev) -> Dict[str, Any]:
     update's sign."""
     cfg = parity_config(tiny=args.tiny)
     rs = args.grad_reduce == "reduce_scatter"
-    params, opt = PZ.init_sharded(cfg, pcfg, mesh, seed=PARITY_SEED,
+    if args.sharding:
+        params, opt = PZ.init_sharded(cfg, pcfg, mesh, seed=PARITY_SEED,
+                                      sharding=args.sharding)
+        step = PZ.make_train_step(cfg, pcfg, mesh, lr=PARITY_LR,
+                                  sharding=args.sharding)
+        specs = PZ.flat_leaves(resolve_plan(args.sharding, cfg,
+                                            pcfg).param_specs)
+    else:
+        params, opt = PZ.init_sharded(cfg, pcfg, mesh, seed=PARITY_SEED,
+                                      fused_opt=rs,
+                                      grad_reduce=args.grad_reduce)
+        step = PZ.make_train_step(cfg, pcfg, mesh, lr=PARITY_LR,
                                   fused_opt=rs, grad_reduce=args.grad_reduce)
+        specs = PZ.flat_specs(cfg, pcfg)
     p0 = [p.clone() for p in PZ.flat_leaves(params)]
-    step = PZ.make_train_step(cfg, pcfg, mesh, lr=PARITY_LR, fused_opt=rs,
-                              grad_reduce=args.grad_reduce)
     M = pcfg.microbatches
     losses, gnorms = _parity_steps(step, params, opt,
                                    (M, PARITY_ROWS // M, PARITY_SEQ),
                                    cfg.vocab_size)
-    ref = _load_ref(args.parity_ref)
+    ref = parity_reference(str(dev), args.tiny)
     worst, ok, within, agree, n = 0.0, True, 0, 0, 0
     got_d, want_d, by_leaf = [], [], {}
     for name, p, q0, full, spec in zip(
             _leaf_names(G.param_shapes(cfg)), PZ.flat_leaves(params), p0,
-            ref["params"], PZ.flat_specs(cfg, pcfg)):
+            ref["params"], specs):
         want = mesh_mod.local_shard(full, spec, mesh).to(dev)
         worst = max(worst, (p - want).abs().max().item())
         close = torch.isclose(p, want, rtol=2e-3, atol=2e-4)
@@ -619,8 +635,8 @@ def _parity_check(args, pcfg, mesh, dev) -> Dict[str, Any]:
     moments = {}
     for k in ("m", "v"):
         got = [opt[k]] if rs else PZ.flat_leaves(opt[k])
-        moments[k] = _rel(got, _ref_moment(ref[k], cfg, pcfg, mesh, rs,
-                                           dev))
+        moments[k] = _rel(got, _ref_moment(ref[k], specs, cfg, pcfg, mesh,
+                                           rs, dev))
     rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref["losses"])]
     grel = [abs(a - b) / b for a, b in zip(gnorms, ref["gnorms"])]
     return {"losses": losses, "ref_losses": ref["losses"],
@@ -661,7 +677,8 @@ def _per_step(before, after, steps) -> Dict[str, float]:
 
 # a --layout SPEC's keys: the parallel lane's flags, as key=value
 LAYOUT_KEYS = {"dp": int, "pp": int, "tp": int, "microbatches": int,
-               "layers": int, "grad_reduce": str, "comm_dtype": str}
+               "layers": int, "grad_reduce": str, "comm_dtype": str,
+               "sharding": str, "ckpt_dir": str}
 
 
 def parse_layout(spec: str, args) -> argparse.Namespace:
@@ -684,13 +701,20 @@ def layout_dict(spec: str) -> Dict[str, Any]:
 
 def run_parallel(args, dev) -> Dict[str, Any]:
     """This rank's part of one layout of the parallel lane (its process
-    group joined, its device ``dev``): the 11p check when
-    ``--parity-ref`` is given, then ``--warmup`` + ``--steps`` train steps of
+    group joined, its device ``dev``): the 11p check when ``--parity`` is
+    given, then ``--warmup`` + ``--steps`` train steps of
     GPT_SMALL (bf16, flash, dots remat; ``--fused-ln``, ``--ce-vchunk``;
     ``--layers`` cuts the depth) on the global batch ``--batch`` x 1024 in
     ``--microbatches`` microbatches, with the launch counts and the wire
-    bytes counted over the timed steps only. ``stamps`` holds the host
-    clock (``time.time()``) after each part."""
+    bytes counted over the timed steps only; ``--sharding`` runs the
+    plan's step (``make_train_step(sharding=)``, per-leaf moments), and
+    with ``--ckpt-dir`` its state is then saved by ``ShardedCheckpointer``
+    (async, then ``wait``) with each local leaf's crc32. The record has
+    the rank's resident param and moment bytes. ``stamps`` holds the
+    host clock (``time.time()``) after each part."""
+    if args.ckpt_dir and not args.sharding:
+        raise ValueError("--ckpt-dir saves a sharding plan's state: it "
+                         "needs --sharding")
     stamps = {"begin": time.time()}
     pcfg = PZ.ParallelConfig(dp=args.dp, pp=args.pp, tp=args.tp,
                              microbatches=args.microbatches)
@@ -699,7 +723,7 @@ def run_parallel(args, dev) -> Dict[str, Any]:
     rec: Dict[str, Any] = {"rank": mesh.rank, "coords": mesh.coords,
                            "backend": mesh.backend, "device": str(dev),
                            "stamps": stamps}
-    if args.parity_ref:
+    if args.parity:
         rec["parity"] = _parity_check(args, pcfg, mesh, dev)
         stamps["parity"] = time.time()
     cfg = bench_config(args.remat, args.fused_ln, args.ce_vchunk)
@@ -712,9 +736,10 @@ def run_parallel(args, dev) -> Dict[str, Any]:
                          max_seq_len=T, dtype=torch.float32,
                          ce_vocab_chunk=128 if args.ce_vchunk else 0)
     rs = args.grad_reduce == "reduce_scatter"
-    fused = rs or pcfg.n_devices == 1
+    fused = (rs or pcfg.n_devices == 1) and not args.sharding
     comm = dict(grad_reduce=args.grad_reduce,
-                grad_allreduce_dtype=args.comm_dtype)
+                grad_allreduce_dtype=args.comm_dtype,
+                sharding=args.sharding or None)
     params, opt = PZ.init_sharded(cfg, pcfg, mesh, seed=0,
                                   moment_dtype=torch.bfloat16,
                                   fused_opt=fused, device=dev, **comm)
@@ -722,13 +747,42 @@ def run_parallel(args, dev) -> Dict[str, Any]:
                               fused_opt=fused, grad_clip=1.0, device=dev,
                               **comm)
     M = pcfg.microbatches
+    batch = args.batch or BATCH
     rng = np.random.default_rng(0)
     toks, labs = (torch.from_numpy(rng.integers(
-        0, cfg.vocab_size, (M, args.batch // M, T))) for _ in range(2))
+        0, cfg.vocab_size, (M, batch // M, T))) for _ in range(2))
+    losses, timed = _rank_steps(lambda: step(params, opt, toks, labs)[2],
+                                args, dev, stamps)
+    tokens = batch * T * args.steps
+    rec.update(timed)
+    rec.update({
+        "config": (f"gpt_small_L{cfg.num_layers}_b{batch}x{T}_dp"
+                   f"{pcfg.dp}pp{pcfg.pp}tp{pcfg.tp}m{M}_{args.grad_reduce}"
+                   + (f"_{args.comm_dtype}" if args.comm_dtype else "")
+                   + (f"_sharding-{args.sharding}" if args.sharding else "")),
+        "world": pcfg.n_devices,
+        "tokens_per_s": tokens / timed["wall_s"],
+        "tokens_per_s_per_rank": tokens / timed["wall_s"] / pcfg.n_devices,
+        "losses": losses,
+        "param_bytes": PZ.resident_bytes(params),
+        "moment_bytes": PZ.resident_bytes(opt["m"])
+        + PZ.resident_bytes(opt["v"]),
+    })
+    if args.sharding:
+        rec["report_name"] = step.report_name
+    if args.ckpt_dir:
+        rec["ckpt"] = _save_sharded(args, cfg, pcfg, mesh, params, opt)
+    return rec
+
+
+def _rank_steps(step_once, args, dev, stamps):
+    """``--warmup`` then ``--steps`` calls of ``step_once`` (a step; it
+    returns the loss), the launch counts, wire bytes and staged seconds
+    counted over the timed ones. Returns (losses, the timing record)."""
     losses = []
     t0 = time.perf_counter()
     for _ in range(args.warmup):
-        losses.append(float(step(params, opt, toks, labs)[2]))
+        losses.append(float(step_once()))
     _sync(dev)
     warm_s = time.perf_counter() - t0
     stamps["warmup"] = time.time()
@@ -739,32 +793,159 @@ def run_parallel(args, dev) -> Dict[str, Any]:
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    outs = [step(params, opt, toks, labs) for _ in range(args.steps)]
+    outs = [step_once() for _ in range(args.steps)]
     _sync(dev)
     wall = time.perf_counter() - t0
     stamps["timed"] = time.time()
     wire, staged = (_per_step(b, _counter_snapshot(c), args.steps)
                     for b, c in zip(before, counters))
-    losses += [float(o[2]) for o in outs]
-    tokens = args.batch * T * args.steps
-    rec.update({
-        "config": (f"gpt_small_L{cfg.num_layers}_b{args.batch}x{T}_dp"
-                   f"{pcfg.dp}pp{pcfg.pp}tp{pcfg.tp}m{M}_{args.grad_reduce}"
-                   + (f"_{args.comm_dtype}" if args.comm_dtype else "")),
-        "world": pcfg.n_devices, "steps": args.steps,
-        "warmup": args.warmup, "warmup_s": warm_s,
-        "ms_per_step": wall / args.steps * 1e3,
-        "tokens_per_s": tokens / wall,
-        "tokens_per_s_per_rank": tokens / wall / pcfg.n_devices,
+    return losses + [float(o) for o in outs], {
+        "steps": args.steps, "warmup": args.warmup, "warmup_s": warm_s,
+        "wall_s": wall, "ms_per_step": wall / args.steps * 1e3,
         "wire_bytes_per_step": wire,
         # host seconds in gloo-staged collectives (copies + exchange, and
         # a receive's wait for its peer), by op
         "staged_ms_per_step": {k: v * 1e3 for k, v in staged.items()},
         "launches_per_step": {k: v / args.steps
                               for k, v in CK.LAUNCHES.items() if v},
-        "losses": losses,
         "peak_mem_bytes": (torch.cuda.max_memory_allocated(dev)
-                           if dev.type == "cuda" else 0),
+                           if dev.type == "cuda" else 0)}
+
+
+def _save_sharded(args, cfg, pcfg, mesh, params, opt) -> Dict[str, Any]:
+    """Save this rank's plan-sharded state with ``ShardedCheckpointer``
+    (async, then ``wait``): the host ms of each, the step saved, and the
+    crc32 of each local leaf by its keystr (bf16 moments as their
+    bytes)."""
+    import zlib
+
+    specs = resolve_plan(args.sharding, cfg, pcfg).param_specs
+    state = {"params": params, "opt": opt}
+    ck = ckpt_mod.ShardedCheckpointer(args.ckpt_dir, use_async=True,
+                                      mesh=mesh)
+    step_no = int(opt["step"])
+    t0 = time.perf_counter()
+    ck.save(step_no, state, specs={"params": specs,
+                                   "opt": {"m": specs, "v": specs}})
+    t1 = time.perf_counter()
+    ck.wait()
+    t2 = time.perf_counter()
+    crc = {k: zlib.crc32(t.detach().reshape(-1).view(torch.uint8)
+                         .cpu().numpy().tobytes())
+           for k, t in ckpt_mod.flatten_with_keys(state)}
+    return {"step": step_no, "save_ms": (t1 - t0) * 1e3,
+            "wait_ms": (t2 - t1) * 1e3, "crc32": crc,
+            "dtypes": {k: str(t.dtype).replace("torch.", "")
+                       for k, t in ckpt_mod.flatten_with_keys(state)}}
+
+
+ERNIE_PARITY_ROWS = 4     # 13p's ERNIE batch, [4, 512], padded lengths
+
+
+def ernie_parity_ok(par: Dict[str, Any]) -> bool:
+    """13p's ERNIE gates: the loss at every step within 2e-4, this rank's
+    update and momentum within PARITY_REL_TOL in the 2-norm, each leaf's
+    update within PARITY_LEAF_TOL, the params within 2e-4 + 2e-3·|p| on
+    all but PARITY_OUTSIDE of the elements (11p's bars)."""
+    return (par["loss_rel_err"] <= 2e-4
+            and max(par["update_rel_err"], par["m_rel_err"])
+            <= PARITY_REL_TOL
+            and max(par["leaf_update_rel_err"].values()) <= PARITY_LEAF_TOL
+            and par["params_within_tol_share"] >= 1 - PARITY_OUTSIDE)
+
+
+def _ernie_parity(args, mesh, dev) -> Dict[str, Any]:
+    """13p for ERNIE: PARITY_STEPS float32 momentum steps (TF32 off) of a
+    2-layer ERNIE_BASE (``--fused-ln`` as the lane) on this rank's mesh
+    against the one-device step run in this process, from the same
+    params and batch: losses, this rank's update and momentum against
+    the same blocks of the one-device run's."""
+    cfg = E.ERNIE_BASE.scaled(num_layers=2, dtype=torch.float32,
+                              use_flash=True, remat=False,
+                              fused_ln=args.fused_ln)
+    T = ERNIE_SEQ
+    if args.tiny:
+        T = 64
+        cfg = E.ERNIE_TINY.scaled(use_flash=True, fused_ln=args.fused_ln)
+    data = ernie_batch(cfg, ERNIE_PARITY_ROWS, T, pad=True)
+    full = E.init_params(cfg, seed=PARITY_SEED, device=dev)
+    specs = PZ.flat_leaves(E.param_specs(cfg))
+    ref = PZ._unflatten(full, [p.clone() for p in PZ.flat_leaves(full)])
+    ref_opt = E.init_opt(ref)
+    params = PZ.shard_params(full, E.param_specs(cfg), mesh)
+    p0 = [p.clone() for p in PZ.flat_leaves(params)]
+    opt = E.init_opt(params)
+    one = E.make_pretrain_step(cfg, lr=PARITY_LR, device=dev)
+    step = E.make_pretrain_step(cfg, mesh=mesh, lr=PARITY_LR)
+    losses, ref_losses = [], []
+    with _no_tf32():
+        for _ in range(PARITY_STEPS):
+            ref_losses.append(float(one(ref, ref_opt, data)[2]))
+            losses.append(float(step(params, opt, data)[2]))
+    got_d, want_d, by_leaf = [], [], {}
+    within, n = 0, 0
+    for name, p, q0, r, spec in zip(_leaf_names(full),
+                                    PZ.flat_leaves(params), p0,
+                                    PZ.flat_leaves(ref), specs):
+        want = mesh_mod.local_shard(r, spec, mesh)
+        within += int(torch.isclose(p, want, rtol=2e-3, atol=2e-4).sum())
+        n += p.numel()
+        got_d.append(p - q0)
+        want_d.append(want - q0)
+        by_leaf[name] = _rel(got_d[-1:], want_d[-1:])
+    m_want = [mesh_mod.local_shard(m, spec, mesh) for m, spec in zip(
+        PZ.flat_leaves(ref_opt["m"]), specs)]
+    return {"losses": losses, "ref_losses": ref_losses,
+            "loss_rel_err": max(abs(a - b) / abs(b)
+                                for a, b in zip(losses, ref_losses)),
+            "update_rel_err": _rel(got_d, want_d),
+            "leaf_update_rel_err": by_leaf,
+            "m_rel_err": _rel(PZ.flat_leaves(opt["m"]), m_want),
+            "params_within_tol_share": within / n}
+
+
+def run_ernie_parallel(args, dev) -> Dict[str, Any]:
+    """This rank's part of the ERNIE lane on a (``--dp``, ``--tp``) mesh:
+    13p first when ``--parity`` is given, then ``--warmup`` + ``--steps``
+    momentum steps of ERNIE_BASE (bf16, flash with the padding bias,
+    remat off; ``--fused-ln``, ``--pad``; ``--layers`` cuts the depth) at
+    lr 1e-4 on the global batch ``--batch`` (48 by default) x 512,
+    counted as :func:`run_parallel` counts its steps."""
+    stamps = {"begin": time.time()}
+    mesh = mesh_mod.build_mesh([("dp", args.dp), ("tp", args.tp)],
+                               device=dev)
+    stamps["mesh"] = time.time()
+    rec: Dict[str, Any] = {"rank": mesh.rank, "coords": mesh.coords,
+                           "backend": mesh.backend, "device": str(dev),
+                           "stamps": stamps}
+    if args.parity:
+        rec["parity"] = _ernie_parity(args, mesh, dev)
+        stamps["parity"] = time.time()
+    cfg = ernie_config(fused_ln=args.fused_ln)
+    batch, T = args.batch or ERNIE_BATCH, ERNIE_SEQ
+    if args.layers:
+        cfg = cfg.scaled(num_layers=args.layers)
+    if args.tiny:
+        T = 64
+        cfg = E.ERNIE_TINY.scaled(use_flash=True, fused_ln=args.fused_ln)
+    params = PZ.shard_params(E.init_params(cfg, seed=0, device=dev),
+                             E.param_specs(cfg), mesh)
+    opt = E.init_opt(params)
+    step = E.make_pretrain_step(cfg, mesh=mesh, lr=1e-4)
+    data = E.batch_to_device(ernie_batch(cfg, batch, T, args.pad), dev)
+    losses, timed = _rank_steps(lambda: step(params, opt, data)[2], args,
+                                dev, stamps)
+    rec.update(timed)
+    samples = batch * args.steps / timed["wall_s"]
+    rec.update({
+        "config": (f"ernie_L{cfg.num_layers}_b{batch}x{T}_dp{args.dp}"
+                   f"tp{args.tp}" + ("_pad" if args.pad else "")
+                   + ("_fln" if cfg.fused_ln else "")),
+        "world": args.dp * args.tp,
+        "samples_per_s": samples, "tokens_per_s": samples * T,
+        "losses": losses,
+        "param_bytes": PZ.resident_bytes(params),
+        "moment_bytes": PZ.resident_bytes(opt["m"]),
     })
     return rec
 
@@ -779,7 +960,10 @@ def main_parallel(args) -> int:
     dev = env.init_distributed_env(device=args.device)
     t_init = time.time()
     for i, spec in enumerate(args.layout or [""]):
-        rec = run_parallel(parse_layout(spec, args), dev)
+        gc.collect()        # the last layout's tensors gone before the next
+        lay = parse_layout(spec, args)
+        rec = (run_ernie_parallel(lay, dev) if args.model == "ernie"
+               else run_parallel(lay, dev))
         rec["stamps"].update(start=t0, init=t_init)
         line = json.dumps(rec)
         print(f"[train-parallel layout {i} rank {rec['rank']}] {line}",
@@ -823,23 +1007,31 @@ def _parser() -> argparse.ArgumentParser:
                      choices=("psum", "reduce_scatter"))
     par.add_argument("--comm-dtype", default=None,
                      choices=("f32", "bf16", "int8"))
+    par.add_argument("--sharding", default=None,
+                     choices=("dp", "fsdp", "tp", "dp+tp"),
+                     help="the sharding plan's step (pp 1)")
+    par.add_argument("--ckpt-dir", default=None,
+                     help="--sharding: save the state after the timed "
+                          "steps with ShardedCheckpointer here")
+    par.add_argument("--parity", action="store_true",
+                     help="first the parity check (11p, 13p): 3 float32 "
+                          "steps of a 2-layer model on the mesh against "
+                          "the one-device step run in this process")
     par.add_argument("--layers", type=int, default=0,
                      help="cut GPT_SMALL's depth to this many layers")
-    par.add_argument("--batch", type=int, default=BATCH,
-                     help="global batch (rows of 1024 tokens)")
+    par.add_argument("--batch", type=int, default=0,
+                     help="global batch (rows of 1024 tokens; ERNIE: of "
+                          "512); default 16, ERNIE 48")
     par.add_argument("--steps", type=int, default=STEPS)
     par.add_argument("--warmup", type=int, default=WARMUP)
     par.add_argument("--device", default=None,
                      help="this rank's device (default cuda:LOCAL_RANK); "
                           "name one card to put every rank on it")
-    par.add_argument("--parity-ref", default=None, metavar="PATH",
-                     help="run the 11p check against this world-1 step "
-                          "(parity_reference) first")
     par.add_argument("--layout", action="append", metavar="SPEC",
                      help="run this layout (key=value,...: dp, pp, tp, "
-                          "microbatches, layers, grad_reduce, comm_dtype "
-                          "over the flags above); repeat to run several "
-                          "over one gang, in turn")
+                          "microbatches, layers, grad_reduce, comm_dtype, "
+                          "sharding, ckpt_dir over the flags above); repeat "
+                          "to run several over one gang, in turn")
     par.add_argument("--out-dir", default=None,
                      help="write each rank's record to "
                           "layout<i>.rank<r>.json here")
@@ -868,7 +1060,7 @@ def main(argv=None) -> int:
             print(json.dumps(rec), flush=True)
         return 0
     if args.model == "ernie":
-        cfg = ernie_config()
+        cfg = ernie_config(args.fused_ln)
         arms = {"kernel": cfg, "plain": cfg.scaled(use_flash=False)}
     else:
         cfg = bench_config(args.remat, args.fused_ln, args.ce_vchunk)

@@ -417,12 +417,6 @@ def test_launch_refuses_what_waits_for_observability(tmp_path):
     for kw in ({"goodput_dir": str(tmp_path)}, {"flight_dir": str(tmp_path)}):
         with pytest.raises(NotImplementedError, match="A4"):
             L.launch("x.py", **kw)
-    for name in ("abstract_like", "abstract_for_mesh"):
-        with pytest.raises(NotImplementedError, match="sharding/"):
-            getattr(C, name)(*([None] * (3 if name.endswith("mesh")
-                                         else 1)))
-    with pytest.raises(NotImplementedError, match="sharding/"):
-        C.ShardedCheckpointer(str(tmp_path))
     with pytest.raises(NotImplementedError, match="A5"):
         C.build_restore_broadcast_program([])
 

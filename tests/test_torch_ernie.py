@@ -166,13 +166,14 @@ def test_padding_does_not_reach_real_positions():
 
 
 def test_batch_to_device_and_refusals():
-    """Index arrays become int64, masks stay bool; a mesh raises (the
-    port pretrains on one device), and so does an unknown remat policy."""
+    """Index arrays become int64, masks stay bool; a mesh that is not the
+    port's ``parallel.mesh.Mesh`` raises, and so does an unknown remat
+    policy."""
     b = TE.batch_to_device(_batch(TE.ERNIE_TINY), "cpu")
     assert b["tokens"].dtype == torch.int64
     assert b["pad_mask"].dtype == torch.bool
     assert b["mlm_valid"].dtype == torch.bool
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         TE.make_pretrain_step(TE.ERNIE_TINY, mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="remat"):
         TE.ERNIE_TINY.scaled(remat_policy="bogus")

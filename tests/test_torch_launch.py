@@ -137,8 +137,6 @@ def test_train_bench_parallel_lane_rehearsal(tmp_path):
 
     from paddle_tpu_torch.tools import train_bench as TB
 
-    ref = str(tmp_path / "ref.pt")
-    TB.parity_reference(ref, "cpu", tiny=True)
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
@@ -150,7 +148,7 @@ def test_train_bench_parallel_lane_rehearsal(tmp_path):
            "paddle_tpu_torch.tools.train_bench", "--device", "cpu",
            "--tiny", "--fused-ln", "--ce-vchunk", "1024", "--batch", "2",
            "--steps", "1", "--warmup", "1", "--out-dir", str(tmp_path),
-           "--parity-ref", ref]
+           "--parity"]
     for spec in layouts:
         cmd += ["--layout", spec]
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -232,8 +232,11 @@ def test_refusals():
     with pytest.raises(NotImplementedError, match="error_feedback"):
         PZ.make_train_step(cfg, two, grad_allreduce_dtype="int8",
                            error_feedback=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="sharding"):
+    with pytest.raises(ValueError, match="sharding= needs mesh"):
         PZ.make_train_step(cfg, sharding="dp", device="cpu")
+    with pytest.raises(NotImplementedError, match="pp=1"):
+        PZ.make_train_step(cfg, PZ.ParallelConfig(pp=2), sharding="dp",
+                           device="cpu")
     with pytest.raises(NotImplementedError, match="tuned"):
         PZ.init_sharded(cfg, tuned={}, device="cpu")
     with pytest.raises(ValueError, match="mesh"):

@@ -97,6 +97,60 @@ def test_remat_policy_grads_equal_none(policy, use_flash, monkeypatch):
         assert len(calls) == (L if policy == "save_only_flash" else 2 * L)
 
 
+def test_save_only_flash_saves_plain_attention_output(monkeypatch, capsys):
+    """Without ``use_flash``, ``save_only_flash`` keeps the attention
+    output [B, T, nh, hd] as JAX's block does (its ``checkpoint_name``
+    tag, ``gpt.py:196``), and the tag changes no value. JAX's residuals
+    come from ``print_saved_residuals``; the port's are what the block's
+    checkpoint keeps: its input (the one tensor that
+    ``saved_tensors_hooks`` sees outside the checkpoint frame) and the
+    outputs the selective policy marks MUST_SAVE in the forward (an
+    identity op's output has its input's shape)."""
+    from jax.ad_checkpoint import print_saved_residuals
+    from paddle_tpu.parallel import remat as JR
+
+    cfg_j, cfg_t = _cfgs(num_layers=1)
+    nh, hd, D = cfg_t.num_heads, cfg_t.head_dim, cfg_t.d_model
+    jp, tp = _params(cfg_j, seed=3)
+    x_np = np.random.default_rng(3).standard_normal((B, T, D)).astype(
+        np.float32)
+    layer_j = jax.tree_util.tree_map(lambda v: v[0], jp["blocks"])
+    jblock = jax.checkpoint(lambda p, x: JG.block_fn(p, x, cfg_j),
+                            policy=JR.resolve("save_only_flash").jax_policy())
+    print_saved_residuals(jblock, layer_j, jnp.asarray(x_np))
+    jax_saved = [ln.split()[0] for ln in capsys.readouterr().out.splitlines()
+                 if ln.strip() and "from the argument" not in ln]
+    assert jax_saved == [f"f32[{B},{T},{nh},{hd}]"]
+
+    kept = []
+    policy = TR._SELECTIVE["save_only_flash"]
+
+    def spy(ctx, op, *args, **kw):
+        out = policy(ctx, op, *args, **kw)
+        if out == CheckpointPolicy.MUST_SAVE and not ctx.is_recompute:
+            kept.append((op, tuple(args[0].shape)))
+        return out
+
+    monkeypatch.setitem(TR._SELECTIVE, "save_only_flash", spy)
+    layer = {k: v[0] for k, v in tp["blocks"].items()}
+    x = torch.from_numpy(x_np).requires_grad_()
+    hooked = []
+    with torch.autograd.graph.saved_tensors_hooks(
+            lambda t: hooked.append(tuple(t.shape)) or t, lambda t: t):
+        y = TR.resolve("save_only_flash").wrap(TG.block_fn)(layer, x, cfg_t)
+    assert hooked == [(B, T, D)]
+    assert kept == [(TR.ATTN_OUT_OP, (B, T, nh, hd))]
+    (gx,) = torch.autograd.grad(y.sum(), x)
+
+    x0 = torch.from_numpy(x_np).requires_grad_()
+    y0 = TG.block_fn(layer, x0, cfg_t)
+    (gx0,) = torch.autograd.grad(y0.sum(), x0)
+    assert torch.equal(y, y0) and torch.equal(gx, gx0)
+    np.testing.assert_allclose(y.detach().numpy(),
+                               np.asarray(jblock(layer_j, jnp.asarray(x_np))),
+                               rtol=1e-5, atol=1e-5)
+
+
 def test_gpt_tiny_full_depth_flash_matches_jax():
     """GPT_TINY as published (4 layers, head_dim 16) with flash, f32: the
     config that trains on the card now that the kernels take head_dim 16;
@@ -309,10 +363,11 @@ def test_skip_nonfinite_keeps_state():
 def test_refusals_and_defaults():
     with pytest.raises(ValueError):
         TG.GPT_TINY.scaled(remat_policy="sometimes")
-    # multi-rank layouts are ported (tests/test_torch_parallel*.py); the
-    # GSPMD plans are not yet, and a multi-rank layout needs a mesh
+    # multi-rank layouts and the sharding plans are ported
+    # (tests/test_torch_parallel*.py, test_torch_sharding.py); a plan and
+    # a multi-rank layout need a mesh
     assert TPZ.ParallelConfig(dp=2).n_devices == 2
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="sharding= needs mesh"):
         TPZ.make_train_step(TG.GPT_TINY, sharding="dp", device="cpu")
     with pytest.raises(ValueError):
         TPZ.make_train_step(TG.GPT_TINY, TPZ.ParallelConfig(dp=2),

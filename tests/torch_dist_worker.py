@@ -350,3 +350,151 @@ def elastic_reshard_worker(rank, cfg_kw, dp, ckpt_dir, tokens, labels,
             .view(torch.int16).numpy() for k in ("m", "v")}
     return {"back": back, "step": int(opt["step"]),
             "params": _numpy(PZ.flat_leaves(params))}
+
+
+def sharded_worker(rank, cfg_kw, pcfg_kw, params_np, tokens, labels, modes,
+                   steps=3, lr=1e-2):
+    """For each sharding plan of ``modes`` in turn: ``init_sharded`` and
+    ``make_train_step`` with ``sharding=`` that plan, the params replaced
+    by this rank's shards of ``params_np``, ``steps`` steps. Returns, a
+    plan each, the losses, grad norms, this rank's param and moment
+    shards, their bytes, the step's report name and the wire bytes
+    counted."""
+    from paddle_tpu_torch.observability import metrics as M
+    from paddle_tpu_torch.parallel import parallelize as PZ
+    from paddle_tpu_torch.sharding import resolve_plan
+
+    cfg, pcfg, mesh = _setup(cfg_kw, pcfg_kw)
+
+    def wire():
+        fam = M.default_registry().snapshot().get(
+            "paddle_collective_bytes_total", {"series": []})
+        return {"/".join(s["labels"]): s["value"] for s in fam["series"]}
+
+    out = {"coords": mesh.coords}
+    for mode in modes:
+        plan = resolve_plan(mode, cfg, pcfg)
+        params, opt = PZ.init_sharded(cfg, pcfg, mesh, sharding=plan)
+        for dst, src in zip(PZ.flat_leaves(params), PZ.flat_leaves(
+                PZ.shard_params(params_np, plan.param_specs, mesh))):
+            dst.copy_(src)
+        step = PZ.make_train_step(cfg, pcfg, mesh, lr=lr, sharding=plan)
+        before = wire()
+        losses, gnorms = [], []
+        for _ in range(steps):
+            params, opt, loss, gnorm = step(params, opt, tokens, labels)
+            losses.append(float(loss))
+            gnorms.append(float(gnorm))
+        after = wire()
+        out[str(mode)] = {
+            "losses": losses, "gnorms": gnorms,
+            "params": _numpy(PZ.flat_leaves(params)),
+            "m": _numpy(PZ.flat_leaves(opt["m"])),
+            "v": _numpy(PZ.flat_leaves(opt["v"])),
+            "param_bytes": PZ.resident_bytes(params),
+            "moment_bytes": PZ.resident_bytes(opt["m"])
+            + PZ.resident_bytes(opt["v"]),
+            "report_name": step.report_name,
+            "wire": {k: after[k] - before.get(k, 0) for k in after
+                     if after[k] != before.get(k, 0)}}
+    return out
+
+
+def ckpt_state(params, specs_like, scale=0.1):
+    """A train state made from full numpy params: the params, bf16 ``m``
+    (``scale`` x p) and float32 ``v`` (p²), an int32 step; each moment
+    equal on every rank that holds the same shard."""
+    def moment(tree, fn, dt):
+        return {k: moment(v, fn, dt) if isinstance(v, dict)
+                else fn(v).to(dt) for k, v in tree.items()}
+
+    return {"params": params,
+            "opt": {"m": moment(params, lambda p: p * scale, torch.bfloat16),
+                    "v": moment(params, lambda p: p * p, torch.float32),
+                    "step": torch.tensor(3, dtype=torch.int32)}}
+
+
+def _host_leaves(tree):
+    """[(keystr, numpy)] with bf16 leaves as their raw int16 words."""
+    from paddle_tpu_torch.parallel.checkpoint import flatten_with_keys
+
+    return [(k, (t.view(torch.int16) if t.dtype == torch.bfloat16 else t)
+             .cpu().numpy().copy()) for k, t in flatten_with_keys(tree)]
+
+
+def sharded_ckpt_worker(rank, cfg_kw, params_np, ckpt_dir):
+    """On a (dp 2, tp 2) mesh: save a Megatron-split state (async, then
+    ``wait``) and an fsdp-plan state; restore the first at the same
+    layout (bitwise per rank), at (dp 4, tp 1) and at (dp 1, tp 4) (each
+    rank's local leaves returned with its coordinates); a save by a
+    checkpointer without a mesh is refused."""
+    import os
+
+    from paddle_tpu_torch.models import gpt as G
+    from paddle_tpu_torch.parallel import checkpoint as C
+    from paddle_tpu_torch.parallel import mesh as mesh_mod
+    from paddle_tpu_torch.parallel import parallelize as PZ
+    from paddle_tpu_torch.sharding import make_gpt_plan
+
+    cfg = G.GPT_TINY.scaled(**cfg_kw)
+    mesh = mesh_mod.build_mesh([("dp", 2), ("pp", 1), ("tp", 2)],
+                               device=DEVICE)
+    specs = G.param_specs(cfg, pp="pp", tp="tp")
+    sspecs = {"params": specs, "opt": {"m": specs, "v": specs}}
+    state = ckpt_state(PZ.shard_params(params_np, specs, mesh), specs)
+    ck = C.ShardedCheckpointer(os.path.join(ckpt_dir, "megatron"),
+                               use_async=True, mesh=mesh)
+    ck.save(3, state, specs=sspecs)
+    ck.wait()
+    abstract = C.abstract_like(state, sspecs, mesh)
+    same = ck.restore(3, abstract)
+    out = {"same": all(torch.equal(a, b) for (_, a), (_, b) in zip(
+        C.flatten_with_keys(state), C.flatten_with_keys(same))),
+        "latest": ck.latest_step()}
+    for name, axes in (("dp4", [("dp", 4), ("pp", 1), ("tp", 1)]),
+                       ("tp4", [("dp", 1), ("pp", 1), ("tp", 4)])):
+        m2 = mesh_mod.build_mesh(axes, device=DEVICE)
+        got = ck.restore(3, C.abstract_for_mesh(abstract, sspecs, m2))
+        out[name] = {"coords": m2.coords, "leaves": _host_leaves(got)}
+    plan = make_gpt_plan(cfg, PZ.ParallelConfig(dp=2, tp=2), "fsdp")
+    fspecs = {"params": plan.param_specs,
+              "opt": {"m": plan.param_specs, "v": plan.param_specs}}
+    fstate = ckpt_state(PZ.shard_params(params_np, plan.param_specs, mesh),
+                        plan.param_specs)
+    fck = C.ShardedCheckpointer(os.path.join(ckpt_dir, "fsdp"),
+                                use_async=False, mesh=mesh)
+    fck.save(1, fstate, specs=fspecs)
+    out["fsdp_local_bytes"] = PZ.resident_bytes(fstate["params"])
+    # without a mesh every rank would write the same files: refused on
+    # every rank alike, before any file or collective
+    lone = C.ShardedCheckpointer(os.path.join(ckpt_dir, "no_mesh"),
+                                 use_async=False)
+    try:
+        lone.save(1, fstate)
+        out["no_mesh"] = None
+    except C.CheckpointError as e:
+        out["no_mesh"] = str(e)
+    out["no_mesh_steps"] = lone.all_steps()
+    return out
+
+
+def ernie_mesh_worker(rank, axes, params_np, batch, arms, steps, lr):
+    """For each arm (ERNIE_TINY config overrides) in turn: ``steps``
+    momentum steps of ``make_pretrain_step(mesh=)`` on a mesh of ``axes``
+    from this rank's shards of ``params_np``, on the GLOBAL ``batch``.
+    Returns, an arm each, the losses and this rank's param shards."""
+    from paddle_tpu_torch.models import ernie as E
+    from paddle_tpu_torch.parallel import mesh as mesh_mod
+    from paddle_tpu_torch.parallel import parallelize as PZ
+
+    mesh = mesh_mod.build_mesh(axes, device=DEVICE)
+    out = {"coords": mesh.coords}
+    for name, kw in arms.items():
+        cfg = E.ERNIE_TINY.scaled(**kw)
+        params = PZ.shard_params(params_np, E.param_specs(cfg), mesh)
+        opt = E.init_opt(params)
+        step = E.make_pretrain_step(cfg, mesh=mesh, lr=lr)
+        losses = [float(step(params, opt, batch)[2]) for _ in range(steps)]
+        out[name] = {"losses": losses,
+                     "params": _numpy(PZ.flat_leaves(params))}
+    return out
