@@ -47,14 +47,35 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              1024, buckets 64..512) serves 16 seeded greedy requests
              through Scheduler + EngineLoop; every request must finish
              "done" and every kernel's launch count must be what the
-             decode ticks imply (counts are zeroed just before);
+             decode ticks imply (counts are zeroed just before); span
+             tracing is on (its default) here and in every later phase;
+4m. front-door — a ``FrontDoor`` over phase 4's engine on an ephemeral
+             port: 4 ``/generate`` requests carrying a trace context in
+             their bodies and one migrated through ``/prefill`` (pushed
+             over the KV socket to the front door's own
+             ``KVTransferServer``) and ``/resume``; every request done,
+             its root span under the caller's span, the migration's
+             ``serve/kv_send`` and ``serve/kv_adopt`` in its trace,
+             launches exactly the ticks'; ``GET /metrics`` parses and its
+             ``paddle_serve_*`` counters equal the registry's; ``GET
+             /health`` carries ``span_rollups_ms``; a ``FleetPoller``
+             over the one replica writes a ``FLEET.json`` whose rollup
+             counts the requests the registry counted; an ``SLOEngine``
+             fed phase 4's TTFTs and TPOTs prints ``slo_status()`` (not a
+             gate). Then the decode tick's host ms with tracing on and
+             off, in turns, 8 requests resident (printed, not gated);
 4b. serve-paged — the same engine with kv_layout="paged" (page 16,
              default pool, prefix cache on) serves 16 greedy requests in a
              seeded order, 8 of them behind one 256-token system prompt:
              launch counts as in 4 with decode_paged in place of
              decode_slab, exactly 7 prefix-cache hits, 7 x 256 prompt
              tokens not prefilled, and every page back in the pool after
-             the cache is cleared;
+             the cache is cleared; its spans go to a process sink, and
+             ``tools/trace_assemble`` finds each request one tree with no
+             orphan: one ``serve/request`` root, one ``queue_wait`` and
+             one ``prefill`` under it, a ``decode_tick`` for each token
+             after the first (the tick spans, grouped by start, are the
+             engine's ticks, each group its batch), one ``evict``;
 4s. serve-spec — speculative decoding at full width: target GPT_SMALL
              bf16 with verify_window 4, draft GPT_SMALL at 3 layers from
              seed 1 (k 3), phase 4's 16 prompts x 64 greedy tokens through
@@ -84,7 +105,11 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              decode engine; TTFT, TPOT, tokens/s, handoff ms, export and
              adopt ms (CRC and copy shares), the prefix counts and the
              token agreement with 4b printed beside 4b's numbers (both
-             replicas share the one card);
+             replicas share the one card); each routed request is one
+             trace across both replicas: ``serve/route`` its root, the
+             prefill and the decode replica's ``serve/request`` on two
+             loop threads, ``serve/kv_adopt``, no orphan (the in-process
+             handoff has no socket hop: 4m times ``serve/kv_send``);
 5. parity  — a 2-layer GPT_SMALL in float32 (TF32 off): prefill logits
              within 1e-4 of the full forward, and the slab and paged
              kernel engines and the plain-PyTorch engines must emit
@@ -144,6 +169,14 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              before the timed steps); every loss finite, the last below
              the first, launches per step flash_fwd 2L, flash_bwd_dq L,
              flash_bwd_dkv L, opt_adamw_flat 1;
+7m. train-monitor — phase 7 again with ``train_bench --monitor``: one
+             ``TrainMonitor`` row a timed step (each step syncs on its
+             loss), every ``STEP_RECORD_KEYS`` key finite, the rows' MFU
+             train_bench's own within 10%, the timed window's goodput
+             over half ``productive_step``, launches as phase 7's; then
+             the step's ms with the observability (tracing, the flight
+             recorder, the registry, the monitor rows) on and off, in
+             turns (printed, not gated);
 7b. training-fln-vchunk — the same with the fused-layernorm block and the
              vocab-chunked CE (``train_bench --fused-ln --ce-vchunk
              1024``): launches per step as in 7 plus fused_ln 4L + 1,
@@ -251,21 +284,30 @@ Phases, each of which raises (and the script exits non-zero) on failure:
 12. elastic — fault-tolerant GPT training (``python -m
              paddle_tpu_torch.tools.fault_bench --device cuda``, every job
              supervised by ``parallel.launch``): GPT_SMALL at full width
-             and depth with phase 7b's levers (bf16, flash, fused LN,
+             and 6 of its 12 layers (depth the one cut, to keep the
+             script's time) with phase 7b's levers (bf16, flash, fused LN,
              vocab chunk 1024, dots remat, the flat AdamW sweep, bf16
              moments), batch 16 x 1024, lr 1e-4, 6 steps saving every 3,
              one rank an NCCL world of one. Scenarios: baseline; aa (a
              second uninterrupted run, bitwise equal: the step's
              determinism); sigkill_midstep (restart cause crash, restore
-             step 3); sigterm_preempt
+             step 3; its ``GOODPUT.json`` a gang goodput fraction in (0,
+             1] with ``restart_downtime`` the supervisor's
+             ``restart_history`` window within 1 s); sigterm_preempt
              (SIGTERM on the launcher CLI, forwarded; launcher exit 0,
              the relaunch restores step 4); corrupt_shard (a truncated
              leaf and a planted uncommitted step; restore step 3); hang
              (the watchdog fires past its 10 s deadline, exit 43, cause
-             hang); dp_reshard (a dp-2 save by two gloo ranks sharing the
-             card, restored at dp 1: the params' crc32 and every moment
-             leaf's equal to the save's, the loss within 5% of the
-             baseline's). Each recovery ends on the
+             hang; the bundle holds the flight ring); sigstop_blame (two
+             ranks at GPT_SMALL's width, 1 layer, batch 2 x 8, lock-
+             stepped by a flight-stamped barrier; rank 1 SIGSTOPs before
+             step 3's; rank 0's 4 s watchdog fires; the blame pass names
+             rank 1, never_entered, seq 3 ``allreduce_grads``, 0 gaps,
+             ``paddle_blamed_rank`` 1; no process of the gangs is left
+             after the phase); dp_reshard (a dp-2 save by two gloo ranks
+             sharing the card, restored at dp 1: the params' crc32 and
+             every moment leaf's equal to the save's, the loss within 5%
+             of the baseline's). Each recovery ends on the
              baseline's params crc32 bit for bit; every completed
              incarnation's launches are exactly its steps x its path's
              (phase 11's counts); the save (snapshot and write apart),
@@ -865,11 +907,265 @@ def _phase4_prompts(V: int):
 
 def phase_serving():
     """GPT_SMALL bf16, slab layout, through Scheduler + EngineLoop; returns
-    the launch counts and the end-to-end numbers of the run."""
+    the launch counts and the end-to-end numbers of the run, and the
+    engine and requests (for 4m and the tick's overhead pairs)."""
     eng = _serving_engine("slab")
-    launches, _, e2e = _serve(eng, _phase4_prompts(eng.cfg.vocab_size),
-                              "serving")
-    return launches, e2e
+    launches, reqs, e2e = _serve(eng, _phase4_prompts(eng.cfg.vocab_size),
+                                 "serving")
+    return launches, e2e, eng, reqs
+
+
+def _trace_dir() -> str:
+    import os
+
+    from paddle_tpu_torch.ops import _build
+
+    return os.path.join(str(_build.BUILD_DIR), "trace")
+
+
+def _tick_want(eng, ticks: int) -> dict:
+    """The launches ``ticks`` decode ticks of ``eng`` imply."""
+    from paddle_tpu_torch.ops import cuda_kernels as CK
+
+    L = eng.cfg.num_layers
+    want = dict.fromkeys(CK.LAUNCHES, 0)
+    want.update({"fused_ln": 2 * L * ticks, "logits_head": ticks,
+                 ("decode_paged" if eng.paged else "decode_slab"):
+                 L * ticks})
+    return want
+
+
+def _check_request_traces(tag, reqs, spans, ticks):
+    """Each request one trace: one finished ``serve/request`` root, one
+    ``queue_wait`` and one ``prefill`` under it, a ``decode_tick`` for
+    each token after the first, one ``evict``; the decode ticks' spans,
+    grouped by their start, are the engine's ``ticks`` ticks, each group
+    its batch. Returns the span counts by name."""
+    import collections
+
+    ids = {r.trace_id: r for r in reqs}
+    mine = [s for s in spans if s["trace"] in ids
+            and not (s.get("attrs") or {}).get("open")]
+    counts = collections.Counter(s["name"] for s in mine)
+    for tid, r in ids.items():
+        got = collections.Counter(
+            (s["name"], s["parent"]) for s in mine if s["trace"] == tid)
+        want = collections.Counter({
+            ("serve/request", None): 1,
+            ("serve/queue_wait", r.root_span): 1,
+            ("serve/prefill", r.root_span): 1,
+            ("serve/decode_tick", r.root_span): len(r.tokens) - 1,
+            ("serve/evict", r.root_span): 1})
+        if got != want:
+            raise AssertionError(f"{tag}: request {r.id}'s spans {got} != "
+                                 f"{want}")
+    groups = collections.Counter(s["start_ns"] for s in mine
+                                 if s["name"] == "serve/decode_tick")
+    batch = {s["start_ns"]: s["attrs"]["batch"] for s in mine
+             if s["name"] == "serve/decode_tick"}
+    if len(groups) != ticks or any(n != batch[t] for t, n in groups.items()):
+        raise AssertionError(f"{tag}: {len(groups)} decode-tick span groups "
+                             f"for {ticks} ticks, or a group not its batch")
+    print(f"[{tag}] spans: {dict(sorted(counts.items()))} over "
+          f"{len(ids)} traces; {ticks} ticks, one decode_tick span a rider")
+    return dict(counts)
+
+
+def phase_front_door(eng, reqs4) -> dict:
+    """Phase 4m: a ``FrontDoor`` over phase 4's engine on an ephemeral
+    port. 4 ``/generate`` requests, each carrying a trace context in its
+    body, and one migrated request through ``/prefill`` (pushed to the
+    front door's own ``KVTransferServer``) and ``/resume``; every request
+    done, its root span under the caller's span, the migration's
+    ``serve/kv_send`` and ``serve/kv_adopt`` in its trace; launches exactly
+    the decode ticks'. ``GET /metrics`` parses and its ``paddle_serve_*``
+    counters equal the registry's; ``GET /health`` carries
+    ``span_rollups_ms``; a ``FleetPoller`` over this one replica writes a
+    ``FLEET.json`` whose rollup counts the requests the registry counted;
+    an ``SLOEngine`` fed phase 4's TTFTs and TPOTs prints ``slo_status()``
+    (not a gate: random weights, a shared card). Returns the launches."""
+    import os
+    import urllib.request
+
+    from paddle_tpu_torch.observability import default_registry, fleet
+    from paddle_tpu_torch.observability import slo as obs_slo
+    from paddle_tpu_torch.observability import spans as obs_spans
+    from paddle_tpu_torch.ops import cuda_kernels as CK
+    from paddle_tpu_torch.serving import FrontDoor, Scheduler
+    from paddle_tpu_torch.serving.kv_transfer import KVTransferServer
+
+    def call(front, path, body=None):
+        url = f"http://127.0.0.1:{front.port}{path}"
+        req = (urllib.request.Request(
+            url, data=json.dumps(body).encode(),
+            headers={"Content-Type": "application/json"})
+            if body is not None else url)
+        with urllib.request.urlopen(req, timeout=300) as r:
+            raw = r.read().decode()
+            return r.status, r.headers, raw
+
+    def serve_counters():
+        snap = default_registry().snapshot()
+        return {(name, tuple(s["labels"])): s["value"]
+                for name, fam in snap.items()
+                if name.startswith("paddle_serve_")
+                and fam["type"] == "counter" for s in fam["series"]}
+
+    V = eng.cfg.vocab_size
+    prompts = _phase4_prompts(V)[:5]
+    srv = KVTransferServer().start()
+    front = FrontDoor(Scheduler(eng, device="cuda"), kv_server=srv).start()
+    ticks0 = eng.decode_ticks
+    torch.cuda.synchronize()
+    CK.reset_launches()
+    ctxs = [(obs_spans.gen_id(), obs_spans.gen_id()) for _ in range(5)]
+    try:
+        outs = []
+        for p, ctx in zip(prompts[:4], ctxs):
+            code, _, raw = call(front, "/generate", {
+                "prompt": p, "max_new_tokens": 32, "timeout_s": 300,
+                "trace": obs_spans.inject(ctx)})
+            outs.append((code, json.loads(raw)))
+        code, _, raw = call(front, "/prefill", {
+            "prompt": prompts[4], "max_new_tokens": 32, "timeout_s": 300,
+            "trace": obs_spans.inject(ctxs[4]),
+            "kv_target": {"host": srv.host, "port": srv.port,
+                          "transfer_id": "4m-0"}})
+        pre = json.loads(raw)
+        if code != 200 or not pre.get("transferred"):
+            raise AssertionError(f"front door /prefill: {code} {pre}")
+        code, _, raw = call(front, "/resume", {
+            "transfer_id": "4m-0", "first_token": pre["first_token"],
+            "prompt": prompts[4], "max_new_tokens": 32, "timeout_s": 300})
+        outs.append((code, json.loads(raw)))
+        launches = dict(CK.LAUNCHES)
+        ticks = eng.decode_ticks - ticks0
+        _, _, health = call(front, "/health")
+        health = json.loads(health)
+        before = serve_counters()
+        code, headers, text = call(front, "/metrics")
+        metrics_ctype = headers["Content-Type"]
+        scraped = []
+
+        def collect():
+            reg = sum(v for (n, _), v in serve_counters().items()
+                      if n == "paddle_serve_requests_total")
+            _, _, t = call(front, "/metrics")
+            scraped.append(reg)
+            return [fleet.ReplicaSample(0, "colocated", True, 0.0, t, 0,
+                                        front.scheduler.pending())]
+
+        fleet_path = os.path.join(_trace_dir(), "FLEET.json")
+        os.makedirs(_trace_dir(), exist_ok=True)
+        doc = fleet.FleetPoller(collect, out_path=fleet_path).tick()
+    finally:
+        front.stop()
+        srv.close()
+    bad = [(c, o) for c, o in outs if c != 200 or len(o["tokens"]) != 32]
+    if bad:
+        raise AssertionError(f"front door requests: {bad}")
+    if launches != _tick_want(eng, ticks) or ticks <= 0:
+        raise AssertionError(f"front door launches {launches} != "
+                             f"{_tick_want(eng, ticks)} for {ticks} ticks")
+    # /metrics: every sample line parses; the serve counters are the
+    # registry's as they stood just before the scrape
+    samples = {}
+    for line in text.splitlines():
+        if line and not line.startswith("#"):
+            name, value = line.rsplit(" ", 1)
+            samples[name] = float(value)
+    if not metrics_ctype.startswith("text/plain; version=0.0.4"):
+        raise AssertionError(f"/metrics content type {metrics_ctype!r}")
+    for (name, labels), value in before.items():
+        fam = default_registry().snapshot()[name]
+        lab = ",".join(f'{k}="{v}"' for k, v in zip(fam["labelnames"],
+                                                     labels))
+        key = f"{name}{{{lab}}}" if lab else name
+        if samples.get(key) != value:
+            raise AssertionError(f"/metrics {key} = {samples.get(key)}, "
+                                 f"the registry's {value}")
+    roll = doc["roles"]["colocated"]["sums"].get(
+        "paddle_serve_requests_total")
+    if roll != scraped[0]:
+        raise AssertionError(f"FLEET.json requests {roll} != the "
+                             f"registry's {scraped[0]}")
+    rollups = health.get("span_rollups_ms") or {}
+    if not {"serve/request", "serve/prefill", "serve/decode_tick",
+            "serve/queue_wait", "serve/evict"} <= set(rollups):
+        raise AssertionError(f"/health span_rollups_ms {sorted(rollups)}")
+    spans = obs_spans.default_tracer().spans()
+    for ctx in ctxs:
+        roots = [s for s in spans if s["trace"] == ctx[0]
+                 and s["name"] == "serve/request"
+                 and not s["attrs"].get("open")]
+        if not any(s["parent"] == ctx[1] for s in roots):
+            raise AssertionError(f"trace {ctx[0]:x}: no serve/request "
+                                 "under the caller's span")
+    moved = {s["name"] for s in spans if s["trace"] == ctxs[4][0]}
+    if not {"serve/kv_send", "serve/kv_adopt"} <= moved:
+        raise AssertionError(f"the migrated request's trace has {moved}")
+    engine = obs_slo.SLOEngine()
+    for r in reqs4:
+        engine.note_request(ttft_ms=r.ttft_ms, tpot_ms=r.tpot_ms)
+    for _, o in outs[:4]:
+        engine.note_request(ttft_ms=o["ttft_ms"], tpot_ms=o["tpot_ms"])
+    status = engine.slo_status()
+    print(f"[front-door] 4 /generate + /prefill -> /resume over the KV "
+          f"socket done, {ticks} ticks, launches exact; /metrics "
+          f"{len(samples)} samples, serve counters = registry; FLEET.json "
+          f"requests {roll}; /health span rollups "
+          + json.dumps({k: v["p50_ms"] for k, v in rollups.items()}))
+    print("[front-door] slo_status (printed only): " + json.dumps({
+        k: {"measured": v["measured"], "meets": v["meets_target"],
+            "burn": v["burn_rate"]}
+        for k, v in status["objectives"].items()}))
+    return launches
+
+
+def _overhead_text(rec) -> str:
+    return (f"{rec['paired_overhead_pct']:+.2f}% by the pairs' median "
+            f"difference (on slower in {rec['on_slower_share']:.2f} of the "
+            f"pairs), {rec['overhead_pct']:+.2f}% by the mins; the off "
+            f"arm's own spread {rec['off_spread_pct']:.1f}% (printed, not "
+            "gated)")
+
+
+def phase_tick_overhead(eng, pairs: int = 12, ticks: int = 16) -> dict:
+    """The decode tick's host ms with span tracing on and off, in turns
+    (on, off, off, on, ...: each pair's order flipped), ``ticks`` ticks an
+    arm run, on phase 4's engine with 8 requests resident:
+    ``Scheduler.step`` as the engine loop calls it (the tick syncs on its
+    sampled tokens), summed up by ``train_bench.overhead_record``.
+    Printed, not gated: the tick's host time varies from run to run more
+    than the difference it measures."""
+    from paddle_tpu_torch.observability import spans as obs_spans
+    from paddle_tpu_torch.serving import Scheduler
+    from paddle_tpu_torch.tools.train_bench import overhead_record
+
+    sched = Scheduler(eng, device="cuda")
+    for p in _phase4_prompts(eng.cfg.vocab_size)[:B]:
+        sched.submit(p, max_new_tokens=2 * pairs * ticks + 8,
+                     timeout_s=600.0)
+    while sched.queue_depth():
+        sched.step()
+    arms = {True: [], False: []}
+    try:
+        for i in range(pairs):
+            for on in ((True, False) if i % 2 == 0 else (False, True)):
+                obs_spans.set_tracing_enabled(on)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(ticks):
+                    sched.step()
+                arms[on].append((time.perf_counter() - t0) * 1e3 / ticks)
+    finally:
+        obs_spans.set_tracing_enabled(True)
+        sched.abort_all("overhead pairs measured")
+    rec = overhead_record(arms[True], arms[False])
+    print(f"[tick-overhead] host ms a tick, tracing on "
+          f"{[round(x, 3) for x in arms[True]]}, off "
+          f"{[round(x, 3) for x in arms[False]]}: " + _overhead_text(rec))
+    return rec
 
 
 def _phase4b_prompts(V: int):
@@ -893,12 +1189,28 @@ def phase_serving_paged():
     usable pages) holds the cache (under 300 pages) and the live slots
     without a reclaim. Returns the launch counts of the run and its
     end-to-end numbers and token streams (``{"e2e", "tokens"}``)."""
+    from paddle_tpu_torch.observability import spans as obs_spans
     from paddle_tpu_torch.serving import metrics as smetrics
+    from paddle_tpu_torch.tools import trace_assemble
 
     eng = _serving_engine("paged")
     prompts = _phase4b_prompts(eng.cfg.vocab_size)
     hits0, tok0 = eng.prefix.hits, smetrics.m_prefill_tokens.value
-    launches, reqs, e2e = _serve(eng, prompts, "serve-paged")
+    # the process's span sink, for this phase and 4d
+    obs_spans.attach_process_sink(_trace_dir(), "chip_smoke")
+    ticks0 = eng.decode_ticks
+    try:
+        launches, reqs, e2e = _serve(eng, prompts, "serve-paged")
+    finally:
+        obs_spans.default_tracer().set_sink(None)
+    report = trace_assemble.assemble_dir(_trace_dir())
+    spans = [s for recs in trace_assemble.load_span_files(
+        _trace_dir()).values() for s in recs]
+    counts = _check_request_traces("serve-paged", reqs, spans,
+                                   eng.decode_ticks - ticks0)
+    if report["n_orphans"] or report["n_duplicates"]:
+        raise AssertionError(f"trace assembly: {report['n_orphans']} "
+                             f"orphans, {report['n_duplicates']} duplicates")
     hits = eng.prefix.hits - hits0
     prefilled = int(smetrics.m_prefill_tokens.value - tok0)
     want = sum(len(p) for p in prompts) - 7 * 256
@@ -915,7 +1227,8 @@ def phase_serving_paged():
     print(f"[serve-paged] prefix hits {hits}, prompt tokens prefilled "
           f"{prefilled} of {want + 7 * 256}, cache held {held} pages; all "
           f"{free} pages free after clear()")
-    return launches, {"e2e": e2e, "tokens": [list(r.tokens) for r in reqs]}
+    return launches, {"e2e": e2e, "tokens": [list(r.tokens) for r in reqs],
+                      "spans": counts}
 
 
 def phase_serving_disagg(colocated: dict):
@@ -939,11 +1252,13 @@ def phase_serving_disagg(colocated: dict):
     the launch counts."""
     import threading
 
+    from paddle_tpu_torch.observability import spans as obs_spans
     from paddle_tpu_torch.ops import cuda_kernels as CK
     from paddle_tpu_torch.serving import kv_transfer
     from paddle_tpu_torch.serving import metrics as smetrics
     from paddle_tpu_torch.serving.disagg import (DisaggRouter, LocalReplica,
                                                  SharedPrefixIndex)
+    from paddle_tpu_torch.tools import trace_assemble
 
     pre = _serving_engine("paged", role="prefill")
     dec = _serving_engine("paged", role="decode")
@@ -955,6 +1270,7 @@ def phase_serving_disagg(colocated: dict):
     ticks0, pre_ticks0, hits0 = dec.decode_ticks, pre.decode_ticks, \
         pre.prefix.hits
     results = [None] * len(prompts)
+    obs_spans.attach_process_sink(_trace_dir(), "chip_smoke")
     torch.cuda.synchronize()
     kv_transfer.transfer_history(clear=True)
     CK.reset_launches()
@@ -974,6 +1290,7 @@ def phase_serving_disagg(colocated: dict):
     finally:
         for r in reps:
             r.stop()
+        obs_spans.default_tracer().set_sink(None)
     wall = time.perf_counter() - t0
     launches = dict(CK.LAUNCHES)
     ticks = dec.decode_ticks - ticks0
@@ -1004,6 +1321,30 @@ def phase_serving_disagg(colocated: dict):
         raise AssertionError(f"kv transfer bytes out/in {moved} != "
                              f"{want_bytes} each")
     pre_hits = pre.prefix.hits - hits0
+    # one trace a routed request, across both replicas: the route, the
+    # prefill replica's request and the decode replica's (on another loop
+    # thread), its adoption; stitched with no orphan
+    files = trace_assemble.load_span_files(_trace_dir())
+    traces = trace_assemble.assemble(files)
+    check = trace_assemble.check_assembly(
+        {r.trace_id: traces.get(r.trace_id, []) for r in results})
+    for r in results:
+        sp = traces.get(r.trace_id, [])
+        names = {s["name"] for s in sp}
+        roots = [s for s in sp if s["name"] == "serve/request"]
+        if not {"serve/route", "serve/prefill", "serve/kv_adopt",
+                "serve/decode_tick"} <= names or len(roots) != 2 or \
+                len({s["tid"] for s in roots}) != 2:
+            raise AssertionError(f"disagg trace {r.trace_id:x}: "
+                                 f"{sorted(names)}, {len(roots)} roots")
+    if check["n_orphans"] or check["n_duplicates"] or any(
+            t["roots"] != ["serve/route"] for t in check["traces"]):
+        raise AssertionError(f"disagg traces: {check['n_orphans']} orphans, "
+                             f"{check['n_duplicates']} duplicates")
+    print(f"[serve-disagg] {check['n_traces']} traces, {check['n_spans']} "
+          "spans, each a tree under serve/route spanning both replicas' "
+          "loop threads (kv_adopt on the decode side; the in-process "
+          "handoff has no socket hop: kv_send is 4m's); 0 orphans")
     for eng in (pre, dec):
         eng.prefix.clear()
         free = eng.cache.free_page_count()
@@ -2406,6 +2747,155 @@ def phase_training(fused: bool = False):
     return rec
 
 
+def bookkeeping_cost(work: str, n: int = 20000) -> dict:
+    """The observability's own host µs, apart from any step: one flight
+    fingerprint stamp (``record_collective``'s per-call cost of the
+    recorder) with the ring alone, with a sidecar attached (one flushed
+    line an event) and with the recorder off, over ``n`` stamps; and one
+    ``train_bench.monitored_steps`` step around a step that only returns
+    its (card-resident) loss and grad norm: the row, its file line, two
+    flight events with the sidecar, the goodput timers and the two
+    copies to the host; and a decode tick's spans (one ``serve/decode_tick``
+    record a rider, 8 riders) without a sink."""
+    import os
+
+    from paddle_tpu_torch.observability import flight
+    from paddle_tpu_torch.observability import spans as obs_spans
+    from paddle_tpu_torch.observability.monitor import TrainMonitor
+    from paddle_tpu_torch.tools import train_bench
+
+    def per_stamp():
+        t0 = time.perf_counter()
+        for _ in range(n):
+            flight.stamp_collective("psum_scatter", "bfloat16", 1 << 24, 2)
+        return (time.perf_counter() - t0) / n * 1e6
+
+    tracer = obs_spans.SpanTracer()
+    t0 = time.perf_counter()
+    for i in range(n // B):
+        for slot in range(B):
+            tracer.record("serve/decode_tick", i, 5000000, trace=slot,
+                          parent=slot, attrs={"batch": B, "emitted": 1,
+                                              "token_index": i})
+    rec = flight.default_recorder()
+    out = {"tick_spans_us": (time.perf_counter() - t0) / (n // B) * 1e6,
+           "ring_us": per_stamp()}
+    rec.set_sink(os.path.join(work, "stamp_cost_flight.jsonl"))
+    try:
+        out["sidecar_us"] = per_stamp()
+    finally:
+        rec.set_sink(None)
+    flight.set_flight_enabled(False)
+    try:
+        out["off_us"] = per_stamp()
+    finally:
+        flight.set_flight_enabled(True)
+    flight.reset()
+    fixed = (None, None, torch.tensor(3.0, device="cuda"),
+             torch.tensor(1.0, device="cuda", dtype=torch.bfloat16))
+    mon = TrainMonitor(path=os.path.join(work, "cost_rows.jsonl"),
+                       peak_flops=1.0)
+    rec.set_sink(os.path.join(work, "cost_flight.jsonl"))
+    try:
+        steps = 2000
+        t0 = time.perf_counter()
+        train_bench.monitored_steps(lambda: fixed, mon, steps)
+        out["monitor_step_us"] = (time.perf_counter() - t0) / steps * 1e6
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            float(fixed[2])
+            float(fixed[3])
+        out["bare_sync_us"] = (time.perf_counter() - t0) / steps * 1e6
+    finally:
+        rec.set_sink(None)
+        mon.close()
+        flight.reset()
+    return out
+
+
+def phase_train_monitor() -> dict:
+    """Phase 7m: phase 7's run again with ``train_bench --monitor``: one
+    ``TrainMonitor`` row a timed step (each step then syncs on its loss),
+    launches a step as phase 7's. Every row has the ``STEP_RECORD_KEYS``
+    with finite values, the rows' MFU is train_bench's own within 10%, the
+    timed window's goodput is mostly ``productive_step``; then the
+    observability's cost on the step, on against off in turns
+    (``train_bench.observability_overhead``: printed, not gated). Returns
+    the record."""
+    import os
+
+    from paddle_tpu_torch.observability.monitor import STEP_RECORD_KEYS
+    from paddle_tpu_torch.tools import train_bench
+
+    cfg = train_bench.bench_config()
+    work = _trace_dir()
+    os.makedirs(work, exist_ok=True)
+    path = os.path.join(work, "monitor.jsonl")
+    if os.path.exists(path):
+        os.remove(path)
+    rec = train_bench.run(cfg, monitor=path, overhead_dir=work)
+    with open(path) as f:
+        rows = [json.loads(ln) for ln in f]
+    if len(rows) != rec["steps"] or rec["monitor"]["rows"] != rec["steps"]:
+        raise AssertionError(f"{len(rows)} monitor rows for "
+                             f"{rec['steps']} timed steps")
+    for r in rows:
+        bad = [k for k in STEP_RECORD_KEYS
+               if k not in r or not (isinstance(r[k], bool)
+                                     or np.isfinite(r[k]))]
+        if bad or r["nan_inf"] or "peak_hbm_bytes" not in r:
+            raise AssertionError(f"monitor row {r.get('step')}: {bad}")
+    row_mfu = float(np.mean([r["mfu"] for r in rows]))
+    if abs(row_mfu - rec["mfu"]) > 0.10 * rec["mfu"]:
+        raise AssertionError(f"monitor MFU {row_mfu:.4f} vs train_bench's "
+                             f"{rec['mfu']:.4f}")
+    gp = rec["monitor"]["goodput"]
+    share = gp["categories"]["productive_step"] / gp["wall_s"]
+    if share <= 0.5:
+        raise AssertionError(f"goodput: productive_step {share:.3f} of the "
+                             f"timed window {gp['categories']}")
+    L = cfg.num_layers
+    want = {"flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkv": L,
+            "opt_adamw_flat": 1}
+    if rec["launches_per_step"] != want:
+        raise AssertionError(f"monitored launches per step "
+                             f"{rec['launches_per_step']} != {want}")
+    ov = rec["obs_overhead"]
+    stamp = bookkeeping_cost(work)
+    ov["bookkeeping_us"] = stamp
+    # ERNIE-base tp 2's collective calls a step, as phase 13's wire gate
+    # counts them: the loss's psum, one a replicated leaf, 4L + 1
+    # all-gathers and as many sum-scatters
+    from paddle_tpu_torch.models import ernie as E
+    from paddle_tpu_torch.parallel import parallelize as PZ
+
+    calls = 1 + sum("tp" not in sp for sp in PZ.flat_leaves(
+        E.param_specs(E.ERNIE_BASE))) + 2 * (4 * E.ERNIE_BASE.num_layers + 1)
+    print(f"[train-monitor] flight stamp host us: ring "
+          f"{stamp['ring_us']:.2f}, with the sidecar "
+          f"{stamp['sidecar_us']:.2f}, recorder off {stamp['off_us']:.3f}; "
+          f"at ~{calls} stamps a step (ERNIE tp2) "
+          f"{calls * stamp['sidecar_us'] / 1e3:.3f} ms a step with the "
+          f"sidecar; a monitored step's own cost "
+          f"{stamp['monitor_step_us']:.1f} us against "
+          f"{stamp['bare_sync_us']:.1f} for the bare syncs; a decode tick's "
+          f"8 spans {stamp['tick_spans_us']:.1f} us (printed, not gated)")
+    print(f"[train-monitor] {len(rows)} rows; step ms "
+          f"{[r['step_time_ms'] for r in rows]}; dispatch ms p50 "
+          f"{np.median([r['host_dispatch_ms'] for r in rows]):.3f}, device "
+          f"wait ms p50 {np.median([r['device_wait_ms'] for r in rows]):.3f}"
+          f"; row MFU {row_mfu:.4f} vs train_bench {rec['mfu']:.4f} "
+          f"({rec['ms_per_step']:.3f} ms/step synced each step); peak "
+          f"{rows[-1]['peak_hbm_bytes']} bytes")
+    print(f"[train-monitor] goodput of the timed window: productive_step "
+          f"{share:.4f} of {gp['wall_s']:.3f} s; " + json.dumps(
+              {k: v for k, v in gp["categories"].items() if v}))
+    print(f"[train-monitor] step ms with the observability on "
+          f"{[round(x, 3) for x in ov['on_ms']]}, off "
+          f"{[round(x, 3) for x in ov['off_ms']]}: " + _overhead_text(ov))
+    return rec
+
+
 def phase_train_parity():
     """Kernel train step vs plain train step, float32, on the card: the
     flash arm, and the fused arm (flash, the fused-layernorm block and the
@@ -3375,7 +3865,7 @@ def phase_train_parallel(timeout_s: float = 600.0) -> dict:
 
 # phase 12: the fault bench's card subset, in the order it runs
 ELASTIC_SCENARIOS = ("baseline", "aa", "sigkill_midstep", "sigterm_preempt",
-                     "corrupt_shard", "hang", "dp_reshard")
+                     "corrupt_shard", "hang", "sigstop_blame", "dp_reshard")
 
 
 def phase_elastic(timeout_s: float = 600.0) -> dict:
@@ -3386,6 +3876,7 @@ def phase_elastic(timeout_s: float = 600.0) -> dict:
     import signal
 
     from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.tools import fault_bench as FB
     from paddle_tpu_torch.tools import train_bench as TB
 
     root = os.path.dirname(os.path.abspath(__file__))
@@ -3420,7 +3911,10 @@ def phase_elastic(timeout_s: float = 600.0) -> dict:
             "restarts", "detection_s", "last_progress_age_s", "deadline_s",
             "reshard", "save", "restore_ms", "restore",
             "recovery", "startup", "step_s", "loss_rel_diff_by_step",
-            "exits")
+            "exits", "gang_goodput_fraction", "goodput_downtime_s",
+            "history_downtime_s", "flight_dumps", "blamed_ranks",
+            "blame_mode", "missed_seq", "missed_name", "seq_gaps_total",
+            "paddle_blamed_rank", "step_skew_ms", "hang_restarts")
             if s.get(k) is not None}
         print(f"[elastic] {name}: pass={s['pass']} {json.dumps(show)}")
     if proc.returncode != 0 or not rec["pass"] or \
@@ -3430,7 +3924,28 @@ def phase_elastic(timeout_s: float = 600.0) -> dict:
                              + ", ".join(n for n in ELASTIC_SCENARIOS
                                          if not sc.get(n, {}).get("pass"))
                              + " failed")
-    cfg = TB.bench_config(fused_ln=True, ce_vchunk=1024)
+    gp = sc["sigkill_midstep"]["goodput"]
+    print("[elastic] sigkill_midstep GOODPUT.json: " + json.dumps(
+        {k: gp[k] for k in ("nranks", "rank_reports", "wall_s",
+                            "restart_downtime_s", "gang_goodput_fraction",
+                            "unaccounted_fraction", "categories")}))
+    # the workers of every gang (sigstop_blame's SIGSTOPped rank too) are
+    # gone before the next phase's gangs start: no process is left in the
+    # harness's process group
+    try:
+        os.killpg(proc.pid, 0)
+    except ProcessLookupError:
+        pass
+    else:
+        raise AssertionError("elastic: a process of the harness's gangs "
+                             "outlived it")
+    print("[elastic] no process of the gangs is left; compute apps on the "
+          "card: " + " ".join(subprocess.run(
+              ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+               "--format=csv,noheader"], capture_output=True,
+              text=True).stdout.split()))
+    cfg = TB.bench_config(fused_ln=True, ce_vchunk=1024).scaled(
+        num_layers=FB.CUDA_LAYERS)
     for inc in rec["incarnations"]:
         lay = TB.layout_dict(f"dp={inc['dp']},grad_reduce=reduce_scatter")
         want, _ = _parallel_want(cfg, lay, {"dp": 0, "pp": 0, "tp": 0},
@@ -3944,7 +4459,13 @@ def main() -> int:
     wide = {**wide_flash_timing(), **wide_decode_timing()}
     # each kernel's launches summed over the serving paths (slab, paged,
     # speculative, int8); each path printed and asserted its own counts
-    launches, alone = phase_serving()
+    launches, alone, eng4, reqs4 = phase_serving()
+    # the front door over phase 4's engine (4m), then the tick's host cost
+    # with tracing on and off
+    for k, v in phase_front_door(eng4, reqs4).items():
+        launches[k] += v
+    tick_overhead = phase_tick_overhead(eng4)
+    del eng4, reqs4
     paged_launches, paged = phase_serving_paged()
     for path in (lambda: paged_launches, lambda: phase_serving_spec(alone),
                  phase_serving_int8, lambda: phase_serving_disagg(paged)):
@@ -3959,9 +4480,14 @@ def main() -> int:
     recs["fused_ln"]["decode"] = decode_ln
     phase_train_kernels(torch.float32, time_it=False)
     # each kernel's launches summed over the main paths' runs: serving
-    # (above), training (phase 7) and the fused-LN / vocab-chunked lane (7b)
-    for fused in (False, True):
-        train = phase_training(fused)
+    # (above), training (phase 7), the same monitored (7m, the
+    # observability's cost on the step beside it) and the fused-LN /
+    # vocab-chunked lane (7b)
+    train_obs = None
+    for run in (lambda: phase_training(False), phase_train_monitor,
+                lambda: phase_training(True)):
+        train = run()
+        train_obs = train.get("obs_overhead", train_obs)
         for k, v in train["launches_per_step"].items():
             launches[k] = launches.get(k, 0) + round(v * train["steps"])
     phase_train_parity()
@@ -4018,6 +4544,9 @@ def main() -> int:
     print(f"[chip_smoke] wall {time.perf_counter() - t_start:.1f} s, the "
           "build included")
     print(json.dumps({"widths_max_abs_err": widths, "wide_hd256": wide}))
+    print(json.dumps({"observability_overhead": {
+        "decode_tick_host_ms": tick_overhead,
+        "train_step_ms": train_obs}}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -19,8 +19,8 @@ from ..device import resolve_device
 
 __all__ = ["VarType", "convert_dtype", "dtype_to_torch", "dtype_name",
            "dtype_is_floating", "Place", "CPUPlace", "CUDAPlace",
-           "set_flags", "get_flags", "get_flag", "NotPortedError",
-           "not_ported"]
+           "set_flags", "get_flags", "get_flag", "flags_snapshot",
+           "NotPortedError", "not_ported"]
 
 
 class NotPortedError(NotImplementedError, AttributeError):
@@ -180,3 +180,9 @@ def get_flags(flags):
 
 def get_flag(name, default=None):
     return _GLOBAL_FLAGS.get(name, default)
+
+
+def flags_snapshot() -> dict:
+    """Copy of the full flag state (anomaly and hang forensics record
+    it)."""
+    return dict(_GLOBAL_FLAGS)

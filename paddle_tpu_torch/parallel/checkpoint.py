@@ -34,7 +34,11 @@ Save metrics ride the port's registry: ``paddle_checkpoint_save_ms`` and
 ``paddle_checkpoint_bytes_total``. Each leaf gathered, written, verified
 or read stamps the hang watchdog's progress (``checkpoint/save``,
 ``/write``, ``/verify``, ``/restore``): a store that moves is not hung,
-and one that stops moving is.
+and one that stops moving is. As in the reference, the spans
+``checkpoint/save`` (the snapshot), ``checkpoint/write`` (on the writer,
+under the save's span) and ``checkpoint/restore`` time each phase, and
+the goodput ledger charges the snapshot to ``checkpoint_save`` and the
+restore to ``restore``.
 
 :class:`ShardedCheckpointer` is the counterpart of the reference's orbax
 store (``checkpoint.py:727-861``), built on ``torch.distributed.checkpoint``
@@ -64,7 +68,9 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..observability import goodput as _goodput
 from ..observability import metrics as _obs_metrics
+from ..observability import spans as _spans
 from . import health
 from . import mesh as mesh_mod
 
@@ -536,7 +542,12 @@ class ElasticCheckpointer:
                     f"({e})") from e
         t0 = time.perf_counter_ns()
         leaves = []
-        with torch.no_grad():
+        # the synchronous share of a save (gather + device -> host
+        # snapshot) is the caller's wall time; the async write overlaps
+        # the next steps and is not charged to the ledger
+        with _goodput.timer("checkpoint_save"), \
+                _spans.span("checkpoint/save", attrs={"step": int(step)}), \
+                torch.no_grad():
             for key, x in flatten_with_keys(state):
                 if self.mesh is not None and isinstance(x, torch.Tensor):
                     spec = (specs or {}).get(key)
@@ -545,6 +556,8 @@ class ElasticCheckpointer:
                 if self.writer:
                     leaves.append((key, _to_host(x)))
                 health.progress("checkpoint/save")
+            # the writer thread's span parents to this save's
+            span_ctx = _spans.current_context()
         snapshot_ms = (time.perf_counter_ns() - t0) / 1e6
         if mesh is None and self.mesh is not None:
             mesh = dict(self.mesh.sizes)
@@ -565,7 +578,7 @@ class ElasticCheckpointer:
         keep = self.keep_last if keep_last is None else keep_last
         with self._lock:
             self._inflight.add(int(step))
-        job = (step, leaves, man, keep, t0, rec)
+        job = (step, leaves, man, keep, t0, rec, span_ctx)
         if self._use_async:
             self._ensure_thread()
             self._queue.put(job)
@@ -592,7 +605,12 @@ class ElasticCheckpointer:
             finally:
                 self._queue.task_done()
 
-    def _write(self, step, leaves, man, keep, t0, rec):
+    def _write(self, step, leaves, man, keep, t0, rec, span_ctx=None):
+        with _spans.default_tracer().context(span_ctx), \
+                _spans.span("checkpoint/write", attrs={"step": int(step)}):
+            self._write_inner(step, leaves, man, keep, t0, rec)
+
+    def _write_inner(self, step, leaves, man, keep, t0, rec):
         t_w = time.perf_counter_ns()
         d = self._path(step)
         # a re-save of the same step replaces any earlier attempt
@@ -692,6 +710,11 @@ class ElasticCheckpointer:
                       ) -> Tuple[Dict[str, torch.Tensor], dict]:
         """One committed step as {key: CPU tensor}, each leaf read once
         and, with ``verify``, checked as it is read."""
+        with _goodput.timer("restore"), _spans.span("checkpoint/restore"):
+            return self._restore_flat_inner(step, verify)
+
+    def _restore_flat_inner(self, step: Optional[int], verify: bool
+                            ) -> Tuple[Dict[str, torch.Tensor], dict]:
         self.wait()
         t0 = time.perf_counter_ns()
         if step is None:

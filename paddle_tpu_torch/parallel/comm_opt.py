@@ -13,8 +13,10 @@
    the next step.
 3. **Wire-byte accounting** (:func:`record_collective`): every collective
    of this module and of ``parallelize`` adds its ring-model per-rank
-   bytes to ``paddle_collective_bytes_total{op,dtype}``. JAX counts once
-   per trace; the port counts every call, as it counts kernel launches.
+   bytes to ``paddle_collective_bytes_total{op,dtype}`` and stamps the
+   flight recorder's fingerprint stream. JAX counts and stamps once per
+   trace; the port does both on every call, as it counts kernel
+   launches.
 
 The collectives are ``torch.distributed`` calls on a mesh line
 (:class:`~.mesh.AxisGroup`). ``measure_overlap_fraction`` reads XLA
@@ -28,6 +30,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..observability import flight as _flight
 from ..observability import metrics as _obs_metrics
 from .mesh import AxisGroup
 
@@ -73,12 +76,17 @@ def wire_bytes(op: str, payload_bytes: int, ranks: int) -> int:
 
 def record_collective(op: str, dtype, payload_bytes: int,
                       ranks: int) -> int:
-    """Count one collective into the wire-bytes counter; returns the
-    per-rank ring bytes recorded. (The reference's ``site`` label feeds
-    its flight recorder, which is not ported.)"""
+    """Count one collective into the wire-bytes counter and stamp the
+    flight recorder's fingerprint stream (``flight.stamp_collective``);
+    returns the per-rank ring bytes recorded. Every collective call of the
+    port passes here once, so the stamps come per call — where the
+    reference stamps each collective once, at trace time — in the same
+    order on every rank."""
     b = wire_bytes(op, int(payload_bytes), int(ranks))
     if b:
-        _m_wire_bytes.labels(op, dtype_name(dtype)).inc(b)
+        name = dtype_name(dtype)
+        _m_wire_bytes.labels(op, name).inc(b)
+        _flight.stamp_collective(op, name, payload_bytes, ranks)
     return b
 
 

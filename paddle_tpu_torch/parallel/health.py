@@ -26,8 +26,10 @@ divergence guardrails — the port of ``paddle_tpu/parallel/health.py``.
   every rank takes the same branch. The train step's own skip is
   :func:`nonfinite_guard`.
 
-The reference's flight-recorder dump and the goodput charge of
-``suspend`` wait for the observability port (ROADMAP A4).
+The watchdog's bundle holds the flight recorder's ring
+(``flight.dump("hang")``), and :func:`suspend`'s wall time is the goodput
+ledger's ``compile`` (the port's one-time start-up work: the reference
+charges its compiles there).
 """
 from __future__ import annotations
 
@@ -44,6 +46,8 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..observability import flight as _flight
+from ..observability import goodput as _goodput
 from ..observability import metrics as _obs_metrics
 
 __all__ = [
@@ -211,8 +215,10 @@ class HangWatchdog:
 
     def _write_bundle(self, info: dict, stacks: str) -> Optional[str]:
         """``<dump_dir>/hang_rank<R>_pid<P>/``: ``hang_info.json``,
-        ``stacks.txt``, ``flags.json`` (the framework flags) and
-        ``metrics.json`` (a registry snapshot)."""
+        ``stacks.txt``, ``flags.json`` (the framework flags),
+        ``metrics.json`` (a registry snapshot) and the flight recorder's
+        ring (``flight.dump.hang.rank<R>.<pid>.json``: the last steps and
+        the last collective seq entered, for the blame engine)."""
         if not self.dump_dir:
             sys.stderr.write(stacks + "\n")
             return None
@@ -225,12 +231,12 @@ class HangWatchdog:
         with open(os.path.join(d, "stacks.txt"), "w") as f:
             f.write(stacks)
         try:
-            from ..framework.core import _GLOBAL_FLAGS
+            from ..framework.core import flags_snapshot
 
             with open(os.path.join(d, "flags.json"), "w") as f:
                 json.dump({k: v if isinstance(
                     v, (str, int, float, bool, type(None))) else repr(v)
-                    for k, v in _GLOBAL_FLAGS.items()}, f, indent=1)
+                    for k, v in flags_snapshot().items()}, f, indent=1)
         except Exception:
             pass
         try:
@@ -238,6 +244,7 @@ class HangWatchdog:
                 json.dump(_REG.snapshot(), f, indent=1, default=str)
         except Exception:
             pass
+        _flight.dump("hang", dir_path=d)      # never raises
         return d
 
 
@@ -254,13 +261,16 @@ def progress(site: str) -> None:
 
 @contextlib.contextmanager
 def suspend():
-    """Module-level :meth:`HangWatchdog.suspend` (a no-op without a
-    watchdog)."""
+    """Module-level :meth:`HangWatchdog.suspend` (the clock pause is a
+    no-op without a watchdog). The window is also a goodput
+    instrumentation point: its wall time goes to the ledger's
+    ``compile``, exclusive of any timer nested inside."""
     w = _watchdog
     if w is None:
-        yield
+        with _goodput.timer("compile"):
+            yield
         return
-    with w.suspend():
+    with w.suspend(), _goodput.timer("compile"):
         yield
 
 

@@ -5,6 +5,7 @@
         [--backend nccl|gloo] [--started_port P] [--grace_period S]
         [--log_dir DIR] [--max_restarts K] [--restart_backoff S]
         [--hang_deadline S] [--health_dir DIR] [--straggler_ratio R]
+        [--goodput_dir DIR] [--flight_dir DIR]
         [-m] training_script [script args...]
 
 Each worker sees ``PADDLE_TRAINER_ID``, ``PADDLE_TRAINERS_NUM``,
@@ -34,8 +35,19 @@ Each worker sees ``PADDLE_TRAINER_ID``, ``PADDLE_TRAINERS_NUM``,
   supervisor polls the heartbeat dir for stragglers and the workers'
   input-stall reports.
 
-The reference's goodput accounting and flight-recorder blame pass
-(``goodput_dir=``, ``flight_dir=``) wait for ROADMAP A4 and raise.
+- **Goodput**: ``goodput_dir`` (default ``<log_dir>/goodput``) is
+  exported as ``PADDLE_GOODPUT_DIR``; workers write their per-rank window
+  reports there (``goodput.maybe_export``), the supervisor charges each
+  restart's failure -> respawn window to ``restart_downtime`` (the same
+  stamps as :func:`restart_history`) and at the end merges everything
+  into ``GOODPUT.json`` and ``gang_metrics.prom``.
+- **Flight recorder and blame**: ``flight_dir`` (default
+  ``<log_dir>/flight``, else ``<health_dir>/flight``) is exported as
+  ``PADDLE_FLIGHT_DIR`` (workers attach their sidecars with
+  ``flight.maybe_attach_from_env``); on a ``hang`` restart the supervisor
+  runs the blame engine (``paddle_tpu_torch.tools.flight_assemble``) over
+  the dead incarnation's files, writes ``blame.attempt<K>.json`` beside
+  them and sets ``paddle_blamed_rank`` / ``paddle_step_skew_ms``.
 """
 from __future__ import annotations
 
@@ -49,6 +61,8 @@ import threading
 import time
 from typing import Callable, List, Optional
 
+from ..observability import flight as _flight
+from ..observability import goodput as _goodput
 from ..observability import metrics as _obs_metrics
 from . import health as _health
 
@@ -213,6 +227,35 @@ def _restart_cause(ret: int) -> str:
     return "crash"
 
 
+def _assemble_blame(flight_dir: str, attempt: int) -> Optional[dict]:
+    """Run the blame engine over the dead incarnation's flight files:
+    write ``blame.attempt<K>.json`` next to them, publish
+    ``paddle_blamed_rank`` / ``paddle_step_skew_ms`` and return the
+    verdict. Forensics never fail the restart: any error returns None."""
+    try:
+        from ..tools import flight_assemble as fa
+
+        report = fa.assemble_dir(flight_dir, attempt=attempt)
+        verdict = report.get("verdict") or {}
+        out = os.path.join(flight_dir, f"blame.attempt{attempt}.json")
+        with open(out, "w") as f:
+            json.dump(report, f, indent=1)
+        blamed = verdict.get("blamed_ranks") or []
+        _flight.note_blame(blamed[0] if blamed else None,
+                           verdict.get("step_skew_ms"))
+        if blamed:
+            sys.stderr.write(
+                f"launch: blame verdict (attempt {attempt}): rank(s) "
+                f"{blamed} {verdict.get('blame_mode')} at collective seq "
+                f"{verdict.get('missed_seq')}"
+                + (f" [{verdict['missed_name']}]"
+                   if verdict.get("missed_name") else "") + "\n")
+        return verdict
+    except Exception as e:
+        sys.stderr.write(f"launch: blame assembly failed: {e}\n")
+        return None
+
+
 def _stop_gang(procs, grace_period_s: float, sig=signal.SIGTERM) -> None:
     """``sig`` to every live worker, wait up to the grace period for them
     to checkpoint and exit, then SIGKILL the rest."""
@@ -257,12 +300,10 @@ def launch(training_script: str, script_args: Optional[List[str]] = None,
     (default ``<log_dir>/health`` when a deadline is set) arm the health
     layer: each worker's watchdog, heartbeats in ``health_dir`` and the
     supervisor's straggler poll (EWMA beyond ``straggler_ratio`` x the
-    gang median)."""
-    if goodput_dir is not None or flight_dir is not None:
-        raise NotImplementedError(
-            "goodput_dir= and flight_dir= (the gang goodput report and the "
-            "flight-recorder blame pass) are still to be ported with the "
-            "observability stack (ROADMAP A4)")
+    gang median). ``goodput_dir`` (default ``<log_dir>/goodput``) arms the
+    gang goodput report, ``flight_dir`` (default ``<log_dir>/flight``,
+    else ``<health_dir>/flight``) the flight recorder and the blame pass
+    on a hang restart (module docstring)."""
     node_ips = [ip.strip() for ip in cluster_node_ips.split(",")]
     endpoints = get_cluster_endpoints(node_ips, nproc_per_node, started_port)
     node_rank = node_ips.index(node_ip)
@@ -272,6 +313,17 @@ def launch(training_script: str, script_args: Optional[List[str]] = None,
         health_dir = os.path.join(log_dir, "health")
     if health_dir:
         os.makedirs(health_dir, exist_ok=True)
+    if goodput_dir is None and log_dir:
+        goodput_dir = os.path.join(log_dir, "goodput")
+    if goodput_dir:
+        os.makedirs(goodput_dir, exist_ok=True)
+    if flight_dir is None:
+        if log_dir:
+            flight_dir = os.path.join(log_dir, "flight")
+        elif health_dir:
+            flight_dir = os.path.join(health_dir, "flight")
+    if flight_dir:
+        os.makedirs(flight_dir, exist_ok=True)
     straggler_mon = (_health.StragglerMonitor(
         health_dir, ratio=straggler_ratio,
         warn_cooldown_s=straggler_warn_cooldown_s)
@@ -299,6 +351,13 @@ def launch(training_script: str, script_args: Optional[List[str]] = None,
                 env[_health.ENV_DEADLINE] = str(float(hang_deadline_s))
             if health_dir:
                 env[_health.ENV_DIR] = health_dir
+            # the goodput and flight env contracts: workers export their
+            # window reports (goodput.maybe_export) and sidecar their
+            # event rings (flight.maybe_attach_from_env) here
+            if goodput_dir:
+                env[_goodput.ENV_DIR] = goodput_dir
+            if flight_dir:
+                env[_flight.ENV_DIR] = flight_dir
             # append: a restarted worker's log continues the file
             out = (open(os.path.join(log_dir, f"worker.{rank}.log"), "a")
                    if log_dir else None)
@@ -323,6 +382,7 @@ def launch(training_script: str, script_args: Optional[List[str]] = None,
     all_procs: List = []
     exit_code = 0
     restarts = 0
+    restart_downtime_s = 0.0
     backoff = restart_backoff_s
     last_straggler_poll = 0.0
     stall_seen: dict = {}
@@ -357,6 +417,10 @@ def launch(training_script: str, script_args: Optional[List[str]] = None,
                     f"launch: worker {rank} exited with {ret} "
                     f"(code {code}, cause {cause})\n")
                 _stop_gang(procs, grace_period_s)
+                if cause == "hang" and flight_dir:
+                    # the gang is stopped, every surviving sidecar flushed:
+                    # name the rank that wedged it and the seq it missed
+                    _assemble_blame(flight_dir, attempt=restarts)
                 if restarts < max_restarts:
                     restarts += 1
                     _m_restarts.labels(cause).inc()
@@ -370,10 +434,16 @@ def launch(training_script: str, script_args: Optional[List[str]] = None,
                             out.close()
                     procs = spawn_gang(restarts)
                     all_procs.extend(procs)
+                    t_respawn = time.time()
                     _RESTARTS.append({
                         "attempt": restarts, "rank": rank,
                         "returncode": ret, "cause": cause,
-                        "t_fail": t_fail, "t_respawn": time.time()})
+                        "t_fail": t_fail, "t_respawn": t_respawn})
+                    # failure seen -> gang respawned: the whole gang was
+                    # idle (a SIGKILLed worker cannot report its own death)
+                    restart_downtime_s += t_respawn - t_fail
+                    _goodput.attribute("restart_downtime",
+                                       t_respawn - t_fail)
                     continue
                 exit_code = code
                 break
@@ -397,6 +467,18 @@ def launch(training_script: str, script_args: Optional[List[str]] = None,
         for _, _, out in all_procs:
             if out and not out.closed:
                 out.close()
+    if goodput_dir:
+        # the gang report: the workers' window reports and expositions
+        # merged, the restart downtime charged to every rank
+        try:
+            path = _goodput.write_gang_report(
+                goodput_dir, restart_downtime_s=restart_downtime_s,
+                nranks=len(endpoints),
+                extra={"exit_code": exit_code, "restarts": restarts})
+            if path:
+                sys.stderr.write(f"launch: gang goodput report: {path}\n")
+        except Exception as e:   # accounting never fails the job
+            sys.stderr.write(f"launch: goodput aggregation failed: {e}\n")
     return exit_code
 
 
@@ -430,6 +512,14 @@ def main(argv=None) -> int:
     ap.add_argument("--straggler_ratio", type=float, default=2.0,
                     help="flag ranks whose step-time EWMA exceeds this "
                          "multiple of the gang median")
+    ap.add_argument("--goodput_dir", default=None,
+                    help="shared dir for per-rank goodput ledgers; the "
+                         "supervisor merges them into GOODPUT.json "
+                         "(default: <log_dir>/goodput)")
+    ap.add_argument("--flight_dir", default=None,
+                    help="shared dir for per-rank flight-recorder "
+                         "sidecars, blame-assembled on a hang restart "
+                         "(default: <log_dir>/flight)")
     ap.add_argument("-m", "--module", action="store_true",
                     help="run training_script as a module (python -m)")
     ap.add_argument("training_script")
@@ -443,7 +533,9 @@ def main(argv=None) -> int:
                   restart_backoff_s=args.restart_backoff,
                   hang_deadline_s=args.hang_deadline,
                   health_dir=args.health_dir,
-                  straggler_ratio=args.straggler_ratio)
+                  straggler_ratio=args.straggler_ratio,
+                  goodput_dir=args.goodput_dir,
+                  flight_dir=args.flight_dir)
 
 
 if __name__ == "__main__":

@@ -50,6 +50,7 @@ import torch
 
 from ..device import resolve_device
 from ..models import gpt as G
+from ..observability import goodput as _goodput
 from ..ops import cuda_kernels as CK
 from . import comm_opt, health
 from . import mesh as mesh_mod
@@ -766,17 +767,24 @@ def _watched(step):
     load, torch's lazy imports behind the first custom-op dispatch under
     remat, cuBLAS set-up (about 10 s on the H100's machine: ``PERF.md``
     §6) — the port's counterpart of the reference's first-call compile,
-    which it suspends the same way (``parallelize.py:929-931``)."""
+    which it suspends the same way (``parallelize.py:929-931``). Every
+    call runs under the goodput ledger's ``productive_step`` timer, as the
+    reference's step does (``parallelize.py:946-957``); the step is eager,
+    so the timer covers the host's enqueue of its work, not the device's
+    finish."""
     first = [True]
 
     @functools.wraps(step)
     def run(params, opt, tokens, labels):
         health.progress("train_step")
-        if first[0]:
-            first[0] = False
-            with health.suspend():
-                return step(params, opt, tokens, labels)
-        return step(params, opt, tokens, labels)
+        with _goodput.timer("productive_step"):
+            if first[0]:
+                first[0] = False
+                # the suspend window charges its time to ``compile``,
+                # exclusive of this step's timer
+                with health.suspend():
+                    return step(params, opt, tokens, labels)
+            return step(params, opt, tokens, labels)
 
     return run
 

@@ -20,9 +20,10 @@ and the parity tests:
   ``no_phase_fleet``, ``prefill_refused``, ``prefill_failed``,
   ``handoff_refused``, ``decode_failed``).
 
-The reference records a span for each routed request; the port has no span
-tracer yet (ROADMAP.md, queue A4), so :meth:`DisaggRouter.generate` takes
-``trace_ctx`` and records nothing.
+One routed request is one trace (``observability/spans.py``):
+:meth:`DisaggRouter.generate` records ``serve/route`` and hands its context
+to the prefill replica; the handoff carries it to the decode replica
+(``serve/kv_adopt`` there), and a colocated fallback inherits it too.
 """
 from __future__ import annotations
 
@@ -32,6 +33,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..observability import spans as _spans
 from . import metrics as smetrics
 from .kv_transfer import export_prefix
 from .sampling import SamplingParams
@@ -159,7 +161,7 @@ class DisaggResult:
     latencies (prefill-side TTFT, decode-side cadence)."""
 
     __slots__ = ("tokens", "ttft_ms", "token_times", "state", "error",
-                 "migrated", "fallback_reason", "handoff_ms")
+                 "migrated", "fallback_reason", "handoff_ms", "trace_id")
 
     def __init__(self, tokens, ttft_ms, token_times, state,
                  error=None, migrated=False, fallback_reason=None,
@@ -172,6 +174,7 @@ class DisaggResult:
         self.migrated = migrated
         self.fallback_reason = fallback_reason
         self.handoff_ms = handoff_ms
+        self.trace_id = None
 
     @property
     def tpot_ms(self) -> Optional[float]:
@@ -211,14 +214,37 @@ class DisaggRouter:
     def generate(self, prompt: Sequence[int], max_new_tokens: int = 16,
                  timeout_s: float = 30.0,
                  sampling: Optional[SamplingParams] = None,
-                 trace_ctx=None) -> DisaggResult:
-        """Serve one request end to end (blocking — callers thread).
-        ``trace_ctx`` is accepted for the reference's signature; no span is
-        recorded (queue A4)."""
+                 trace_ctx: Optional[_spans.Context] = None
+                 ) -> DisaggResult:
+        """Serve one request end to end (blocking — callers thread). One
+        trace per request: ``trace_ctx`` (from the wire) names it, else a
+        fresh one; ``serve/route`` is its span here, and the result's
+        ``trace_id`` names the trace."""
         deadline = time.monotonic() + timeout_s
+        trace_id = trace_ctx[0] if trace_ctx is not None \
+            else _spans.gen_id()
+        route_span = _spans.gen_id()
+        t0 = time.perf_counter_ns()
+        try:
+            res = self._generate(prompt, max_new_tokens, deadline,
+                                 sampling, (trace_id, route_span))
+        finally:
+            attrs = {"router": "disagg"}
+            if trace_ctx is not None:
+                attrs["remote_parent"] = True
+            _spans.record(
+                "serve/route", t0, time.perf_counter_ns() - t0,
+                trace=trace_id, span_id=route_span,
+                parent=trace_ctx[1] if trace_ctx is not None else None,
+                attrs=attrs)
+        res.trace_id = trace_id
+        return res
+
+    def _generate(self, prompt, max_new_tokens, deadline, sampling,
+                  ctx: _spans.Context) -> DisaggResult:
         if not self.prefill_fleet or not self.decode_fleet:
             return self._colocated(prompt, max_new_tokens, deadline,
-                                   sampling, "no_phase_fleet")
+                                   sampling, "no_phase_fleet", ctx)
         # -- phase 1: prefill to the first token ------------------------
         pr = self._pick(self.prefill_fleet)
         blob = (self.prefix_index.fetch(prompt, "prefill")
@@ -227,15 +253,15 @@ class DisaggRouter:
             preq = pr.scheduler.submit(
                 prompt, max_new_tokens=max_new_tokens,
                 timeout_s=_left(deadline), sampling=sampling,
-                prefill_only=True, prefix_blob=blob)
+                prefill_only=True, prefix_blob=blob, trace_ctx=ctx)
         except Exception:
             return self._colocated(prompt, max_new_tokens, deadline,
-                                   sampling, "prefill_refused")
+                                   sampling, "prefill_refused", ctx)
         pr.wake()
         preq.wait(timeout=_left(deadline) + 1.0)
         if preq.state != "done" or preq.handoff is None:
             return self._colocated(prompt, max_new_tokens, deadline,
-                                   sampling, "prefill_failed")
+                                   sampling, "prefill_failed", ctx)
         first = preq.tokens[0]
         if max_new_tokens <= 1:
             self._count("migrated")           # nothing left to decode
@@ -251,12 +277,12 @@ class DisaggRouter:
                 timeout_s=_left(deadline), sampling=sampling, prompt=prompt)
         except Exception:
             return self._colocated(prompt, max_new_tokens, deadline,
-                                   sampling, "handoff_refused")
+                                   sampling, "handoff_refused", ctx)
         dr.wake()
         dreq.wait(timeout=_left(deadline) + 1.0)
         if dreq.state != "done":
             return self._colocated(prompt, max_new_tokens, deadline,
-                                   sampling, "decode_failed")
+                                   sampling, "decode_failed", ctx)
         handoff_ms = ((dreq.token_times[1] - t_h0) * 1e3
                       if len(dreq.token_times) > 1 else 0.0)
         self._count("migrated")
@@ -269,9 +295,9 @@ class DisaggRouter:
             setattr(self, what, getattr(self, what) + 1)
 
     def _colocated(self, prompt, max_new_tokens, deadline, sampling,
-                   reason: str) -> DisaggResult:
+                   reason: str, ctx: _spans.Context) -> DisaggResult:
         """Degrade, never drop: the whole request again on the fallback
-        fleet."""
+        fleet, in the same trace."""
         smetrics.m_disagg_fallback.labels(reason).inc()
         self._count("fallbacks")
         fleet = self._fallback_fleet()
@@ -283,7 +309,8 @@ class DisaggRouter:
         try:
             req = rep.scheduler.submit(
                 prompt, max_new_tokens=max_new_tokens,
-                timeout_s=_left(deadline), sampling=sampling)
+                timeout_s=_left(deadline), sampling=sampling,
+                trace_ctx=ctx)
         except Exception as e:
             return DisaggResult([], None, [], "failed",
                                 error=f"{type(e).__name__}: {e}",

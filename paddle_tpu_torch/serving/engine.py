@@ -68,6 +68,7 @@ import torch.nn.functional as F
 from ..device import resolve_device
 from ..models import gpt as gpt_mod
 from ..models.gpt import GPTConfig
+from ..observability import spans as _spans
 from ..ops import cuda_kernels as CK
 from ..ops.decode_attention import (cache_update, decode_attention,
                                     paged_cache_update, paged_gather,
@@ -665,17 +666,20 @@ class DecodeEngine:
         slot = self.cache.alloc(length=n)
         logits, tok = self._prefill_sampled(
             slot, tokens, bucket, params, n,
-            lambda toks: self._prefill(toks, n, slot))
+            lambda toks: self._prefill(toks, n, slot),
+            {"bucket": bucket, "prompt_len": n, "slot": slot})
         smetrics.m_prefill_tokens.inc(n)
         return slot, logits, tok
 
     def _prefill_sampled(self, slot: int, tokens: Sequence[int],
-                         bucket: int, params: SamplingParams, n: int, run
-                         ) -> Tuple[np.ndarray, int]:
+                         bucket: int, params: SamplingParams, n: int, run,
+                         attrs: dict) -> Tuple[np.ndarray, int]:
         """Pad ``tokens`` to ``bucket``, run the prefill ``run(padded)``
         and sample the token after position ``n - 1``; frees ``slot`` when
         either raises; a failure of the prefill itself poisons the engine
-        on the card. Returns (logits[V], token)."""
+        on the card. Records ``serve/prefill`` (``attrs``) in the calling
+        thread's span context: it ends once the logits are on the host,
+        which waits for the device. Returns (logits[V], token)."""
         padded = np.zeros((1, bucket), np.int64)
         padded[0, :len(tokens)] = np.asarray(tokens, np.int64)
         t0 = time.perf_counter_ns()
@@ -691,7 +695,9 @@ class DecodeEngine:
         except Exception:
             self.cache.free(slot)
             raise
-        smetrics.m_prefill_ms.observe((time.perf_counter_ns() - t0) / 1e6)
+        t1 = time.perf_counter_ns()
+        smetrics.m_prefill_ms.observe((t1 - t0) / 1e6)
+        _spans.record("serve/prefill", t0, t1 - t0, attrs=attrs)
         return logits.numpy(), tok
 
     def _start_paged(self, tokens: Sequence[int], n: int,
@@ -711,7 +717,9 @@ class DecodeEngine:
         logits, tok = self._prefill_sampled(
             slot, suffix, bucket, params, n,
             lambda toks: self._prefill_paged(toks, len(suffix), prefix_len,
-                                             row_t))
+                                             row_t),
+            {"bucket": bucket, "prompt_len": n, "prefix_len": prefix_len,
+             "slot": slot})
         smetrics.m_prefill_tokens.inc(len(suffix))
         if self.prefix is not None:
             added = self.prefix.insert(tokens, table_row)

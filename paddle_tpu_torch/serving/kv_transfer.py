@@ -45,6 +45,7 @@ from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..observability import spans as _spans
 from . import metrics as smetrics
 from .kv_cache import CacheFullError
 
@@ -444,6 +445,11 @@ def adopt_into_engine(engine, handoff: Dict[str, Any]) -> int:
             cache.free(slot)
             raise
     _finish_stats("adopt", stats, handoff, t0)
+    # under the request's span context (the scheduler's handoff ingest),
+    # so the adoption lands inside the migrated request's trace
+    _spans.record("serve/kv_adopt", t0, time.perf_counter_ns() - t0,
+                  attrs={"transfer_id": handoff.get("transfer_id"),
+                         "bytes": stats.total_bytes})
     return slot
 
 
@@ -602,9 +608,15 @@ def send_handoff(host: str, port: int, handoff: Dict[str, Any],
                  timeout_s: float = 30.0) -> None:
     """Stream a handoff to a :class:`KVTransferServer` and wait for its
     post-commit ACK. Raises on any transport fault — the caller's cue to
-    fall back to colocated dispatch (degrade, never drop)."""
-    with socket.create_connection((host, int(port)),
-                                  timeout=timeout_s) as sock:
+    fall back to colocated dispatch (degrade, never drop). The handoff's
+    own trace context (stamped at export) parents the ``serve/kv_send``
+    span, so the wire hop shows in the request's trace."""
+    with _spans.default_tracer().context(_spans.extract(handoff)), \
+            _spans.span("serve/kv_send",
+                        attrs={"transfer_id": handoff["transfer_id"],
+                               "length": int(handoff["length"])}), \
+            socket.create_connection((host, int(port)),
+                                     timeout=timeout_s) as sock:
         for header, payload in iter_frames(handoff):
             _send_frame(sock, header, payload)
         ack = _recv_exact(sock, 2)

@@ -44,8 +44,16 @@ decode replica re-prefills ``gen_prompt()`` like any other. A
 ``prefix_blob`` (a gang-shared prefix record) is adopted into the local
 pool just before the request prefills.
 
-The spans, goodput and trace context of the JAX scheduler are still to be
-ported (ROADMAP.md, queue A4).
+Spans (``observability/spans.py``), as the reference records them: each
+request is one trace — a ``serve/request`` root (a dur-0 ``open`` sentinel
+at submit, the full record at its end), and under it ``serve/queue_wait``
+(submit -> admission), the engine's ``serve/prefill``, one
+``serve/decode_tick`` per tick it rides (the tick's wall time: the tick
+syncs on its sampled tokens, so it covers the device) and ``serve/evict``.
+``submit(trace_ctx=)`` joins a trace from the wire instead of rooting a
+new one; a prefill-only request's handoff carries its context under
+``spans.WIRE_KEY``, which ``submit_handoff`` adopts. ``drain`` runs under
+the goodput ledger's ``drain`` timer.
 """
 from __future__ import annotations
 
@@ -59,6 +67,8 @@ from typing import Deque, Dict, List, Optional, Sequence
 import numpy as np
 
 from ..device import resolve_device
+from ..observability import goodput as _goodput
+from ..observability import spans as _spans
 from . import metrics as smetrics
 from .engine import DecodeEngine
 from .kv_cache import CacheFullError
@@ -108,6 +118,15 @@ class Request:
     prefix_blob: Optional[dict] = None
     finished: threading.Event = dataclasses.field(
         default_factory=threading.Event)
+    # span identity: every lifecycle span of this request carries trace_id
+    # and parents under root_span ("serve/request"); a request that came
+    # with a wire context keeps the sender's trace and parents its root
+    # under parent_span
+    trace_id: int = dataclasses.field(default_factory=_spans.gen_id)
+    root_span: int = dataclasses.field(default_factory=_spans.gen_id)
+    parent_span: Optional[int] = None
+    submit_ns: int = dataclasses.field(
+        default_factory=time.perf_counter_ns)
 
     def wait(self, timeout: Optional[float] = None) -> bool:
         return self.finished.wait(timeout)
@@ -133,6 +152,22 @@ class SchedulerConfig:
     # how many times the FIFO head may be bypassed by later, fitting
     # requests before it pins the queue (the starvation bound)
     hol_starvation_limit: int = 32
+
+
+def _trace_kw(ctx: Optional[_spans.Context]) -> dict:
+    """Request fields for a wire trace context (none for a fresh trace)."""
+    if ctx is None:
+        return {}
+    return {"trace_id": int(ctx[0]), "parent_span": int(ctx[1])}
+
+
+def _open_root(req: Request) -> None:
+    """The dur-0 ``open`` sentinel of the request's root span, superseded
+    by the full record at its end: a process killed mid-request has
+    already flushed its children's parent, so the trace still stitches."""
+    _spans.record("serve/request", req.submit_ns, 0, trace=req.trace_id,
+                  parent=req.parent_span, span_id=req.root_span,
+                  attrs={"open": True})
 
 
 class Scheduler:
@@ -171,7 +206,8 @@ class Scheduler:
                timeout_s: Optional[float] = None,
                sampling: Optional[SamplingParams] = None,
                prefill_only: bool = False,
-               prefix_blob: Optional[dict] = None) -> Request:
+               prefix_blob: Optional[dict] = None,
+               trace_ctx: Optional[_spans.Context] = None) -> Request:
         """Enqueue a request; raises QueueFullError on backpressure,
         PromptTooLongError for prompts above the bucket ladder, and
         RuntimeError once draining or refusing.
@@ -180,7 +216,9 @@ class Scheduler:
         state is exported into ``req.handoff`` and the slot released, for
         the caller to migrate to a decode replica (:meth:`submit_handoff`).
         ``prefix_blob`` is a gang-shared prefix record adopted into the
-        local pool right before the prefill (best effort)."""
+        local pool right before the prefill (best effort). ``trace_ctx``
+        ((trace_id, parent_span), from ``spans.extract``) joins an
+        existing trace instead of rooting a fresh one."""
         prompt = [int(t) for t in prompt]
         if not prompt:
             raise ValueError("empty prompt")
@@ -193,7 +231,7 @@ class Scheduler:
                       deadline=time.monotonic() + timeout,
                       sampling=sampling or GREEDY,
                       prefill_only=bool(prefill_only),
-                      prefix_blob=prefix_blob)
+                      prefix_blob=prefix_blob, **_trace_kw(trace_ctx))
         with self._lock:
             self._check_open()
             if len(self._queue) >= self.cfg.max_queue:
@@ -201,13 +239,16 @@ class Scheduler:
                     f"admission queue at capacity ({self.cfg.max_queue})")
             self._queue.append(req)
             smetrics.m_queue_depth.set(len(self._queue))
+        _open_root(req)
         return req
 
     def submit_handoff(self, handoff: dict, first_token: int,
                        max_new_tokens: int = 16,
                        timeout_s: Optional[float] = None,
                        sampling: Optional[SamplingParams] = None,
-                       prompt: Optional[Sequence[int]] = None) -> Request:
+                       prompt: Optional[Sequence[int]] = None,
+                       trace_ctx: Optional[_spans.Context] = None
+                       ) -> Request:
         """Enqueue a MIGRATED request: the prefill replica produced
         ``first_token`` and exported its KV into ``handoff``; this
         scheduler adopts the payload at the start of its next tick and
@@ -215,7 +256,9 @@ class Scheduler:
         its finish counting and greedy stream are the colocated path's. Its
         prompt (``prompt``, else the handoff's ``tokens``) is required: a
         preemption here re-prefills it. The pending handoffs are capped at
-        ``max_queue`` (QueueFullError)."""
+        ``max_queue`` (QueueFullError). Without ``trace_ctx`` the request
+        joins the trace the handoff carries (stamped at export), so both
+        halves of a migrated request are one trace."""
         prompt = [int(t) for t in (prompt if prompt is not None
                                    else (handoff.get("tokens") or []))]
         if not prompt:
@@ -225,9 +268,12 @@ class Scheduler:
                              self.cfg.max_new_tokens_cap))
         timeout = (self.cfg.default_timeout_s if timeout_s is None
                    else float(timeout_s))
+        if trace_ctx is None:
+            trace_ctx = _spans.extract(handoff)
         req = Request(prompt=prompt, max_new_tokens=max_new,
                       deadline=time.monotonic() + timeout,
-                      sampling=sampling or GREEDY, handoff=handoff)
+                      sampling=sampling or GREEDY, handoff=handoff,
+                      **_trace_kw(trace_ctx))
         req.tokens.append(int(first_token))
         req.token_times.append(time.monotonic())
         with self._lock:
@@ -236,6 +282,7 @@ class Scheduler:
                 raise QueueFullError(
                     f"handoff queue at capacity ({self.cfg.max_queue})")
             self._pending_handoffs.append(req)
+        _open_root(req)
         return req
 
     def _check_open(self) -> None:
@@ -290,7 +337,10 @@ class Scheduler:
                              "deadline exceeded before KV adoption")
                 continue
             try:
-                slot = self.engine.adopt_request_kv(req.handoff)
+                # adoption records serve/kv_adopt under the request's root
+                with _spans.default_tracer().context(
+                        (req.trace_id, req.root_span)):
+                    slot = self.engine.adopt_request_kv(req.handoff)
             except (CacheFullError, PagePoolFullError):
                 break              # slot or pool pressure: retry next tick
             except Exception as e:
@@ -319,10 +369,13 @@ class Scheduler:
         active request finished (or the timeout hits)."""
         self.begin_drain()
         end = time.monotonic() + timeout_s
-        while time.monotonic() < end:
-            if self.pending() == 0:
-                return True
-            self.step()
+        # drain wall time is its own goodput category: the engine finishes
+        # old work and admits nothing
+        with _goodput.timer("drain"):
+            while time.monotonic() < end:
+                if self.pending() == 0:
+                    return True
+                self.step()
         return False
 
     def abort_all(self, reason: str, refuse_new: bool = False) -> int:
@@ -446,6 +499,7 @@ class Scheduler:
             if req is None:
                 break
             t_admit = time.monotonic()
+            t_admit_ns = time.perf_counter_ns()
             if req.prefix_blob is not None:
                 # a gang-shared prefix record: adopt it into the local pool
                 # so the prefill below hits it. Best effort — a failure
@@ -456,16 +510,20 @@ class Scheduler:
                 except Exception:
                     pass
             try:
-                if req.preempted:
-                    # may exceed the ladder: the engine replays the known
-                    # stream's tail through the decode tick
-                    slot, _logits, first = \
-                        self.engine.resume_sequence_sampled(
-                            req.gen_prompt(), req.sampling)
-                else:
-                    slot, _logits, first = \
-                        self.engine.start_sequence_sampled(
-                            req.prompt, req.sampling)
+                # inside the request's context, so the engine's
+                # serve/prefill span parents under its root
+                with _spans.default_tracer().context(
+                        (req.trace_id, req.root_span)):
+                    if req.preempted:
+                        # may exceed the ladder: the engine replays the
+                        # known stream's tail through the decode tick
+                        slot, _logits, first = \
+                            self.engine.resume_sequence_sampled(
+                                req.gen_prompt(), req.sampling)
+                    else:
+                        slot, _logits, first = \
+                            self.engine.start_sequence_sampled(
+                                req.prompt, req.sampling)
             except (CacheFullError, PagePoolFullError):
                 # raced slot or page budget: requeue at the head
                 with self._lock:
@@ -475,6 +533,9 @@ class Scheduler:
             except Exception as e:
                 self._finish(req, FAILED, f"{type(e).__name__}: {e}")
                 continue
+            _spans.record("serve/queue_wait", req.submit_ns,
+                          t_admit_ns - req.submit_ns,
+                          trace=req.trace_id, parent=req.root_span)
             t = time.monotonic()
             req.state = ACTIVE
             req.slot = slot
@@ -499,6 +560,10 @@ class Scheduler:
                 try:
                     req.handoff = self.engine.export_request_kv(
                         slot, tokens=req.prompt)
+                    # the frame carries the trace: the decode replica's
+                    # half of the request lands in the same one
+                    req.handoff[_spans.WIRE_KEY] = _spans.inject(
+                        (req.trace_id, req.root_span))
                 except Exception as e:
                     self._evict(slot, FAILED, f"{type(e).__name__}: {e}")
                     continue
@@ -563,12 +628,23 @@ class Scheduler:
             return False
         feed = {slot: self._next_token[slot] for slot in self._active}
         params = {slot: req.sampling for slot, req in self._active.items()}
+        t_tick0 = time.perf_counter_ns()
         out = self.engine.generate_step(feed, params)
+        tick_ns = time.perf_counter_ns() - t_tick0
         t = time.monotonic()
+        trace_on = _spans.tracing_enabled()
         for slot, emitted in out.items():
             req = self._active.get(slot)
             if req is None:
                 continue
+            if trace_on:
+                # every rider of the batched call gets the tick's wall
+                # time (a speculative tick emits several tokens)
+                _spans.record("serve/decode_tick", t_tick0, tick_ns,
+                              trace=req.trace_id, parent=req.root_span,
+                              attrs={"batch": len(out),
+                                     "emitted": len(emitted),
+                                     "token_index": len(req.tokens)})
             finished = False
             for tok in emitted:
                 tok = int(tok)
@@ -604,9 +680,13 @@ class Scheduler:
         self._next_token.pop(slot, None)
         if slot in self._admit_order:
             self._admit_order.remove(slot)
+        t0 = time.perf_counter_ns()
         self.engine.free_sequence(slot)
-        smetrics.m_evictions.labels(
-            reason or self._EVICT_REASONS.get(state, state)).inc()
+        reason = reason or self._EVICT_REASONS.get(state, state)
+        smetrics.m_evictions.labels(reason).inc()
+        _spans.record("serve/evict", t0, time.perf_counter_ns() - t0,
+                      trace=req.trace_id, parent=req.root_span,
+                      attrs={"reason": reason, "slot": slot})
         self._finish(req, state, detail)
 
     def _finish(self, req: Request, state: str,
@@ -618,4 +698,12 @@ class Scheduler:
             self.completed += 1
         with self._rate_lock:
             self._done_times.append(time.monotonic())
+        # close the root span (submit -> terminal state) under the id the
+        # lifecycle spans parented to
+        _spans.record("serve/request", req.submit_ns,
+                      time.perf_counter_ns() - req.submit_ns,
+                      trace=req.trace_id, parent=req.parent_span,
+                      span_id=req.root_span,
+                      attrs={"state": state, "tokens": len(req.tokens),
+                             "request_id": req.id})
         req.finished.set()

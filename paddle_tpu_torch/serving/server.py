@@ -19,8 +19,12 @@ backend of ``paddle_tpu/serving/server.py``.
 - draining (:meth:`FrontDoor.drain`) -> **503**; in-flight work finishes;
 - internal failure -> **500**, always with a JSON body.
 
-``GET /health`` reports the phase, queue depth, active slots and the
-loop's fault count, and status ``poisoned`` once the engine is.
+``GET /health`` reports the phase, queue depth, active slots, the loop's
+fault count and the span tracer's per-name rollups of the ``serve/*``
+spans (``span_rollups_ms``), and status ``poisoned`` once the engine is.
+``GET /metrics`` is the Prometheus text of the process's registry
+(``observability/prom.py``). A ``trace`` object in a POST body
+(``spans.inject``) joins the request to the caller's trace.
 
 The disaggregated phases (``server.py:255-380`` of the reference):
 
@@ -35,8 +39,7 @@ The disaggregated phases (``server.py:255-380`` of the reference):
   adopting its handoff inline (``"kv"``) or popping ``"transfer_id"`` from
   this front door's ``kv_server``.
 
-The predictor route and ``/metrics`` are still to be ported (ROADMAP.md,
-queue A4).
+The predictor route is still to be ported (ROADMAP.md, queue A5).
 """
 from __future__ import annotations
 
@@ -46,6 +49,9 @@ import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Dict, Optional
 
+from ..observability import goodput as _goodput
+from ..observability import prom as _prom
+from ..observability import spans as _spans
 from . import kv_transfer
 from . import metrics as smetrics
 from .engine import PromptTooLongError
@@ -205,6 +211,15 @@ class _Handler(BaseHTTPRequestHandler):
     def do_GET(self):
         if self.path == "/health":
             return self._json(200, self.server.front.health())
+        if self.path == "/metrics":
+            text = _prom.render().encode()
+            self.send_response(200)
+            self.send_header("Content-Type", "text/plain; version=0.0.4")
+            self.send_header("Content-Length", str(len(text)))
+            self.end_headers()
+            self.wfile.write(text)
+            smetrics.request_code(200)
+            return
         self._json(404, {"error": f"unknown path {self.path!r}"})
 
     def do_POST(self):
@@ -254,7 +269,8 @@ class _Handler(BaseHTTPRequestHandler):
                              f"({reason})"}, retry_after=after)
         request = self._submitted(front, lambda: front.scheduler.submit(
             prompt, max_new_tokens=int(req_obj.get("max_new_tokens", 16)),
-            timeout_s=timeout_s, sampling=self._parse_sampling(req_obj)))
+            timeout_s=timeout_s, sampling=self._parse_sampling(req_obj),
+            trace_ctx=_spans.extract(req_obj)))
         if request is None:
             return
         front.loop.wake()
@@ -318,7 +334,7 @@ class _Handler(BaseHTTPRequestHandler):
         request = self._submitted(front, lambda: front.scheduler.submit(
             prompt, max_new_tokens=int(req_obj.get("max_new_tokens", 16)),
             timeout_s=timeout_s, sampling=self._parse_sampling(req_obj),
-            prefill_only=True))
+            prefill_only=True, trace_ctx=_spans.extract(req_obj)))
         if request is None:
             return
         front.loop.wake()
@@ -393,7 +409,7 @@ class _Handler(BaseHTTPRequestHandler):
                 max_new_tokens=int(req_obj.get("max_new_tokens", 16)),
                 timeout_s=timeout_s,
                 sampling=self._parse_sampling(req_obj),
-                prompt=prompt or None))
+                prompt=prompt or None, trace_ctx=_spans.extract(req_obj)))
         if request is None:
             return
         front.loop.wake()
@@ -488,6 +504,11 @@ class FrontDoor:
         }
         if self.loop.last_fault is not None:
             out["loop_last_fault"] = self.loop.last_fault
+        # per-span-name percentile rollups (queue wait, prefill, decode
+        # ticks, evictions, whole requests) off the tracer's ring
+        out["span_rollups_ms"] = {
+            k: v for k, v in _spans.default_tracer().summary().items()
+            if k.startswith("serve/")}
         # a poisoned engine outranks everything: no request will succeed
         # again, so a supervisor recycles the replica on this status
         poisoned = getattr(eng, "poisoned", None) or self.loop.poison_reason
@@ -498,7 +519,12 @@ class FrontDoor:
 
     def drain(self, timeout_s: float = 60.0) -> bool:
         """Refuse new work (503), let in-flight requests finish, then
-        stop. Returns True when everything finished inside the timeout."""
+        stop. Returns True when everything finished inside the timeout.
+        Its wall time is the goodput ledger's ``drain``."""
+        with _goodput.timer("drain"):
+            return self._drain(timeout_s)
+
+    def _drain(self, timeout_s: float) -> bool:
         self._draining = True
         self.scheduler.begin_drain()
         self.loop.wake()

@@ -36,8 +36,16 @@ Scenarios:
                     across the reshard, the final loss within 5% of the
                     baseline's
   hang              a worker stalls after a step; its watchdog fires within
-                    the deadline, dumps the stacks and exits 43; the
-                    supervisor restarts (cause hang) -> bit-exact
+                    the deadline, dumps the stacks and its flight ring and
+                    exits 43; the supervisor restarts (cause hang) ->
+                    bit-exact
+  sigstop_blame     two ranks lock-step through a per-step file barrier
+                    (the stand-in for the gradient all-reduce, stamped as
+                    the flight collective ``allreduce_grads``); rank 1
+                    SIGSTOPs itself before step 3's barrier, rank 0 wedges
+                    in it and its watchdog fires; the supervisor's blame
+                    pass must name rank 1 (``never_entered``) at seq 3
+                    with no sequence gap, and set ``paddle_blamed_rank``
   poison_batch      (cpu) one dp rank's shard of one batch is NaN: every
                     rank skips that step alike (``health.nonfinite_guard``
                     on the all-reduced loss) -> bit-exact vs no poison
@@ -47,20 +55,33 @@ Scenarios:
   straggler         (cpu) rank 1 of two sleeps each step; the
                     supervisor's heartbeat poll flags rank 1
 
+Every worker keeps a goodput run window (model and step bring-up under
+``compile``, saves under ``checkpoint_save``, the steps under
+``productive_step``) exported to ``PADDLE_GOODPUT_DIR`` when it ends, and
+records ``step_begin`` / ``step_end`` flight events into the sidecar under
+``PADDLE_FLIGHT_DIR``. sigkill_midstep runs with both dirs: its
+``GOODPUT.json`` must charge the restart to ``restart_downtime`` (equal to
+the supervisor's ``restart_history`` window within 1 s) and give a gang
+goodput fraction in (0, 1].
+
 The card is the default: without arguments the card subset (baseline,
-aa, sigkill_midstep, sigterm_preempt, corrupt_shard, hang, dp_reshard)
-runs on GPT_SMALL at full width and depth through the port's
+aa, sigkill_midstep, sigterm_preempt, corrupt_shard, hang, sigstop_blame,
+dp_reshard) runs on GPT_SMALL's width at 6 of its 12 layers through the
+port's
 kernels (bf16, fused LN, vocab chunk 1024, dots remat, the flat AdamW
 sweep, bf16 moments) at lr 1e-4 (``train_bench``'s; the reference's 1e-2,
 sized for GPT_TINY, drives GPT_SMALL's loss up from 10.8 to 16), one rank
 an NCCL world of one; the dp-2 save side of dp_reshard is two gloo ranks
-sharing ``cuda:0``. Without a card it raises. ``--smoke --device cpu``
+sharing ``cuda:0``; sigstop_blame's two ranks train apart (each an NCCL
+world of one on ``cuda:0``) at the reference's sizes for it (1 layer,
+batch 2 x 8). Without a card it raises. ``--smoke --device cpu``
 (the CPU test lane) runs every scenario on GPT_TINY at dp 2 over gloo.
 The JSON record (every scenario, its pass, save / restore / recovery
 times and each completed incarnation's kernel launches) goes where
 ``--out`` says.
 """
 import argparse
+import contextlib
 import glob
 import json
 import os
@@ -81,6 +102,8 @@ T_IMPORT = time.time()
 PG_TIMEOUT_S = 120.0     # every rendezvous and collective (> the deadline)
 FAULT_RANK = 0           # the rank that dies, stalls or calls preemption
 STRAGGLER_RANK = 1
+SIGSTOP_AT, SIGSTOP_RANK = 3, 1
+CUDA_LAYERS = 6          # the card lane's depth (GPT_SMALL's width)
 GUARD_K = 2              # consecutive bad steps before a rollback
 DIVERGE_LR = 30.0        # the injected divergence
 POISON_AT, POISON_RANK, POISON_RANKS = 2, 2, 4
@@ -154,6 +177,29 @@ def _config(args):
     return cfg.scaled(num_layers=args.layers) if args.layers else cfg
 
 
+def _gang_barrier(barrier_dir, attempt, step, rank, trainers,
+                  timeout_s=300.0):
+    """File-based per-step gang barrier. sigstop_blame's ranks train
+    apart (no process group between them), so this stands in for the
+    blocking gradient all-reduce: each rank drops an attempt-prefixed
+    marker and waits for the whole gang. A SIGSTOPped peer never writes
+    its marker, so the healthy rank stalls here as in a wedged collective
+    — its progress stamps stop, its watchdog fires, and its flight file
+    ends in a ``coll_enter`` the peer never reached."""
+    os.makedirs(barrier_dir, exist_ok=True)
+    mine = os.path.join(barrier_dir, f"a{attempt}.s{step}.r{rank}")
+    with open(mine, "w") as f:
+        f.write(str(os.getpid()))
+    deadline = time.time() + timeout_s
+    want = [os.path.join(barrier_dir, f"a{attempt}.s{step}.r{r}")
+            for r in range(trainers)]
+    while time.time() < deadline:
+        if all(os.path.exists(p) for p in want):
+            return
+        time.sleep(0.02)
+    raise TimeoutError(f"gang barrier timed out at step {step}")
+
+
 def _fault_marker(args, what):
     """True (and the marker written, with this moment) the first time an
     incarnation reaches its fault; the restarted ones run clean."""
@@ -168,6 +214,7 @@ def worker(args):
     import numpy as np
     import torch
 
+    from paddle_tpu_torch.observability import flight, goodput
     from paddle_tpu_torch.ops import cuda_kernels as CK
     from paddle_tpu_torch.parallel import checkpoint as C
     from paddle_tpu_torch.parallel import env, health
@@ -175,8 +222,17 @@ def worker(args):
     from paddle_tpu_torch.parallel.launch import install_preemption_handler
 
     preempt = install_preemption_handler()
+    # the goodput run window: this incarnation's wall clock, exported per
+    # rank when it ends (a SIGKILLed one never exports: its lost time is
+    # the supervisor's restart_downtime)
+    led = goodput.ledger()
+    led.start_window()
     rank = int(os.environ.get("PADDLE_TRAINER_ID", "0"))
     trainers = int(os.environ.get("PADDLE_TRAINERS_NUM", "1"))
+    attempt = int(os.environ.get("PADDLE_RESTART_ATTEMPT", 0))
+    # the flight sidecar under PADDLE_FLIGHT_DIR, its meta record stamped
+    # with this rank before an independent rank renames itself below
+    flight.maybe_attach_from_env()
     independent = args.dp == 1 and trainers > 1
     result_path = args.result + (f".rank{rank}" if independent else "")
     ckpt_dir = (os.path.join(args.ckpt_dir, f"rank{rank}") if independent
@@ -188,29 +244,35 @@ def worker(args):
                            "PADDLE_TRAINER_ENDPOINTS": ""})
     if args.device == "cpu":
         torch.set_num_threads(1)
-    dev = env.init_distributed_env(
-        device=None if args.device == "cuda" else args.device,
-        timeout_s=PG_TIMEOUT_S)
-    stamps = {"t_import": T_IMPORT, "t_init": time.time()}
-    base_lr = args.lr
-    cfg = _config(args)
-    pcfg = PZ.ParallelConfig(dp=args.dp)
-    mesh = PZ.build_mesh(pcfg, device=dev)
-    world = mesh.group(*mesh.axis_names)
-    layout, repl = PZ.rs_param_layout(cfg, pcfg)
-    params, opt = PZ.init_sharded(cfg, pcfg, mesh, seed=0,
-                                  moment_dtype=torch.bfloat16,
-                                  grad_reduce="reduce_scatter")
-    specs = C.train_state_specs(cfg, pcfg, opt)
+    device = None if args.device == "cuda" else args.device
+    if independent and args.device == "cuda":
+        device = "cuda:0"       # every rank a world of one on the card
+    # process group, model and step bring-up: one-time start-up work,
+    # charged to compile as the reference charges its bring-up
+    with led.timer("compile"):
+        dev = env.init_distributed_env(device=device,
+                                       timeout_s=PG_TIMEOUT_S)
+        stamps = {"t_import": T_IMPORT, "t_init": time.time()}
+        base_lr = args.lr
+        cfg = _config(args)
+        pcfg = PZ.ParallelConfig(dp=args.dp)
+        mesh = PZ.build_mesh(pcfg, device=dev)
+        world = mesh.group(*mesh.axis_names)
+        layout, repl = PZ.rs_param_layout(cfg, pcfg)
+        params, opt = PZ.init_sharded(cfg, pcfg, mesh, seed=0,
+                                      moment_dtype=torch.bfloat16,
+                                      grad_reduce="reduce_scatter")
+        specs = C.train_state_specs(cfg, pcfg, opt)
 
     def make_step(lr, skip=True):
         return PZ.make_train_step(cfg, pcfg, mesh, lr=lr,
                                   grad_reduce="reduce_scatter",
                                   skip_nonfinite=skip)
 
-    step_fn = make_step(base_lr)
-    bad_step_fn = make_step(DIVERGE_LR, False) if args.diverge_at \
-        else None
+    with led.timer("compile"):
+        step_fn = make_step(base_lr)
+        bad_step_fn = make_step(DIVERGE_LR, False) if args.diverge_at \
+            else None
     guard = (health.DivergenceGuard(health.GuardrailConfig(
         spike_mult=2.0, min_history=2, max_consecutive_bad=GUARD_K,
         lr_cooldown=0.5, max_rollbacks=2)) if args.diverge_at else None)
@@ -243,7 +305,6 @@ def worker(args):
         _log(f"worker rank {rank} pid {os.getpid()} restored step {start} "
              f"in {restore_ms:.1f} ms (crcs equal to the save's: "
              f"{reshard})")
-    attempt = int(os.environ.get("PADDLE_RESTART_ATTEMPT", 0))
     inc = {"pid": os.getpid(), "rank": rank, "attempt": attempt,
            "start_step": start, "restored_from": restored_from,
            "reshard": reshard, "restore_ms": restore_ms,
@@ -259,16 +320,28 @@ def worker(args):
                  if hb_dir else None)
 
     def save(step_no):
-        extra = ({"params_crc": _params_crc(params, mesh, specs),
-                  "moment_leaf_crcs": _moment_leaf_crcs(opt, layout, repl,
-                                                        mesh)}
-                 if args.state_crcs else None)
-        ck.save(step_no, {"params": params, "opt": opt}, mesh=live_mesh,
-                layout=layout, layout_repl=repl, specs=specs,
-                data_state={"epoch": 0, "offset": step_no}, extra=extra)
-        # committed before the next step: faults are injected against
-        # "step N is committed" (the async overlap is in the tests)
-        ck.wait()
+        # the whole helper (the crc32s included) is checkpoint wall time
+        with led.timer("checkpoint_save"):
+            extra = ({"params_crc": _params_crc(params, mesh, specs),
+                      "moment_leaf_crcs": _moment_leaf_crcs(
+                          opt, layout, repl, mesh)}
+                     if args.state_crcs else None)
+            ck.save(step_no, {"params": params, "opt": opt},
+                    mesh=live_mesh, layout=layout, layout_repl=repl,
+                    specs=specs, data_state={"epoch": 0, "offset": step_no},
+                    extra=extra)
+            # committed before the next step: faults are injected against
+            # "step N is committed" (the async overlap is in the tests)
+            ck.wait()
+
+    def export_goodput(**extra):
+        # the real rank: an independent rank renamed itself 0 for its
+        # world of one
+        try:
+            goodput.maybe_export(led.end_window(extra=dict(extra,
+                                                           rank=rank)))
+        except Exception:
+            pass                  # accounting never fails the worker
 
     def finish_incarnation(**kw):
         inc.update(kw, saves=ck.history,
@@ -296,7 +369,9 @@ def worker(args):
                 save(step - 1)
             ck.close()
             finish_incarnation(exit="preempt", final_step=step - 1)
+            export_goodput(exit="preempt", final_step=step - 1)
             sys.exit(0)
+        flight.event("step_begin", step=step)
         if args.straggle_ms and rank == STRAGGLER_RANK:
             time.sleep(args.straggle_ms / 1000.0)
         toks, labs = _batch(step, cfg.vocab_size, args.batch, args.seqlen)
@@ -308,6 +383,23 @@ def worker(args):
         inc["step_s"].append(round(time.perf_counter() - t_step, 4))
         if "t_first_step" not in inc:
             inc["t_first_step"] = time.time()
+        if args.gang_barrier:
+            if rank == SIGSTOP_RANK and step == SIGSTOP_AT and \
+                    _fault_marker(args, "sigstop"):
+                # freeze BEFORE the step's exchange: this rank's flight
+                # file stops at seq N while its peer enters seq N + 1 and
+                # wedges; SIGSTOP freezes this rank's watchdog too, so it
+                # is the healthy peer's that fires
+                _log(f"worker rank {rank} SIGSTOP before the barrier of "
+                     f"step {step}")
+                os.kill(os.getpid(), signal.SIGSTOP)
+            # the first barrier waits for the peer's one-time start-up
+            # work (its first step), which the watchdog does not judge
+            with (health.suspend() if step == start + 1
+                  else contextlib.nullcontext()), \
+                    flight.collective("allreduce_grads", nbytes=8 * trainers):
+                _gang_barrier(args.gang_barrier, attempt, step, rank,
+                              trainers)
         if heartbeat is not None:
             heartbeat.beat(step)
         verdict = "ok"
@@ -354,6 +446,7 @@ def worker(args):
             # find a target from before the divergence
             save(step)
             last_saved = step
+        flight.event("step_end", step=step)
     final_loss = float(loss) if loss is not None else None
     result = {"final_step": args.steps, "final_loss": final_loss,
               "params_crc": _params_crc(params, mesh, specs),
@@ -370,6 +463,7 @@ def worker(args):
         save(args.steps)
     ck.close()
     finish_incarnation(exit="complete", final_step=args.steps)
+    export_goodput(exit="complete", final_step=args.steps)
     if rank == 0 or independent:
         tmp = result_path + ".tmp"
         with open(tmp, "w") as f:
@@ -568,8 +662,10 @@ class Harness:
         self.work = work
         self.cuda = mode == "cuda"
         if self.cuda:
-            base = dict(dp=1, layers=0, batch=16, seqlen=1024, steps=6,
-                        interval=3, keep_last=2, lr=1e-4)
+            # GPT_SMALL's width at 6 of its 12 layers: the depth is the
+            # one cut, to keep chip_smoke.py's phase 12 short
+            base = dict(dp=1, layers=CUDA_LAYERS, batch=16, seqlen=1024,
+                        steps=6, interval=3, keep_last=2, lr=1e-4)
             self.die_at, self.deadline, self.job_s = 4, 10.0, 240.0
         else:
             base = dict(dp=2, layers=1, batch=4, seqlen=16, steps=4,
@@ -589,7 +685,8 @@ class Harness:
         d.update(over)
         return d
 
-    def job(self, ns, max_restarts=2, backend=None, nproc=None, **kw):
+    def job(self, ns, max_restarts=2, backend=None, nproc=None,
+            grace_period_s=20.0, **kw):
         """One supervised job through ``launch``; (rc, result, timed
         out)."""
         from paddle_tpu_torch.parallel.launch import launch
@@ -600,8 +697,8 @@ class Harness:
                         started_port=_free_port(),
                         backend=backend or self.backend,
                         max_restarts=max_restarts, restart_backoff_s=0.2,
-                        restart_backoff_max_s=1.0, grace_period_s=20.0,
-                        **kw)
+                        restart_backoff_max_s=1.0,
+                        grace_period_s=grace_period_s, **kw)
         return rc, _read_json(ns["result"]), timer.expired
 
     def cli_job(self, ns, max_restarts=0):
@@ -689,30 +786,47 @@ class Harness:
         marker = os.path.join(self.work, "sigkill.marker")
         ns = self.ns("sigkill_midstep", die_at=self.die_at, die_sig="KILL",
                      once_marker=marker)
+        gp_dir = os.path.join(self.work, "sigkill_goodput")
         before = _restart_causes()
-        rc, res, timed_out = self.job(ns, max_restarts=2)
+        rc, res, timed_out = self.job(
+            ns, max_restarts=2, goodput_dir=gp_dir,
+            flight_dir=os.path.join(self.work, "sigkill_flight"))
         after = _restart_causes()
         incs = _incarnations(ns["ckpt_dir"])
         self.count("sigkill_midstep", incs)
         hist = restart_history()[n0:]
         fault = _read_json(marker) or {}
+        gp = _read_json(os.path.join(gp_dir, "GOODPUT.json"))
         s = {"rc": rc, "result": res, "timed_out": timed_out,
              "incarnations": len(incs) + 1,
              "restarts": hist, "restored_from": [i["restored_from"]
                                                  for i in incs],
              "expected_restore": self._expect_restore(),
              "crash_restarts": after.get("crash", 0)
-             - before.get("crash", 0)}
+             - before.get("crash", 0), "goodput": gp}
         if incs and hist:
             s["recovery"] = _recovery(incs[-1], fault.get("t"),
                                       hist[0]["t_fail"],
                                       hist[0]["t_respawn"])
+        frac = gp and gp.get("gang_goodput_fraction")
+        s["gang_goodput_fraction"] = frac
+        s["goodput_downtime_s"] = gp and gp.get("restart_downtime_s")
+        s["history_downtime_s"] = round(sum(
+            h["t_respawn"] - h["t_fail"] for h in hist), 6)
+        # the report charges the supervisor's failure -> respawn window,
+        # the window restart_history() keeps
+        s["downtime_agrees"] = bool(
+            gp and gp["categories"].get("restart_downtime", 0) > 0
+            and abs(s["goodput_downtime_s"] - s["history_downtime_s"])
+            <= 1.0)
         ok = self._vs_baseline(s, res)
         s["pass"] = bool(rc == 0 and ok and len(hist) == 1
                          and hist[0]["cause"] == "crash"
                          and s["crash_restarts"] == 1 and incs
                          and incs[-1]["restored_from"]
-                         == s["expected_restore"])
+                         == s["expected_restore"]
+                         and frac is not None and 0 < frac <= 1
+                         and s["downtime_agrees"])
         self.done("sigkill_midstep", s)
         shutil.rmtree(ns["ckpt_dir"], ignore_errors=True)
 
@@ -799,12 +913,14 @@ class Harness:
         hist = restart_history()[n0:]
         dumps = sorted(glob.glob(os.path.join(health_dir, "hang_*",
                                               "hang_info.json")))
+        flight_dumps = sorted(glob.glob(os.path.join(
+            health_dir, "hang_*", "flight.dump.hang.*.json")))
         infos = [_read_json(p) for p in dumps]
         fault = _read_json(marker) or {}
         s = {"rc": rc, "result": res, "timed_out": timed_out,
              "deadline_s": self.deadline,
              "hang_restarts": after.get("hang", 0) - before.get("hang", 0),
-             "stack_dumps": len(dumps),
+             "stack_dumps": len(dumps), "flight_dumps": len(flight_dumps),
              "restored_from": [i["restored_from"] for i in incs],
              "expected_restore": self._expect_restore(), "restarts": hist}
         if infos and fault.get("t"):
@@ -818,12 +934,58 @@ class Harness:
                                       hist[0]["t_respawn"])
         ok = self._vs_baseline(s, res)
         s["pass"] = bool(rc == 0 and s["hang_restarts"] == 1 and dumps
+                         and flight_dumps
                          and hist and hist[0]["cause"] == "hang"
                          and s.get("last_progress_age_s", 0)
                          > self.deadline
                          and incs and incs[-1]["restored_from"]
                          == s["expected_restore"] and ok)
         self.done("hang", s)
+        shutil.rmtree(ns["ckpt_dir"], ignore_errors=True)
+
+    def s_sigstop_blame(self):
+        """Two ranks at the reference's sizes for this scenario (1 layer,
+        batch 2 x 8, 5 steps, a 4 s hang deadline) train apart, lock-
+        stepped by the flight-stamped file barrier; rank 1 SIGSTOPs itself
+        before step 3's. The supervisor kills the gang (SIGKILL reaches a
+        stopped process, after a short grace), runs the blame pass and
+        restarts; the rerun completes."""
+        from paddle_tpu_torch.observability import default_registry
+
+        fl_health = os.path.join(self.work, "sigstop_health")
+        ns = self.ns("sigstop_blame", dp=1, layers=1, batch=2, seqlen=8,
+                     steps=5, interval=100,
+                     gang_barrier=os.path.join(self.work, "sigstop_barrier"),
+                     once_marker=os.path.join(self.work, "sigstop.marker"))
+        before = _restart_causes()
+        rc, _res, timed_out = self.job(
+            ns, max_restarts=2, nproc=2, hang_deadline_s=4.0,
+            health_dir=fl_health, grace_period_s=2.0)
+        after = _restart_causes()
+        blame_path = os.path.join(fl_health, "flight", "blame.attempt0.json")
+        verdict = (_read_json(blame_path) or {}).get("verdict") or {}
+        series = default_registry().snapshot().get(
+            "paddle_blamed_rank", {}).get("series", [])
+        gauge = series[0]["value"] if series else None
+        s = {"rc": rc, "timed_out": timed_out,
+             "hang_restarts": after.get("hang", 0) - before.get("hang", 0),
+             "blame_report": os.path.exists(blame_path),
+             "blamed_ranks": verdict.get("blamed_ranks"),
+             "blame_mode": verdict.get("blame_mode"),
+             "missed_seq": verdict.get("missed_seq"),
+             "missed_name": verdict.get("missed_name"),
+             "expected_missed_seq": SIGSTOP_AT,
+             "seq_gaps_total": verdict.get("seq_gaps_total"),
+             "step_skew_ms": verdict.get("step_skew_ms"),
+             "paddle_blamed_rank": gauge}
+        s["pass"] = bool(rc == 0 and s["hang_restarts"] >= 1
+                         and s["blamed_ranks"] == [SIGSTOP_RANK]
+                         and s["blame_mode"] == "never_entered"
+                         and s["missed_seq"] == SIGSTOP_AT
+                         and s["missed_name"] == "allreduce_grads"
+                         and s["seq_gaps_total"] == 0
+                         and gauge == SIGSTOP_RANK)
+        self.done("sigstop_blame", s)
         shutil.rmtree(ns["ckpt_dir"], ignore_errors=True)
 
     def s_dp_reshard(self):
@@ -945,10 +1107,10 @@ class Harness:
 
 SCENARIOS = {
     "smoke": ("baseline", "aa", "sigkill_midstep", "sigterm_preempt",
-              "corrupt_shard", "dp_reshard", "hang", "poison_batch",
-              "divergence_rollback", "straggler"),
+              "corrupt_shard", "dp_reshard", "hang", "sigstop_blame",
+              "poison_batch", "divergence_rollback", "straggler"),
     "cuda": ("baseline", "aa", "sigkill_midstep", "sigterm_preempt",
-             "corrupt_shard", "hang", "dp_reshard"),
+             "corrupt_shard", "hang", "sigstop_blame", "dp_reshard"),
 }
 
 
@@ -957,6 +1119,13 @@ def harness(device, out_path, only=None):
 
     t0 = time.time()
     mode = "smoke" if resolve_device(device).type == "cpu" else "cuda"
+    # sigstop_blame stops a worker of this process's group; when another
+    # member exits, a kernel may send the (orphaned) group SIGHUP and
+    # SIGCONT. The supervisor survives it; the workers keep the default
+    # action (a handler, unlike an ignored signal, is reset across exec),
+    # so the stopped rank dies of it where it stood
+    signal.signal(signal.SIGHUP, lambda signum, frame: _log(
+        "SIGHUP to the gang's process group (a stopped member) ignored"))
     os.environ["PYTHONPATH"] = os.pathsep.join(
         [REPO] + [p for p in os.environ.get("PYTHONPATH", "").split(
             os.pathsep) if p])
@@ -1026,6 +1195,11 @@ def main(argv=None):
     ap.add_argument("--once-marker")
     ap.add_argument("--hang-at", type=int, default=0)
     ap.add_argument("--straggle-ms", type=int, default=0)
+    ap.add_argument("--gang-barrier", default=None,
+                    help="a per-step file barrier among independent ranks, "
+                         "stamped as the flight collective allreduce_grads "
+                         "(rank 1 SIGSTOPs before step 3's with "
+                         "--once-marker)")
     ap.add_argument("--diverge-at", type=int, default=0)
     args = ap.parse_args(argv)
     if args.worker or args.poison_worker:

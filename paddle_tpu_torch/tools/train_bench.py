@@ -5,6 +5,7 @@ its ResNet lane (``resnet_worker``, ``:254-323``).
 
     python -m paddle_tpu_torch.tools.train_bench [--remat dots]
         [--fused-ln] [--ce-vchunk N] [--profile 3] [--compare]
+        [--monitor PATH]
     python -m paddle_tpu_torch.tools.train_bench --model ernie [--pad]
         [--profile 3] [--compare]
     python -m paddle_tpu_torch.tools.train_bench --model resnet50
@@ -35,6 +36,12 @@ training kernels, matrix products, the rest) and by name, all per step.
 ``--compare`` runs the plain arm (plain attention and layernorm, the
 row-chunked or direct CE, plain PyTorch sweep) and the kernel arm in
 turns — plain, kernel, kernel, plain — one JSON line each.
+``--monitor PATH`` (GPT) writes one ``TrainMonitor`` row a timed step to
+PATH, as ``bench.py --monitor=`` does: step time split into host dispatch
+and device wait (each step then syncs on its loss), tokens/s, MFU, loss,
+grad norm, the goodput categories since the last row and the card's
+allocated and peak bytes; the record gains the timed window's goodput
+report.
 
 ``--model ernie`` is ``bench.py``'s ERNIE lane as written: ERNIE_BASE
 (L 12, nh 12, D 768, d_ff 3072, V 30522) at full width and depth, bf16
@@ -87,7 +94,12 @@ from .. import optimizer as fluid_optimizer
 from ..models import ernie as E
 from ..models import gpt as G
 from ..models import resnet as R
+from ..observability import flight as obs_flight
+from ..observability import goodput as obs_goodput
 from ..observability import hw
+from ..observability import metrics as obs_metrics
+from ..observability import spans as obs_spans
+from ..observability.monitor import TrainMonitor
 from ..ops import cuda_kernels as CK
 from ..ops.chunked_ce import CE_BWD_RANGE
 from ..parallel import checkpoint as ckpt_mod
@@ -137,12 +149,33 @@ def _range_summary(prof, name: str, steps: int) -> Dict[str, float]:
             "ranges_per_step": len(host) / steps}
 
 
-def _timed(step_once, dev, warmup: int = WARMUP):
+def monitored_steps(step_once, mon: TrainMonitor, steps: int) -> list:
+    """``steps`` calls of ``step_once`` (its outputs ``(params, opt, loss,
+    grad_norm)``), each one :class:`TrainMonitor` row: dispatch is the
+    call, device wait the copy of the loss and grad norm to the host (the
+    step's sync), and the flight recorder's ``step_begin`` / ``step_end``
+    bracket it."""
+    outs = []
+    for _ in range(steps):
+        obs_flight.event("step_begin", step=mon.step_count + 1)
+        with mon.step() as s:
+            out = step_once()
+            s.dispatched()
+            s.observe(loss=out[2], grad_norm=out[3])
+        obs_flight.event("step_end", step=mon.step_count)
+        outs.append(out)
+    return outs
+
+
+def _timed(step_once, dev, warmup: int = WARMUP,
+           mon: TrainMonitor = None):
     """``warmup`` calls of ``step_once`` (one train step, updating its
     state in place), then STEPS more with the launch counts and the peak
-    memory zeroed just before them, ending in one synchronize. Returns
-    (every step's outputs, warm-up seconds, timed seconds, launches per
-    timed step)."""
+    memory zeroed just before them, ending in one synchronize. With
+    ``mon``, the timed steps are :func:`monitored_steps` (one sync each)
+    inside a goodput run window. Returns (every step's outputs, warm-up
+    seconds, timed seconds, launches per timed step, the window's goodput
+    report or None)."""
     outs = []
     t0 = time.perf_counter()
     for _ in range(warmup):
@@ -151,13 +184,85 @@ def _timed(step_once, dev, warmup: int = WARMUP):
     warm_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats(dev)
     CK.reset_launches()
+    report = None
     t0 = time.perf_counter()
-    for _ in range(STEPS):
-        outs.append(step_once())
+    if mon is None:
+        for _ in range(STEPS):
+            outs.append(step_once())
+    else:
+        led = obs_goodput.ledger()
+        led.start_window()
+        outs += monitored_steps(step_once, mon, STEPS)
+        report = led.end_window()
     torch.cuda.synchronize(dev)
     wall = time.perf_counter() - t0
     launches = {k: v / STEPS for k, v in CK.LAUNCHES.items() if v}
-    return outs, warm_s, wall, launches
+    return outs, warm_s, wall, launches, report
+
+
+def set_observability(on: bool) -> None:
+    """Span tracing, the flight recorder and the metrics registry on or
+    off together (the overhead pairs' switch)."""
+    obs_spans.set_tracing_enabled(on)
+    obs_flight.set_flight_enabled(on)
+    obs_metrics.set_metrics_enabled(on)
+
+
+def observability_overhead(step_once, dev, work_dir: str, pairs: int = 10,
+                           steps: int = 6) -> Dict[str, Any]:
+    """The train step's host cost of the observability, arms in turns
+    (on, off, off, on, ...: each pair's order flipped, so a drift of the
+    host's speed falls on both arms): "on" is :func:`monitored_steps` with
+    a monitor row file, a flight sidecar in ``work_dir`` and a goodput
+    window; "off" is the same steps with tracing, the flight recorder and
+    the metrics registry switched off and the same per-step sync (the
+    loss and grad norm copied to the host). ms a step per arm run, summed
+    up by :func:`overhead_record`."""
+    arms = {True: [], False: []}
+    mon = TrainMonitor(path=os.path.join(work_dir, "overhead_rows.jsonl"),
+                       peak_flops=1.0)
+    sink = obs_flight.default_recorder()
+    sink.set_sink(os.path.join(work_dir, "overhead_flight.jsonl"))
+    led = obs_goodput.ledger()
+    try:
+        for i in range(pairs):
+            for on in ((True, False) if i % 2 == 0 else (False, True)):
+                set_observability(on)
+                torch.cuda.synchronize(dev)
+                t0 = time.perf_counter()
+                if on:
+                    led.start_window()
+                    monitored_steps(step_once, mon, steps)
+                    led.end_window()
+                else:
+                    for _ in range(steps):
+                        out = step_once()
+                        float(out[2])
+                        float(out[3])
+                arms[on].append((time.perf_counter() - t0) * 1e3 / steps)
+    finally:
+        set_observability(True)
+        sink.set_sink(None)
+        mon.close()
+    return overhead_record(arms[True], arms[False])
+
+
+def overhead_record(on_ms: List[float], off_ms: List[float]
+                    ) -> Dict[str, Any]:
+    """On/off arm times, in run order (pair i = ``on_ms[i]``,
+    ``off_ms[i]``) -> the record: both lists; the overhead of the mins,
+    and the median of the pairs' differences (each pair's two arms ran
+    back to back, so a drift of the host's speed cancels in it), in
+    percent of the off arm's median; the share of pairs in which the on
+    arm was the slower; the off arm's spread (max - min over its
+    median)."""
+    off_med = float(np.median(off_ms))
+    diffs = [a - b for a, b in zip(on_ms, off_ms)]
+    return {"on_ms": on_ms, "off_ms": off_ms,
+            "overhead_pct": (min(on_ms) - min(off_ms)) / min(off_ms) * 100,
+            "paired_overhead_pct": float(np.median(diffs)) / off_med * 100,
+            "on_slower_share": sum(d > 0 for d in diffs) / len(diffs),
+            "off_spread_pct": (max(off_ms) - min(off_ms)) / off_med * 100}
 
 
 def _profile(step, state, steps: int) -> Dict[str, Any]:
@@ -200,11 +305,15 @@ def plain_config(cfg: G.GPTConfig) -> G.GPTConfig:
 
 
 def run(cfg: G.GPTConfig, fused_opt_kernel=None,
-        profile_steps: int = 0) -> Dict[str, Any]:
+        profile_steps: int = 0, monitor: str = None,
+        overhead_dir: str = None) -> Dict[str, Any]:
     """WARMUP + STEPS train steps on one batch on the card; the timed
     steps end in one synchronize, and launch counts are zeroed just before
     them (then ``profile_steps`` traced steps, outside the counts and
-    losses)."""
+    losses). ``monitor`` (a path) makes the timed steps monitored: one
+    :class:`TrainMonitor` row a step there, one sync a step, the goodput
+    window's report in the record (``monitor``). ``overhead_dir`` then
+    adds :func:`observability_overhead`'s pairs (``obs_overhead``)."""
     dev = torch.device("cuda")
     batch, T, steps, warmup = BATCH, SEQ, STEPS, WARMUP
     params, opt = PZ.init_sharded(cfg, seed=0, moment_dtype=torch.bfloat16,
@@ -219,17 +328,28 @@ def run(cfg: G.GPTConfig, fused_opt_kernel=None,
                               ).to(dev)
     labels = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, batch, T))
                               ).to(dev)
-    outs, warm_s, wall, launches = _timed(
-        lambda: step(params, opt, tokens, labels), dev)
-    losses = [float(o[2]) for o in outs]
-    tok_s = steps * batch * T / wall
     flops = G.train_flops_per_token(cfg, n_params, T)
     name = torch.cuda.get_device_name(dev)
+    config = (f"gpt_small_L{cfg.num_layers}_b{batch}x{T}"
+              + ("_fln" if cfg.fused_ln else "")
+              + (f"_vchunk{cfg.ce_vocab_chunk}" if cfg.ce_vocab_chunk
+                 else ""))
+    mon = None
+    if monitor:
+        mon = TrainMonitor(
+            path=monitor, examples_per_step=batch, tokens_per_step=batch * T,
+            flops_per_step=flops * batch * T,
+            peak_flops=hw.peaks_for(name)["bf16_flops_per_s"],
+            extra_static={"config": config})
+
+    def step_once():
+        return step(params, opt, tokens, labels)
+
+    outs, warm_s, wall, launches, report = _timed(step_once, dev, mon=mon)
+    losses = [float(o[2]) for o in outs]
+    tok_s = steps * batch * T / wall
     rec = {
-        "config": (f"gpt_small_L{cfg.num_layers}_b{batch}x{T}"
-                   + ("_fln" if cfg.fused_ln else "")
-                   + (f"_vchunk{cfg.ce_vocab_chunk}"
-                      if cfg.ce_vocab_chunk else "")),
+        "config": config,
         "device": name,
         "model_params": n_params,
         "batch": batch, "seq_len": T, "steps": steps, "warmup": warmup,
@@ -248,6 +368,13 @@ def run(cfg: G.GPTConfig, fused_opt_kernel=None,
         "grad_norm_last": float(outs[-1][3]),
         "launches_per_step": launches,
     }
+    if mon is not None:
+        mon.close()
+        rec["monitor"] = {"path": monitor, "rows": mon.step_count,
+                          "goodput": report}
+        if overhead_dir:
+            rec["obs_overhead"] = observability_overhead(
+                step_once, dev, overhead_dir)
     if profile_steps:
         rec["profile"] = _profile(step, [params, opt, tokens, labels],
                                   profile_steps)
@@ -298,7 +425,7 @@ def run_ernie(cfg: E.ErnieConfig, pad: bool = False,
     n_params = E.num_params(params)
     step = E.make_pretrain_step(cfg, lr=1e-4, device=dev)
     data = E.batch_to_device(ernie_batch(cfg, batch, T, pad), dev)
-    outs, warm_s, wall, launches = _timed(
+    outs, warm_s, wall, launches, _ = _timed(
         lambda: step(params, opt, data), dev)
     losses = [float(o[2]) for o in outs]
     samples_s = steps * batch / wall
@@ -395,7 +522,7 @@ def run_resnet(fuse: bool = True, profile_steps: int = 0,
     n_params = sum(int(np.prod(p.shape))
                    for p in main.global_block().all_parameters()
                    if p.trainable)
-    outs, warm_s, wall, launches = _timed(
+    outs, warm_s, wall, launches, _ = _timed(
         lambda: exe.run(main, fetch_list=[loss], scope=scope,
                         return_numpy=False)[0], dev, warmup=1)
     losses = [float(o) for o in outs]
@@ -996,6 +1123,8 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--host-profile", type=int, default=0, metavar="N",
                     help="resnet50: N more steps under cProfile (host ms "
                          "a step by function)")
+    ap.add_argument("--monitor", default=None, metavar="PATH",
+                    help="GPT: one TrainMonitor JSONL row a timed step")
     ap.add_argument("--compare", action="store_true",
                     help="plain and kernel arms in turns: P, K, K, P")
     par = ap.add_argument_group(
@@ -1071,7 +1200,7 @@ def main(argv=None) -> int:
         else:
             acfg, kern = arms[arm]
             rec = run(acfg, fused_opt_kernel=kern,
-                      profile_steps=args.profile)
+                      profile_steps=args.profile, monitor=args.monitor)
         rec["arm"] = arm
         print(json.dumps(rec), flush=True)
     return 0

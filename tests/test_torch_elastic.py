@@ -15,6 +15,7 @@ the JAX per-rank loss oracle of ``tests/test_torch_parallel.py``
 Every spawned gang and launcher job here has its own timeout, so a hang
 fails one test."""
 import importlib
+import json
 import os
 import signal
 import subprocess
@@ -413,12 +414,45 @@ time.sleep(60)
     assert sorted(os.listdir(marks)) == ["0", "1"], out
 
 
-def test_launch_refuses_what_waits_for_observability(tmp_path):
-    for kw in ({"goodput_dir": str(tmp_path)}, {"flight_dir": str(tmp_path)}):
-        with pytest.raises(NotImplementedError, match="A4"):
-            L.launch("x.py", **kw)
+def test_launch_refuses_what_waits_for_observability(tmp_path, monkeypatch):
+    """What still waits refuses by its queue (A5: the restore-broadcast
+    program); what this test once found refused, the launcher's goodput
+    report and flight recorder (A4), now works: two workers export their
+    goodput windows and attach their flight sidecars through the env
+    contract, and the supervisor writes GOODPUT.json over both ranks."""
     with pytest.raises(NotImplementedError, match="A5"):
         C.build_restore_broadcast_program([])
+    script = tmp_path / "obs_worker.py"
+    script.write_text(
+        "from paddle_tpu_torch.observability import flight, goodput\n"
+        "led = goodput.ledger()\n"
+        "led.start_window()\n"
+        "assert flight.maybe_attach_from_env()\n"
+        "with led.timer('productive_step'):\n"
+        "    flight.event('step_begin', step=1)\n"
+        "    flight.event('step_end', step=1)\n"
+        "assert goodput.maybe_export(led.end_window())\n")
+    gp, fl = tmp_path / "goodput", tmp_path / "flight"
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    monkeypatch.setenv("PYTHONPATH", os.pathsep.join(
+        [repo] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p]))
+    rc = L.launch(str(script), nproc_per_node=2, goodput_dir=str(gp),
+                  flight_dir=str(fl), grace_period_s=5.0)
+    assert rc == 0
+    with open(gp / "GOODPUT.json") as f:
+        gang = json.load(f)
+    assert gang["nranks"] == 2 and gang["rank_reports"] == 2
+    assert gang["restarts"] == 0 and gang["exit_code"] == 0
+    assert 0 < gang["gang_goodput_fraction"] <= 1
+    assert (gp / "gang_metrics.prom").exists()
+    sidecars = sorted(p.name for p in fl.glob("flight-rank*.jsonl"))
+    assert [n.split("-")[1] for n in sidecars] == ["rank0", "rank1"]
+    for name in sidecars:
+        with open(fl / name) as f:
+            recs = [json.loads(ln) for ln in f]
+        assert recs[0]["ev"] == "meta" and recs[0]["attempt"] == 0
+        assert [r["ev"] for r in recs[1:]] == ["step_begin", "step_end"]
 
 
 @pytest.mark.parametrize("pkg", ["port", "jax"])

@@ -6,8 +6,12 @@ bit-exact with the uninterrupted baseline, as ``tests/test_elastic.py::
 test_fault_bench_smoke`` holds the JAX harness; a second uninterrupted run
 (``aa``) must equal the first bitwise, the divergence guard must roll
 back once and recover, and the supervisor must flag the straggling rank
-alone. The harness runs once, in its own session, and is killed whole if
-it outlives its timeout."""
+alone. The SIGKILL's GOODPUT.json charges the restart to
+``restart_downtime``, the hang's bundle holds the flight ring, and the
+SIGSTOPped rank of ``sigstop_blame`` is named by the blame pass with the
+collective seq it missed, as ``tests/test_flight_blame.py`` holds the JAX
+harness's. The harness runs once, in its own session, and is killed whole
+if it outlives its timeout."""
 import json
 import os
 import signal
@@ -18,8 +22,8 @@ import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMOKE = ("baseline", "aa", "sigkill_midstep", "sigterm_preempt",
-         "corrupt_shard", "dp_reshard", "hang", "poison_batch",
-         "divergence_rollback", "straggler")
+         "corrupt_shard", "dp_reshard", "hang", "sigstop_blame",
+         "poison_batch", "divergence_rollback", "straggler")
 
 
 @pytest.fixture(scope="module")
@@ -57,6 +61,13 @@ def test_fault_bench_scenario(bench, name):
         assert [r["cause"] for r in s["restarts"]] == ["crash"]
         assert s["restored_from"] == [s["expected_restore"]]
         assert s["recovery"]["restart_downtime_s"] > 0
+        # the supervisor's GOODPUT.json: the restart charged to
+        # restart_downtime, as long as restart_history()'s window
+        gp = s["goodput"]
+        assert gp["restarts"] == 1 and gp["rank_reports"] >= 2
+        assert gp["categories"]["restart_downtime"] > 0
+        assert 0 < s["gang_goodput_fraction"] <= 1
+        assert abs(s["goodput_downtime_s"] - s["history_downtime_s"]) <= 1
     if name == "sigterm_preempt":
         assert s["rc_preempted"] == 0 and s["preempted_clean_exit"]
         assert s["exits"] == ["preempt", "complete"]
@@ -68,8 +79,15 @@ def test_fault_bench_scenario(bench, name):
     if name == "hang":
         assert [r["cause"] for r in s["restarts"]] == ["hang"]
         assert s["stack_dumps"] >= 1 and s["site"] == "train_step"
+        assert s["flight_dumps"] >= 1
         assert s["deadline_s"] < s["last_progress_age_s"]
         assert s["detection_s"] > 0
+    if name == "sigstop_blame":
+        assert s["blamed_ranks"] == [1] and s["blame_mode"] == \
+            "never_entered"
+        assert s["missed_seq"] == s["expected_missed_seq"] == 3
+        assert s["missed_name"] == "allreduce_grads"
+        assert s["seq_gaps_total"] == 0 and s["paddle_blamed_rank"] == 1
     if name == "poison_batch":
         assert s["all_ranks_skipped_identically"]
         assert s["weights_bit_exact_vs_no_poison"]

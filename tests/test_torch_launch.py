@@ -105,25 +105,32 @@ def test_failing_worker_stops_the_gang_within_grace(tmp_path):
 def test_cli_module_mode_and_refusals(tmp_path):
     """``python -m paddle_tpu_torch.parallel.launch -m module`` runs the
     workers as modules and exits with their code (``--max_restarts`` on
-    the CLI restarts the gang, which fails again); the goodput report and
-    the flight recorder wait for the observability port and raise."""
+    the CLI restarts the gang, which fails again); ``--goodput_dir`` gets
+    the gang's GOODPUT.json with the restart's downtime charged to every
+    rank, and ``--flight_dir`` is the flight dir the workers are told."""
     pkg = tmp_path / "wmod.py"
     pkg.write_text("import os, sys\n"
+                   "assert os.environ['PADDLE_FLIGHT_DIR'] == sys.argv[1]\n"
                    "sys.exit(int(os.environ['PADDLE_TRAINERS_NUM']) + 40\n"
                    "         + int(os.environ['PADDLE_RESTART_ATTEMPT']))\n")
+    gp, fl = tmp_path / "goodput", tmp_path / "flight"
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [str(tmp_path), os.getcwd()] + sys.path))
     res = subprocess.run(
         [sys.executable, "-m", "paddle_tpu_torch.parallel.launch",
          "--nproc_per_node", "2", "--grace_period", "1", "--max_restarts",
-         "1", "--restart_backoff", "0.1", "-m", "wmod"],
+         "1", "--restart_backoff", "0.1", "--goodput_dir", str(gp),
+         "--flight_dir", str(fl), "-m", "wmod", str(fl)],
         env=env, capture_output=True, timeout=120)
     assert res.returncode == 43, res.stderr.decode()
     assert "cause hang" in res.stderr.decode()
-    with pytest.raises(NotImplementedError, match="A4"):
-        L.launch("x.py", goodput_dir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="A4"):
-        L.launch("x.py", flight_dir=str(tmp_path))
+    with open(gp / "GOODPUT.json") as f:
+        gang = json.load(f)
+    assert gang["exit_code"] == 43 and gang["restarts"] == 1
+    assert gang["nranks"] == 2 and gang["rank_reports"] == 0
+    assert gang["restart_downtime_s"] > 0
+    assert gang["categories"]["restart_downtime"] == pytest.approx(
+        2 * gang["restart_downtime_s"], abs=1e-5)
 
 
 def test_train_bench_parallel_lane_rehearsal(tmp_path):

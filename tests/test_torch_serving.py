@@ -430,6 +430,16 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "paddle_tpu_torch.parallel.launch, "
         "paddle_tpu_torch.parallel.ring_attention, "
         "paddle_tpu_torch.tools.fault_bench\n"
+        "import paddle_tpu_torch.observability.spans, "
+        "paddle_tpu_torch.observability.prom, "
+        "paddle_tpu_torch.observability.goodput, "
+        "paddle_tpu_torch.observability.flight, "
+        "paddle_tpu_torch.observability.monitor, "
+        "paddle_tpu_torch.observability.slo, "
+        "paddle_tpu_torch.observability.fleet\n"
+        "import paddle_tpu_torch.tools.flight_assemble, "
+        "paddle_tpu_torch.tools.goodput_report, "
+        "paddle_tpu_torch.tools.trace_assemble\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'paddle_tpu'))\n"
         "print(bad)\n"
