@@ -110,6 +110,31 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              prefill and the decode replica's ``serve/request`` on two
              loop threads, ``serve/kv_adopt``, no orphan (the in-process
              handoff has no socket hop: 4m times ``serve/kv_send``);
+4g. serve-gang — the subprocess serving gang: ``python -m
+             paddle_tpu_torch.tools.serve_fault_bench --device cuda`` as a
+             subprocess (its card lane: GPT_SMALL bf16 replicas with phase
+             4b's engine, two processes sharing the card, behind
+             ``GangFrontDoor``): ``replica_sigkill`` (4b's 16 prompts x 64
+             tokens at once, the busiest replica SIGKILLed mid-decode),
+             ``engine_poisoned``, ``warm_restart_prefix`` (one replica with
+             a prefix store, SIGKILLed and restored), ``disagg_gang`` (a
+             prefill and a decode replica, 4b's 16 requests across the KV
+             socket), ``engine_hang`` and ``overload_storm``. Gates: 0
+             lost, 0 duplicated and no non-200 answer; restarts with causes
+             crash, poisoned and hang; the idempotent retry's recorded
+             answer under the original trace id; at least one record
+             restored and the repeated system prompt prefilled
+             suffix-only (the replica's own
+             ``paddle_serve_prefill_tokens_total``); 16 migrated, 0
+             fallbacks, KV bytes out == in == the pages' bytes; every
+             surviving incarnation's heartbeat launches exactly fused_ln
+             2L, decode_paged L, logits_head 1 a decode tick (its counts
+             summed into the kernels line). Printed beside the card's
+             name: each replica's start-up split (import, weights, engine,
+             restore, warmup, ready), failover latency, TTFT / TPOT p50 /
+             p99 beside 4b's, restart downtime, the prefix store's publish
+             ms, and the token agreement with 4b (not gated: bf16 and a
+             prefill in another bucket shape can part);
 5. parity  — a 2-layer GPT_SMALL in float32 (TF32 off): prefill logits
              within 1e-4 of the full forward, and the slab and paged
              kernel engines and the plain-PyTorch engines must emit
@@ -1170,14 +1195,11 @@ def phase_tick_overhead(eng, pairs: int = 12, ticks: int = 16) -> dict:
 
 def _phase4b_prompts(V: int):
     """Phase 4b's 16 prompts in their seeded order: 8 behind one 256-token
-    system prompt (tails of 16-144 tokens), 8 unique (16-400 tokens)."""
-    rng = np.random.default_rng(3)
-    system = rng.integers(0, V, size=256).tolist()
-    shared = [system + rng.integers(0, V, size=int(n)).tolist()
-              for n in rng.integers(16, 145, size=8)]
-    unique = [rng.integers(0, V, size=int(n)).tolist()
-              for n in rng.integers(16, 401, size=8)]
-    return [(shared + unique)[i] for i in rng.permutation(16)]
+    system prompt (tails of 16-144 tokens), 8 unique (16-400 tokens); the
+    serving gang's card lane (4g) serves the same."""
+    from paddle_tpu_torch.tools import serve_fault_bench
+
+    return serve_fault_bench.paged_prompts(V)[1]
 
 
 def phase_serving_paged():
@@ -1392,6 +1414,166 @@ def phase_serving_disagg(colocated: dict):
                         "published": index.published},
         "prefill_prefix_hits": pre_hits, "streams_equal_4b": same,
         "tokens_equal_4b": same_tok}}))
+    return launches
+
+
+# phase 4g: serve_fault_bench's card lane, in the order it runs
+GANG_SCENARIOS = ("replica_sigkill", "engine_poisoned", "warm_restart_prefix",
+                  "disagg_gang", "engine_hang", "overload_storm")
+
+
+def _fmt(v, nd=3):
+    return "n/a" if v is None else f"{v:.{nd}f}"
+
+
+def phase_serve_gang(paged: dict, timeout_s: float = 600.0) -> dict:
+    """Phase 4g (see the module docstring); returns the kernels' launches
+    summed over the surviving replica incarnations (each counted from its
+    warmup on, in its own process)."""
+    import os
+    import shutil
+    import signal
+
+    from paddle_tpu_torch.ops import _build
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(str(_build.BUILD_DIR), "serve_gang")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    out = os.path.join(work, "serve_fault_bench.json")
+    # this process's cached blocks back to the card for the replicas
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "paddle_tpu_torch.tools.serve_fault_bench",
+         "--device", "cuda", "--out", out], cwd=root,
+        start_new_session=True, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    try:
+        log, _ = proc.communicate(timeout=timeout_s)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        log, _ = proc.communicate()
+    wall = time.perf_counter() - t0
+    if not os.path.exists(out):
+        print(log[-8000:])
+        raise RuntimeError(f"serve-gang: serve_fault_bench exited "
+                           f"{proc.returncode} without a record")
+    with open(out) as f:
+        rec = json.load(f)
+    sc = rec["scenarios"]
+    for name in GANG_SCENARIOS:
+        s = sc.get(name, {"pass": False})
+        show = {k: s.get(k) for k in (
+            "lost_responses", "duplicated_responses", "non_200",
+            "failovers", "failed_over_requests", "restarts",
+            "idempotent_retry_ok", "retry_same_trace",
+            "killed_trace_stitchable", "trace_orphans",
+            "restored_prefix_records", "prefill_tokens_first",
+            "prefill_tokens_repeat", "prefill_tokens_post_restart",
+            "migrated", "fallbacks", "kv_bytes_out", "kv_bytes_in",
+            "kv_bytes_want", "prefill_decode_ticks", "codes",
+            "shed_by_reason", "preemptions_pool_phase",
+            "p99_completed_latency_s", "elapsed_s") if s.get(k) is not None}
+        print(f"[serve-gang] {name}: pass={s['pass']} {json.dumps(show)}")
+    if proc.returncode != 0 or not rec["pass"] or \
+            set(sc) != set(GANG_SCENARIOS):
+        print(log[-8000:])
+        raise AssertionError("serve-gang: "
+                             + ", ".join(n for n in GANG_SCENARIOS
+                                         if not sc.get(n, {}).get("pass"))
+                             + " failed")
+    # the gates again, here, off the record
+    for name in ("replica_sigkill", "engine_poisoned", "engine_hang",
+                 "disagg_gang"):
+        s = sc[name]
+        if s["lost_responses"] or s["duplicated_responses"] or \
+                s["non_200"] or s["answered"] != s["sent"]:
+            raise AssertionError(f"serve-gang {name}: lost "
+                                 f"{s['lost_responses']}, non-200 "
+                                 f"{s['non_200']}")
+    for name, cause in (("replica_sigkill", "crash"),
+                        ("engine_poisoned", "poisoned"),
+                        ("engine_hang", "hang"),
+                        ("warm_restart_prefix", "crash")):
+        if sc[name]["restarts"].get(cause, 0) < 1:
+            raise AssertionError(f"serve-gang {name}: restarts "
+                                 f"{sc[name]['restarts']}, no {cause}")
+    sk, wr, dg = (sc["replica_sigkill"], sc["warm_restart_prefix"],
+                  sc["disagg_gang"])
+    if not (sk["idempotent_retry_ok"] and sk["retry_same_trace"]):
+        raise AssertionError("serve-gang: the idempotent retry failed")
+    if wr["restored_prefix_records"] < 1 or \
+            wr["prefill_tokens_post_restart"] != wr["suffix_len"]:
+        raise AssertionError(f"serve-gang warm restart: {wr}")
+    if dg["migrated"] != 16 or dg["fallbacks"] or \
+            dg["kv_bytes_out"] != dg["kv_bytes_in"] or \
+            dg["kv_bytes_in"] != dg["kv_bytes_want"]:
+        raise AssertionError(f"serve-gang disagg: {dg}")
+    L = rec["model"]["num_layers"]
+    launches = {}
+    for name in GANG_SCENARIOS:
+        for x in sc[name].get("survivors", []):
+            t = x["decode_ticks"]
+            want = {k: 0 for k in x["launches"]}
+            want.update({"fused_ln": 2 * L * t, "decode_paged": L * t,
+                         "logits_head": t})
+            if x["launches"] != want:
+                raise AssertionError(
+                    f"serve-gang {name} replica {x['index']} (incarnation "
+                    f"{x['incarnation']}): launches {x['launches']} != "
+                    f"{want} for {t} decode ticks")
+            for k, v in x["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+    print(f"[serve-gang] device {rec['device']}; {sum(len(sc[n].get('survivors', [])) for n in GANG_SCENARIOS)} "
+          "surviving incarnations, launches exact a tick; "
+          f"launches {launches}")
+    # the numbers: start-up, failover, latency beside 4b, restarts, prefix
+    # store, token agreement
+    for name in ("replica_sigkill", "engine_poisoned", "warm_restart_prefix"):
+        s = sc[name]
+        for i, st in enumerate(s.get("startup") or []):
+            print(f"[serve-gang] {name} replica {i} start-up s: "
+                  + json.dumps(st))
+        if s.get("respawn_startup"):
+            print(f"[serve-gang] {name} respawn start-up s: "
+                  + json.dumps(s["respawn_startup"])
+                  + f"; restart downtime s {_fmt(s.get('restart_downtime_s'))}")
+    print(f"[serve-gang] replica_sigkill: killed {sk['killed_replica']}; "
+          f"{sk['failed_over_requests']} requests failed over, failover "
+          f"latency s p50 {_fmt(sk['failover_latency_s_p50'])} max "
+          f"{_fmt(sk['failover_latency_s_max'])}")
+    b4 = paged["e2e"]
+    for name in ("replica_sigkill", "disagg_gang"):
+        s = sc[name]
+        print(f"[serve-gang] {name}: ttft_ms p50={_fmt(s['ttft_ms_p50'])} "
+              f"p99={_fmt(s['ttft_ms_p99'])} tpot_ms "
+              f"p50={_fmt(s['tpot_ms_p50'])} p99={_fmt(s['tpot_ms_p99'])}; "
+              f"4b in-process: ttft_ms p50={_fmt(b4['ttft_ms_p50'])} "
+              f"p99={_fmt(b4['ttft_ms_p99'])} tpot_ms "
+              f"p50={_fmt(b4['tpot_ms_p50'])}")
+    same = sum(a == b for a, b in zip(sk["tokens"], paged["tokens"]))
+    same_tok = sum(x == y for a, b in zip(sk["tokens"], paged["tokens"])
+                   for x, y in zip(a, b))
+    print(f"[serve-gang] replica_sigkill streams equal to 4b's: {same} of "
+          f"16, tokens {same_tok} of {16 * 64}; equal to the harness's "
+          f"in-process engine: {sk['streams_equal_reference']} of 16, "
+          f"tokens {sk['tokens_equal_reference']} of {sk['tokens_total']} "
+          "(not gated)")
+    pub = [v for x in wr.get("survivors", [])
+           for v in x.get("prefix_publish_ms", [])] + \
+        list(wr.get("prefix_publish_ms") or [])
+    print(f"[serve-gang] prefix store: {wr['restored_prefix_records']} "
+          f"records restored; publish ms (page gather + one copy to the "
+          f"host + snapshot, on the engine loop) {[round(v, 3) for v in pub]}"
+          f"; prompt {wr['prompt_len']} tokens, prefilled "
+          f"{wr['prefill_tokens_first']} / {wr['prefill_tokens_repeat']} / "
+          f"{wr['prefill_tokens_post_restart']} (first / repeat / after "
+          "the restart)")
+    print(f"[serve-gang] serve_fault_bench {rec['elapsed_s']:.1f} s "
+          f"(reference engine {rec['reference_engine_s']:.1f} s), phase "
+          f"wall {wall:.1f} s")
+    shutil.rmtree(work, ignore_errors=True)
     return launches
 
 
@@ -4468,7 +4650,8 @@ def main() -> int:
     del eng4, reqs4
     paged_launches, paged = phase_serving_paged()
     for path in (lambda: paged_launches, lambda: phase_serving_spec(alone),
-                 phase_serving_int8, lambda: phase_serving_disagg(paged)):
+                 phase_serving_int8, lambda: phase_serving_disagg(paged),
+                 lambda: phase_serve_gang(paged)):
         for k, v in path().items():
             launches[k] += v
     phase_parity()

@@ -684,11 +684,13 @@ class KVTransferServer:
                             "dtype": header["dtype"],
                             "crc": header["crc"], "data": payload})
                     elif kind == "commit":
+                        # its bytes count as "in" once, when the decode
+                        # engine adopts it (adopt_into_engine): counting
+                        # the receipt too, as the reference does, counts
+                        # a socket handoff twice
                         handoff = dict(
                             staged, committed=True,
                             chunks=[chunks[i] for i in sorted(chunks)])
-                        smetrics.m_kv_transfer_bytes.labels("in").inc(
-                            _wire_bytes(handoff))
                         with self._cv:
                             self._ready[handoff["transfer_id"]] = handoff
                             self._cv.notify_all()

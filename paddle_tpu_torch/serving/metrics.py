@@ -1,8 +1,9 @@
 """Serving metric families — the port of the request, latency, token,
 prefill and decode families of ``paddle_tpu/serving/metrics.py:29-71`` and
 the paged-pool, prefix-cache, speculative-decoding, preemption and
-head-of-line families of ``:74-110``, the shed family of ``:116-118`` and
-the disaggregation families of ``:142-160``. Same names as the JAX
+head-of-line families of ``:74-110``, the resilience families of
+``:114-134`` (shed, the gang's replica restarts and failovers, the prefix
+store) and the disaggregation families of ``:142-160``. Same names as the JAX
 package, registered in the port's own registry."""
 from __future__ import annotations
 
@@ -14,7 +15,8 @@ __all__ = ["m_requests", "m_queue_depth", "m_active", "m_occupancy",
            "m_evictions", "m_queue_wait_ms", "m_prefix_cache",
            "m_page_occupancy", "m_page_fragmentation", "m_spec_accepted",
            "m_spec_proposed", "m_spec_windows", "m_preemptions",
-           "m_hol_admits", "m_shed", "m_kv_transfer_bytes",
+           "m_hol_admits", "m_shed", "m_replica_restarts", "m_failover",
+           "m_prefix_store", "m_kv_transfer_bytes",
            "m_kv_transfer_ms", "m_pool_prefix", "m_disagg_fallback",
            "request_code"]
 
@@ -101,6 +103,22 @@ m_hol_admits = _REG.counter(
 m_shed = _REG.counter(
     "paddle_serve_shed_total",
     "Requests shed by the overload control, by reason", ("reason",))
+# the gang supervisor (serving/gang.py): replica recycles by cause — crash
+# (any other exit, a signal's death included), hang (exit 43 or a stale
+# probe), poisoned (exit 44 or /health status poisoned) — and the requests
+# re-dispatched to a sibling after their replica died mid-request
+m_replica_restarts = _REG.counter(
+    "paddle_serve_replica_restarts_total",
+    "Serving replica recycles by cause (crash, hang, poisoned)",
+    ("cause",))
+m_failover = _REG.counter(
+    "paddle_serve_failover_requests_total",
+    "Requests re-dispatched to a sibling replica after a replica fault")
+# warm restart (serving/prefix_store.py): published prefix records
+# persisted and restored through the elastic checkpoint store
+m_prefix_store = _REG.counter(
+    "paddle_serve_prefix_store_total",
+    "Prefix-store operations (save, restore, restore_skipped)", ("op",))
 
 # disaggregated serving (serving/kv_transfer.py, serving/disagg.py): the KV
 # handoff's volume and latency between prefill and decode replicas (they

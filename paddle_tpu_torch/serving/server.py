@@ -19,6 +19,12 @@ backend of ``paddle_tpu/serving/server.py``.
 - draining (:meth:`FrontDoor.drain`) -> **503**; in-flight work finishes;
 - internal failure -> **500**, always with a JSON body.
 
+The loop stamps the hang watchdog's progress (``serve/tick``) on every
+pass, so a replica armed from the ``PADDLE_HEALTH_*`` env exits 43 when
+its loop wedges; :meth:`FrontDoor.install_signal_handlers` turns SIGTERM
+and SIGINT into a drain, so a recycled replica finishes its in-flight
+work and exits.
+
 ``GET /health`` reports the phase, queue depth, active slots, the loop's
 fault count and the span tracer's per-name rollups of the ``serve/*``
 spans (``span_rollups_ms``), and status ``poisoned`` once the engine is.
@@ -44,6 +50,7 @@ The predictor route is still to be ported (ROADMAP.md, queue A5).
 from __future__ import annotations
 
 import json
+import signal
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -52,6 +59,7 @@ from typing import Any, Dict, Optional
 from ..observability import goodput as _goodput
 from ..observability import prom as _prom
 from ..observability import spans as _spans
+from ..parallel import health as _health
 from . import kv_transfer
 from . import metrics as smetrics
 from .engine import PromptTooLongError
@@ -119,6 +127,7 @@ class EngineLoop:
 
     def _run(self) -> None:
         while not self._stop.is_set():
+            _health.progress("serve/tick")
             if self._check_poisoned():
                 return
             worked = False
@@ -225,9 +234,17 @@ class _Handler(BaseHTTPRequestHandler):
     def do_POST(self):
         route = {"/generate": self._generate, "/prefill": self._prefill,
                  "/resume": self._resume}.get(self.path)
-        if route is not None:
-            return route(self.server.front)
-        self._json(404, {"error": f"unknown path {self.path!r}"})
+        if route is None:
+            return self._json(404, {"error": f"unknown path {self.path!r}"})
+        front = self.server.front
+        # a drain waits for the handlers still writing their answers
+        with front._inflight_lock:
+            front._inflight += 1
+        try:
+            route(front)
+        finally:
+            with front._inflight_lock:
+                front._inflight -= 1
 
     @staticmethod
     def _parse_sampling(req_obj) -> Optional[SamplingParams]:
@@ -452,11 +469,14 @@ class FrontDoor:
         self.shed_deadline_aware = bool(shed_deadline_aware)
         self.retry_after_cap_s = float(retry_after_cap_s)
         self._draining = False
+        self._inflight = 0            # POST handlers not yet answered
+        self._inflight_lock = threading.Lock()
         self.loop = EngineLoop(scheduler, on_poison=on_poison).start()
         self.httpd = _Server((host, port), _Handler)
         self.httpd.daemon_threads = True
         self.httpd.front = self
         self._thread: Optional[threading.Thread] = None
+        self._old_handlers: Dict[int, Any] = {}
 
     @property
     def port(self) -> int:
@@ -532,5 +552,29 @@ class FrontDoor:
         while time.monotonic() < end and self.scheduler.pending():
             time.sleep(0.01)
         ok = self.scheduler.pending() == 0
+        # the finished requests' handlers still have to write their answers
+        end = time.monotonic() + max(0.1, timeout_s / 10)
+        while time.monotonic() < end and self._inflight > 0:
+            time.sleep(0.01)
+        ok = ok and self._inflight == 0
         self.stop()
         return ok
+
+    def install_signal_handlers(self, drain_timeout_s: float = 60.0) -> None:
+        """SIGTERM and SIGINT -> :meth:`drain` on a helper thread (the
+        handler returns at once: it may run on the main thread in the
+        middle of other work). Call from the main thread."""
+
+        def _on_signal(signum, frame):
+            threading.Thread(target=self.drain,
+                             kwargs={"timeout_s": drain_timeout_s},
+                             daemon=True, name="serve-drain").start()
+
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            self._old_handlers[sig] = signal.signal(sig, _on_signal)
+
+    def restore_signal_handlers(self) -> None:
+        """Put back the handlers :meth:`install_signal_handlers` replaced."""
+        for sig, h in self._old_handlers.items():
+            signal.signal(sig, h)
+        self._old_handlers.clear()

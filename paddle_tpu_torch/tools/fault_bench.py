@@ -547,10 +547,47 @@ def poison_worker(args):
 # Harness
 # ---------------------------------------------------------------------------
 
-def _free_port() -> int:
+_PORT_BAND = 256          # the ports one harness process hands out
+_port_lock = threading.Lock()
+_port_next = [0]
+
+
+def _ephemeral_low() -> int:
+    """The bottom of the kernel's ephemeral port range (read only)."""
+    try:
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+            return int(f.read().split()[0])
+    except (OSError, ValueError, IndexError):
+        return 32768
+
+
+def _bindable(port: int) -> bool:
     with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+        try:
+            s.bind(("127.0.0.1", port))
+        except OSError:
+            return False
+    return True
+
+
+def _reserve_port() -> int:
+    """A rendezvous port for a job. Not one the kernel handed out and this
+    process released — under load another process's connection or gloo
+    pair can take such a port before the job's store binds it — but one
+    BELOW the kernel's ephemeral range, which the kernel never hands out,
+    from a band of ports this process owns (by its pid), skipping any
+    port something else holds. Successive jobs get successive ports, so a
+    job never meets its predecessor's sockets in TIME_WAIT."""
+    top = min(_ephemeral_low(), 32768)
+    bands = max(1, (top - 10000) // _PORT_BAND)
+    base = 10000 + (os.getpid() % bands) * _PORT_BAND
+    with _port_lock:
+        for _ in range(_PORT_BAND):
+            port = base + _port_next[0]
+            _port_next[0] = (_port_next[0] + 1) % _PORT_BAND
+            if _bindable(port):
+                return port
+    raise RuntimeError(f"no free port in {base}-{base + _PORT_BAND - 1}")
 
 
 def _worker_args(ns):
@@ -559,9 +596,11 @@ def _worker_args(ns):
 
 
 class _JobTimer:
-    """A job's time limit: on expiry SIGTERM to this process, which the
-    launcher's trap turns into a stop of the gang (the job then fails for
-    want of a result), so no job outlives its limit."""
+    """A job's time limit: on expiry SIGTERM to this process while the
+    launcher's trap holds it — the trap turns it into a stop of the gang
+    (the job then fails for want of a result), so no job outlives its
+    limit. Outside the trap (the job has just ended) the expiry is only
+    recorded: the default action would end the harness itself."""
 
     def __init__(self, seconds):
         self.expired = False
@@ -570,7 +609,9 @@ class _JobTimer:
 
     def _fire(self):
         self.expired = True
-        os.kill(os.getpid(), signal.SIGTERM)
+        if signal.getsignal(signal.SIGTERM) not in (
+                signal.SIG_DFL, signal.SIG_IGN, None):
+            os.kill(os.getpid(), signal.SIGTERM)
 
     def __enter__(self):
         self._timer.start()
@@ -670,7 +711,10 @@ class Harness:
         else:
             base = dict(dp=2, layers=1, batch=4, seqlen=16, steps=4,
                         interval=2, keep_last=3, lr=1e-2)
-            self.die_at, self.deadline, self.job_s = 3, 3.0, 90.0
+            # a job takes ~10 s on an idle host and several times that on
+            # a loaded one (each worker's imports alone): the limit is for
+            # a wedged job, not a slow one
+            self.die_at, self.deadline, self.job_s = 3, 3.0, 240.0
         base["device"] = device
         self.base = base
         self.backend = "nccl" if self.cuda else "gloo"
@@ -694,7 +738,7 @@ class Harness:
         with _JobTimer(self.job_s) as timer:
             rc = launch(MODULE, _worker_args(ns), module=True,
                         nproc_per_node=nproc or ns["dp"],
-                        started_port=_free_port(),
+                        started_port=_reserve_port(),
                         backend=backend or self.backend,
                         max_restarts=max_restarts, restart_backoff_s=0.2,
                         restart_backoff_max_s=1.0,
@@ -706,7 +750,7 @@ class Harness:
         paddle_tpu_torch.parallel.launch``) as a subprocess of its own."""
         cmd = [sys.executable, "-m", "paddle_tpu_torch.parallel.launch",
                "--nproc_per_node", str(ns["dp"]), "--backend", self.backend,
-               "--started_port", str(_free_port()), "--grace_period", "60",
+               "--started_port", str(_reserve_port()), "--grace_period", "60",
                "--max_restarts", str(max_restarts), "-m", MODULE,
                *_worker_args(ns)]
         proc = subprocess.Popen(cmd, cwd=REPO)
@@ -737,7 +781,9 @@ class Harness:
 
     def run(self, names):
         for name in names:
+            t0 = time.time()
             getattr(self, f"s_{name}")()
+            self.scenarios[name]["elapsed_s"] = round(time.time() - t0, 1)
         return self.scenarios
 
     # -- scenarios ----------------------------------------------------------
@@ -1035,7 +1081,7 @@ class Harness:
 
         with _JobTimer(self.job_s) as timer:
             rc = launch(MODULE, args, module=True, nproc_per_node=n,
-                        started_port=_free_port(), backend="gloo",
+                        started_port=_reserve_port(), backend="gloo",
                         grace_period_s=10.0)
         res = _read_json(res_path) or {}
         flags = res.get("flags") or []

@@ -34,7 +34,9 @@ def bench(tmp_path_factory):
          "--smoke", "--device", "cpu", "--out", out], cwd=REPO, stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True, start_new_session=True)
     try:
-        _, err = proc.communicate(timeout=300)
+        # ~2 min on an idle host; a loaded one (the tier-1 run's other
+        # workers) slows every worker's start several times over
+        _, err = proc.communicate(timeout=900)
     except subprocess.TimeoutExpired:
         os.killpg(proc.pid, signal.SIGKILL)
         _, err = proc.communicate()
