@@ -135,6 +135,42 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              p99 beside 4b's, restart downtime, the prefix store's publish
              ms, and the token agreement with 4b (not gated: bf16 and a
              prefill in another bucket shape can part);
+4tk. tp-kernels — the three tensor-parallel engines of 4t and 5t start
+             at once (threads; each spawns its follower rank, the two
+             ranks of an engine sharing cuda:0 over gloo) while the four
+             kernels of the tp decode tick are checked at a rank's shapes
+             against their plain versions, bf16 (``bf16_check``) and
+             float32 (1e-5), caches and pools bitwise: fused_ln [8, 768]
+             (every rank), decode_slab at nh / tp = 6 heads ([8, 1024, 6,
+             64], a masked lane), decode_paged on pools [513, 16, 6, 64]
+             (phase 3's tables), logits_head [8, 768] x [768, 50257] (the
+             driver); the errors go into the kernels line as
+             ``tp_max_abs_err``;
+4t. serve-tp2 — GPT_SMALL bf16, ``EngineConfig(sharding="tp", tp=2)``,
+             ``tp_devices=("cuda:0", "cuda:0")``, phase 4b's engine
+             config and traffic (page 16, 513 pages, 8 slots, max_seq
+             1024, 16 greedy requests, 8 behind one 256-token prompt)
+             through Scheduler + EngineLoop. Gates: every request done; 7
+             prefix hits and 7 x 256 tokens not prefilled; each rank's
+             launches exact (decode_paged L and fused_ln 2L a tick a rank,
+             logits_head 1 a tick on the driver; both ranks' counts zeroed
+             just before, and summed into the kernels line); each rank's
+             weight bytes exact after ``drop_reference_params()`` (the
+             replicated leaves plus half of Megatron's split leaves, no
+             head on the follower; storage and resident, layernorm
+             parameters float32) and its pool exactly half of 4b's; with 8
+             slots live, 16 timed ticks move exactly 2L all-reduces of [8,
+             768] bf16 a tick a rank (``paddle_collective_bytes_total``);
+             bf16 numbers: 8 prompts' prefill logits and 4 ticks (every
+             engine fed the bf16 tp=1 engine's greedy tokens) stray from
+             a float32 tp=1 engine's at most twice as far as a bf16 tp=1
+             engine's (same seed weights) do, and the prefill's greedy
+             tokens equal the bf16 tp=1 engine's, 8 of 8; the followers
+             gone after ``close()``. Printed: TTFT p50 / p99
+             and TPOT p50 beside 4b's, the tick on the host clock, the
+             staged all-reduces' ms and share of it, the driver's device
+             busy ms (``torch.profiler``, 16 more ticks), each rank's
+             start-up split, and how many streams equal 4b's (not gated);
 5. parity  — a 2-layer GPT_SMALL in float32 (TF32 off): prefill logits
              within 1e-4 of the full forward, and the slab and paged
              kernel engines and the plain-PyTorch engines must emit
@@ -155,6 +191,14 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              ``CacheConfigMismatch`` naming the field and keeps no page; a
              router without a decode replica degrades with
              ``no_phase_fleet`` and emits the same tokens;
+5t. tp-parity — the same model, tp=2 (4tk's engines, ranks sharing the
+             card) against tp=1 kernel engines, slab and paged: 4 prompts
+             x 16 greedy tokens in one batch, prefill and per-step logits
+             within 1e-4 and the tokens equal; a paged tp=2 -> tp=1
+             handoff (one frame a rank a projection a chunk), the adopted
+             pages bitwise the source's and the adopted slot's tokens the
+             tp=1 engine's own; every follower of 4t and 5t gone after
+             ``close()``. (4tk, 4t and 5t run after 5d, in this order.)
 6. train kernels — flash forward, dQ, dK/dV against their plain versions
              at the training path's shapes (q/k/v [16, 1024, 12, 64]
              sliced from one packed qkv, causal) in bf16 (each element
@@ -279,12 +323,15 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              run), two ranks for (a)-(d) in turn, eight for (e), one NCCL
              rank for (f). GPT_SMALL at full width, bf16, flash, fused
              LN, vocab chunk 1024, dots remat, global batch 16 x 1024, 1
-             warm-up + 3 timed steps, in (a) dp 2 psum, (b) dp 2
-             reduce-scatter with the flat sweep and a bf16 wire, (c) tp 2
-             with sequence parallelism at 6 layers, (d) pp 2 with 4
-             microbatches, (e) dp 2 x pp 2 x tp 2 with 2 microbatches at 4
-             layers (depth is the only cut, to keep the phase near 3
-             minutes), (f) one rank over an NCCL world of one. Every
+             warm-up + 3 timed steps, in (a) dp 2 psum at 6 layers, (b)
+             dp 2 reduce-scatter with the flat sweep and a bf16 wire at 6
+             layers, (c) tp 2 with sequence parallelism at 3 layers, (d)
+             pp 2 with 4 microbatches at 6 layers, (e) dp 2 x pp 2 x tp 2
+             with 2 microbatches at 2 layers (depth is the only cut, to
+             keep the script inside its limit: (a), (b), (d) 12 -> 6, (c)
+             6 -> 3 and (e) 4 -> 2 layers since the tp serving phases
+             came; a gloo step's time is staging and shrinks with the
+             layers), (f) one rank over an NCCL world of one. Every
              rank's launches a step are exactly its path's (flash 2L·M /
              L·M / L·M, fused LN 4L·M and its backward 2L·M plus M each on
              the last stage, ce_fwd there once a 2048-row chunk, the
@@ -355,7 +402,8 @@ Phases, each of which raises (and the script exits non-zero) on failure:
 13. train-sharded — two ``parallel.launch`` gangs of two gloo ranks
              sharing the card, ``train_bench``'s parallel lane, 1 warm-up
              + 3 timed steps (a nonzero exit fails the run): (a) GPT_SMALL
-             at full width and depth under ``--sharding fsdp`` at dp 2
+             at full width and 6 of its 12 layers under ``--sharding
+             fsdp`` at dp 2
              with 7b's levers (bf16, flash, fused LN, vocab chunk 1024,
              dots remat; bf16 moments), global batch 16 x 1024: launches a
              step exactly flash 2L / L / L, fused LN 4L + 1 and its
@@ -368,7 +416,8 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              then in the same gang the same step under ``--sharding
              dp`` (every leaf whole, psum'd), so that each rank's peak
              memory stands beside fsdp's; (b)
-             ERNIE-base at full width and depth at tp 2 (dp 1), batch
+             ERNIE-base at full width and 6 of its 12 layers at tp 2 (dp
+             1), batch
              48 x 512, flash with the padding bias, fused LN, remat off:
              launches a step exactly 3 flash bias kernels and 2 + 2 fused
              LN a layer, wire bytes the psum of every replicated leaf and
@@ -379,7 +428,11 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              (11p's ``parity_ok``), (b) 3 float32 steps of a 2-layer
              ERNIE_BASE (batch 4 x 512, padded lengths) against the
              one-device step in the same process (``ernie_parity_ok``).
-             Nothing cut. 13c: (a)'s dp-2 state, saved after its timed
+             Depth is the one cut (12 -> 6 layers in (a) and (b), to keep
+             the script inside its limit since the tp serving phases;
+             each step's time is gloo staging and scales with the
+             layers); the exact-bytes gates are computed at that depth.
+             13c: (a)'s dp-2 state, saved after its timed
              steps by ``ShardedCheckpointer`` (async, then ``wait``), is
              restored whole at dp 1 on the card in this process: every
              rank's saved param and moment leaf has the crc32 of its
@@ -672,7 +725,8 @@ def _paged_kernel_check(q, nk, nv, pos_np, dtype, time_it: bool, randn):
     from paddle_tpu_torch.models.gpt import GPT_SMALL
     from paddle_tpu_torch.ops import cuda_kernels as CK
 
-    L, nh, hd = GPT_SMALL.num_layers, GPT_SMALL.num_heads, GPT_SMALL.head_dim
+    L, hd = GPT_SMALL.num_layers, GPT_SMALL.head_dim
+    nh = q.shape[1]                 # a tp rank's heads in phase 4tk
     dev = q.device
     M = S // PAGE
     P = B * M + 1
@@ -900,10 +954,12 @@ def _serve(eng, prompts, tag: str, ticker=None):
 
 
 def _serving_engine(kv_layout: str, weight_dtype: str = "bf16",
-                    cfg=None, seed: int = 0, warm: bool = True, **kw):
+                    cfg=None, seed: int = 0, warm: bool = True,
+                    engine_kw=None, **kw):
     """A GPT_SMALL (or ``cfg``) serving engine from seed weights: 8 slots,
     max_seq 1024, buckets 64-512, the kernel tick; its float32 truth
-    dropped; ``kw`` more EngineConfig fields."""
+    dropped; ``kw`` more EngineConfig fields, ``engine_kw`` more
+    DecodeEngine arguments."""
     from paddle_tpu_torch.models.gpt import GPT_SMALL, init_params
     from paddle_tpu_torch.serving import DecodeEngine, EngineConfig
 
@@ -913,7 +969,7 @@ def _serving_engine(kv_layout: str, weight_dtype: str = "bf16",
                         prefill_buckets=(64, 128, 256, 512),
                         weight_dtype=weight_dtype, fused_decode=True,
                         kv_layout=kv_layout, page_size=PAGE, **kw)
-    eng = DecodeEngine(params, cfg, ecfg, device="cuda")
+    eng = DecodeEngine(params, cfg, ecfg, device="cuda", **(engine_kw or {}))
     del params
     eng.drop_reference_params()
     if warm:
@@ -1824,6 +1880,503 @@ def phase_disagg_parity():
         raise AssertionError("a page_size mismatch was adopted")
     if dst.cache.free_page_count() != dst.cache.num_pages - 1:
         raise AssertionError("a refused adoption kept pages")
+
+
+# the tensor-parallel phases (4tk, 4t, 5t): two ranks sharing the one card
+# over gloo (every all-reduce staged through host memory)
+TP = 2
+TP_DEVICES = ("cuda:0", "cuda:0")
+TP_TICKS = 16            # 4t's timed ticks (and as many traced)
+
+
+def phase_tp_kernels() -> dict:
+    """Phase 4tk: the four kernels of the tp decode tick at a rank's
+    shapes against their plain versions, bf16 (:func:`bf16_check`) and
+    float32 (1e-5), caches and pools bitwise: ``fused_ln`` on [8, 768]
+    (every rank), ``decode_slab`` at nh / tp = 6 heads (q [8, 6, 64],
+    slab [8, 1024, 6, 64], one masked lane), ``decode_paged`` on pools
+    [513, 16, 6, 64] (phase 3's tables: a dead lane, two lanes sharing
+    their first 4 pages), ``logits_head`` [8, 768] x [768, 50257] (the
+    driver). Returns {kernel: largest |kernel - plain|}."""
+    from paddle_tpu_torch.models.gpt import GPT_SMALL
+    from paddle_tpu_torch.ops import cuda_kernels as CK
+
+    cfg = GPT_SMALL
+    D, V, hd = cfg.d_model, cfg.vocab_size, cfg.head_dim
+    nh = cfg.num_heads // TP
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(1904)
+    err: dict = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        def randn(*shape, dt=dtype, s=1.0):
+            return (torch.randn(shape, generator=g, device=dev) * s).to(dt)
+
+        scale = 1.0 + randn(D, dt=torch.float32, s=0.1)
+        bias = randn(D, dt=torch.float32, s=0.1)
+        x = randn(B, D)
+        e = {"fused_ln": _check_out(f"tp fused_ln [{B}, {D}]",
+                                    CK.fused_ln(x, scale, bias),
+                                    CK.fused_ln_plain(x, scale, bias),
+                                    dtype)}
+        qkv = randn(B, 3, nh, hd)
+        q, nk, nv = qkv[:, 0], qkv[:, 1], qkv[:, 2]
+        kc, vc = randn(B, S, nh, hd), randn(B, S, nh, hd)
+        pos_np = np.random.default_rng(7).integers(0, S, size=B).astype(
+            np.int32)
+        act_np = np.ones(B, np.int32)
+        act_np[3] = 0
+        positions = torch.from_numpy(pos_np).to(dev)
+        active = torch.from_numpy(act_np).to(dev)
+        k1, v1, k2, v2 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+        got, _, _ = CK.fused_decode_attention(q, k1, v1, nk, nv, positions,
+                                              active)
+        want, _, _ = CK.fused_decode_attention_plain(q, k2, v2, nk, nv,
+                                                     positions, active)
+        torch.cuda.synchronize()
+        if not (torch.equal(k1, k2) and torch.equal(v1, v2)
+                and torch.equal(k1[3], kc[3])):
+            raise AssertionError(f"tp decode_slab {dtype}: caches differ "
+                                 "from the plain version's")
+        e["decode_slab"] = _check_out(f"tp decode_slab [{B}, {S}, {nh}, "
+                                      f"{hd}]", got, want, dtype)
+        del kc, vc, k1, v1, k2, v2
+        e["decode_paged"] = _paged_kernel_check(q, nk, nv, pos_np, dtype,
+                                                False, randn)["max_abs_err"]
+        e["logits_head"] = _logits_head_check(
+            x, scale, bias, randn(D, V, s=0.02), False)["max_abs_err"]
+        for k, v in e.items():
+            err[k] = max(err.get(k, 0.0), v)
+        print(f"[tp-kernels] {dtype}: " + ", ".join(
+            f"{k}={v:.4g}" for k, v in e.items()))
+    torch.cuda.empty_cache()
+    return err
+
+
+def _tp_weight_want(cfg, rank: int):
+    """(storage bytes, resident bytes) of a tp rank's weights at bf16: the
+    replicated leaves whole and Megatron's split leaves 1/TP each
+    (``models/gpt.param_specs``); a follower holds no head; resident, the
+    layernorm parameters are float32."""
+    from paddle_tpu_torch.models import gpt as G
+    from paddle_tpu_torch.serving.tp import HEAD_LEAVES
+    from paddle_tpu_torch.sharding.plan import _flatten
+
+    specs = dict(_flatten(G.param_specs(cfg, pp=None, tp="tp")))
+    store = resident = 0
+    for path, shape in _flatten(G.param_shapes(cfg)):
+        if rank and path in HEAD_LEAVES:
+            continue
+        n = int(np.prod(shape)) // (TP if "tp" in specs[path] else 1)
+        store += 2 * n
+        resident += (4 if path.split("/")[-1].startswith("ln") else 2) * n
+    return store, resident
+
+
+def _gone(pids) -> bool:
+    """Every pid exited (our children: reaped by ``close()``'s join)."""
+    import os
+
+    for pid in pids:
+        try:
+            os.kill(pid, 0)
+            return False
+        except ProcessLookupError:
+            pass
+    return True
+
+
+def _print_startup(tag, eng) -> None:
+    """A tp engine's start-up split, seconds after the driver's spawn."""
+    st = eng.tp_startup
+    t0 = st[0]["spawn"]
+    for r, stamps in enumerate(st):
+        print(f"[{tag}] rank {r} start-up s: " + ", ".join(
+            f"{k} {v - t0:.2f}" for k, v in stamps.items()))
+
+
+def _rank_launch_want(eng, ticks: int, rank: int) -> dict:
+    want = _tick_want(eng, ticks)
+    if rank:
+        want["logits_head"] = 0            # the driver alone runs the head
+    return want
+
+
+def phase_tp(paged: dict):
+    """Phases 4tk, 4t and 5t (see the module docstring). The three tp
+    engines (4t's, 5t's slab and paged) start at once, on threads, so
+    their followers' imports overlap, while 4tk checks the kernels.
+    Returns (4tk's {kernel: largest error}, each kernel's launches summed
+    over both of 4t's ranks)."""
+    from paddle_tpu_torch.models.gpt import GPT_SMALL, init_params
+    from paddle_tpu_torch.serving import DecodeEngine, EngineConfig
+
+    t_phase = time.perf_counter()
+    # 5t's float32 parity: no TF32 in the driver (a follower's default)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg5 = GPT_SMALL.scaled(num_layers=2, dtype=torch.float32)
+    params5 = init_params(cfg5, seed=1, device="cuda")
+    ekw5 = dict(max_batch=4, max_seq=256, prefill_buckets=(64, 128),
+                page_size=PAGE)
+    makers = {"4t": lambda: _serving_engine(
+        "paged", warm=False, sharding="tp", tp=TP,
+        engine_kw={"tp_devices": TP_DEVICES})}
+    for lay in ("slab", "paged"):
+        makers[f"5t {lay}"] = lambda lay=lay: DecodeEngine(
+            params5, cfg5, EngineConfig(kv_layout=lay, sharding="tp", tp=TP,
+                                        **ekw5),
+            device="cuda", tp_devices=TP_DEVICES)
+    join = _build_all(makers)
+    tp_err = phase_tp_kernels()
+    engs = join()
+    built_s = time.perf_counter() - t_phase
+    pids = [p for e in engs.values() for p in e.follower_pids]
+    print(f"[tp] 3 tp engines built at once in {built_s:.1f} s (4tk "
+          f"checked meanwhile); followers {pids}")
+    for tag, e in engs.items():
+        _print_startup(f"tp {tag}", e)
+    try:
+        launches = phase_serving_tp(paged, engs["4t"])
+        phase_tp_parity(engs["5t slab"], engs["5t paged"], params5, cfg5,
+                        ekw5)
+    finally:
+        for e in engs.values():
+            e.close()
+    if not _gone(pids):
+        raise AssertionError(f"tp followers {pids} alive after close()")
+    print(f"[tp] every follower gone after close(); 4tk + 4t + 5t wall "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return tp_err, launches
+
+
+def phase_serving_tp(paged: dict, eng) -> dict:
+    """Phase 4t on its engine (see the module docstring); returns each
+    kernel's launches summed over both ranks' serving and timed ticks."""
+    from paddle_tpu_torch.parallel import comm_opt as C
+    from paddle_tpu_torch.serving import metrics as smetrics
+    from paddle_tpu_torch.tools.profile_decode import _step, trace_summary
+
+    t_phase = time.perf_counter()
+    total: dict = {}
+    times = eng.warmup()
+    cfg = eng.cfg
+    L, D = cfg.num_layers, cfg.d_model
+    print(f"[serve-tp2] {TP} ranks on {TP_DEVICES} over gloo; driver "
+          "warmup ms: "
+          + ", ".join(f"{k}={v:.1f}" for k, v in times.items()))
+    # resident weights and pools, every rank (the f32 truth dropped)
+    pool_1 = (2 * L * eng.cache.num_pages * PAGE * cfg.num_heads
+              * cfg.head_dim * 2)             # phase 4b's pool, bf16
+    for st in eng.rank_stats():
+        want = _tp_weight_want(cfg, st["rank"])
+        got = (st["weight_nbytes"], st["resident_weight_bytes"])
+        if got != want or st["cache_nbytes"] * TP != pool_1:
+            raise AssertionError(
+                f"tp rank {st['rank']}: weight bytes (storage, "
+                f"resident) {got} != {want}, or pool bytes "
+                f"{st['cache_nbytes']} != {pool_1} / {TP}")
+        print(f"[serve-tp2] rank {st['rank']} ({st['device']}): "
+              f"weights {got[1]} resident bytes ({got[0]} storage) "
+              f"exact, pool {st['cache_nbytes']} bytes = 4b's / {TP}, "
+              f"memory_allocated {st['memory_allocated']}")
+    # phase 4b's traffic, both ranks' counts zeroed just before
+    prompts = _phase4b_prompts(cfg.vocab_size)
+    hits0, tok0 = eng.prefix.hits, smetrics.m_prefill_tokens.value
+    eng.rank_stats(reset_launches=True)
+    ticks0 = eng.decode_ticks
+    _, reqs, e2e = _serve(eng, prompts, "serve-tp2")
+    ticks = eng.decode_ticks - ticks0
+    for st in eng.rank_stats():
+        want = _rank_launch_want(eng, ticks, st["rank"])
+        if st["launches"] != want:
+            raise AssertionError(f"tp rank {st['rank']} launches "
+                                 f"{st['launches']} != {want} for "
+                                 f"{ticks} ticks")
+        for k, v in st["launches"].items():
+            total[k] = total.get(k, 0) + v
+    hits = eng.prefix.hits - hits0
+    prefilled = int(smetrics.m_prefill_tokens.value - tok0)
+    want_tok = sum(len(p) for p in prompts) - 7 * 256
+    if hits != 7 or prefilled != want_tok:
+        raise AssertionError(f"tp prefix cache: {hits} hits (want 7), "
+                             f"{prefilled} tokens prefilled (want "
+                             f"{want_tok})")
+    eng.prefix.clear()
+    if eng.cache.free_page_count() != eng.cache.num_pages - 1:
+        raise AssertionError("tp page pool not returned")
+    same = sum(list(r.tokens) == t
+               for r, t in zip(reqs, paged["tokens"]))
+    for tag, d in (("tp2", e2e), ("4b tp1", paged["e2e"])):
+        print(f"[serve-tp2] {tag}: tok/s={d['tok_s']:.1f} ttft_ms "
+              f"p50={d['ttft_ms_p50']:.3f} p99={d['ttft_ms_p99']:.3f} "
+              f"tpot_ms p50={d['tpot_ms_p50']:.3f}")
+    print(f"[serve-tp2] every rank's launches exact for {ticks} ticks "
+          f"(fused_ln 2L, decode_paged L a rank, logits_head 1 on the "
+          f"driver); prefix hits 7, {prefilled} tokens prefilled; "
+          f"streams equal to 4b's: {same} of 16 (not gated)")
+    # the tick alone: 8 slots live, TP_TICKS ticks timed, then traced
+    rng = np.random.default_rng(0)
+    feed = {}
+    for n in rng.integers(16, 401, size=B):
+        slot, logits = eng.start_sequence(
+            rng.integers(0, cfg.vocab_size, size=int(n)).tolist())
+        feed[slot] = int(np.argmax(logits))
+    for _ in range(3):
+        _step(eng, feed)
+    s0 = eng.rank_stats()
+    t0 = time.perf_counter()
+    for _ in range(TP_TICKS):
+        _step(eng, feed)
+    wall = time.perf_counter() - t0
+    s1 = eng.rank_stats()
+    wire = TP_TICKS * 2 * L * C.wire_bytes("psum", B * D * 2, TP)
+    for a, b in zip(s0, s1):
+        dl = {k: b["launches"][k] - a["launches"][k]
+              for k in a["launches"]}
+        want = _rank_launch_want(eng, TP_TICKS, a["rank"])
+        if b["wire_bytes"] - a["wire_bytes"] != wire or dl != want:
+            raise AssertionError(
+                f"tp rank {a['rank']}: {TP_TICKS} ticks moved "
+                f"{b['wire_bytes'] - a['wire_bytes']} wire bytes (want "
+                f"{wire}: 2L psums of [{B}, {D}] bf16 a tick) and "
+                f"launched {dl} (want {want})")
+        for k, v in dl.items():
+            total[k] = total.get(k, 0) + v
+    staged = [(b["staged_s"] - a["staged_s"]) * 1e3 / TP_TICKS
+              for a, b in zip(s0, s1)]
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(TP_TICKS):
+            _step(eng, feed)
+        wall_us = (time.perf_counter() - t0) * 1e6
+    dev = trace_summary(prof, wall_us, TP_TICKS)
+    tick_ms = wall * 1e3 / TP_TICKS
+    split = {"tick_ms": tick_ms, "staged_allreduce_ms": staged,
+             "staged_share": staged[0] / tick_ms,
+             "driver_device_busy_ms": dev["device_busy_ms_per_tick"],
+             "driver_idle_share": dev["idle_share"],
+             "wire_bytes_per_tick_per_rank": wire // TP_TICKS}
+    print(f"[serve-tp2] tick split, 8 lanes live: {tick_ms:.3f} ms a "
+          f"tick on the host clock; the staged all-reduces (2L = "
+          f"{2 * L} a tick) {staged[0]:.3f} ms on the driver, "
+          f"{staged[1]:.3f} ms on the follower (share "
+          f"{split['staged_share']:.3f}); the driver's device busy "
+          f"{split['driver_device_busy_ms']:.3f} ms a tick (idle share "
+          f"{split['driver_idle_share']}); wire bytes a tick a rank "
+          f"{wire // TP_TICKS} exact")
+    for slot in feed:
+        eng.free_sequence(slot)
+    bf16 = _tp_bf16_check(eng)
+    print(json.dumps({"serve_tp2": {
+        "e2e": e2e, "colocated_4b": paged["e2e"], "ticks": ticks,
+        "streams_equal_4b": same, "tick_split": split,
+        "device_trace": dev, "startup": eng.tp_startup, "bf16": bf16}}))
+    print(f"[serve-tp2] phase wall {time.perf_counter() - t_phase:.1f} s "
+          "(the build apart)")
+    return total
+
+
+TP_BF16_TICKS = 4        # 4t's bf16 check: ticks after the prefill
+
+
+def _forced_logits(eng, prompts, feed):
+    """Prefill logits of ``prompts`` in one batch, then one tick's logits
+    for every token list of ``feed`` (the same tokens for every engine);
+    rows [prefill of each prompt, tick 1 of each, ...], float32."""
+    slots, rows = [], []
+    for p in prompts:
+        slot, lg = eng.start_sequence(p)
+        slots.append(slot)
+        rows.append(lg)
+    for toks in feed:
+        out = eng.decode_step(dict(zip(slots, toks)))
+        rows.extend(out[slot] for slot in slots)
+    for slot in slots:
+        eng.free_sequence(slot)
+    return np.stack(rows).astype(np.float32)
+
+
+def _tp_bf16_check(eng) -> dict:
+    """4t's numbers at bf16: the tp=2 engine ``eng`` against tp=1 paged
+    engines with the same seed weights, bf16 and float32 (TF32 off), on
+    8 prompts of 16-400 tokens: the prefill logits, then TP_BF16_TICKS
+    ticks where every engine is fed the bf16 tp=1 engine's greedy
+    tokens.
+    Gates: the tp=2 logits stray from the float32 engine's at most twice
+    as far as the bf16 tp=1 engine's do (the bf16 sum of the ranks'
+    partials costs about one rounding more than one card's matmul; a lost
+    or doubled partial costs the logits' scale), and the prefill's greedy
+    tokens equal the bf16 tp=1 engine's. Returns the readings."""
+    from paddle_tpu_torch.models.gpt import GPT_SMALL
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(19)
+    prompts = [rng.integers(0, eng.cfg.vocab_size, size=int(n)).tolist()
+               for n in rng.integers(16, 401, size=B)]
+    one = _serving_engine("paged", warm=False)
+    try:
+        feed = []
+        for _ in range(TP_BF16_TICKS):     # the bf16 tp=1 greedy path
+            lg = _forced_logits(one, prompts, feed)
+            feed.append([int(t) for t in lg[-B:].argmax(-1)])
+        l1 = _forced_logits(one, prompts, feed)
+    finally:
+        del one
+    l2 = _forced_logits(eng, prompts, feed)
+    f32 = _serving_engine("paged", "f32", warm=False,
+                          cfg=GPT_SMALL.scaled(dtype=torch.float32))
+    try:
+        want = _forced_logits(f32, prompts, feed)
+    finally:
+        del f32
+        torch.cuda.empty_cache()
+    top2 = np.sort(want[:B], -1)[:, -2:]
+    out = {"rows": int(l2.shape[0]),
+           "tp2_vs_f32": float(np.abs(l2 - want).max()),
+           "tp1_vs_f32": float(np.abs(l1 - want).max()),
+           "tp2_vs_tp1": float(np.abs(l2 - l1).max()),
+           "logit_scale": float(np.abs(want).max()),
+           "first_tokens_equal": int((l2[:B].argmax(-1)
+                                      == l1[:B].argmax(-1)).sum()),
+           "argmax_equal_rows": int((l2.argmax(-1) == l1.argmax(-1)).sum()),
+           "f32_top2_margin_min": float((top2[:, 1] - top2[:, 0]).min()),
+           "s": time.perf_counter() - t0}
+    print(f"[serve-tp2] bf16 against float32, {out['rows']} logit rows "
+          f"({B} prompts, prefill + {TP_BF16_TICKS} forced ticks): "
+          f"max |tp2 - f32| {out['tp2_vs_f32']:.6g}, |tp1 - f32| "
+          f"{out['tp1_vs_f32']:.6g} (gate: tp2's <= 2x tp1's), |tp2 - "
+          f"tp1| {out['tp2_vs_tp1']:.6g}, logits up to "
+          f"{out['logit_scale']:.4g}; first tokens equal "
+          f"{out['first_tokens_equal']} of {B} (gate: all), argmax equal "
+          f"on {out['argmax_equal_rows']} of {out['rows']} rows; the f32 "
+          f"prefill's least top-2 margin {out['f32_top2_margin_min']:.4g}; "
+          f"{out['s']:.1f} s")
+    if not (0 < out["tp2_vs_f32"] <= 2 * out["tp1_vs_f32"]):
+        raise AssertionError(f"4t bf16: tp2 strays {out['tp2_vs_f32']} "
+                             f"from float32, over twice tp1's "
+                             f"{out['tp1_vs_f32']}")
+    if out["first_tokens_equal"] != B:
+        raise AssertionError(f"4t bf16: the prefill's greedy tokens equal "
+                             f"tp1's on {out['first_tokens_equal']} of {B}")
+    return out
+
+
+def _build_all(makers: dict):
+    """Start building every engine of ``makers`` ({name: thunk}) at
+    once, a thread each, so the tp engines' followers start together;
+    returns ``join()``, which waits for them all and returns {name:
+    engine} (a failure closes the others and raises)."""
+    import threading
+
+    out, errs = {}, {}
+
+    def run(name, fn):
+        try:
+            out[name] = fn()
+        except BaseException as e:       # re-raised on the caller's thread
+            errs[name] = e
+
+    threads = [threading.Thread(target=run, args=kv, daemon=True)
+               for kv in makers.items()]
+    for t in threads:
+        t.start()
+
+    def join():
+        for t in threads:
+            t.join()
+        if errs:
+            for eng in out.values():
+                eng.close()
+            name, e = next(iter(errs.items()))
+            raise RuntimeError(f"building {name} failed: {e}") from e
+        return out
+
+    return join
+
+
+def phase_tp_parity(slab, paged, params, cfg, ekw):
+    """Phase 5t on its tp=2 engines (``slab``, ``paged``): tp=2 against
+    tp=1, a 2-layer GPT_SMALL in float32 (TF32 off), the kernel engines:
+    4 prompts (5, 17, 40, 100 tokens) x 16 greedy tokens in one batch,
+    prefill and per-step logits within 1e-4 and tokens equal; then a paged
+    tp=2 -> tp=1 handoff of the 100-token prompt: two frames a projection
+    a chunk, the adopted pages bitwise the source's, and the adopted
+    slot's 16 greedy tokens the tp=1 engine's own."""
+    from paddle_tpu_torch.serving import DecodeEngine, EngineConfig
+
+    t_phase = time.perf_counter()
+    layouts = ("slab", "paged")
+    engs = {"slab": slab, "paged": paged}
+    one = {lay: DecodeEngine(params, cfg, EngineConfig(kv_layout=lay,
+                                                       **ekw),
+                             device="cuda") for lay in layouts}
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, size=int(n)).tolist()
+               for n in (5, 17, 40, 100)]
+    worst = 0.0
+    for lay in layouts:
+        runs = []
+        for eng in (engs[lay], one[lay]):
+            slots, cur, logs = {}, {}, []
+            for i, p in enumerate(prompts):
+                slots[i], lg = eng.start_sequence(p)
+                cur[i] = int(np.argmax(lg))
+                logs.append(lg)
+            toks = {i: [cur[i]] for i in slots}
+            for _ in range(15):
+                out = eng.decode_step({slots[i]: cur[i] for i in slots})
+                for i in slots:
+                    logs.append(out[slots[i]])
+                    cur[i] = int(np.argmax(out[slots[i]]))
+                    toks[i].append(cur[i])
+            for s in slots.values():
+                eng.free_sequence(s)
+            runs.append((toks, logs))
+        (t2, l2), (t1, l1) = runs
+        diff = max(float(np.abs(a - b).max()) for a, b in zip(l2, l1))
+        worst = max(worst, diff)
+        if t2 != t1 or not diff <= 1e-4:
+            raise AssertionError(f"5t {lay}: tp2 tokens equal tp1's: "
+                                 f"{t2 == t1}; max logit diff {diff}")
+    print(f"[tp-parity] slab and paged: 4 prompts x 16 greedy tokens, "
+          f"tp2 == tp1 token for token (f32, 2 layers), prefill and "
+          f"per-step logits within {worst:.3g} (gate 1e-4)")
+    # the handoff: tp2 paged -> tp1 paged
+    src, dst = engs["paged"], one["paged"]
+    prompt = prompts[-1]
+    want = _greedy_tokens(dst, prompt, 17)
+    slot, logits = src.start_sequence(prompt)
+    n_pages = src.cache.pages_for(len(prompt))
+    k_src, v_src = src.cache.read_pages(
+        [int(p) for p in src.cache.table_row(slot)[:n_pages]])
+    handoff = src.export_request_kv(slot, tokens=prompt)
+    if any(sorted(f["shard"] for f in ch["shards"] if f["proj"] == "k")
+           != list(range(TP)) for ch in handoff["chunks"]):
+        raise AssertionError("5t: the tp2 export is not one frame a "
+                             "rank a projection a chunk")
+    dslot = dst.adopt_request_kv(handoff)
+    k_dst, v_dst = dst.cache.read_pages(
+        [int(p) for p in dst.cache.table_row(dslot)[:n_pages]])
+    if not (torch.equal(k_dst, k_src) and torch.equal(v_dst, v_src)):
+        raise AssertionError("5t: adopted pages differ from the tp2 "
+                             "source's")
+    toks = [int(np.argmax(logits))]
+    for _ in range(16):
+        toks.append(int(np.argmax(dst.decode_step(
+            {dslot: toks[-1]})[dslot])))
+    src.free_sequence(slot)
+    dst.free_sequence(dslot)
+    if toks != want:
+        raise AssertionError(f"5t: the adopted slot's tokens {toks} != "
+                             f"tp1's {want}")
+    print(f"[tp-parity] tp2 -> tp1 handoff: {len(handoff['chunks'])} "
+          f"chunk(s) x {TP} frames a projection, {n_pages} pages "
+          f"bitwise, the adopted slot's 17 tokens == tp1's own")
+    print(f"[tp-parity] phase wall {time.perf_counter() - t_phase:.1f} s "
+          "(the build apart)")
 
 
 SPEC_K = 3               # the spec lanes' proposals a window (W = 4)
@@ -3713,12 +4266,13 @@ def phase_resnet50():
 # layouts (tag, train_bench --layout spec) in turn
 TRAIN_PARALLEL = (
     ("two", 2, "gloo", (
-        ("dp2", "dp=2"),
-        ("dp2-rs", "dp=2,grad_reduce=reduce_scatter,comm_dtype=bf16"),
-        ("tp2", "tp=2,layers=6"),
-        ("pp2", "pp=2,microbatches=4"))),
+        ("dp2", "dp=2,layers=6"),
+        ("dp2-rs", "dp=2,grad_reduce=reduce_scatter,comm_dtype=bf16,"
+                   "layers=6"),
+        ("tp2", "tp=2,layers=3"),
+        ("pp2", "pp=2,microbatches=4,layers=6"))),
     ("eight", 8, "gloo", (
-        ("3d", "dp=2,pp=2,tp=2,microbatches=2,layers=4"),)),
+        ("3d", "dp=2,pp=2,tp=2,microbatches=2,layers=2"),)),
     ("nccl1", 1, "nccl", (("nccl1", ""),)),
 )
 
@@ -4244,10 +4798,10 @@ def phase_ring(world: int = 2) -> dict:
 # under the dp plan (its peak memory beside fsdp's); (b) ERNIE-base at tp 2
 TRAIN_SHARDED = (
     ("gpt", ["--fused-ln", "--ce-vchunk", "1024", "--parity"],
-     (("fsdp2", "sharding=fsdp,dp=2,ckpt_dir={ckpt}"),
-      ("dp2", "sharding=dp,dp=2"))),
+     (("fsdp2", "sharding=fsdp,dp=2,layers=6,ckpt_dir={ckpt}"),
+      ("dp2", "sharding=dp,dp=2,layers=6"))),
     ("ernie", ["--model", "ernie", "--fused-ln", "--parity"],
-     (("ernie-tp2", "tp=2"),)),
+     (("ernie-tp2", "tp=2,layers=6"),)),
 )
 ERNIE_TP = 2                       # (b)'s tp: flash at nh / tp heads a rank
 
@@ -4538,6 +5092,7 @@ def phase_train_sharded(timeout_s: float = 600.0) -> dict:
     import shutil
 
     from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.tools import train_bench as TB
 
     work = os.path.join(str(_build.BUILD_DIR), "train_sharded")
     shutil.rmtree(work, ignore_errors=True)
@@ -4551,8 +5106,9 @@ def phase_train_sharded(timeout_s: float = 600.0) -> dict:
                 ckpt=os.path.join(work, "ckpt"))]
         by_layout, wall = _gang(gang, flags, len(layouts), work, timeout_s)
         print(f"[train-sharded] gang {gang}: launch wall {wall:.1f} s")
-        for (tag, _), recs in zip(layouts, by_layout):
-            _check_sharded(tag, recs, work, launches, peaks)
+        for (tag, spec), recs in zip(layouts, by_layout):
+            _check_sharded(tag, recs, work, launches, peaks,
+                           TB.layout_dict(spec)["layers"])
     print(f"[train-sharded] peak GB a rank, the same step and batch: "
           f"fsdp2 {peaks['fsdp2'] / 1e9:.3f}, dp2 {peaks['dp2'] / 1e9:.3f} "
           "(fsdp gathers every sharded leaf once a step, up front)")
@@ -4561,10 +5117,10 @@ def phase_train_sharded(timeout_s: float = 600.0) -> dict:
     return launches
 
 
-def _check_sharded(tag, recs, work, launches, peaks):
-    """13 and 13p on the two ranks' records of one layout, and 13c after
-    fsdp2's; adds the timed steps' launches to ``launches`` and the
-    layout's peak to ``peaks``."""
+def _check_sharded(tag, recs, work, launches, peaks, layers: int):
+    """13 and 13p on the two ranks' records of one layout (``layers`` its
+    depth; 0 the model's own), and 13c after fsdp2's; adds the timed
+    steps' launches to ``launches`` and the layout's peak to ``peaks``."""
     from paddle_tpu_torch.models import gpt as G
     from paddle_tpu_torch.parallel import parallelize as PZ
     from paddle_tpu_torch.tools import train_bench as TB
@@ -4572,11 +5128,13 @@ def _check_sharded(tag, recs, work, launches, peaks):
     peaks[tag] = max(r["peak_mem_bytes"] for r in recs)
     if tag != "ernie-tp2":
         cfg = TB.bench_config(fused_ln=True, ce_vchunk=1024)
+        cfg = cfg.scaled(num_layers=layers or cfg.num_layers)
         want_l, want_w, p_bytes, m_bytes, plan = _plan_want(
             cfg, TB.SEQ, tag[:-1])
         ok = TB.parity_ok
     else:
         cfg = TB.ernie_config(fused_ln=True)
+        cfg = cfg.scaled(num_layers=layers or cfg.num_layers)
         want_l, want_w = _ernie_want(cfg)
         p_bytes = m_bytes = None
         ok = TB.ernie_parity_ok
@@ -4657,6 +5215,12 @@ def main() -> int:
     phase_parity()
     phase_spec_parity()
     phase_disagg_parity()
+    # tensor-parallel serving, two ranks sharing the card: the tick's
+    # kernels at a rank's shapes (4tk), phase 4b's traffic (4t, every
+    # rank's launches into the kernels line), tp2 against tp1 (5t)
+    tp_err, tp_launches = phase_tp(paged)
+    for k, v in tp_launches.items():
+        launches[k] += v
     decode_ln = recs["fused_ln"]
     recs.update(phase_train_kernels(torch.bfloat16, time_it=True))
     # the decode tick's plain form [8, 768] beside the training shapes
@@ -4724,6 +5288,8 @@ def main() -> int:
         if name in ("decode_slab", "decode_paged"):
             kernels[-1]["f32"] = {k: v for k, v in f32[name].items()
                                   if k != "sweep"}
+        if name in tp_err:
+            kernels[-1]["tp_max_abs_err"] = tp_err[name]
     print(f"[chip_smoke] wall {time.perf_counter() - t_start:.1f} s, the "
           "build included")
     print(json.dumps({"widths_max_abs_err": widths, "wide_hd256": wide}))

@@ -16,9 +16,16 @@ The default is NCCL with rank r on ``cuda:LOCAL_RANK``; a worker whose
 ``LOCAL_RANK`` has no card of its own raises. gloo, the CPU, or two
 ranks on one card are taken only when the caller names them
 (``backend="gloo"``, ``device="cpu"`` or ``device="cuda:0"``).
+
+A process that needs a group of its own beside (or without) the default
+one — a tensor-parallel serving engine, several of which one process may
+hold — opens a store (:func:`open_store`) and joins a
+:class:`PrivateGroup` (:func:`init_private_group`); ``mesh.build_mesh(...,
+group=)`` lays a one-axis mesh over it.
 """
 from __future__ import annotations
 
+import dataclasses
 import datetime
 import os
 import socket
@@ -33,7 +40,7 @@ from . import health, launch
 
 __all__ = ["trainer_id", "trainer_num", "trainer_endpoints",
            "current_endpoint", "local_rank", "init_distributed_env",
-           "BACKENDS"]
+           "PrivateGroup", "open_store", "init_private_group", "BACKENDS"]
 
 BACKENDS = ("nccl", "gloo")
 
@@ -135,3 +142,57 @@ def init_distributed_env(coordinator: Optional[str] = None,
             timeout=datetime.timedelta(seconds=timeout_s), **kw),
         log=lambda m: sys.stderr.write(f"rank {rank}: {m}\n"))
     return dev
+
+
+@dataclasses.dataclass
+class PrivateGroup:
+    """A process group of its own, outside the process's default group: a
+    process may hold several (one a tensor-parallel serving engine), where
+    ``init_process_group`` allows one. ``pg`` is the backend's group (the
+    ``group=`` of ``torch.distributed`` calls), ``store`` its rendezvous,
+    kept alive with it."""
+    pg: object
+    rank: int
+    size: int
+    backend: str
+    store: object
+
+
+def open_store(world: int, timeout_s: float = 300.0):
+    """The rendezvous of a private group, served by this process on a free
+    local port (``store.port``): the group's rank 0 opens it before its
+    peers start, and passes them ``127.0.0.1:<port>``."""
+    return dist.TCPStore("127.0.0.1", 0, int(world), is_master=True,
+                         timeout=datetime.timedelta(seconds=timeout_s),
+                         wait_for_workers=False)
+
+
+def init_private_group(store, rank: int, world: int, backend: str,
+                       timeout_s: float = 300.0, device=None):
+    """Join a :class:`PrivateGroup` of ``world`` ranks as ``rank`` and
+    return ``(device, group)``. ``store`` is the rank-0 store
+    (:func:`open_store`) or its ``host:port``. ``timeout_s`` bounds the
+    rendezvous and every collective, so a missing peer raises instead of
+    hanging. ``device`` is this rank's: the current CUDA device unless
+    the caller names another, raising when there is no card; the CPU only
+    as ``device="cpu"``. gloo takes any device; nccl a CUDA device (one a
+    rank)."""
+    if backend not in BACKENDS:
+        raise ValueError(f"backend {backend!r}: expected one of {BACKENDS}")
+    dev = resolve_device("cuda" if device is None else device)
+    if backend == "nccl" and dev.type != "cuda":
+        raise ValueError("the nccl backend needs a CUDA device")
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    timeout = datetime.timedelta(seconds=timeout_s)
+    if isinstance(store, str):
+        host, port = store.rsplit(":", 1)
+        store = dist.TCPStore(host, int(port), int(world), is_master=False,
+                              timeout=timeout)
+    if backend == "gloo":
+        pg = dist.ProcessGroupGloo(store, int(rank), int(world), timeout)
+    else:
+        opts = dist.ProcessGroupNCCL.Options()
+        opts._timeout = timeout
+        pg = dist.ProcessGroupNCCL(store, int(rank), int(world), opts)
+    return dev, PrivateGroup(pg, int(rank), int(world), backend, store)

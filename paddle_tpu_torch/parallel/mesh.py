@@ -200,12 +200,13 @@ class Mesh:
     """This rank's place in the grid: the axes, its coordinates, and an
     :class:`AxisGroup` for every set of axes (:meth:`group`)."""
 
-    def __init__(self, axes: Sequence[Tuple[str, int]], device, backend):
+    def __init__(self, axes: Sequence[Tuple[str, int]], device, backend,
+                 private=None):
         self.axis_names = tuple(n for n, _ in axes)
         self.shape = tuple(int(s) for _, s in axes)
         self.sizes = dict(zip(self.axis_names, self.shape))
         self.size = int(np.prod(self.shape))
-        self.rank = dist.get_rank()
+        self.rank = private.rank if private is not None else dist.get_rank()
         self.device = torch.device(device)
         self.backend = backend
         self.stage = backend == "gloo"
@@ -225,7 +226,14 @@ class Mesh:
                 for line in lines:
                     ranks = [int(x) for x in line]
                     pg = None
-                    if len(ranks) > 1:
+                    if len(ranks) > 1 and private is not None:
+                        if len(ranks) != private.size:
+                            raise NotImplementedError(
+                                "a mesh over a private group has one line "
+                                f"a set of axes (the group); {axes} needs "
+                                "sub-groups")
+                        pg = private.pg
+                    elif len(ranks) > 1:
                         pg = (dist.group.WORLD if ranks == list(range(
                             dist.get_world_size())) else
                             dist.new_group(ranks=ranks))
@@ -253,29 +261,31 @@ class Mesh:
                 f"rank={self.rank}, backend={self.backend})")
 
 
-def build_mesh(config, device=None) -> Mesh:
+def build_mesh(config, device=None, group=None) -> Mesh:
     """A :class:`Mesh` over the initialised world (``env.
-    init_distributed_env`` first). ``config`` is a :class:`MeshConfig` or
-    (name, size) pairs whose product is the world size; ``device`` is this
+    init_distributed_env`` first), or over ``group``, an ``env.
+    PrivateGroup`` (``env.init_private_group``; one line a set of axes,
+    so a one-axis mesh). ``config`` is a :class:`MeshConfig` or (name,
+    size) pairs whose product is the world size; ``device`` is this
     rank's device: the current CUDA device (``init_distributed_env`` set
     it) under every backend unless the caller names another, and raises
     when there is no card; the CPU only as ``device="cpu"``."""
-    if not dist.is_initialized():
+    if group is None and not dist.is_initialized():
         raise RuntimeError("build_mesh needs an initialised process group "
                            "(parallel.env.init_distributed_env)")
     if not isinstance(config, MeshConfig):
         config = MeshConfig(list(config))
-    world = dist.get_world_size()
+    world = group.size if group is not None else dist.get_world_size()
     axes = config.resolve(world)
     total = int(np.prod([s for _, s in axes]))
     if total != world:
         raise ValueError(f"mesh axes {axes} need {total} ranks; the world "
                          f"has {world}")
-    backend = dist.get_backend()
+    backend = group.backend if group is not None else dist.get_backend()
     device = resolve_device("cuda" if device is None else device)
     if backend == "nccl" and device.type != "cuda":
         raise ValueError("the nccl backend needs a CUDA device")
-    return Mesh(axes, device, backend)
+    return Mesh(axes, device, backend, private=group)
 
 
 _current_mesh: Optional[Mesh] = None

@@ -3,8 +3,9 @@ KV layouts): the decode engine with its Hopper kernels (f32, bf16 or int8
 weights), the page pool and prefix cache, speculative decoding, the
 continuous-batching scheduler, the HTTP front door, phase-disaggregated
 serving (the KV handoff, the in-process prefill -> decode router and the
-shared prefix index), and the subprocess replica gang with its persistent
-prefix store."""
+shared prefix index), the subprocess replica gang with its persistent
+prefix store, and tensor-parallel engines (``EngineConfig(sharding="tp",
+tp=N)``: follower rank processes, ``serving/tp.py``)."""
 from .engine import (DecodeEngine, EngineConfig, PromptTooLongError,
                      default_bucket_ladder)
 from .kv_cache import CacheFullError, KVCache

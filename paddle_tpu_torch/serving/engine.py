@@ -49,6 +49,15 @@
   ``prefix_store`` (duck-typed: ``maybe_publish``, ``restore_into``) sees
   every prefix the paged prefill publishes — the gang-shared prefix index
   of ``serving/disagg.py`` plugs in there.
+- **Tensor parallelism** (``sharding="tp"``, ``tp=N``; ``serving/tp.py``):
+  this object is the driver, rank 0, and spawns N - 1 follower ranks; the
+  weights are cut as Megatron's split (``engine.tp_derived``), each rank
+  holds ``num_heads / N`` heads of the slab or the pool, each block
+  all-reduces its attention projection's and its MLP's partial sums, and
+  the driver alone runs the LM head and sampling. Every entry point sends
+  the followers one command; a rank's fault poisons the engine;
+  :meth:`DecodeEngine.close` stops the followers. ``weight_nbytes`` is
+  the driver rank's; :meth:`DecodeEngine.rank_stats` gives every rank's.
 
 PyTorch runs eagerly, so there is nothing to compile: ``warmup`` runs
 each path once so the first request pays no first-call costs (library
@@ -58,6 +67,7 @@ one scheduler loop calls it.
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -70,6 +80,9 @@ from ..models import gpt as gpt_mod
 from ..models.gpt import GPTConfig
 from ..observability import spans as _spans
 from ..ops import cuda_kernels as CK
+from ..parallel import comm_opt
+from ..parallel import mesh as mesh_mod
+from ..sharding.plan import _flatten
 from ..ops.decode_attention import (cache_update, decode_attention,
                                     paged_cache_update, paged_gather,
                                     paged_page_write,
@@ -78,6 +91,7 @@ from ..ops.decode_attention import (cache_update, decode_attention,
                                     window_cache_update)
 from . import kv_transfer
 from . import metrics as smetrics
+from . import tp as tp_mod
 from .kv_cache import CacheFullError, KVCache
 from .paged_kv import PagedKVCache, PagePoolFullError, PrefixCache
 from .quant import WEIGHT_DTYPES, quantize_params, quantized_nbytes
@@ -118,11 +132,10 @@ def default_bucket_ladder(max_seq: int, smallest: int = 16) -> Tuple[int, ...]:
 
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
-    """Serving geometry, field for field the JAX ``EngineConfig``.
-
-    Refused so far (``NotImplementedError`` naming the ROADMAP item):
-    ``sharding="tp"`` (``tp``). With ``kv_layout="paged"``, ``page_size``
-    must divide every prefill bucket."""
+    """Serving geometry, field for field the JAX ``EngineConfig``. With
+    ``kv_layout="paged"``, ``page_size`` must divide every prefill bucket;
+    ``sharding="tp"`` takes ``tp >= 2`` dividing ``num_heads`` and
+    ``d_ff``, and f32 or bf16 weights."""
     max_batch: int = 8               # decode slots (the static batch)
     max_seq: int = 256               # per-slot prompt+generation bound
     prefill_buckets: Tuple[int, ...] = ()   # () -> default_bucket_ladder
@@ -159,11 +172,7 @@ def _refuse_unported(ecfg: EngineConfig) -> None:
     if ecfg.kv_layout not in ("slab", "paged"):
         raise ValueError(f"kv_layout {ecfg.kv_layout!r}: expected 'slab' "
                          "or 'paged'")
-    if ecfg.sharding == "tp":
-        raise NotImplementedError(
-            "sharding='tp' waits for the multi-GPU slice of the port "
-            "(ROADMAP.md, queue A: tensor parallelism)")
-    if ecfg.sharding is not None:
+    if ecfg.sharding not in (None, "tp"):
         raise ValueError(f"sharding {ecfg.sharding!r}: expected None or "
                          "'tp'")
     if ecfg.weight_dtype not in WEIGHT_DTYPES:
@@ -182,15 +191,49 @@ def _to_device(tree, dev):
     return tree.to(dev)
 
 
+def _numel(tree) -> int:
+    return sum(t.numel() for _, t in _flatten(tree))
+
+
 class DecodeEngine:
     def __init__(self, params, cfg: GPTConfig, ecfg: EngineConfig,
-                 device="cuda"):
+                 device="cuda", tp_devices=None):
+        """``tp_devices`` (``sharding="tp"`` only): each rank's device, one
+        a rank — by default ``cuda:0 .. cuda:N-1`` (raising when fewer
+        cards are visible), every rank on the CPU for ``device="cpu"``; two
+        ranks share a card only where it is named twice."""
+        _refuse_unported(ecfg)
+        tp_devs = None
+        if ecfg.sharding == "tp":
+            tp_devs = tp_mod.check_tp(cfg, ecfg, device, tp_devices)
+            device = tp_devs[0]
         self.device = resolve_device(device)
         if ecfg.max_seq > cfg.max_seq_len:
             raise ValueError(
                 f"EngineConfig.max_seq {ecfg.max_seq} exceeds the model's "
                 f"positional table {cfg.max_seq_len}")
-        _refuse_unported(ecfg)
+        self._init_host(cfg, ecfg, int(ecfg.tp) if tp_devs else 1)
+        self._ref_params = _to_device(params, self.device)  # f32 truth
+        # int8: the payloads and scales are all the card holds of the
+        # weights (once drop_reference_params() lets the f32 truth go)
+        if ecfg.weight_dtype == "int8":
+            self.qparams = quantize_params(self._ref_params, "int8",
+                                           ecfg.quant_chunk)
+            self.weight_nbytes = quantized_nbytes(self.qparams)
+        elif tp_devs:
+            self._init_tp(tp_devs)
+        else:
+            self._cast_weights(self._ref_params)
+            self.weight_nbytes = (_numel(self._ref_params)
+                                  * _STORAGE[ecfg.weight_dtype].itemsize)
+        self._init_cache()
+        if self._tp is not None:
+            self.cache.shard_io = self._tp
+            self._tp.cache = self.cache
+            self._tp.wait_ready()
+
+    def _init_host(self, cfg: GPTConfig, ecfg: EngineConfig,
+                   tp: int) -> None:
         self.cfg = cfg
         self.ecfg = ecfg
         self.buckets = ecfg.resolved_buckets()
@@ -202,36 +245,14 @@ class DecodeEngine:
                     f"paged engine: prefill buckets {bad} are not "
                     f"multiples of page_size {ecfg.page_size}")
         self.role = ecfg.role
-        self._ref_params = _to_device(params, self.device)  # f32 truth
-        # int8: the payloads and scales are all the card holds of the
-        # weights (once drop_reference_params() lets the f32 truth go)
+        self.tp = tp
+        self._nh = cfg.num_heads // tp      # this rank's heads
         self.qparams = None
-        if ecfg.weight_dtype == "int8":
-            self.qparams = quantize_params(self._ref_params, "int8",
-                                           ecfg.quant_chunk)
-            self.weight_nbytes = quantized_nbytes(self.qparams)
-        else:
-            self._cast_weights(self._ref_params)
-            # every leaf is float32 in the truth
-            self.weight_nbytes = (quantized_nbytes(self._ref_params)
-                                  * _STORAGE[ecfg.weight_dtype].itemsize
-                                  // 4)
-        cache_dtype = ecfg.cache_dtype or cfg.dtype
-        self.prefix: Optional[PrefixCache] = None
-        if self.paged:
-            self.cache = PagedKVCache(
-                cfg.num_layers, ecfg.max_batch, ecfg.max_seq,
-                cfg.num_heads, cfg.head_dim, dtype=cache_dtype,
-                page_size=ecfg.page_size, num_pages=ecfg.num_pages,
-                device=self.device)
-            if ecfg.prefix_cache:
-                self.prefix = PrefixCache(self.cache,
-                                          ecfg.prefix_cache_pages)
-                self.cache.reclaimer = self.prefix
-        else:
-            self.cache = KVCache(cfg.num_layers, ecfg.max_batch,
-                                 ecfg.max_seq, cfg.num_heads, cfg.head_dim,
-                                 dtype=cache_dtype, device=self.device)
+        self.tp_derived: Optional[Dict[str, str]] = None
+        self._tp: Optional[tp_mod.TpRanks] = None   # the driver's followers
+        self._group: Optional[mesh_mod.AxisGroup] = None    # the tp line
+        self._driver = True
+        self._closed = False
         self.decode_ticks = 0
         self.verify_steps = 0
         self._tokens_window: List[Tuple[float, int]] = []
@@ -246,11 +267,144 @@ class DecodeEngine:
         # failure mid-call on the card leaves caches that no later call
         # can trust: the engine marks itself poisoned and every serving
         # entry point refuses from then on. On the CPU a failure leaves
-        # the caches usable, as the reference's are without donation.
-        self._in_place = self.device.type == "cuda"
+        # the caches usable, as the reference's are without donation —
+        # unless the engine is tensor-parallel, where a failed call leaves
+        # its ranks out of step.
+        self._in_place = self.device.type == "cuda" or tp > 1
         self.poisoned: Optional[str] = None
         # a prefix store sees every prefix publish (attach_prefix_store)
         self.prefix_store = None
+
+    def _init_cache(self) -> None:
+        cfg, ecfg = self.cfg, self.ecfg
+        cache_dtype = ecfg.cache_dtype or cfg.dtype
+        self.prefix: Optional[PrefixCache] = None
+        if self.paged:
+            self.cache = PagedKVCache(
+                cfg.num_layers, ecfg.max_batch, ecfg.max_seq,
+                cfg.num_heads, cfg.head_dim, dtype=cache_dtype,
+                page_size=ecfg.page_size, num_pages=ecfg.num_pages,
+                device=self.device, shards=self.tp)
+            if ecfg.prefix_cache and self._driver:
+                self.prefix = PrefixCache(self.cache,
+                                          ecfg.prefix_cache_pages)
+                self.cache.reclaimer = self.prefix
+        else:
+            self.cache = KVCache(cfg.num_layers, ecfg.max_batch,
+                                 ecfg.max_seq, cfg.num_heads, cfg.head_dim,
+                                 dtype=cache_dtype, device=self.device,
+                                 shards=self.tp)
+
+    def _init_tp(self, devices) -> None:
+        """Spawn the followers and hand them the tree (storage dtype, no
+        head), join the group, and cut this rank's block."""
+        cut, self.tp_derived = tp_mod.shard_specs(self._ref_params,
+                                                  self.cfg, self.tp)
+        store = _STORAGE[self.ecfg.weight_dtype]
+        flat = dict(_flatten(self._ref_params))
+        self._tp = tp_mod.TpRanks(self.tp, devices,
+                                  on_fault=self._on_rank_fault)
+        self._tp.start({"cfg": self.cfg, "ecfg": self.ecfg, "cut": cut},
+                       {p: t.to(store) for p, t in flat.items()
+                        if p not in tp_mod.HEAD_LEAVES})
+        self._group = self._tp.mesh.group("tp")
+        local = tp_mod.local_tree(flat, cut, self._tp.mesh)
+        self._cast_weights(local)
+        self.weight_nbytes = _numel(local) * store.itemsize
+
+    @classmethod
+    def _follower(cls, init: Dict[str, Any], mesh) -> "DecodeEngine":
+        """A follower rank's engine: its weight block and its KV shard on
+        ``mesh.device``, no host state the driver keeps, no head."""
+        self = cls.__new__(cls)
+        self.device = mesh.device
+        self._init_host(init["cfg"], init["ecfg"], mesh.size)
+        self._driver = False
+        self._ref_params = None
+        self._group = mesh.group("tp")
+        local = tp_mod.local_tree(init["tree"], init["cut"], mesh)
+        self._cast_weights(_to_device(local, self.device))
+        self.weight_nbytes = (_numel(local)
+                              * _STORAGE[self.ecfg.weight_dtype].itemsize)
+        self._init_cache()
+        return self
+
+    def _on_rank_fault(self, reason: str) -> None:
+        if self.poisoned is None:
+            self.poisoned = (f"tp rank fault ({reason}); KV caches "
+                             "invalidated — rebuild the engine")
+
+    def close(self) -> None:
+        """Stop the tensor-parallel followers (a tp=1 engine holds none:
+        a no-op); every later serving call of a tp engine refuses."""
+        if self._tp is not None:
+            self._tp.close()
+            self._closed = True
+
+    @property
+    def follower_pids(self) -> List[int]:
+        return self._tp.pids if self._tp is not None else []
+
+    @property
+    def tp_startup(self) -> List[Dict[str, float]]:
+        """Each rank's start-up stamps (host clock, ``time.time()``):
+        the driver's spawn, each follower's hello, the tree sent, the
+        group joined, its shard cut, every follower ready; a follower's
+        entry (its imports done), the tree received, the group joined,
+        its engine built."""
+        return self._tp.startup if self._tp is not None else []
+
+    def rank_stats(self, reset_launches: bool = False) -> List[Dict]:
+        """Every rank's resident weight and cache bytes, its kernels'
+        launch counts and its tp wire bytes and staged seconds (its
+        process's counters), rank 0 first; ``reset_launches`` zeroes each
+        rank's launch counts after the read."""
+        if self._tp is None:
+            return [self._cmd_stats(reset_launches)]
+        mine, theirs = self._tp.run(
+            "stats", (reset_launches,),
+            lambda: self._cmd_stats(reset_launches))
+        return [mine] + list(theirs)
+
+    def _cmd_stats(self, reset_launches: bool) -> Dict:
+        out = {"rank": self._group.index if self._group else 0,
+               "pid": os.getpid(), "device": str(self.device),
+               "weight_nbytes": int(self.weight_nbytes),
+               "resident_weight_bytes": self._resident_weight_bytes(),
+               "cache_nbytes": int(self.cache.nbytes),
+               "memory_allocated": (torch.cuda.memory_allocated(self.device)
+                                    if self.device.type == "cuda" else 0),
+               "launches": dict(CK.LAUNCHES),
+               "wire_bytes": int(sum(
+                   c.value for c in comm_opt._m_wire_bytes.children()
+                   if c.labels[0] == "psum")),
+               "staged_s": float(mesh_mod._m_staged_seconds.labels(
+                   "all_reduce").value)}
+        if reset_launches:
+            CK.reset_launches()
+        return out
+
+    def _resident_weight_bytes(self) -> int:
+        """The bytes of the serving weight tensors this rank holds, as the
+        forward takes them (layernorm parameters in float32)."""
+        if self.qparams is not None:
+            return quantized_nbytes(self.qparams)
+        ts = [self.wte, self.wpe]
+        for d in self.layers + ([self._head_w] if self._head_w else []):
+            for v in d.values():
+                ts.extend(v if isinstance(v, tuple) else (v,))
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    def _cmd(self, op: str, *args):
+        """Run ``_cmd_<op>(*args)`` here — on a tp engine after sending
+        the followers the same command, whose answers are read after."""
+        fn = getattr(self, "_cmd_" + op)
+        if self._tp is None:
+            return fn(*args)
+        return self._tp.run(op, args, lambda: fn(*args))[0]
+
+    def _feed(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(a).to(self.device)
 
     def attach_prefix_store(self, store) -> int:
         """Restore the store's committed prefix records into the pool and
@@ -300,9 +454,9 @@ class DecodeEngine:
         store = _STORAGE[self.ecfg.weight_dtype]
         self.wte = p["wte"].to(store)
         self.wpe = p["wpe"].to(store)
-        self._head_w = self._head_dict(
-            {k: p[k].to(store) for k in ("ln_f_scale", "ln_f_bias",
-                                         "lm_head")})
+        self._head_w = (self._head_dict(
+            {k: p[k].to(store) for k in tp_mod.HEAD_LEAVES})
+            if self._driver else None)
         blocks = p["blocks"]
         self.layers = [
             self._layer_dict({k: v[i].to(store) for k, v in blocks.items()})
@@ -384,17 +538,27 @@ class DecodeEngine:
 
     def _block_tail(self, h, a, lw, ln):
         """Post-attention half of a block: projection, residual, MLP —
-        ``(h + o) + b`` associated as the JAX engine adds."""
-        o = a.reshape(*a.shape[:-2], -1) @ lw["w_proj"]
+        ``(h + o) + b`` associated as the JAX engine adds. Tensor-parallel:
+        the projection's and the MLP's partial sums are all-reduced before
+        their biases are added."""
+        o = self._all_reduce(a.reshape(*a.shape[:-2], -1) @ lw["w_proj"])
         h = h + o + lw["b_proj"]
         h2 = ln(h, lw["ln2"])
         f = F.gelu(h2 @ lw["w_fc"] + lw["b_fc"], approximate="tanh")
-        return h + f @ lw["w_out"] + lw["b_out"]
+        return h + self._all_reduce(f @ lw["w_out"]) + lw["b_out"]
+
+    def _all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+        """The tp ranks' partial sums summed, in place, in ``t``'s dtype
+        (the identity on one rank)."""
+        if self._group is None:
+            return t
+        comm_opt.record_collective("psum", t.dtype,
+                                   t.numel() * t.element_size(), self.tp)
+        return self._group.all_reduce(t)
 
     def _qkv(self, h1, lw):
         qkv = h1 @ lw["w_qkv"] + lw["b_qkv"]
-        return qkv.view(*h1.shape[:-1], 3, self.cfg.num_heads,
-                        self.cfg.head_dim)
+        return qkv.view(*h1.shape[:-1], 3, self._nh, self.cfg.head_dim)
 
     @torch.no_grad()
     def _prefill(self, tokens: torch.Tensor, length: int,
@@ -411,6 +575,8 @@ class DecodeEngine:
             x = self._block_tail(x, a, lw, ln)
             self.cache.k[i, slot, :T] = k[0]
             self.cache.v[i, slot, :T] = v[0]
+        if not self._driver:
+            return None
         head = self._head()
         return (ln(x[0, length - 1], head["ln_f"]) @ head["lm_head"]).float()
 
@@ -432,7 +598,7 @@ class DecodeEngine:
         x = self._embed(tokens, prefix_len + torch.arange(T,
                                                           device=self.device))
         suffix_pages = table_row[prefix_len // ps:prefix_len // ps + n_pages]
-        nh, hd = self.cfg.num_heads, self.cfg.head_dim
+        nh, hd = self._nh, self.cfg.head_dim
         for i, lw in enumerate(self._layer_weights()):
             qkv = self._qkv(ln(x, lw["ln1"]), lw)
             q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
@@ -445,6 +611,8 @@ class DecodeEngine:
                                         paged_gather(vp, table_row[None]),
                                         prefix_len)
             x = self._block_tail(x, a, lw, ln)
+        if not self._driver:
+            return None
         head = self._head()
         return (ln(x[0, length - 1], head["ln_f"]) @ head["lm_head"]).float()
 
@@ -492,6 +660,8 @@ class DecodeEngine:
             q, k, v = qkv[:, 0], qkv[:, 1], qkv[:, 2]
             a = self._attend(i, q, k, v, positions, lanes, phys)
             x = self._block_tail(x, a, lw, ln)
+        if not self._driver:
+            return None
         head = self._head()
         if fused:
             logits = CK.fused_logits_head(x, *head["ln_f"], head["lm_head"])
@@ -515,7 +685,7 @@ class DecodeEngine:
         positions = (starts.long()[:, None]
                      + torch.arange(W, device=self.device))      # [B, W]
         x = self._embed(tokens, positions)
-        nh, hd = self.cfg.num_heads, self.cfg.head_dim
+        nh, hd = self._nh, self.cfg.head_dim
         if self.paged:
             ps = self.ecfg.page_size
             phys = lanes.long().gather(1, positions // ps).reshape(-1)
@@ -534,8 +704,34 @@ class DecodeEngine:
                 window_cache_update(vc, v, starts, lanes)
                 a = window_attention(q, kc, vc, starts)
             x = self._block_tail(x, a, lw, ln)
+        if not self._driver:
+            return None
         head = self._head()
         return (ln(x, head["ln_f"]) @ head["lm_head"]).float()
+
+    # -- the commands: the same call on every rank (serving/tp.py) --------
+    def _cmd_prefill(self, padded: np.ndarray, length: int, slot: int):
+        return self._prefill(self._feed(padded), length, slot)
+
+    def _cmd_prefill_paged(self, padded: np.ndarray, length: int,
+                           prefix_len: int, table_row: np.ndarray):
+        return self._prefill_paged(self._feed(padded), length, prefix_len,
+                                   self._feed(table_row))
+
+    def _cmd_decode(self, feed: np.ndarray, lanes_shape):
+        """feed: int32 [tokens (B), positions (B), lanes]."""
+        B = self.ecfg.max_batch
+        f = self._feed(feed)
+        return self._decode(f[:B].long(), f[B:2 * B],
+                            f[2 * B:].view(lanes_shape))
+
+    def _cmd_verify(self, feed: np.ndarray, W: int, lanes_shape):
+        """feed: int32 [tokens (B x W), starts (B), lanes]."""
+        B = self.ecfg.max_batch
+        n = B * W
+        f = self._feed(feed)
+        return self._verify(f[:n].view(B, W).long(), f[n:n + B],
+                            f[n + B:].view(lanes_shape))
 
     # ------------------------------------------------------------------
     def warmup(self) -> Dict[str, float]:
@@ -546,7 +742,15 @@ class DecodeEngine:
         handoff's copies once (paged: page 0 read and written back; slab: a
         chunk of a free slot's rows), so the first request pays no
         first-call costs: the kernel build and load, library handles. Live
-        slots' rows are never changed. Returns {path: wall ms}."""
+        slots' rows are never changed. Every tp rank warms up. Returns
+        {path: wall ms} (the driver's)."""
+        free = None
+        if not self.paged and self.cache.free_slot_count():
+            free = next(i for i in range(self.ecfg.max_batch)
+                        if not self.cache.is_live(i))
+        return self._cmd("warmup", free)
+
+    def _cmd_warmup(self, free: Optional[int]) -> Dict[str, float]:
         timings: Dict[str, float] = {}
         B = self.ecfg.max_batch
         zeros = torch.zeros((B,), dtype=torch.int32, device=self.device)
@@ -580,16 +784,17 @@ class DecodeEngine:
             toks = torch.zeros((B, W), dtype=torch.long, device=self.device)
             timed(f"verify_w{W}", lambda: self._verify(
                 toks, zeros, table0 if self.paged else zeros))
-        # the KV handoff's copies: paged, page 0 out and back; slab, a
-        # chunk of the first free slot's rows (never a live slot's)
+        # the KV handoff's copies (this rank's heads): paged, page 0 out
+        # and back; slab, a chunk of a free slot's rows (never a live
+        # slot's)
+        cache = self.cache
         if self.paged:
-            timed("page_io", lambda: self.cache.write_pages(
-                [0], *self.cache.read_pages([0])))
-        elif self.cache.free_slot_count():
-            free = next(i for i in range(B) if not self.cache.is_live(i))
+            timed("page_io", lambda: cache._write_pages_local(
+                [0], *cache._read_pages_local([0])))
+        elif free is not None:
             n = min(kv_transfer.DEFAULT_CHUNK_ROWS, self.ecfg.max_seq)
-            timed("kv_transfer", lambda: self.cache.write_rows(
-                free, 0, *self.cache.read_rows(free, 0, n)))
+            timed("kv_transfer", lambda: cache._write_rows_local(
+                free, 0, *cache._read_rows_local(free, 0, n)))
         return timings
 
     # ------------------------------------------------------------------
@@ -631,6 +836,8 @@ class DecodeEngine:
     def _check_poisoned(self) -> None:
         if self.poisoned is not None:
             raise RuntimeError(f"engine poisoned: {self.poisoned}")
+        if self._closed:
+            raise RuntimeError("engine closed: its tp ranks were stopped")
 
     def _poison_on_donation_failure(self, name: str, exc: Exception) -> None:
         """A call that writes the caches in place died on the card: mark
@@ -666,7 +873,7 @@ class DecodeEngine:
         slot = self.cache.alloc(length=n)
         logits, tok = self._prefill_sampled(
             slot, tokens, bucket, params, n,
-            lambda toks: self._prefill(toks, n, slot),
+            lambda toks: self._cmd("prefill", toks, n, slot),
             {"bucket": bucket, "prompt_len": n, "slot": slot})
         smetrics.m_prefill_tokens.inc(n)
         return slot, logits, tok
@@ -675,7 +882,7 @@ class DecodeEngine:
                          bucket: int, params: SamplingParams, n: int, run,
                          attrs: dict) -> Tuple[np.ndarray, int]:
         """Pad ``tokens`` to ``bucket``, run the prefill ``run(padded)``
-        and sample the token after position ``n - 1``; frees ``slot`` when
+        (the [1, bucket] int64 host array) and sample the token after position ``n - 1``; frees ``slot`` when
         either raises; a failure of the prefill itself poisons the engine
         on the card. Records ``serve/prefill`` (``attrs``) in the calling
         thread's span context: it ends once the logits are on the host,
@@ -684,7 +891,7 @@ class DecodeEngine:
         padded[0, :len(tokens)] = np.asarray(tokens, np.int64)
         t0 = time.perf_counter_ns()
         try:
-            logits = run(torch.from_numpy(padded).to(self.device)).cpu()
+            logits = run(padded).cpu()
         except Exception as e:
             self._poison_on_donation_failure(f"prefill_b{bucket}", e)
             self.cache.free(slot)
@@ -713,11 +920,10 @@ class DecodeEngine:
         bucket = self.bucket_for(len(suffix))
         slot = self.cache.alloc(length=n, prefix_pages=prefix_pages)
         table_row = self.cache.table_row(slot)
-        row_t = torch.from_numpy(table_row).to(self.device)
         logits, tok = self._prefill_sampled(
             slot, suffix, bucket, params, n,
-            lambda toks: self._prefill_paged(toks, len(suffix), prefix_len,
-                                             row_t),
+            lambda toks: self._cmd("prefill_paged", toks, len(suffix),
+                                   prefix_len, table_row),
             {"bucket": bucket, "prompt_len": n, "prefix_len": prefix_len,
              "slot": slot})
         smetrics.m_prefill_tokens.inc(len(suffix))
@@ -825,13 +1031,9 @@ class DecodeEngine:
         lanes = self._decode_lanes(slot_tokens)
         sp = batch_arrays(params_by_slot or {}, self.ecfg.max_batch)
         t0 = time.perf_counter_ns()
-        B = self.ecfg.max_batch
         try:
-            feed = torch.from_numpy(
-                np.concatenate([head.ravel(), lanes.ravel()])).to(
-                    self.device)
-            logits = self._decode(feed[:B].long(), feed[B:2 * B],
-                                  feed[2 * B:].view(lanes.shape)).cpu()
+            logits = self._cmd("decode", np.concatenate(
+                [head.ravel(), lanes.ravel()]), lanes.shape).cpu()
         except Exception as e:
             self._poison_on_donation_failure("decode", e)
             raise
@@ -898,12 +1100,9 @@ class DecodeEngine:
         sp = batch_arrays(params_by_slot or {}, B)
         t0 = time.perf_counter_ns()
         try:
-            feed = torch.from_numpy(np.concatenate(
-                [tokens.ravel(), starts, lanes.ravel()])).to(self.device)
-            n = B * W
-            logits = self._verify(feed[:n].view(B, W).long(),
-                                  feed[n:n + B],
-                                  feed[n + B:].view(lanes.shape)).cpu()
+            logits = self._cmd("verify", np.concatenate(
+                [tokens.ravel(), starts, lanes.ravel()]), W,
+                lanes.shape).cpu()
         except Exception as e:
             self._poison_on_donation_failure(f"verify_w{W}", e)
             raise

@@ -13,6 +13,13 @@ is, and a per-slot generation counter that makes slot reuse visible.
 of every layer between the slabs and the host, one chunk at a time: the
 slab layout's side of the KV handoff (``serving/kv_transfer.py``
 ``export_slot`` / ``adopt_into_engine``).
+
+A tensor-parallel engine (``serving/tp.py``) gives each rank a cache of
+``shards`` ways: its slabs hold the rank's ``num_heads / shards`` heads
+(``local_heads``) while ``num_heads`` stays the model's. On the driver
+rank ``shard_io`` is set, and ``read_rows`` / ``write_rows`` read and
+write the all-heads layout, gathered from and scattered to the ranks, as
+the reference's head-sharded arrays read whole.
 """
 from __future__ import annotations
 
@@ -43,7 +50,7 @@ class KVCache:
 
     def __init__(self, num_layers: int, max_slots: int, max_seq: int,
                  num_heads: int, head_dim: int, dtype=torch.float32,
-                 device="cuda"):
+                 device="cuda", shards: int = 1):
         if max_slots < 1 or max_seq < 1:
             raise ValueError("max_slots and max_seq must be >= 1")
         dev = resolve_device(device)
@@ -51,9 +58,13 @@ class KVCache:
         self.max_slots = int(max_slots)
         self.max_seq = int(max_seq)
         self.num_heads = int(num_heads)
+        self.local_heads = self.num_heads // int(shards)
         self.head_dim = int(head_dim)
         self.dtype = dtype
-        shape = (num_layers, max_slots, max_seq, num_heads, head_dim)
+        # the tp driver's channel to the other ranks' slabs (serving/tp.py)
+        self.shard_io = None
+        shape = (num_layers, max_slots, max_seq, self.local_heads,
+                 head_dim)
         self.k = torch.zeros(shape, dtype=dtype, device=dev)
         self.v = torch.zeros(shape, dtype=dtype, device=dev)
         self._slots = [_SlotState() for _ in range(max_slots)]
@@ -137,17 +148,31 @@ class KVCache:
         analogue of :meth:`PagedKVCache.read_pages`, chunk-sized so a KV
         handoff never copies a whole slot at once."""
         self._check_window("read_rows", start, n)
-        rows = slice(int(start), int(start) + int(n))
-        return (self.k[:, slot, rows].to("cpu", copy=True),
-                self.v[:, slot, rows].to("cpu", copy=True))
+        if self.shard_io is not None:
+            return self.shard_io.read("_read_rows_local", (slot, start, n),
+                                      axis=2)
+        return self._read_rows_local(slot, start, n)
 
     def write_rows(self, slot: int, start: int, k_rows, v_rows) -> None:
         """Write transferred K/V rows (``[L, n, nh, hd]``, tensors or numpy
         arrays) into ``slot`` from position ``start``, in place."""
         k_rows = torch.as_tensor(k_rows)
         v_rows = torch.as_tensor(v_rows)
-        n = int(k_rows.shape[1])
-        self._check_window("write_rows", start, n)
-        rows = slice(int(start), int(start) + n)
+        self._check_window("write_rows", start, int(k_rows.shape[1]))
+        if self.shard_io is not None:
+            self.shard_io.write("_write_rows_local", (slot, start), k_rows,
+                                v_rows, axis=2)
+        else:
+            self._write_rows_local(slot, start, k_rows, v_rows)
+
+    # this rank's heads alone
+    def _read_rows_local(self, slot, start, n):
+        rows = slice(int(start), int(start) + int(n))
+        kv = torch.stack((self.k[:, slot, rows], self.v[:, slot, rows]))
+        kv = kv.to("cpu", copy=True)
+        return kv[0], kv[1]
+
+    def _write_rows_local(self, slot, start, k_rows, v_rows) -> None:
+        rows = slice(int(start), int(start) + int(k_rows.shape[1]))
         self.k[:, slot, rows] = k_rows.to(self.k)
         self.v[:, slot, rows] = v_rows.to(self.v)

@@ -18,10 +18,11 @@ it ``"bfloat16"`` in the frame and in the fingerprint, as the reference's
 ``ml_dtypes`` arrays do. A handoff crosses between the two packages either
 way.
 
-A tp source splits each chunk along the head axis into one frame a shard;
-the receiver merges a chunk's frames back before writing it. The port
-serves at tp=1, so its exports carry one frame a projection, but it adopts
-a tp=2 reference export. :class:`TransferStats` asserts in the path that
+A tp source splits each chunk along the head axis into one frame a shard
+(a tp engine's rank r's heads are frame ``shard=r``); the receiver merges
+a chunk's frames back before writing it, so any number of shards adopts
+into any tp (a tp receiver's cache scatters the merged chunk to its
+ranks: ``serving/tp.py``). :class:`TransferStats` asserts in the path that
 the transient host copies stay within the chunk budget — never the whole
 cache — and records the transfer's wall time, the CRC's share and the
 device copies' share; :func:`transfer_history` keeps every finished
@@ -204,8 +205,10 @@ def summarize_stats(stats: Sequence[TransferStats]
 
 
 def _shard_count(engine) -> int:
-    """Frames a projection a chunk: the port serves at tp=1 (its engines
-    refuse ``sharding="tp"``), so one."""
+    """Frames a projection a chunk: the engine's tp (one a rank)."""
+    ecfg = getattr(engine, "ecfg", None)
+    if ecfg is not None and getattr(ecfg, "sharding", None) == "tp":
+        return int(ecfg.tp)
     return 1
 
 

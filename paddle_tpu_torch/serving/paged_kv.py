@@ -35,7 +35,10 @@ count is always 0 and a prompt that a reclaim would fit is never admitted
 ``reclaimable``.
 
 The KV handoff (``serving/kv_transfer.py``) moves page contents with
-``read_pages`` / ``write_pages``; the receiving side claims pages with one
+``read_pages`` / ``write_pages`` (on a tensor-parallel engine's driver,
+``shard_io`` set, the all-heads layout gathered from and scattered to the
+ranks' pools of ``local_heads`` heads each, as ``kv_cache.KVCache``'s
+rows); the receiving side claims pages with one
 reference each (``claim_pages``, ``paged_kv.py:313``), binds them to a slot
 (``adopt_slot``, ``:362``) or registers them as a cached prefix
 (``PrefixCache.adopt_nested``, ``:500``; ``PrefixCache.has``, ``:472``,
@@ -81,7 +84,8 @@ class PagedKVCache:
 
     def __init__(self, num_layers: int, max_slots: int, max_seq: int,
                  num_heads: int, head_dim: int, dtype=torch.float32,
-                 page_size: int = 8, num_pages: int = 0, device="cuda"):
+                 page_size: int = 8, num_pages: int = 0, device="cuda",
+                 shards: int = 1):
         if max_slots < 1 or max_seq < 1:
             raise ValueError("max_slots and max_seq must be >= 1")
         if page_size < 1 or max_seq % page_size:
@@ -92,8 +96,11 @@ class PagedKVCache:
         self.max_slots = int(max_slots)
         self.max_seq = int(max_seq)
         self.num_heads = int(num_heads)
+        self.local_heads = self.num_heads // int(shards)
         self.head_dim = int(head_dim)
         self.dtype = dtype
+        # the tp driver's channel to the other ranks' pools (serving/tp.py)
+        self.shard_io = None
         self.page_size = int(page_size)
         self.max_pages_per_slot = self.max_seq // self.page_size
         # default pool = slab parity (+1 scratch page): the same worst
@@ -103,7 +110,7 @@ class PagedKVCache:
         if self.num_pages < 2:
             raise ValueError("num_pages must be >= 2 (page 0 is scratch)")
         shape = (self.num_layers, self.num_pages, self.page_size,
-                 self.num_heads, self.head_dim)
+                 self.local_heads, self.head_dim)
         self.k = torch.zeros(shape, dtype=dtype, device=dev)
         self.v = torch.zeros(shape, dtype=dtype, device=dev)
         self._tables = np.zeros((self.max_slots, self.max_pages_per_slot),
@@ -328,19 +335,36 @@ class PagedKVCache:
     def read_pages(self, pages: Sequence[int]
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Host copies of the K/V contents of ``pages``: ``([L, n, page,
-        nh, hd] k, the same for v)``."""
-        idx = torch.as_tensor(list(pages), dtype=torch.long,
-                              device=self.k.device)
-        return self.k[:, idx].cpu(), self.v[:, idx].cpu()
+        nh, hd] k, the same for v)``, one gather and one copy."""
+        pages = [int(p) for p in pages]
+        if self.shard_io is not None:
+            return self.shard_io.read("_read_pages_local", (pages,), axis=3)
+        return self._read_pages_local(pages)
 
     def write_pages(self, pages: Sequence[int], k_pages,
                     v_pages) -> None:
         """Write K/V contents (``[L, n, page, nh, hd]``, tensors or numpy
         arrays) into ``pages``, in place."""
-        idx = torch.as_tensor(list(pages), dtype=torch.long,
-                              device=self.k.device)
-        self.k[:, idx] = torch.as_tensor(k_pages).to(self.k)
-        self.v[:, idx] = torch.as_tensor(v_pages).to(self.v)
+        pages = [int(p) for p in pages]
+        k_pages = torch.as_tensor(k_pages)
+        v_pages = torch.as_tensor(v_pages)
+        if self.shard_io is not None:
+            self.shard_io.write("_write_pages_local", (pages,), k_pages,
+                                v_pages, axis=3)
+        else:
+            self._write_pages_local(pages, k_pages, v_pages)
+
+    # this rank's heads alone
+    def _read_pages_local(self, pages):
+        idx = torch.as_tensor(pages, dtype=torch.long, device=self.k.device)
+        kv = torch.stack((self.k[:, idx], self.v[:, idx])).cpu()
+        return kv[0], kv[1]
+
+    def _write_pages_local(self, pages, k_pages, v_pages) -> None:
+        idx = torch.as_tensor(pages, dtype=torch.long, device=self.k.device)
+        kv = torch.stack((k_pages, v_pages)).to(self.k)
+        self.k[:, idx] = kv[0]
+        self.v[:, idx] = kv[1]
 
     # -- decode feeds ------------------------------------------------------
     def table_row(self, slot: int) -> np.ndarray:

@@ -32,7 +32,6 @@ import time
 from typing import List
 
 import numpy as np
-import torch
 
 from ..parallel.checkpoint import CheckpointError, ElasticCheckpointer
 from . import metrics as smetrics
@@ -108,14 +107,14 @@ class PrefixStore:
         if key in self._keys:
             return False
         t0 = time.perf_counter_ns()
-        idx = torch.as_tensor(pages, dtype=torch.long, device=pool.k.device)
         # K and V of the record in one gather and one copy to the host
-        kv = torch.stack((pool.k[:, idx], pool.v[:, idx])).cpu()
+        # (a tp pool's all heads, gathered from its ranks)
+        k, v = pool.read_pages(pages)
         step = self._next_step
         self._ck.save(step, {
             "tokens": np.asarray(prefix, np.int64),
-            "k": kv[0],
-            "v": kv[1],
+            "k": k,
+            "v": v,
         }, extra={"token_hash": key, "n_pages": len(pages),
                   "page_size": ps,
                   "fingerprint": cache_fingerprint(pool)})
@@ -171,9 +170,9 @@ class PrefixStore:
                 self._skip()
                 continue
             pages = pool.claim_pages(n_pages)
-            # one copy onto the pool's device for K and V together
-            kv = torch.stack((k_pages, v_pages)).to(pool.k.device)
-            pool.write_pages(pages, kv[0], kv[1])
+            # one copy onto the pool's device for K and V together (a tp
+            # pool's heads scattered to its ranks)
+            pool.write_pages(pages, k_pages, v_pages)
             cache.adopt_nested(tokens, pages)
             n += 1
             self.restored += 1

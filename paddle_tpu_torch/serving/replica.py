@@ -38,6 +38,10 @@ every scheduler step (a kill then lands mid-decode for sure).
 ``"env"`` in the config is set in the process's environment before
 anything else is imported: on a host with several cards the gang's
 ``per_replica`` pins each replica to its own with ``CUDA_VISIBLE_DEVICES``.
+An engine config with ``"sharding": "tp"`` builds a tensor-parallel
+engine whose follower ranks are this process's children, on
+``"tp_devices"`` (default ``cuda:0 .. cuda:N-1``); they exit with it,
+whether it exits (poisoned, drained) or is killed.
 
 ``{"stub": {...}}`` configs run a stdlib-only protocol stub (no ``torch``
 import: it starts in well under a second) with the same HTTP surface
@@ -346,8 +350,11 @@ def run_engine(cfg: dict) -> int:
     if "prefill_buckets" in ekw:
         ekw["prefill_buckets"] = tuple(int(b)
                                        for b in ekw["prefill_buckets"])
+    # "sharding": "tp" in the engine config builds a tp engine; its ranks'
+    # devices are "tp_devices" (default cuda:0 .. cuda:N-1)
     engine = serving.DecodeEngine(params, mcfg, serving.EngineConfig(**ekw),
-                                  device=device)
+                                  device=device,
+                                  tp_devices=cfg.get("tp_devices"))
     del params
     engine.drop_reference_params()      # only the serving weights stay
     stamps["t_engine"] = time.time()
@@ -417,7 +424,10 @@ def run_engine(cfg: dict) -> int:
         sys.stderr.write(f"[replica] engine poisoned ({reason}) — "
                          f"exiting {POISONED_EXIT_CODE} for the gang\n")
         sys.stderr.flush()
-        os._exit(POISONED_EXIT_CODE)
+        try:
+            engine.close()             # a tp engine's follower ranks
+        finally:
+            os._exit(POISONED_EXIT_CODE)
 
     front = serving.FrontDoor(
         scheduler=sched, port=int(cfg.get("port", 0)),
@@ -461,6 +471,7 @@ def run_engine(cfg: dict) -> int:
             kv_server.close()
         if store is not None:
             store.close()
+        engine.close()
     return 0
 
 

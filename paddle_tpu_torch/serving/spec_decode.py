@@ -131,6 +131,10 @@ class SpecDecodeEngine:
     def poisoned(self) -> Optional[str]:
         return self.target.poisoned or self.draft.poisoned
 
+    def close(self) -> None:
+        self.target.close()
+        self.draft.close()
+
     def warmup(self) -> Dict[str, float]:
         out = {f"target/{k}": v for k, v in self.target.warmup().items()}
         out.update({f"draft/{k}": v

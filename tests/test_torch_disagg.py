@@ -3,9 +3,10 @@ CPU: twins of the in-process tests of tests/test_disagg.py (the JSON and
 socket channels with a CRC tamper, router greedy parity on both layouts,
 the empty phase fleet, a mid-transfer fault, the shared prefix index, and
 tp=2 -> tp=1 with a JAX tp=2 prefill engine on the conftest's 8-device CPU
-mesh as the source), the scheduler's handoff queue, the ``/prefill`` and
-``/resume`` routes beside the JAX front door's, and the four metric
-families' counts beside JAX's after the same traffic.
+mesh as the source; and the port's own tp=2 engine, two gloo ranks, in the
+four directions between tp=2 and tp=1), the scheduler's handoff queue, the
+``/prefill`` and ``/resume`` routes beside the JAX front door's, and the
+four metric families' counts beside JAX's after the same traffic.
 
 GPT_TINY at 2 layers, parameters from ``jax.random.PRNGKey(0)`` carried
 across by ``models/gpt.params_from_numpy``, float32, ``device="cpu"``.
@@ -290,6 +291,69 @@ def test_tp2_to_tp1_handoff_page_exact_bounded_residency(tiny):
     np.testing.assert_array_equal(_f32(v_dst), _f32(v_src))
     out = dst.decode_step({dslot: int(np.argmax(logits))})
     assert 0 <= int(np.argmax(out[dslot])) < tiny[0].vocab_size
+    src.free_sequence(slot)
+    dst.free_sequence(dslot)
+
+
+# the four directions of a handoff between tp=2 and tp=1, either package:
+# (source, destination), each "port" or "jax" and its tp
+TP_HANDOFFS = [pytest.param(("port", 2), ("port", 1), id="port2-port1"),
+               pytest.param(("port", 2), ("jax", 1), id="port2-jax1"),
+               pytest.param(("jax", 2), ("port", 2), id="jax2-port2"),
+               pytest.param(("port", 1), ("port", 2), id="port1-port2")]
+
+
+@pytest.fixture(scope="module")
+def port_tp2(tiny):
+    """The port's tp=2 paged engine: two gloo ranks on the CPU."""
+    _, _, cfg_t, tp = tiny
+    eng = TS.DecodeEngine(tp, cfg_t, TS.EngineConfig(
+        sharding="tp", tp=2, **{**EKW, **PAGED}), device="cpu")
+    yield eng
+    eng.close()
+
+
+@pytest.mark.parametrize("src_kind,dst_kind", TP_HANDOFFS)
+def test_tp_handoff_pages_bitwise_every_direction(tiny, port_tp2, src_kind,
+                                                  dst_kind):
+    """A paged handoff between tp=2 and tp=1 engines, the port's and the
+    JAX package's: one frame a rank a projection a chunk (rank r's heads
+    are shard r), the adopted pages bitwise the source's canonical
+    pages, the adoption's host copies within the chunk budget, and the
+    adopted slot decodes on as the source does."""
+    def build(kind, tp):
+        if kind == "port" and tp == 2:
+            return port_tp2
+        mk = make_engine if kind == "port" else make_jax_engine
+        extra = {"sharding": "tp", "tp": 2} if tp == 2 else {}
+        return mk(tiny, **PAGED, **extra)
+
+    src, dst = build(*src_kind), build(*dst_kind)
+    prompt = list(range(2, 15))                # 13 tokens -> 2 pages
+    slot, logits = src.start_sequence(prompt)
+    n_pages = src.cache.pages_for(len(prompt))
+    k_src, v_src = src.cache.read_pages(
+        [int(p) for p in src.cache.table_row(slot)[:n_pages]])
+    handoff = src.export_request_kv(slot, tokens=prompt)
+    nsh = src_kind[1]
+    for ch in handoff["chunks"]:
+        for proj in ("k", "v"):
+            fr = [f for f in ch["shards"] if f["proj"] == proj]
+            assert sorted(f["shard"] for f in fr) == list(range(nsh))
+            assert all(f["nshards"] == nsh for f in fr)
+    dslot = dst.adopt_request_kv(handoff)
+    adp = (kvt if dst_kind[0] == "port" else JKT).last_stats("adopt")
+    assert adp.peak_bytes <= adp.budget_bytes < adp.full_cache_bytes
+    assert dst.cache.length(dslot) == len(prompt)
+    k_dst, v_dst = dst.cache.read_pages(
+        [int(p) for p in dst.cache.table_row(dslot)[:n_pages]])
+    np.testing.assert_array_equal(_f32(k_dst), _f32(k_src))
+    np.testing.assert_array_equal(_f32(v_dst), _f32(v_src))
+    a = b = int(np.argmax(logits))
+    for _ in range(4):
+        a = int(np.argmax(src.decode_step({slot: a})[slot]))
+        b = int(np.argmax(dst.decode_step({dslot: b})[dslot]))
+        assert a == b
     src.free_sequence(slot)
     dst.free_sequence(dslot)
 

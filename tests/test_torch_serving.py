@@ -394,14 +394,16 @@ def test_entry_points_need_a_card_unless_cpu_is_asked(tiny, monkeypatch):
                                 dict(verify_window=3)],
                          ids=["tp", "int8", "spec"])
 def test_unported_engine_options_refused(tiny, kw):
-    """Tensor parallelism still waits for the multi-GPU slice; int8
-    weights and the verify window (once refused) now build and serve."""
-    if "sharding" in kw:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            _port_engine(tiny, **kw)
-        return
+    """Options the port once refused build and serve: tensor parallelism
+    (two gloo ranks on the CPU), int8 weights and the verify window."""
     eng = _port_engine(tiny, **kw)
     slot, logits = eng.start_sequence([1, 2, 3])
+    if "sharding" in kw:
+        assert len(eng.follower_pids) == 1 and eng.tp == 2
+        assert eng.cache.k.shape[3] == tiny[2].num_heads // 2
+        assert np.isfinite(eng.decode_step({slot: 7})[slot]).all()
+        eng.close()
+        return
     if "verify_window" in kw:
         out = eng.verify_step({slot: [int(np.argmax(logits)), 4, 5]})
         assert out[slot][0].shape == (3, 256) and out[slot][1].shape == (3,)
@@ -418,7 +420,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import paddle_tpu_torch, paddle_tpu_torch.serving, chip_smoke\n"
         "import paddle_tpu_torch.serving.paged_kv, "
         "paddle_tpu_torch.serving.spec_decode, "
-        "paddle_tpu_torch.serving.quant\n"
+        "paddle_tpu_torch.serving.quant, paddle_tpu_torch.serving.tp\n"
         "import paddle_tpu_torch.ops.cuda_kernels, "
         "paddle_tpu_torch.ops._build, paddle_tpu_torch.observability.hw, "
         "paddle_tpu_torch.tools.profile_decode\n"
