@@ -255,6 +255,27 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              plain sweep) for the flash arm and for the fused arm (flash,
              fused_ln, vocab chunk 1024, row chunks of 256), losses within
              1e-5 relative, step-1 gradients within 3e-4;
+7a. attribution — the device-side observability on the main paths
+             (``tools/profile_step.py``, ``observability/attribution.py``,
+             ``utils/device_trace.py``): 7b's configuration, 2 warm-up
+             steps, then two ``torch.profiler`` captures of 2 steps each.
+             Gates a capture: the ``ATTRIBUTION.json`` passes ``validate``;
+             every port kernel event maps to a ``KERNELS`` entry (paired
+             one to one with the launches the wrappers recorded); each hand
+             kernel's events a step equal its launch delta a step and 7b's
+             counts; each hand kernel row's flops and bytes equal the sum
+             of ``ops/kernel_costs.py``'s costs over its launches; the busy
+             union is at most the capture's wall and the rows add up to it
+             within 1 µs a step. Then 4b's engine (paged, 8 slots
+             resident), 16 ticks captured: events a tick exactly fused_ln
+             2L, decode_paged L, logits_head 1. Seeded regression: one
+             step captured with ``remat="full"``, diffed by
+             ``tools/perf_diff.py`` against a baseline from the first
+             capture, must fail, with a ``config_lever`` cause naming remat
+             and ``attribution.step.flops`` out of band. Printed, not
+             gated: the A/A diff of the two plain captures, each hand
+             kernel's fraction of its bound, the gap share (against the
+             steps' wall without the profiler), the top residue groups;
 8. flash-bias — the bias forms of the flash forward, dQ and dK/dV against
              their plain versions: bias [BB, SQ, T] with BB in {B, B*nh},
              SQ in {1, T}, causal and full, float32 and bf16, head_dim 64
@@ -351,13 +372,18 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              moments) within 1e-3 in the 2-norm, each leaf's update
              within 1e-2, the params within 2e-4 + 2e-3·|p| on all but
              1e-4 of the elements; ms a step, tokens/s and wire bytes
-             printed a configuration.
+             printed a configuration; in (a) each rank traces one more step
+             and prints ``comm_opt.measure_overlap_fraction`` of it (the
+             staged collectives' host ranges against the device's work;
+             not gated).
 
 12. elastic — fault-tolerant GPT training (``python -m
              paddle_tpu_torch.tools.fault_bench --device cuda``, every job
              supervised by ``parallel.launch``): GPT_SMALL at full width
-             and 6 of its 12 layers (depth the one cut, to keep the
-             script's time) with phase 7b's levers (bf16, flash, fused LN,
+             and 2 of its 12 layers (depth the one cut, to keep the
+             script's time; it runs in the background, started before
+             phase 11 and checked after phase 13, beside those phases'
+             gangs) with phase 7b's levers (bf16, flash, fused LN,
              vocab chunk 1024, dots remat, the flat AdamW sweep, bf16
              moments), batch 16 x 1024, lr 1e-4, 6 steps saving every 3,
              one rank an NCCL world of one. Scenarios: baseline; aa (a
@@ -556,12 +582,21 @@ def _check_out(name: str, got, want, dtype) -> float:
     return _check_close(name, got, want, dtype, 1e-5)
 
 
+def _bound(cost):
+    """(bound ms, by) on this card of work whose operations and bytes are
+    ``cost`` (``ops/kernel_costs.py``, the formulas the attribution sums)."""
+    from paddle_tpu_torch.observability.hw import bound_ms
+
+    return bound_ms(cost.nbytes, cost.flops, cost.flop_dtype,
+                    torch.cuda.get_device_name(0))
+
+
 def phase_kernels(dtype, time_it: bool):
     """Each kernel vs its plain version at the path's shapes; returns one
     record per kernel (errors, and times when ``time_it``)."""
     from paddle_tpu_torch.models.gpt import GPT_SMALL
-    from paddle_tpu_torch.observability.hw import bound_ms
     from paddle_tpu_torch.ops import cuda_kernels as CK
+    from paddle_tpu_torch.ops import kernel_costs as KC
 
     cfg = GPT_SMALL
     dev = torch.device("cuda")
@@ -597,8 +632,8 @@ def phase_kernels(dtype, time_it: bool):
         s16, b16 = scale.to(dtype), bias.to(dtype)
         rec["library_ms"] = _time_graph_ms(
             lambda: F.layer_norm(x, (D,), s16, b16, 1e-5), 2 * L)
-        rec["bound_ms"], rec["bound_by"] = bound_ms(
-            2 * B * D * esz + 2 * D * 4, 8 * B * D, "f32", name)
+        rec["bound_ms"], rec["bound_by"] = _bound(
+            KC.fused_ln(B, D, esz, stats=False))
     recs["fused_ln"] = rec
 
     # -- decode_slab: q/k/v as the engine slices them out of one qkv ------
@@ -682,8 +717,8 @@ def _logits_head_check(x, scale, bias, w, time_it: bool):
     than its wrapper's host cost — with ``eager_ms`` beside; the bound
     reads the weight once, though past one batch group of the kernel's
     plan (``groups``) each group reads it, the later ones mostly from L2."""
-    from paddle_tpu_torch.observability.hw import bound_ms
     from paddle_tpu_torch.ops import cuda_kernels as CK
+    from paddle_tpu_torch.ops import kernel_costs as KC
 
     dtype = x.dtype
     nb, D = x.shape
@@ -706,11 +741,8 @@ def _logits_head_check(x, scale, bias, w, time_it: bool):
         y = CK.fused_ln_plain(x, scale, bias)
         rec["library_ms"] = _time_graph_ms(lambda: torch.matmul(y, w), 20)
         rec["library_eager_ms"] = _time_ms(lambda: torch.matmul(y, w))
-        rec["bound_ms"], rec["bound_by"] = bound_ms(
-            nb * D * esz + 2 * D * 4 + D * V * esz + nb * V * esz,
-            2 * nb * D * V + 8 * nb * D,
-            "bf16" if dtype == torch.bfloat16 else "f32",
-            torch.cuda.get_device_name(0))
+        rec["bound_ms"], rec["bound_by"] = _bound(
+            KC.logits_head(nb, D, V, esz))
         rec["groups"] = CK.logits_head_plan(nb, D, V, esz,
                                            CK._num_sms(x.device))["groups"]
     return rec
@@ -840,38 +872,23 @@ def _gather_sdpa(q, kp, vp, tables, positions):
 
 
 def _slab_bound(pos_np, act_np, nh, hd, esz, name):
-    """(bound ms, by) of one slab decode call: q and the new rows read,
-    rows 0..pos of K and V read, the active lanes' rows written, out
-    written, positions and active read; 4 hd + 3 operations a row."""
-    from paddle_tpu_torch.observability.hw import bound_ms
+    """(bound ms, by) of one slab decode call (``kernel_costs.decode_slab``:
+    q and the new rows read, rows 0..pos of K and V read, the active
+    lanes' rows written, out written, positions and active read; 4 hd + 3
+    operations a row)."""
+    from paddle_tpu_torch.ops import kernel_costs as KC
 
-    Bn = len(pos_np)
-    rows = int((pos_np.astype(np.int64) + 1).sum())
-    nbytes = (3 * Bn * nh * hd * esz                      # q, new k/v
-              + 2 * rows * nh * hd * esz                  # K, V rows
-              + 2 * int(act_np.sum()) * nh * hd * esz     # rows written
-              + Bn * nh * hd * esz + 2 * Bn * 4)          # out, ints
-    return bound_ms(nbytes, rows * nh * (4 * hd + 3), "f32", name)
+    return _bound(KC.decode_slab(pos_np, act_np, nh, hd, esz))
 
 
 def _paged_bound(tab_np, pos_np, nh, hd, esz, name):
-    """(bound ms, by) of one paged decode call: as the slab's, with each
-    distinct (page, row) read once (a dead lane's rows alias page 0's,
-    shared prefix pages are read once) and the table entries 0..pos /
-    page of each lane."""
-    from paddle_tpu_torch.observability.hw import bound_ms
+    """(bound ms, by) of one paged decode call
+    (``kernel_costs.decode_paged``: as the slab's, with each distinct
+    (page, row) read once and the table entries 0..pos / page of each
+    lane)."""
+    from paddle_tpu_torch.ops import kernel_costs as KC
 
-    Bn = len(pos_np)
-    rows = int((pos_np.astype(np.int64) + 1).sum())       # rows scored
-    distinct = len({(int(tab_np[b, j // PAGE]), j % PAGE)
-                    for b in range(Bn) for j in range(int(pos_np[b]) + 1)})
-    table_ints = int((pos_np.astype(np.int64) // PAGE + 1).sum())
-    nbytes = (3 * Bn * nh * hd * esz                      # q, new k/v
-              + 2 * distinct * nh * hd * esz              # K, V rows
-              + 2 * Bn * nh * hd * esz                    # rows written
-              + Bn * nh * hd * esz + Bn * 4               # out, pos
-              + table_ints * 4)                           # the table
-    return bound_ms(nbytes, rows * nh * (4 * hd + 3), "f32", name)
+    return _bound(KC.decode_paged(tab_np, pos_np, nh, hd, esz, PAGE))
 
 
 def _sweep_line(kname, dtype, sweep, lib_key):
@@ -2655,15 +2672,14 @@ def phase_train_kernels(dtype, time_it: bool):
     """The training kernels vs their plain versions at the training path's
     shapes; one record per kernel (errors, and times when ``time_it``)."""
     from paddle_tpu_torch.models.gpt import GPT_SMALL
-    from paddle_tpu_torch.observability.hw import bound_ms
     from paddle_tpu_torch.ops import flash_attention as FA
+    from paddle_tpu_torch.ops import kernel_costs as KC
 
     bf16 = dtype == torch.bfloat16
     # the float32 plain versions must run in full float32, not TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    name = torch.cuda.get_device_name(0)
     nh, hd = GPT_SMALL.num_heads, GPT_SMALL.head_dim
     Bt, Tt = (16 if bf16 else 2), 1024
     g = torch.Generator(device=dev)
@@ -2707,19 +2723,16 @@ def phase_train_kernels(dtype, time_it: bool):
     del dq_p, dk_p, dv_p, di_p
     if time_it:
         esz = q.element_size()
-        act = Bt * Tt * nh * hd * esz             # one [B, T, nh, hd]
-        lse_b = Bt * nh * Tt * 4                  # lse or D [B, nh, T]
-        pairs = Bt * nh * Tt * (Tt + 1) // 2      # causal (q, k) pairs
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         # bytes: inputs read once, outputs written once; dK/dV reads D
-        # (from dQ) where the reference's form reads o
-        for kname, n_act, n_f32, n_mm, fn, plain in (
-                ("flash_fwd", 4, 1, 2, lambda: FA.flash_fwd(q, k, v),
+        # (from dQ) where the reference's form reads o (kernel_costs)
+        for kname, fn, plain in (
+                ("flash_fwd", lambda: FA.flash_fwd(q, k, v),
                  lambda: FA.flash_fwd_plain(q, k, v)),
-                ("flash_bwd_dq", 6, 1, 3,
+                ("flash_bwd_dq",
                  lambda: FA.flash_bwd_dq(q, k, v, o_p, lse_p, do),
                  lambda: FA.flash_bwd_dq_plain(q, k, v, o_p, lse_p, do)),
-                ("flash_bwd_dkv", 6, 2, 4,
+                ("flash_bwd_dkv",
                  lambda: FA.flash_bwd_dkv(q, k, v, o_p, lse_p, do, di=di),
                  lambda: FA.flash_bwd_dkv_plain(q, k, v, o_p, lse_p, do,
                                                 di=di))):
@@ -2729,9 +2742,8 @@ def phase_train_kernels(dtype, time_it: bool):
             r["ms"] = _time_graph_ms(fn, 10)
             r["eager_ms"] = _time_ms(fn, iters=20, warmup=3)
             r["plain_ms"] = _time_ms(plain, iters=3, warmup=1)
-            r["bound_ms"], r["bound_by"] = bound_ms(
-                n_act * act + n_f32 * lse_b, 2 * hd * n_mm * pairs, "bf16",
-                name)
+            r["bound_ms"], r["bound_by"] = _bound(
+                getattr(KC, kname)(Bt, Tt, nh, hd, esz, True))
         sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
             qt, kt, vt, is_causal=True)
         recs["flash_fwd"]["library_ms"] = _time_graph_ms(sdpa, 10)
@@ -2872,12 +2884,11 @@ def _ln_check(dtype, time_it: bool):
     ``F.layer_norm`` on s (half the ln2 form's bytes); the dsx backward
     (``ms``) and the backward without dsx beside
     ``aten.native_layer_norm_backward`` (the same function)."""
-    from paddle_tpu_torch.observability.hw import bound_ms
     from paddle_tpu_torch.ops import fused_ln as FL
+    from paddle_tpu_torch.ops import kernel_costs as KC
 
     bf16 = dtype == torch.bfloat16
     dev = torch.device("cuda")
-    name = torch.cuda.get_device_name(0)
     R, D = (16 * 1024 if bf16 else 256), 768
     g = torch.Generator(device=dev)
     g.manual_seed(77)
@@ -2975,17 +2986,14 @@ def _ln_check(dtype, time_it: bool):
             xs[i], scale, bias, rs_[i], badd, eps=1e-5), 3)
         fwd["library_ms"] = None        # no one PyTorch call computes it
         # reads x, res, badd, scale, bias; writes y, s, mu, rstd
-        fwd["bound_ms"], fwd["bound_by"] = bound_ms(
-            4 * R * D * esz + D * esz + 2 * D * 4 + 2 * R * 4, 10 * R * D,
-            "f32", name)
+        fwd["bound_ms"], fwd["bound_by"] = _bound(
+            KC.fused_ln(R, D, esz, residual=True, bias_add=True))
         fwd["plain_form_ms"] = graph_ms(
             lambda i: FL.fused_ln_fwd(xs[i], scale, bias, eps=1e-5))
         fwd["plain_form_library_ms"] = graph_ms(
             lambda i: F.layer_norm(xs[i], (D,), w16, b16, 1e-5))
         # reads x, scale, bias; writes y, mu, rstd
-        fwd["plain_form_bound_ms"] = bound_ms(
-            2 * R * D * esz + 2 * D * 4 + 2 * R * 4, 8 * R * D, "f32",
-            name)[0]
+        fwd["plain_form_bound_ms"] = _bound(KC.fused_ln(R, D, esz))[0]
         fwd["mask_form_ms"] = graph_ms(lambda i: FL.fused_ln_fwd(
             xs[i], scale, bias, rs_[i], mask=mask, eps=1e-5,
             inv_keep=forms["mask"]["inv_keep"]))
@@ -2998,8 +3006,8 @@ def _ln_check(dtype, time_it: bool):
             ss[i], mu, rstd, scale, dys[i], dsxs[i]), 3)
         bwd["library_ms"] = None        # no one PyTorch call computes it
         # reads s, dy, dsx, mu, rstd, scale; writes ds, dscale, dbias
-        bwd["bound_ms"], bwd["bound_by"] = bound_ms(
-            4 * R * D * esz + 2 * R * 4 + 3 * D * 4, 14 * R * D, "f32", name)
+        bwd["bound_ms"], bwd["bound_by"] = _bound(
+            KC.fused_ln_bwd(R, D, esz, dsx=True))
         bwd["no_dsx_ms"] = graph_ms(lambda i: FL.fused_ln_bwd(
             ss[i], mu, rstd, scale, dys[i]))
         _o, mean, rstd_l = torch.ops.aten.native_layer_norm(s, [D], w16,
@@ -3009,9 +3017,7 @@ def _ln_check(dtype, time_it: bool):
                 dys[i], ss[i], [D], mean, rstd_l, w16, b16,
                 [True, True, True]))
         # reads s, dy, mu, rstd, scale; writes ds, dscale, dbias
-        bwd["no_dsx_bound_ms"] = bound_ms(
-            3 * R * D * esz + 2 * R * 4 + 3 * D * 4, 13 * R * D, "f32",
-            name)[0]
+        bwd["no_dsx_bound_ms"] = _bound(KC.fused_ln_bwd(R, D, esz))[0]
     return recs
 
 
@@ -3092,11 +3098,10 @@ def _ce_check(dtype, time_it: bool):
     cuBLAS product of its logits (``matmul_ms``, the floor of its work: no
     single PyTorch call computes linear + CE, so ``library_ms`` is
     null)."""
-    from paddle_tpu_torch.observability.hw import bound_ms
     from paddle_tpu_torch.ops import chunked_ce as CE
+    from paddle_tpu_torch.ops import kernel_costs as KC
 
     bf16 = dtype == torch.bfloat16
-    name = torch.cuda.get_device_name(0)
     rec = {}
     err = 0.0
     calls = {}
@@ -3135,9 +3140,7 @@ def _ce_check(dtype, time_it: bool):
                 lambda: torch.matmul(x, hm), 10)
             # the vocab's real columns: x, those head columns (and bias)
             # and the labels read, lse and gold written; 2 n D V operations
-            b, b_by = bound_ms(
-                n * D * esz + D * V * esz + (4 * V if bias is not None else 0)
-                + n * 4 + 2 * n * 4, 2 * n * D * V, "bf16", name)
+            b, b_by = _bound(KC.ce_fwd(n, D, V, esz, bias is not None))
             rec[f"{key}bound_ms"], rec[f"{key}bound_by"] = b, b_by
         rec["library_ms"] = None
     return rec
@@ -3189,8 +3192,8 @@ def _sweep_check(mdt, time_it: bool):
     bitwise for p, m and v, and at :data:`SWEEP_EDGES` (a vector tail; an
     odd n off alignment); timed with bf16 moments by CUDA-graph replay
     (the five buffers hold 2.6 GB, so no launch finds them in L2)."""
-    from paddle_tpu_torch.observability.hw import bound_ms
     from paddle_tpu_torch.ops import cuda_kernels as CK
+    from paddle_tpu_torch.ops import kernel_costs as KC
 
     dev = torch.device("cuda")
     n = N_PARAMS
@@ -3213,10 +3216,8 @@ def _sweep_check(mdt, time_it: bool):
             p, grad, m, v, mask, *sc, **hp), iters=5, warmup=1)
         # no single PyTorch call computes the masked flat AdamW sweep
         rec["library_ms"] = None
-        esz = m.element_size()
-        rec["bound_ms"], rec["bound_by"] = bound_ms(
-            n * (4 * 4 + 4 * esz), 18 * n, "f32",
-            torch.cuda.get_device_name(0))
+        rec["bound_ms"], rec["bound_by"] = _bound(
+            KC.opt_adamw_flat(n, m.element_size()))
     return rec
 
 
@@ -3387,8 +3388,8 @@ def wide_flash_timing() -> dict:
     the forward, dQ and dK/dV (eager: each runs for milliseconds) beside
     SDPA's forward and backward on the same inputs, with each kernel's
     bound. Returns the record."""
-    from paddle_tpu_torch.observability.hw import bound_ms
     from paddle_tpu_torch.ops import flash_attention as FA
+    from paddle_tpu_torch.ops import kernel_costs as KC
 
     Bw, Tw, nh, hd = WIDE_SHAPE
     g = torch.Generator(device="cuda")
@@ -3397,19 +3398,13 @@ def wide_flash_timing() -> dict:
                    .to(torch.bfloat16) for _ in range(4))
     o, lse = FA.flash_fwd(q, k, v)
     _dq, di = FA.flash_bwd_dq(q, k, v, o, lse, do, return_di=True)
-    act = Bw * Tw * nh * hd * 2
-    lse_b = Bw * nh * Tw * 4
-    pairs = Bw * nh * Tw * (Tw + 1) // 2
-    name = torch.cuda.get_device_name(0)
     rec = {}
-    for kname, n_act, n_f32, n_mm, fn in (
-            ("flash_fwd", 4, 1, 2, lambda: FA.flash_fwd(q, k, v)),
-            ("flash_bwd_dq", 6, 1, 3,
-             lambda: FA.flash_bwd_dq(q, k, v, o, lse, do)),
-            ("flash_bwd_dkv", 6, 2, 4,
+    for kname, fn in (
+            ("flash_fwd", lambda: FA.flash_fwd(q, k, v)),
+            ("flash_bwd_dq", lambda: FA.flash_bwd_dq(q, k, v, o, lse, do)),
+            ("flash_bwd_dkv",
              lambda: FA.flash_bwd_dkv(q, k, v, o, lse, do, di=di))):
-        b, by = bound_ms(n_act * act + n_f32 * lse_b, 2 * hd * n_mm * pairs,
-                         "bf16", name)
+        b, by = _bound(getattr(KC, kname)(Bw, Tw, nh, hd, 2, True))
         rec[kname] = {"ms": _time_ms(fn, iters=5, warmup=1),
                       "bound_ms": b, "bound_by": by}
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -3480,6 +3475,206 @@ def phase_training(fused: bool = False):
     print(f"[{tag}] loss first={losses[0]:.6f} last={losses[-1]:.6f} "
           f"({len(losses)} steps); launches/step {rec['launches_per_step']}")
     return rec
+
+
+ATTR_STEPS = 2          # 7a's captured train steps a capture
+ATTR_TICKS = 16         # 7a's captured decode ticks, 8 slots resident
+
+
+def _attr_kernel_gates(tag, rec, want_per_step) -> dict:
+    """7a's per-capture gates: the document passes ``validate`` and its
+    rows are the device streams' (not the CPU lane's); each
+    hand kernel's device events a step equal its launches a step, which
+    equal ``want_per_step``; each hand kernel row's flops and bytes add
+    up to its recorded launches' costs exactly; the busy union is at most
+    the wall and the rows add up to it within 1 µs a step. Returns each
+    hand kernel's {events a step, ms a step, bound ms a step, fraction of
+    bound}."""
+    from paddle_tpu_torch.observability import attribution as ATT
+
+    doc, steps = rec["attribution"], rec["steps"]
+    ATT.validate(doc, require_residue=True)
+    if doc["source"] != "device_streams" or doc["degraded"]:
+        raise AssertionError(f"[{tag}] the capture holds no device plane: "
+                             f"source {doc['source']!r}")
+    events, ns, flops, nbytes = {}, {}, {}, {}
+    for r in rec["rows"]:
+        k = r["kernel"]
+        if not k:
+            continue
+        events[k] = events.get(k, 0) + r["events"]
+        ns[k] = ns.get(k, 0.0) + r["ns"]
+        flops[k] = flops.get(k, 0.0) + r["flops_total"]
+        nbytes[k] = nbytes.get(k, 0.0) + r["bytes_total"]
+    per_step = {k: v / steps for k, v in events.items()}
+    launches = {k: v / steps for k, v in rec["launches"].items()}
+    if per_step != launches or launches != want_per_step:
+        raise AssertionError(f"[{tag}] device events a step {per_step}, "
+                             f"launches a step {launches}, want "
+                             f"{want_per_step}")
+    for k, c in rec["costs"].items():
+        if (flops.get(k), nbytes.get(k)) != (c["flops"], c["bytes"]):
+            raise AssertionError(
+                f"[{tag}] {k}: rows carry {flops.get(k)} flops / "
+                f"{nbytes.get(k)} bytes, its launches' costs "
+                f"{c['flops']} / {c['bytes']}")
+    busy = rec["busy_union_ns"]
+    wall = rec["capture_wall_ms_per_step"] * 1e6 * steps
+    rows_ns = sum(r["ns"] for r in rec["rows"])
+    if not (busy <= wall and abs(rows_ns - busy) <= 1e3 * steps):
+        raise AssertionError(f"[{tag}] busy union {busy} ns, wall {wall} "
+                             f"ns, rows {rows_ns} ns over {steps} steps")
+    return {k: {"events_per_step": per_step[k],
+                "ms_per_step": ns[k] / 1e6 / steps,
+                "bound_ms_per_step": rec["bound_ms"][k] / steps,
+                "fraction_of_bound": rec["bound_ms"][k] / (ns[k] / 1e6)}
+            for k in sorted(per_step)}
+
+
+def _attr_print(tag, rec, kern) -> None:
+    doc = rec["attribution"]
+    res = doc["residue"]
+    print(f"[{tag}] {doc['device_kind']}: wall "
+          f"{doc['wall_ms_per_step']:.3f} ms a step (under the profiler "
+          f"{rec['capture_wall_ms_per_step']:.3f}), device busy "
+          f"{doc['device_busy_ms_per_step']:.3f} ms, gap share "
+          f"{doc['gap_share']:.4f}, {doc['fusion_count']} rows, residue "
+          f"{res['count']} rows {res['share_of_busy']:.4f} of busy "
+          f"({res['ms_per_step']:.3f} ms); step flops "
+          f"{doc['step']['flops']}; launch calls the profiler left "
+          f"unanswered {rec['unanswered_launches']}; host s "
+          f"{ {k: round(v, 1) for k, v in rec['host_s'].items()} }")
+    print(f"[{tag}] top rows: " + "; ".join(
+        f"{f['key']} ({f['label']}) {f['ms_per_step']:.4f} ms "
+        f"x{f['events'] / doc['steps']:g}" for f in doc["fusions"][:8]))
+    print(f"[{tag}] residue top groups: " + "; ".join(
+        f"{g['label']} {g['ms_per_step']:.4f} ms x{g['events_per_step']}"
+        for g in res["groups"][:10]))
+    print(f"[{tag}] hand kernels: " + "; ".join(
+        f"{k} {v['events_per_step']:g}/step {v['ms_per_step']:.4f} ms, "
+        f"bound {v['bound_ms_per_step']:.4f} ms, "
+        f"{v['fraction_of_bound']:.3f} of bound" for k, v in kern.items()))
+
+
+def phase_attribution() -> dict:
+    """Phase 7a: the device-side observability on the main paths
+    (``tools/profile_step.py``, ``observability/attribution.py``).
+
+    Train: phase 7b's configuration (``train_bench``'s 7b: GPT_SMALL 16 x
+    1024 bf16, flash, dots remat, fused LN, vocab chunk 1024, the flat
+    AdamW sweep), 2 warm-up steps, then two captures of ``ATTR_STEPS``
+    steps each; each passes :func:`_attr_kernel_gates` with 7b's launches
+    a step. Serve: phase 4b's engine configuration (paged, page 16, 8
+    slots resident, GPT_SMALL bf16), ``ATTR_TICKS`` ticks captured: the
+    tick's events exactly fused_ln 2L, decode_paged L, logits_head 1.
+    Seeded regression: the train step again with ``remat="full"`` (one
+    step captured), diffed by ``tools/perf_diff.py`` against a baseline
+    made from the first capture: the diff fails, a ``config_lever`` cause names remat,
+    ``attribution.step.flops`` is out of band. Printed, not gated: the
+    A/A diff of the two plain captures, each kernel's fraction of its
+    bound, the gap share, the top residue groups. Returns {"launches":
+    the captures' hand-kernel launches, "kernels": {kernel: per-step
+    numbers}, "serve": the tick's}."""
+    import os
+    import shutil
+
+    from paddle_tpu_torch.models.gpt import GPT_SMALL
+    from paddle_tpu_torch.observability import attribution as ATT
+    from paddle_tpu_torch.tools import perf_diff
+    from paddle_tpu_torch.tools import profile_step as PS
+
+    t0 = time.perf_counter()
+    root = os.path.join(_trace_dir(), "attribution")
+    shutil.rmtree(root, ignore_errors=True)
+    L = GPT_SMALL.num_layers
+    want = {"flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkv": L,
+            "opt_adamw_flat": 1, "fused_ln": 4 * L + 1,
+            "fused_ln_bwd": 2 * L + 1, "ce_fwd": 8}
+    launches: dict = {}
+
+    def count(rec):
+        for k, v in rec["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+
+    recs = PS.train_profile(None, os.path.join(root, "train"),
+                            steps=ATTR_STEPS, runs=2)
+    kern = {}
+    for i, rec in enumerate(recs):
+        kern = _attr_kernel_gates(f"attribution-train {i}", rec, want)
+        count(rec)
+    _attr_print("attribution-train", recs[0], kern)
+    t_train = time.perf_counter()
+    dots = recs[0]["attribution"]
+    full = PS.train_profile(None, os.path.join(root, "train_full"),
+                            steps=1, remat="full")
+    count(full)
+    ATT.validate(full["attribution"], require_residue=True)
+    # the sentinel through its CLI: a baseline from the dots capture, the
+    # A/A diff (printed) and the seeded remat regression (gated)
+    run_dir = os.path.join(root, "sentinel")
+    os.makedirs(run_dir, exist_ok=True)
+    for name, doc in (("A.json", dots), ("B.json", recs[1]["attribution"]),
+                      ("FULL.json", full["attribution"])):
+        ATT.write(doc, os.path.join(run_dir, name))
+    base = os.path.join(run_dir, "PERF_BASELINE.json")
+    if perf_diff.main(["--dir", run_dir, "--attribution",
+                       os.path.join(run_dir, "A.json"), "--baseline", base,
+                       "--update-baseline", "--lane", "gpu"]) != 0:
+        raise AssertionError("perf_diff --update-baseline failed")
+    rc_aa = perf_diff.main(["--dir", run_dir, "--baseline", base,
+                            "--attribution",
+                            os.path.join(run_dir, "B.json"), "--out",
+                            os.path.join(run_dir, "AA.json")])
+    with open(os.path.join(run_dir, "AA.json")) as f:
+        aa = json.load(f)
+    print(f"[attribution-sentinel] A/A: rc {rc_aa}, "
+          f"{len(aa['out_of_band'])} out of band "
+          f"{[b['metric'] for b in aa['out_of_band']][:6]} (not gated: "
+          "timing bands on two short captures)")
+    rc = perf_diff.main(["--dir", run_dir, "--baseline", base,
+                         "--attribution", os.path.join(run_dir, "FULL.json"),
+                         "--out", os.path.join(run_dir, "REMAT.json")])
+    with open(os.path.join(run_dir, "REMAT.json")) as f:
+        rep = json.load(f)
+    oob = {b["metric"]: b for b in rep["out_of_band"]}
+    lever = [b for b in rep["out_of_band"] + rep["structural_failures"]
+             if b["cause"]["kind"] == "config_lever"
+             and "remat" in b["cause"]["detail"]]
+    if rc != 1 or rep["ok"] or not lever \
+            or "attribution.step.flops" not in oob:
+        raise AssertionError(f"seeded remat regression: rc {rc}, ok "
+                             f"{rep['ok']}, lever causes {len(lever)}, "
+                             f"out of band {sorted(oob)}")
+    print(f"[attribution-sentinel] the remat-full capture (1 step): host s "
+          f"{ {k: round(v, 1) for k, v in full['host_s'].items()} }")
+    print(f"[attribution-sentinel] remat dots -> full: rc {rc}, step "
+          f"flops {oob['attribution.step.flops']['baseline']:.6g} -> "
+          f"{oob['attribution.step.flops']['value']:.6g}, cause "
+          f"{oob['attribution.step.flops']['cause']['detail']!r}; "
+          f"{len(rep['out_of_band'])} out of band")
+    del recs, full
+    torch.cuda.empty_cache()
+    t_sentinel = time.perf_counter()
+    # serve: phase 4b's engine configuration, 8 slots resident
+    eng, feed = PS.serve_engine("cuda", "paged", "bf16", 8, True)
+    PS.decode_tick(eng, feed)
+    srec = PS.profile_ticks(eng, feed, os.path.join(root, "serve"),
+                            ATTR_TICKS, {"mode": "decode",
+                                         "kv_layout": "paged"},
+                            "serve:4b", {})
+    count(srec)
+    skern = _attr_kernel_gates(
+        "attribution-serve", srec,
+        {"fused_ln": 2 * L, "decode_paged": L, "logits_head": 1})
+    _attr_print("attribution-serve", srec, skern)
+    del eng
+    torch.cuda.empty_cache()
+    print(f"[attribution] phase {time.perf_counter() - t0:.1f} s (train "
+          f"{t_train - t0:.1f}, sentinel {t_sentinel - t_train:.1f}, serve "
+          f"{time.perf_counter() - t_sentinel:.1f})")
+    out = {"launches": launches, "kernels": kern, "serve": skern}
+    print(json.dumps({"attribution": {"train": kern, "serve": skern}}))
+    return out
 
 
 def bookkeeping_cost(work: str, n: int = 20000) -> dict:
@@ -3763,8 +3958,8 @@ def phase_flash_bias():
     backward, which computes dq, dk and dv together); bounds from
     ``observability/hw.py``. Returns one record per bias kernel: its max
     abs error at ERNIE's shape, and over the small cases as extra keys."""
-    from paddle_tpu_torch.observability.hw import bound_ms
     from paddle_tpu_torch.ops import flash_attention as FA
+    from paddle_tpu_torch.ops import kernel_costs as KC
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3821,25 +4016,21 @@ def phase_flash_bias():
                  False, bias, (dq, *dkv), di)
     del dq, dkv
     torch.cuda.empty_cache()
-    name = torch.cuda.get_device_name(0)
     esz = 2
-    act = B * T * nh * hd * esz
-    f32 = B * nh * T * 4                  # lse or D [B, nh, T]
-    pairs = B * nh * T * T
     di0 = FA.flash_bwd_dq(q, k, v, o, lse, do, False, return_di=True)[1]
     # bytes: inputs read once, outputs written once, the [B, T] bias; dK/dV
-    # reads D (from dQ) where the reference's form reads o
-    for kname, n_act, n_f32, n_mm, fn, bare, plain in (
-            ("flash_fwd_bias", 4, 1, 2,
+    # reads D (from dQ) where the reference's form reads o (kernel_costs)
+    for kname, fn, bare, plain in (
+            ("flash_fwd_bias",
              lambda: FA.flash_fwd(q, k, v, False, bias=bias),
              lambda: FA.flash_fwd(q, k, v, False),
              lambda: FA.flash_fwd_plain(q, k, v, False, bias=bias)),
-            ("flash_bwd_dq_bias", 6, 1, 3,
+            ("flash_bwd_dq_bias",
              lambda: FA.flash_bwd_dq(q, k, v, o, lse, do, False, bias=bias),
              lambda: FA.flash_bwd_dq(q, k, v, o, lse, do, False),
              lambda: FA.flash_bwd_dq_plain(q, k, v, o, lse, do, False,
                                            bias=bias)),
-            ("flash_bwd_dkv_bias", 6, 2, 4,
+            ("flash_bwd_dkv_bias",
              lambda: FA.flash_bwd_dkv(q, k, v, o, lse, do, False, bias=bias,
                                       di=di),
              lambda: FA.flash_bwd_dkv(q, k, v, o, lse, do, False, di=di0),
@@ -3850,9 +4041,9 @@ def phase_flash_bias():
         r["eager_ms"] = _time_ms(fn, iters=20, warmup=3)
         r["bias_free_ms"] = _time_graph_ms(bare, 10)
         r["plain_ms"] = _time_ms(plain, iters=3, warmup=1)
-        r["bound_ms"], r["bound_by"] = bound_ms(
-            n_act * act + n_f32 * f32 + B * T * 4, 2 * hd * n_mm * pairs,
-            "bf16", name)
+        r["bound_ms"], r["bound_by"] = _bound(getattr(
+            KC, kname[:-len("_bias")])(B, T, nh, hd, esz, False,
+                                       bias.numel()))
         r["shape"] = list(ERNIE_SHAPE)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     mask16 = mask.to(torch.bfloat16)
@@ -4015,8 +4206,8 @@ def phase_opt_kernels(time_it: bool):
     are timed with CUDA events over back-to-back calls (each call is one
     or a few kernels of 0.1 ms or more, well above the host's enqueue).
     Returns one record a kernel name."""
-    from paddle_tpu_torch.observability.hw import bound_ms
     from paddle_tpu_torch.ops import cuda_kernels as CK
+    from paddle_tpu_torch.ops import kernel_costs as KC
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
@@ -4066,7 +4257,6 @@ def phase_opt_kernels(time_it: bool):
     if not time_it:
         return recs
     n = n_resnet
-    name_dev = torch.cuda.get_device_name(0)
     step = torch.tensor(3.0, device=dev)
     for name, (kind, dtype, kw) in (
             ("opt_sgd", variants["opt_sgd"][0]),
@@ -4086,7 +4276,7 @@ def phase_opt_kernels(time_it: bool):
                 dampening=0.0, nesterov=False, maximize=False,
                 is_first_step=False))
             rec["library_call"] = "torch._fused_sgd_ momentum 0 (same function)"
-            nbytes, flops = 12 * n, 2 * n
+            cost = KC.opt_sgd(n, p.element_size())
         elif kind == "momentum":
             vel = bufs[2]
             lib = (lambda: torch._fused_sgd_(
@@ -4095,7 +4285,7 @@ def phase_opt_kernels(time_it: bool):
                 is_first_step=False))
             rec["library_call"] = ("torch._fused_sgd_ momentum 0.9, dampening "
                                    "0 (same function)")
-            nbytes, flops = 20 * n, 4 * n
+            cost = KC.opt_momentum(n)
         else:
             m, v = bufs[2], bufs[3]
             fused = torch._fused_adamw_ if kw["coeff"] else torch._fused_adam_
@@ -4106,10 +4296,9 @@ def phase_opt_kernels(time_it: bool):
             rec["library_call"] = (
                 f"torch.{fused.__name__} (eps inside the bias correction: "
                 "not the same function)")
-            nbytes, flops = 28 * n, (14 if kw["coeff"] else 12) * n
+            cost = KC.opt_adam(n, bool(kw["coeff"]))
         rec["library_ms"] = _time_ms(lib, iters=20, warmup=3)
-        rec["bound_ms"], rec["bound_by"] = bound_ms(nbytes, flops, "f32",
-                                                    name_dev)
+        rec["bound_ms"], rec["bound_by"] = _bound(cost)
         rec["n"] = n
         print(f"[opt-kernels] {name} n={n}: {rec['ms']:.4f} ms, plain "
               f"{rec['plain_ms']:.4f}, library {rec['library_ms']:.4f}, "
@@ -4541,7 +4730,10 @@ def phase_train_parallel(timeout_s: float = 600.0) -> dict:
                "10", "-m", "paddle_tpu_torch.tools.train_bench",
                "--fused-ln", "--ce-vchunk", "1024", "--steps", "3",
                "--warmup", "1", "--out-dir", out, "--parity"]
-        for _, spec in layouts:
+        for tag, spec in layouts:
+            if tag == "dp2":
+                # one more step traced a rank: the collectives' overlap
+                spec += f",overlap_dir={os.path.join(work, 'overlap')}"
             cmd += ["--layout", spec]
         if backend == "gloo":
             cmd += ["--device", "cuda:0"]        # every rank on the card
@@ -4583,6 +4775,10 @@ def phase_train_parallel(timeout_s: float = 600.0) -> dict:
                   f"11p {st['parity'] - t0:.1f}, warm-up "
                   f"{st['warmup'] - t0:.1f}, timed {st['timed'] - t0:.1f}")
             for rec in recs:
+                if rec.get("overlap") is not None:
+                    print(f"[train-parallel] {tag} rank {rec['rank']}: "
+                          "comm_opt.measure_overlap_fraction over one "
+                          f"traced step: {rec['overlap']} (not gated)")
                 par = dict(rec["parity"])
                 leaf = par.pop("leaf_update_rel_err")
                 worst = max(leaf, key=leaf.get)
@@ -4604,34 +4800,69 @@ ELASTIC_SCENARIOS = ("baseline", "aa", "sigkill_midstep", "sigterm_preempt",
                      "corrupt_shard", "hang", "sigstop_blame", "dp_reshard")
 
 
-def phase_elastic(timeout_s: float = 600.0) -> dict:
-    """Phase 12 (see the module docstring); returns each kernel's launches
-    summed over the completed incarnations (rank 0's)."""
+def start_elastic() -> dict:
+    """Start phase 12's ``fault_bench`` in a session of its own, in the
+    background, its log into a file (nothing reads a pipe meanwhile);
+    ``finish_elastic`` waits for it and checks its record."""
     import os
     import shutil
-    import signal
 
     from paddle_tpu_torch.ops import _build
-    from paddle_tpu_torch.tools import fault_bench as FB
-    from paddle_tpu_torch.tools import train_bench as TB
 
     root = os.path.dirname(os.path.abspath(__file__))
     work = os.path.join(str(_build.BUILD_DIR), "elastic")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
-    out = os.path.join(work, "fault_bench.json")
-    t0 = time.perf_counter()
-    proc = subprocess.Popen(
-        [sys.executable, "-m", "paddle_tpu_torch.tools.fault_bench",
-         "--device", "cuda", "--out", out], cwd=root,
-        start_new_session=True, stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True)
+    run = {"work": work, "out": os.path.join(work, "fault_bench.json"),
+           "log": os.path.join(work, "fault_bench.log"),
+           "t0": time.perf_counter()}
+    with open(run["log"], "w") as log:
+        run["proc"] = subprocess.Popen(
+            [sys.executable, "-m", "paddle_tpu_torch.tools.fault_bench",
+             "--device", "cuda", "--out", run["out"]], cwd=root,
+            start_new_session=True, stdout=log, stderr=subprocess.STDOUT)
+    return run
+
+
+def stop_elastic(run: dict) -> None:
+    """Kill a started phase 12's process group if it still runs (the
+    script failed elsewhere, or its time is up)."""
+    import os
+    import signal
+
+    if run["proc"].poll() is None:
+        try:
+            os.killpg(run["proc"].pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        run["proc"].wait()
+
+
+def phase_elastic(timeout_s: float = 600.0) -> dict:
+    """Phase 12 alone (see the module docstring)."""
+    return finish_elastic(start_elastic(), timeout_s)
+
+
+def finish_elastic(run: dict, timeout_s: float = 600.0) -> dict:
+    """Phase 12 (see the module docstring): wait for the started
+    ``fault_bench``, at most ``timeout_s`` from its start, and check its
+    record; returns each kernel's launches summed over the completed
+    incarnations (rank 0's)."""
+    import os
+    import shutil
+
+    from paddle_tpu_torch.tools import fault_bench as FB
+    from paddle_tpu_torch.tools import train_bench as TB
+
+    proc, work, out = run["proc"], run["work"], run["out"]
     try:
-        log, _ = proc.communicate(timeout=timeout_s)
+        proc.wait(timeout=max(1.0, timeout_s - (time.perf_counter()
+                                                 - run["t0"])))
     except subprocess.TimeoutExpired:
-        os.killpg(proc.pid, signal.SIGKILL)
-        log, _ = proc.communicate()
-    wall = time.perf_counter() - t0
+        stop_elastic(run)
+    wall = time.perf_counter() - run["t0"]
+    with open(run["log"]) as f:
+        log = f.read()
     if not os.path.exists(out):
         print(log[-8000:])
         raise RuntimeError(f"elastic: fault_bench exited {proc.returncode} "
@@ -4666,8 +4897,7 @@ def phase_elastic(timeout_s: float = 600.0) -> dict:
                             "restart_downtime_s", "gang_goodput_fraction",
                             "unaccounted_fraction", "categories")}))
     # the workers of every gang (sigstop_blame's SIGSTOPped rank too) are
-    # gone before the next phase's gangs start: no process is left in the
-    # harness's process group
+    # gone with the harness: no process is left in its process group
     try:
         os.killpg(proc.pid, 0)
     except ProcessLookupError:
@@ -5190,13 +5420,23 @@ def main() -> int:
     t_start = time.perf_counter()
     from paddle_tpu_torch.ops import cuda_kernels as CK
 
+    # each stretch's wall seconds, printed before the kernels line
+    walls, t_lap = {}, [t_start]
+
+    def lap(name):
+        now = time.perf_counter()
+        walls[name] = round(now - t_lap[0], 1)
+        t_lap[0] = now
+
     smi = phase_device()
     phase_build()
+    lap("1-2 device, build")
     recs = phase_kernels(torch.bfloat16, time_it=True)
     f32 = phase_kernels(torch.float32, time_it=True)
     widths = {str(dt): phase_widths(dt)
               for dt in (torch.bfloat16, torch.float32)}
     wide = {**wide_flash_timing(), **wide_decode_timing()}
+    lap("3, 3w kernels, widths")
     # each kernel's launches summed over the serving paths (slab, paged,
     # speculative, int8); each path printed and asserted its own counts
     launches, alone, eng4, reqs4 = phase_serving()
@@ -5206,21 +5446,25 @@ def main() -> int:
         launches[k] += v
     tick_overhead = phase_tick_overhead(eng4)
     del eng4, reqs4
+    lap("4, 4m serving, front door")
     paged_launches, paged = phase_serving_paged()
     for path in (lambda: paged_launches, lambda: phase_serving_spec(alone),
                  phase_serving_int8, lambda: phase_serving_disagg(paged),
                  lambda: phase_serve_gang(paged)):
         for k, v in path().items():
             launches[k] += v
+    lap("4b, 4s, 4q, 4d, 4g paths")
     phase_parity()
     phase_spec_parity()
     phase_disagg_parity()
+    lap("5, 5s, 5d parity")
     # tensor-parallel serving, two ranks sharing the card: the tick's
     # kernels at a rank's shapes (4tk), phase 4b's traffic (4t, every
     # rank's launches into the kernels line), tp2 against tp1 (5t)
     tp_err, tp_launches = phase_tp(paged)
     for k, v in tp_launches.items():
         launches[k] += v
+    lap("4tk, 4t, 5t tp")
     decode_ln = recs["fused_ln"]
     recs.update(phase_train_kernels(torch.bfloat16, time_it=True))
     # the decode tick's plain form [8, 768] beside the training shapes
@@ -5238,6 +5482,11 @@ def main() -> int:
         for k, v in train["launches_per_step"].items():
             launches[k] = launches.get(k, 0) + round(v * train["steps"])
     phase_train_parity()
+    lap("6, 7, 7m, 7b training")
+    # the roofline attribution of 7b's step and 4b's tick (7a)
+    for k, v in phase_attribution()["launches"].items():
+        launches[k] = launches.get(k, 0) + v
+    lap("7a attribution")
     recs.update(phase_flash_bias())
     # ERNIE-base pretraining (phase 9), then with padded lengths (9b):
     # each zeroes the counts just before its timed steps
@@ -5246,6 +5495,7 @@ def main() -> int:
         for k, v in ernie["launches_per_step"].items():
             launches[k] = launches.get(k, 0) + round(v * ernie["steps"])
     phase_ernie_parity()
+    lap("8, 9, 9b, 9p ERNIE")
     # the fluid path: the optimizer kinds (10k), the fused routes against
     # the unfused ones on the MLP and ResNet-18 (10p: the sgd / adam /
     # adamw kernels' main path), ResNet-50 (10: opt_momentum's)
@@ -5255,23 +5505,31 @@ def main() -> int:
     resnet = phase_resnet50()
     for k, v in resnet["launches_per_step"].items():
         launches[k] = launches.get(k, 0) + round(v * resnet["steps"])
-    # GPT training over ranks: the kernels at the ranks' shapes (11k),
-    # then every rank's timed steps (phase 11)
-    for k, v in phase_parallel_kernels().items():
-        recs[k]["parallel_max_abs_err"] = v
-    for k, v in phase_train_parallel().items():
-        launches[k] = launches.get(k, 0) + v
-    # fault-tolerant training (phase 12): counts zeroed in each worker
-    # just before its steps; then ring attention (12r, no kernel)
-    for k, v in phase_elastic().items():
-        launches[k] = launches.get(k, 0) + v
-    phase_ring()
-    # sharded training (phase 13): the kernels at its new per-rank shapes
-    # (13k), then the fsdp and ERNIE tp gangs' timed steps
-    for k, v in phase_sharded_kernels().items():
-        recs[k]["sharded_max_abs_err"] = v
-    for k, v in phase_train_sharded().items():
-        launches[k] = launches.get(k, 0) + v
+    lap("10k, 10p, 10 fluid")
+    # fault-tolerant training (phase 12) runs in the background beside the
+    # gangs of phases 11, 12r and 13 (its counts zeroed in each worker
+    # just before its steps); it is checked after phase 13
+    elastic = start_elastic()
+    try:
+        # GPT training over ranks: the kernels at the ranks' shapes (11k),
+        # then every rank's timed steps (phase 11)
+        for k, v in phase_parallel_kernels().items():
+            recs[k]["parallel_max_abs_err"] = v
+        for k, v in phase_train_parallel().items():
+            launches[k] = launches.get(k, 0) + v
+        phase_ring()            # ring attention (12r, no kernel)
+        # sharded training (phase 13): the kernels at its new per-rank
+        # shapes (13k), then the fsdp and ERNIE tp gangs' timed steps
+        for k, v in phase_sharded_kernels().items():
+            recs[k]["sharded_max_abs_err"] = v
+        for k, v in phase_train_sharded().items():
+            launches[k] = launches.get(k, 0) + v
+        lap("11k, 11, 12r, 13k, 13 (12 beside them)")
+        for k, v in finish_elastic(elastic).items():
+            launches[k] = launches.get(k, 0) + v
+        lap("12 elastic, after 13")
+    finally:
+        stop_elastic(elastic)
     kernels = []
     for name, meta in CK.KERNELS.items():
         r = recs[name]
@@ -5292,6 +5550,7 @@ def main() -> int:
             kernels[-1]["tp_max_abs_err"] = tp_err[name]
     print(f"[chip_smoke] wall {time.perf_counter() - t_start:.1f} s, the "
           "build included")
+    print(json.dumps({"wall_s": walls}))
     print(json.dumps({"widths_max_abs_err": widths, "wide_hd256": wide}))
     print(json.dumps({"observability_overhead": {
         "decode_tick_host_ms": tick_overhead,

@@ -9,6 +9,8 @@ slice reads.
 """
 from __future__ import annotations
 
+import os as _os
+
 import dataclasses
 import enum
 
@@ -164,6 +166,14 @@ _GLOBAL_FLAGS = {
     # (ops/cuda_kernels.megakernel_*, which run the plain version on CPU
     # tensors): None or True; False takes the op's unfused expression
     "FLAGS_fuse_optimizer_pallas": None,
+    # program reports (observability/program_report.py) also go to
+    # <dir>/program_reports.<pid>.jsonl when set
+    "FLAGS_program_report_dir": _os.environ.get(
+        "FLAGS_program_report_dir", ""),
+    # program reports count the aten ops' FLOPs of the call they report
+    # (FlopCounterMode: every op dispatched through Python once)
+    "FLAGS_program_report_flops": _os.environ.get(
+        "FLAGS_program_report_flops", "") not in ("", "0"),
 }
 
 

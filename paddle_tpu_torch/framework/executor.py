@@ -293,6 +293,13 @@ def _run_grad(env, op, rec: Optional[_Record], device: torch.device) -> None:
         env[name] = g
 
 
+def _report_name(program: Program, fetch_names) -> str:
+    """The reference's report name (``executor.py:779-782``)."""
+    named = getattr(program, "_annotations", {}).get("report_name")
+    return str(named or f"{fetch_names[0] if fetch_names else 'main'}"
+               f"#{len(program.global_block().ops)}ops")
+
+
 class Executor:
     """Runs programs on ``place``'s device: ``CUDAPlace(0)`` when none is
     given, which raises without a card; ``CPUPlace()`` runs on the CPU."""
@@ -302,13 +309,43 @@ class Executor:
         self.device = self.place.torch_device()
         self._plans: Dict[Tuple, Tuple[Program, _Plan]] = {}
         self._gens: Dict[int, Tuple[Program, torch.Generator]] = {}
+        # id(program) -> the build signatures of its plans, oldest first
+        self._history: Dict[int, List[Dict[str, Any]]] = {}
 
-    def _plan(self, program: Program, fetch_names) -> _Plan:
+    def _plan(self, program: Program, fetch_names) -> Tuple[_Plan, bool]:
+        """(the plan for ``program``'s current version and the fetch list,
+        whether it was built now). A new plan of a program that already
+        has one is a rebuild: the recompile explainer names its cause
+        against the program's sibling plans (``fetch_list`` or
+        ``program_mutation``; the reference's feed causes never arise
+        here, the plan being the same for any feed shape)."""
         key = (id(program), program._version_token(), tuple(fetch_names))
         hit = self._plans.get(key)
-        if hit is None:
-            hit = self._plans[key] = (program, _Plan(program, fetch_names))
-        return hit[1]
+        if hit is not None:
+            return hit[1], False
+        hit = self._plans[key] = (program, _Plan(program, fetch_names))
+        self._explain_rebuild(program, fetch_names)
+        return hit[1], True
+
+    def _explain_rebuild(self, program: Program, fetch_names) -> None:
+        """As the reference's ``Executor._explain_rebuild``
+        (``executor.py:905-917``): diff this build's signature against
+        the program's earlier ones, count
+        ``paddle_recompiles_total{cause=}`` and log the cause
+        (rate-limited)."""
+        from ..observability import program_report as _prep
+
+        sig = _prep.make_sig((), fetch_names,
+                             version=program._version_token())
+        if len(self._history) > 256:
+            self._history.clear()
+        hist = self._history.setdefault(id(program), [])
+        if hist:
+            cause, detail = _prep.explain_recompile(sig, hist)
+            _prep.note_recompile(_report_name(program, fetch_names), cause,
+                                 detail)
+        hist.append(sig)
+        del hist[:-32]  # bound sibling history per program
 
     def _generator(self, program: Program) -> torch.Generator:
         hit = self._gens.get(id(program))
@@ -347,7 +384,25 @@ class Executor:
         scope = scope if scope is not None else global_scope()
         fetch_names = [v.name if isinstance(v, Variable) else str(v)
                        for v in (fetch_list or [])]
-        plan = self._plan(program, fetch_names)
+        plan, built = self._plan(program, fetch_names)
+        if built:
+            # the plan's first run is its program report's call (the
+            # reference reports a compile there)
+            from ..observability import program_report as _prep
+
+            with _prep.counted(self.device) as counts:
+                fetches = self._run_plan(program, plan, feed, fetch_names,
+                                         scope, return_numpy)
+            _prep.capture(_report_name(program, fetch_names), counts,
+                          inputs=dict(feed or {}), outputs=fetches,
+                          extra={"mode": "executor",
+                                 "fetch": list(fetch_names)})
+            return fetches
+        return self._run_plan(program, plan, feed, fetch_names, scope,
+                              return_numpy)
+
+    def _run_plan(self, program: Program, plan: _Plan, feed, fetch_names,
+                  scope: Scope, return_numpy: bool):
         block = program.global_block()
         env: Dict[str, Any] = {}
         for n in plan.read:

@@ -19,13 +19,21 @@
   burn-rate alerts, the error-budget ledger;
 - :mod:`.fleet` — the fleet poller: per-replica scrapes folded into
   ``FLEET.json`` and a merged exposition;
-- :mod:`.hw` — the card's peak rates for bounds and MFU.
+- :mod:`.hw` — the card's peak rates for bounds and MFU;
+- :mod:`.program_report` — a report of each program's first call
+  (counted FLOPs, the allocator's memory, its wall ms), the recompile
+  explainer and live device-memory gauges;
+- :mod:`.attribution` — every kernel of a ``torch.profiler`` capture
+  placed on the roofline (``ATTRIBUTION.json``), with the residue list;
+- :mod:`.baseline` — the perf sentinel: a run's artifacts diffed against
+  a baseline with tolerance bands and cause attribution;
+- :mod:`.trace_merge` — host, device and span-tracer events merged into
+  one chrome trace.
 
 Every on-disk format (span JSONL, goodput reports, flight sidecars, blame
-reports, ``FLEET.json``, the Prometheus text) is the reference's, so the
-two packages read each other's files. The reference's device-side half —
-``attribution``, ``baseline``, ``program_report`` and ``trace_merge`` —
-waits for ``torch.profiler`` counterparts (ROADMAP A, item 4).
+reports, ``FLEET.json``, the Prometheus text, program reports,
+``ATTRIBUTION.json``, baselines and regression reports) is the
+reference's, so the two packages read each other's files.
 """
 from __future__ import annotations
 
@@ -39,17 +47,22 @@ from .metrics import (  # noqa: F401
     set_metrics_enabled,
 )
 from .monitor import MonitorWriter, TrainMonitor  # noqa: F401
+from . import attribution  # noqa: F401
+from . import baseline  # noqa: F401
 from . import fleet  # noqa: F401
 from . import flight  # noqa: F401
 from . import goodput  # noqa: F401
 from . import hw  # noqa: F401
+from . import program_report  # noqa: F401
 from . import prom  # noqa: F401
 from . import slo  # noqa: F401
 from . import spans  # noqa: F401
+from . import trace_merge  # noqa: F401
 
 __all__ = [
     "Counter", "Gauge", "Histogram", "MetricsRegistry", "default_registry",
     "metrics_enabled", "set_metrics_enabled",
-    "MonitorWriter", "TrainMonitor", "fleet", "flight", "goodput", "hw",
-    "prom", "slo", "spans",
+    "MonitorWriter", "TrainMonitor", "attribution", "baseline", "fleet",
+    "flight", "goodput", "hw", "program_report", "prom", "slo", "spans",
+    "trace_merge",
 ]

@@ -32,15 +32,14 @@ MFU is over the card's bf16 dense peak from :mod:`.hw` (the same table as
 ``utils/nan_inf.py`` (:func:`summarize_value` is the port's copy).
 
 Every record also carries ``live_buffer_bytes`` / ``peak_hbm_bytes`` from
-``torch.cuda.memory_allocated`` / ``max_memory_allocated`` while a card is
-in use (``sample_hbm=False`` opts out; on the CPU they are left out, as
-the reference leaves them out when its sampler has nothing), and
-``dump_on_anomaly=DIR`` writes a self-contained forensics directory
-(monitor tail, per-fetch summaries, flag state, the flight recorder's
-ring) when a step's loss goes NaN/Inf or its grad norm blows past
-``anomaly_grad_mult`` x the rolling p50. The reference's dump also holds
-``program_reports.json``; the port writes it once ``program_report``
-is ported (ROADMAP A, item 4).
+``program_report.sample_hbm_gauges`` (``torch.cuda.memory_allocated`` /
+``max_memory_allocated``) while a card is in use (``sample_hbm=False``
+opts out; on the CPU they are left out, as the reference leaves them out
+when its sampler has nothing), and ``dump_on_anomaly=DIR`` writes a
+self-contained forensics directory (monitor tail, per-fetch summaries,
+the recent program reports, flag state, the flight recorder's ring) when
+a step's loss goes NaN/Inf or its grad norm blows past
+``anomaly_grad_mult`` x the rolling p50.
 """
 from __future__ import annotations
 
@@ -127,16 +126,6 @@ def _scan_nan_inf(value) -> bool:
     if arr.dtype.kind != "f":
         arr = arr.astype(np.float32)
     return bool(np.isnan(arr).any() or np.isinf(arr).any())
-
-
-def _sample_device_memory():
-    """(bytes allocated, peak bytes allocated) on the current card, or
-    (None, None) while no card is in use."""
-    import torch
-
-    if not (torch.cuda.is_available() and torch.cuda.is_initialized()):
-        return None, None
-    return torch.cuda.memory_allocated(), torch.cuda.max_memory_allocated()
 
 
 class MonitorWriter:
@@ -386,9 +375,14 @@ class TrainMonitor:
         for q in (50, 90, 99):
             rec[f"p{q}_step_time_ms"] = round(self._percentile(q), 4)
         if self.sample_hbm:
-            live, peak = _sample_device_memory()
+            # live/peak device memory per step (the allocator's counters,
+            # the program_report sampler, as the reference's monitor)
+            from . import program_report as _prep
+
+            live, peak = _prep.sample_hbm_gauges()
             if live is not None:
                 rec["live_buffer_bytes"] = int(live)
+            if peak is not None:
                 rec["peak_hbm_bytes"] = int(peak)
         reason = self._anomaly_reason(rec)
         if reason:
@@ -446,6 +440,8 @@ class TrainMonitor:
               monitor_tail.jsonl    last-N step records + the offender
               fetch_summaries.json  shape/dtype/finite-count/min/max per
                                     fetch (:func:`summarize_value`)
+              program_reports.json  recent program reports (the
+                                    programs active at the anomaly)
               flags.json            full framework flag state
               flight.dump.anomaly.rank<R>.<pid>.json
                                     the flight recorder's ring
@@ -481,6 +477,10 @@ class TrainMonitor:
                 summaries.append(summarize_value(name, v))
             with open(os.path.join(d, "fetch_summaries.json"), "w") as f:
                 json.dump(summaries, f, indent=1)
+            from . import program_report as _prep
+
+            with open(os.path.join(d, "program_reports.json"), "w") as f:
+                json.dump(_prep.recent_reports(), f, indent=1)
             with open(os.path.join(d, "flags.json"), "w") as f:
                 json.dump({k: repr(v) if not isinstance(
                     v, (str, int, float, bool, type(None))) else v

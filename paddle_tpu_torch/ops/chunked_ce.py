@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from . import cuda_kernels as _ck
+from . import kernel_costs as _kc
 
 __all__ = ["chunked_lm_loss", "ce_fwd", "ce_fwd_plain", "ce_chunk_logits",
            "ce_fwd_plan", "CE_BWD_RANGE"]
@@ -144,6 +145,9 @@ def ce_fwd(x, head, bias, labels, v_chunk: int, vocab: int,
                          int(layout == "vd"), nsplit, plan["bn"], code,
                          _ck._stream(x))
     _ck._check_launch(lib, err, "ce_fwd")
+    if _ck.CAPTURE is not None:
+        _ck.CAPTURE.add("ce_fwd", _kc.ce_fwd, n, D, int(vocab),
+                        x.element_size(), bias is not None)
     return lse, gold
 
 

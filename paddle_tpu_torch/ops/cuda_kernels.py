@@ -39,11 +39,13 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import re
 import threading
 from typing import Dict, Tuple
 
 import torch
 
+from . import kernel_costs as _kc
 from .decode_attention import (cache_update, decode_attention,
                                paged_cache_update, paged_gather)
 
@@ -55,59 +57,91 @@ __all__ = ["fused_ln", "fused_ln_plain", "fused_decode_attention",
            "megakernel_sgd_plain", "megakernel_momentum",
            "megakernel_momentum_plain", "megakernel_adam",
            "megakernel_adam_plain", "LAUNCHES", "KERNELS",
-           "reset_launches"]
+           "kernel_entries", "reset_launches"]
 
-# name -> where its source lives and which TPU kernel it replaces
-KERNELS: Dict[str, Dict[str, str]] = {
+# the flash kernels' device symbols: the instances up to hd 128 and the
+# split route's (``fwide``); a bias form is the same symbol, its launches
+# told apart by launch order (utils/device_trace.py)
+_FLASH_FWD = ("flash_fwd_kernel", "fwide+fwd_kernel")
+_FLASH_DQ = ("flash_bwd_dq_kernel", "flash_bwd_dq_kernel_f32",
+             "fwide+dq_kernel")
+_FLASH_DKV = ("flash_bwd_dkv_kernel", "flash_bwd_dkv_kernel_f32",
+              "fwide+dkv_kernel")
+
+# name -> where its source lives, which TPU kernel it replaces, and the
+# device kernels of one launch in a profiler trace: ``symbols``, one of
+# which each launch runs once, and ``parts``, the kernels a launch runs
+# after it (a split pass's merge, the LN backward's column sums). Each
+# pattern is identifiers joined by "+", all of which a demangled kernel
+# name must hold as whole identifiers (:func:`kernel_entries`).
+KERNELS: Dict[str, Dict[str, object]] = {
     "fused_ln": {
         "route": "cuda",
         "source": "paddle_tpu_torch/ops/csrc/fused_ln.cu",
         "replaces": "paddle_tpu/ops/pallas_kernels.py:894",
+        "symbols": ("fused_ln_fwd_kernel", "fused_ln_fwd_kernel_rowblock",
+                    "fused_ln_fwd_kernel_twopass"),
     },
     "decode_slab": {
         "route": "cuda",
         "source": "paddle_tpu_torch/ops/csrc/decode_slab.cu",
         "replaces": "paddle_tpu/ops/pallas_kernels.py:1338",
+        "symbols": ("decode_split_kernel+SlabRows",
+                    "decode_wide_kernel+SlabRows"),
+        "parts": ("decode_merge_kernel+SlabRows",),
     },
     "decode_paged": {
         "route": "cuda",
         "source": "paddle_tpu_torch/ops/csrc/decode_paged.cu",
         "replaces": "paddle_tpu/ops/pallas_kernels.py:1431",
+        "symbols": ("decode_split_kernel+PagedRows",
+                    "decode_wide_kernel+PagedRows"),
+        "parts": ("decode_merge_kernel+PagedRows",),
     },
     "logits_head": {
         "route": "cuda",
         "source": "paddle_tpu_torch/ops/csrc/logits_head.cu",
         "replaces": "paddle_tpu/ops/pallas_kernels.py:1544",
+        "symbols": ("logits_head_kernel",),
     },
     "flash_fwd": {
         "route": "cuda",
         "source": "paddle_tpu_torch/ops/csrc/flash_fwd.cu",
         "replaces": "paddle_tpu/ops/pallas_kernels.py:74",
+        "symbols": _FLASH_FWD,
     },
     "flash_bwd_dq": {
         "route": "cuda",
         "source": "paddle_tpu_torch/ops/csrc/flash_bwd_dq.cu",
         "replaces": "paddle_tpu/ops/pallas_kernels.py:205",
+        "symbols": _FLASH_DQ,
     },
     "flash_bwd_dkv": {
         "route": "cuda",
         "source": "paddle_tpu_torch/ops/csrc/flash_bwd_dkv.cu",
         "replaces": "paddle_tpu/ops/pallas_kernels.py:261",
+        "symbols": _FLASH_DKV,
     },
     "opt_adamw_flat": {
         "route": "cuda",
         "source": "paddle_tpu_torch/ops/csrc/opt_megakernel.cu",
         "replaces": "paddle_tpu/ops/pallas_kernels.py:1209",
+        "symbols": ("adamw_flat_kernel",),
     },
     "fused_ln_bwd": {
         "route": "cuda",
         "source": "paddle_tpu_torch/ops/csrc/ln_bwd.cu",
         "replaces": "paddle_tpu/ops/pallas_kernels.py:931",
+        "symbols": ("ln_bwd_kernel", "ln_bwd_kernel_rowblock",
+                    "ln_bwd_kernel_rowloop"),
+        "parts": ("ln_bwd_kernel_finalize",),
     },
     "ce_fwd": {
         "route": "cuda",
         "source": "paddle_tpu_torch/ops/csrc/ce_fwd.cu",
         "replaces": "paddle_tpu/ops/pallas_kernels.py:537",
+        "symbols": ("ce_fwd_f32_kernel", "ce_fwd_wgmma_kernel"),
+        "parts": ("ce_fwd_merge_kernel",),
     },
     # the additive-bias forms of the three flash kernels: the same
     # sources, counted apart
@@ -115,16 +149,19 @@ KERNELS: Dict[str, Dict[str, str]] = {
         "route": "cuda",
         "source": "paddle_tpu_torch/ops/csrc/flash_fwd.cu",
         "replaces": "paddle_tpu/ops/pallas_kernels.py:74",
+        "symbols": _FLASH_FWD,
     },
     "flash_bwd_dq_bias": {
         "route": "cuda",
         "source": "paddle_tpu_torch/ops/csrc/flash_bwd_dq.cu",
         "replaces": "paddle_tpu/ops/pallas_kernels.py:205",
+        "symbols": _FLASH_DQ,
     },
     "flash_bwd_dkv_bias": {
         "route": "cuda",
         "source": "paddle_tpu_torch/ops/csrc/flash_bwd_dkv.cu",
         "replaces": "paddle_tpu/ops/pallas_kernels.py:261",
+        "symbols": _FLASH_DKV,
     },
     # the fluid optimizer kinds of _opt_kernel (one source with
     # opt_adamw_flat); fused_adamw's launches count under opt_adamw
@@ -132,25 +169,55 @@ KERNELS: Dict[str, Dict[str, str]] = {
         "route": "cuda",
         "source": "paddle_tpu_torch/ops/csrc/opt_megakernel.cu",
         "replaces": "paddle_tpu/ops/pallas_kernels.py:1178",
+        "symbols": ("sgd_kernel",),
     },
     "opt_momentum": {
         "route": "cuda",
         "source": "paddle_tpu_torch/ops/csrc/opt_megakernel.cu",
         "replaces": "paddle_tpu/ops/pallas_kernels.py:1183",
+        "symbols": ("momentum_kernel",),
     },
     "opt_adam": {
         "route": "cuda",
         "source": "paddle_tpu_torch/ops/csrc/opt_megakernel.cu",
         "replaces": "paddle_tpu/ops/pallas_kernels.py:1194",
+        "symbols": ("adam_kernel",),
     },
     "opt_adamw": {
         "route": "cuda",
         "source": "paddle_tpu_torch/ops/csrc/opt_megakernel.cu",
         "replaces": "paddle_tpu/ops/pallas_kernels.py:1204",
+        "symbols": ("adam_kernel",),
     },
 }
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+
+# the armed launch-cost capture (``kernel_costs.arm``), or None: each
+# wrapper adds its launch's cost to it after the launch
+CAPTURE = None
+
+
+def _tokens(name: str) -> frozenset:
+    return frozenset(_IDENT.findall(name))
+
+
+_IDENT = re.compile(r"[A-Za-z_][A-Za-z0-9_]*")
+
+
+def kernel_entries(device_name: str) -> Tuple[Tuple[str, ...], bool]:
+    """(the ``KERNELS`` entries whose patterns match a device kernel's
+    demangled name, whether it matched as a ``part``); ((), False) for a
+    kernel of no entry. Entries sharing a symbol (a flash kernel and its
+    bias form, ``opt_adam`` and ``opt_adamw``) all come back."""
+    toks = _tokens(device_name)
+    for key in ("symbols", "parts"):
+        hit = tuple(name for name, meta in KERNELS.items()
+                    if any(all(t in toks for t in pat.split("+"))
+                           for pat in meta.get(key, ())))
+        if hit:
+            return hit, key == "parts"
+    return (), False
 
 # dtype codes of ops/csrc/common.cuh (enum DType)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -310,6 +377,9 @@ def fused_decode_attention(q, k_cache, v_cache, new_k, new_v, positions,
             active.data_ptr(), out.data_ptr(), ws.data_ptr(), B, S, nh, hd,
             chunk, nsplit, float(sm_scale), q_code, c_code, stream)
     _check_launch(lib, err, "decode_slab")
+    if CAPTURE is not None:
+        CAPTURE.add("decode_slab", _kc.decode_slab, positions, active, nh,
+                    hd, k_cache.element_size())
     return out, k_cache, v_cache
 
 
@@ -486,6 +556,9 @@ def fused_paged_decode_attention(q, k_pool, v_pool, new_k, new_v, tables,
             P, nh, hd, chunk, nsplit, float(sm_scale), q_code, c_code,
             stream)
     _check_launch(lib, err, "decode_paged")
+    if CAPTURE is not None:
+        CAPTURE.add("decode_paged", _kc.decode_paged, tables, positions, nh,
+                    hd, k_pool.element_size(), page)
     return out, k_pool, v_pool
 
 
@@ -592,6 +665,9 @@ def fused_logits_head(x, scale, bias, lm_head, *, eps: float = 1e-5):
                               plan["gy"], float(eps),
                               int(plan["stream_rows"]), code, _stream(x))
     _check_launch(lib, err, "logits_head")
+    if CAPTURE is not None:
+        CAPTURE.add("logits_head", _kc.logits_head, B, D, V,
+                    x.element_size())
     return out
 
 
@@ -661,6 +737,9 @@ def megakernel_adamw_flat(p, g, m, v, wd_mask, lr, scale, c1, c2, *,
         float(b2), float(1 - b2), float(eps), float(weight_decay), code,
         _aligned16(p, g, m, v, wd_mask), _stream(p))
     _check_launch(lib, err, "opt_adamw_flat")
+    if CAPTURE is not None:
+        CAPTURE.add("opt_adamw_flat", _kc.opt_adamw_flat, n,
+                    m.element_size())
     return p, m, v
 
 
@@ -711,6 +790,8 @@ def megakernel_sgd(p, g, lr):
     err = lib.ptt_opt_sgd(p.data_ptr(), g.data_ptr(), scal.data_ptr(), n,
                           _DTYPE_CODES[p.dtype], _aligned16(p, g), _stream(p))
     _check_launch(lib, err, "opt_sgd")
+    if CAPTURE is not None:
+        CAPTURE.add("opt_sgd", _kc.opt_sgd, n, p.element_size())
     return p
 
 
@@ -750,6 +831,8 @@ def megakernel_momentum(p, g, v, lr, *, mu: float = 0.9,
                                scal.data_ptr(), n, float(mu), int(nesterov),
                                _aligned16(p, g, v), _stream(p))
     _check_launch(lib, err, "opt_momentum")
+    if CAPTURE is not None:
+        CAPTURE.add("opt_momentum", _kc.opt_momentum, n)
     return p, v
 
 
@@ -801,4 +884,7 @@ def megakernel_adam(p, g, m, v, lr, b1p, b2p, *, b1: float = 0.9,
         float(1 - b2), float(eps), float(coeff), _aligned16(p, g, m, v),
         _stream(p))
     _check_launch(lib, err, "opt_adamw" if coeff else "opt_adam")
+    if CAPTURE is not None:
+        CAPTURE.add("opt_adamw" if coeff else "opt_adam", _kc.opt_adam, n,
+                    bool(coeff))
     return p, m, v

@@ -60,6 +60,7 @@ import torch
 import torch.nn.functional as F
 
 from . import cuda_kernels as _ck
+from . import kernel_costs as _kc
 
 __all__ = ["flash_attention", "flash_fwd", "flash_fwd_plain",
            "flash_bwd_dq", "flash_bwd_dq_plain", "flash_bwd_dkv",
@@ -263,6 +264,10 @@ def flash_fwd(q, k, v, causal: bool = True,
                             sb, st, sh, float(sm_scale), int(bool(causal)),
                             bheads, brows, code, _ck._stream(q))
     _ck._check_launch(lib, err, _name("flash_fwd", bias))
+    if _ck.CAPTURE is not None:
+        _ck.CAPTURE.add(_name("flash_fwd", bias), _kc.flash_fwd, B, T, nh,
+                        hd, q.element_size(), bool(causal),
+                        0 if bias is None else bias.numel())
     return o, lse
 
 
@@ -331,6 +336,10 @@ def flash_bwd_dq(q, k, v, o, lse, do, causal: bool = True,
                                int(bool(causal)), bheads, brows, code,
                                _ck._stream(q))
     _ck._check_launch(lib, err, _name("flash_bwd_dq", bias))
+    if _ck.CAPTURE is not None:
+        _ck.CAPTURE.add(_name("flash_bwd_dq", bias), _kc.flash_bwd_dq, B, T,
+                        nh, hd, q.element_size(), bool(causal),
+                        0 if bias is None else bias.numel())
     return (dq, di) if return_di else dq
 
 
@@ -371,6 +380,10 @@ def flash_bwd_dkv(q, k, v, o, lse, do, causal: bool = True,
                                 int(bool(causal)), bheads, brows, code,
                                 _ck._stream(q))
     _ck._check_launch(lib, err, _name("flash_bwd_dkv", bias))
+    if _ck.CAPTURE is not None:
+        _ck.CAPTURE.add(_name("flash_bwd_dkv", bias), _kc.flash_bwd_dkv, B,
+                        T, nh, hd, q.element_size(), bool(causal),
+                        0 if bias is None else bias.numel())
     return dk, dv
 
 

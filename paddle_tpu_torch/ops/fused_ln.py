@@ -31,6 +31,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import cuda_kernels as _ck
+from . import kernel_costs as _kc
 
 __all__ = ["fused_ln", "fused_ln_masked", "fused_ln_fwd",
            "fused_ln_fwd_plain", "fused_ln_bwd", "fused_ln_bwd_plain",
@@ -199,6 +200,10 @@ def fused_ln_fwd(x, scale, bias, residual=None, bias_add=None, mask=None,
                            float(eps), float(inv_keep), lane_elems, code,
                            _ck._stream(x))
     _ck._check_launch(lib, err, "fused_ln")
+    if _ck.CAPTURE is not None:
+        _ck.CAPTURE.add("fused_ln", _kc.fused_ln, R, D, x.element_size(),
+                        residual is not None, bias_add is not None,
+                        mask is not None, stats)
     return y, s, mu, rstd
 
 
@@ -268,6 +273,9 @@ def fused_ln_bwd(sx, mu, rstd, scale, dy, dsx=None, mask=None,
                          lane_elems, blocks, float(inv_keep), code,
                          _ck._stream(sx))
     _ck._check_launch(lib, err, "fused_ln_bwd")
+    if _ck.CAPTURE is not None:
+        _ck.CAPTURE.add("fused_ln_bwd", _kc.fused_ln_bwd, R, D,
+                        sx.element_size(), dsx is not None, mask is not None)
     return ds, dx, dscale, dbias
 
 

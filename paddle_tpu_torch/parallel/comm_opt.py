@@ -19,8 +19,14 @@
    launches.
 
 The collectives are ``torch.distributed`` calls on a mesh line
-(:class:`~.mesh.AxisGroup`). ``measure_overlap_fraction`` reads XLA
-traces and is still to be ported with ``torch.profiler`` (ROADMAP A4).
+(:class:`~.mesh.AxisGroup`).
+
+4. **Overlap measurement** (:func:`measure_overlap_fraction`): how much
+   of a ``torch.profiler`` capture's collective time compute overlaps —
+   over NCCL's kernels on the device streams, or over the host ranges of
+   the collectives a gloo group stages through host memory
+   (``paddle_collective/<op>``, :func:`~.mesh._staged`); the arithmetic is
+   :func:`overlap_fraction`.
 """
 from __future__ import annotations
 
@@ -32,7 +38,7 @@ import torch
 
 from ..observability import flight as _flight
 from ..observability import metrics as _obs_metrics
-from .mesh import AxisGroup
+from .mesh import STAGED_RANGE, AxisGroup
 
 __all__ = [
     "CommConfig", "BucketLayout", "Bucket", "build_bucket_layout",
@@ -40,7 +46,7 @@ __all__ = [
     "normalize_comm_dtype", "record_collective", "wire_bytes",
     "quantize_chunked", "dequantize_chunked", "reduce_scatter_flat",
     "all_gather_flat", "quantized_allreduce", "quantized_reduce_scatter_op",
-    "dtype_name",
+    "dtype_name", "overlap_fraction", "measure_overlap_fraction",
 ]
 
 _m_wire_bytes = _obs_metrics.default_registry().counter(
@@ -386,3 +392,104 @@ def quantized_reduce_scatter_op(x: torch.Tensor, axis: AxisGroup,
     shard, _ = reduce_scatter_flat(flat.reshape(-1), axis, ccfg,
                                    record=record)
     return shard[:row].reshape(shard_shape).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# overlap measurement (the reference's comm_opt.py:456-542)
+# ---------------------------------------------------------------------------
+
+def _merge_intervals(iv: List[Tuple[float, float]]
+                     ) -> List[Tuple[float, float]]:
+    iv = sorted(iv)
+    out: List[Tuple[float, float]] = []
+    for s, e in iv:
+        if out and s <= out[-1][1]:
+            out[-1] = (out[-1][0], max(out[-1][1], e))
+        else:
+            out.append((s, e))
+    return out
+
+
+def _intersect_total(a: List[Tuple[float, float]],
+                     b: List[Tuple[float, float]]) -> float:
+    total, i, j = 0.0, 0, 0
+    while i < len(a) and j < len(b):
+        s = max(a[i][0], b[j][0])
+        e = min(a[i][1], b[j][1])
+        if e > s:
+            total += e - s
+        if a[i][1] < b[j][1]:
+            i += 1
+        else:
+            j += 1
+    return total
+
+
+def overlap_fraction(coll: List[Tuple[float, float]],
+                     comp: List[Tuple[float, float]], source: str
+                     ) -> Optional[Dict[str, Any]]:
+    """The share of the collectives' time (``coll``, ns intervals) that
+    compute (``comp``) overlaps: {overlap_fraction, collective_ms,
+    exposed_ms, compute_ms, source}; None without a collective."""
+    if not coll:
+        return None
+    coll_m = _merge_intervals(coll)
+    comp_m = _merge_intervals(comp)
+    coll_total = sum(e - s for s, e in coll_m)
+    overlapped = _intersect_total(coll_m, comp_m)
+    return {
+        "overlap_fraction": overlapped / coll_total if coll_total else 0.0,
+        "collective_ms": coll_total / 1e6,
+        "exposed_ms": (coll_total - overlapped) / 1e6,
+        "compute_ms": sum(e - s for s, e in comp_m) / 1e6,
+        "source": source,
+    }
+
+
+def measure_overlap_fraction(trace_dir: str) -> Optional[Dict[str, Any]]:
+    """Read the newest ``torch.profiler`` capture under ``trace_dir`` and
+    measure how much collective time compute overlaps.
+
+    ``source: "device_streams"``: NCCL's kernels are the collectives and
+    every other kernel, memcpy and memset of the device streams is
+    compute. ``source: "gloo_staged"``: the collectives are the host
+    ranges of the staged ones (``paddle_collective/<op>``, which hold the
+    device synchronise, the copies and the exchange); compute is the
+    device streams' work, or on the CPU the host ops outside those
+    ranges. None when the capture holds no collective (or no capture
+    exists)."""
+    from ..utils.device_trace import _cpu_scopes
+    from ..utils.profile_data import ProfileData, latest_trace
+
+    path = latest_trace(trace_dir)
+    if path is None:
+        return None
+    pd = ProfileData.from_file(path)
+    work: List[Tuple[float, float, str]] = [
+        (ev.start_ns, ev.end_ns, ev.name) for plane in pd.device_planes()
+        for line in plane.lines for ev in line.events
+        if ev.stat("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+        and ev.duration_ns > 0]
+    nccl = [(s, e) for s, e, n in work if "nccl" in n.lower()]
+    if nccl:
+        comp = [(s, e) for s, e, n in work if "nccl" not in n.lower()]
+        return overlap_fraction(nccl, comp, "device_streams")
+    host = pd.host_plane()
+    if host is None:
+        return None
+    coll: List[Tuple[float, float]] = []
+    cpu_comp: List[Tuple[float, float]] = []
+    for line in host.lines:
+        scopes = _cpu_scopes(line.events)
+        for ev in line.events:
+            if ev.duration_ns <= 0:
+                continue
+            if ev.stat("cat") == "user_annotation" and ev.name.startswith(
+                    STAGED_RANGE):
+                coll.append((ev.start_ns, ev.end_ns))
+            elif ev.stat("cat") == "cpu_op" and not any(
+                    s.name.startswith(STAGED_RANGE)
+                    for s in scopes.get(id(ev), ())):
+                cpu_comp.append((ev.start_ns, ev.end_ns))
+    comp = [(s, e) for s, e, _n in work] if work else cpu_comp
+    return overlap_fraction(coll, comp, "gloo_staged")

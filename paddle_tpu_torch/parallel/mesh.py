@@ -64,23 +64,31 @@ _m_staged_seconds = _obs_metrics.default_registry().counter(
     "copies included, timed from a device synchronize", ("op",))
 
 
+# a staged collective's profiler range: STAGED_RANGE + the op
+# (comm_opt.measure_overlap_fraction reads it)
+STAGED_RANGE = "paddle_collective/"
+
+
 def _staged(op: str):
     """Time a collective of a staging (gloo) group into
     ``paddle_collective_staged_seconds_total{op}``: the device is
     synchronised first, so the time is the copies and the exchange, not
     the compute queued before them (a receive also waits for its peer).
-    NCCL groups are not timed (their collectives are asynchronous on the
-    stream)."""
+    The call runs inside a ``record_function("paddle_collective/<op>")``
+    range, which ``comm_opt.measure_overlap_fraction`` reads in a
+    profiler capture. NCCL groups are not timed (their collectives are
+    asynchronous on the stream)."""
     def wrap(fn):
         @functools.wraps(fn)
         def timed(self, t, *args, **kw):
             if not self.stage or self.size == 1:
                 return fn(self, t, *args, **kw)
-            if isinstance(t, torch.Tensor) and t.is_cuda:
-                torch.cuda.synchronize(t.device)
-            t0 = time.perf_counter()
-            out = fn(self, t, *args, **kw)
-            _m_staged_seconds.labels(op).inc(time.perf_counter() - t0)
+            with torch.profiler.record_function(STAGED_RANGE + op):
+                if isinstance(t, torch.Tensor) and t.is_cuda:
+                    torch.cuda.synchronize(t.device)
+                t0 = time.perf_counter()
+                out = fn(self, t, *args, **kw)
+                _m_staged_seconds.labels(op).inc(time.perf_counter() - t0)
             return out
         return timed
     return wrap

@@ -51,6 +51,7 @@ import torch
 from ..device import resolve_device
 from ..models import gpt as G
 from ..observability import goodput as _goodput
+from ..observability import program_report as _prep
 from ..ops import cuda_kernels as CK
 from . import comm_opt, health
 from . import mesh as mesh_mod
@@ -694,13 +695,13 @@ def make_train_step(cfg: G.GPTConfig, pcfg: Optional[ParallelConfig] = None,
     if plan is not None:
         _step_device(mesh, device)
         _check_layout(cfg, pcfg)
-        step = _watched(_make_sharded_step(cfg, pcfg, mesh, plan, lr,
+        return _watched(_make_sharded_step(cfg, pcfg, mesh, plan, lr,
                                            weight_decay, grad_clip,
-                                           skip_nonfinite))
-        step.report_name = (f"parallel_train_step/dp{pcfg.dp}pp{pcfg.pp}"
-                            f"tp{pcfg.tp}mb{pcfg.microbatches}"
-                            f"_gspmd-{plan.mode}")
-        return step
+                                           skip_nonfinite),
+                        f"parallel_train_step/dp{pcfg.dp}pp{pcfg.pp}"
+                        f"tp{pcfg.tp}mb{pcfg.microbatches}"
+                        f"_gspmd-{plan.mode}", pcfg, mesh.device,
+                        mode="gspmd")
     rs = ccfg.grad_reduce == "reduce_scatter"
     if fused_opt and pcfg.n_devices > 1 and not rs:
         raise NotImplementedError(
@@ -712,6 +713,12 @@ def make_train_step(cfg: G.GPTConfig, pcfg: Optional[ParallelConfig] = None,
             "error_feedback requires grad_reduce='reduce_scatter' "
             "(the residual rides the sharded train state)")
     dev = _step_device(mesh, device)
+    # the reference's report name (parallelize.py:899-904)
+    report_name = (f"parallel_train_step/dp{pcfg.dp}pp{pcfg.pp}tp{pcfg.tp}"
+                   f"mb{pcfg.microbatches}"
+                   + ("_fused" if fused_opt else "")
+                   + ("_rs" if rs else "")
+                   + (f"_{ccfg.comm_dtype}" if ccfg.comm_dtype else ""))
     if mesh is None:
         if pcfg.n_devices > 1 or pcfg.microbatches > 1 or rs \
                 or ccfg.comm_dtype is not None:
@@ -719,12 +726,13 @@ def make_train_step(cfg: G.GPTConfig, pcfg: Optional[ParallelConfig] = None,
                              "mesh=build_mesh(pcfg)")
         return _watched(_single_device_step(
             cfg, lr, weight_decay, fused_opt, fused_opt_kernel, grad_clip,
-            skip_nonfinite, dev))
+            skip_nonfinite, dev), report_name, pcfg, dev)
     _check_layout(cfg, pcfg)
     if rs:
         return _watched(_make_rs_step(cfg, pcfg, mesh, ccfg, lr,
                                       weight_decay, fused_opt_kernel,
-                                      grad_clip, skip_nonfinite))
+                                      grad_clip, skip_nonfinite),
+                        report_name, pcfg, dev)
     specs = flat_specs(cfg, pcfg)
     weights = [_repl_weight(s, pcfg, pcfg.axis_names) for s in specs]
     cache: Dict[str, Any] = {}
@@ -757,21 +765,27 @@ def make_train_step(cfg: G.GPTConfig, pcfg: Optional[ParallelConfig] = None,
                     grad_clip=grad_clip, gnorm=gnorm)
         return params, opt, loss, gnorm
 
-    return _watched(step)
+    return _watched(step, report_name, pcfg, dev)
 
 
-def _watched(step):
+def _watched(step, report_name: str = "parallel_train_step",
+             pcfg: Optional["ParallelConfig"] = None, device=None,
+             mode: str = "eager"):
     """``step`` with the hang watchdog's ``train_step`` stamp at every
     call, and its first call under ``health.suspend()``: that call carries
     the process's one-time host work — the kernel library's build or
     load, torch's lazy imports behind the first custom-op dispatch under
     remat, cuBLAS set-up (about 10 s on the H100's machine: ``PERF.md``
     §6) — the port's counterpart of the reference's first-call compile,
-    which it suspends the same way (``parallelize.py:929-931``). Every
-    call runs under the goodput ledger's ``productive_step`` timer, as the
-    reference's step does (``parallelize.py:946-957``); the step is eager,
-    so the timer covers the host's enqueue of its work, not the device's
-    finish."""
+    which it suspends the same way (``parallelize.py:929-931``). The first
+    call is also the program report's (``observability/program_report``,
+    as ``parallelize.py:912-940`` captures the compile): its wall ms, the
+    work it counted (``aten`` FLOPs and the hand kernels' costs, a remat
+    recompute included) and the allocator's peak, under ``report_name``
+    (the step's ``report_name``). Every call runs under the goodput
+    ledger's ``productive_step`` timer, as the reference's step does
+    (``parallelize.py:946-957``); the step is eager, so the timer covers
+    the host's enqueue of its work, not the device's finish."""
     first = [True]
 
     @functools.wraps(step)
@@ -782,10 +796,17 @@ def _watched(step):
                 first[0] = False
                 # the suspend window charges its time to ``compile``,
                 # exclusive of this step's timer
-                with health.suspend():
-                    return step(params, opt, tokens, labels)
+                with health.suspend(), _prep.counted(device) as counts:
+                    out = step(params, opt, tokens, labels)
+                _prep.capture(
+                    report_name, counts, donated=["params", "opt_state"],
+                    inputs=(params, opt, tokens, labels), outputs=out,
+                    extra={"mode": mode, "mesh": None if pcfg is None else {
+                        "dp": pcfg.dp, "pp": pcfg.pp, "tp": pcfg.tp}})
+                return out
             return step(params, opt, tokens, labels)
 
+    run.report_name = report_name
     return run
 
 

@@ -66,7 +66,7 @@ goodput fraction in (0, 1].
 
 The card is the default: without arguments the card subset (baseline,
 aa, sigkill_midstep, sigterm_preempt, corrupt_shard, hang, sigstop_blame,
-dp_reshard) runs on GPT_SMALL's width at 6 of its 12 layers through the
+dp_reshard) runs on GPT_SMALL's width at 2 of its 12 layers through the
 port's
 kernels (bf16, fused LN, vocab chunk 1024, dots remat, the flat AdamW
 sweep, bf16 moments) at lr 1e-4 (``train_bench``'s; the reference's 1e-2,
@@ -103,7 +103,7 @@ PG_TIMEOUT_S = 120.0     # every rendezvous and collective (> the deadline)
 FAULT_RANK = 0           # the rank that dies, stalls or calls preemption
 STRAGGLER_RANK = 1
 SIGSTOP_AT, SIGSTOP_RANK = 3, 1
-CUDA_LAYERS = 6          # the card lane's depth (GPT_SMALL's width)
+CUDA_LAYERS = 2          # the card lane's depth (GPT_SMALL's width)
 GUARD_K = 2              # consecutive bad steps before a rollback
 DIVERGE_LR = 30.0        # the injected divergence
 POISON_AT, POISON_RANK, POISON_RANKS = 2, 2, 4
@@ -703,7 +703,7 @@ class Harness:
         self.work = work
         self.cuda = mode == "cuda"
         if self.cuda:
-            # GPT_SMALL's width at 6 of its 12 layers: the depth is the
+            # GPT_SMALL's width at 2 of its 12 layers: the depth is the
             # one cut, to keep chip_smoke.py's phase 12 short
             base = dict(dp=1, layers=CUDA_LAYERS, batch=16, seqlen=1024,
                         steps=6, interval=3, keep_last=2, lr=1e-4)

@@ -28,9 +28,13 @@ ckpt_write / stream_fetch durations, matched coll_enter -> coll_exit comm
 time, and the step residue as productive time — the taxonomy the blame
 engine's stall classification feeds.
 
-The reference's ``--diff A.json B.json`` compares two reports through the
-perf sentinel (``observability/baseline.py``), which waits for the
-device-side observability (ROADMAP A, item 4).
+``--diff A.json B.json`` instead compares two goodput reports (rank
+windows or gang GOODPUT.json) per category, reusing the perf sentinel's
+band arithmetic (``observability/baseline.compare_goodput``): a category
+is out-of-band when its wall-share moved more than
+``tol_rel * share_A + tol_abs`` in the worse direction (productive_step
+down, any overhead category up). Non-zero exit on any out-of-band
+category.
 
 Exit status: 1 when no rank ever reported, or when the merged ledger
 leaves more than --max-unaccounted (default 5%) of wall-clock in
@@ -43,6 +47,29 @@ import sys
 
 from paddle_tpu_torch.observability import goodput
 from paddle_tpu_torch.tools import flight_assemble as fa
+
+
+def diff_reports(path_a: str, path_b: str, tol_rel: float,
+                 tol_abs: float) -> int:
+    from paddle_tpu_torch.observability import baseline as B
+
+    with open(path_a) as f:
+        a = json.load(f)
+    with open(path_b) as f:
+        b = json.load(f)
+    out = B.compare_goodput(a, b, tol_rel=tol_rel, tol_abs_share=tol_abs)
+    print(f"{'category':<18}{'A share':>9}{'B share':>9}{'delta':>9}"
+          f"{'band':>8}  flag")
+    for r in out["rows"]:
+        flag = "OUT-OF-BAND" if r["out_of_band"] else ""
+        print(f"{r['category']:<18}{r['share_a']:>9.4f}"
+              f"{r['share_b']:>9.4f}{r['delta_share']:>+9.4f}"
+              f"{r['band']:>8.4f}  {flag}")
+    print(f"[goodput_report] wall {out['wall_s_a']:.3f}s -> "
+          f"{out['wall_s_b']:.3f}s, {out['out_of_band']} categor"
+          f"{'y' if out['out_of_band'] == 1 else 'ies'} out of band",
+          file=sys.stderr)
+    return 0 if out["ok"] else 1
 
 
 def by_rank_report(flight_dir: str, attempt, out_path) -> int:
@@ -78,6 +105,13 @@ def main(argv=None):
     ap = argparse.ArgumentParser(
         prog="python -m paddle_tpu_torch.tools.goodput_report",
         description=__doc__.splitlines()[0])
+    ap.add_argument("--diff", nargs=2, metavar=("A.json", "B.json"),
+                    help="compare two goodput reports per category "
+                         "instead of aggregating a rank dir")
+    ap.add_argument("--tol-rel", type=float, default=0.25,
+                    help="--diff: relative share band per category")
+    ap.add_argument("--tol-abs", type=float, default=0.02,
+                    help="--diff: absolute share band floor")
     ap.add_argument("--dir", default=None,
                     help="goodput dir holding goodput.rank*.json")
     ap.add_argument("--out", default=None,
@@ -97,12 +131,16 @@ def main(argv=None):
                     help="--by-rank: restart attempt (default: latest)")
     args = ap.parse_args(argv)
 
+    if args.diff:
+        return diff_reports(args.diff[0], args.diff[1], args.tol_rel,
+                            args.tol_abs)
     if args.by_rank:
         if not args.flight_dir:
             ap.error("--by-rank needs --flight-dir DIR")
         return by_rank_report(args.flight_dir, args.attempt, args.out)
     if not args.dir:
-        ap.error("--dir is required (or --by-rank --flight-dir DIR)")
+        ap.error("--dir is required (or --diff A.json B.json, or "
+                 "--by-rank --flight-dir DIR)")
 
     path = goodput.write_gang_report(
         args.dir, restart_downtime_s=args.restart_downtime,

@@ -38,59 +38,54 @@ import argparse
 import json
 import sys
 import time
-from typing import Dict, List, Tuple
+from typing import Dict, List
 
 import numpy as np
 import torch
 
-# substring of a kernel's (demangled) name -> its group; the two decode
-# kernels are instances of one template pair (split pass and merge), told
-# apart by the row policy both carry as a template argument
-OURS = {"fused_ln_fwd_kernel": "fused_ln", "SlabRows": "decode_slab",
-        "PagedRows": "decode_paged", "logits_head_kernel": "logits_head"}
+from ..ops import cuda_kernels as CK
+from ..utils import device_trace as DT
+from ..utils.profile_data import ProfileData
 
-
-def _group(name: str, ours=OURS) -> str:
-    """The group of a kernel: ``ours[k]`` for the first key ``k`` found in
-    its name, else ``matmul`` or ``other``."""
-    for k in ours:
-        if k in name:
-            return ours[k]
+def _group(name: str, ours=None) -> str:
+    """The group of a kernel: the port's ``KERNELS`` entry it is a launch
+    of (``cuda_kernels.kernel_entries``: the decode kernels' split pass
+    and merge both in their entry's group), or with ``ours`` (substring ->
+    group) the group of the first key found in its name; else ``matmul``
+    or ``other``."""
+    if ours is None:
+        entries, _part = CK.kernel_entries(name)
+        if entries:
+            return entries[0]
+    else:
+        for k in ours:
+            if k in name:
+                return ours[k]
     low = name.lower()
     if any(k in low for k in ("gemm", "gemv", "cutlass", "xmma", "nvjet")):
         return "matmul"
     return "other"
 
 
-def _union_us(spans: List[Tuple[float, float]]) -> float:
-    total, end = 0.0, -1.0
-    for s, e in sorted(spans):
-        if e <= end:
-            continue
-        total += e - max(s, end)
-        end = e
-    return total
-
-
-def trace_summary(prof, wall_us: float, n: int, per: str = "tick",
-                  ours=OURS) -> dict:
-    """Device time of a ``torch.profiler`` trace of ``n`` iterations (each
-    a ``per``: tick or step) over ``wall_us`` of host time: busy ms (union
-    of kernel intervals), idle share, kernels, and kernel ms by group (the
-    names in ``ours``, ``matmul``, ``other``) and by name — all per
-    iteration."""
+def trace_summary(trace, wall_us: float, n: int, per: str = "tick",
+                  ours=None) -> dict:
+    """Device time of a ``torch.profiler`` trace (the finished profiler,
+    or its ``ProfileData``) of ``n`` iterations (each a ``per``: tick or
+    step) over ``wall_us`` of host time, read through
+    ``utils/device_trace``: busy ms (union of the device streams' kernel,
+    memcpy and memset intervals), idle share, kernels, and kernel ms by
+    group (:func:`_group`) and by name — all per iteration."""
+    if not isinstance(trace, ProfileData):
+        trace = DT.profile_data_of(trace)
+    rows, _source = DT.device_rows(trace, exclusive=False)
     spans, by_name, by_group = [], {}, {}
-    for ev in prof.events():
-        # named ranges (record_function) show on the device as spans too
-        if (ev.device_type != torch.autograd.DeviceType.CUDA
-                or ev.is_user_annotation):
-            continue
-        s, e = ev.time_range.start, ev.time_range.end
-        spans.append((s, e))
-        by_name[ev.name] = by_name.get(ev.name, 0.0) + (e - s)
-        g = _group(ev.name, ours)
-        by_group[g] = by_group.get(g, 0.0) + (e - s)
-    busy_us = _union_us(spans)
+    for r in rows:
+        name, us = r[3].name, r[1] / 1e3
+        spans.append((r[0] / 1e3, (r[0] + r[1]) / 1e3))
+        by_name[name] = by_name.get(name, 0.0) + us
+        g = _group(name, ours)
+        by_group[g] = by_group.get(g, 0.0) + us
+    busy_us = DT.busy_ns(spans)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     return {
         f"traced_{per}_ms": wall_us / 1e3 / n,

@@ -25,11 +25,12 @@ comparable.
 Usage::
 
     python -m paddle_tpu_torch.tools.trace_assemble RUN_DIR/trace \\
-        [--out TRACES.json] [--require-complete]
+        [--out TRACES.json] [--require-complete] [--chrome OUT.json
+        [--trace HEX]]
 
-The reference's ``--chrome`` rendering goes through
-``observability/trace_merge.py``, which waits for the device-side
-observability (ROADMAP A, item 4).
+``--chrome`` renders the assembled spans (one trace with ``--trace``) as
+a chrome trace through ``observability/trace_merge.merge_events``: one
+row a recording thread, span identity in each event's args.
 """
 from __future__ import annotations
 
@@ -38,7 +39,7 @@ import glob
 import json
 import os
 import sys
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 __all__ = ["load_span_files", "assemble", "check_assembly",
            "assemble_dir"]
@@ -183,6 +184,21 @@ def assemble_dir(trace_dir: str) -> Dict[str, Any]:
     return report
 
 
+def _render_chrome(traces: Dict[int, List[dict]], out_path: str,
+                   only: Optional[int] = None) -> str:
+    from paddle_tpu_torch.observability import trace_merge
+
+    spans: List[dict] = []
+    for tid, ss in traces.items():
+        if only is not None and tid != only:
+            continue
+        spans.extend(ss)
+    doc = trace_merge.merge_events([], [], tracer_spans=spans)
+    with open(out_path, "w") as f:
+        json.dump(doc, f)
+    return out_path
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m paddle_tpu_torch.tools.trace_assemble",
@@ -190,15 +206,22 @@ def main(argv=None) -> int:
     ap.add_argument("trace_dir", help="gang trace dir (spans-*.jsonl)")
     ap.add_argument("--out", default=None,
                     help="write the assembly report JSON here")
+    ap.add_argument("--chrome", default=None,
+                    help="render assembled spans to a chrome trace")
+    ap.add_argument("--trace", default=None,
+                    help="restrict --chrome to one trace id (hex)")
     ap.add_argument("--require-complete", action="store_true",
                     help="exit 1 on any orphan or duplicate span")
     args = ap.parse_args(argv)
 
-    report = assemble_dir(args.trace_dir)
-    files = report["files"]
+    files = load_span_files(args.trace_dir)
     if not files:
         print(f"no spans-*.jsonl under {args.trace_dir}", file=sys.stderr)
         return 2
+    traces = assemble(files)
+    report = check_assembly(traces)
+    report["trace_dir"] = os.path.abspath(args.trace_dir)
+    report["files"] = {f: len(r) for f, r in files.items()}
 
     print(f"{report['n_traces']} traces / {report['n_spans']} spans "
           f"from {len(files)} files — "
@@ -215,6 +238,10 @@ def main(argv=None) -> int:
         with open(args.out, "w") as f:
             json.dump(report, f, indent=1)
         print(f"report -> {args.out}")
+    if args.chrome:
+        only = int(args.trace, 16) if args.trace else None
+        path = _render_chrome(traces, args.chrome, only=only)
+        print(f"chrome trace -> {path}")
     if args.require_complete and (report["n_orphans"]
                                   or report["n_duplicates"]):
         print("FAIL: incomplete stitching", file=sys.stderr)

@@ -805,7 +805,7 @@ def _per_step(before, after, steps) -> Dict[str, float]:
 # a --layout SPEC's keys: the parallel lane's flags, as key=value
 LAYOUT_KEYS = {"dp": int, "pp": int, "tp": int, "microbatches": int,
                "layers": int, "grad_reduce": str, "comm_dtype": str,
-               "sharding": str, "ckpt_dir": str}
+               "sharding": str, "ckpt_dir": str, "overlap_dir": str}
 
 
 def parse_layout(spec: str, args) -> argparse.Namespace:
@@ -897,9 +897,27 @@ def run_parallel(args, dev) -> Dict[str, Any]:
     })
     if args.sharding:
         rec["report_name"] = step.report_name
+    if args.overlap_dir:
+        rec["overlap"] = _overlap_step(
+            lambda: step(params, opt, toks, labs)[2], args.overlap_dir,
+            mesh.rank, dev)
     if args.ckpt_dir:
         rec["ckpt"] = _save_sharded(args, cfg, pcfg, mesh, params, opt)
     return rec
+
+
+def _overlap_step(step_once, out_dir: str, rank: int, dev):
+    """One more step under a ``torch.profiler`` capture (into
+    ``<out_dir>/rank<r>``, outside the counts): the share of its
+    collectives' time that compute overlaps
+    (``comm_opt.measure_overlap_fraction``), or None without a
+    collective."""
+    from ..utils import device_trace as DT
+
+    tdir = os.path.join(out_dir, f"rank{rank}")
+    with DT.capture(tdir, device=dev):
+        float(step_once())
+    return comm_opt.measure_overlap_fraction(tdir)
 
 
 def _rank_steps(step_once, args, dev, stamps):
@@ -1164,6 +1182,10 @@ def _parser() -> argparse.ArgumentParser:
     par.add_argument("--out-dir", default=None,
                      help="write each rank's record to "
                           "layout<i>.rank<r>.json here")
+    par.add_argument("--overlap-dir", default=None,
+                     help="after the timed steps, trace one more into "
+                          "<dir>/rank<r> and record the share of its "
+                          "collective time compute overlaps")
     par.add_argument("--tiny", action="store_true",
                      help="a CPU rehearsal's widths (with --device cpu)")
     return ap

@@ -77,7 +77,7 @@ def test_anomaly_dump(tmp_path):
     for jp, tp in zip(jmon.dump_paths, tmon.dump_paths):
         jfiles = {f for f in os.listdir(jp) if not f.startswith("flight")}
         tfiles = {f for f in os.listdir(tp) if not f.startswith("flight")}
-        assert tfiles == jfiles - {"program_reports.json"}
+        assert tfiles == jfiles
         assert any(f.startswith("flight.dump.anomaly.")
                    for f in os.listdir(tp))
         with open(os.path.join(jp, "dump_info.json")) as f:

@@ -442,6 +442,15 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import paddle_tpu_torch.tools.flight_assemble, "
         "paddle_tpu_torch.tools.goodput_report, "
         "paddle_tpu_torch.tools.trace_assemble\n"
+        "import paddle_tpu_torch.observability.attribution, "
+        "paddle_tpu_torch.observability.baseline, "
+        "paddle_tpu_torch.observability.program_report, "
+        "paddle_tpu_torch.observability.trace_merge, "
+        "paddle_tpu_torch.utils.device_trace, "
+        "paddle_tpu_torch.utils.profile_data, "
+        "paddle_tpu_torch.ops.kernel_costs, "
+        "paddle_tpu_torch.tools.profile_step, "
+        "paddle_tpu_torch.tools.perf_diff\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'paddle_tpu'))\n"
         "print(bad)\n"

@@ -498,3 +498,27 @@ def ernie_mesh_worker(rank, axes, params_np, batch, arms, steps, lr):
         out[name] = {"losses": losses,
                      "params": _numpy(PZ.flat_leaves(params))}
     return out
+
+
+def overlap_worker(rank, cfg_kw, trace_dir):
+    """One warm-up and one traced dp-2 train step of a tiny GPT (the
+    grads' psum staged through gloo); returns this rank's
+    ``comm_opt.measure_overlap_fraction`` of the capture."""
+    import numpy as np
+
+    from paddle_tpu_torch.models import gpt as G
+    from paddle_tpu_torch.parallel import comm_opt
+    from paddle_tpu_torch.parallel import parallelize as PZ
+    from paddle_tpu_torch.utils import device_trace as DT
+
+    cfg = G.GPT_TINY.scaled(**cfg_kw)
+    pcfg = PZ.ParallelConfig(dp=2)
+    mesh = PZ.build_mesh(pcfg, device=DEVICE)
+    params, opt = PZ.init_sharded(cfg, pcfg, mesh, seed=0, device=DEVICE)
+    step = PZ.make_train_step(cfg, pcfg, mesh, lr=1e-3, device=DEVICE)
+    tokens = torch.from_numpy(np.arange(64).reshape(1, 4, 16) % 256)
+    step(params, opt, tokens, tokens)
+    tdir = os.path.join(trace_dir, f"rank{rank}")
+    with DT.capture(tdir, device=DEVICE):
+        float(step(params, opt, tokens, tokens)[2])
+    return comm_opt.measure_overlap_fraction(tdir)
