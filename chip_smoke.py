@@ -374,8 +374,9 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              1e-4 of the elements; ms a step, tokens/s and wire bytes
              printed a configuration; in (a) each rank traces one more step
              and prints ``comm_opt.measure_overlap_fraction`` of it (the
-             staged collectives' host ranges against the device's work;
-             not gated).
+             staged collectives' own time, each range opened after the
+             device synchronise and holding its staging copies, against
+             the device's other work; not gated).
 
 12. elastic — fault-tolerant GPT training (``python -m
              paddle_tpu_torch.tools.fault_bench --device cuda``, every job
@@ -464,6 +465,46 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              rank's saved param and moment leaf has the crc32 of its
              block of the restore; save, wait and restore ms printed.
 
+14. tuning — the autotuner, after phase 10 and before phase 12's gang
+             starts: 14p ``tools/peak_probe.py`` (four dependent bf16
+             ``torch.matmul``s at 4096³, 8192³ and 16384 x 8192 x 8192;
+             the best rate in (0, 1.05 x 989] TFLOP/s); 14t and 14s one
+             ``tools/autotune.py`` run (``_tune_argv``): the train space
+             at ``bench.py``'s GPT lane (D 768, 12 heads, d_ff 3072, V
+             50,304, T 1024, batch 16, bf16, flash) and the serve space
+             at GPT_SMALL's widths (max_seq 1024, page 16, 8 slots,
+             prompts of 16-256 tokens, 16 new, the reference's smoke
+             trim of the serve axes), both cut to ``TUNE_LAYERS`` (2) of
+             12 layers, rungs 2:0.5,4:1.0 steps and 4:0.5,8:1.0 requests,
+             then the arbitration (confirm probes, ``perf_diff``; not
+             gated). Hard gates: each space's probes executed = its
+             log's executed lines = the rung schedule after the pruned
+             counts; refusals all ``invalid:`` and no tp candidate
+             admitted on one card; no probe errored (the geometry fits
+             every candidate) and both winners finite; every kernel of
+             the probes (flash fwd / dQ / dK-dV, ce_fwd, the LN pair,
+             the flat sweep, logits_head and a decode kernel) launched
+             in the tune; a second tune over the same log executes 0
+             probes, moves neither counter and names the same winners;
+             the document carries the card's fingerprint and applies,
+             the root TUNED.json (platform cpu) is refused with a
+             RuntimeWarning; the incumbent's peak bytes first (rung 0)
+             and last (its confirm probe) within 1%;
+             ``make_train_step(tuned=doc)`` and the applier's kwargs by
+             hand give bitwise equal losses and params after 2 steps; an
+             engine from ``engine_kwargs(doc)`` (GPT_SMALL, 12 layers)
+             serves phase 4b's 16 prompts, launches exact. Printed: the
+             counts by reason, each survivor's static estimate beside its
+             score, every probe error. Its launches add to the kernels
+             line.
+
+Every process the run starts, directly or not, inherits ``RUN_TAG`` in
+its environment; after each stretch the script prints the run's live
+ones, and before its last lines (or on a failure) it stops every one
+still there, the ``multiprocessing`` resource tracker included, so none
+outlives the script. The run's processes share one bytecode cache,
+``paddle_tpu_torch/_build/pycache``.
+
 The last lines are the kernels' JSON record, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script
 exits non-zero before printing any result.
@@ -482,6 +523,98 @@ import torch.nn.functional as F
 
 B, S = 8, 1024           # the serving path's batch and max_seq
 PAGE = 16                # the paged serving path's page size
+# every process the script starts, directly or through a tool, a gang or
+# a spawn, inherits this variable: the sweep at the end finds them by it,
+# whatever their session or parent after a reparenting
+RUN_TAG = "PTT_CHIP_SMOKE_RUN"
+
+
+def _tagged_processes() -> list:
+    """(pid, ppid, state, command line) of every live process but this
+    one whose environment carries this run's ``RUN_TAG``."""
+    import os
+
+    mark = f"{RUN_TAG}={os.environ.get(RUN_TAG)}".encode()
+    found = []
+    for d in os.listdir("/proc"):
+        if not d.isdigit() or int(d) == os.getpid():
+            continue
+        try:
+            with open(f"/proc/{d}/environ", "rb") as f:
+                if mark not in f.read().split(b"\0"):
+                    continue
+            with open(f"/proc/{d}/stat") as f:
+                stat = f.read()
+            with open(f"/proc/{d}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace")
+        except OSError:
+            continue
+        state, ppid = stat[stat.rindex(")") + 2:].split()[:2]
+        found.append((int(d), int(ppid), state, cmd.strip()[:160]))
+    return found
+
+
+def _report_processes(stretch: str) -> None:
+    """Print the run's live processes after ``stretch`` (expected: the
+    resource tracker from 4t's spawn on, phase 12's harness between its
+    start and its check)."""
+    procs = [p for p in _tagged_processes() if p[2] != "Z"]
+    if procs:
+        print(f"[processes] after {stretch}: {len(procs)} live: "
+              + "; ".join(f"{pid} (parent {pp}, {st}) {cmd}"
+                          for pid, pp, st, cmd in procs))
+
+
+def stop_run_processes(grace_s: float = 10.0, out=None) -> list:
+    """Stop every process the run started that is still there: SIGKILL to
+    all but the ``multiprocessing`` resource tracker, then the tracker by
+    its own call (it ends once no process holds its pipe), then SIGKILL
+    to whatever is left; this process's own children are reaped, the
+    rest waited for up to ``grace_s``. Returns what was found, printed to
+    ``out`` (stdout by default)."""
+    import os
+    import signal
+
+    from multiprocessing import resource_tracker
+
+    def sweep(skip=()):
+        procs = [p for p in _tagged_processes()
+                 if p[2] != "Z" and p[0] not in skip]
+        for pid, _pp, _st, _cmd in procs:
+            try:
+                os.kill(pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+        deadline = time.monotonic() + grace_s
+        while True:
+            alive = []
+            for pid, pp, st, _cmd in _tagged_processes():
+                if pp == os.getpid() and pid not in skip:
+                    try:
+                        os.waitpid(pid, os.WNOHANG)
+                    except ChildProcessError:
+                        pass
+                if st != "Z" and pid not in skip:
+                    alive.append(pid)
+            if not alive or time.monotonic() > deadline:
+                return procs, alive
+            time.sleep(0.1)
+
+    tracker = getattr(resource_tracker._resource_tracker, "_pid", None)
+    left, _ = sweep(skip={tracker})
+    try:
+        resource_tracker._resource_tracker._stop()
+    except Exception as e:          # noqa: BLE001 - the sweep below kills it
+        print(f"[processes] resource tracker stop: {e!r}", file=out)
+    more, alive = sweep()
+    left += more
+    if left or alive or out is None:
+        print(f"[processes] at the end: {len(left)} left and stopped"
+              + "".join(f"; {pid} (parent {pp}, {st}) {cmd}"
+                        for pid, pp, st, cmd in left)
+              + (f"; still alive after {grace_s} s: {alive}" if alive
+                 else ""), file=out)
+    return left
 
 
 def phase_device() -> str:
@@ -905,21 +1038,21 @@ def _pct(vals, q):
     return float(np.percentile(np.asarray(vals, np.float64), q))
 
 
-def _serve(eng, prompts, tag: str, ticker=None):
+def _serve(eng, prompts, tag: str, ticker=None, kernels: bool = True):
     """Serve ``prompts`` (64 greedy tokens each) through Scheduler +
     EngineLoop with every launch count zeroed just before; check that each
     request finished "done" with 64 in-vocabulary tokens and that the
     launches are exactly what the decode ticks of ``ticker`` (the engine
     whose ticks run the kernels: ``eng``, or a speculative engine's draft)
     imply (fused_ln 2L, decode_slab or decode_paged L, logits_head 1 a
-    tick, L its layers). Returns (the launch counts, the requests, the
-    end-to-end numbers)."""
+    tick, L its layers; none with ``kernels=False``, the plain tick).
+    Returns (the launch counts, the requests, the end-to-end numbers)."""
     from paddle_tpu_torch.ops import cuda_kernels as CK
     from paddle_tpu_torch.serving import EngineLoop, Scheduler
 
     cfg = eng.cfg
     ticker = ticker or eng
-    sched = Scheduler(eng, device="cuda")
+    sched = Scheduler(eng, device=eng.device)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ticks0 = ticker.decode_ticks
@@ -945,8 +1078,10 @@ def _serve(eng, prompts, tag: str, ticker=None):
         raise AssertionError(f"engine loop faults: {loop.last_fault}")
     L = ticker.cfg.num_layers
     want = dict.fromkeys(CK.LAUNCHES, 0)
-    want.update({"fused_ln": 2 * L * ticks, "logits_head": ticks,
-                 ("decode_paged" if eng.paged else "decode_slab"): L * ticks})
+    if kernels:
+        want.update({"fused_ln": 2 * L * ticks, "logits_head": ticks,
+                     ("decode_paged" if eng.paged else "decode_slab"):
+                     L * ticks})
     if ticks <= 0 or launches != want:
         raise AssertionError(f"launch counts {launches} != {want} for "
                              f"{ticks} decode ticks")
@@ -4825,8 +4960,9 @@ def start_elastic() -> dict:
 
 
 def stop_elastic(run: dict) -> None:
-    """Kill a started phase 12's process group if it still runs (the
-    script failed elsewhere, or its time is up)."""
+    """Kill a started phase 12's process group if it still runs (its
+    time is up; a failure elsewhere leaves it to the sweep at the end,
+    ``stop_run_processes``)."""
     import os
     import signal
 
@@ -5413,10 +5549,316 @@ def _check_sharded(tag, recs, work, launches, peaks, layers: int):
               f"{rc['restore_ms']:.1f}")
 
 
+# phase 14: the autotuner on the card
+TUNE_LAYERS = 2          # 14t / 14s: 2 of GPT_SMALL's 12 layers (the cut)
+PEAK_BF16_TFLOPS = 989   # the card's nominal dense bf16 rate (hw.py)
+# the kernels the tune's probes launch beside a decode kernel: flash on
+# every train probe, ce_fwd on the vocab-chunk candidates, the LN pair on
+# the fused-LN ones, the flat sweep on fused_opt; LN and the head on
+# every serve probe
+TUNE_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "ce_fwd",
+                "fused_ln", "fused_ln_bwd", "opt_adamw_flat", "logits_head")
+
+
+def _tune_argv(out: str, device: str = "cuda"):
+    """``tools/autotune.py``'s flags for phase 14: the train space at
+    ``bench.py``'s GPT lane (D 768, 12 heads, d_ff 3072, V 50,304, T 1024,
+    batch 16; on the card bf16 and flash) and the serve space at GPT_SMALL's widths (max
+    seq 1024, page 16, 8 slots, prompts of 16-256 tokens, 16 new ones,
+    the reference's ``--smoke`` trim of the serve axes), both at
+    ``TUNE_LAYERS`` layers."""
+    return ["--smoke", "--device", device, "--out", out,
+            "--d", "768", "--layers", str(TUNE_LAYERS), "--nh", "12",
+            "--ff", "3072", "--T", "1024", "--batch", "16", "--vocab",
+            "50304", "--max-seq", str(S), "--max-batch", str(B),
+            "--page-size", str(PAGE), "--max-new", "16", "--prompt-len",
+            "16,256", "--train-rungs", "2:0.5,4:1.0", "--serve-rungs",
+            "4:0.5,8:1.0"]
+
+
+def _counter_sum(name: str) -> float:
+    from paddle_tpu_torch.observability import metrics as M
+
+    fam = M.default_registry().snapshot().get(name, {"series": []})
+    return sum(s["value"] for s in fam["series"])
+
+
+def _schedule_probes(n_pool: int, rungs) -> int:
+    """The probes successive halving runs on ``n_pool`` survivors beside
+    the incumbent, which rides every rung."""
+    total, pool = 0, n_pool
+    for i, (_steps, keep) in enumerate(rungs):
+        total += 1 + pool
+        if i < len(rungs) - 1 and keep < 1.0 and pool:
+            pool = min(pool, max(1, int(np.ceil(pool * keep))))
+    return total
+
+
+def _tune_gates(tag, tr, valid, refused, lines, rungs,
+                on_card: bool) -> None:
+    """One space's hard gates: the probes executed are the log's executed
+    lines and what the rung schedule gives after the pruned counts; the
+    incumbent never errored (on the card no probe did: at this geometry
+    every candidate fits, so an error is the port's fault, not a
+    candidate losing); the winner's score is finite."""
+    space = tr.space
+    executed = [x for x in lines if x.get("kind") == "probe"
+                and x["space"] == space and x.get("executed")]
+    static = tr.pruned.get("static_worse", 0) + tr.pruned.get("over_hbm", 0)
+    want = _schedule_probes(len(valid) - 1 - static, rungs)
+    if not tr.probes_executed == len(executed) == want:
+        raise AssertionError(
+            f"[{tag}] probes executed {tr.probes_executed}, log lines "
+            f"{len(executed)}, schedule {want}")
+    inval = {r: n for r, n in tr.pruned.items() if r.startswith("invalid:")}
+    if sum(inval.values()) != len(refused) or not all(
+            r.startswith("invalid:") for _, r in refused):
+        raise AssertionError(f"[{tag}] refusals {inval} != the "
+                             f"enumeration's {len(refused)}")
+    errors = [(x["key"], x["rung"], x["result"]["error"]) for x in executed
+              if (x.get("result") or {}).get("error")]
+    for key, rung, err in errors:
+        print(f"[{tag}] probe error (the candidate loses) rung {rung} "
+              f"{key}: {err}")
+    if any(key == tr.incumbent.key for key, _, _ in errors):
+        raise AssertionError(f"[{tag}] the incumbent's probe failed")
+    if on_card and errors:
+        raise AssertionError(f"[{tag}] {len(errors)} probes failed on the "
+                             "card")
+    if not np.isfinite(float(tr.winner_result.get("score", "inf"))):
+        raise AssertionError(f"[{tag}] winner {tr.winner.key} scored inf")
+
+
+def _tune_print(tag, tr, n_enum, n_refused) -> None:
+    inc, win = tr.results[tr.incumbent.key], tr.winner_result
+    print(f"[{tag}] {n_enum} enumerated, {n_refused} refused, pruned "
+          f"{json.dumps(tr.pruned, sort_keys=True)}, "
+          f"{tr.probes_executed} probes")
+    print(f"[{tag}] winner {tr.winner.key}: {win.get('score')} ms against "
+          f"the incumbent {tr.incumbent.key}: {inc.get('score')} ms "
+          f"({'improved' if tr.improved else 'incumbent stays'})")
+    for key, est in sorted(tr.static.items(), key=lambda kv: kv[1].ms):
+        res = tr.results.get(key)
+        got = "pruned before a probe" if res is None else \
+            f"measured {res.get('score')} ms"
+        print(f"[{tag}] static {est.ms:.4f} ms ({est.bound}, peak "
+              f"{est.peak_hbm_bytes / 1e9:.2f} GB) vs {got}: {key}")
+
+
+def phase_tuning(device: str = "cuda") -> dict:
+    """Phase 14: the autotuner on the card (``tools/peak_probe.py``,
+    ``tools/autotune.py`` over ``paddle_tpu_torch/tuning/``) and its
+    appliers. Returns the kernel launches of the tune and of the checks
+    that train and serve through its document. ``device`` names the card
+    (the CPU only for a rehearsal of the phase's logic, with the tune's
+    flags and widths patched down)."""
+    import os
+    import shutil
+    import warnings
+
+    from paddle_tpu_torch.models.gpt import GPT_SMALL, init_params
+    from paddle_tpu_torch.ops import cuda_kernels as CK
+    from paddle_tpu_torch.parallel import parallelize as PZ
+    from paddle_tpu_torch.serving import DecodeEngine, EngineConfig
+    from paddle_tpu_torch.tools import autotune as AT
+    from paddle_tpu_torch.tools import peak_probe
+    from paddle_tpu_torch.tuning import driver, space, static_cost
+    from paddle_tpu_torch.tuning import probe as TP
+    from paddle_tpu_torch.tuning import tuned as TT
+
+    t_phase = time.perf_counter()
+    # 14p: the reachable bf16 rate
+    peak = peak_probe.probe(device=device)
+    print(f"[tune-peak] {json.dumps(peak)}")
+    best = peak["best_tflops"]
+    if not 0 < best <= 1.05 * PEAK_BF16_TFLOPS:
+        raise AssertionError(f"peak probe {best} TFLOP/s outside (0, "
+                             f"1.05 x {PEAK_BF16_TFLOPS}]")
+    print(f"[tune-peak] reachable bf16 {best} TFLOP/s = "
+          f"{best / PEAK_BF16_TFLOPS:.3f} of the nominal "
+          f"{PEAK_BF16_TFLOPS}")
+
+    # 14t, 14s: one tune of both spaces, then its arbitration
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, "perf_runs", "chip_smoke_tune")
+    shutil.rmtree(work, ignore_errors=True)
+    out = os.path.join(work, "TUNED.json")
+    argv = _tune_argv(out, device)
+    args = AT.parse_args(argv)
+    di = TP.device_info(device)
+    ctx = AT._space_context(args, di)
+    spaces = {"train": space.enumerate_space(
+                  "train", space.train_axes(ctx), ctx),
+              "serve": space.enumerate_space(
+                  "serve", AT.serve_axes_for(args, ctx), ctx)}
+
+    def say(m):
+        print(f"[tune] {m}", flush=True)
+
+    CK.reset_launches()
+    t0 = time.perf_counter()
+    results, doc, rc = AT.run(args, argv, say)
+    launches = dict(CK.LAUNCHES)
+    tune_s = time.perf_counter() - t0
+    log_path = out + ".probes.jsonl"
+    with open(log_path) as f:
+        lines = [json.loads(x) for x in f if x.strip()]
+    rungs = {"train": AT._parse_rungs(args.train_rungs),
+             "serve": AT._parse_rungs(args.serve_rungs)}
+    for name, tr in results.items():
+        valid, refused = spaces[name]
+        tag = f"tune-{name}"
+        _tune_print(tag, tr, len(valid) + len(refused), len(refused))
+        _tune_gates(tag, tr, valid, refused, lines, rungs[name],
+                    di.on_acc)
+    # every kernel of the two spaces' probes launched in the tune
+    idle = [k for k in TUNE_KERNELS if not launches.get(k)]
+    if not (launches.get("decode_slab") or launches.get("decode_paged")):
+        idle.append("decode_slab|decode_paged")
+    if di.on_acc and idle:
+        raise AssertionError(f"the tune launched no {idle}")
+    # at one card no tp candidate is admitted; every f32 one is refused
+    # for want of devices (int8 + tp falls to the rule before it)
+    valid, refused = spaces["serve"]
+    if any(c.get("sharding") == "tp" for c in valid) or any(
+            r != "invalid:tp_needs_devices" for c, r in refused
+            if c.get("sharding") == "tp" and c.get("weight_dtype") == "f32"):
+        raise AssertionError("a tp candidate escaped invalid:"
+                             "tp_needs_devices on one card")
+    arb = doc["arbitration"]
+    print(f"[tune] arbitration (not gated): perf_diff rc {arb['exit_code']}"
+          f", ok {arb['ok']}, winner's confirm "
+          f"{arb['confirm_ms_per_step']} ms/step, incumbent's "
+          f"{arb['confirms']['incumbent']['ms_per_step']} ms/step")
+    print(f"[tune] tune + arbitration {tune_s:.1f} s, launches {launches}")
+
+    # the incumbent's own peak, measured first (rung 0) and last (the
+    # arbitration's confirm probe): a leak between probes would show
+    inc_key = results["train"].incumbent.key
+    first = next(x["result"]["report"]["peak_hbm_bytes"] for x in lines
+                 if x["space"] == "train" and x.get("rung") == 0
+                 and x.get("key") == inc_key)
+    last = arb["confirms"]["incumbent"]["report"]["peak_hbm_bytes"]
+    print(f"[tune] incumbent peak bytes first {first}, last {last}")
+    if not first or abs(last - first) > 0.01 * first:
+        raise AssertionError(f"incumbent peak {first} -> {last}: over 1%")
+
+    # a second tune over the same log executes nothing, counts nothing
+    # and names the same winners
+    p0 = _counter_sum("paddle_autotune_probes_total")
+    q0 = _counter_sum("paddle_autotune_pruned_total")
+    hwm = static_cost.HwModel.for_device(di.device)
+    plog = driver.ProbeLog(log_path)
+    try:
+        again = {"train": AT.tune_train(args, ctx, di, hwm, plog, say),
+                 "serve": AT.tune_serve(args, ctx, di, hwm, plog, say)}
+    finally:
+        plog.close()
+    for name, tr in again.items():
+        if tr.probes_executed or tr.winner.key != results[name].winner.key:
+            raise AssertionError(
+                f"resumed {name} tune: {tr.probes_executed} probes, winner "
+                f"{tr.winner.key} (first {results[name].winner.key})")
+    if (_counter_sum("paddle_autotune_probes_total") != p0
+            or _counter_sum("paddle_autotune_pruned_total") != q0):
+        raise AssertionError("the resumed tune moved a counter")
+    print("[tune] resumed over the same log: 0 probes, counters unmoved, "
+          "same winners")
+
+    # the document: the card's fingerprint; the JAX package's CPU tune
+    # (the root TUNED.json) refused here with a RuntimeWarning
+    fp = TP.hw_fingerprint(di)
+    if doc["hw"] != fp or fp["platform"] != ("gpu" if di.on_acc else
+                                              "cpu") or \
+            TT.load_for_device(out, di) is None:
+        raise AssertionError(f"fingerprint {doc['hw']} != the card's {fp}")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        foreign = TT.load_for_device(os.path.join(root, "TUNED.json"), di)
+    refused = foreign is None and any(
+        issubclass(w.category, RuntimeWarning) for w in caught)
+    if refused != di.on_acc:      # a CPU rehearsal accepts the CPU tune
+        raise AssertionError(f"the root TUNED.json (platform cpu) refused "
+                             f"{refused} on {fp['platform']}")
+    print(f"[tune] fingerprint {fp}; root TUNED.json refused: "
+          f"{caught[-1].message if refused else False}")
+
+    # make_train_step(tuned=) == the applier's kwargs by hand, bitwise
+    geom = AT.train_geometry(args, ctx)
+    cfg = TP.train_probe_config(results["train"].winner, geom, True)
+    kw = TT.resolve_train_step_kwargs(doc, PZ.ParallelConfig(),
+                                      dict(TT.TRAIN_STEP_DEFAULTS))
+    tok, lab = (torch.from_numpy(a) for a in TP.probe_batch(
+        geom, cfg.vocab_size, 0))
+
+    def two_steps(**k):
+        TP.release_memory(device)
+        params, opt = PZ.init_sharded(cfg, seed=0, device=device, **k)
+        step = PZ.make_train_step(cfg, lr=geom.lr, device=device, **k)
+        losses = [float(step(params, opt, tok, lab)[2]) for _ in range(2)]
+        return losses, [p.detach().clone() for p in PZ.flat_leaves(params)]
+
+    CK.reset_launches()
+    a = two_steps(tuned=doc)
+    b = two_steps(**kw)
+    for k, v in CK.LAUNCHES.items():
+        launches[k] = launches.get(k, 0) + v
+    if a[0] != b[0] or not all(torch.equal(x, y) for x, y in zip(a[1],
+                                                                 b[1])):
+        raise AssertionError(f"tuned= step {a[0]} != explicit {b[0]}")
+    print(f"[tune] make_train_step(tuned=) == explicit {kw}: losses "
+          f"{a[0]} bitwise, params bitwise")
+    del a, b
+
+    # an engine from engine_kwargs(doc) serves phase 4b's 16 prompts
+    TP.release_memory(device)
+    ek = TT.engine_kwargs(doc, page_size=PAGE)
+    params = init_params(GPT_SMALL, seed=0, device=device)
+    eng = DecodeEngine(params, GPT_SMALL, EngineConfig(max_seq=S, **ek),
+                       device=device)
+    del params
+    eng.drop_reference_params()
+    eng.warmup()
+    served, _reqs, e2e = _serve(eng, _phase4b_prompts(GPT_SMALL.vocab_size),
+                                "tune-serve", kernels=eng.ecfg.fused_decode
+                                and eng.device.type == "cuda")
+    for k, v in served.items():
+        launches[k] = launches.get(k, 0) + v
+    print(f"[tune-serve] engine_kwargs {ek}: 16 requests done, {e2e}")
+    del eng, _reqs
+    TP.release_memory(device)
+    print(f"[tune] phase wall {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
+    import os
+    import uuid
+
+    os.environ[RUN_TAG] = uuid.uuid4().hex
+    # the run's Python processes (about forty: gangs, replicas, restarts)
+    # share one bytecode cache inside the checkout; where the environment
+    # sets PYTHONDONTWRITEBYTECODE each fresh process would compile
+    # torch's sources again, 10-15 s of its start-up and first step
+    port = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "paddle_tpu_torch")
+    if os.path.isdir(port):
+        pyc = os.path.join(port, "_build", "pycache")
+        os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+        os.environ["PYTHONPYCACHEPREFIX"] = pyc
+        sys.dont_write_bytecode = False
+        sys.pycache_prefix = pyc
+    try:
+        return _main()
+    finally:
+        # a failed run's processes too (a passing run has swept already)
+        stop_run_processes(out=sys.stderr)
+
+
+def _main() -> int:
     t_start = time.perf_counter()
     from paddle_tpu_torch.ops import cuda_kernels as CK
 
@@ -5427,6 +5869,7 @@ def main() -> int:
         now = time.perf_counter()
         walls[name] = round(now - t_lap[0], 1)
         t_lap[0] = now
+        _report_processes(name)
 
     smi = phase_device()
     phase_build()
@@ -5506,30 +5949,31 @@ def main() -> int:
     for k, v in resnet["launches_per_step"].items():
         launches[k] = launches.get(k, 0) + round(v * resnet["steps"])
     lap("10k, 10p, 10 fluid")
+    # the autotuner (phase 14), before phase 12's gang shares the card
+    for k, v in phase_tuning().items():
+        launches[k] = launches.get(k, 0) + v
+    lap("14 tuning")
     # fault-tolerant training (phase 12) runs in the background beside the
     # gangs of phases 11, 12r and 13 (its counts zeroed in each worker
     # just before its steps); it is checked after phase 13
     elastic = start_elastic()
-    try:
-        # GPT training over ranks: the kernels at the ranks' shapes (11k),
-        # then every rank's timed steps (phase 11)
-        for k, v in phase_parallel_kernels().items():
-            recs[k]["parallel_max_abs_err"] = v
-        for k, v in phase_train_parallel().items():
-            launches[k] = launches.get(k, 0) + v
-        phase_ring()            # ring attention (12r, no kernel)
-        # sharded training (phase 13): the kernels at its new per-rank
-        # shapes (13k), then the fsdp and ERNIE tp gangs' timed steps
-        for k, v in phase_sharded_kernels().items():
-            recs[k]["sharded_max_abs_err"] = v
-        for k, v in phase_train_sharded().items():
-            launches[k] = launches.get(k, 0) + v
-        lap("11k, 11, 12r, 13k, 13 (12 beside them)")
-        for k, v in finish_elastic(elastic).items():
-            launches[k] = launches.get(k, 0) + v
-        lap("12 elastic, after 13")
-    finally:
-        stop_elastic(elastic)
+    # GPT training over ranks: the kernels at the ranks' shapes (11k),
+    # then every rank's timed steps (phase 11)
+    for k, v in phase_parallel_kernels().items():
+        recs[k]["parallel_max_abs_err"] = v
+    for k, v in phase_train_parallel().items():
+        launches[k] = launches.get(k, 0) + v
+    phase_ring()            # ring attention (12r, no kernel)
+    # sharded training (phase 13): the kernels at its new per-rank
+    # shapes (13k), then the fsdp and ERNIE tp gangs' timed steps
+    for k, v in phase_sharded_kernels().items():
+        recs[k]["sharded_max_abs_err"] = v
+    for k, v in phase_train_sharded().items():
+        launches[k] = launches.get(k, 0) + v
+    lap("11k, 11, 12r, 13k, 13 (12 beside them)")
+    for k, v in finish_elastic(elastic).items():
+        launches[k] = launches.get(k, 0) + v
+    lap("12 elastic, after 13")
     kernels = []
     for name, meta in CK.KERNELS.items():
         r = recs[name]
@@ -5548,6 +5992,8 @@ def main() -> int:
                                   if k != "sweep"}
         if name in tp_err:
             kernels[-1]["tp_max_abs_err"] = tp_err[name]
+    # no process of the run outlives it
+    stop_run_processes()
     print(f"[chip_smoke] wall {time.perf_counter() - t_start:.1f} s, the "
           "build included")
     print(json.dumps({"wall_s": walls}))

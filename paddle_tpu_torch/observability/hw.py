@@ -7,7 +7,8 @@ the full 700 W power limit):
 
 - 989 TFLOP/s bf16 on the tensor cores;
 - 67 TFLOP/s float32 outside the tensor cores;
-- 3.35 TB/s HBM3.
+- 3.35 TB/s HBM3;
+- 80 GB of HBM3 (``hbm_capacity_bytes``, the autotuner's memory budget).
 
 ``bound_ms`` is the least time the card could take for a piece of work:
 the larger of its bytes over the memory rate and its operations over the
@@ -28,6 +29,7 @@ PEAKS: Dict[str, Dict[str, float]] = {
         "bf16_flops_per_s": 989e12,
         "f32_flops_per_s": 67e12,
         "hbm_bytes_per_s": 3.35e12,
+        "hbm_capacity_bytes": 80e9,
     },
 }
 

@@ -53,7 +53,7 @@ from . import metrics as _metrics
 logger = logging.getLogger("paddle_tpu_torch.program_report")
 
 __all__ = [
-    "build_report", "record_report", "capture", "counted",
+    "build_report", "record_report", "capture", "counted", "counting_flops",
     "recent_reports", "make_sig", "explain_recompile", "note_recompile",
     "live_buffer_bytes", "sample_hbm_gauges", "reconcile_memory_usage",
     "reset",
@@ -227,6 +227,22 @@ def counted(device=None, flops: Optional[bool] = None):
         c.kernel_launches += t["launches"]
     if cuda:
         c.peak_bytes = int(torch.cuda.max_memory_allocated(dev))
+
+
+@contextlib.contextmanager
+def counting_flops(on: bool = True):
+    """With ``on``, the reports captured inside the block count their
+    ``aten`` FLOPs (``FLAGS_program_report_flops``); the flag is restored
+    after."""
+    from ..framework import core
+
+    prev = core.get_flag("FLAGS_program_report_flops")
+    if on:
+        core.set_flags({"FLAGS_program_report_flops": True})
+    try:
+        yield
+    finally:
+        core.set_flags({"FLAGS_program_report_flops": prev})
 
 
 def memory_summary(inputs=None, outputs=None,

@@ -453,26 +453,32 @@ def measure_overlap_fraction(trace_dir: str) -> Optional[Dict[str, Any]]:
     ``source: "device_streams"``: NCCL's kernels are the collectives and
     every other kernel, memcpy and memset of the device streams is
     compute. ``source: "gloo_staged"``: the collectives are the host
-    ranges of the staged ones (``paddle_collective/<op>``, which hold the
-    device synchronise, the copies and the exchange); compute is the
-    device streams' work, or on the CPU the host ops outside those
-    ranges. None when the capture holds no collective (or no capture
-    exists)."""
-    from ..utils.device_trace import _cpu_scopes
+    ranges of the staged ones (``paddle_collective/<op>``: the copies and
+    the exchange, opened after the device synchronise, so the work queued
+    before a range has ended when it opens), and the device work
+    launched inside a range (the staging's own copies) is the
+    collective's, not compute; compute is the rest of the device
+    streams' work, or on the CPU the host ops outside those ranges. So
+    only a collective's own time is weighed against compute, as the
+    reference weighs collective ops (``paddle_tpu/parallel/
+    comm_opt.py:474-524``). None when the capture holds no collective
+    (or no capture exists)."""
+    from ..utils.device_trace import _cpu_scopes, launch_scopes
     from ..utils.profile_data import ProfileData, latest_trace
 
     path = latest_trace(trace_dir)
     if path is None:
         return None
     pd = ProfileData.from_file(path)
-    work: List[Tuple[float, float, str]] = [
-        (ev.start_ns, ev.end_ns, ev.name) for plane in pd.device_planes()
-        for line in plane.lines for ev in line.events
-        if ev.stat("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
-        and ev.duration_ns > 0]
-    nccl = [(s, e) for s, e, n in work if "nccl" in n.lower()]
+    work = [ev for plane in pd.device_planes() for line in plane.lines
+            for ev in line.events
+            if ev.stat("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+            and ev.duration_ns > 0]
+    nccl = [(ev.start_ns, ev.end_ns) for ev in work
+            if "nccl" in ev.name.lower()]
     if nccl:
-        comp = [(s, e) for s, e, n in work if "nccl" not in n.lower()]
+        comp = [(ev.start_ns, ev.end_ns) for ev in work
+                if "nccl" not in ev.name.lower()]
         return overlap_fraction(nccl, comp, "device_streams")
     host = pd.host_plane()
     if host is None:
@@ -491,5 +497,10 @@ def measure_overlap_fraction(trace_dir: str) -> Optional[Dict[str, Any]]:
                     s.name.startswith(STAGED_RANGE)
                     for s in scopes.get(id(ev), ())):
                 cpu_comp.append((ev.start_ns, ev.end_ns))
-    comp = [(s, e) for s, e, _n in work] if work else cpu_comp
+    if not work:
+        return overlap_fraction(coll, cpu_comp, "gloo_staged")
+    at = launch_scopes(pd)
+    comp = [(ev.start_ns, ev.end_ns) for ev in work if not any(
+        s.name.startswith(STAGED_RANGE)
+        for s in at.get(ev.stat("correlation"), ()))]
     return overlap_fraction(coll, comp, "gloo_staged")

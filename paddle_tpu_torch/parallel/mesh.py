@@ -74,18 +74,20 @@ def _staged(op: str):
     ``paddle_collective_staged_seconds_total{op}``: the device is
     synchronised first, so the time is the copies and the exchange, not
     the compute queued before them (a receive also waits for its peer).
-    The call runs inside a ``record_function("paddle_collective/<op>")``
-    range, which ``comm_opt.measure_overlap_fraction`` reads in a
-    profiler capture. NCCL groups are not timed (their collectives are
-    asynchronous on the stream)."""
+    After that synchronise the call runs inside a
+    ``record_function("paddle_collective/<op>")`` range, which
+    ``comm_opt.measure_overlap_fraction`` reads in a profiler capture:
+    the range holds the collective's own time, not the wait for earlier
+    work. NCCL groups are not timed (their collectives are asynchronous
+    on the stream)."""
     def wrap(fn):
         @functools.wraps(fn)
         def timed(self, t, *args, **kw):
             if not self.stage or self.size == 1:
                 return fn(self, t, *args, **kw)
+            if isinstance(t, torch.Tensor) and t.is_cuda:
+                torch.cuda.synchronize(t.device)
             with torch.profiler.record_function(STAGED_RANGE + op):
-                if isinstance(t, torch.Tensor) and t.is_cuda:
-                    torch.cuda.synchronize(t.device)
                 t0 = time.perf_counter()
                 out = fn(self, t, *args, **kw)
                 _m_staged_seconds.labels(op).inc(time.perf_counter() - t0)

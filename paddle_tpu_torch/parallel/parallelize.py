@@ -527,11 +527,29 @@ def _comm_config(comm, grad_reduce, grad_allreduce_dtype, bucket_mb,
         bucket_mb=bucket_mb, error_feedback=error_feedback)
 
 
-def _refuse(tuned) -> None:
-    if tuned is not None:
-        raise NotImplementedError(
-            "tuned= (TUNED.json from tools/autotune.py) is still to be "
-            "ported (ROADMAP A4)")
+# the step kwargs a TUNED.json may set, in _resolve_tuned's order
+_TUNED_KEYS = ("grad_reduce", "grad_allreduce_dtype", "bucket_mb",
+               "error_feedback", "fused_opt")
+
+
+def _resolve_tuned(tuned, pcfg: Optional[ParallelConfig], mesh, device,
+                   *values):
+    """Fingerprint-gate + apply a TUNED.json (a path or a loaded document)
+    onto the caller's step kwargs, ``values`` in ``_TUNED_KEYS`` order,
+    returned in the same order (``tuning/tuned.py`` owns the semantics:
+    the caller's non-default kwargs win, and a knob the mesh cannot take
+    is skipped with a ``RuntimeWarning``). The fingerprint is checked
+    against the device the step runs on (``_step_device``)."""
+    from ..tuning import probe
+    from ..tuning import tuned as tuned_mod
+
+    current = dict(zip(_TUNED_KEYS, values))
+    doc = tuned_mod.load_for_device(
+        tuned, probe.device_info(_step_device(mesh, device)))
+    if doc is not None:
+        current = tuned_mod.resolve_train_step_kwargs(
+            doc, pcfg or ParallelConfig(), current)
+    return tuple(current[k] for k in _TUNED_KEYS)
 
 
 def init_sharded(cfg: G.GPTConfig, pcfg: Optional[ParallelConfig] = None,
@@ -557,8 +575,16 @@ def init_sharded(cfg: G.GPTConfig, pcfg: Optional[ParallelConfig] = None,
     keeps each leaf's shard by the plan's specs, with per-leaf moments of
     the same shape (``fused_opt`` is not used, as in the reference); with
     comm levers the plan must be dp-replicated and the state is laid out
-    as without one."""
-    _refuse(tuned)
+    as without one.
+
+    ``tuned=`` mirrors ``make_train_step(tuned=)`` — pass the SAME
+    TUNED.json to both so the optimizer-state layout matches the step
+    the tuner picked."""
+    if tuned is not None and comm is None:
+        (grad_reduce, grad_allreduce_dtype, bucket_mb, error_feedback,
+         fused_opt) = _resolve_tuned(tuned, pcfg, mesh, device, grad_reduce,
+                                     grad_allreduce_dtype, bucket_mb,
+                                     error_feedback, fused_opt)
     dev = _step_device(mesh, device)
     pcfg = pcfg or ParallelConfig()
     ccfg = _comm_config(comm, grad_reduce, grad_allreduce_dtype, bucket_mb,
@@ -667,8 +693,13 @@ def make_train_step(cfg: G.GPTConfig, pcfg: Optional[ParallelConfig] = None,
     chunk-scaled quantized wire payload with float32 accumulation;
     ``error_feedback`` (reduce-scatter only) carries each rank's
     quantization residual in ``opt["ef"]``. ``grad_clip=None`` disables
-    clipping with an exact scale of 1.0. ``tuned=`` raises (still to be
-    ported).
+    clipping with an exact scale of 1.0. ``tuned=`` takes a TUNED.json
+    path (or loaded document) from ``tools/autotune.py``: fingerprint-
+    gated (a document tuned on other hardware warns and the kwargs run
+    as given), it overrides only the comm kwargs and ``fused_opt`` left at
+    their defaults — an explicit caller choice, or a ready ``comm=``,
+    always wins — and skips, with a ``RuntimeWarning``, a knob the mesh
+    cannot take (reduce-scatter at dp 1).
 
     ``sharding=`` (pp 1; a preset of ``sharding.PRESETS``, an annotation
     dict or a ``ShardingPlan``) runs the plan's step (state from
@@ -687,7 +718,11 @@ def make_train_step(cfg: G.GPTConfig, pcfg: Optional[ParallelConfig] = None,
     ``mesh=None`` is one device (``device``, default the card); with a
     mesh the step runs on ``mesh.device`` and a ``device`` that names
     another raises."""
-    _refuse(tuned)
+    if tuned is not None and comm is None:
+        (grad_reduce, grad_allreduce_dtype, bucket_mb, error_feedback,
+         fused_opt) = _resolve_tuned(tuned, pcfg, mesh, device, grad_reduce,
+                                     grad_allreduce_dtype, bucket_mb,
+                                     error_feedback, fused_opt)
     pcfg = pcfg or ParallelConfig()
     ccfg = _comm_config(comm, grad_reduce, grad_allreduce_dtype, bucket_mb,
                         error_feedback)

@@ -38,12 +38,18 @@ Files go under ``--dir`` (default ``perf_runs``: the trace under
 repository root, whose files are the JAX package's. The default device is
 the card (raising without one); ``--smoke`` and ``--device cpu`` run on
 the CPU, where the document is ``degraded``: the mechanism, not device
-numbers. ``--tuned`` waits for the ``tuning/`` port (ROADMAP A4).
+numbers.
+
+``--tuned TUNED.json`` profiles the autotuner's winner
+(``tools/autotune.py``): the document is fingerprint-gated (a document
+tuned on other hardware warns, "REFUSED", and the defaults run), its
+knobs apply only where the spec (or the serve flags) left the default,
+and the attribution's ``config`` carries the full tuned knob vector per
+space plus ``tuned_from`` (the document's path and content hash).
 """
 from __future__ import annotations
 
 import argparse
-import contextlib
 import json
 import os
 import sys
@@ -93,25 +99,46 @@ def parse_spec(spec_str: Optional[str]) -> Tuple[Any, Dict[str, Any]]:
                  "fused_opt": spec.get("fopt", "0") == "1"}
 
 
-@contextlib.contextmanager
-def _counting_flops():
-    """Program reports count the ``aten`` FLOPs inside the block."""
-    from ..framework import core
+def _load_tuned(tuned_path, mode, device=None):
+    """Fingerprint-gated TUNED.json load against ``device`` (None when
+    absent or REFUSED)."""
+    if not tuned_path:
+        return None
+    from ..tuning import probe as tuning_probe
+    from ..tuning import tuned as tuned_mod
 
-    prev = core.get_flag("FLAGS_program_report_flops")
-    core.set_flags({"FLAGS_program_report_flops": True})
-    try:
-        yield
-    finally:
-        core.set_flags({"FLAGS_program_report_flops": prev})
+    doc = tuned_mod.load_for_device(tuned_path,
+                                    tuning_probe.device_info(device))
+    print(f"[profile{' --serve' if mode == 'serve' else ''}] tuned config "
+          f"{'applied' if doc else 'REFUSED'} from {tuned_path}",
+          file=sys.stderr, flush=True)
+    return doc
 
 
-def _refuse_tuned(tuned) -> None:
-    if tuned:
-        raise NotImplementedError(
-            "--tuned profiles the autotuner's winner; tuning/ "
-            "(tools/autotune.py, TUNED.json) is still to be ported "
-            "(ROADMAP A4)")
+def _tuned_train(cfg, knobs, spec_str, doc):
+    """(cfg, knobs) with the tuned train knobs applied where the spec
+    left the default — a spec key always beats the tuner (no spec: the
+    7b configuration takes every tuned knob)."""
+    from ..tuning import tuned as tuned_mod
+
+    spec = dict(kv.split("=") for kv in spec_str.split(",")) \
+        if spec_str else {}
+    ck = tuned_mod.train_cfg_kwargs(doc)
+    kw = {}
+    if "remat" not in spec and "remat" in ck:
+        kw.update(remat=ck["remat"], remat_policy=ck["remat_policy"])
+    if "fln" not in spec and ck.get("fused_ln"):
+        kw["fused_ln"] = True
+    if "celim" not in spec and ck.get("ce_vocab_chunk"):
+        kw.update(ce_vocab_chunk=ck["ce_vocab_chunk"],
+                  ce_direct_bytes_limit=ck["ce_direct_bytes_limit"])
+    knobs = dict(knobs)
+    if "fopt" not in spec:
+        tcfg = (doc.get("spaces") or {}).get("train", {}).get(
+            "config") or {}
+        knobs["fused_opt"] = knobs["fused_opt"] or bool(
+            tcfg.get("fused_opt"))
+    return (cfg.scaled(**kw) if kw else cfg), knobs
 
 
 def _family_rows(rows: List[Dict[str, Any]], steps: int):
@@ -211,13 +238,16 @@ def train_profile(spec_str: Optional[str], run_dir: str,
     import numpy as np
     import torch
 
+    from ..observability import program_report as PREP
     from ..parallel import parallelize as PZ
     from ..utils import device_trace as DT
 
-    _refuse_tuned(tuned)
     t_setup = time.perf_counter()
     dev = torch.device(device)
     cfg, knobs = parse_spec(spec_str)
+    tuned_doc = _load_tuned(tuned, "train", dev)
+    if tuned_doc is not None:
+        cfg, knobs = _tuned_train(cfg, knobs, spec_str, tuned_doc)
     if remat is not None:
         cfg = cfg.scaled(remat=remat != "none",
                          remat_policy="full" if remat == "none" else remat)
@@ -247,14 +277,12 @@ def train_profile(spec_str: Optional[str], run_dir: str,
           file=sys.stderr, flush=True)
     # the step's first call reports its counted FLOPs (the document's
     # step flops)
-    with _counting_flops():
+    with PREP.counting_flops():
         out = one()
     for _ in range(max(1, warmup) - 1):
         out = one()
     float(out[2])
     setup_s = time.perf_counter() - t_setup
-    from ..observability import program_report as PREP
-
     report = next((r for r in reversed(PREP.recent_reports())
                    if r.get("program") == step.report_name), {})
     config = {
@@ -266,6 +294,11 @@ def train_profile(spec_str: Optional[str], run_dir: str,
         "layers": cfg.num_layers, "dtype": str(cfg.dtype).replace(
             "torch.", ""),
     }
+    if tuned_doc is not None:
+        from ..tuning import tuned as tuned_mod
+
+        # the full tuned knob vector + the tuned_from provenance
+        config.update(tuned_mod.config_stamp(tuned_doc, tuned))
     results = []
     for run_i in range(max(1, runs)):
         tdir = os.path.join(run_dir, "trace" if runs <= 1
@@ -309,7 +342,7 @@ def train_profile(spec_str: Optional[str], run_dir: str,
 def serve_engine(device: str = "cuda", kv_layout: str = "paged",
                  weight_dtype: str = "bf16", max_batch: int = 8,
                  fused_decode: bool = True, role: str = "colocated",
-                 smoke: bool = False):
+                 smoke: bool = False, num_pages: int = 0):
     """A warmed engine (GPT_SMALL from seed weights, max_seq 1024, page
     16; ``smoke``: GPT_TINY on the CPU) with every slot holding a seeded
     prompt; returns (engine, {slot: next token})."""
@@ -325,7 +358,8 @@ def serve_engine(device: str = "cuda", kv_layout: str = "paged",
         max_batch=max_batch, max_seq=max_seq,
         prefill_buckets=(16, 32) if smoke else (64, 128, 256, 512),
         weight_dtype=weight_dtype, fused_decode=fused_decode,
-        kv_layout=kv_layout, page_size=16, role=role), device=device)
+        kv_layout=kv_layout, page_size=16, num_pages=num_pages,
+        role=role), device=device)
     del params
     eng.drop_reference_params()
     eng.warmup()
@@ -377,9 +411,23 @@ def serve_profile(run_dir: str, ticks: int = 16, attr_out: str = None,
     from ..observability import attribution as ATT
     from ..observability import program_report as PREP
 
-    _refuse_tuned(tuned)
+    tuned_doc = _load_tuned(tuned, "serve", device)
+    num_pages = 0
+    if tuned_doc is not None:
+        # dtype / layout / fused tick / pool only where the arguments
+        # stayed at their defaults
+        scfg = (tuned_doc.get("spaces") or {}).get("serve", {}).get(
+            "config") or {}
+        if weight_dtype == "bf16" and scfg.get("weight_dtype"):
+            weight_dtype = scfg["weight_dtype"]
+        if kv_layout == "paged" and scfg.get("kv_layout"):
+            kv_layout = scfg["kv_layout"]
+        if fused_decode and "fused_decode" in scfg:
+            fused_decode = bool(scfg["fused_decode"])
+        if kv_layout == "paged" and scfg.get("num_pages"):
+            num_pages = int(scfg["num_pages"])
     eng, feed = serve_engine(device, kv_layout, weight_dtype, max_batch,
-                             fused_decode, role, smoke)
+                             fused_decode, role, smoke, num_pages)
     decode_tick(eng, feed)
     with PREP.counted(eng.device, flops=True) as counts:
         decode_tick(eng, feed)
@@ -393,6 +441,10 @@ def serve_profile(run_dir: str, ticks: int = 16, attr_out: str = None,
         "layers": cfg.num_layers, "fused_decode": fused_decode,
         "disagg": 1 if role in ("prefill", "decode") else 0, "role": role,
     }
+    if tuned_doc is not None:
+        from ..tuning import tuned as tuned_mod
+
+        config.update(tuned_mod.config_stamp(tuned_doc, tuned))
     spec = (f"serve:d={cfg.d_model},L={cfg.num_layers},b={max_batch},"
             f"{weight_dtype},{kv_layout}"
             + (",fused" if fused_decode else "")
@@ -472,7 +524,8 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu; --smoke implies cpu")
     ap.add_argument("--tuned", default=None,
-                    help="TUNED.json (waits for the tuning/ port)")
+                    help="TUNED.json from tools/autotune.py: profile its "
+                         "winner (fingerprint-gated)")
     ap.add_argument("--compare", nargs=2, metavar=("A.json", "B.json"))
     ap.add_argument("--serve", action="store_true")
     ap.add_argument("--ticks", type=int, default=16)
@@ -494,7 +547,6 @@ def main(argv=None) -> int:
     if args.compare:
         compare_attributions(*args.compare)
         return 0
-    _refuse_tuned(args.tuned)
     device = args.device or ("cpu" if args.smoke else "cuda")
     if args.smoke and device != "cpu":
         ap.error("--smoke runs on the CPU")
@@ -514,11 +566,11 @@ def main(argv=None) -> int:
                       weight_dtype=args.weight_dtype,
                       max_batch=args.max_batch,
                       fused_decode=args.fused_decode, role=role,
-                      device=device, smoke=args.smoke)
+                      device=device, smoke=args.smoke, tuned=args.tuned)
         return 0
     spec = SMOKE_SPEC if args.smoke else args.spec
     train_profile(spec, args.dir, steps=args.steps, attr_out=args.attr_out,
-                  device=device)
+                  device=device, tuned=args.tuned)
     return 0
 
 

@@ -3,6 +3,7 @@ disaggregated lane (``tools/serve_bench.py:352-530``), on one card.
 
     python -m paddle_tpu_torch.tools.serve_bench --disagg
         [--disagg-rate 160] [--disagg-requests 48] [--disagg-max-new 32]
+        [--max-batch N] [--buckets 64,128,256,512] [--tuned TUNED.json]
         [--seed 0] [--out FILE] [--tiny --device cpu]
 
 Only the ``--disagg`` lane is ported; the flag is required. One mixed
@@ -32,6 +33,14 @@ the TTFT and TPOT bars are printed but not gated: the exit code is
 non-zero only when a request fails or the greedy tokens disagree. The
 port's engines run eagerly, so the reference's ``steady_state_recompiles``
 has no counterpart and is left out.
+
+``--tuned TUNED.json`` applies the autotuner's serve winner
+(``tools/autotune.py``) as the reference's ``--tuned`` does: the document
+is fingerprint-gated ("applied", or "REFUSED" with a warning and the
+defaults), and its ``max_batch`` and prefill buckets apply where
+``--max-batch`` / ``--buckets`` were not given; the lane's layout (paged,
+page 8) and its two topologies are its own, so the winner's spec window
+and disagg ratio are printed, not applied.
 
 Defaults: GPT_SMALL (V 50,304, L 12, nh 12, D 768) bf16 from seed-0
 weights, 8 slots, max_seq 1024, buckets 64-512 — ``chip_smoke.py``'s
@@ -234,6 +243,15 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None, help="also write the JSON here")
+    ap.add_argument("--max-batch", type=int, default=None,
+                    help="engine slots (default 8; --tiny 4)")
+    ap.add_argument("--buckets", default=None,
+                    help="prefill buckets, comma-separated (default "
+                         "64,128,256,512; --tiny 16,32)")
+    ap.add_argument("--tuned", default=None,
+                    help="TUNED.json from tools/autotune.py: apply the "
+                         "serve winner where --max-batch / --buckets were "
+                         "not given (fingerprint-gated)")
     args = ap.parse_args(argv)
     if not args.disagg:
         ap.error("only the --disagg lane is ported")
@@ -242,6 +260,26 @@ def main(argv=None) -> int:
     from paddle_tpu_torch.models.gpt import GPT_SMALL, GPT_TINY, init_params
 
     device = resolve_device(args.device)
+    tuned_doc = None
+    if args.tuned:
+        from paddle_tpu_torch.tuning import probe as tuning_probe
+        from paddle_tpu_torch.tuning import tuned as tuned_mod
+
+        tuned_doc = tuned_mod.load_for_device(
+            args.tuned, tuning_probe.device_info(device))
+        print(f"[serve_bench] tuned config "
+              f"{'applied' if tuned_doc else 'REFUSED'} from "
+              f"{args.tuned}", flush=True)
+    if tuned_doc is not None:
+        # geometry knobs apply only where the flag was not given — an
+        # explicit flag always beats the tuner
+        ek = tuned_mod.engine_kwargs(tuned_doc)
+        if args.max_batch is None and ek.get("max_batch"):
+            args.max_batch = ek["max_batch"]
+        if args.buckets is None and ek.get("prefill_buckets"):
+            args.buckets = ",".join(str(b) for b in ek["prefill_buckets"])
+        print(f"[serve_bench] tuned lane shape (not applied here): "
+              f"{tuned_mod.serve_lane_kwargs(tuned_doc)}", flush=True)
     if args.tiny:
         cfg = GPT_TINY.scaled(num_layers=2, max_seq_len=64)
         ecfg_kw = dict(max_batch=4, max_seq=64, prefill_buckets=(16, 32),
@@ -251,6 +289,11 @@ def main(argv=None) -> int:
         ecfg_kw = dict(max_batch=8, max_seq=1024,
                        prefill_buckets=(64, 128, 256, 512),
                        weight_dtype="bf16")
+    if args.max_batch is not None:
+        ecfg_kw["max_batch"] = args.max_batch
+    if args.buckets is not None:
+        ecfg_kw["prefill_buckets"] = tuple(
+            int(b) for b in args.buckets.split(","))
     params = init_params(cfg, seed=args.seed, device=device)
     smi = card_line() if device.type == "cuda" else None
     print(f"[serve_bench] disagg A/B lane (rate={args.disagg_rate}/s, "
@@ -271,6 +314,8 @@ def main(argv=None) -> int:
                    for k, v in ecfg_kw.items() if k != "weight_dtype"},
         "disagg": res, "disagg_pass": res["disagg_pass"],
     }
+    if tuned_doc is not None:
+        result["tuned"] = tuned_mod.config_stamp(tuned_doc, args.tuned)
     text = json.dumps(result)
     if args.out:
         with open(args.out, "w") as f:

@@ -43,6 +43,15 @@ grad norm, the goodput categories since the last row and the card's
 allocated and peak bytes; the record gains the timed window's goodput
 report.
 
+``--tuned PATH`` applies the autotuner's train winner
+(``tools/autotune.py``) as ``bench.py --tuned=`` does: the document is
+fingerprint-gated ("applied", or "REFUSED" with a warning and the
+defaults), its model knobs (remat, fused LN, CE vocab chunk) apply where
+the flags were left at their defaults, its step knobs go through
+``make_train_step(tuned=)`` / ``init_sharded(tuned=)`` (the lane's
+explicit flat sweep wins over the tuner), and the record carries the
+document's ``tuned`` stamp. GPT only.
+
 ``--model ernie`` is ``bench.py``'s ERNIE lane as written: ERNIE_BASE
 (L 12, nh 12, D 768, d_ff 3072, V 30522) at full width and depth, bf16
 compute on float32 params, flash attention (the bias form: the padding
@@ -304,25 +313,57 @@ def plain_config(cfg: G.GPTConfig) -> G.GPTConfig:
     return cfg.scaled(use_flash=False, fused_ln=False, ce_vocab_chunk=0)
 
 
+def load_tuned(path: str, dev) -> Dict[str, Any]:
+    """The fingerprint-gated TUNED.json at ``path`` for ``dev``, or None
+    when it was tuned elsewhere; prints "applied" or "REFUSED"."""
+    from ..tuning import probe as tuning_probe
+    from ..tuning import tuned as tuned_mod
+
+    doc = tuned_mod.load_for_device(path, tuning_probe.device_info(dev))
+    print(f"[train_bench] tuned config "
+          f"{'applied' if doc else 'REFUSED'} from {path}", flush=True)
+    return doc
+
+
+def tuned_config(cfg: G.GPTConfig, doc, args) -> G.GPTConfig:
+    """``cfg`` with the tuned model knobs where the flags were left at
+    their defaults (``--remat``, ``--fused-ln``, ``--ce-vchunk``)."""
+    from ..tuning import tuned as tuned_mod
+
+    ap = _parser()
+    ck = tuned_mod.train_cfg_kwargs(doc)
+    if args.remat != ap.get_default("remat"):
+        ck.pop("remat", None)
+        ck.pop("remat_policy", None)
+    if args.fused_ln:
+        ck.pop("fused_ln", None)
+    if args.ce_vchunk:
+        ck.pop("ce_vocab_chunk", None)
+        ck.pop("ce_direct_bytes_limit", None)
+    return cfg.scaled(**ck) if ck else cfg
+
+
 def run(cfg: G.GPTConfig, fused_opt_kernel=None,
         profile_steps: int = 0, monitor: str = None,
-        overhead_dir: str = None) -> Dict[str, Any]:
+        overhead_dir: str = None, tuned=None) -> Dict[str, Any]:
     """WARMUP + STEPS train steps on one batch on the card; the timed
     steps end in one synchronize, and launch counts are zeroed just before
     them (then ``profile_steps`` traced steps, outside the counts and
     losses). ``monitor`` (a path) makes the timed steps monitored: one
     :class:`TrainMonitor` row a step there, one sync a step, the goodput
     window's report in the record (``monitor``). ``overhead_dir`` then
-    adds :func:`observability_overhead`'s pairs (``obs_overhead``)."""
+    adds :func:`observability_overhead`'s pairs (``obs_overhead``).
+    ``tuned`` (a loaded TUNED.json) goes to ``init_sharded`` and
+    ``make_train_step``."""
     dev = torch.device("cuda")
     batch, T, steps, warmup = BATCH, SEQ, STEPS, WARMUP
     params, opt = PZ.init_sharded(cfg, seed=0, moment_dtype=torch.bfloat16,
-                                  fused_opt=True, device=dev)
+                                  fused_opt=True, device=dev, tuned=tuned)
     n_params = G.num_params(params)
     step = PZ.make_train_step(cfg, lr=1e-4, weight_decay=0.1,
                               fused_opt=True,
                               fused_opt_kernel=fused_opt_kernel,
-                              grad_clip=1.0, device=dev)
+                              grad_clip=1.0, device=dev, tuned=tuned)
     rng = np.random.default_rng(0)
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, batch, T))
                               ).to(dev)
@@ -1145,6 +1186,9 @@ def _parser() -> argparse.ArgumentParser:
                     help="GPT: one TrainMonitor JSONL row a timed step")
     ap.add_argument("--compare", action="store_true",
                     help="plain and kernel arms in turns: P, K, K, P")
+    ap.add_argument("--tuned", default=None, metavar="PATH",
+                    help="GPT: apply the TUNED.json train winner where the "
+                         "flags were left at their defaults")
     par = ap.add_argument_group(
         "parallel lane (one rank; run under python -m "
         "paddle_tpu_torch.parallel.launch)")
@@ -1194,10 +1238,17 @@ def _parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     args = _parser().parse_args(argv)
     if "PADDLE_TRAINERS_NUM" in os.environ:
+        if args.tuned:
+            raise SystemExit("train_bench: --tuned applies to the "
+                             "one-card GPT lane")
         return main_parallel(args)
+    if args.tuned and args.model != "gpt":
+        raise SystemExit("train_bench: --tuned applies to the GPT lane")
     if not torch.cuda.is_available():
         print("train_bench: no CUDA device available", file=sys.stderr)
         return 2
+    tuned_doc = (load_tuned(args.tuned, torch.device("cuda"))
+                 if args.tuned else None)
     order = ("plain", "kernel", "kernel", "plain") if args.compare \
         else ("kernel",)
     if args.model == "resnet50":
@@ -1215,6 +1266,8 @@ def main(argv=None) -> int:
         arms = {"kernel": cfg, "plain": cfg.scaled(use_flash=False)}
     else:
         cfg = bench_config(args.remat, args.fused_ln, args.ce_vchunk)
+        if tuned_doc is not None:
+            cfg = tuned_config(cfg, tuned_doc, args)
         arms = {"kernel": (cfg, None), "plain": (plain_config(cfg), False)}
     for arm in order:
         if args.model == "ernie":
@@ -1222,7 +1275,12 @@ def main(argv=None) -> int:
         else:
             acfg, kern = arms[arm]
             rec = run(acfg, fused_opt_kernel=kern,
-                      profile_steps=args.profile, monitor=args.monitor)
+                      profile_steps=args.profile, monitor=args.monitor,
+                      tuned=tuned_doc)
+            if tuned_doc is not None:
+                from ..tuning import tuned as tuned_mod
+
+                rec["tuned"] = tuned_mod.config_stamp(tuned_doc, args.tuned)
         rec["arm"] = arm
         print(json.dumps(rec), flush=True)
     return 0

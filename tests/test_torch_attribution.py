@@ -34,6 +34,7 @@ from paddle_tpu_torch.tools import perf_diff
 from paddle_tpu_torch.tools import profile_step as PS
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ROOT_TUNED = os.path.join(REPO, "TUNED.json")   # the JAX package's CPU tune
 
 
 class _NoSeries:
@@ -270,8 +271,24 @@ def test_profile_step_compare_and_refusals(smoke_runs, tmp_path):
     buf = io.StringIO()
     rows = PS.compare_attributions(str(a), str(d), out=buf)
     assert rows and "CONFIG remat: 'full' -> 'dots'" in buf.getvalue()
-    with pytest.raises(NotImplementedError, match="tuning/"):
-        PS.main(["--smoke", "--tuned", "TUNED.json"])
+    # --tuned: a document tuned on other hardware is REFUSED (warned),
+    # the CPU-tuned root TUNED.json applies and is stamped as tuned_from
+    foreign = tmp_path / "foreign.json"
+    with open(ROOT_TUNED) as f:
+        doc = json.load(f)
+    doc["hw"] = dict(doc["hw"], platform="gpu",
+                     device_kind="NVIDIA H100 80GB HBM3")
+    foreign.write_text(json.dumps(doc))
+    with pytest.warns(RuntimeWarning, match="fingerprint mismatch"):
+        assert PS._load_tuned(str(foreign), "train", "cpu") is None
+    run = tmp_path / "tuned"
+    assert PS.main(["--smoke", "--steps", "1", "--tuned", ROOT_TUNED,
+                    "--dir", str(run)]) == 0
+    with open(run / "ATTRIBUTION.json") as f:
+        config = json.load(f)["config"]
+    assert config["tuned_from"]["path"] == ROOT_TUNED
+    assert config["train"]["remat"] == "dots"
+    assert config["fused_opt"] is True and config["remat"] == "dots"
     with pytest.raises(SystemExit):
         PS.parse_spec("d=32,zz=1")
 

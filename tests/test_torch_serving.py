@@ -451,6 +451,14 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "paddle_tpu_torch.ops.kernel_costs, "
         "paddle_tpu_torch.tools.profile_step, "
         "paddle_tpu_torch.tools.perf_diff\n"
+        "import paddle_tpu_torch.tuning, paddle_tpu_torch.tuning.space, "
+        "paddle_tpu_torch.tuning.static_cost, "
+        "paddle_tpu_torch.tuning.driver, paddle_tpu_torch.tuning.tuned, "
+        "paddle_tpu_torch.tuning.probe, paddle_tpu_torch.tools.autotune, "
+        "paddle_tpu_torch.tools.peak_probe, "
+        "paddle_tpu_torch.tools.mfu_sweep, "
+        "paddle_tpu_torch.tools.comm_bench, "
+        "paddle_tpu_torch.tools.serve_bench\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'paddle_tpu'))\n"
         "print(bad)\n"

@@ -10,6 +10,8 @@ rtol 2e-4, grad norms within 1e-3, params within 2e-4 + 2e-3·|p|,
 moments within 1e-3 in the relative 2-norm (the bars of
 ``test_torch_parallel_step.py``).
 """
+import os
+
 import numpy as np
 import pytest
 
@@ -171,8 +173,9 @@ def _jax_refusal(**kw):
 
 def test_reference_refusals_raise_in_the_port():
     """pp > 1 with a plan, and comm levers with a plan that shards over
-    dp, raise with the reference's messages; ``tuned=`` raises (still to
-    be ported); a dp-replicated plan with comm levers takes the comm_opt
+    dp, raise with the reference's messages; ``tuned=`` (the JAX
+    package's CPU TUNED.json, accepted by a CPU step) is applied before
+    the plan's own checks; a dp-replicated plan with comm levers takes the comm_opt
     path (no plan)."""
     cases = [dict(pcfg=dict(dp=2, pp=2), sharding="dp"),
              dict(pcfg=dict(dp=2), sharding="fsdp",
@@ -186,9 +189,11 @@ def test_reference_refusals_raise_in_the_port():
         with pytest.raises(NotImplementedError) as e:
             TPZ.make_train_step(_tcfg(), pcfg, None, **kw)
         assert str(e.value) == want
-    with pytest.raises(NotImplementedError, match="tuned="):
+    root_tuned = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "TUNED.json")
+    with pytest.raises(ValueError, match="mesh"):
         TPZ.make_train_step(_tcfg(), TPZ.ParallelConfig(), None,
-                            sharding="dp", tuned="TUNED.json")
+                            sharding="dp", tuned=root_tuned, device="cpu")
     ccfg = TC.CommConfig(grad_reduce="reduce_scatter")
     assert TPZ._sharding_route("dp", _tcfg(), TPZ.ParallelConfig(dp=2),
                                None, ccfg) is None
