@@ -311,19 +311,68 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              timed beside its plain version, its bytes bound and
              ``torch._fused_sgd_`` / ``_fused_adam_`` / ``_fused_adamw_``;
 10p. fluid-parity — the fluid MLP under SGD, Momentum, Adam and AdamW
-             (``fuse=True``, 5 steps) and ResNet-18 at 32² (3 steps) train
-             on the card through the kernel route and through
+             (``fuse=True``, 5 steps), ResNet-18 at 32² (3 steps) and
+             the same ResNet-18 under ``decorate(Momentum(0.01, 0.9,
+             fuse=True))`` for bf16 AMP (amp-resnet18, 3 steps) train on
+             the card through the kernel route and through
              ``FLAGS_fuse_optimizer_pallas=False`` from the same scope:
-             float32, losses and every persistable bitwise; one launch of
-             the optimizer's kernel a step on the kernel route (counts
-             zeroed just before), none on the other;
+             losses and every persistable bitwise; one launch of the
+             optimizer's kernel a step on the kernel route (counts zeroed
+             just before), none on the other; then the fp16 case, the
+             MLP of ``tests/test_amp.py`` under ``decorate(SGD(0.05),
+             use_bf16=False)`` with a poisoned step: its loss-scale
+             sequence and overflow verdicts equal the same program's on
+             the CPU in this process;
 10. resnet50 — ResNet-50 (batch 128, 224², class 1000, float32) trains
              through ``Program`` → ``Momentum(0.01, 0.9, fuse=True)
              .minimize`` → ``Executor(CUDAPlace(0)).run`` (``train_bench
-             --model resnet50``): the loss falls over 6 steps on one fixed
-             fed batch; 1 warm-up + 10 timed steps on data made on the
-             card, exactly one ``opt_momentum`` launch a step; then the
-             ``--no-fuse`` arm; img/s, ms a step, MFU, peak GB printed.
+             --model resnet50 --no-amp``): the loss falls over 6 steps on
+             one fixed fed batch; 1 warm-up + 10 timed steps on data made
+             on the card, exactly one ``opt_momentum`` launch a step; then
+             the ``--no-fuse`` arm (1 warm-up + 3 timed steps: cut from
+             10 for the script's wall; 10p holds that route bitwise);
+             img/s, ms a step, MFU, peak GB printed;
+10a. resnet50-amp — ``bench.py``'s ResNet lane as written: the same
+             model under ``decorate(Momentum(0.01, 0.9, fuse=True),
+             use_bf16=True)`` (``train_bench --model resnet50``): the loss
+             falls over 6 steps on one fixed fed batch, after which
+             every parameter in the scope is float32,
+             ``loss_scaling_0`` is 1.0 and ``find_infinite_scale_0``
+             false; 1 warm-up + 10 timed steps, every loss finite and
+             exactly one ``opt_momentum`` launch a step; then one step in
+             which every ``conv2d`` and ``mul`` lowering is given bf16
+             operands (the values, not the vars' labels); the
+             ``--no-fuse`` arm (1 + 3 steps and that step), no launch;
+             img/s, ms a step, MFU and peak GB beside phase 10's float32
+             record (no speed gate);
+10e. encoder — ``models.transformer_encoder`` at ERNIE-base's widths and
+             depth (L 12, nh 12, D 768, d_ff 3072, V 30522, max_pos 512,
+             2 classes, dropout 0.1) fine-tunes through ``train_bench
+             --model encoder``: batch 48 x 512 with a [48, 1, 1, 512]
+             padding bias (lengths 128-512, phase 9b's draw), bf16 AMP
+             with ``multihead_matmul`` on the white list (its attention
+             on the flash bias kernels), AdamW on a linear warm-up over
+             polynomial decay with the global-norm clip, fused; 1
+             warm-up + 5 timed steps (counts zeroed just before them):
+             exactly 12 launches each of ``flash_fwd_bias``,
+             ``flash_bwd_dq_bias`` and ``flash_bwd_dkv_bias`` and one
+             ``opt_adamw`` a step, losses finite, the learning rate the
+             schedule's; every ``multihead_matmul`` computing in bf16 in
+             one more step, whose products' compute dtypes are printed
+             (the FFN's second ``mul`` float32, as in the reference);
+             samples/s, ms a step, MFU, peak GB; one traced step's flash
+             bias device ms beside its busy ms;
+10ep. encoder-parity — 2 of those layers in float32 (TF32 off), batch 4
+             x 512 padded, no dropout, 3 AdamW steps with the clip and the
+             warm-up: the card (flash bias kernels) against the same
+             program on the CPU (the naive path) in this process from one
+             start scope, losses within 1e-5 relative, every persistable
+             within 3e-4 of its scale (the reference's flash gradient
+             tolerance; Adam's noise-floor elements within 2 lr); then
+             ``softmax_with_cross_entropy(vocab_chunk=1024)`` at [2048,
+             30522] float32 against
+             ``vocab_chunk=0``: loss and Logits grad within 1e-5 of their
+             scale, both peak memories printed.
 
 11k. parallel-kernels — before the gangs, each kernel of phase 11's
              path at every gloo layout's per-rank shapes against its plain
@@ -4450,16 +4499,18 @@ def _fluid_program(kind: str):
     """(main, startup, loss, feed) of a fluid training case on the card:
     the MLP of ``tests/test_pallas_fused.py`` under each fused optimizer,
     or ResNet-18 at 32², batch 4, class 4 with Momentum(0.01, 0.9,
-    fuse=True) (``kind`` "resnet18")."""
+    fuse=True) (``kind`` "resnet18"; "amp-resnet18" under
+    ``decorate(...)`` for bf16 AMP)."""
     import paddle_tpu_torch as T
     from paddle_tpu_torch.framework import unique_name
     from paddle_tpu_torch.tools.train_bench import resnet_program
 
     rng = np.random.default_rng(0)
     with unique_name.guard():
-        if kind == "resnet18":
+        if kind in ("resnet18", "amp-resnet18"):
             main, startup, loss = resnet_program(batch=4, hw=32, classes=4,
-                                                 depth=18, synthetic=False)
+                                                 depth=18, synthetic=False,
+                                                 amp=kind == "amp-resnet18")
             feed = {"img": rng.standard_normal((4, 3, 32, 32)).astype(
                 np.float32), "label": rng.integers(0, 4, (4, 1))}
             return main, startup, loss, feed
@@ -4503,15 +4554,17 @@ def phase_fluid_parity():
     torch.backends.cuda.matmul.allow_tf32 = False
     launches = {}
     try:
-        for kind in FLUID_OPTS + ("resnet18",):
+        for kind in FLUID_OPTS + ("resnet18", "amp-resnet18"):
             main, startup, loss, feed = _fluid_program(kind)
-            steps = 3 if kind == "resnet18" else 5
+            steps = 3 if kind.endswith("resnet18") else 5
             kname = FLUID_KERNEL.get(kind, "opt_momentum")
             exe = T.Executor(T.CUDAPlace(0))
             scope0 = T.Scope()
             exe.run(startup, scope=scope0)
+            # the startup program's persistables (AMP's overflow flag is
+            # the first step's)
             names = [n for n, v in main.global_block().vars.items()
-                     if v.persistable]
+                     if v.persistable and scope0.find_var(n) is not None]
             out = {}
             for route, flag in (("kernel", None), ("plain", False)):
                 T.set_flags({"FLAGS_fuse_optimizer_pallas": flag})
@@ -4537,15 +4590,83 @@ def phase_fluid_parity():
                     raise AssertionError(f"fluid {kind}: {n} differs "
                                          "between the routes")
             launches[kname] = launches.get(kname, 0) + kc[kname]
-            print(f"[fluid-parity] {kind}: {steps} steps f32, kernel route "
-                  f"== plain route bitwise ({len(names)} persistables); "
-                  f"losses {kl}; launches {kc}")
+            print(f"[fluid-parity] {kind}: {steps} steps "
+                  f"{'bf16 AMP' if kind.startswith('amp') else 'f32'}, "
+                  f"kernel route == plain route bitwise ({len(names)} "
+                  f"persistables); losses {kl}; launches {kc}")
+        _fp16_scaling_parity()
     finally:
         T.set_flags({"FLAGS_fuse_optimizer_pallas": None})
         (torch.backends.cudnn.deterministic,
          torch.backends.cudnn.allow_tf32,
          torch.backends.cuda.matmul.allow_tf32) = saved
     return launches
+
+
+def _fp16_run(device: str):
+    """``tests/test_amp.py``'s fp16 dynamic loss-scaling run on
+    ``device``: the MLP under ``decorate(SGD(0.05), use_bf16=False,
+    init_loss_scaling=2^10, decr_every_n_nan_or_inf=1,
+    incr_every_n_steps=4)``, 10 steps, an inf fed at step 2. Returns the
+    scale and ``find_infinite_scale_0`` of each step and the losses."""
+    import paddle_tpu_torch as T
+    from paddle_tpu_torch.contrib import mixed_precision as MP
+    from paddle_tpu_torch.framework import unique_name
+
+    with unique_name.guard():
+        main, startup = T.Program(), T.Program()
+        main.random_seed = startup.random_seed = 3
+        with T.program_guard(main, startup):
+            img = T.layers.data("img", [16], dtype="float32")
+            label = T.layers.data("label", [1], dtype="int64")
+            h = T.layers.fc(img, 32, act="relu")
+            loss = T.layers.reduce_mean(T.layers.softmax_with_cross_entropy(
+                T.layers.fc(h, 4), label))
+            dec = MP.decorate(T.optimizer.SGD(0.05), use_bf16=False,
+                              init_loss_scaling=2.0 ** 10,
+                              decr_every_n_nan_or_inf=1,
+                              incr_every_n_steps=4)
+            dec.minimize(loss)
+    place = T.CPUPlace() if device == "cpu" else T.CUDAPlace(0)
+    exe, scope = T.Executor(place), T.Scope()
+    exe.run(startup, scope=scope)
+    rng = np.random.RandomState(1)
+    x = rng.randn(32, 16).astype(np.float32)
+    y = rng.randint(0, 4, (32, 1)).astype(np.int64)
+    scales, found, losses = [], [], []
+    for step in range(10):
+        feed_x = x.copy()
+        if step == 2:
+            feed_x[0, 0] = np.inf
+        lv, sv, fv = exe.run(main, feed={"img": feed_x, "label": y},
+                             fetch_list=[loss, dec.get_loss_scaling(),
+                                         "find_infinite_scale_0"],
+                             scope=scope)
+        scales.append(float(sv[0]))
+        found.append(bool(fv[0]))
+        losses.append(float(lv))
+    return scales, found, losses
+
+
+def _fp16_scaling_parity():
+    """10p's fp16 case: the dynamic loss scale's sequence and the
+    overflow verdicts on the card equal the same program's on the CPU, in
+    this process; the poisoned step alone overflows."""
+    card, cpu = _fp16_run("cuda"), _fp16_run("cpu")
+    if card[:2] != cpu[:2]:
+        raise AssertionError(f"fp16 loss scaling: card {card[:2]} != cpu "
+                             f"{cpu[:2]}")
+    if card[1] != [i == 2 for i in range(10)] or \
+            not card[0][2] < card[0][1] < card[0][-1]:
+        raise AssertionError(f"fp16 loss scaling: {card[:2]}")
+    print(f"[fluid-parity] fp16 MLP: scales {card[0]} == CPU's; overflow "
+          f"only at the poisoned step 2; losses {card[2]}")
+
+
+# the --no-fuse arms' timed steps (10a and 10; cut from 10 for the
+# script's wall): 10p holds that route bitwise against the kernel route,
+# so its arm here gives the lane's time only
+NOFUSE_STEPS = 3
 
 
 def phase_resnet50():
@@ -4556,17 +4677,19 @@ def phase_resnet50():
     loss must fall; then the synthetic-data lane, 1 warm-up + 10 timed
     steps (counts zeroed just before them): every loss finite and exactly
     one ``opt_momentum`` launch a step; then the same for the ``--no-fuse``
-    arm (one ``momentum`` op a parameter, no kernel launch). Returns the
-    fused arm's record."""
+    arm (one ``momentum`` op a parameter, no kernel launch) over
+    NOFUSE_STEPS timed steps. Returns the
+    fused arm's record, with both arms' under ``records`` (by ``fuse``)."""
     from paddle_tpu_torch.tools import train_bench
 
-    fixed = train_bench.resnet_fixed_batch(steps=6)
+    fixed, _main, _scope = train_bench.resnet_fixed_batch(steps=6)
     if not all(np.isfinite(fixed)) or not fixed[-1] < fixed[0]:
         raise AssertionError(f"ResNet-50 fixed-batch losses {fixed}")
     print(f"[resnet50] fixed batch of 128: losses {fixed}")
     recs = {}
     for fuse in (True, False):
-        rec = train_bench.run_resnet(fuse=fuse)
+        rec = train_bench.run_resnet(fuse=fuse, amp=False,
+                                     steps=10 if fuse else NOFUSE_STEPS)
         if not all(np.isfinite(rec["losses"])):
             raise AssertionError(f"non-finite ResNet-50 loss: "
                                  f"{rec['losses']}")
@@ -4583,7 +4706,264 @@ def phase_resnet50():
               f"{rec['loss_last']:.4f}; launches/step "
               f"{rec['launches_per_step']}")
         recs[fuse] = rec
+    return {**recs[True], "records": recs}
+
+
+def _amp_scope_checks(main, scope) -> None:
+    """The AMP gates on a decorated program's scope after its steps:
+    every parameter is still float32, ``loss_scaling_0`` is 1.0 and
+    ``find_infinite_scale_0`` false."""
+    for p in main.global_block().all_parameters():
+        if scope.find_var(p.name).dtype != torch.float32:
+            raise AssertionError(f"AMP: parameter {p.name} is "
+                                 f"{scope.find_var(p.name).dtype}")
+    if float(scope.find_var("loss_scaling_0")[0]) != 1.0 or \
+            bool(scope.find_var("find_infinite_scale_0")[0]):
+        raise AssertionError("AMP: the loss scale moved or a step "
+                             "overflowed")
+
+
+def _bf16_products(rec) -> int:
+    """The AMP gate on a lane's record: in its ``product_dtypes`` step
+    every ``conv2d`` and ``mul`` of the program ran once and computed in
+    bf16 — the dtypes their lowerings were given, not the vars' labels,
+    which a bf16 product plus a float32 bias can contradict. Returns the
+    count of products."""
+    pd = rec["product_dtypes"]
+    want = {f"{t}:bfloat16": n for t, n in sorted(pd["ops"].items())}
+    if not want or pd["calls"] != want:
+        raise AssertionError(f"AMP: products computed as {pd['calls']}, "
+                             f"want {want}")
+    return sum(pd["ops"].values())
+
+
+def phase_resnet50_amp(f32: dict):
+    """Phase 10a: ``bench.py``'s ResNet lane as written — ResNet-50 (batch
+    128, 224², class 1000) under ``decorate(Momentum(0.01, 0.9,
+    fuse=True), use_bf16=True)`` through ``Executor(CUDAPlace(0)).run``
+    (``train_bench --model resnet50``): 6 steps on one fixed fed batch,
+    whose loss must fall, then :func:`_amp_scope_checks` on that
+    program's scope; then 1 warm-up + 10 timed steps on data made on the
+    card (counts zeroed just before them): every loss finite, exactly one
+    ``opt_momentum`` launch a step and no other kernel, and
+    :func:`_bf16_products` on one more step; then the ``--no-fuse`` arm
+    over NOFUSE_STEPS timed steps, with no launch, and the same gate.
+    Printed beside phase 10's float32 record ``f32``. Returns the fused
+    arm's record."""
+    from paddle_tpu_torch.tools import train_bench
+
+    fixed, main, scope = train_bench.resnet_fixed_batch(steps=6, amp=True)
+    if not all(np.isfinite(fixed)) or not fixed[-1] < fixed[0]:
+        raise AssertionError(f"ResNet-50 AMP fixed-batch losses {fixed}")
+    _amp_scope_checks(main, scope)
+    del main, scope
+    print(f"[resnet50-amp] fixed batch of 128: losses {fixed}; parameters "
+          "float32, scale 1.0")
+    recs = {}
+    for fuse in (True, False):
+        rec = train_bench.run_resnet(fuse=fuse, amp=True,
+                                     steps=10 if fuse else NOFUSE_STEPS)
+        if not all(np.isfinite(rec["losses"])):
+            raise AssertionError(f"non-finite ResNet-50 AMP loss: "
+                                 f"{rec['losses']}")
+        n_prods = _bf16_products(rec)
+        print(f"[resnet50-amp] {rec['config']}: {n_prods} conv2d / mul "
+              f"calls a step, computed as {rec['product_dtypes']['calls']}")
+        want = {"opt_momentum": 1} if fuse else {}
+        if rec["launches_per_step"] != want:
+            raise AssertionError(f"AMP launches per step "
+                                 f"{rec['launches_per_step']} != {want}")
+        recs[fuse] = rec
+    for fuse in (True, False):
+        a, b = recs[fuse], f32[fuse]
+        print(f"[resnet50-amp] {a['config']}: {a['images_per_s']:.2f} img/s "
+              f"(f32 {b['images_per_s']:.2f}), ms/step="
+              f"{a['ms_per_step']:.3f} (f32 {b['ms_per_step']:.3f}), mfu="
+              f"{a['mfu']:.4f} (f32 {b['mfu']:.4f}), peak GB="
+              f"{a['peak_mem_bytes'] / 1e9:.3f} (f32 "
+              f"{b['peak_mem_bytes'] / 1e9:.3f}), warmup_s="
+              f"{a['warmup_s']:.2f}; loss first={a['loss_first']:.4f} "
+              f"last={a['loss_last']:.4f}; launches/step "
+              f"{a['launches_per_step']}")
     return recs[True]
+
+
+def phase_encoder():
+    """Phase 10e: the static-graph transformer encoder at ERNIE-base's
+    widths and depth (``train_bench --model encoder``: L 12, nh 12, D 768,
+    d_ff 3072, V 30522, max_pos 512, 2 classes, dropout 0.1) fine-tunes
+    on batch 48 x 512 with a [48, 1, 1, 512] padding bias (lengths
+    128-512) under ``decorate(AdamW(linear_lr_warmup(polynomial_decay)),
+    grad clip by global norm, fuse=True)`` with ``multihead_matmul`` on
+    the white list: 1 warm-up + 5 timed steps (counts zeroed just before
+    them), each launching exactly 12 each of ``flash_fwd_bias``,
+    ``flash_bwd_dq_bias`` and ``flash_bwd_dkv_bias`` and one
+    ``opt_adamw``; losses finite; each step's learning rate the
+    schedule's. Then one step traced (``utils/device_trace``): the flash
+    bias kernels' device ms beside the step's busy ms. Returns the
+    record."""
+    import os
+
+    from paddle_tpu_torch.tools import train_bench as TB
+
+    trace_dir = os.path.join(_trace_dir(), "encoder")
+    rec = TB.run_encoder(profile_steps=1, trace_dir=trace_dir)
+    L = TB.ENCODER["num_layers"]
+    want = {**{k: L for k in TB.ENCODER_FLASH}, "opt_adamw": 1}
+    if rec["launches_per_step"] != want:
+        raise AssertionError(f"encoder launches per step "
+                             f"{rec['launches_per_step']} != {want}")
+    if not all(np.isfinite(rec["losses"])):
+        raise AssertionError(f"non-finite encoder loss: {rec['losses']}")
+    np.testing.assert_allclose(rec["lrs"], rec["lrs_want"], rtol=1e-6)
+    pd = rec["product_dtypes"]
+    n_mha = pd["ops"]["multihead_matmul"]
+    if pd["calls"].get("multihead_matmul:bfloat16") != n_mha:
+        raise AssertionError(f"encoder products computed as {pd['calls']}")
+    tr = rec["trace"]
+    if tr["launches"] != want:
+        raise AssertionError(f"the traced step launched {tr['launches']}")
+    print(f"[encoder] {rec['config']} {rec['model_params']} params: "
+          f"{rec['samples_per_s']:.2f} samples/s, ms/step="
+          f"{rec['ms_per_step']:.3f}, mfu={rec['mfu']:.4f}, peak GB="
+          f"{rec['peak_mem_bytes'] / 1e9:.3f}, warmup_s="
+          f"{rec['warmup_s']:.2f}; losses {rec['losses']}; lrs "
+          f"{rec['lrs']}; launches/step {rec['launches_per_step']}")
+    print(f"[encoder] products a step by the dtype their lowerings computed "
+          f"in: {pd['calls']} (ops {pd['ops']})")
+    print(f"[encoder] one traced step: busy {tr['busy_ms']:.3f} ms (wall "
+          f"{tr['wall_ms']:.3f}); flash bias kernels "
+          + ", ".join(f"{k} {v:.3f}" for k, v in tr["flash_bias_ms"].items())
+          + f" ms, {tr['flash_bias_share']:.4f} of busy")
+    return rec
+
+
+# 10ep's band on a persistable: the reference's flash gradient tolerance
+ENCODER_PARITY_TOL = 3e-4
+
+
+def phase_encoder_parity():
+    """Phase 10ep: a 2-layer encoder at ERNIE's widths in float32 (TF32
+    off), batch 4 x 512 with padded lengths, no dropout, 3 AdamW steps
+    with the global-norm clip and the warm-up schedule: on the card
+    (``multihead_matmul`` through the flash bias kernels) against the
+    same program on the CPU (the naive path) in this process, from one
+    start scope. Losses within 1e-5 relative; every persistable within
+    3e-4 of its scale (the larger of its largest |value| and lr: the
+    reference's flash gradient tolerance, as the pair cannot hold 9p's
+    1e-5 — the worst measured is printed), but for the parameter
+    elements whose gradient sits at its noise floor (below 1e-4 of its
+    tensor's largest, the K bias's among them: Adam's normalised step
+    follows the rounding there, up to lr), held within 2 lr (as
+    ``tests/test_torch_encoder.py``). Then
+    ``softmax_with_cross_entropy(vocab_chunk=1024)`` on the card at
+    [2048, 30522] float32 (30522 not a multiple of 1024) against
+    ``vocab_chunk=0``: loss and Logits gradient within 1e-5 of their
+    largest |value|; both peak memories printed. Returns the card run's
+    launches."""
+    import paddle_tpu_torch as T
+    from paddle_tpu_torch.ops import cuda_kernels as CK
+    from paddle_tpu_torch.testing import adam_state_gap
+    from paddle_tpu_torch.tools import train_bench as TB
+
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        cfg = dict(TB.ENCODER, num_layers=2)
+        main, startup, loss, lr = TB.encoder_program(cfg, 512, dropout=0.0,
+                                                     amp=False)
+        exe = T.Executor(T.CUDAPlace(0))
+        scope0 = T.Scope()
+        exe.run(startup, scope=scope0)
+        names = [n for n, v in main.global_block().vars.items()
+                 if v.persistable and scope0.find_var(n) is not None]
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            place = T.CUDAPlace(0) if dev == "cuda" else T.CPUPlace()
+            scope = T.Scope()
+            for n in names:
+                scope.set_var(n, scope0.find_var(n).to(dev, copy=True))
+            feed = TB.encoder_batch(cfg, 4, 512, torch.device(dev))
+            rexe = T.Executor(place)
+            CK.reset_launches()
+            losses = [float(rexe.run(main, feed=feed, fetch_list=[loss],
+                                     scope=scope)[0]) for _ in range(3)]
+            runs[dev] = (losses, scope,
+                         {k: v for k, v in CK.LAUNCHES.items() if v})
+        (cl, cs, cc), (pl_, ps, pc) = runs["cuda"], runs["cpu"]
+        want = {**{k: 2 * 3 for k in TB.ENCODER_FLASH}, "opt_adamw": 3}
+        if cc != want or pc:
+            raise AssertionError(f"encoder parity launches: card {cc}, "
+                                 f"cpu {pc}")
+        np.testing.assert_allclose(cl, pl_, rtol=1e-5)
+        worst, worst_name, floor_worst, n_floor = adam_state_gap(
+            {n: cs.find_var(n).cpu() for n in names},
+            {n: ps.find_var(n) for n in names}, main, TB.ENCODER_LR)
+        if not floor_worst <= 2 * TB.ENCODER_LR:
+            raise AssertionError(f"encoder parity: a noise-floor element "
+                                 f"moved {floor_worst:.3g}")
+        if not worst <= ENCODER_PARITY_TOL:
+            raise AssertionError(f"encoder parity: {worst_name} differs by "
+                                 f"{worst:.3g} of its scale")
+        print(f"[encoder-parity] f32 2 layers, 3 steps of 4x512 (padded), "
+              f"card flash route vs CPU naive route: losses {cl} cpu {pl_};"
+              f" worst persistable diff {worst:.3g} of its scale "
+              f"({worst_name}; band {ENCODER_PARITY_TOL}); "
+              f"{n_floor} noise-floor elements within {floor_worst:.3g} "
+              f"(lr {TB.ENCODER_LR}); launches {cc}")
+        _chunked_ce_check()
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+    return cc
+
+
+def _chunked_ce_check(rows: int = 2048, vocab: int = 30522,
+                      chunk: int = 1024):
+    """``softmax_with_cross_entropy(vocab_chunk=chunk)`` on the card
+    against ``vocab_chunk=0`` at [rows, vocab] float32: the loss and the
+    Logits gradient (through the program's backward) within 1e-5 of their
+    largest |value|; each run's peak memory printed."""
+    import paddle_tpu_torch as T
+    from paddle_tpu_torch.framework import unique_name
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(22)
+    logits = torch.randn((rows, vocab), generator=g, device=dev) * 4
+    label = torch.randint(0, vocab, (rows, 1), generator=g, device=dev)
+    out = {}
+    for vc in (chunk, 0):
+        with unique_name.guard():
+            main, startup = T.Program(), T.Program()
+            with T.program_guard(main, startup):
+                x = T.layers.data("logits", [vocab], dtype="float32",
+                                  stop_gradient=False)
+                y = T.layers.data("label", [1], dtype="int64")
+                ce = T.layers.softmax_with_cross_entropy(x, y,
+                                                         vocab_chunk=vc)
+                T.append_backward(T.layers.reduce_mean(ce))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        ce_v, grad = T.Executor(T.CUDAPlace(0)).run(
+            main, feed={"logits": logits, "label": label},
+            fetch_list=[ce, "logits@GRAD"], return_numpy=False)
+        torch.cuda.synchronize()
+        out[vc] = (ce_v, grad, torch.cuda.max_memory_allocated() - base)
+        del ce_v, grad
+    (lc, gc, mc), (l0, g0, m0) = out[chunk], out[0]
+    for what, a, b in (("loss", lc, l0), ("Logits grad", gc, g0)):
+        ratio = ((a - b).abs().max() / b.abs().max()).item()
+        if not ratio <= 1e-5:
+            raise AssertionError(f"chunked CE {what} differs by {ratio:.3g} "
+                                 "of its scale")
+    print(f"[chunked-ce] [{rows}, {vocab}] f32, vocab_chunk {chunk} vs 0: "
+          f"loss and Logits grad within 1e-5 of their scale; peak memory "
+          f"above the inputs {mc / 1e9:.3f} GB (chunked) vs {m0 / 1e9:.3f} "
+          "GB (unchunked)")
 
 
 # phase 11: gangs of ranks (name, ranks, backend), each running its
@@ -5949,6 +6329,20 @@ def _main() -> int:
     for k, v in resnet["launches_per_step"].items():
         launches[k] = launches.get(k, 0) + round(v * resnet["steps"])
     lap("10k, 10p, 10 fluid")
+    # bench.py's ResNet lane in bf16 AMP (10a), the fluid transformer
+    # encoder at ERNIE-base's widths (10e: the flash bias kernels and
+    # opt_adamw), and the encoder's card-vs-CPU parity (10ep)
+    amp = phase_resnet50_amp(resnet["records"])
+    for k, v in amp["launches_per_step"].items():
+        launches[k] = launches.get(k, 0) + round(v * amp["steps"])
+    lap("10a resnet50 AMP")
+    enc = phase_encoder()
+    for k, v in enc["launches_per_step"].items():
+        launches[k] = launches.get(k, 0) + round(v * enc["steps"])
+    lap("10e encoder")
+    for k, v in phase_encoder_parity().items():
+        launches[k] = launches.get(k, 0) + v
+    lap("10ep encoder parity")
     # the autotuner (phase 14), before phase 12's gang shares the card
     for k, v in phase_tuning().items():
         launches[k] = launches.get(k, 0) + v

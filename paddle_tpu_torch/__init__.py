@@ -15,10 +15,13 @@ on one device — ``models.gpt`` (``loss_fn``), ``ops.flash_attention``,
 ``ops.fused_ln``, ``ops.chunked_ce``, ``ops.cuda_kernels`` (the flat
 AdamW sweep) and ``parallel``; paged serving — ``serving.paged_kv``;
 ERNIE pretraining — ``models.ernie``; the fluid static-graph path —
-``framework`` (Program IR, backward, Executor), ``layers``, the op
-lowerings ``ops.math``/``nn``/``tensor``/``optimizer_ops`` (the fused
-optimizers through the sgd, momentum and adam sweeps of
-``ops.cuda_kernels``), ``optimizer`` and ``models.resnet``; training
+``framework`` (Program IR, backward, Executor), ``layers`` (with the LR
+schedules), the op lowerings ``ops.math``/``nn``/``tensor``/
+``optimizer_ops``/``amp_ops``/``misc_extra2`` (the fused optimizers
+through the sgd, momentum and adam sweeps of ``ops.cuda_kernels``;
+``multihead_matmul`` through the flash bias kernels), ``optimizer``,
+``clip``, ``regularizer``, ``contrib.mixed_precision`` (AMP),
+``models.resnet`` and ``models.transformer_encoder``; training
 over ranks — ``parallel`` (dp x pp x tp, the plans of ``sharding``,
 elastic and sharded checkpoints) and ERNIE's (dp, tp) mesh step.
 
@@ -31,7 +34,8 @@ import importlib
 from .device import resolve_device
 
 __all__ = ["resolve_device", "Program", "program_guard", "layers",
-           "optimizer", "Executor", "Scope", "CPUPlace", "CUDAPlace",
+           "optimizer", "clip", "regularizer", "contrib", "Executor",
+           "Scope", "CPUPlace", "CUDAPlace",
            "set_flags", "get_flags", "append_backward", "scope_from_numpy",
            "ParamAttr", "global_scope", "scope_guard", "unique_name",
            "default_main_program", "default_startup_program", "Parameter",
@@ -46,7 +50,8 @@ _FRAMEWORK_NAMES = {"Program", "program_guard", "Executor", "Scope",
 
 
 def __getattr__(name):
-    if name in ("layers", "optimizer", "framework"):
+    if name in ("layers", "optimizer", "framework", "clip", "regularizer",
+                "contrib"):
         return importlib.import_module(f"{__name__}.{name}")
     if name in _FRAMEWORK_NAMES:
         return getattr(importlib.import_module(f"{__name__}.framework"),

@@ -281,6 +281,23 @@ class Block:
         self._infer_shape(op)
         return op
 
+    def _insert_op(self, index, type, inputs=None, outputs=None,
+                   attrs=None) -> Operator:
+        """Insert an op at ``index`` (the AMP rewrite's casts, the LR
+        counter's increment); shapes inferred as ``append_op`` does."""
+        op = Operator(self, type=type, inputs=inputs, outputs=outputs, attrs=attrs)
+        self.ops.insert(index, op)
+        self.program._bump_version()
+        self._infer_shape(op)
+        return op
+
+    def _prepend_op(self, type, inputs=None, outputs=None, attrs=None) -> Operator:
+        return self._insert_op(0, type, inputs=inputs, outputs=outputs, attrs=attrs)
+
+    def _remove_op(self, index):
+        del self.ops[index]
+        self.program._bump_version()
+
     def _infer_shape(self, op: Operator):
         from .registry import infer_shape_for_op
 

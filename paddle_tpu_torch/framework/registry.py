@@ -10,7 +10,8 @@ records the forward op's autograd graph when the block holds its grad op,
 and the grad op runs that graph (``executor.py``).
 
 The lowerings (``ops/math.py``, ``ops/nn.py``, ``ops/tensor.py``,
-``ops/optimizer_ops.py``) load at the first registry lookup, so
+``ops/optimizer_ops.py``, ``ops/amp_ops.py``, ``ops/misc_extra2.py``)
+load at the first registry lookup, so
 ``import paddle_tpu_torch`` stays light.
 
 Build-time shape inference runs a lowering on ``device="meta"`` tensors
@@ -19,7 +20,10 @@ a stand-in extent and restored after.
 """
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
+import functools
 import importlib
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
@@ -47,7 +51,8 @@ class OpSpec:
 
 
 _OPS: Dict[str, OpSpec] = {}
-_LOWERING_MODULES = ("math", "nn", "tensor", "optimizer_ops")
+_LOWERING_MODULES = ("math", "nn", "tensor", "optimizer_ops", "amp_ops",
+                     "misc_extra2")
 _loaded = False
 
 
@@ -85,6 +90,39 @@ def has_op(type: str) -> bool:
     _ensure_lowerings()
     return type in _OPS or (type.endswith("_grad")
                             and type[: -len("_grad")] in _OPS)
+
+
+@contextlib.contextmanager
+def compute_dtypes(slots_by_type: Dict[str, Sequence[str]]):
+    """Within the block, each lowering of an op type in ``slots_by_type``
+    records, a call, the dtype it computes in: the promoted dtype of the
+    floating-point tensors it receives in those slots (a product lowering
+    computes in its operands' promoted dtype). Yields a
+    ``collections.Counter`` of (op type, dtype name). An AMP rewrite's
+    labels say what a var should hold; this counts what the lowerings
+    were given. The executor's cached plans hold these same specs, so a
+    plan built before the block is observed too; forward lowerings only
+    (a grad op replays its forward op's recorded graph)."""
+    seen: collections.Counter = collections.Counter()
+    saved = {}
+    for type_, slots in slots_by_type.items():
+        spec = get_op_spec(type_)
+        saved[type_] = spec.lower
+
+        def observed(ctx, op, ins, _lower=spec.lower, _slots=tuple(slots)):
+            dts = [t.dtype for s in _slots for t in ins.get(s, ())
+                   if isinstance(t, torch.Tensor) and t.is_floating_point()]
+            if dts:
+                seen[(op.type, dtype_name(
+                    functools.reduce(torch.promote_types, dts)))] += 1
+            return _lower(ctx, op, ins)
+
+        spec.lower = observed
+    try:
+        yield seen
+    finally:
+        for type_, fn in saved.items():
+            _OPS[type_].lower = fn
 
 
 # ---------------------------------------------------------------------------

@@ -34,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from ..device import resolve_device
+from ..observability import hw
 from ..ops.chunked_ce import chunked_lm_loss
 from ..ops.flash_attention import flash_attention
 from ..ops.fused_ln import fused_ln
@@ -445,5 +446,5 @@ def pretrain_flops_per_token(cfg: ErnieConfig, n_params: int,
     ``max_masked`` of T positions."""
     D, V, M = cfg.d_model, cfg.vocab_size, cfg.max_masked
     n_emb = V * D + cfg.max_seq_len * D + cfg.type_vocab_size * D
-    attn = 12 * cfg.num_layers * D * T
-    return 6 * (n_params - n_emb) + attn + 6 * M * D * V // T
+    return (hw.transformer_train_flops_per_token(
+        n_params - n_emb, cfg.num_layers, D, T) + 6 * M * D * V // T)

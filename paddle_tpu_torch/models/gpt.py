@@ -34,6 +34,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
+from ..observability import hw
 from ..ops.chunked_ce import chunked_lm_loss
 from ..ops.fused_ln import fused_ln
 from ..parallel import comm_opt
@@ -434,4 +435,5 @@ def train_flops_per_token(cfg: GPTConfig, n_params: int, T: int) -> float:
     """Forward + backward FLOPs per trained token: 6N plus the attention
     term (per layer QK^T + AV = 4·T·d a token forward, x3 with the
     backward) — the numerator of every MFU figure."""
-    return 6 * n_params + 12 * cfg.num_layers * cfg.d_model * T
+    return hw.transformer_train_flops_per_token(n_params, cfg.num_layers,
+                                                cfg.d_model, T)

@@ -15,13 +15,16 @@ the larger of its bytes over the memory rate and its operations over the
 peak rate for their type. ``chip_smoke.py`` and ``PERF.md`` take every
 bound from here. ``program_train_flops`` is the reference's analytic
 count of a fluid program's training FLOPs (``paddle_tpu/observability/
-hw.py:91``), the numerator of the fluid lanes' MFU.
+hw.py:91``), the numerator of the fluid lanes' MFU;
+``transformer_train_flops_per_token`` the numerator of every transformer
+lane's (GPT, ERNIE, the fluid encoder).
 """
 from __future__ import annotations
 
 from typing import Dict, Tuple
 
-__all__ = ["PEAKS", "peaks_for", "bound_ms", "program_train_flops"]
+__all__ = ["PEAKS", "peaks_for", "bound_ms", "program_train_flops",
+           "transformer_train_flops_per_token"]
 
 # device-name substring (lower case) -> peak rates
 PEAKS: Dict[str, Dict[str, float]] = {
@@ -56,6 +59,16 @@ def bound_ms(nbytes: float, flops: float, flop_dtype: str,
     if t_bytes >= t_ops:
         return t_bytes * 1e3, "bytes"
     return t_ops * 1e3, "operations"
+
+
+def transformer_train_flops_per_token(n_dense: int, num_layers: int,
+                                      d_model: int, seq: int) -> int:
+    """Forward + backward FLOPs a trained token of a transformer stack:
+    6 N over the N weights its matrix products read (2 a multiply-add, x3
+    with the backward) plus the attention term 12·L·D·T (QK^T and AV, 4·T·D
+    a layer forward, x3) — the JAX package's convention
+    (``models/gpt.py`` ``train_flops_per_token``)."""
+    return 6 * n_dense + 12 * num_layers * d_model * seq
 
 
 def program_train_flops(program, batch: int = 1) -> int:

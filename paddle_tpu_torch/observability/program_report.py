@@ -207,6 +207,9 @@ def counted(device=None, flops: Optional[bool] = None):
     cuda = dev is not None and dev.type == "cuda"
     c = Counted()
     if cuda:
+        # the allocator's counters need the CUDA context, which a process
+        # whose first card work is this block has not made yet
+        torch.cuda.init()
         torch.cuda.reset_peak_memory_stats(dev)
     if flops:
         from torch.utils.flop_counter import FlopCounterMode

@@ -3,6 +3,14 @@ of ``paddle_tpu/ops/pallas_kernels.py:481-777`` (``_ce_chunk_logits``,
 ``_ce_fwd_lax``, ``_ce_fwd_kernel``, the ``_chunked_ce`` custom_vjp and
 ``chunked_lm_loss``).
 
+``chunked_softmax_ce_from_logits`` is the port of
+``pallas_kernels.py:788-845``: the CE over logits that already exist
+(``softmax_with_cross_entropy(vocab_chunk=)``), an online-logsumexp
+chunk loop forward and a chunk loop writing dLogits backward, so the
+float32 softmax never materialises at [rows, V]. The reference's is a
+``lax.scan`` under ``custom_vjp``, not a Pallas kernel: plain torch ops
+are its port.
+
 The forward statistics (per-row logsumexp and gold logit) are one
 hand-written kernel on the card, :func:`ce_fwd` (``ops/csrc/ce_fwd.cu``),
 beside its plain version :func:`ce_fwd_plain`, the online-logsumexp sweep
@@ -22,7 +30,7 @@ from . import cuda_kernels as _ck
 from . import kernel_costs as _kc
 
 __all__ = ["chunked_lm_loss", "ce_fwd", "ce_fwd_plain", "ce_chunk_logits",
-           "ce_fwd_plan", "CE_BWD_RANGE"]
+           "ce_fwd_plan", "chunked_softmax_ce_from_logits", "CE_BWD_RANGE"]
 
 _NEG_INF = -0.7 * float(np.finfo(np.float32).max)
 _LAYOUTS = ("dv", "vd")
@@ -260,3 +268,57 @@ def chunked_lm_loss(x, head, labels, bias=None, valid=None,
                               vc, v, head_layout, use_pallas)
         total = total + ce.sum()
     return total
+
+
+class _LogitsCE(torch.autograd.Function):
+    """The ``chunked_softmax_ce_from_logits`` custom_vjp: per-row CE [n]
+    float32 of logits [n, V] (V a multiple of ``v_chunk``: pad with -inf
+    columns), labels int [n] in [0, V). Saves (logits, labels, lse); the
+    backward recomputes each chunk's softmax from them."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, v_chunk: int):
+        n, vp = logits.shape
+        labels = labels.long()
+        m = torch.full((n,), -float("inf"), dtype=torch.float32,
+                       device=logits.device)
+        s = torch.zeros((n,), dtype=torch.float32, device=logits.device)
+        gold = torch.zeros((n,), dtype=torch.float32, device=logits.device)
+        for i in range(vp // v_chunk):
+            lo = i * v_chunk
+            lg = logits[:, lo:lo + v_chunk].float()
+            col = lo + torch.arange(v_chunk, device=logits.device)
+            m_new = torch.maximum(m, lg.amax(1))
+            s = s * torch.exp(m - m_new) + torch.exp(
+                lg - m_new[:, None]).sum(1)
+            gold = gold + torch.where(col[None, :] == labels[:, None], lg,
+                                      0.0).sum(1)
+            m = m_new
+        lse = m + torch.log(s)
+        ctx.save_for_backward(logits, labels, lse)
+        ctx.v_chunk = v_chunk
+        return lse - gold
+
+    @staticmethod
+    def backward(ctx, ct):
+        logits, labels, lse = ctx.saved_tensors
+        v_chunk = ctx.v_chunk
+        g = ct.float()
+        dlogits = torch.zeros_like(logits)
+        for i in range(logits.shape[1] // v_chunk):
+            lo = i * v_chunk
+            lg = logits[:, lo:lo + v_chunk].float()
+            col = lo + torch.arange(v_chunk, device=logits.device)
+            p = torch.exp(lg - lse[:, None])
+            onehot = (col[None, :] == labels[:, None]).float()
+            dlogits[:, lo:lo + v_chunk] = ((p - onehot) * g[:, None]).to(
+                logits.dtype)
+        return dlogits, None, None
+
+
+def chunked_softmax_ce_from_logits(logits, labels, v_chunk: int):
+    """Per-row CE [n] float32 for logits [n, V], blockwise over ``v_chunk``
+    columns (V divisible by ``v_chunk``; pad with -inf columns otherwise),
+    labels int [n] in [0, V): the loss and its Logits gradient with no
+    [n, V] float32 intermediate."""
+    return _LogitsCE.apply(logits, labels, int(v_chunk))

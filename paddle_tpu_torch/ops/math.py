@@ -1,7 +1,12 @@
 """Math, elementwise and reduction op lowerings — the slice of
-``paddle_tpu/ops/math.py`` the fluid training path runs, in torch ops.
-The rest of the reference's lowerings are still to be ported (ROADMAP
-A5)."""
+``paddle_tpu/ops/math.py`` the fluid training path runs, in torch ops:
+what ResNet, the MLPs, the gradient clips, the regularizers, the LR
+schedules and the transformer encoder emit. The rest of the reference's
+lowerings are still to be ported (ROADMAP A5).
+
+Where operands differ in dtype (an AMP program relabels vars by metadata
+only), a product computes in their promoted dtype as JAX's does and
+returns X's dtype, as the reference's ``.astype(x.dtype)`` does."""
 from __future__ import annotations
 
 import numpy as np
@@ -77,6 +82,9 @@ register_op("elementwise_add", infer_shape=_INFER_X)(_ew(torch.add))
 register_op("elementwise_sub", infer_shape=_INFER_X)(_ew(torch.sub))
 register_op("elementwise_mul", infer_shape=_INFER_X)(_ew(torch.mul))
 register_op("elementwise_div", infer_shape=_INFER_X)(_ew(torch.div))
+register_op("elementwise_min", infer_shape=_INFER_X)(_ew(torch.minimum))
+register_op("elementwise_max", infer_shape=_INFER_X)(_ew(torch.maximum))
+register_op("elementwise_pow", infer_shape=_INFER_X)(_ew(torch.pow))
 
 
 @register_op("scale", infer_shape=_INFER_X)
@@ -100,14 +108,55 @@ def sum_op(ctx, op, ins):
     return {"Out": out}
 
 
+@register_op("clip", infer_shape=_INFER_X)
+def clip(ctx, op, ins):
+    return {"Out": torch.clamp(ins["X"][0], op.attr("min"), op.attr("max"))}
+
+
 @register_op("cast", diff_inputs=("X",), infer_shape=infer_cast)
 def cast(ctx, op, ins):
     return {"Out": ins["X"][0].to(dtype_to_torch(op.attr("out_dtype")))}
 
 
-@register_op("square", infer_shape=_INFER_X)
-def square(ctx, op, ins):
-    return {"Out": torch.square(ins["X"][0])}
+# unary math (the reference's _UNARY table, the entries ported so far)
+_UNARY = {
+    "exp": torch.exp,
+    "sqrt": torch.sqrt,
+    "floor": torch.floor,
+    "square": torch.square,
+    "cos": torch.cos,
+    "sign": torch.sign,
+}
+for _name, _fn in _UNARY.items():
+    register_op(_name, infer_shape=_INFER_X)(
+        (lambda fn: lambda ctx, op, ins: {"Out": fn(ins["X"][0])})(_fn)
+    )
+
+
+def _matmul_same(x, y):
+    """``x @ y`` in the operands' promoted dtype, returned in ``x``'s."""
+    ct = torch.promote_types(x.dtype, y.dtype)
+    return torch.matmul(x.to(ct), y.to(ct)).to(x.dtype)
+
+
+@register_op("matmul")
+def matmul(ctx, op, ins):
+    """The reference's matmul_op: optional transposes, 1-D operands
+    lifted to matrices, the product scaled by ``alpha``."""
+    x, y = ins["X"][0], ins["Y"][0]
+    alpha = op.attr("alpha", 1.0)
+    if x.dim() == 1:
+        x = x[None, :]
+    if y.dim() == 1:
+        y = y[:, None]
+    if op.attr("transpose_X", False):
+        x = x.transpose(-1, -2)
+    if op.attr("transpose_Y", False):
+        y = y.transpose(-1, -2)
+    out = _matmul_same(x, y)
+    if alpha != 1.0:
+        out = out * alpha
+    return {"Out": out}
 
 
 @register_op("mul")
@@ -120,7 +169,7 @@ def mul(ctx, op, ins):
     xs, ys = tuple(x.shape), tuple(y.shape)
     x2 = x.reshape(int(np.prod(xs[:xnc])), int(np.prod(xs[xnc:])))
     y2 = y.reshape(int(np.prod(ys[:ync])), int(np.prod(ys[ync:])))
-    return {"Out": torch.matmul(x2, y2).to(x.dtype).reshape(xs[:xnc] + ys[ync:])}
+    return {"Out": _matmul_same(x2, y2).reshape(xs[:xnc] + ys[ync:])}
 
 
 def _reduce(fn):
@@ -137,12 +186,18 @@ def _reduce(fn):
     return lower
 
 
+register_op("reduce_sum")(_reduce(torch.sum))
 register_op("reduce_mean")(_reduce(torch.mean))
 
 
 @register_op("mean")
 def mean(ctx, op, ins):
     return {"Out": torch.mean(ins["X"][0])}
+
+
+@register_op("less_than", grad=None)
+def less_than(ctx, op, ins):
+    return {"Out": torch.lt(ins["X"][0], ins["Y"][0])}
 
 
 @register_op("increment", grad=None)

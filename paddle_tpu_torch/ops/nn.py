@@ -1,9 +1,12 @@
 """Neural-net op lowerings — the slice of ``paddle_tpu/ops/nn.py`` the
-fluid training path runs: the activation table, ``conv2d``, ``pool2d``,
-``batch_norm`` and ``softmax_with_cross_entropy``, in torch ops (cuDNN
-behind ``F.conv2d`` and ``torch.batch_norm`` on the card, where the
-reference leaves them to XLA). The rest of the reference's lowerings are still to
-be ported (ROADMAP A5)."""
+fluid training path runs: the activation table, ``softmax``,
+``softmax_with_cross_entropy`` (with its vocab-chunked form),
+``conv2d``, ``pool2d`` (adaptive too), ``batch_norm``, ``layer_norm``,
+``dropout``, ``lookup_table`` / ``lookup_table_v2`` and
+``clip_by_norm``, in torch ops (cuDNN behind ``F.conv2d`` and
+``torch.batch_norm`` on the card, where the reference leaves them to
+XLA). The rest of the reference's lowerings are still to be ported
+(ROADMAP A5)."""
 from __future__ import annotations
 
 import math
@@ -36,16 +39,45 @@ for _name, _fn in _ACTS.items():
     )
 
 
+@register_op("softmax")
+def softmax(ctx, op, ins):
+    return {"Out": torch.softmax(ins["X"][0], dim=op.attr("axis", -1))}
+
+
 @register_op("softmax_with_cross_entropy", diff_inputs=("Logits",))
 def softmax_with_cross_entropy(ctx, op, ins):
-    """The reference's fused, stable softmax + CE (hard or soft labels)."""
+    """The reference's fused, stable softmax + CE (hard or soft labels).
+
+    ``vocab_chunk`` > 0 (hard labels, last axis) takes the chunked form:
+    the loss and its Logits gradient blockwise over the class axis with an
+    online logsumexp (``chunked_ce.chunked_softmax_ce_from_logits``), the
+    class axis padded to a multiple of the chunk with -inf columns; it
+    produces no ``Softmax`` output."""
     logits = ins["Logits"][0]
     label = ins["Label"][0]
     axis = op.attr("axis", -1)
-    if int(op.attr("vocab_chunk", 0) or 0):
-        raise NotImplementedError(
-            "softmax_with_cross_entropy(vocab_chunk>0) is not ported to "
-            "paddle_tpu_torch yet (ROADMAP A5)")
+    ignore_index = op.attr("ignore_index", -100)
+    vocab_chunk = int(op.attr("vocab_chunk", 0) or 0)
+    if vocab_chunk and not op.attr("soft_label", False) and \
+            axis in (-1, logits.dim() - 1):
+        from .chunked_ce import chunked_softmax_ce_from_logits
+
+        v = logits.shape[-1]
+        vc = min(vocab_chunk, v)
+        lbl = label
+        if lbl.dim() == logits.dim():
+            lbl = lbl.squeeze(-1)
+        lbl = lbl.long()
+        rows = logits.reshape(-1, v)
+        pad = (-v) % vc
+        if pad:  # -inf columns drop out of the logsumexp, get zero grad
+            rows = torch.cat([rows, rows.new_full((rows.shape[0], pad),
+                                                  -math.inf)], dim=1)
+        ce = chunked_softmax_ce_from_logits(
+            rows, lbl.clamp(0, v - 1).reshape(-1), vc)
+        loss = ce.reshape(lbl.shape)[..., None].to(logits.dtype)
+        loss = torch.where(lbl[..., None] != ignore_index, loss, 0.0)
+        return {"Loss": loss}
     logp = F.log_softmax(logits, dim=axis)
     if op.attr("soft_label", False):
         loss = -torch.sum(label * logp, dim=axis, keepdim=True)
@@ -57,7 +89,7 @@ def softmax_with_cross_entropy(ctx, op, ins):
         picked = torch.take_along_dim(
             logp, lbl.clamp(0, logits.shape[axis] - 1).unsqueeze(axis),
             dim=axis)
-        mask = lbl.unsqueeze(axis) != op.attr("ignore_index", -100)
+        mask = lbl.unsqueeze(axis) != ignore_index
         loss = torch.where(mask, -picked, 0.0)
     return {"Softmax": torch.exp(logp), "Loss": loss}
 
@@ -123,13 +155,22 @@ def pool2d(ctx, op, ins):
     ksize = _pair(op.attr("ksize", [2, 2]))
     strides = _pair(op.attr("strides", [1, 1]))
     paddings = _pair(op.attr("paddings", [0, 0]))
-    if op.attr("adaptive", False):
-        raise NotImplementedError("adaptive pool2d is not ported to "
-                                  "paddle_tpu_torch yet (ROADMAP A5)")
-    if op.attr("global_pooling", False):
+    adaptive = op.attr("adaptive", False)
+    if op.attr("global_pooling", False) or (adaptive
+                                            and tuple(ksize) == (1, 1)):
         if ptype == "max":
             return {"Out": torch.amax(x, dim=(2, 3), keepdim=True)}
         return {"Out": torch.mean(x, dim=(2, 3), keepdim=True)}
+    if adaptive:
+        # ksize is the output size; the reference's condition and refusal
+        oh, ow = ksize
+        h, w = x.shape[2], x.shape[3]
+        if not (h % oh == 0 and w % ow == 0):
+            raise ValueError("adaptive pool needs divisible sizes")
+        x6 = x.reshape(x.shape[0], x.shape[1], oh, h // oh, ow, w // ow)
+        if ptype == "max":
+            return {"Out": torch.amax(x6, dim=(3, 5))}
+        return {"Out": torch.mean(x6, dim=(3, 5))}
     pads = [(p, p) for p in paddings]
     if op.attr("ceil_mode", False):
         for i in range(2):
@@ -214,3 +255,95 @@ def _batch_norm_impl(ctx, op, ins):
 @register_op("batch_norm", diff_inputs=("X", "Scale", "Bias"))
 def batch_norm(ctx, op, ins):
     return _batch_norm_impl(ctx, op, ins)
+
+
+# ---------------------------------------------------------------------------
+# layer_norm, dropout, embedding, clip_by_norm
+# ---------------------------------------------------------------------------
+
+
+@register_op("layer_norm", diff_inputs=("X", "Scale", "Bias"))
+def layer_norm(ctx, op, ins):
+    """The reference's layer_norm_op: normalize over dims >=
+    ``begin_norm_axis`` with float32 statistics; Y in X's dtype, Mean and
+    Variance (biased) float32 of X's leading dims. One
+    ``torch.native_layer_norm`` gives Y with its mean and 1/sqrt(var + eps),
+    so Variance is rstd^-2 - eps (one kernel forward and one backward on
+    the card); Mean and Variance carry no gradient (their vars are
+    stop-gradient)."""
+    x = ins["X"][0]
+    eps = op.attr("epsilon", 1e-5)
+    bna = op.attr("begin_norm_axis", 1)
+    norm_shape = tuple(x.shape[bna:])
+    scale = ins["Scale"][0].reshape(norm_shape).float() \
+        if ins.get("Scale") else None
+    bias = ins["Bias"][0].reshape(norm_shape).float() \
+        if ins.get("Bias") else None
+    y, mean, rstd = torch.native_layer_norm(x.float(), norm_shape, scale,
+                                            bias, eps)
+    lead = x.shape[:bna]
+    with torch.no_grad():
+        var = rstd.detach().reshape(lead).pow(-2) - eps
+    return {"Y": y.to(x.dtype), "Mean": mean.detach().reshape(lead),
+            "Variance": var}
+
+
+@register_op("dropout", diff_inputs=("X",))
+def dropout(ctx, op, ins):
+    """The reference's dropout, both implementations: training keeps each
+    element with probability 1 - p (a uniform draw from
+    ``ctx.generator_for(op)`` below 1 - p, as ``jax.random.bernoulli``
+    draws it); ``upscale_in_train`` divides the kept by 1 - p,
+    ``downgrade_in_infer`` scales by 1 - p at test time instead. Mask is
+    the kept set as uint8."""
+    x = ins["X"][0]
+    p = op.attr("dropout_prob", 0.5)
+    is_test = op.attr("is_test", False)
+    impl = op.attr("dropout_implementation", "downgrade_in_infer")
+    if is_test or p == 0.0:
+        out = x if impl == "upscale_in_train" else x * (1.0 - p)
+        if is_test and impl == "upscale_in_train":
+            out = x
+        return {"Out": out,
+                "Mask": torch.ones_like(x, dtype=torch.uint8)}
+    keep = torch.rand(x.shape, generator=ctx.generator_for(op),
+                      device=x.device) < 1.0 - p
+    if impl == "upscale_in_train":
+        out = torch.where(keep, x / (1.0 - p), 0.0)
+    else:
+        out = torch.where(keep, x, 0.0)
+    return {"Out": out.to(x.dtype), "Mask": keep.to(torch.uint8)}
+
+
+def _lookup(w, idx, padding_idx):
+    """Rows of ``w`` at ``idx`` (clipped to the table), zero where
+    ``idx == padding_idx`` (>= 0); the table's gradient is the dense
+    scatter-add of ``F.embedding``'s backward."""
+    out = F.embedding(idx.clamp(0, w.shape[0] - 1), w)
+    if padding_idx is not None and padding_idx >= 0:
+        out = torch.where((idx == padding_idx)[..., None], 0.0, out)
+    return out
+
+
+@register_op("lookup_table", diff_inputs=("W",))
+def lookup_table(ctx, op, ins):
+    ids = ins["Ids"][0]
+    idx = ids.squeeze(-1) if ids.shape[-1] == 1 and ids.dim() > 1 else ids
+    return {"Out": _lookup(ins["W"][0], idx.long(),
+                           op.attr("padding_idx", -1))}
+
+
+@register_op("lookup_table_v2", diff_inputs=("W",))
+def lookup_table_v2(ctx, op, ins):
+    return {"Out": _lookup(ins["W"][0], ins["Ids"][0].long(),
+                           op.attr("padding_idx", -1))}
+
+
+@register_op("clip_by_norm", diff_inputs=("X",))
+def clip_by_norm(ctx, op, ins):
+    x = ins["X"][0]
+    xf = x.float()
+    norm = torch.sqrt(torch.sum(torch.square(xf)))
+    scale = torch.clamp_max(op.attr("max_norm") / torch.clamp_min(
+        norm, 1e-12), 1.0)
+    return {"Out": (xf * scale).to(x.dtype)}

@@ -1,6 +1,7 @@
-"""Random op lowerings — the slice of ``paddle_tpu/ops/tensor.py`` the
-fluid training path runs: parameter initializers and on-device synthetic
-data. Each draws from ``ctx.generator_for(op)``: the program's
+"""Tensor-manipulation and random op lowerings — the slice of
+``paddle_tpu/ops/tensor.py`` the fluid training path runs: ``reshape2``,
+``slice`` and ``where``; parameter initializers and on-device synthetic
+data. Each random op draws from ``ctx.generator_for(op)``: the program's
 ``torch.Generator``, or one seeded by the op's own ``seed`` attr. Torch
 draws other numbers than JAX's threefry from the same seed, so parity
 tests feed their data. The rest of the reference's lowerings are still
@@ -9,10 +10,65 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from ..framework.core import dtype_to_torch
 from ..framework.registry import register_op
+
+
+def _infer_reshape(block, op):
+    """reshape2's shape: 0 copies X's dim, one -1 is inferred when X's
+    shape is known (the reference's ``_infer_reshape``)."""
+    x = block._var_recursive(op.input("X")[0])
+    shape = list(op.attr("shape", []))
+    out_shape = []
+    for i, d in enumerate(shape):
+        if d == 0:
+            out_shape.append(x.shape[i] if i < len(x.shape) else -1)
+        else:
+            out_shape.append(d)
+    if -1 in out_shape and all(d != -1 for d in x.shape):
+        known = int(np.prod([d for d in out_shape if d != -1]))
+        total = int(np.prod(x.shape))
+        out_shape[out_shape.index(-1)] = total // known
+    for name in op.output("Out"):
+        v = block._var_recursive(name)
+        v.shape = tuple(out_shape)
+        v.dtype = x.dtype
+
+
+@register_op("reshape2", diff_inputs=("X",), infer_shape=_infer_reshape)
+def reshape2(ctx, op, ins):
+    x = ins["X"][0]
+    shape = list(op.attr("shape", []))
+    if ins.get("Shape"):
+        shape = [int(s) for s in ins["Shape"][0].tolist()]
+    shape = [x.shape[i] if d == 0 else d for i, d in enumerate(shape)]
+    return {"Out": x.reshape(shape), "XShape": None}
+
+
+@register_op("slice", diff_inputs=("Input",))
+def slice_op(ctx, op, ins):
+    x = ins["Input"][0]
+    idx = [slice(None)] * x.dim()
+    for ax, st, en in zip(op.attr("axes"), op.attr("starts"),
+                          op.attr("ends")):
+        dim = x.shape[ax]
+        st = max(st + dim, 0) if st < 0 else min(st, dim)
+        en = max(en + dim, 0) if en < 0 else min(en, dim)
+        idx[ax] = slice(st, en)
+    out = x[tuple(idx)]
+    decrease = op.attr("decrease_axis", [])
+    if decrease:
+        out = out.squeeze(tuple(decrease))
+    return {"Out": out}
+
+
+@register_op("where", diff_inputs=("X", "Y"))
+def where(ctx, op, ins):
+    return {"Out": torch.where(ins["Condition"][0], ins["X"][0],
+                               ins["Y"][0])}
 
 
 def _empty(ctx, op):

@@ -1,12 +1,16 @@
 """Optimizer classes — the slice of ``paddle_tpu/optimizer.py`` the fluid
 training path uses: ``SGD``, ``Momentum``, ``Adam`` and ``AdamW``.
 
-``minimize`` = ``append_backward`` + one update op per parameter, or, with
-``fuse=True`` (or ``FLAGS_fuse_optimizer``), one fused flat-buffer update
-op per (dtype, lr-multiplier) group whose moments are flat [numel]
+``minimize`` = ``append_backward`` + the gradient clip (``grad_clip=``,
+``clip.py``) + the regularizers (``regularization=`` and each
+parameter's own, ``regularizer.py``) + one update op per parameter, or,
+with ``fuse=True`` (or ``FLAGS_fuse_optimizer``), one fused flat-buffer
+update op per (dtype, lr-multiplier) group whose moments are flat [numel]
 accumulators; each fused op runs its group through the optimizer kernel
-(``ops/optimizer_ops.py``). Gradient clipping, regularizers, dygraph mode
-and the other optimizers are still to be ported (ROADMAP A5).
+(``ops/optimizer_ops.py``). A ``learning_rate`` Variable (an LR schedule,
+``layers/learning_rate_scheduler.py``) feeds the update ops as it is.
+Dygraph mode (``parameter_list``) and the other optimizers are still to
+be ported (ROADMAP A5).
 """
 from __future__ import annotations
 
@@ -36,13 +40,11 @@ class Optimizer:
 
     def __init__(self, learning_rate, regularization=None, grad_clip=None,
                  name=None, parameter_list=None):
-        if regularization is not None:
-            not_ported("Optimizer", "regularization")
-        if grad_clip is not None:
-            not_ported("Optimizer", "grad_clip")
         if parameter_list is not None:
             not_ported("Optimizer", "parameter_list (dygraph)")
         self._learning_rate = learning_rate
+        self.regularization = regularization
+        self._grad_clip = grad_clip
         self._accumulators: Dict[str, Dict[str, Variable]] = {}
         self._lr_var: Optional[Variable] = None
         self.type = "optimizer"
@@ -103,6 +105,12 @@ class Optimizer:
         program = default_main_program()
         # every op appended here is the optimize slice
         with program.op_role_guard(program.OP_ROLE_OPTIMIZE):
+            # the grad clip first, then the regularization (weight decay
+            # added onto the grads), as the reference's clip.py and
+            # regularizer.py append them
+            if self._grad_clip is not None:
+                params_grads = self._grad_clip(params_grads)
+            params_grads = self._append_regularization_ops(params_grads)
             lr = self._create_lr_var(program)
             if (self._fused_op_type is not None
                     and (self._fuse or get_flag("FLAGS_fuse_optimizer"))):
@@ -158,6 +166,11 @@ class Optimizer:
         ConstantInitializer(fill_value)(sv, startup_block)
         self._accumulators.setdefault(name, {})[tag] = var
         return var
+
+    def _append_regularization_ops(self, params_grads):
+        from .regularizer import append_regularization_ops
+
+        return append_regularization_ops(params_grads, self.regularization)
 
     def _append_fused_optimize_op(self, block, pgs, lr_var, key):
         raise NotImplementedError
@@ -339,6 +352,27 @@ class AdamW(AdamOptimizer):
         if self.type == "adamw":
             attrs["coeff"] = self._coeff
         return attrs
+
+
+def _get_or_create_global_step() -> Variable:
+    """The persistable int64 step counter ``@LR_DECAY_COUNTER@`` (started
+    at 0 by the startup program) and its ``increment`` op, prepended to
+    block 0 so each run advances it once before anything reads it."""
+    main = default_main_program()
+    block = main.global_block()
+    name = "@LR_DECAY_COUNTER@"
+    if block.has_var(name):
+        return block.var(name)
+    var = block.create_var(name=name, shape=[1], dtype="int64", persistable=True,
+                           stop_gradient=True)
+    startup = default_startup_program().global_block()
+    sv = startup.create_var(name=name, shape=[1], dtype="int64", persistable=True)
+    ConstantInitializer(0.0)(sv, startup)
+    block._prepend_op(
+        type="increment", inputs={"X": [var]}, outputs={"Out": [var]},
+        attrs={"step": 1.0},
+    )
+    return var
 
 
 SGD = SGDOptimizer

@@ -9,7 +9,10 @@ its ResNet lane (``resnet_worker``, ``:254-323``).
     python -m paddle_tpu_torch.tools.train_bench --model ernie [--pad]
         [--profile 3] [--compare]
     python -m paddle_tpu_torch.tools.train_bench --model resnet50
-        [--no-fuse] [--profile 3] [--host-profile 5] [--compare]
+        [--no-amp] [--no-fuse] [--profile 3] [--host-profile 5]
+        [--compare] [--device cpu --tiny]
+    python -m paddle_tpu_torch.tools.train_bench --model encoder
+        [--profile 1] [--device cpu --tiny]
     python -m paddle_tpu_torch.parallel.launch --nproc_per_node 2 -m \
         paddle_tpu_torch.tools.train_bench [--sharding fsdp] [--dp 2]
         [--tp 2] [--pp 2] [--layout SPEC ...]      (the parallel lane)
@@ -65,17 +68,20 @@ entries. The record has samples/s, ms a step, MFU
 peak memory; ``--profile``/``--compare`` as for GPT (the plain arm: plain
 attention).
 
-``--model resnet50`` is ``bench.py``'s ResNet lane through the fluid
-surface of the port: ``Program`` + ``layers`` + ``models.resnet`` (depth
-50, class_dim 1000) on a batch of 128 images 224² made on the card each
-step by ``uniform_random`` / ``randint`` ops, ``reduce_mean`` of
-``softmax_with_cross_entropy``, ``optimizer.Momentum(0.01, 0.9,
-fuse=True)`` (one ``fused_momentum`` op, one ``opt_momentum`` launch a
-step) and ``Executor(CUDAPlace(0)).run``; one warm step, then 10 timed. float32, where ``bench.py``
-decorates the optimizer for bf16 AMP (not ported yet: ROADMAP A5); cuDNN
-may take TF32 for the convolutions (PyTorch's default), which the record
-states. ``--no-fuse`` is ``bench.py``'s exact optimizer: one ``momentum``
-op a parameter. The record has img/s, ms a step, MFU
+``--model resnet50`` is ``bench.py``'s ResNet lane as written, through
+the fluid surface of the port: ``Program`` + ``layers`` +
+``models.resnet`` (depth 50, class_dim 1000) on a batch of 128 images
+224² made on the card each step by ``uniform_random`` / ``randint`` ops,
+``reduce_mean`` of ``softmax_with_cross_entropy``,
+``contrib.mixed_precision.decorate(optimizer.Momentum(0.01, 0.9,
+fuse=True), use_bf16=True)`` (bf16 AMP: every ``conv2d`` and ``mul`` on
+bf16 casts of float32 master weights, loss scale 1.0; one
+``fused_momentum`` op, one ``opt_momentum`` launch a step) and
+``Executor(CUDAPlace(0)).run``; one warm step, then 10 timed. ``--no-amp``
+is the float32 lane (no decorator; cuDNN may take TF32 for the
+convolutions, PyTorch's default, which the record states); the record's
+``config`` says which. ``--no-fuse`` is ``bench.py``'s exact optimizer:
+one ``momentum`` op a parameter. The record has img/s, ms a step, MFU
 (``program_train_flops`` over the card's bf16 dense peak, the
 reference's convention), peak memory and the step's losses; with
 ``--profile N`` the device time a step by group: cuDNN convolutions,
@@ -83,8 +89,33 @@ batch norm, the optimizer sweep, the flat group's ``torch.cat``, other
 (eager glue); with ``--host-profile N`` the host ms a step by function
 under ``cProfile``. ``--compare`` runs the no-fuse and fused arms in
 turns.
+
+``--model encoder`` is the static-graph transformer encoder
+(``models.transformer_encoder.transformer_encoder_classifier``) at
+ERNIE-base's widths and depth (L 12, nh 12, D 768, d_ff 3072, V 30522,
+max_pos 512, 2 classes, dropout 0.1) fine-tuning on batch 48 x 512 with a
+[48, 1, 1, 512] padding bias from lengths drawn in 128-512 (the ERNIE
+lane's ``--pad`` draw), under ``decorate(AdamW(linear_lr_warmup(
+polynomial_decay(...)), weight_decay=0.01,
+grad_clip=GradientClipByGlobalNorm(1.0), fuse=True),
+amp_lists=AutoMixedPrecisionLists(custom_white_list=["multihead_matmul"]))``:
+``multihead_matmul`` in bf16 through the flash bias kernels (12 launches
+of each a step), one ``opt_adamw`` launch a step; one warm step, then 5
+timed, every step on the same batch, copied to the card once. The record has
+samples/s, ms a step, MFU (``encoder_flops_per_token``: 6 N over the
+encoder's product weights plus the attention term, as ERNIE's, over the
+card's bf16 peak), peak memory, the losses, each step's learning rate
+and the products' compute dtypes in one more step
+(``product_dtypes``); ``--profile 1`` adds one traced
+step's device busy ms and the flash bias kernels' ms
+(``utils/device_trace.py``).
+
+The fluid lanes run on the card unless ``--device cpu``; without a card
+they refuse to run. ``--tiny`` cuts them to a CPU rehearsal's sizes
+(ResNet-18 at 32², batch 4; a 2-layer encoder at D 64, T 32, batch 4).
 """
 import argparse
+import collections
 import contextlib
 import functools
 import gc
@@ -97,12 +128,17 @@ from typing import Any, Dict, List
 import numpy as np
 import torch
 
+from .. import clip as fluid_clip
 from .. import framework as FW
+from ..framework.registry import compute_dtypes
 from .. import layers
 from .. import optimizer as fluid_optimizer
+from ..contrib import mixed_precision as MP
+from ..device import resolve_device
 from ..models import ernie as E
 from ..models import gpt as G
 from ..models import resnet as R
+from ..models import transformer_encoder as TE
 from ..observability import flight as obs_flight
 from ..observability import goodput as obs_goodput
 from ..observability import hw
@@ -128,12 +164,13 @@ BATCH, SEQ = 16, 1024           # bench.py's GPT lane
 ERNIE_BATCH, ERNIE_SEQ = 48, 512   # bench.py's ERNIE lane
 RESNET_BATCH, RESNET_HW, RESNET_CLASSES = 128, 224, 1000   # its ResNet lane
 # the ResNet step's kernels by group (first substring found); the rest of
-# the cuDNN convolution kernels carry "xmma"/"gemm" and land in matmul
+# the cuDNN convolution kernels carry "xmma"/"gemm" and land in matmul;
+# AMP's casts are dtype copies
 RESNET_KERNELS = {"momentum_kernel": "opt_sweep", "CatArrayBatchedCopy":
                   "flat_cat", "batch_norm": "batch_norm", "bn_fw": "batch_norm",
                   "bn_bw": "batch_norm", "conv": "conv", "xmma": "conv",
                   "implicit": "conv", "wgrad": "conv", "dgrad": "conv",
-                  "fprop": "conv"}
+                  "fprop": "conv", "direct_copy": "cast"}
 STEPS, WARMUP = 10, 2
 
 
@@ -177,10 +214,10 @@ def monitored_steps(step_once, mon: TrainMonitor, steps: int) -> list:
 
 
 def _timed(step_once, dev, warmup: int = WARMUP,
-           mon: TrainMonitor = None):
+           mon: TrainMonitor = None, steps: int = STEPS):
     """``warmup`` calls of ``step_once`` (one train step, updating its
-    state in place), then STEPS more with the launch counts and the peak
-    memory zeroed just before them, ending in one synchronize. With
+    state in place), then ``steps`` more with the launch counts and the
+    peak memory zeroed just before them, ending in one synchronize. With
     ``mon``, the timed steps are :func:`monitored_steps` (one sync each)
     inside a goodput run window. Returns (every step's outputs, warm-up
     seconds, timed seconds, launches per timed step, the window's goodput
@@ -189,24 +226,32 @@ def _timed(step_once, dev, warmup: int = WARMUP,
     t0 = time.perf_counter()
     for _ in range(warmup):
         outs.append(step_once())
-    torch.cuda.synchronize(dev)
+    _sync(dev)
     warm_s = time.perf_counter() - t0
-    torch.cuda.reset_peak_memory_stats(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
     CK.reset_launches()
     report = None
     t0 = time.perf_counter()
     if mon is None:
-        for _ in range(STEPS):
+        for _ in range(steps):
             outs.append(step_once())
     else:
         led = obs_goodput.ledger()
         led.start_window()
-        outs += monitored_steps(step_once, mon, STEPS)
+        outs += monitored_steps(step_once, mon, steps)
         report = led.end_window()
-    torch.cuda.synchronize(dev)
+    _sync(dev)
     wall = time.perf_counter() - t0
-    launches = {k: v / STEPS for k, v in CK.LAUNCHES.items() if v}
+    launches = {k: v / steps for k, v in CK.LAUNCHES.items() if v}
     return outs, warm_s, wall, launches, report
+
+
+def _peak_bytes(dev):
+    """The card's peak allocated bytes since the timed window opened;
+    None on the CPU (no device metric)."""
+    return (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
+            else None)
 
 
 def set_observability(on: bool) -> None:
@@ -502,10 +547,13 @@ def run_ernie(cfg: E.ErnieConfig, pad: bool = False,
 
 def resnet_program(batch: int = RESNET_BATCH, hw: int = RESNET_HW,
                    classes: int = RESNET_CLASSES, depth: int = 50,
-                   fuse: bool = True, synthetic: bool = True):
+                   fuse: bool = True, synthetic: bool = True,
+                   amp: bool = False):
     """(main, startup, loss) of ``bench.py``'s ResNet lane: the images and
     labels made by ``uniform_random`` / ``randint`` ops each step, or, with
-    ``synthetic=False``, fed through ``layers.data`` ("img", "label")."""
+    ``synthetic=False``, fed through ``layers.data`` ("img", "label");
+    with ``amp``, the optimizer decorated for bf16 AMP as ``bench.py``
+    decorates it."""
     main, startup = FW.Program(), FW.Program()
     with FW.program_guard(main, startup):
         if synthetic:
@@ -520,7 +568,10 @@ def resnet_program(batch: int = RESNET_BATCH, hw: int = RESNET_HW,
         logits = R.resnet(img, class_dim=classes, depth=depth)
         loss = layers.reduce_mean(
             layers.softmax_with_cross_entropy(logits, label))
-        fluid_optimizer.Momentum(0.01, 0.9, fuse=fuse).minimize(loss)
+        opt = fluid_optimizer.Momentum(0.01, 0.9, fuse=fuse)
+        if amp:
+            opt = MP.decorate(opt, use_bf16=True)
+        opt.minimize(loss)
     return main, startup, loss
 
 
@@ -547,17 +598,60 @@ def _host_profile(step_once, steps: int, top: int = 8) -> Dict[str, Any]:
                 for (fn, line, name), (_cc, nc, tt, _ct, _callers) in rows]}
 
 
+def _place(dev):
+    return FW.CPUPlace() if dev.type == "cpu" else FW.CUDAPlace(
+        dev.index or 0)
+
+
+def _device_name(dev) -> str:
+    return "cpu" if dev.type == "cpu" else torch.cuda.get_device_name(dev)
+
+
+def _mfu(flops_per_s: float, dev):
+    """``flops_per_s`` over the card's bf16 dense peak; None on the CPU
+    (no device metric)."""
+    if dev.type == "cpu":
+        return None
+    return flops_per_s / hw.peaks_for(_device_name(dev))["bf16_flops_per_s"]
+
+
+# the fluid lanes' product ops and the slots whose dtypes each computes in
+PRODUCT_SLOTS = {"conv2d": ("Input", "Filter"), "mul": ("X", "Y"),
+                 "matmul": ("X", "Y"),
+                 "multihead_matmul": ("Input", "W", "Bias")}
+
+
+def product_dtypes(main, step_once) -> Dict[str, Any]:
+    """One more step under ``registry.compute_dtypes``: the program's
+    product ops by type (``ops``) and that step's calls by the dtype each
+    computed in (``calls``, ``"type:dtype"`` -> count) — what the
+    lowerings were given, not the vars' labels."""
+    ops = collections.Counter(op.type for op in main.global_block().ops
+                              if op.type in PRODUCT_SLOTS)
+    with compute_dtypes({t: PRODUCT_SLOTS[t] for t in ops}) as seen:
+        step_once()
+    return {"ops": dict(ops),
+            "calls": {f"{t}:{d}": n for (t, d), n in sorted(seen.items())}}
+
+
 def run_resnet(fuse: bool = True, profile_steps: int = 0,
-               host_profile_steps: int = 0) -> Dict[str, Any]:
-    """One warm step and STEPS timed ones of the ResNet lane on the card,
-    as ``bench.py``'s lane runs them, counted as :func:`run` does (each
-    step's loss fetched as a device tensor, read after the timed window);
-    then ``profile_steps`` steps under ``torch.profiler`` and
-    ``host_profile_steps`` under ``cProfile``."""
-    dev = torch.device("cuda")
-    batch, hw_ = RESNET_BATCH, RESNET_HW
-    main, startup, loss = resnet_program(fuse=fuse)
-    exe = FW.Executor(FW.CUDAPlace(0))
+               host_profile_steps: int = 0, amp: bool = True,
+               device: str = "cuda", tiny: bool = False,
+               steps: int = STEPS) -> Dict[str, Any]:
+    """One warm step and ``steps`` timed ones of the ResNet lane, as
+    ``bench.py``'s lane runs them (bf16 AMP unless ``amp`` is False),
+    counted as :func:`run` does (each step's loss fetched as a device
+    tensor, read after the timed window); then one step for
+    :func:`product_dtypes`; then ``profile_steps`` steps
+    under ``torch.profiler`` and ``host_profile_steps`` under
+    ``cProfile``. ``tiny``: ResNet-18 at 32², batch 4, class 4."""
+    dev = resolve_device(device)
+    batch, hw_, classes, depth = ((4, 32, 4, 18) if tiny else
+                                  (RESNET_BATCH, RESNET_HW, RESNET_CLASSES,
+                                   50))
+    main, startup, loss = resnet_program(batch, hw_, classes, depth,
+                                         fuse=fuse, amp=amp)
+    exe = FW.Executor(_place(dev))
     scope = FW.Scope()
     exe.run(startup, scope=scope)
     n_params = sum(int(np.prod(p.shape))
@@ -565,31 +659,34 @@ def run_resnet(fuse: bool = True, profile_steps: int = 0,
                    if p.trainable)
     outs, warm_s, wall, launches, _ = _timed(
         lambda: exe.run(main, fetch_list=[loss], scope=scope,
-                        return_numpy=False)[0], dev, warmup=1)
+                        return_numpy=False)[0], dev, warmup=1, steps=steps)
     losses = [float(o) for o in outs]
-    img_s = STEPS * batch / wall
+    img_s = steps * batch / wall
     flops = hw.program_train_flops(main, batch)
-    name = torch.cuda.get_device_name(dev)
+    name = _device_name(dev)
     rec = {
-        "config": f"resnet50_b{batch}_{hw_}px_f32"
+        "config": f"resnet{depth}_b{batch}_{hw_}px_"
+                  + ("bf16amp" if amp else "f32")
                   + ("_fused" if fuse else "_nofuse"),
         "device": name,
+        "amp": "bf16" if amp else None,
         "model_params": n_params,
-        "batch": batch, "image": hw_, "steps": STEPS, "warmup": 1,
+        "batch": batch, "image": hw_, "steps": steps, "warmup": 1,
         "fuse": fuse,
         "tf32_cudnn": torch.backends.cudnn.allow_tf32,
         "tf32_matmul": torch.backends.cuda.matmul.allow_tf32,
         "cudnn_benchmark": torch.backends.cudnn.benchmark,
         "flops_per_step": flops,
         "images_per_s": img_s,
-        "mfu": img_s * flops / batch
-        / hw.peaks_for(name)["bf16_flops_per_s"],
-        "ms_per_step": wall / STEPS * 1e3,
+        "mfu": _mfu(img_s * flops / batch, dev),
+        "ms_per_step": wall / steps * 1e3,
         "warmup_s": warm_s,
-        "peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
+        "peak_mem_bytes": _peak_bytes(dev),
         "loss_first": losses[0], "loss_last": losses[-1],
         "losses": losses,
         "launches_per_step": launches,
+        "product_dtypes": product_dtypes(main, lambda: exe.run(
+            main, fetch_list=[loss], scope=scope, return_numpy=False)),
     }
     if profile_steps:
         acts = [torch.profiler.ProfilerActivity.CPU,
@@ -608,11 +705,13 @@ def run_resnet(fuse: bool = True, profile_steps: int = 0,
     return rec
 
 
-def resnet_fixed_batch(steps: int = 6, fuse: bool = True, seed: int = 0):
+def resnet_fixed_batch(steps: int = 6, fuse: bool = True, seed: int = 0,
+                       amp: bool = False):
     """``steps`` steps of the ResNet lane's model on one fixed fed batch
-    (numpy seed ``seed``): the losses, which must fall as the batch is
-    learnt."""
-    main, startup, loss = resnet_program(fuse=fuse, synthetic=False)
+    (numpy seed ``seed``): (the losses, which must fall as the batch is
+    learnt; the program; its scope after the steps)."""
+    main, startup, loss = resnet_program(fuse=fuse, synthetic=False,
+                                         amp=amp)
     exe = FW.Executor(FW.CUDAPlace(0))
     scope = FW.Scope()
     exe.run(startup, scope=scope)
@@ -620,8 +719,176 @@ def resnet_fixed_batch(steps: int = 6, fuse: bool = True, seed: int = 0):
     feed = {"img": rng.uniform(-1, 1, (RESNET_BATCH, 3, RESNET_HW,
                                        RESNET_HW)).astype(np.float32),
             "label": rng.integers(0, RESNET_CLASSES, (RESNET_BATCH, 1))}
-    return [float(exe.run(main, feed=feed, fetch_list=[loss],
-                          scope=scope)[0]) for _ in range(steps)]
+    losses = [float(exe.run(main, feed=feed, fetch_list=[loss],
+                            scope=scope)[0]) for _ in range(steps)]
+    return losses, main, scope
+
+
+# ---------------------------------------------------------------------------
+# the fluid transformer encoder lane (``--model encoder``)
+# ---------------------------------------------------------------------------
+
+# ERNIE-base's widths and depth, and a CPU rehearsal's
+ENCODER = dict(num_layers=12, num_heads=12, d_model=768, d_ff=3072,
+               vocab_size=30522, max_pos=512, num_classes=2)
+ENCODER_TINY = dict(num_layers=2, num_heads=4, d_model=64, d_ff=128,
+                    vocab_size=1000, max_pos=32, num_classes=2)
+ENCODER_BATCH, ENCODER_SEQ, ENCODER_STEPS = 48, 512, 5
+ENCODER_DROPOUT = 0.1
+# the schedule: linear warm-up to ENCODER_LR over ENCODER_WARMUP steps,
+# then polynomial (linear) decay to 0 over ENCODER_DECAY steps
+ENCODER_LR, ENCODER_WARMUP, ENCODER_DECAY = 5e-5, 3, 100
+ENCODER_FLASH = ("flash_fwd_bias", "flash_bwd_dq_bias", "flash_bwd_dkv_bias")
+_PAD_BIAS = -0.5 * float(np.finfo(np.float32).max)
+
+
+def encoder_program(cfg: Dict[str, int], seq: int,
+                    dropout: float = ENCODER_DROPOUT, amp: bool = True,
+                    fuse: bool = True):
+    """(main, startup, loss, lr) of the encoder lane: the classifier over
+    fed ``src`` / ``pos`` ids, a fed ``bias`` [B, 1, 1, seq] and ``label``,
+    AdamW (weight decay 0.01, global-norm clip 1.0) on the warm-up /
+    decay schedule; with ``amp``, decorated for bf16 with
+    ``multihead_matmul`` on the white list."""
+    main, startup = FW.Program(), FW.Program()
+    main.random_seed = startup.random_seed = 7
+    with FW.program_guard(main, startup):
+        src = layers.data("src", [seq], dtype="int64")
+        pos = layers.data("pos", [seq], dtype="int64")
+        label = layers.data("label", [1], dtype="int64")
+        bias = layers.data("bias", [1, 1, seq], dtype="float32")
+        loss, _logits = TE.transformer_encoder_classifier(
+            src, pos, label, attn_bias=bias, dropout=dropout, **cfg)
+        lr = layers.linear_lr_warmup(
+            layers.polynomial_decay(ENCODER_LR, ENCODER_DECAY,
+                                    end_learning_rate=0.0),
+            ENCODER_WARMUP, 0.0, ENCODER_LR)
+        opt = fluid_optimizer.AdamW(
+            lr, weight_decay=0.01, fuse=fuse,
+            grad_clip=fluid_clip.GradientClipByGlobalNorm(1.0))
+        if amp:
+            opt = MP.decorate(opt, amp_lists=MP.AutoMixedPrecisionLists(
+                custom_white_list=["multihead_matmul"]))
+        opt.minimize(loss)
+    return main, startup, loss, lr
+
+
+def encoder_lr(step: int) -> float:
+    """The schedule's learning rate at run ``step`` (1-based: the LR
+    counter's value in that run)."""
+    if step < ENCODER_WARMUP:
+        return step * ENCODER_LR / ENCODER_WARMUP
+    return (1.0 - min(step, ENCODER_DECAY) / ENCODER_DECAY) * ENCODER_LR
+
+
+def encoder_batch(cfg: Dict[str, int], batch: int, seq: int, dev,
+                  seed: int = 0) -> Dict[str, torch.Tensor]:
+    """One fine-tuning batch on ``dev``: token ids and labels from numpy
+    seed ``seed``, positions 0..seq-1, and the padding bias (0 at real
+    keys, -0.5 f32 max past each row's length; lengths drawn in 128-512
+    by their own numpy seed 0, as the ERNIE lane's ``--pad`` draws them,
+    or in seq/4..seq below 128)."""
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, cfg["vocab_size"], (batch, seq))
+    label = rng.integers(0, cfg["num_classes"], (batch, 1))
+    draw = np.random.default_rng(0)
+    lens = (np.minimum(draw.integers(128, 513, size=batch), seq)
+            if seq >= 128 else draw.integers(seq // 4, seq + 1, size=batch))
+    bias = np.where(np.arange(seq)[None] < lens[:, None], 0.0, _PAD_BIAS)
+    host = {"src": src, "pos": np.tile(np.arange(seq), (batch, 1)),
+            "label": label,
+            "bias": bias.astype(np.float32)[:, None, None, :]}
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+            for k, v in host.items()}
+
+
+def encoder_flops_per_token(cfg: Dict[str, int], seq: int) -> int:
+    """Forward + backward FLOPs a token of the encoder, by the numerator
+    ERNIE and GPT share (``hw.transformer_train_flops_per_token``): 6 N
+    over the QKV, output and FFN weights (4·D² + 2·D·d_ff a layer) plus
+    attention's 12·L·D·seq; embeddings and the head left out."""
+    D, L = cfg["d_model"], cfg["num_layers"]
+    n_dense = L * (4 * D * D + 2 * D * cfg["d_ff"])
+    return hw.transformer_train_flops_per_token(n_dense, L, D, seq)
+
+
+def encoder_trace(step_once, dev, trace_dir: str) -> Dict[str, Any]:
+    """One step under ``utils/device_trace.capture`` (its work run once
+    more first as the warm-up): the device busy ms, the flash bias
+    kernels' device ms, the launches in the captured step, and the
+    kernel ms by group (each port kernel, matrix products, other) and
+    the top kernels (``profile_decode.trace_summary``)."""
+    from ..utils import device_trace as DT
+
+    with DT.capture(trace_dir, device=dev, warmup=step_once) as cap:
+        step_once()
+    rows, source = DT.kernel_rows(cap.pd, costs=cap.costs)
+    busy = sum(r["ns"] for r in rows) / 1e6
+    flash = {k: sum(r["ns"] for r in rows if r["kernel"] == k) / 1e6
+             for k in ENCODER_FLASH}
+    summary = trace_summary(cap.pd, cap.wall_ns / 1e3, 1, "step")
+    return {"source": source, "busy_ms": busy,
+            "wall_ms": cap.wall_ns / 1e6, "flash_bias_ms": flash,
+            "flash_bias_share": (sum(flash.values()) / busy if busy
+                                 else 0.0),
+            "launches": cap.launches,
+            "group_ms": summary["group_ms_per_step"],
+            "top_kernels_ms": summary["top_kernels_ms_per_step"]}
+
+
+def run_encoder(device: str = "cuda", tiny: bool = False,
+                profile_steps: int = 0,
+                trace_dir: str = "perf_runs/encoder_trace"
+                ) -> Dict[str, Any]:
+    """One warm step and ENCODER_STEPS timed ones of the encoder lane,
+    counted as :func:`run` does (the loss and the learning rate fetched as
+    device tensors, read after the timed window); then one step for
+    :func:`product_dtypes`; with ``profile_steps``, one more step traced
+    (:func:`encoder_trace`)."""
+    dev = resolve_device(device)
+    cfg = ENCODER_TINY if tiny else ENCODER
+    batch, seq = (4, 32) if tiny else (ENCODER_BATCH, ENCODER_SEQ)
+    main, startup, loss, lr = encoder_program(cfg, seq)
+    exe = FW.Executor(_place(dev))
+    scope = FW.Scope()
+    exe.run(startup, scope=scope)
+    feed = encoder_batch(cfg, batch, seq, dev)
+    n_params = sum(int(np.prod(p.shape))
+                   for p in main.global_block().all_parameters()
+                   if p.trainable)
+
+    def step_once():
+        return exe.run(main, feed=feed, fetch_list=[loss, lr], scope=scope,
+                       return_numpy=False)
+
+    outs, warm_s, wall, launches, _ = _timed(step_once, dev, warmup=1,
+                                             steps=ENCODER_STEPS)
+    losses = [float(o[0]) for o in outs]
+    lrs = [float(o[1].reshape(-1)[0]) for o in outs]
+    samples_s = ENCODER_STEPS * batch / wall
+    flops = encoder_flops_per_token(cfg, seq)
+    rec = {
+        "config": (f"encoder_L{cfg['num_layers']}_D{cfg['d_model']}"
+                   f"_b{batch}x{seq}_pad_bf16amp_adamw_fused"),
+        "device": _device_name(dev),
+        "model_params": n_params,
+        "batch": batch, "seq_len": seq, "steps": ENCODER_STEPS,
+        "warmup": 1, "dropout": ENCODER_DROPOUT,
+        "real_tokens_per_step": int((feed["bias"] == 0).sum()),
+        "samples_per_s": samples_s,
+        "mfu": _mfu(samples_s * seq * flops, dev),
+        "ms_per_step": wall / ENCODER_STEPS * 1e3,
+        "warmup_s": warm_s,
+        "peak_mem_bytes": _peak_bytes(dev),
+        "loss_first": losses[0], "loss_last": losses[-1],
+        "losses": losses, "lrs": lrs,
+        "lrs_want": [encoder_lr(i + 1) for i in range(len(lrs))],
+        "launches_per_step": launches,
+        "product_dtypes": product_dtypes(main, step_once),
+    }
+    if profile_steps:
+        rec["trace"] = encoder_trace(step_once, dev, trace_dir)
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -1166,9 +1433,11 @@ def main_parallel(args) -> int:
 def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", default="gpt",
-                    choices=("gpt", "ernie", "resnet50"))
+                    choices=("gpt", "ernie", "resnet50", "encoder"))
     ap.add_argument("--no-fuse", action="store_true",
                     help="resnet50: one momentum op a parameter")
+    ap.add_argument("--no-amp", action="store_true",
+                    help="resnet50: the float32 lane, no AMP decorator")
     ap.add_argument("--pad", action="store_true",
                     help="ernie: per-sample lengths 128-512, not all-ones")
     ap.add_argument("--remat", default="dots",
@@ -1217,7 +1486,9 @@ def _parser() -> argparse.ArgumentParser:
     par.add_argument("--warmup", type=int, default=WARMUP)
     par.add_argument("--device", default=None,
                      help="this rank's device (default cuda:LOCAL_RANK); "
-                          "name one card to put every rank on it")
+                          "name one card to put every rank on it; the "
+                          "fluid lanes (resnet50, encoder): cpu runs them "
+                          "on the CPU")
     par.add_argument("--layout", action="append", metavar="SPEC",
                      help="run this layout (key=value,...: dp, pp, tp, "
                           "microbatches, layers, grad_reduce, comm_dtype, "
@@ -1231,7 +1502,8 @@ def _parser() -> argparse.ArgumentParser:
                           "<dir>/rank<r> and record the share of its "
                           "collective time compute overlaps")
     par.add_argument("--tiny", action="store_true",
-                     help="a CPU rehearsal's widths (with --device cpu)")
+                     help="a CPU rehearsal's widths (with --device cpu; "
+                          "the fluid lanes' rehearsal sizes)")
     return ap
 
 
@@ -1244,7 +1516,10 @@ def main(argv=None) -> int:
         return main_parallel(args)
     if args.tuned and args.model != "gpt":
         raise SystemExit("train_bench: --tuned applies to the GPT lane")
-    if not torch.cuda.is_available():
+    fluid_lane = args.model in ("resnet50", "encoder")
+    device = args.device or "cuda"
+    if not torch.cuda.is_available() and not (fluid_lane
+                                              and device == "cpu"):
         print("train_bench: no CUDA device available", file=sys.stderr)
         return 2
     tuned_doc = (load_tuned(args.tuned, torch.device("cuda"))
@@ -1255,11 +1530,17 @@ def main(argv=None) -> int:
         if not args.compare:
             order = ("plain",) if args.no_fuse else ("kernel",)
         for arm in order:
-            rec = run_resnet(fuse=arm == "kernel",
+            rec = run_resnet(fuse=arm == "kernel", amp=not args.no_amp,
                              profile_steps=args.profile,
-                             host_profile_steps=args.host_profile)
+                             host_profile_steps=args.host_profile,
+                             device=device, tiny=args.tiny)
             rec["arm"] = "fused" if arm == "kernel" else "no-fuse"
             print(json.dumps(rec), flush=True)
+        return 0
+    if args.model == "encoder":
+        rec = run_encoder(device=device, tiny=args.tiny,
+                          profile_steps=args.profile)
+        print(json.dumps(rec), flush=True)
         return 0
     if args.model == "ernie":
         cfg = ernie_config(args.fused_ln)

@@ -80,3 +80,60 @@ def test_sweep_stops_every_process_of_the_run(tmp_path):
     finally:
         for pid in _live_with(tag):
             os.kill(pid, 9)
+
+
+def _chip_smoke_ast():
+    import ast
+
+    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+        return ast.parse(f.read())
+
+
+def _feeds_launches(main, phase: str) -> bool:
+    """Whether ``_main`` calls ``phase`` and a loop over its result (or
+    over the record it returns) adds into ``launches``."""
+    import ast
+
+    bound = set()
+    for node in ast.walk(main):
+        if isinstance(node, ast.Assign) and isinstance(node.value, ast.Call) \
+                and getattr(node.value.func, "id", None) == phase:
+            bound |= {t.id for t in node.targets if isinstance(t, ast.Name)}
+    for node in ast.walk(main):
+        if not isinstance(node, ast.For):
+            continue
+        it = ast.dump(node.iter)
+        if f"id='{phase}'" not in it and not any(
+                f"id='{b}'" in it for b in bound):
+            continue
+        for sub in ast.walk(node):
+            if isinstance(sub, ast.Assign) and any(
+                    isinstance(t, ast.Subscript)
+                    and getattr(t.value, "id", None) == "launches"
+                    for t in sub.targets):
+                return True
+    return False
+
+
+def test_fluid_amp_and_encoder_phases_present():
+    """Phases 10a (ResNet-50 in bf16 AMP), 10e (the fluid encoder) and
+    10ep (its card-vs-CPU parity) are defined, listed in the script's
+    docstring, run by ``_main`` and feed the kernels line's launches;
+    the script imports neither JAX nor the JAX package."""
+    import ast
+
+    tree = _chip_smoke_ast()
+    doc = ast.get_docstring(tree)
+    funcs = {n.name: n for n in tree.body if isinstance(n, ast.FunctionDef)}
+    for tag, phase in (("10a. resnet50-amp", "phase_resnet50_amp"),
+                       ("10e. encoder", "phase_encoder"),
+                       ("10ep. encoder-parity", "phase_encoder_parity")):
+        assert tag in doc, tag
+        assert phase in funcs, phase
+        assert _feeds_launches(funcs["_main"], phase), phase
+    for node in ast.walk(tree):
+        names = ([a.name for a in node.names] if isinstance(node, ast.Import)
+                 else [node.module or ""] if isinstance(node, ast.ImportFrom)
+                 else [])
+        for n in names:
+            assert n.split(".")[0] not in ("jax", "paddle_tpu"), n

@@ -1077,12 +1077,155 @@ def test_opt_kinds_match_plain_bitwise(chip_smoke):
 
 @pytest.mark.cuda
 def test_fluid_fused_routes_match_plain_bitwise(chip_smoke):
-    """The fluid MLP under each fused optimizer and ResNet-18 at 32² train
-    the same bits through the kernels and the unfused expressions, with
-    one launch of the kernel a step."""
+    """The fluid MLP under each fused optimizer, ResNet-18 at 32² and
+    the same ResNet-18 under bf16 AMP (``decorate(Momentum(fuse=True))``)
+    train the same bits through the kernels and the unfused expressions,
+    with one launch of the kernel a step; the fp16 loss-scale sequence
+    equals the CPU's."""
     launches = chip_smoke.phase_fluid_parity()
-    assert launches == {"opt_sgd": 5, "opt_momentum": 5 + 3, "opt_adam": 5,
-                        "opt_adamw": 5}
+    assert launches == {"opt_sgd": 5, "opt_momentum": 5 + 3 + 3,
+                        "opt_adam": 5, "opt_adamw": 5}
+
+
+@pytest.mark.cuda
+def test_executor_run_is_a_fresh_process_first_card_work(card):
+    """A process whose first card work is ``Executor(CUDAPlace(0)).run``
+    (the README's fluid example) runs: the program report's peak-memory
+    counter used to raise "Invalid device argument" before any CUDA
+    context existed."""
+    import subprocess
+
+    code = (
+        "import numpy as np, paddle_tpu_torch as T\n"
+        "main, startup = T.Program(), T.Program()\n"
+        "with T.program_guard(main, startup):\n"
+        "    x = T.layers.data('x', [4])\n"
+        "    loss = T.layers.reduce_mean(T.layers.fc(x, 3))\n"
+        "    T.optimizer.SGD(0.1).minimize(loss)\n"
+        "exe, scope = T.Executor(T.CUDAPlace(0)), T.Scope()\n"
+        "exe.run(startup, scope=scope)\n"
+        "(lv,) = exe.run(main, feed={'x': np.ones((2, 4), np.float32)},\n"
+        "                fetch_list=[loss], scope=scope)\n"
+        "assert np.isfinite(lv), lv\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+
+
+class _Op:
+    def __init__(self, attrs):
+        self.attrs = attrs
+
+    def attr(self, name, default=None):
+        return self.attrs.get(name, default)
+
+
+def _mha_run(dev, ins, attrs, cot):
+    """``multihead_matmul``'s lowering on ``dev`` with autograd: Out and
+    the gradients of Input, W and Bias for the cotangent ``cot``."""
+    from paddle_tpu_torch.framework.registry import LowerCtx, get_op_spec
+
+    leaves = {k: [v.to(dev).clone().requires_grad_(k != "BiasQK")]
+              for k, v in ins.items()}
+    out = get_op_spec("multihead_matmul").lower(
+        LowerCtx(torch.device(dev)), _Op(attrs), leaves)["Out"]
+    out.backward(cot.to(dev))
+    return [out.detach().cpu()] + [leaves[k][0].grad.cpu()
+                                   for k in ("Input", "W", "Bias")]
+
+
+def _mha_out_bf16_projection(ins, attrs):
+    """``multihead_matmul``'s Out on the CPU as the card rounds it: the
+    projection in bf16 (q, k and v are bf16 values when the flash kernels
+    get them), then the naive attention in float32."""
+    x, w, b = ins["Input"], ins["W"], ins["Bias"]
+    B, S, H = x.shape
+    nh = attrs["head_number"]
+    qkv = (torch.matmul(x, w.reshape(H, 3 * H)) + b.reshape(3 * H)) \
+        .float().reshape(B, S, 3, nh, H // nh)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    logits = torch.einsum("bsnd,btnd->bnst", q, k) * attrs["alpha"]
+    if "BiasQK" in ins:
+        logits = logits + ins["BiasQK"].float()
+    out = torch.einsum("bnst,btnd->bsnd", torch.softmax(logits, -1), v)
+    return out.reshape(B, S, H)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("bias", ["none", "full", "pad", "unflashable"])
+def test_multihead_matmul_on_card_matches_cpu(chip_smoke, dtype, bias):
+    """``multihead_matmul`` on CUDA tensors (the flash kernels, their
+    bias forms with a bias; a bias they cannot take, [1, nh, S, S] at B
+    2, the naive path) against the same lowering on CPU tensors (the
+    naive path) at ERNIE's head width: Out and the Input / W / Bias
+    gradients, f32 (TF32 off) within 3e-4 of their scale (the flash
+    gradients' band). In bf16, Out is held to ``chip_smoke.bf16_check``'s
+    bound against :func:`_mha_out_bf16_projection` (the card's rounding:
+    the projection in bf16, then float32 attention), or, for the
+    unflashable bias, against the CPU's naive path in bf16; the gradients
+    against the CPU path on the same bf16 values in float32, within 2e-2
+    of their scale (the projection's products sum 192 bf16 terms).
+    Launches: one of each flash kernel (``_bias`` forms with a bias),
+    none for the unflashable bias."""
+    from paddle_tpu_torch.ops import cuda_kernels as CK
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator().manual_seed(3)
+    B, S, nh, hd = 2, 200, 3, 64
+    H = nh * hd
+    ins = {"Input": torch.randn((B, S, H), generator=g),
+           "W": torch.randn((H, 3 * H), generator=g) * H ** -0.5,
+           "Bias": torch.randn((3 * H,), generator=g) * 0.1}
+    shape = {"full": (B, nh, S, S), "pad": (B, 1, 1, S),
+             "unflashable": (1, nh, S, S)}.get(bias)
+    if bias == "pad":
+        ins["BiasQK"] = torch.where(torch.arange(S) < 150, 0.0, -1e4) \
+            .expand(shape).contiguous()
+    elif shape is not None:
+        ins["BiasQK"] = torch.randn(shape, generator=g)
+    ins = {k: v.to(dtype) for k, v in ins.items()}
+    attrs = {"head_number": nh, "alpha": hd ** -0.5}
+    cot = torch.randn((B, S, H), generator=g).to(dtype)
+    CK.reset_launches()
+    got = _mha_run("cuda", ins, attrs, cot)
+    launched = {k: v for k, v in CK.LAUNCHES.items() if v}
+    # the unflashable bias takes the naive path on both devices
+    ref = dtype if bias == "unflashable" else torch.float32
+    want = _mha_run("cpu", {k: v.to(ref) for k, v in ins.items()}, attrs,
+                    cot.to(ref))
+    if bias == "unflashable":
+        assert launched == {}
+    else:
+        sfx = "" if bias == "none" else "_bias"
+        assert launched == {f"flash_fwd{sfx}": 1, f"flash_bwd_dq{sfx}": 1,
+                            f"flash_bwd_dkv{sfx}": 1}
+    ratios = [((a.float() - b.float()).abs().max()
+               / b.float().abs().max()).item() for a, b in zip(got, want)]
+    print(f"multihead_matmul {bias} {dtype}: Out, dInput, dW, dBias diff "
+          f"over scale {ratios}")
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert a.dtype == dtype
+        if dtype == torch.bfloat16 and i == 0:
+            if bias != "unflashable":
+                b = _mha_out_bf16_projection(ins, attrs)
+            chip_smoke.bf16_check(f"multihead_matmul {bias} bf16 Out",
+                                  a.reshape(B, S, nh, hd),
+                                  b.reshape(B, S, nh, hd))
+            continue
+        tol = 3e-4 if dtype == torch.float32 else 2e-2
+        assert ratios[i] <= tol, (i, ratios)
+
+
+@pytest.mark.cuda
+def test_encoder_card_matches_cpu(chip_smoke):
+    """Phase 10ep: the 2-layer float32 encoder on the card (flash bias
+    kernels) against the CPU (naive path), 3 AdamW steps, and the
+    vocab-chunked CE at [2048, 30522]."""
+    launches = chip_smoke.phase_encoder_parity()
+    assert launches == {"flash_fwd_bias": 6, "flash_bwd_dq_bias": 6,
+                        "flash_bwd_dkv_bias": 6, "opt_adamw": 3}
 
 
 @pytest.mark.cuda

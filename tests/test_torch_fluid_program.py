@@ -147,20 +147,22 @@ def test_feeds_cast_and_fetch_checked():
 
 def test_not_ported_names_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        T.layers.embedding
+        T.layers.sequence_pool
     with pytest.raises(NotImplementedError, match="ROADMAP A5"):
         T.optimizer.Adagrad
+    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
+        T.contrib.slim
     assert not hasattr(T.layers, "lstm")
     with TUN.guard():
         main, startup = T.Program(), T.Program()
         with T.program_guard(main, startup):
             x = T.layers.data("x", [4])
             with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-                T.layers.softmax_with_cross_entropy(x, x, vocab_chunk=8)
+                T.optimizer.SGD(0.1, parameter_list=[x])
             loss = T.layers.reduce_mean(T.layers.fc(x, 2))
             with pytest.raises(NotImplementedError, match="ROADMAP A5"):
                 T.append_backward(loss, checkpoints=[x])
-        main.global_block().append_op(type="lookup_table", inputs={},
+        main.global_block().append_op(type="sequence_pool", inputs={},
                                       outputs={})
     with pytest.raises(NotImplementedError, match="ROADMAP A5"):
         T.Executor(T.CPUPlace()).run(main, scope=T.Scope())
