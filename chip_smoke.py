@@ -373,6 +373,39 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              30522] float32 against
              ``vocab_chunk=0``: loss and Logits grad within 1e-5 of their
              scale, both peak memories printed.
+10o. optimizer-parity — the fluid MLP (``paddle_tpu_torch.testing``)
+             trains 3 steps under each per-parameter update rule past
+             SGD, Momentum and Adam (LarsMomentum, Adagrad, DecayedAdagrad,
+             Adadelta, Adamax, Dpsgd at sigma 0, RMSProp centered and
+             not, Ftrl, Lamb with and without its exclusion, DGCMomentum
+             across its rampup),
+             Lookahead(SGD, k 2), ExponentialMovingAverage and
+             ModelAverage (``apply`` / ``restore`` on the card),
+             ``RecomputeOptimizer(Lamb)`` and
+             ``GradientMergeOptimizer(Momentum(fuse=True), 2)`` over a
+             batch norm: the card against the same program on the CPU
+             from one start state, float32, TF32 off, losses within 1e-5
+             relative, every persistable within 1e-5 of its scale, one
+             ``opt_momentum`` a merged step; with dropout 0.1 on each
+             device the recompute run's masks (its re-emitted twin's
+             too) and losses equal the run without recompute's;
+10r. encoder-recompute — 10e's encoder at ERNIE-base's widths and depth
+             in float32 under ``RecomputeOptimizer(Lamb)``, each layer's
+             output a checkpoint (``train_bench --model encoder --no-amp
+             --recompute --optimizer lamb``), against plain Lamb from one
+             start state: 24 ``flash_fwd_bias`` (12 recomputed), 12
+             ``flash_bwd_dq_bias`` and 12 ``flash_bwd_dkv_bias`` launches
+             a timed step (1 + 3 steps), the first loss equal across the
+             arms, every gradient within 1e-5 of its scale, the recompute
+             arm's peak at most half the plain arm's; samples/s, ms a step
+             beside plain Lamb's, MFU with and without the recompute
+             forward, both peaks;
+10g. resnet50-gradmerge — 10a's lane under
+             ``GradientMergeOptimizer(k_steps=2)`` fed 256 x 224² (two of
+             10a's microbatches; ``train_bench --model resnet50
+             --grad-merge 2``): 4 steps on that batch (the loss falls),
+             1 warm-up + 3 timed, one ``opt_momentum`` a step, the scale
+             1.0, the peak at most 1.25 x 10a's; img/s, ms a step.
 
 11k. parallel-kernels — before the gangs, each kernel of phase 11's
              path at every gloo layout's per-rank shapes against its plain
@@ -4920,6 +4953,260 @@ def phase_encoder_parity():
     return cc
 
 
+# 10o's bands: the card against the CPU on the same program
+OPT_PARITY_TOL = 1e-5
+
+
+def _opt_case_run(place, start, steps: int = 3, **kw):
+    """``steps`` steps of an optimizer case's MLP
+    (``paddle_tpu_torch.testing.optimizer_mlp``) on ``place`` from the
+    start state ``start`` (name -> host tensor; built and started on the
+    first call when None): (losses, the scope, the program, its extra,
+    the start state, the kernels launched)."""
+    import paddle_tpu_torch as T
+    from paddle_tpu_torch.framework import unique_name
+    from paddle_tpu_torch.ops import cuda_kernels as CK
+    from paddle_tpu_torch.testing import mlp_feed, optimizer_mlp
+
+    main, startup, loss, extra = optimizer_mlp(T, unique_name, **kw)
+    exe, scope = T.Executor(place), T.Scope()
+    if start is None:
+        exe.run(startup, scope=scope)
+        start = {n: scope.find_var(n).cpu()
+                 for n, v in main.global_block().vars.items()
+                 if v.persistable and scope.find_var(n) is not None}
+    dev = place.torch_device()
+    for n, v in start.items():
+        scope.set_var(n, v.to(dev, copy=True))
+    feed = mlp_feed()
+    CK.reset_launches()
+    losses = [float(exe.run(main, feed=feed, fetch_list=[loss],
+                            scope=scope)[0]) for _ in range(steps)]
+    counts = {k: v for k, v in CK.LAUNCHES.items() if v}
+    return losses, scope, main, extra, start, counts
+
+
+def _recompute_masks(place):
+    """10o's recompute case with dropout 0.1 on ``place``: recompute on
+    and off from one start state, 3 steps fetching each dropout mask (and
+    in the recompute run the re-emitted twin's). Returns the number of
+    masks compared."""
+    import paddle_tpu_torch as T
+    from paddle_tpu_torch.framework import unique_name
+    from paddle_tpu_torch.testing import (OPTIMIZER_CASES, mlp_feed,
+                                          optimizer_mlp)
+
+    runs, start = {}, None
+    for rc in (True, False):
+        kw = (dict(wrap="recompute") if rc
+              else dict(factory=OPTIMIZER_CASES["lamb"][0]))
+        main, startup, loss, _ = optimizer_mlp(T, unique_name, dropout=0.1,
+                                               **kw)
+        exe, scope = T.Executor(place), T.Scope()
+        exe.run(startup, scope=scope)
+        if start is None:
+            start = {n: scope.find_var(n).clone()
+                     for n, v in main.global_block().vars.items()
+                     if v.persistable and scope.find_var(n) is not None}
+        for n, v in start.items():
+            scope.set_var(n, v.clone())
+        mask = next(op.output("Mask")[0] for op in main.global_block().ops
+                    if op.type == "dropout")
+        fetch = [loss, mask] + ([mask + "@RC0"] if rc else [])
+        runs[rc] = [exe.run(main, feed=mlp_feed(), fetch_list=fetch,
+                            scope=scope, return_numpy=False)
+                    for _ in range(3)]
+    for on, off in zip(runs[True], runs[False]):
+        if not (torch.equal(on[1], off[1]) and torch.equal(on[1], on[2])):
+            raise AssertionError(f"recompute masks differ on {place}")
+        if float(on[0]) != float(off[0]):
+            raise AssertionError(f"recompute on {float(on[0])} off "
+                                 f"{float(off[0])} on {place}")
+    return 2 * len(runs[True])
+
+
+def phase_optimizer_parity():
+    """Phase 10o: the fluid MLP of the optimizer cases
+    (``paddle_tpu_torch.testing``) trains 3 steps under each new update
+    rule (Lamb with and without its exclusion, RMSProp centered and not,
+    DGCMomentum across its rampup, Dpsgd at sigma 0), Lookahead(SGD, k
+    2), ExponentialMovingAverage and ModelAverage (then ``apply`` and
+    ``restore`` on the card), ``RecomputeOptimizer(Lamb)`` (dropout 0
+    here) and ``GradientMergeOptimizer(Momentum(fuse=True), 2)`` over a
+    batch norm, on the card against the same program on the CPU in this
+    process from one start state, float32, TF32 off: losses within 1e-5
+    relative, every persistable within 1e-5 of its scale (the larger of
+    its largest |value| and 1). With dropout 0.1 on each device, the
+    recompute run's masks (and the re-emitted twin's) equal the run
+    without recompute's, and so do its losses. Returns the card runs'
+    launches (the merged Momentum: one ``opt_momentum`` a step)."""
+    import paddle_tpu_torch as T
+    from paddle_tpu_torch.testing import (OPTIMIZER_CASES, WRAPPER_CASES,
+                                          state_gap)
+
+    t0 = time.perf_counter()
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cases = {n: dict(factory=f) for n, (f, _) in OPTIMIZER_CASES.items()}
+    cases.update({n: dict(kw) for n, kw in WRAPPER_CASES.items()})
+    cases["recompute_lamb"]["dropout"] = 0.0
+    launches, worst = {}, (0.0, "", "")
+    try:
+        for name, kw in cases.items():
+            cl, cs, main, cx, start, cc = _opt_case_run(T.CUDAPlace(0),
+                                                        None, **kw)
+            pl_, ps, _m, _x, _s, pc = _opt_case_run(T.CPUPlace(), start,
+                                                    **kw)
+            if pc or (cc and cc != {"opt_momentum": 3}) or \
+                    (name == "gradmerge_momentum_bn") != bool(cc):
+                raise AssertionError(f"10o {name}: launches card {cc}, "
+                                     f"cpu {pc}")
+            for k, v in cc.items():
+                launches[k] = launches.get(k, 0) + v
+            if not all(np.isfinite(cl)):
+                raise AssertionError(f"10o {name}: losses {cl}")
+            np.testing.assert_allclose(cl, pl_, rtol=OPT_PARITY_TOL,
+                                       err_msg=name)
+            names = list(start)
+            gap, gname = state_gap(
+                {n: cs.find_var(n).cpu().double().numpy() for n in names},
+                {n: ps.find_var(n).double().numpy() for n in names})
+            if gap > OPT_PARITY_TOL:
+                raise AssertionError(f"10o {name}: {gname} differs by "
+                                     f"{gap:.3g} of its scale")
+            if gap >= worst[0]:
+                worst = (gap, name, gname)
+            if cx is not None and hasattr(cx, "apply"):
+                params = [p.name for p in main.global_block().all_parameters()]
+                with T.scope_guard(cs):
+                    with cx.apply(None):
+                        ok = all(torch.equal(cs.find_var(p),
+                                             cs.find_var(p + ".ema"))
+                                 for p in params)
+                    back = all(not torch.equal(cs.find_var(p),
+                                               cs.find_var(p + ".ema"))
+                               for p in params)
+                if not (ok and back):
+                    raise AssertionError(f"10o {name}: apply / restore")
+        n_masks = sum(_recompute_masks(pl) for pl in (T.CUDAPlace(0),
+                                                      T.CPUPlace()))
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+    print(f"[optimizer-parity] {len(cases)} cases x 3 steps, card against "
+          f"CPU: losses within {OPT_PARITY_TOL} relative, worst persistable "
+          f"{worst[0]:.3g} of its scale ({worst[1]}: {worst[2]}); EMA / "
+          f"ModelAverage apply and restore on the card; recompute with "
+          f"dropout: {n_masks} masks equal the forward's and the "
+          f"no-recompute run's on each device; launches {launches}; phase "
+          f"wall {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+# 10r's gates: the recompute arm's peak over the plain arm's, and the
+# gradients' gap across the arms (of each parameter's largest |value|)
+RECOMPUTE_PEAK_RATIO, RECOMPUTE_GRAD_TOL = 0.5, 1e-5
+
+
+def phase_encoder_recompute():
+    """Phase 10r: the fluid encoder at ERNIE-base's widths and depth (L
+    12, nh 12, D 768, d_ff 3072, V 30522, 2 classes, dropout 0.1), batch
+    48 x 512 with 10e's padding bias, float32, under
+    ``RecomputeOptimizer(Lamb)`` with each layer's output as a checkpoint
+    (``train_bench --model encoder --no-amp --recompute --optimizer
+    lamb``), against plain Lamb from one start state. Gates: 24
+    ``flash_fwd_bias`` (12 forward, 12 recomputed), 12 ``flash_bwd_dq_bias``
+    and 12 ``flash_bwd_dkv_bias`` launches a timed step and nothing else;
+    the first step's loss equal in both arms and every parameter's
+    gradient within 1e-5 of its largest |value| across them (the masks
+    replayed, the grad ops rewired); the recompute arm's allocator peak at
+    most half the plain arm's. Returns the record."""
+    from paddle_tpu_torch.tools import train_bench as TB
+
+    t0 = time.perf_counter()
+    rec = TB.run_encoder_recompute()
+    L = TB.ENCODER["num_layers"]
+    want = {"flash_fwd_bias": 2 * L, "flash_bwd_dq_bias": L,
+            "flash_bwd_dkv_bias": L}
+    if rec["launches_per_step"] != want:
+        raise AssertionError(f"10r launches per step "
+                             f"{rec['launches_per_step']} != {want}")
+    if len(rec["checkpoints"]) != L or not all(np.isfinite(rec["losses"])):
+        raise AssertionError(f"10r checkpoints {rec['checkpoints']}, "
+                             f"losses {rec['losses']}")
+    fl = rec["first_loss"]
+    if fl["recompute"] != fl["plain"]:
+        raise AssertionError(f"10r first losses {fl}")
+    if not rec["grad_gap"] <= RECOMPUTE_GRAD_TOL:
+        raise AssertionError(f"10r gradient {rec['grad_gap_param']} "
+                             f"differs by {rec['grad_gap']:.3g}")
+    pk = rec["peak_bytes"]
+    if not pk["recompute"] <= RECOMPUTE_PEAK_RATIO * pk["plain"]:
+        raise AssertionError(f"10r peaks {pk}")
+    print(f"[encoder-recompute] {rec['config']} {rec['model_params']} "
+          f"params: {rec['samples_per_s']:.2f} samples/s, ms/step="
+          f"{rec['ms_per_step']:.3f} (plain Lamb {rec['plain_ms_per_step']:.3f}"
+          f", x{rec['ms_over_plain']:.3f}), mfu={rec['mfu']:.4f} (with the "
+          f"recompute forward {rec['mfu_with_recompute']:.4f}); peak GB "
+          f"recompute {pk['recompute'] / 1e9:.3f} plain "
+          f"{pk['plain'] / 1e9:.3f} (x{pk['recompute'] / pk['plain']:.3f})"
+          f", timed {rec['timed_peak_bytes'] / 1e9:.3f}; first loss "
+          f"{fl['recompute']} in both arms; {rec['n_grads']} gradients "
+          f"within {rec['grad_gap']:.3g} of scale ({rec['grad_gap_param']})"
+          f"; losses {rec['losses']}; launches/step "
+          f"{rec['launches_per_step']}; phase wall "
+          f"{time.perf_counter() - t0:.1f} s")
+    return rec
+
+
+# 10g's gate: its peak over 10a's in the same run
+MERGE_PEAK_RATIO = 1.25
+
+
+def phase_resnet50_grad_merge(amp: dict):
+    """Phase 10g: ``bench.py``'s ResNet lane as 10a runs it under
+    ``GradientMergeOptimizer(decorate(Momentum(0.01, 0.9, fuse=True),
+    use_bf16=True), k_steps=2)`` fed 256 images of 224² (two microbatches
+    of 10a's 128; ``train_bench --model resnet50 --grad-merge 2``): 4
+    steps on the fed batch, whose loss must fall, then 1 warm-up + 3
+    timed steps (counts zeroed just before them): every loss finite,
+    exactly one ``opt_momentum`` launch a step (the tail runs once for two
+    microbatches), ``loss_scaling_0`` 1.0, the peak at most 1.25 x 10a's
+    ``amp`` record's. Returns the record."""
+    from paddle_tpu_torch.tools import train_bench as TB
+
+    t0 = time.perf_counter()
+    rec = TB.run_resnet_grad_merge(2)
+    fixed = rec["fixed_losses"]
+    if not all(np.isfinite(fixed + rec["losses"])) or \
+            not fixed[-1] < fixed[0]:
+        raise AssertionError(f"10g losses {fixed} {rec['losses']}")
+    if rec["launches_per_step"] != {"opt_momentum": 1}:
+        raise AssertionError(f"10g launches per step "
+                             f"{rec['launches_per_step']}")
+    if rec["loss_scaling"] != 1.0:
+        raise AssertionError(f"10g loss scale {rec['loss_scaling']}")
+    ratio = rec["peak_mem_bytes"] / amp["peak_mem_bytes"]
+    if not ratio <= MERGE_PEAK_RATIO:
+        raise AssertionError(f"10g peak {rec['peak_mem_bytes']} over 10a's "
+                             f"{amp['peak_mem_bytes']}: x{ratio:.3f}")
+    print(f"[resnet50-gradmerge] {rec['config']}: {rec['images_per_s']:.2f}"
+          f" img/s over the fed {rec['batch']} (10a {amp['images_per_s']:.2f}"
+          f" at 128), ms/step={rec['ms_per_step']:.3f} (10a "
+          f"{amp['ms_per_step']:.3f}), mfu={rec['mfu']:.4f}, peak GB="
+          f"{rec['peak_mem_bytes'] / 1e9:.3f} (10a "
+          f"{amp['peak_mem_bytes'] / 1e9:.3f}, x{ratio:.3f}); fixed-batch "
+          f"losses {fixed}; losses {rec['losses']}; scale 1.0; "
+          f"launches/step {rec['launches_per_step']}; phase wall "
+          f"{time.perf_counter() - t0:.1f} s")
+    return rec
+
+
 def _chunked_ce_check(rows: int = 2048, vocab: int = 30522,
                       chunk: int = 1024):
     """``softmax_with_cross_entropy(vocab_chunk=chunk)`` on the card
@@ -6343,6 +6630,17 @@ def _main() -> int:
     for k, v in phase_encoder_parity().items():
         launches[k] = launches.get(k, 0) + v
     lap("10ep encoder parity")
+    # the rest of the fluid optimizers on the card against the CPU (10o),
+    # the encoder under Recompute + Lamb (10r: the flash bias kernels, the
+    # recomputation's forward included) and ResNet-50 under gradient
+    # merge (10g: opt_momentum once for two microbatches)
+    for k, v in phase_optimizer_parity().items():
+        launches[k] = launches.get(k, 0) + v
+    lap("10o optimizers")
+    for rec in (phase_encoder_recompute(), phase_resnet50_grad_merge(amp)):
+        for k, v in rec["launches_per_step"].items():
+            launches[k] = launches.get(k, 0) + round(v * rec["steps"])
+    lap("10r, 10g recompute, grad merge")
     # the autotuner (phase 14), before phase 12's gang shares the card
     for k, v in phase_tuning().items():
         launches[k] = launches.get(k, 0) + v

@@ -5,26 +5,42 @@ python/paddle/fluid/backward.py ``append_backward``): walk the ops in
 reverse calling each op's grad maker, ``sum`` a var's several gradients,
 and seed the loss gradient with ``fill_constant``. Grad ops are
 ``<type>_grad`` IR ops; the executor runs each through the autograd
-graph it recorded for the forward op (``registry.py``). Recompute
-(``checkpoints=``) is still to be ported.
+graph it recorded for the forward op (``registry.py``).
+
+``checkpoints=`` is recompute (the reference's
+``_append_backward_ops_with_checkpoints_``, backward.py:629): each
+forward segment ending at a checkpoint is re-emitted into the backward
+region behind a ``recompute_barrier``, with its outputs renamed
+(``@RC{s}``, ``@BAR{s}`` for its outside inputs, ``@RCdup{s}`` for a
+checkpoint a re-emitted op also writes), and the segment's grad ops
+carry the re-emitted op's desc. The executor pairs a grad op with the
+forward op whose outputs its desc names, so it records the re-emitted
+op's graph and the original records nothing: its intermediates die
+after their last forward read, which is the saving. The random ops of
+a segment replay the forward's draws (``registry.LowerCtx``).
 """
 from __future__ import annotations
 
 from collections import defaultdict
 from typing import Dict, List, Optional, Set
 
-from .core import not_ported
 from .program import Block, Operator, Parameter, Program, Variable
 from .registry import GRAD_SUFFIX, get_op_spec, has_op
 
 
-def _fwd_desc(op: Operator) -> dict:
-    return {
+def _fwd_desc(op: Operator, rename: Optional[Dict[str, str]] = None) -> dict:
+    r = rename or {}
+    desc = {
         "type": op.type,
-        "inputs": {k: list(v) for k, v in op.inputs.items()},
-        "outputs": {k: list(v) for k, v in op.outputs.items()},
+        "inputs": {k: [r.get(n, n) for n in v] for k, v in op.inputs.items()},
+        "outputs": {k: [r.get(n, n) for n in v] for k, v in op.outputs.items()},
         "attrs": {k: v for k, v in op.attrs.items() if not k.startswith("__fwd")},
     }
+    if r:
+        # the original output names, which key a random op's draw
+        desc["attrs"]["__rng_names__"] = sorted(
+            n for ns in op.outputs.values() for n in ns)
+    return desc
 
 
 def _compute_requires_grad(block: Block, no_grad_set: Set[str]) -> Set[str]:
@@ -51,6 +67,91 @@ def _compute_requires_grad(block: Block, no_grad_set: Set[str]) -> Set[str]:
     return requires
 
 
+class _RecomputePlan:
+    """Segment bookkeeping for checkpoint recompute (the reference's
+    ``_RecomputePlan``). Forward ops are split into segments ending at
+    each checkpoint-producing op; when the reverse walk reaches a
+    segment's first grad op, the segment's forward ops are re-emitted
+    with renamed outputs, fed through a ``recompute_barrier`` on the
+    segment's outside inputs. The tail after the last checkpoint is not
+    recomputed (as in the reference)."""
+
+    def __init__(self, block: Block, fwd_ops: List[Operator],
+                 ckpt_names: List[str]):
+        self.block = block
+        self.fwd_ops = fwd_ops
+        self.ckpt_names = set(ckpt_names)
+        prod_idx: Dict[str, int] = {}
+        for i, op in enumerate(fwd_ops):
+            for n in op.output_arg_names:
+                if n in self.ckpt_names:
+                    prod_idx[n] = i
+        self.segments: List = []
+        lo = 0
+        for c in sorted(set(prod_idx.values())):
+            if c >= lo:
+                self.segments.append((lo, c))
+                lo = c + 1
+        self.seg_of: Dict[int, int] = {}
+        for s, (a, b) in enumerate(self.segments):
+            for i in range(a, b + 1):
+                self.seg_of[i] = s
+        self.rename: List[Optional[Dict[str, str]]] = [None] * len(self.segments)
+
+    def rename_for(self, op_index: int) -> Optional[Dict[str, str]]:
+        """Re-emit (once) the segment holding ``op_index``; its name map
+        (original -> recomputed or barriered), or None for the tail."""
+        s = self.seg_of.get(op_index)
+        if s is None:
+            return None
+        if self.rename[s] is not None:
+            return self.rename[s]
+        a, b = self.segments[s]
+        seg_ops = self.fwd_ops[a:b + 1]
+        produced = {n for op in seg_ops for n in op.output_arg_names}
+        rename = {n: f"{n}@RC{s}" for n in produced
+                  if n not in self.ckpt_names}
+        ext: List[str] = []
+        for op in seg_ops:
+            for n in op.input_arg_names:
+                if n not in produced and n not in ext:
+                    ext.append(n)
+        bar = {n: f"{n}@BAR{s}" for n in ext}
+        block = self.block
+        for n, bn in bar.items():
+            src = block._var_recursive(n)
+            block.create_var(name=bn, shape=src.shape, dtype=src.dtype)
+        if bar:
+            block.append_op(type="recompute_barrier",
+                            inputs={"X": list(bar)},
+                            outputs={"Out": list(bar.values())})
+        full = {**bar, **rename}
+        for op in seg_ops:
+            if not has_op(op.type):
+                continue
+            if not any(n in rename for n in op.output_arg_names):
+                continue  # all outputs are stored checkpoints
+            # a checkpoint this op also writes goes to a dummy var, so the
+            # stored value is not overwritten
+            out_name = {n: rename.get(n, f"{n}@RCdup{s}")
+                        for n in op.output_arg_names}
+            for n, rn in out_name.items():
+                src = block._var_recursive(n)
+                block.create_var(name=rn, shape=src.shape, dtype=src.dtype)
+            new_attrs = dict(op.attrs)
+            new_attrs["__rng_names__"] = sorted(op.output_arg_names)
+            block.append_op(
+                type=op.type,
+                inputs={k: [full.get(n, n) for n in v]
+                        for k, v in op.inputs.items()},
+                outputs={k: [out_name[n] for n in v]
+                         for k, v in op.outputs.items()},
+                attrs=new_attrs,
+            )
+        self.rename[s] = full
+        return full
+
+
 def append_backward(
     loss: Variable,
     parameter_list: Optional[List] = None,
@@ -58,9 +159,8 @@ def append_backward(
     callbacks=None,
     checkpoints: Optional[List[Variable]] = None,
 ) -> List:
-    """Append grad ops for ``loss``; returns [(param, grad_var), ...]."""
-    if checkpoints:
-        not_ported("append_backward", "checkpoints")
+    """Append grad ops for ``loss``; returns [(param, grad_var), ...].
+    ``checkpoints`` (Variables or names) marks recompute boundaries."""
     program: Program = loss.block.program
     block = loss.block
     no_grad = set(no_grad_set or ())
@@ -74,13 +174,19 @@ def append_backward(
             f"loss {loss.name!r} does not depend on any trainable parameter"
         )
 
+    ckpt_names = [v.name if isinstance(v, Variable) else v
+                  for v in (checkpoints or ())]
+    if ckpt_names:
+        program._annotations["recompute_checkpoints"] = list(ckpt_names)
+
     # everything appended from here is the backward slice
     with program.op_role_guard(Program.OP_ROLE_BACKWARD):
         return _append_backward_tagged(loss, block, requires, no_grad,
-                                       parameter_list)
+                                       ckpt_names, parameter_list)
 
 
-def _append_backward_tagged(loss, block, requires, no_grad, parameter_list):
+def _append_backward_tagged(loss, block, requires, no_grad, ckpt_names,
+                            parameter_list):
     # seed: d loss / d loss = 1
     loss_grad_name = loss.name + GRAD_SUFFIX
     block.create_var(
@@ -98,6 +204,7 @@ def _append_backward_tagged(loss, block, requires, no_grad, parameter_list):
 
     # snapshot of forward ops (exclude the seed op we just appended)
     fwd_ops = block.ops[:-1]
+    recompute = _RecomputePlan(block, fwd_ops, ckpt_names) if ckpt_names else None
 
     def resolved_grad(name: str) -> Optional[str]:
         """Collapse accumulated grads for `name` into one var (sum if >1)."""
@@ -177,12 +284,16 @@ def _append_backward_tagged(loss, block, requires, no_grad, parameter_list):
         if not grad_outputs:
             continue
 
+        # recompute: re-emit the segment's forward (once) and point the
+        # grad op's forward values at the recomputed names; grad var names
+        # stay the originals, so grads flow across segments as before
+        rmap = (recompute.rename_for(op_index) if recompute else None) or {}
         g_inputs: Dict[str, List[str]] = {}
         for slot, names in op.inputs.items():
-            g_inputs[slot] = list(names)
+            g_inputs[slot] = [rmap.get(n, n) for n in names]
         for slot, names in op.outputs.items():
             if slot not in g_inputs:
-                g_inputs[slot] = list(names)
+                g_inputs[slot] = [rmap.get(n, n) for n in names]
         g_inputs.update(out_grad_inputs)
         # keep positional alignment with the forward input list: unneeded
         # grads become the @EMPTY@ placeholder (skipped at bind time)
@@ -191,7 +302,7 @@ def _append_backward_tagged(loss, block, requires, no_grad, parameter_list):
             for slot, outs in grad_outputs.items()
         }
         attrs = dict(op.attrs)
-        attrs["__fwd__"] = _fwd_desc(op)
+        attrs["__fwd__"] = _fwd_desc(op, rmap)
         block.append_op(
             type=op.type + "_grad",
             inputs=g_inputs,

@@ -23,7 +23,11 @@ lowering eagerly on the place's device:
   graph holds what it saved), so activations live as long as a graph
   needs them;
 - random ops draw from one ``torch.Generator`` for each program, seeded
-  by ``program.random_seed`` at its first run.
+  by ``program.random_seed`` at its first run; a recomputed random op
+  repeats its forward op's draw (``registry.LowerCtx``);
+- a program ``GradientMergeOptimizer`` annotated runs its forward and
+  backward once a microbatch and its optimizer tail once
+  (``parallel/grad_merge.py``).
 
 The JAX jit, its dispatch fast path, host ops, datasets and checkpoints
 are still to be ported (ROADMAP A5). ``scope_from_numpy`` carries state
@@ -32,6 +36,7 @@ scope of this one.
 """
 from __future__ import annotations
 
+import re
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -177,19 +182,33 @@ class _Record:
         self.outputs: Dict[Tuple[str, int], Tuple[Any, torch.dtype]] = {}
 
 
+# a recomputed op writes a checkpoint it also makes to <name>@RCdup<s>,
+# while its grad op's desc names the checkpoint, as the reference's does
+_RCDUP = re.compile(r"@RCdup\d+$")
+
+
 def _out_key(outputs: Dict[str, List[str]]):
-    return tuple(sorted((k, tuple(v)) for k, v in outputs.items()))
+    """The key pairing a grad op's ``__fwd__`` desc with its forward op:
+    the outputs by slot, a recomputed checkpoint read as the checkpoint."""
+    return tuple(sorted((k, tuple(_RCDUP.sub("", n) for n in v))
+                        for k, v in outputs.items()))
 
 
 class _Plan:
-    """What a run of (program version, fetch list) needs, computed once:
-    each op's spec; which grad op runs which forward op's graph, and which
+    """What a run of (program version, fetch list) needs, computed once
+    for the ops ``[lo, hi)`` of block 0 (all of them by default): each
+    op's spec; which grad op runs which forward op's graph, and which
     input positions of that op it asks gradients for; the persistables
-    read and written; the vars to drop after each op."""
+    read and written (over the whole block); the vars to drop after each
+    op, all but the persistables, the fetches and ``keep``; the random
+    ops a recomputed twin replays."""
 
-    def __init__(self, program: Program, fetch_names: Sequence[str]):
+    def __init__(self, program: Program, fetch_names: Sequence[str],
+                 lo: int = 0, hi: Optional[int] = None,
+                 keep: Sequence[str] = ()):
+        self.program = program
         block = program.global_block()
-        ops = block.ops
+        ops = self.ops = block.ops[lo:hi]
         self.specs = [get_op_spec(op.type) for op in ops]
         self.grad_of: Dict[int, int] = {}
         self.record: Dict[int, Dict[str, List[int]]] = {}
@@ -203,8 +222,8 @@ class _Plan:
             j = producers.get((fwd["type"], _out_key(fwd["outputs"])))
             if j is None:
                 raise RuntimeError(
-                    f"{op.type} (op {i}) has no forward op before it in "
-                    "the block")
+                    f"{op.type} (op {lo + i}) has no forward op before it "
+                    "in the block")
             self.grad_of[i] = j
             want = self.record.setdefault(j, {})
             for gslot, names in op.outputs.items():
@@ -212,8 +231,12 @@ class _Plan:
                     pos = [k for k, n in enumerate(names) if n != "@EMPTY@"]
                     if pos:
                         want[gslot[: -len(GRAD_SUFFIX)]] = pos
+        self.replay = frozenset(
+            tuple(op.attrs["__rng_names__"]) for i, op in enumerate(ops)
+            if i not in self.grad_of and op.attrs.get("__rng_names__"))
         self.read, self.written = _analyze_persistables(program)
-        keep = {n for n, v in block.vars.items() if v.persistable}
+        keep = set(keep)
+        keep.update(n for n, v in block.vars.items() if v.persistable)
         keep.update(fetch_names)
         last: Dict[str, int] = {}
         for i, op in enumerate(ops):
@@ -228,6 +251,42 @@ class _Plan:
         for n, i in last.items():
             if n not in keep:
                 self.free_after[i].append(n)
+
+    def run(self, exe: "Executor", feed, fetch_names, scope: "Scope",
+            return_numpy: bool):
+        """One run of the program on ``exe``'s device: the scope's
+        persistables and the feeds in, the written persistables back to
+        the scope, the fetches out."""
+        block = self.program.global_block()
+        env = exe._read_scope(self, scope)
+        for name, value in (feed or {}).items():
+            env[name] = _normalize_feed(block.vars.get(name), value,
+                                        exe.device)
+        self.run_ops(exe._ctx(self), env, exe.device)
+        exe._write_scope(self, env, scope)
+        return exe._fetch(env, fetch_names, return_numpy)
+
+    def run_ops(self, ctx: LowerCtx, env: Dict[str, Any],
+                device: torch.device) -> None:
+        """Run the plan's ops over ``env`` (no autograd but the recorded
+        ops'), binding their outputs and dropping each var after its last
+        use."""
+        anchor = (torch.zeros((), device=device, requires_grad=True)
+                  if self.record else None)
+        records: Dict[int, _Record] = {}
+        with torch.no_grad():
+            for i, op in enumerate(self.ops):
+                j = self.grad_of.get(i)
+                if j is not None:
+                    _run_grad(env, op, records.pop(j, None), device)
+                elif i in self.record:
+                    records[i] = _run_recorded(ctx, env, op, self.specs[i],
+                                               self.record[i], anchor)
+                else:
+                    bind_outputs(env, op, self.specs[i].lower(
+                        ctx, op, gather_inputs(env, op)))
+                for n in self.free_after[i]:
+                    env.pop(n, None)
 
 
 def _run_recorded(ctx: LowerCtx, env, op, spec, want: Dict[str, List[int]],
@@ -312,7 +371,7 @@ class Executor:
         # id(program) -> the build signatures of its plans, oldest first
         self._history: Dict[int, List[Dict[str, Any]]] = {}
 
-    def _plan(self, program: Program, fetch_names) -> Tuple[_Plan, bool]:
+    def _plan(self, program: Program, fetch_names) -> Tuple[Any, bool]:
         """(the plan for ``program``'s current version and the fetch list,
         whether it was built now). A new plan of a program that already
         has one is a rebuild: the recompile explainer names its cause
@@ -323,7 +382,13 @@ class Executor:
         hit = self._plans.get(key)
         if hit is not None:
             return hit[1], False
-        hit = self._plans[key] = (program, _Plan(program, fetch_names))
+        if "grad_merge" in program._annotations:
+            from ..parallel.grad_merge import GradMergeBlock
+
+            plan = GradMergeBlock(program, fetch_names)
+        else:
+            plan = _Plan(program, fetch_names)
+        hit = self._plans[key] = (program, plan)
         self._explain_rebuild(program, fetch_names)
         return hit[1], True
 
@@ -391,19 +456,16 @@ class Executor:
             from ..observability import program_report as _prep
 
             with _prep.counted(self.device) as counts:
-                fetches = self._run_plan(program, plan, feed, fetch_names,
-                                         scope, return_numpy)
+                fetches = plan.run(self, feed, fetch_names, scope,
+                                   return_numpy)
             _prep.capture(_report_name(program, fetch_names), counts,
                           inputs=dict(feed or {}), outputs=fetches,
                           extra={"mode": "executor",
                                  "fetch": list(fetch_names)})
             return fetches
-        return self._run_plan(program, plan, feed, fetch_names, scope,
-                              return_numpy)
+        return plan.run(self, feed, fetch_names, scope, return_numpy)
 
-    def _run_plan(self, program: Program, plan: _Plan, feed, fetch_names,
-                  scope: Scope, return_numpy: bool):
-        block = program.global_block()
+    def _read_scope(self, plan: _Plan, scope: Scope) -> Dict[str, Any]:
         env: Dict[str, Any] = {}
         for n in plan.read:
             v = scope.find_var(n)
@@ -412,29 +474,20 @@ class Executor:
                     f"persistable var {n!r} is not initialized in scope — "
                     "run the startup program first")
             env[n] = v
-        for name, value in (feed or {}).items():
-            env[name] = _normalize_feed(block.vars.get(name), value,
-                                        self.device)
-        ctx = LowerCtx(self.device, self._generator(program))
-        anchor = (torch.zeros((), device=self.device, requires_grad=True)
-                  if plan.record else None)
-        records: Dict[int, _Record] = {}
-        with torch.no_grad():
-            for i, op in enumerate(block.ops):
-                j = plan.grad_of.get(i)
-                if j is not None:
-                    _run_grad(env, op, records.pop(j, None), self.device)
-                elif i in plan.record:
-                    records[i] = _run_recorded(ctx, env, op, plan.specs[i],
-                                               plan.record[i], anchor)
-                else:
-                    bind_outputs(env, op, plan.specs[i].lower(
-                        ctx, op, gather_inputs(env, op)))
-                for n in plan.free_after[i]:
-                    env.pop(n, None)
+        return env
+
+    def _ctx(self, plan: _Plan) -> LowerCtx:
+        return LowerCtx(self.device, self._generator(plan.program),
+                        plan.replay)
+
+    @staticmethod
+    def _write_scope(plan: _Plan, env, scope: Scope) -> None:
         for n in plan.written:
             if n in env:
                 scope.set_var(n, env[n])
+
+    @staticmethod
+    def _fetch(env, fetch_names, return_numpy: bool):
         missing = [n for n in fetch_names if n not in env]
         if missing:
             raise ValueError(f"fetch vars {missing} were not computed by "

@@ -178,6 +178,13 @@ class Operator:
     def attr(self, name, default=None):
         return self.attrs.get(name, default)
 
+    def _set_attr(self, name, val):
+        self.attrs[name] = val
+        self.block.program._bump_version()
+
+    def has_attr(self, name) -> bool:
+        return name in self.attrs
+
     def _desc_dict(self):
         return {
             "type": self.type,
@@ -339,6 +346,9 @@ class Program:
         self._is_start_up_program = False
         self._current_op_role = Program.OP_ROLE_FORWARD
         self._mutation_counter = 0
+        # program-level annotations the executor reads (``grad_merge``)
+        # and introspection metadata (``recompute_checkpoints``)
+        self._annotations: Dict[str, Any] = {}
 
     @contextlib.contextmanager
     def op_role_guard(self, role: int):

@@ -133,17 +133,31 @@ def compute_dtypes(slots_by_type: Dict[str, Sequence[str]]):
 class LowerCtx:
     """What a lowering may ask of its run: the device the block runs on
     and the program's random generator (``None`` on the meta device, where
-    shape inference runs)."""
+    shape inference runs).
+
+    ``replay`` names the random ops whose draw a recomputed twin must
+    repeat (``append_backward(checkpoints=)`` re-emits a segment's ops
+    with renamed outputs and pins the originals' sorted output names in
+    ``__rng_names__``): the reference keys every random op by its output
+    names, so the twin's dropout mask is the forward's. Here the program
+    draws one stream, so such an op keeps the stream's state under its
+    names before it draws, and its twin draws from a generator set to
+    that state — the same bits, the stream unmoved. A program without
+    checkpoints saves nothing and draws as before."""
 
     def __init__(self, device: torch.device,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 replay: frozenset = frozenset()):
         self.device = device
         self.generator = generator
+        self.replay = replay
+        self._rng_states: Dict[tuple, torch.Tensor] = {}
 
     def generator_for(self, op) -> Optional[torch.Generator]:
         """The generator a random op draws from: its own, seeded by the
         op's ``seed`` attr when that is non-zero (the reference keys such
-        an op by ``PRNGKey(seed)``), else the program's stream."""
+        an op by ``PRNGKey(seed)``); a recomputed twin's, at its forward
+        op's state; else the program's stream."""
         if self.device.type == "meta":
             return None
         seed = int(op.attr("seed", 0) or 0)
@@ -151,6 +165,20 @@ class LowerCtx:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(seed)
             return gen
+        pinned = op.attr("__rng_names__")
+        if pinned:
+            state = self._rng_states.get(tuple(pinned))
+            if state is None:
+                raise RuntimeError(
+                    f"{op.type}: a recomputed random op ran before its "
+                    f"forward op (outputs {list(pinned)})")
+            gen = torch.Generator(device=self.device)
+            gen.set_state(state)
+            return gen
+        if self.replay and self.generator is not None:
+            key = tuple(sorted(op.output_arg_names))
+            if key in self.replay:
+                self._rng_states[key] = self.generator.get_state()
         return self.generator
 
 

@@ -1,7 +1,7 @@
 """Tensor-manipulation and random op lowerings — the slice of
 ``paddle_tpu/ops/tensor.py`` the fluid training path runs: ``reshape2``,
 ``slice`` and ``where``; parameter initializers and on-device synthetic
-data. Each random op draws from ``ctx.generator_for(op)``: the program's
+data; recompute's ``recompute_barrier``. Each random op draws from ``ctx.generator_for(op)``: the program's
 ``torch.Generator``, or one seeded by the op's own ``seed`` attr. Torch
 draws other numbers than JAX's threefry from the same seed, so parity
 tests feed their data. The rest of the reference's lowerings are still
@@ -116,3 +116,13 @@ def randint(ctx, op, ins):
         op.attr("low", 0), op.attr("high", 100), shape,
         generator=ctx.generator_for(op), device=ctx.device,
         dtype=_out_dtype(op, "int64"))}
+
+
+@register_op("recompute_barrier", grad=None)
+def recompute_barrier(ctx, op, ins):
+    """The wall ``append_backward(checkpoints=)`` puts before a
+    recomputed segment (``framework/backward.py``): an identity. The
+    reference needs it as an ``optimization_barrier`` against XLA's CSE
+    merging the recomputation with the forward; eager torch runs every op
+    it is given, so there is nothing to defeat."""
+    return {"Out": list(ins.get("X", []))}

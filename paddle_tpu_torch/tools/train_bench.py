@@ -13,6 +13,10 @@ its ResNet lane (``resnet_worker``, ``:254-323``).
         [--compare] [--device cpu --tiny]
     python -m paddle_tpu_torch.tools.train_bench --model encoder
         [--profile 1] [--device cpu --tiny]
+    python -m paddle_tpu_torch.tools.train_bench --model encoder --no-amp
+        --recompute --optimizer lamb [--device cpu --tiny]
+    python -m paddle_tpu_torch.tools.train_bench --model resnet50
+        --grad-merge K [--device cpu --tiny]
     python -m paddle_tpu_torch.parallel.launch --nproc_per_node 2 -m \
         paddle_tpu_torch.tools.train_bench [--sharding fsdp] [--dp 2]
         [--tp 2] [--pp 2] [--layout SPEC ...]      (the parallel lane)
@@ -109,6 +113,26 @@ and the products' compute dtypes in one more step
 (``product_dtypes``); ``--profile 1`` adds one traced
 step's device busy ms and the flash bias kernels' ms
 (``utils/device_trace.py``).
+
+``--model encoder --no-amp --recompute --optimizer lamb`` is the
+recompute lane: the same encoder in float32 (TF32 off; the reference
+cannot compose AMP with recompute) under ``RecomputeOptimizer(Lamb(5e-5,
+lamb_weight_decay=0.01, exclude_from_weight_decay_fn=...))`` with each
+layer's output as a checkpoint, against plain ``Lamb`` from one start
+state: each arm's first step fetches every parameter's gradient and
+reads its allocator peak; the recompute arm then times 3 steps (24
+``flash_fwd_bias`` launches a step, the recomputation's 12 included, and
+12 of each backward), the plain arm 1. The record has samples/s, ms a
+step and over the plain arm's, MFU with and without the recompute
+forward, each arm's peak, the first losses and the gradients' worst gap
+across the arms.
+
+``--model resnet50 --grad-merge K`` is the ResNet lane (bf16 AMP, fused
+Momentum) under ``GradientMergeOptimizer(k_steps=K)``, fed K x 128
+images: the forward and backward run K times a step, the optimizer tail
+once (one ``opt_momentum`` launch); 4 steps on the fed batch (the loss
+falls), one warm-up and 3 timed. The record has img/s over the fed batch,
+ms a step, peak memory and the loss scale.
 
 The fluid lanes run on the card unless ``--device cpu``; without a card
 they refuse to run. ``--tiny`` cuts them to a CPU rehearsal's sizes
@@ -548,12 +572,13 @@ def run_ernie(cfg: E.ErnieConfig, pad: bool = False,
 def resnet_program(batch: int = RESNET_BATCH, hw: int = RESNET_HW,
                    classes: int = RESNET_CLASSES, depth: int = 50,
                    fuse: bool = True, synthetic: bool = True,
-                   amp: bool = False):
+                   amp: bool = False, merge_k: int = 0):
     """(main, startup, loss) of ``bench.py``'s ResNet lane: the images and
     labels made by ``uniform_random`` / ``randint`` ops each step, or, with
     ``synthetic=False``, fed through ``layers.data`` ("img", "label");
     with ``amp``, the optimizer decorated for bf16 AMP as ``bench.py``
-    decorates it."""
+    decorates it; with ``merge_k``, that under
+    ``GradientMergeOptimizer(k_steps=merge_k)`` (fed data only)."""
     main, startup = FW.Program(), FW.Program()
     with FW.program_guard(main, startup):
         if synthetic:
@@ -571,6 +596,9 @@ def resnet_program(batch: int = RESNET_BATCH, hw: int = RESNET_HW,
         opt = fluid_optimizer.Momentum(0.01, 0.9, fuse=fuse)
         if amp:
             opt = MP.decorate(opt, use_bf16=True)
+        if merge_k:
+            opt = fluid_optimizer.GradientMergeOptimizer(opt,
+                                                         k_steps=merge_k)
         opt.minimize(loss)
     return main, startup, loss
 
@@ -688,21 +716,31 @@ def run_resnet(fuse: bool = True, profile_steps: int = 0,
         "product_dtypes": product_dtypes(main, lambda: exe.run(
             main, fetch_list=[loss], scope=scope, return_numpy=False)),
     }
+    rec.update(_step_profiles(lambda: exe.run(main, scope=scope), dev,
+                              profile_steps, host_profile_steps))
+    return rec
+
+
+def _step_profiles(step_once, dev, profile_steps: int,
+                   host_profile_steps: int) -> Dict[str, Any]:
+    """The ResNet lanes' profiles: ``profile_steps`` more steps under
+    ``torch.profiler`` (``profile``: device time a step by group) and
+    ``host_profile_steps`` under ``cProfile`` (``host_profile``)."""
+    out: Dict[str, Any] = {}
     if profile_steps:
         acts = [torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]
         with torch.profiler.profile(activities=acts) as prof:
             t0 = time.perf_counter()
             for _ in range(profile_steps):
-                exe.run(main, scope=scope)
+                step_once()
             torch.cuda.synchronize(dev)
             wall_us = (time.perf_counter() - t0) * 1e6
-        rec["profile"] = {"steps": profile_steps, **trace_summary(
+        out["profile"] = {"steps": profile_steps, **trace_summary(
             prof, wall_us, profile_steps, "step", RESNET_KERNELS)}
     if host_profile_steps:
-        rec["host_profile"] = _host_profile(
-            lambda: exe.run(main, scope=scope), host_profile_steps)
-    return rec
+        out["host_profile"] = _host_profile(step_once, host_profile_steps)
+    return out
 
 
 def resnet_fixed_batch(steps: int = 6, fuse: bool = True, seed: int = 0,
@@ -742,14 +780,47 @@ ENCODER_FLASH = ("flash_fwd_bias", "flash_bwd_dq_bias", "flash_bwd_dkv_bias")
 _PAD_BIAS = -0.5 * float(np.finfo(np.float32).max)
 
 
+def encoder_no_decay(param) -> bool:
+    """The LAMB recipe's exclusion: no weight decay on a layernorm's
+    scale or shift, or on a bias."""
+    return "_ln" in param.name or param.name.endswith((".b_0", "_b"))
+
+
+def encoder_checkpoints(main, name: str = "enc") -> List[Any]:
+    """Each encoder layer's ``_ln2`` output (the layer's output: the
+    recompute lane's checkpoints), found by the layer norm's scale
+    parameter ``{name}_l{i}_ln2.w_<n>``, in layer order."""
+    block = main.global_block()
+    found = {}
+    for op in block.ops:
+        if op.type != "layer_norm":
+            continue
+        scale = op.input("Scale")[0]
+        head, _, tail = scale.partition("_ln2.")
+        if head.startswith(name + "_l") and tail[:2] == "w_" and \
+                tail[2:].isdigit():
+            found.setdefault(int(head[len(name) + 2:]),
+                             block.var(op.output("Y")[0]))
+    return [found[i] for i in sorted(found)]
+
+
 def encoder_program(cfg: Dict[str, int], seq: int,
                     dropout: float = ENCODER_DROPOUT, amp: bool = True,
-                    fuse: bool = True):
+                    fuse: bool = True, optimizer: str = "adamw",
+                    recompute: bool = False):
     """(main, startup, loss, lr) of the encoder lane: the classifier over
-    fed ``src`` / ``pos`` ids, a fed ``bias`` [B, 1, 1, seq] and ``label``,
-    AdamW (weight decay 0.01, global-norm clip 1.0) on the warm-up /
-    decay schedule; with ``amp``, decorated for bf16 with
-    ``multihead_matmul`` on the white list."""
+    fed ``src`` / ``pos`` ids, a fed ``bias`` [B, 1, 1, seq] and ``label``.
+    ``optimizer`` "adamw": AdamW (weight decay 0.01, global-norm clip
+    1.0, ``fuse``) on the warm-up / decay schedule (``lr`` its var);
+    "lamb": Lamb at ENCODER_LR (weight decay 0.01, none on
+    layernorms and biases: ``encoder_no_decay``; ``lr`` None). No
+    schedule under Lamb: a recomputed segment re-emits the schedule's
+    in-place step increment, reading a renamed counter no op writes, in
+    the reference as here (ROADMAP C).
+    ``recompute``: under ``RecomputeOptimizer`` with each layer's output
+    as a checkpoint (``encoder_checkpoints``). With ``amp``, decorated for
+    bf16 with ``multihead_matmul`` on the white list (not with
+    ``recompute``: the two refuse each other, as in the reference)."""
     main, startup = FW.Program(), FW.Program()
     main.random_seed = startup.random_seed = 7
     with FW.program_guard(main, startup):
@@ -759,13 +830,22 @@ def encoder_program(cfg: Dict[str, int], seq: int,
         bias = layers.data("bias", [1, 1, seq], dtype="float32")
         loss, _logits = TE.transformer_encoder_classifier(
             src, pos, label, attn_bias=bias, dropout=dropout, **cfg)
-        lr = layers.linear_lr_warmup(
-            layers.polynomial_decay(ENCODER_LR, ENCODER_DECAY,
-                                    end_learning_rate=0.0),
-            ENCODER_WARMUP, 0.0, ENCODER_LR)
-        opt = fluid_optimizer.AdamW(
-            lr, weight_decay=0.01, fuse=fuse,
-            grad_clip=fluid_clip.GradientClipByGlobalNorm(1.0))
+        if optimizer == "lamb":
+            lr = None
+            opt = fluid_optimizer.Lamb(
+                ENCODER_LR, lamb_weight_decay=0.01,
+                exclude_from_weight_decay_fn=encoder_no_decay)
+        else:
+            lr = layers.linear_lr_warmup(
+                layers.polynomial_decay(ENCODER_LR, ENCODER_DECAY,
+                                        end_learning_rate=0.0),
+                ENCODER_WARMUP, 0.0, ENCODER_LR)
+            opt = fluid_optimizer.AdamW(
+                lr, weight_decay=0.01, fuse=fuse,
+                grad_clip=fluid_clip.GradientClipByGlobalNorm(1.0))
+        if recompute:
+            opt = fluid_optimizer.RecomputeOptimizer(opt)
+            opt._set_checkpoints(encoder_checkpoints(main))
         if amp:
             opt = MP.decorate(opt, amp_lists=MP.AutoMixedPrecisionLists(
                 custom_white_list=["multihead_matmul"]))
@@ -889,6 +969,204 @@ def run_encoder(device: str = "cuda", tiny: bool = False,
     if profile_steps:
         rec["trace"] = encoder_trace(step_once, dev, trace_dir)
     return rec
+
+
+# the recompute lane (``--model encoder --no-amp --recompute --optimizer
+# lamb``): each arm's timed steps after its first
+RECOMPUTE_STEPS, RECOMPUTE_PLAIN_STEPS = 3, 1
+
+
+def _grad_fetches(main) -> Dict[str, str]:
+    """Each parameter's gradient var, as its update op reads it."""
+    return {op.input("Param")[0]: op.input("Grad")[0]
+            for op in main.global_block().ops
+            if op.type in ("lamb", "adam", "adamw", "momentum", "sgd")}
+
+
+def _encoder_arm(cfg, batch, seq, dev, start, recompute: bool,
+                 steps: int, profile_steps: int = 0,
+                 trace_dir: str = "") -> Dict[str, Any]:
+    """One arm of the recompute lane from the start state ``start`` (name
+    -> host tensor): the first step fetches the loss and every
+    parameter's gradient (kept on the host), its peak allocated bytes
+    read (the counter reset just before it); then ``steps`` timed steps
+    as :func:`_timed` counts them; with ``profile_steps``, one more
+    traced (:func:`encoder_trace` into ``trace_dir``)."""
+    from ..framework import unique_name
+
+    with unique_name.guard():
+        main, _startup, loss, _ = encoder_program(
+            cfg, seq, amp=False, optimizer="lamb", recompute=recompute)
+    exe = FW.Executor(_place(dev))
+    scope = FW.Scope()
+    for n, v in start.items():
+        scope.set_var(n, v.to(dev, copy=True))
+    feed = encoder_batch(cfg, batch, seq, dev)
+    grads = _grad_fetches(main)
+    _sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    first = exe.run(main, feed=feed, fetch_list=[loss, *grads.values()],
+                    scope=scope, return_numpy=False)
+    _sync(dev)
+    first_peak = _peak_bytes(dev)
+    out = {"loss": float(first[0]),
+           "grads": {p: g.cpu() for p, g in zip(grads, first[1:])}}
+    del first
+
+    def step_once():
+        return exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                       return_numpy=False)[0]
+
+    outs, _warm, wall, launches, _ = _timed(step_once, dev, warmup=0,
+                                            steps=steps)
+    out.update(losses=[out["loss"]] + [float(o) for o in outs],
+               first_peak=first_peak,
+               peak=_peak_bytes(dev), ms_per_step=wall / steps * 1e3,
+               launches_per_step=launches, main=main)
+    if profile_steps:
+        out["trace"] = encoder_trace(step_once, dev, trace_dir)
+    return out
+
+
+def run_encoder_recompute(device: str = "cuda", tiny: bool = False,
+                          profile_steps: int = 0) -> Dict[str, Any]:
+    """The recompute lane: the encoder at ERNIE-base's widths and depth
+    (``tiny``: ENCODER_TINY, 4 x 32), batch 48 x 512 with the padding
+    bias, float32, under ``RecomputeOptimizer(Lamb)`` with each layer's
+    output as a checkpoint, against the same model under plain ``Lamb``,
+    both from one start state (the startup run once, kept on the host).
+    The recompute arm: a first step, then RECOMPUTE_STEPS timed ones; the
+    plain arm: a first step, then RECOMPUTE_PLAIN_STEPS timed. Each
+    arm's first step fetches the loss and every parameter's gradient
+    (``first_loss``, ``grad_gap``: the worst gradient's max |diff| over
+    its largest |value|, across the arms) and reads its allocator peak
+    (``peak_bytes``); launches per timed step are the recompute arm's.
+    MFU by ``encoder_flops_per_token`` (the model's FLOPs), and with the
+    recompute forward (2 N + 4·L·D·T a token more: 4/3 of it, every
+    layer being recomputed). With ``profile_steps``, one more step of
+    each arm traced (``trace``: :func:`encoder_trace`, by arm, into
+    ``perf_runs/encoder_rc_trace``)."""
+    from ..framework import unique_name
+
+    dev = resolve_device(device)
+    cfg = ENCODER_TINY if tiny else ENCODER
+    batch, seq = (4, 32) if tiny else (ENCODER_BATCH, ENCODER_SEQ)
+    with unique_name.guard():
+        main, startup, _loss, _ = encoder_program(
+            cfg, seq, amp=False, optimizer="lamb", recompute=True)
+    scope = FW.Scope()
+    FW.Executor(_place(dev)).run(startup, scope=scope)
+    start = {n: scope.find_var(n).cpu()
+             for n, v in main.global_block().vars.items()
+             if v.persistable and scope.find_var(n) is not None}
+    del scope
+    n_params = sum(int(np.prod(p.shape))
+                   for p in main.global_block().all_parameters())
+    with _no_tf32():
+        rc = _encoder_arm(cfg, batch, seq, dev, start, True,
+                          RECOMPUTE_STEPS, profile_steps,
+                          "perf_runs/encoder_rc_trace/recompute")
+        gc.collect()
+        plain = _encoder_arm(cfg, batch, seq, dev, start, False,
+                             RECOMPUTE_PLAIN_STEPS, profile_steps,
+                             "perf_runs/encoder_rc_trace/plain")
+    gap, gap_name = 0.0, ""
+    for p, g in plain["grads"].items():
+        r = rc["grads"][p]
+        ratio = ((r.double() - g.double()).abs().max()
+                 / max(g.double().abs().max().item(), 1e-30)).item()
+        if ratio > gap:
+            gap, gap_name = ratio, p
+    samples_s = batch / (rc["ms_per_step"] / 1e3)
+    flops = encoder_flops_per_token(cfg, seq)
+    mfu = _mfu(samples_s * seq * flops, dev)
+    ckpts = encoder_checkpoints(rc["main"])
+    return {
+        "config": (f"encoder_L{cfg['num_layers']}_D{cfg['d_model']}"
+                   f"_b{batch}x{seq}_pad_f32_lamb_recompute"),
+        "device": _device_name(dev),
+        "model_params": n_params,
+        "batch": batch, "seq_len": seq, "steps": RECOMPUTE_STEPS,
+        "dropout": ENCODER_DROPOUT,
+        "checkpoints": [v.name for v in ckpts],
+        "tf32_matmul": False,
+        "samples_per_s": samples_s,
+        "ms_per_step": rc["ms_per_step"],
+        "plain_ms_per_step": plain["ms_per_step"],
+        "ms_over_plain": rc["ms_per_step"] / plain["ms_per_step"],
+        "mfu": mfu,
+        "mfu_with_recompute": None if mfu is None else mfu * 4 / 3,
+        "peak_bytes": {"recompute": rc["first_peak"],
+                       "plain": plain["first_peak"]},
+        "timed_peak_bytes": rc["peak"],
+        "first_loss": {"recompute": rc["loss"], "plain": plain["loss"]},
+        "grad_gap": gap, "grad_gap_param": gap_name,
+        "n_grads": len(plain["grads"]),
+        "losses": rc["losses"], "plain_losses": plain["losses"],
+        "launches_per_step": rc["launches_per_step"],
+        **({"trace": {"recompute": rc["trace"], "plain": plain["trace"]}}
+           if profile_steps else {}),
+    }
+
+
+# the gradient-merge lane (``--model resnet50 --grad-merge K``): the fed
+# batch is K microbatches of the lane's 128
+MERGE_FIXED_STEPS, MERGE_STEPS = 4, 3
+
+
+def run_resnet_grad_merge(k: int = 2, device: str = "cuda",
+                          tiny: bool = False, profile_steps: int = 0,
+                          host_profile_steps: int = 0) -> Dict[str, Any]:
+    """``bench.py``'s ResNet lane (bf16 AMP, fused Momentum) under
+    ``GradientMergeOptimizer(k_steps=k)``, fed k x 128 images of 224²
+    (``tiny``: ResNet-18, k x 4 of 32²) made on the device from seed 0:
+    MERGE_FIXED_STEPS steps on that batch (``fixed_losses``, which must
+    fall), then one warm-up and MERGE_STEPS timed steps of it, counted as
+    :func:`_timed` counts them (the peak from the timed window); the
+    loss scale after; then the profiles of :func:`_step_profiles`."""
+    dev = resolve_device(device)
+    micro, hw_, classes, depth = ((4, 32, 4, 18) if tiny else
+                                  (RESNET_BATCH, RESNET_HW, RESNET_CLASSES,
+                                   50))
+    batch = k * micro
+    main, startup, loss = resnet_program(batch, hw_, classes, depth,
+                                         synthetic=False, amp=True,
+                                         merge_k=k)
+    exe = FW.Executor(_place(dev))
+    scope = FW.Scope()
+    exe.run(startup, scope=scope)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    feed = {"img": torch.rand((batch, 3, hw_, hw_), generator=gen,
+                              device=dev) * 2 - 1,
+            "label": torch.randint(0, classes, (batch, 1), generator=gen,
+                                   device=dev)}
+
+    def step_once():
+        return exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                       return_numpy=False)[0]
+
+    fixed = [float(step_once()) for _ in range(MERGE_FIXED_STEPS)]
+    outs, warm_s, wall, launches, _ = _timed(step_once, dev, warmup=1,
+                                             steps=MERGE_STEPS)
+    img_s = MERGE_STEPS * batch / wall
+    flops = hw.program_train_flops(main, batch)
+    return {
+        "config": f"resnet{depth}_b{k}x{micro}_{hw_}px_bf16amp_fused_merge",
+        "device": _device_name(dev), "k": k, "micro_batch": micro,
+        "batch": batch, "image": hw_, "steps": MERGE_STEPS, "warmup": 1,
+        "fixed_losses": fixed,
+        "losses": [float(o) for o in outs],
+        "images_per_s": img_s,
+        "ms_per_step": wall / MERGE_STEPS * 1e3,
+        "mfu": _mfu(img_s * flops / batch, dev),
+        "warmup_s": warm_s,
+        "peak_mem_bytes": _peak_bytes(dev),
+        "loss_scaling": float(scope.find_var("loss_scaling_0").reshape(-1)[0]),
+        "launches_per_step": launches,
+        **_step_profiles(step_once, dev, profile_steps, host_profile_steps),
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -1437,7 +1715,17 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--no-fuse", action="store_true",
                     help="resnet50: one momentum op a parameter")
     ap.add_argument("--no-amp", action="store_true",
-                    help="resnet50: the float32 lane, no AMP decorator")
+                    help="resnet50: the float32 lane, no AMP decorator; "
+                         "encoder: with --recompute")
+    ap.add_argument("--recompute", action="store_true",
+                    help="encoder: the float32 recompute lane against "
+                         "plain Lamb (needs --no-amp --optimizer lamb)")
+    ap.add_argument("--optimizer", default="adamw",
+                    choices=("adamw", "lamb"),
+                    help="encoder: lamb with --recompute")
+    ap.add_argument("--grad-merge", type=int, default=0, metavar="K",
+                    help="resnet50: bf16 AMP under GradientMergeOptimizer, "
+                         "fed K microbatches of 128")
     ap.add_argument("--pad", action="store_true",
                     help="ernie: per-sample lengths 128-512, not all-ones")
     ap.add_argument("--remat", default="dots",
@@ -1526,6 +1814,24 @@ def main(argv=None) -> int:
                  if args.tuned else None)
     order = ("plain", "kernel", "kernel", "plain") if args.compare \
         else ("kernel",)
+    if args.model == "resnet50" and args.grad_merge:
+        rec = run_resnet_grad_merge(args.grad_merge, device=device,
+                                    tiny=args.tiny,
+                                    profile_steps=args.profile,
+                                    host_profile_steps=args.host_profile)
+        print(json.dumps(rec), flush=True)
+        return 0
+    if args.model == "encoder" and (args.recompute or args.no_amp
+                                    or args.optimizer != "adamw"):
+        if not (args.recompute and args.no_amp
+                and args.optimizer == "lamb"):
+            raise SystemExit("train_bench: the encoder's recompute lane is "
+                             "--no-amp --recompute --optimizer lamb (AMP "
+                             "and recompute refuse each other)")
+        rec = run_encoder_recompute(device=device, tiny=args.tiny,
+                                    profile_steps=args.profile)
+        print(json.dumps(rec), flush=True)
+        return 0
     if args.model == "resnet50":
         if not args.compare:
             order = ("plain",) if args.no_fuse else ("kernel",)

@@ -1229,6 +1229,16 @@ def test_encoder_card_matches_cpu(chip_smoke):
 
 
 @pytest.mark.cuda
+def test_optimizers_on_card_match_cpu(chip_smoke):
+    """Phase 10o: every per-parameter update rule past SGD, Momentum and
+    Adam, Lookahead, EMA and ModelAverage, RecomputeOptimizer(Lamb) and
+    the merged fused Momentum over a batch norm, 3 steps on the card
+    against the CPU (losses 1e-5 relative, persistables 1e-5 of their
+    scale); recompute's dropout masks replayed on each device."""
+    assert chip_smoke.phase_optimizer_parity() == {"opt_momentum": 3}
+
+
+@pytest.mark.cuda
 def test_opt_kind_wrappers_raise_on_inputs_the_kernels_do_not_take(card):
     from paddle_tpu_torch.ops import cuda_kernels as CK
 

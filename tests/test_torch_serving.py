@@ -459,6 +459,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "paddle_tpu_torch.tools.mfu_sweep, "
         "paddle_tpu_torch.tools.comm_bench, "
         "paddle_tpu_torch.tools.serve_bench\n"
+        "import paddle_tpu_torch.optimizer, "
+        "paddle_tpu_torch.framework.backward, "
+        "paddle_tpu_torch.framework.executor, "
+        "paddle_tpu_torch.parallel.grad_merge, "
+        "paddle_tpu_torch.ops.optimizer_ops, paddle_tpu_torch.ops.tensor, "
+        "paddle_tpu_torch.contrib.mixed_precision, "
+        "paddle_tpu_torch.testing\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'paddle_tpu'))\n"
         "print(bad)\n"
