@@ -499,6 +499,35 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              gradients through the reverse ring within 1e-4 of plain
              full-sequence attention (|a - b| <= tol + tol·|b|).
 
+11f. fluid-mesh — the fluid path over ranks: one ``parallel.launch``
+             gang of two gloo ranks sharing the card runs
+             ``train_bench``'s two fluid lanes in turn in the same
+             processes. Gates first in each (``--parity``, float32, TF32
+             off, one start state a gate): pp2, the encoder at 2 layers
+             (cut after layer 0, 4 microbatches, dropout 0) under
+             ``PipelineOptimizer`` over the two ranks against the same
+             program unpipelined on one rank, 3 steps: losses and every
+             parameter within rtol 2e-4, atol 1e-5 (the reference's
+             pipeline band), Adam's noise-floor elements (first moment
+             at most 1e-4 of its tensor's largest) within lr a step;
+             dp2, ResNet-18 at 64² under ``with_data_parallel`` at batch
+             8 a rank against one rank at batch 16, 3 steps, losses,
+             parameters and BN statistics within rtol 5e-4, atol 5e-5
+             (the sync-BN band); a per-rank ``c_allreduce_sum`` program
+             against the numpy sum (rtol 1e-6). Then each lane's 1
+             warm-up and 3 timed steps: the encoder at ERNIE-base's
+             widths and depth, 48 x 512 padded, dropout 0.1, float32,
+             ``PipelineOptimizer(AdamW(..., grad_clip=
+             GradientClipByGlobalNorm(1.0), fuse=True))`` at a constant
+             rate, cut after layer 5, pp 2 x 4 microbatches: launches a
+             rank a step exactly 24 of each flash bias kernel and 1
+             ``opt_adamw``; ResNet-50 in bf16 AMP, fused Momentum, 128 x
+             224² global, 64 a rank, through ``with_data_parallel``: 1
+             ``opt_momentum`` a rank a step. Printed a lane: samples/s
+             or img/s, ms a step on the slowest rank, MFU by the lane's
+             numerator, the staged collectives' ms, peak bytes a rank,
+             the losses (finite).
+
 13k. sharded-kernels — the kernels at the per-rank shapes phase 13 adds,
              against their plain versions (bf16_check; lse and D within
              2e-5): the flash bias forms at ERNIE-base tp 2's [48, 512, 6,
@@ -5597,6 +5626,78 @@ def phase_train_parallel(timeout_s: float = 600.0) -> dict:
     return launches
 
 
+# phase 11f: the fluid lanes over two ranks, one gang, and each rank's
+# hand-kernel launches a timed step
+FLUID_LAYOUTS = (
+    ("encoder-pp2", "model=encoder,pp=2,microbatches=4,no_amp=1",
+     {"flash_fwd_bias": 24, "flash_bwd_dq_bias": 24,
+      "flash_bwd_dkv_bias": 24, "opt_adamw": 1}),
+    ("resnet50-dp2", "model=resnet50,dp=2", {"opt_momentum": 1}),
+)
+
+
+def _round(d: dict, nd: int = 1) -> dict:
+    return {k: round(v, nd) for k, v in d.items()}
+
+
+def phase_fluid_mesh(timeout_s: float = 600.0) -> dict:
+    """Phase 11f (see the module docstring); returns each kernel's
+    launches summed over both ranks' timed steps."""
+    import os
+    import shutil
+
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.tools import train_bench as TB
+
+    work = os.path.join(str(_build.BUILD_DIR), "fluid_mesh")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    t0 = time.perf_counter()
+    args = ["--parity"]
+    for _tag, spec, _want in FLUID_LAYOUTS:
+        args += ["--layout", spec]
+    recs, wall = _gang("fluid", args, len(FLUID_LAYOUTS), work, timeout_s)
+    print(f"[fluid-mesh] gang of 2 gloo ranks on cuda:0, launch wall "
+          f"{wall:.1f} s")
+    launches: dict = {}
+    for (tag, _spec, want), ranks in zip(FLUID_LAYOUTS, recs):
+        for rec in ranks:
+            for gate, par in rec["parity"].items():
+                ok = (par["ok"] if gate == "c_allreduce_sum"
+                      else TB.fluid_parity_ok(par))
+                print(f"[fluid-mesh] 11f {tag} rank {rec['rank']} {gate}: "
+                      f"{par}")
+                if not ok:
+                    raise AssertionError(f"11f {tag} rank {rec['rank']} "
+                                         f"{gate}: {par}")
+            if rec["launches_per_step"] != want:
+                raise AssertionError(
+                    f"11f {tag} rank {rec['rank']} launches "
+                    f"{rec['launches_per_step']} != {want}")
+            if not all(np.isfinite(rec["losses"])):
+                raise AssertionError(f"11f {tag} rank {rec['rank']} "
+                                     f"losses {rec['losses']}")
+            for k, v in want.items():
+                launches[k] = launches.get(k, 0) + v * rec["steps"]
+        unit = "samples_per_s" if "samples_per_s" in ranks[0] \
+            else "images_per_s"
+        slow = max(ranks, key=lambda r: r["ms_per_step"])
+        print(f"[fluid-mesh] {tag}: {slow['config']}: {unit} "
+              f"{slow[unit]:.2f}, ms/step on the slowest rank "
+              f"{slow['ms_per_step']:.1f}, MFU {_fmt(slow['mfu'], 4)}; "
+              + "; ".join(
+                  f"rank {r['rank']} {r['coords']}: ms/step "
+                  f"{r['ms_per_step']:.1f}, staged ms/step "
+                  f"{_round(r['staged_ms_per_step'])}, "
+                  f"wire bytes/step {r['wire_bytes_per_step']}, peak GB "
+                  f"{r['peak_mem_bytes'] / 1e9:.2f}, losses "
+                  f"{[round(x, 5) for x in r['losses']]}" for r in ranks)
+              + " (ranks share one card over gloo)")
+    shutil.rmtree(work, ignore_errors=True)
+    print(f"[fluid-mesh] phase wall {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 # phase 12: the fault bench's card subset, in the order it runs
 ELASTIC_SCENARIOS = ("baseline", "aa", "sigkill_midstep", "sigterm_preempt",
                      "corrupt_shard", "hang", "sigstop_blame", "dp_reshard")
@@ -6663,6 +6764,11 @@ def _main() -> int:
     for k, v in phase_train_sharded().items():
         launches[k] = launches.get(k, 0) + v
     lap("11k, 11, 12r, 13k, 13 (12 beside them)")
+    # the fluid path over ranks (11f): the pipelined encoder and the
+    # data-parallel ResNet-50, one gang, their gates first
+    for k, v in phase_fluid_mesh().items():
+        launches[k] = launches.get(k, 0) + v
+    lap("11f fluid mesh (12 beside it)")
     for k, v in finish_elastic(elastic).items():
         launches[k] = launches.get(k, 0) + v
     lap("12 elastic, after 13")

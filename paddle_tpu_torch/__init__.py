@@ -39,14 +39,16 @@ __all__ = ["resolve_device", "Program", "program_guard", "layers",
            "set_flags", "get_flags", "append_backward", "scope_from_numpy",
            "ParamAttr", "global_scope", "scope_guard", "unique_name",
            "default_main_program", "default_startup_program", "Parameter",
-           "Variable"]
+           "Variable", "CompiledProgram", "BuildStrategy",
+           "ExecutionStrategy"]
 
 _FRAMEWORK_NAMES = {"Program", "program_guard", "Executor", "Scope",
                     "CPUPlace", "CUDAPlace", "set_flags", "get_flags",
                     "append_backward", "scope_from_numpy", "ParamAttr",
                     "global_scope", "scope_guard", "unique_name",
                     "default_main_program", "default_startup_program",
-                    "Parameter", "Variable"}
+                    "Parameter", "Variable", "CompiledProgram",
+                    "BuildStrategy", "ExecutionStrategy"}
 
 
 def __getattr__(name):

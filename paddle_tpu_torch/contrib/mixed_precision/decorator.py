@@ -138,15 +138,18 @@ def decorate(optimizer, amp_lists=None, init_loss_scaling=_UNSET,
     The default is bf16 with the loss scale pinned at 1.0 (bf16 shares
     float32's exponent range, so nothing overflows); ``use_bf16=False``
     gives the reference's fp16 with dynamic loss scaling from 2^15. A
-    ``RecomputeOptimizer`` is refused by name (the reference fails on
-    it).  Explicitly passed
+    ``RecomputeOptimizer`` and ``PipelineOptimizer`` are refused by name
+    (the reference fails on both).  Explicitly passed
     ``init_loss_scaling`` / ``use_dynamic_loss_scaling`` are honored even
     under bf16 (reference code ported verbatim keeps its configuration).
     """
-    from ...optimizer import RecomputeOptimizer, _refuse_amp_recompute
+    from ...optimizer import (PipelineOptimizer, RecomputeOptimizer,
+                              _refuse_amp_pipeline, _refuse_amp_recompute)
 
     if isinstance(optimizer, RecomputeOptimizer):
         _refuse_amp_recompute()
+    if isinstance(optimizer, PipelineOptimizer):
+        _refuse_amp_pipeline()
     dest = "bfloat16" if use_bf16 else "float16"
     if init_loss_scaling is _UNSET:
         init_loss_scaling = 1.0 if use_bf16 else 2. ** 15

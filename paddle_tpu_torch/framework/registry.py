@@ -52,7 +52,7 @@ class OpSpec:
 
 _OPS: Dict[str, OpSpec] = {}
 _LOWERING_MODULES = ("math", "nn", "tensor", "optimizer_ops", "amp_ops",
-                     "misc_extra2")
+                     "misc_extra2", "collective")
 _loaded = False
 
 
@@ -143,15 +143,32 @@ class LowerCtx:
     draws one stream, so such an op keeps the stream's state under its
     names before it draws, and its twin draws from a generator set to
     that state — the same bits, the stream unmoved. A program without
-    checkpoints saves nothing and draws as before."""
+    checkpoints saves nothing and draws as before.
+
+    Over ranks, ``mesh_axes`` binds each ``ring_id`` to the group its
+    collective ops run on (:meth:`axis_name`), and ``batch_group`` is the
+    data-parallel plan's dp group."""
 
     def __init__(self, device: torch.device,
                  generator: Optional[torch.Generator] = None,
-                 replay: frozenset = frozenset()):
+                 replay: frozenset = frozenset(), mesh_axes=None,
+                 batch_group=None):
         self.device = device
         self.generator = generator
         self.replay = replay
         self._rng_states: Dict[tuple, torch.Tensor] = {}
+        # ring_id -> the AxisGroup its collectives run on (the reference's
+        # ring_id -> mesh axis name); empty outside a mesh
+        self.mesh_axes: Dict[int, Any] = dict(mesh_axes or {})
+        # the data-parallel plan's dp group: batch_norm's statistics
+        # reduce over it, as the reference's batch-sharded mean does
+        self.batch_group = batch_group
+
+    def axis_name(self, ring_id: int):
+        """The :class:`~paddle_tpu_torch.parallel.mesh.AxisGroup` of
+        ``ring_id``, or None outside a mesh (a collective is then the
+        identity, as on a ring of one)."""
+        return self.mesh_axes.get(int(ring_id))
 
     def generator_for(self, op) -> Optional[torch.Generator]:
         """The generator a random op draws from: its own, seeded by the

@@ -2,6 +2,7 @@
 training path uses, with the eight LR schedules; every other name of the
 reference's ``layers`` raises ``NotImplementedError`` naming ROADMAP
 A5."""
+from . import collective  # noqa: F401
 from . import math_op_patch  # noqa: F401
 from . import nn  # noqa: F401
 from . import tensor  # noqa: F401

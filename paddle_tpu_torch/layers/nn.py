@@ -17,7 +17,7 @@ from ..framework.param_attr import ParamAttr
 __all__ = ["data", "fc", "create_parameter", "embedding", "conv2d",
            "pool2d", "adaptive_pool2d", "batch_norm", "layer_norm",
            "dropout", "relu", "softmax", "softmax_with_cross_entropy",
-           "matmul", "clip", "clip_by_norm"]
+           "matmul", "clip", "clip_by_norm", "mean", "square_error_cost"]
 
 
 def data(
@@ -355,4 +355,21 @@ def clip_by_norm(x, max_norm, name=None):
     out = helper.create_variable_for_type_inference(x.dtype)
     helper.append_op(type="clip_by_norm", inputs={"X": [x]}, outputs={"Out": [out]},
                      attrs={"max_norm": max_norm})
+    return out
+
+
+def mean(x, name=None):
+    """The mean of every element of ``x`` (the ``mean`` op)."""
+    helper = LayerHelper("mean", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="mean", inputs={"X": [x]}, outputs={"Out": [out]})
+    return out
+
+
+def square_error_cost(input, label):
+    """(input - label)² element by element (the ``mse_loss`` op)."""
+    helper = LayerHelper("square_error_cost")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="mse_loss", inputs={"X": [input], "Y": [label]},
+                     outputs={"Out": [out]})
     return out

@@ -11,7 +11,8 @@ __all__ = ["uniform_random", "randint", "create_global_var", "cast",
            "reduce_sum", "reduce_mean", "scale", "elementwise_add",
            "elementwise_sub", "elementwise_mul", "elementwise_div",
            "elementwise_max", "elementwise_min", "elementwise_pow",
-           "less_than", "clip", "sqrt", "square", "exp", "sign"]
+           "less_than", "greater_than", "clip", "sqrt", "square", "exp",
+           "sign"]
 
 
 def _random_layer(op_type, shape, dtype, attrs):
@@ -162,7 +163,8 @@ def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None, name=None):
 def _binary_layer(op_type):
     def layer(x, y, axis=-1, act=None, name=None):
         helper = LayerHelper(op_type, name=name, act=act)
-        out_dtype = "bool" if op_type == "less_than" else x.dtype
+        out_dtype = "bool" if op_type in ("less_than", "greater_than") \
+            else x.dtype
         out = helper.create_variable_for_type_inference(out_dtype)
         attrs = {"axis": axis} if op_type.startswith("elementwise") else {}
         helper.append_op(type=op_type, inputs={"X": [x], "Y": [y]},
@@ -181,6 +183,7 @@ elementwise_max = _binary_layer("elementwise_max")
 elementwise_min = _binary_layer("elementwise_min")
 elementwise_pow = _binary_layer("elementwise_pow")
 less_than = _binary_layer("less_than")
+greater_than = _binary_layer("greater_than")
 
 
 def clip(x, min, max, name=None):

@@ -200,6 +200,11 @@ def less_than(ctx, op, ins):
     return {"Out": torch.lt(ins["X"][0], ins["Y"][0])}
 
 
+@register_op("greater_than", grad=None)
+def greater_than(ctx, op, ins):
+    return {"Out": torch.gt(ins["X"][0], ins["Y"][0])}
+
+
 @register_op("increment", grad=None)
 def increment(ctx, op, ins):
     x = ins["X"][0]

@@ -1,7 +1,8 @@
 """Neural-net op lowerings — the slice of ``paddle_tpu/ops/nn.py`` the
 fluid training path runs: the activation table, ``softmax``,
 ``softmax_with_cross_entropy`` (with its vocab-chunked form),
-``conv2d``, ``pool2d`` (adaptive too), ``batch_norm``, ``layer_norm``,
+``conv2d``, ``pool2d`` (adaptive too), ``batch_norm`` and
+``sync_batch_norm`` (statistics over a group of ranks), ``layer_norm``,
 ``dropout``, ``lookup_table`` / ``lookup_table_v2`` and
 ``clip_by_norm``, in torch ops (cuDNN behind ``F.conv2d`` and
 ``torch.batch_norm`` on the card, where the reference leaves them to
@@ -254,6 +255,95 @@ def _batch_norm_impl(ctx, op, ins):
 
 @register_op("batch_norm", diff_inputs=("X", "Scale", "Bias"))
 def batch_norm(ctx, op, ins):
+    """Local statistics; under the data-parallel plan (``ctx.
+    batch_group``) the whole dp group's, as the reference's batch-sharded
+    mean is."""
+    group = ctx.batch_group
+    if group is not None and group.size > 1:
+        return _sync_batch_norm_impl(ctx, op, ins, group)
+    return _batch_norm_impl(ctx, op, ins)
+
+
+class _SyncBatchNorm(torch.autograd.Function):
+    """Training-mode batch norm of NC... ``x`` by the statistics of every
+    rank's rows: one all-reduce of the per-channel [sum, sum of squares]
+    forward (mean and biased variance as ``sq / n - mean²``, as the
+    reference's ``_batch_norm_impl(sync_axis=)``), one of [Σg, Σg·x̂]
+    backward. Scale and shift get this rank's share of their gradients
+    (the plan's gradient all-reduce sums the shares). Saves x in its own
+    dtype, the mean and 1/sqrt(var + eps)."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, group, eps):
+        from .collective import _sum
+
+        axes = (0,) + tuple(range(2, x.dim()))
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        xf = x.float()
+        n = xf.numel() // xf.shape[1] * group.size
+        stats = _sum(torch.cat([xf.sum(axes), (xf * xf).sum(axes)]), group)
+        mean, sq = stats.chunk(2)
+        mean = mean / n
+        var = sq / n - mean * mean
+        inv = torch.rsqrt(var + eps)
+        y = (xf - mean.reshape(shape)) * (inv * scale.float()).reshape(shape) \
+            + bias.float().reshape(shape)
+        ctx.group, ctx.n, ctx.axes, ctx.shape = group, n, axes, shape
+        ctx.save_for_backward(x, mean, inv, scale)
+        ctx.mark_non_differentiable(mean, var)
+        return y.to(x.dtype), mean, var
+
+    @staticmethod
+    def backward(ctx, g, _gm, _gv):
+        from .collective import _sum
+
+        x, mean, inv, scale = ctx.saved_tensors
+        axes, shape = ctx.axes, ctx.shape
+        gf = g.float()
+        xhat = (x.float() - mean.reshape(shape)) * inv.reshape(shape)
+        local = torch.cat([gf.sum(axes), (gf * xhat).sum(axes)])
+        dbias, dscale = local.chunk(2)
+        gsum, gxsum = _sum(local, ctx.group).chunk(2)
+        dx = (gf - (gsum / ctx.n).reshape(shape)
+              - xhat * (gxsum / ctx.n).reshape(shape)) \
+            * (inv * scale.float()).reshape(shape)
+        return (dx.to(x.dtype), dscale.to(scale.dtype), dbias.to(scale.dtype),
+                None, None)
+
+
+def _sync_batch_norm_impl(ctx, op, ins, group):
+    """batch_norm over ``group``'s rows (``_SyncBatchNorm``); the
+    inference form is the local one."""
+    if op.attr("is_test", False) or op.attr("use_global_stats", False):
+        return _batch_norm_impl(ctx, op, ins)
+    x = ins["X"][0]
+    scale, bias = ins["Scale"][0], ins["Bias"][0]
+    mean_in, var_in = ins["Mean"][0], ins["Variance"][0]
+    eps = op.attr("epsilon", 1e-5)
+    momentum = op.attr("momentum", 0.9)
+    nhwc = op.attr("data_layout", "NCHW") != "NCHW"
+    xc = x.movedim(-1, 1) if nhwc else x
+    y, mean, var = _SyncBatchNorm.apply(xc, scale, bias, group, eps)
+    with torch.no_grad():
+        mean_out = mean_in * momentum + mean * (1 - momentum)
+        var_out = var_in * momentum + var * (1 - momentum)
+    return {
+        "Y": y.movedim(1, -1) if nhwc else y,
+        "MeanOut": mean_out,
+        "VarianceOut": var_out,
+        "SavedMean": mean,
+        "SavedVariance": torch.rsqrt(var + eps),
+    }
+
+
+@register_op("sync_batch_norm", diff_inputs=("X", "Scale", "Bias"))
+def sync_batch_norm(ctx, op, ins):
+    """The reference's ``sync_batch_norm_op``: batch norm whose statistics
+    (and, in the backward, the cotangents' sums) reduce over the ranks of
+    ``ring_id``'s group; local statistics outside any mesh."""
+    group = ctx.axis_name(op.attr("ring_id", 0))
+    if group is not None and group.size > 1:
+        return _sync_batch_norm_impl(ctx, op, ins, group)
     return _batch_norm_impl(ctx, op, ins)
 
 
@@ -347,3 +437,10 @@ def clip_by_norm(ctx, op, ins):
     scale = torch.clamp_max(op.attr("max_norm") / torch.clamp_min(
         norm, 1e-12), 1.0)
     return {"Out": (xf * scale).to(x.dtype)}
+
+
+@register_op("mse_loss", diff_inputs=("X",))
+def mse_loss(ctx, op, ins):
+    """``square_error_cost``: (X - Y)² element by element."""
+    x, y = ins["X"][0], ins["Y"][0]
+    return {"Out": torch.square(x - y)}

@@ -317,9 +317,11 @@ def dgc_momentum(ctx, op, ins):
                (1 - sparsity))) (ties keep every element at the threshold)
         p = p - lr * (v * mask);  v, u = 0 where mask
 
-    before it, plain momentum on ``U``. The reference reduces the sparse
-    gradient over the data-parallel axis of ``ring_id``; on one device
-    there is none, as there is none in the reference's one-device run."""
+    before it, plain momentum on ``U``. Over ranks the sparse gradient,
+    and the dense one before ramp-up, are averaged over ``ring_id``'s
+    group (the reference's ``pmean`` over its dp axis: each rank's
+    gradient is its rows' mean); on one rank there is nothing to
+    reduce."""
     p, g = ins["Param"][0], ins["Grad"][0]
     u, v = ins["U"][0], ins["V"][0]
     step = ins["CurrentStep"][0] if ins.get("CurrentStep") else None
@@ -330,6 +332,14 @@ def dgc_momentum(ctx, op, ins):
     use_nesterov = bool(op.attr("use_nesterov", False))
 
     gf, pf, uf, vf = g.float(), p.float(), u.float(), v.float()
+    group = ctx.axis_name(op.attr("ring_id", 0))
+
+    def pmean(x):
+        if group is None or group.size == 1:
+            return x
+        from .collective import _sum
+
+        return _sum(x, group, mean=True)
 
     # the DGC branch: SGD on the sparsified accumulation
     u_acc = mu * uf + gf
@@ -341,12 +351,13 @@ def dgc_momentum(ctx, op, ins):
     sparse = torch.where(mask, v_acc, 0.0)
     v_dgc = torch.where(mask, 0.0, v_acc)
     u_dgc = torch.where(mask, 0.0, u_acc)
-    p_dgc = pf - lr * sparse
+    p_dgc = pf - lr * pmean(sparse)
 
     # the plain momentum branch (before rampup)
-    u_mom = mu * uf + gf
+    g_all = pmean(gf)
+    u_mom = mu * uf + g_all
     if use_nesterov:
-        p_mom = pf - (gf + mu * u_mom) * lr
+        p_mom = pf - (g_all + mu * u_mom) * lr
     else:
         p_mom = pf - lr * u_mom
 

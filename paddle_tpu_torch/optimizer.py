@@ -4,8 +4,9 @@
 ``Ftrl``, ``Lamb`` and ``DGCMomentumOptimizer``; the averaging wrappers
 ``ExponentialMovingAverage``, ``ModelAverage`` and
 ``LookaheadOptimizer``; the program rewriters ``RecomputeOptimizer``
-(``append_backward(checkpoints=)``) and ``GradientMergeOptimizer``
-(``parallel/grad_merge.py``).
+(``append_backward(checkpoints=)``), ``GradientMergeOptimizer``
+(``parallel/grad_merge.py``) and ``PipelineOptimizer``
+(``parallel/pipeline_program.py``).
 
 ``minimize`` = ``append_backward`` + the gradient clip (``grad_clip=``,
 ``clip.py``) + the regularizers (``regularization=`` and each
@@ -16,10 +17,12 @@ update op per (dtype, lr-multiplier) group whose moments are flat [numel]
 accumulators; each fused op runs its group through the optimizer kernel
 (``ops/optimizer_ops.py``). A ``learning_rate`` Variable (an LR schedule,
 ``layers/learning_rate_scheduler.py``) feeds the update ops as it is.
-Dygraph mode (``parameter_list``) and ``PipelineOptimizer`` are still to
-be ported (ROADMAP A5), as is AMP composed with Recompute, which the
-reference cannot run either: ``decorate`` and ``RecomputeOptimizer``
-refuse each other by name.
+Dygraph mode (``parameter_list``) is still to be ported (ROADMAP A5). AMP
+composed with Recompute or with the pipeline, and an LR schedule under
+the pipeline, the reference cannot run either: ``decorate`` refuses
+``RecomputeOptimizer`` and ``PipelineOptimizer`` by name, and each of
+them refuses it (and ``PipelineOptimizer`` a ``learning_rate``
+Variable).
 """
 from __future__ import annotations
 
@@ -47,7 +50,8 @@ __all__ = [
     "AdamaxOptimizer", "Dpsgd", "DpsgdOptimizer", "RMSProp",
     "RMSPropOptimizer", "Ftrl", "FtrlOptimizer", "Lamb", "LambOptimizer",
     "DGCMomentumOptimizer", "ExponentialMovingAverage", "ModelAverage",
-    "RecomputeOptimizer", "LookaheadOptimizer", "GradientMergeOptimizer",
+    "RecomputeOptimizer", "LookaheadOptimizer", "PipelineOptimizer",
+    "GradientMergeOptimizer",
 ]
 
 
@@ -781,6 +785,83 @@ class RecomputeOptimizer(Optimizer):
                                      no_grad_set)
         return (self.apply_optimize(loss, startup_program, params_grads),
                 params_grads)
+
+
+def _refuse_amp_pipeline():
+    raise NotImplementedError(
+        "AMP with PipelineOptimizer (decorate and PipelineOptimizer, in "
+        "either order) is not supported: the reference cannot run it "
+        "either (its first run raises KeyError: 'mean_0.tmp_0', the "
+        "stage-0 loss var missing from the tail) (ROADMAP A5, "
+        "configurations the port refuses by name)")
+
+
+def _refuse_lr_schedule_pipeline():
+    raise NotImplementedError(
+        "an LR schedule (a learning_rate Variable) under PipelineOptimizer "
+        "is not supported: the reference cannot run it either (its first "
+        "run raises KeyError: 'LearningRate': the schedule's ops sit in "
+        "stage 0, so the optimizer tail never gets the rate) (ROADMAP A5, "
+        "configurations the port refuses by name)")
+
+
+class PipelineOptimizer:
+    """GPipe over ranks (``parallel/pipeline_program.py``): ``minimize``
+    records the stage split on the program — at ``cut_list``'s vars (a
+    list of lists of Variables), or ``num_stages`` even parts of the
+    forward — and ``Executor.run`` runs stage s on the rank at pp index s,
+    ``num_microbatches`` microbatches a step, the wrapped optimizer's
+    tail once on the gradients. ``place_list``, ``concurrency_list``,
+    ``queue_size``, ``sync_steps`` and ``start_cpu_core_id`` are accepted
+    and change nothing, as in the reference; ``remat_policy`` recomputes
+    each stage's activations in its backward. AMP and an LR schedule are
+    refused by name: the reference fails on both."""
+
+    def __init__(self, optimizer, cut_list=None, place_list=None,
+                 concurrency_list=None, queue_size=30, sync_steps=1,
+                 start_cpu_core_id=0, num_microbatches=None, num_stages=None,
+                 remat_policy=None):
+        from .contrib.mixed_precision.decorator import (
+            OptimizerWithMixedPrecision)
+        from .parallel import remat as _remat
+
+        if isinstance(optimizer, OptimizerWithMixedPrecision):
+            _refuse_amp_pipeline()
+        if isinstance(getattr(optimizer, "_learning_rate", None), Variable):
+            _refuse_lr_schedule_pipeline()
+        self._optimizer = optimizer
+        self._cut_list = cut_list
+        if num_stages is None:
+            num_stages = (len(cut_list) + 1) if cut_list else 2
+        self._num_stages = int(num_stages)
+        self._num_microbatches = int(num_microbatches
+                                     or max(1, self._num_stages))
+        self._remat_policy = _remat.resolve(remat_policy).name \
+            if remat_policy is not None else "none"
+
+    def minimize(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None):
+        from .parallel.pipeline_program import annotate_pipeline
+
+        block = loss.block
+        program = block.program
+        n_fwd = len(block.ops)
+        params_grads = self._optimizer.backward(
+            loss, startup_program, parameter_list, no_grad_set)
+        bwd_end = len(block.ops)
+        opt_ops = self._optimizer.apply_optimize(
+            loss, startup_program, params_grads)
+        annotate_pipeline(
+            program, loss, n_fwd=n_fwd, bwd_end=bwd_end,
+            num_stages=self._num_stages,
+            num_microbatches=self._num_microbatches,
+            cut_list=self._cut_list,
+            trainable_params=[p.name for p, g in params_grads
+                              if g is not None],
+            remat_policy=self._remat_policy,
+            grad_names={p.name: g.name for p, g in params_grads
+                        if g is not None})
+        return opt_ops, params_grads
 
 
 class GradientMergeOptimizer:

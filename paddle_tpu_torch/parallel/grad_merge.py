@@ -8,9 +8,10 @@ the activations are a microbatch's.
 
 ``annotate_grad_merge`` marks the program (``GradientMergeOptimizer``
 calls it) and ``Executor.run`` hands such a program to
-:class:`GradMergeBlock`. Where the reference scans the region under
-``lax.scan``, this runs it k times in a loop: each microbatch's recorded
-graphs are freed by its own grad ops before the next one starts.
+:class:`GradMergeBlock`, with its mesh plan when it runs over ranks.
+Where the reference scans the region under ``lax.scan``, this runs it k
+times in a loop: each microbatch's recorded graphs are freed by its own
+grad ops before the next one starts.
 """
 from __future__ import annotations
 
@@ -18,9 +19,10 @@ from typing import Any, Dict
 
 import torch
 
-from ..framework.core import dtype_to_torch, not_ported
+from ..framework.core import dtype_to_torch
 from ..framework.executor import (_analyze_persistables, _normalize_feed,
-                                  _Plan)
+                                  _Plan, data_parallel_rule, reduce_over_dp,
+                                  run_mesh, shard_feeds)
 from . import remat as remat_mod
 
 __all__ = ["annotate_grad_merge", "resolve_tail_start", "GradMergeBlock"]
@@ -64,12 +66,28 @@ class GradMergeBlock:
 
     The annotation's remat policy is recorded and changes nothing, as in
     the reference: the region carries its own grad ops and is never
-    differentiated again. A ``mesh_plan`` (the reference's data-parallel
-    branch) waits for ``CompiledProgram``."""
+    differentiated again.
 
-    def __init__(self, program, fetch_names, mesh_plan=None):
-        if mesh_plan is not None:
-            not_ported("grad_merge", "mesh_plan (CompiledProgram)")
+    With a ``mesh_plan`` (the reference's data-parallel branch) each rank
+    takes its rows of the global batch and splits them into the k
+    microbatches: under the data-parallel plan the merged gradients and
+    the loss are then reduced over dp by the plan's rule
+    (``executor.data_parallel_rule``) before the tail, and batch norm
+    takes the dp group's statistics; under the per-rank plan (a program
+    with its own collectives, one data axis only) nothing is reduced for
+    it, a fetch is every rank's value concatenated and each rank keeps
+    the persistables it wrote."""
+
+    def __init__(self, program, fetch_names, mesh_plan=None,
+                 loss_name=None):
+        self.mesh_plan = mesh_plan
+        self.mode = mesh_plan.mode if mesh_plan is not None else "single"
+        if self.mode == "shard_map" and (
+                mesh_plan.data_axis is None or len(mesh_plan.axes) > 1):
+            raise NotImplementedError(
+                "gradient merge composes with a single data-parallel axis; "
+                f"mesh plan has axes {mesh_plan.axes} "
+                f"data_axis={mesh_plan.data_axis}")
         ann = program._annotations["grad_merge"]
         block = program.global_block()
         ops = block.ops
@@ -91,6 +109,9 @@ class GradMergeBlock:
                 | set(self.fwd_fetch) | {self.loss_name})
         self.region = _Plan(program, (), hi=tail, keep=keep)
         self.tail = _Plan(program, fetch_names, lo=tail)
+        if self.mode == "gspmd":
+            _, self.mean, _ = data_parallel_rule(
+                program, tail, loss_name or self.loss_name)
 
     def _split(self, block, feeds: Dict[str, torch.Tensor]):
         """(the batched feed names, the microbatch rows), with the
@@ -116,12 +137,25 @@ class GradMergeBlock:
         return batched, batch // self.k
 
     def run(self, exe, feed, fetch_names, scope, return_numpy):
+        from .mesh import bind_rings
+
         block = self.program.global_block()
+        mesh = group = rings = None
+        if self.mode != "single":
+            mesh = run_mesh(self.mesh_plan.axes, exe)
+        if mesh is not None:
+            group = mesh.group(self.mesh_plan.data_axis)
+            rings = bind_rings(mesh, self.mesh_plan.ring_axes)
         params = exe._read_scope(self.region, scope)
         feeds = {n: _normalize_feed(block.vars.get(n), v, exe.device)
                  for n, v in (feed or {}).items()}
+        if group is not None:
+            feeds = shard_feeds(feeds, group, {
+                n for n, f in feeds.items() if f.dim()
+                and getattr(block.vars.get(n), "is_data", False)})
         batched, mb = self._split(block, feeds)
-        ctx = exe._ctx(self.region)
+        dp_group = group if self.mode == "gspmd" else None
+        ctx = exe._ctx(self.region, rings, dp_group)
         acc: Dict[str, torch.Tensor] = {}
         grad_dtype: Dict[str, torch.dtype] = {}
         loss_sum: Any = None
@@ -153,6 +187,15 @@ class GradMergeBlock:
             # the tail reads each gradient in its unmerged dtype
             env[g] = (acc.pop(g) * scale).to(grad_dtype[g])
         env[self.loss_name] = loss_sum / self.k
-        self.tail.run_ops(exe._ctx(self.tail), env, exe.device)
+        if dp_group is not None:
+            reduce_over_dp(env, dp_group, self.grad_names + [self.loss_name],
+                           self.mean)
+        self.tail.run_ops(exe._ctx(self.tail, rings, dp_group), env,
+                          exe.device)
         exe._write_scope(self.tail, env, scope)
+        if group is not None and self.mode == "shard_map":
+            for n in fetch_names:
+                if n in env:
+                    t = env[n].reshape(-1) if env[n].dim() == 0 else env[n]
+                    env[n] = group.all_gather(t.contiguous())
         return exe._fetch(env, fetch_names, return_numpy)

@@ -13,9 +13,14 @@ host memory, runs there and copies the result back — a property of the
 backend, decided when the mesh is built. Over NCCL nothing is staged.
 
 A spec is a tuple with one entry a dim: an axis name, a tuple of names or
-None (replicated); it replaces ``PartitionSpec``. ``jit_shard_map`` and
-``probe_produced_state`` serve the fluid path and are still to be ported
-with it (ROADMAP A5).
+None (replicated); it replaces ``PartitionSpec``.
+
+The fluid path's half (the executor keeps one mesh a layout,
+``Executor._mesh``): :func:`jit_shard_map` is the per-rank runner (a plan's
+``ring_id``s bound to the mesh's groups by :func:`bind_rings`, the
+reference's ``shard_map(jit(...))``), :func:`probe_produced_state` the
+persistables a per-rank run writes back, and :func:`all_reduce_coalesced`
+sums many tensors in one exchange a dtype.
 """
 from __future__ import annotations
 
@@ -35,7 +40,8 @@ from ..device import resolve_device
 
 __all__ = ["MeshConfig", "Mesh", "AxisGroup", "build_mesh", "current_mesh",
            "mesh_guard", "axis_index", "axis_size", "spec_for",
-           "spec_axes", "local_shape", "local_shard"]
+           "spec_axes", "local_shape", "local_shard", "bind_rings",
+           "jit_shard_map", "probe_produced_state", "all_reduce_coalesced"]
 
 
 @dataclasses.dataclass
@@ -379,3 +385,87 @@ def local_shard(x, spec, mesh: Mesh):
             n = x.shape[d] // ways
             x = x[(slice(None),) * d + (slice(idx * n, (idx + 1) * n),)]
     return x
+
+
+# ---------------------------------------------------------------------------
+# The fluid path's per-rank runner
+# ---------------------------------------------------------------------------
+
+def bind_rings(mesh: Mesh, ring_axes) -> Dict[int, AxisGroup]:
+    """Each ``ring_id`` of ``ring_axes`` (ring_id -> axis name, or a tuple
+    of names) bound to this rank's :class:`AxisGroup` along it — what
+    ``LowerCtx.axis_name`` returns to the collective ops."""
+    return {int(r): mesh.group(*((ax,) if isinstance(ax, str) else ax))
+            for r, ax in ring_axes.items()}
+
+
+def jit_shard_map(per_rank, mesh: Mesh, ring_axes):
+    """The per-rank runner: ``per_rank(rings, *args)`` on this rank under
+    :func:`mesh_guard`, ``rings`` from :func:`bind_rings`."""
+    rings = bind_rings(mesh, ring_axes)
+
+    def run(*args, **kw):
+        with mesh_guard(mesh):
+            return per_rank(rings, *args, **kw)
+
+    return run
+
+
+def probe_produced_state(program, written: Sequence[str], scope
+                         ) -> List[str]:
+    """The persistables of ``written`` that a per-rank run leaves in the
+    scope: those some op of block 0 outputs and the scope already holds
+    (the reference's abstract-eval probe; here the ops say it)."""
+    outs = {n for op in program.global_block().ops
+            for n in op.output_arg_names}
+    return [n for n in written if n in outs and scope.has_var(n)]
+
+
+def dtype_groups(dtypes: Sequence[torch.dtype]) -> Dict[torch.dtype,
+                                                         List[int]]:
+    """The positions of each dtype in ``dtypes``, the dtypes in order of
+    first appearance."""
+    groups: Dict[torch.dtype, List[int]] = {}
+    for i, dt in enumerate(dtypes):
+        groups.setdefault(dt, []).append(i)
+    return groups
+
+
+def pack_by_dtype(tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """One new flat vector a dtype of ``tensors``, in
+    :func:`dtype_groups`' order."""
+    return [torch.cat([tensors[i].reshape(-1) for i in idx])
+            for idx in dtype_groups([t.dtype for t in tensors]).values()]
+
+
+def unpack_by_dtype(vecs: Sequence[torch.Tensor], metas
+                    ) -> List[torch.Tensor]:
+    """The tensors of ``metas`` ([(dtype, shape)]) back from
+    :func:`pack_by_dtype`'s vectors, views of them."""
+    out: List[Optional[torch.Tensor]] = [None] * len(metas)
+    groups = dtype_groups([dt for dt, _ in metas])
+    for vec, idx in zip(vecs, groups.values()):
+        off = 0
+        for i in idx:
+            shape = tuple(metas[i][1])
+            n = int(np.prod(shape)) if shape else 1
+            out[i] = vec[off:off + n].view(shape)
+            off += n
+    return out
+
+
+def all_reduce_coalesced(group: AxisGroup, tensors: Sequence[torch.Tensor],
+                         mean: bool = False) -> List[torch.Tensor]:
+    """The sum (or mean) over ``group`` of each tensor, new tensors, with
+    one all-reduce a dtype over their concatenation."""
+    from . import comm_opt
+
+    vecs = pack_by_dtype(tensors)
+    for flat in vecs:
+        comm_opt.record_collective("psum", flat.dtype,
+                                   flat.numel() * flat.element_size(),
+                                   group.size)
+        group.all_reduce(flat)
+    if mean:
+        vecs = [flat / group.size for flat in vecs]
+    return unpack_by_dtype(vecs, [(t.dtype, t.shape) for t in tensors])

@@ -134,6 +134,22 @@ once (one ``opt_momentum`` launch); 4 steps on the fed batch (the loss
 falls), one warm-up and 3 timed. The record has img/s over the fed batch,
 ms a step, peak memory and the loss scale.
 
+Two fluid lanes run over ranks, under ``python -m
+paddle_tpu_torch.parallel.launch --nproc_per_node 2`` (each rank the
+global batch, its own rows): ``--model encoder --no-amp --pp 2
+--microbatches 4`` is the encoder at ERNIE-base's widths and depth, 48 x
+512 with the padding bias, dropout 0.1, float32 (TF32 off) under
+``PipelineOptimizer(AdamW(5e-5, weight_decay=0.01, grad_clip=
+GradientClipByGlobalNorm(1.0), fuse=True))`` at a constant rate, cut
+after layer 5, one stage a rank (24 launches of each flash bias kernel
+and one ``opt_adamw`` a rank a step); ``--model resnet50 --dp 2`` is the
+ResNet lane (bf16 AMP, fused Momentum) through ``CompiledProgram(main)
+.with_data_parallel(loss_name=)`` on a fed 128 x 224² global batch, 64 a
+rank (one ``opt_momentum`` a rank a step). ``--parity`` runs their gates
+first (``run_fluid_parallel``); one gang runs both as ``--layout
+model=encoder,pp=2,microbatches=4,no_amp=1 --layout
+model=resnet50,dp=2``.
+
 The fluid lanes run on the card unless ``--device cpu``; without a card
 they refuse to run. ``--tiny`` cuts them to a CPU rehearsal's sizes
 (ResNet-18 at 32², batch 4; a 2-layer encoder at D 64, T 32, batch 4).
@@ -777,6 +793,8 @@ ENCODER_DROPOUT = 0.1
 # then polynomial (linear) decay to 0 over ENCODER_DECAY steps
 ENCODER_LR, ENCODER_WARMUP, ENCODER_DECAY = 5e-5, 3, 100
 ENCODER_FLASH = ("flash_fwd_bias", "flash_bwd_dq_bias", "flash_bwd_dkv_bias")
+# the pipelined lane's microbatches a step (``--microbatches``' default)
+PIPE_MICROBATCHES = 4
 _PAD_BIAS = -0.5 * float(np.finfo(np.float32).max)
 
 
@@ -807,11 +825,13 @@ def encoder_checkpoints(main, name: str = "enc") -> List[Any]:
 def encoder_program(cfg: Dict[str, int], seq: int,
                     dropout: float = ENCODER_DROPOUT, amp: bool = True,
                     fuse: bool = True, optimizer: str = "adamw",
-                    recompute: bool = False):
+                    recompute: bool = False, pipeline: int = 0,
+                    microbatches: int = PIPE_MICROBATCHES):
     """(main, startup, loss, lr) of the encoder lane: the classifier over
     fed ``src`` / ``pos`` ids, a fed ``bias`` [B, 1, 1, seq] and ``label``.
     ``optimizer`` "adamw": AdamW (weight decay 0.01, global-norm clip
     1.0, ``fuse``) on the warm-up / decay schedule (``lr`` its var);
+    "adamw_const": that AdamW at the constant ENCODER_LR (``lr`` None);
     "lamb": Lamb at ENCODER_LR (weight decay 0.01, none on
     layernorms and biases: ``encoder_no_decay``; ``lr`` None). No
     schedule under Lamb: a recomputed segment re-emits the schedule's
@@ -820,7 +840,11 @@ def encoder_program(cfg: Dict[str, int], seq: int,
     ``recompute``: under ``RecomputeOptimizer`` with each layer's output
     as a checkpoint (``encoder_checkpoints``). With ``amp``, decorated for
     bf16 with ``multihead_matmul`` on the white list (not with
-    ``recompute``: the two refuse each other, as in the reference)."""
+    ``recompute``: the two refuse each other, as in the reference).
+    ``pipeline`` S: under ``PipelineOptimizer`` in S stages cut after
+    layer L / S - 1 (and so on), ``microbatches`` a step (with
+    "adamw_const" and without ``amp``: the reference runs neither an LR
+    schedule nor AMP under the pipeline, and the port refuses both)."""
     main, startup = FW.Program(), FW.Program()
     main.random_seed = startup.random_seed = 7
     with FW.program_guard(main, startup):
@@ -836,13 +860,21 @@ def encoder_program(cfg: Dict[str, int], seq: int,
                 ENCODER_LR, lamb_weight_decay=0.01,
                 exclude_from_weight_decay_fn=encoder_no_decay)
         else:
-            lr = layers.linear_lr_warmup(
-                layers.polynomial_decay(ENCODER_LR, ENCODER_DECAY,
-                                        end_learning_rate=0.0),
-                ENCODER_WARMUP, 0.0, ENCODER_LR)
+            lr = None if optimizer == "adamw_const" else \
+                layers.linear_lr_warmup(
+                    layers.polynomial_decay(ENCODER_LR, ENCODER_DECAY,
+                                            end_learning_rate=0.0),
+                    ENCODER_WARMUP, 0.0, ENCODER_LR)
             opt = fluid_optimizer.AdamW(
-                lr, weight_decay=0.01, fuse=fuse,
-                grad_clip=fluid_clip.GradientClipByGlobalNorm(1.0))
+                ENCODER_LR if lr is None else lr, weight_decay=0.01,
+                fuse=fuse, grad_clip=fluid_clip.GradientClipByGlobalNorm(1.0))
+        if pipeline:
+            ckpts = encoder_checkpoints(main)
+            per = len(ckpts) // pipeline
+            opt = fluid_optimizer.PipelineOptimizer(
+                opt, cut_list=[[ckpts[(i + 1) * per - 1]]
+                               for i in range(pipeline - 1)],
+                num_microbatches=microbatches)
         if recompute:
             opt = fluid_optimizer.RecomputeOptimizer(opt)
             opt._set_checkpoints(encoder_checkpoints(main))
@@ -1391,7 +1423,8 @@ def _per_step(before, after, steps) -> Dict[str, float]:
 # a --layout SPEC's keys: the parallel lane's flags, as key=value
 LAYOUT_KEYS = {"dp": int, "pp": int, "tp": int, "microbatches": int,
                "layers": int, "grad_reduce": str, "comm_dtype": str,
-               "sharding": str, "ckpt_dir": str, "overlap_dir": str}
+               "sharding": str, "ckpt_dir": str, "overlap_dir": str,
+               "model": str, "no_amp": int}
 
 
 def parse_layout(spec: str, args) -> argparse.Namespace:
@@ -1681,6 +1714,295 @@ def run_ernie_parallel(args, dev) -> Dict[str, Any]:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# the fluid lanes over ranks (``--model encoder --no-amp --pp 2``,
+# ``--model resnet50 --dp 2``): one rank of a gang under parallel.launch
+# ---------------------------------------------------------------------------
+
+# the parity gates (11f): PIPE_PARITY_LAYERS of the encoder cut after
+# layer 0, dropout 0, and ResNet-18 at DP_PARITY_HW² over dp, each for
+# FLUID_PARITY_STEPS float32 steps (TF32 off) from one start state
+FLUID_PARITY_STEPS, PIPE_PARITY_LAYERS = 3, 2
+DP_PARITY_DEPTH, DP_PARITY_HW, DP_PARITY_CLASSES = 18, 64, 10
+DP_PARITY_ROWS = 8                      # a rank's rows; the one rank: dp x
+COLLECTIVE_PARITY_N = 4096
+# the bands: the reference's pipeline band (tests/test_pipeline_optimizer
+# .py) and its sync-BN band (tests/test_sync_bn.py); the c_allreduce_sum
+# program against the numpy sum
+PIPE_RTOL, PIPE_ATOL = 2e-4, 1e-5
+DP_RTOL, DP_ATOL = 5e-4, 5e-5
+COLLECTIVE_RTOL = 1e-6
+
+
+def _start_state(main, startup, dev) -> Dict[str, np.ndarray]:
+    """The persistables ``startup`` makes, on the host (one start state
+    for both arms of a gate)."""
+    scope = FW.Scope()
+    FW.Executor(_place(dev)).run(startup, scope=scope)
+    return {n: scope.find_var(n).cpu().numpy()
+            for n, v in main.global_block().vars.items()
+            if v.persistable and scope.find_var(n) is not None}
+
+
+def _arm(main, loss, start, feed, dev, steps, target=None):
+    """``steps`` runs of ``target`` (default ``main``) from ``start``:
+    (the losses, the persistables after on the host)."""
+    scope = FW.scope_from_numpy(start, _place(dev))
+    exe = FW.Executor(_place(dev))
+    losses = [float(np.mean(exe.run(target or main, feed=feed,
+                                    fetch_list=[loss], scope=scope)[0]))
+              for _ in range(steps)]
+    return losses, {n: scope.find_var(n).float().cpu().numpy()
+                    for n in start}
+
+
+def param_band_gap(got, want, prog, rtol: float, atol: float, lr: float
+                   ) -> Dict[str, Any]:
+    """How far the parameters ``got`` are from ``want`` (name -> numpy):
+    the elements outside ``rtol`` / ``atol`` (``outside``, the worst
+    ``|diff| / (atol + rtol·|want|)`` and its name), leaving out, for
+    Adam's parameters, the elements whose first moment sits at most 1e-4
+    of its tensor's largest (where the gradient is zero but for rounding,
+    the k bias, Adam's normalised step follows the rounding): those are
+    held to ``lr`` a step (``floor_worst``, the worst |diff| there)."""
+    block = prog.global_block()
+    m1_of = {}
+    for op in block.ops:
+        if op.type in ("adam", "adamw"):
+            m1_of[op.input("Param")[0]] = (op.input("Moment1")[0], None)
+        elif op.type in ("fused_adam", "fused_adamw"):
+            off = 0
+            for p in op.input("Param"):
+                n = int(np.prod(block.var(p).shape))
+                m1_of[p] = (op.input("Moment1")[0], (off, off + n))
+                off += n
+    out = {"outside": 0, "worst": 0.0, "worst_name": "", "floor_worst": 0.0,
+           "n_floor": 0}
+    for p in block.all_parameters():
+        n = p.name
+        a, b = got[n].astype(np.float64), want[n].astype(np.float64)
+        ratio = np.abs(a - b) / (atol + rtol * np.abs(b))
+        if n in m1_of:
+            m1n, span = m1_of[n]
+            m1 = np.abs(want[m1n].reshape(-1))
+            if span is not None:
+                m1 = m1[span[0]:span[1]]
+            floor = (m1 <= 1e-4 * m1.max()).reshape(a.shape)
+            out["n_floor"] += int(floor.sum())
+            if floor.any():
+                out["floor_worst"] = max(out["floor_worst"], float(
+                    np.abs(a - b)[floor].max()))
+            ratio = np.where(floor, 0.0, ratio)
+        out["outside"] += int((ratio > 1).sum())
+        if ratio.max(initial=0) > out["worst"]:
+            out["worst"], out["worst_name"] = float(ratio.max()), n
+    out["lr"] = lr
+    return out
+
+
+def fluid_parity_ok(par: Dict[str, Any]) -> bool:
+    """An 11f gate passed: every loss and parameter in its band (and
+    Adam's noise-floor elements within lr a step)."""
+    steps = par.get("steps", FLUID_PARITY_STEPS)
+    return (par["losses_ok"] and par["params"]["outside"] == 0
+            and par["params"]["floor_worst"] <= par["params"]["lr"] * steps)
+
+
+def _losses_ok(got, want, rtol, atol) -> bool:
+    return bool(np.allclose(got, want, rtol=rtol, atol=atol))
+
+
+def encoder_pipeline_parity(args, dev) -> Dict[str, Any]:
+    """pp2: the encoder at PIPE_PARITY_LAYERS layers (cut after layer 0,
+    4 microbatches, dropout 0) over the pp ranks, against the same
+    program unpipelined on this rank, FLUID_PARITY_STEPS float32 steps
+    from one start state (``scope_from_numpy``)."""
+    from ..framework import unique_name
+
+    cfg = dict(ENCODER_TINY if args.tiny else ENCODER,
+               num_layers=PIPE_PARITY_LAYERS)
+    batch, seq = (8, 32) if args.tiny else (ENCODER_BATCH, ENCODER_SEQ)
+    feed = encoder_batch(cfg, batch, seq, dev)
+    progs = {}
+    for arm, pp in (("pipeline", args.pp), ("one_rank", 0)):
+        with unique_name.guard():
+            progs[arm] = encoder_program(cfg, seq, dropout=0.0, amp=False,
+                                         optimizer="adamw_const",
+                                         pipeline=pp,
+                                         microbatches=PIPE_MICROBATCHES)
+    main, startup, loss, _ = progs["pipeline"]
+    start = _start_state(main, startup, dev)
+    with _no_tf32():
+        got_l, got_s = _arm(main, loss, start, feed, dev,
+                            FLUID_PARITY_STEPS)
+        ref_main, _, ref_loss, _ = progs["one_rank"]
+        want_l, want_s = _arm(ref_main, ref_loss, start, feed, dev,
+                              FLUID_PARITY_STEPS)
+    return {"losses": got_l, "one_rank_losses": want_l,
+            "losses_ok": _losses_ok(got_l, want_l, PIPE_RTOL, PIPE_ATOL),
+            "params": param_band_gap(got_s, want_s, ref_main, PIPE_RTOL,
+                                     PIPE_ATOL, ENCODER_LR),
+            "band": [PIPE_RTOL, PIPE_ATOL], "steps": FLUID_PARITY_STEPS}
+
+
+def resnet_dp_parity(args, dev, dp: int) -> Dict[str, Any]:
+    """dp2: ResNet-18 (fused Momentum, float32, TF32 off) under
+    ``with_data_parallel`` at DP_PARITY_ROWS a rank, against this rank
+    running the program alone on the whole batch (dp x as many rows),
+    FLUID_PARITY_STEPS steps from one start state."""
+    from ..framework import unique_name
+
+    rows = DP_PARITY_ROWS * dp
+    hw_ = 32 if args.tiny else DP_PARITY_HW
+    with unique_name.guard():
+        main, startup, loss = resnet_program(
+            rows, hw_, DP_PARITY_CLASSES, DP_PARITY_DEPTH, fuse=True,
+            synthetic=False)
+    start = _start_state(main, startup, dev)
+    rng = np.random.default_rng(3)
+    feed = {"img": rng.uniform(-1, 1, (rows, 3, hw_, hw_)).astype(
+        np.float32),
+        "label": rng.integers(0, DP_PARITY_CLASSES, (rows, 1))}
+    compiled = FW.CompiledProgram(main).with_data_parallel(
+        loss_name=loss.name)
+    with _no_tf32():
+        got_l, got_s = _arm(main, loss, start, feed, dev,
+                            FLUID_PARITY_STEPS, compiled)
+        want_l, want_s = _arm(main, loss, start, feed, dev,
+                              FLUID_PARITY_STEPS)
+    stats = [n for n in start if n.endswith(("_mean", "_variance"))]
+    stat_ok = all(np.allclose(got_s[n], want_s[n], rtol=DP_RTOL,
+                              atol=DP_ATOL) for n in stats)
+    return {"losses": got_l, "one_rank_losses": want_l,
+            "losses_ok": _losses_ok(got_l, want_l, DP_RTOL, DP_ATOL)
+            and stat_ok, "n_bn_stats": len(stats),
+            "params": param_band_gap(got_s, want_s, main, DP_RTOL, DP_ATOL,
+                                     0.01),
+            "band": [DP_RTOL, DP_ATOL], "steps": FLUID_PARITY_STEPS}
+
+
+def collective_parity(dev, world: int, rank: int) -> Dict[str, Any]:
+    """A per-rank program of one ``c_allreduce_sum`` (the per-rank plan:
+    ``with_data_parallel`` of a program carrying a c_* op) on a global
+    [world, COLLECTIVE_PARITY_N] float32 feed, each rank its row: every
+    rank's fetch, [world, N], against the numpy sum of the rows."""
+    from ..framework import unique_name
+    from ..layers import collective as C
+
+    with unique_name.guard():
+        main, startup = FW.Program(), FW.Program()
+        with FW.program_guard(main, startup):
+            x = layers.data("x", [COLLECTIVE_PARITY_N], dtype="float32")
+            out = C._c_allreduce(x, reduce_type="sum")
+    xs = np.random.default_rng(4).standard_normal(
+        (world, COLLECTIVE_PARITY_N)).astype(np.float32)
+    got = FW.Executor(_place(dev)).run(
+        FW.CompiledProgram(main).with_data_parallel(), feed={"x": xs},
+        fetch_list=[out], scope=FW.Scope())[0]
+    want = np.broadcast_to(xs.sum(0, dtype=np.float64), got.shape)
+    err = float(np.abs(got - want).max() / np.abs(want).max())
+    return {"rel_err": err, "ok": bool(np.allclose(
+        got, want, rtol=COLLECTIVE_RTOL, atol=COLLECTIVE_RTOL)),
+        "rank": rank}
+
+
+def run_fluid_parallel(args, dev) -> Dict[str, Any]:
+    """This rank's part of a fluid lane over ranks: with ``--parity`` the
+    lane's 11f gates first (the encoder: pp2; ResNet: dp2 and the
+    per-rank ``c_allreduce_sum`` program), then ``--warmup`` +
+    ``--steps`` steps, counted as :func:`run_parallel` counts them.
+
+    ``--model encoder --no-amp --pp S --microbatches M``: the
+    encoder lane's program (ERNIE-base's widths and depth, 48 x 512 with
+    the padding bias, dropout 0.1) in float32 (TF32 off) under
+    ``PipelineOptimizer(AdamW(5e-5, weight_decay=0.01, grad_clip=
+    GradientClipByGlobalNorm(1.0), fuse=True))`` at a constant rate, cut
+    after layer 5 at S 2, each rank a stage. ``--model resnet50 --dp N``:
+    ``bench.py``'s ResNet lane (bf16 AMP, fused Momentum) through
+    ``CompiledProgram(main).with_data_parallel(loss_name=)`` on a fed
+    global batch of 128 x 224² (made on the card from seed 0), each rank
+    its rows."""
+    import torch.distributed as dist
+
+    stamps = {"begin": time.time()}
+    world, rank = dist.get_world_size(), dist.get_rank()
+    axis = "pp" if args.model == "encoder" else "dp"
+    rec: Dict[str, Any] = {"rank": rank, "coords": {axis: rank},
+                           "backend": dist.get_backend(), "device": str(dev),
+                           "stamps": stamps, "world": world}
+    place = _place(dev)
+    exe, scope = FW.Executor(place), FW.Scope()
+    if args.model == "encoder":
+        if not args.no_amp or args.pp != world:
+            raise SystemExit(
+                "train_bench: the pipelined encoder lane is --no-amp "
+                f"--pp {world} (one stage a rank; the reference runs "
+                "no AMP under the pipeline)")
+        if args.parity:
+            rec["parity"] = {"pp2": encoder_pipeline_parity(args, dev)}
+            stamps["parity"] = time.time()
+        cfg = ENCODER_TINY if args.tiny else ENCODER
+        batch, seq = (8, 32) if args.tiny else (ENCODER_BATCH, ENCODER_SEQ)
+        main, startup, loss, _ = encoder_program(
+            cfg, seq, amp=False, optimizer="adamw_const",
+            pipeline=args.pp, microbatches=args.microbatches)
+        exe.run(startup, scope=scope)
+        feed = encoder_batch(cfg, batch, seq, dev)
+        flops = encoder_flops_per_token(cfg, seq) * seq
+
+        def step_once():
+            return exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                           return_numpy=False)[0]
+
+        with _no_tf32():
+            losses, timed = _rank_steps(step_once, args, dev, stamps)
+        config = (f"encoder_L{cfg['num_layers']}_D{cfg['d_model']}_b{batch}"
+                  f"x{seq}_pad_f32_adamw_fused_pp{args.pp}"
+                  f"m{args.microbatches}")
+        unit = "samples_per_s"
+    else:
+        if args.dp != world:
+            raise SystemExit(f"train_bench: the data-parallel ResNet lane "
+                             f"is --dp {world} (one rank a replica)")
+        if args.parity:
+            rec["parity"] = {"dp2": resnet_dp_parity(args, dev, world),
+                             "c_allreduce_sum": collective_parity(
+                                 dev, world, rank)}
+            stamps["parity"] = time.time()
+        batch, hw_, classes, depth = ((4 * world, 32, 4, 18) if args.tiny
+                                      else (RESNET_BATCH, RESNET_HW,
+                                            RESNET_CLASSES, 50))
+        main, startup, loss = resnet_program(batch, hw_, classes, depth,
+                                             fuse=True, synthetic=False,
+                                             amp=True)
+        exe.run(startup, scope=scope)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        feed = {"img": torch.rand((batch, 3, hw_, hw_), generator=gen,
+                                  device=dev) * 2 - 1,
+                "label": torch.randint(0, classes, (batch, 1),
+                                       generator=gen, device=dev)}
+        compiled = FW.CompiledProgram(main).with_data_parallel(
+            loss_name=loss.name)
+        flops = hw.program_train_flops(main, batch) / batch
+
+        def step_once():
+            return exe.run(compiled, feed=feed, fetch_list=[loss],
+                           scope=scope, return_numpy=False)[0]
+
+        losses, timed = _rank_steps(step_once, args, dev, stamps)
+        config = (f"resnet{depth}_b{batch}_{hw_}px_bf16amp_fused_dp"
+                  f"{world}")
+        unit = "images_per_s"
+    rec.update(timed)
+    rate = batch * args.steps / timed["wall_s"]
+    rec.update({"config": config, "model": args.model, "batch": batch,
+                unit: rate, "losses": losses,
+                "mfu": _mfu(rate * flops, dev),
+                "flops_per_sample": flops})
+    return rec
+
+
 def main_parallel(args) -> int:
     """Join the gang, then run each ``--layout`` (or the one the flags
     give) in turn over the same ranks; each rank's record goes to stdout
@@ -1693,7 +2015,9 @@ def main_parallel(args) -> int:
     for i, spec in enumerate(args.layout or [""]):
         gc.collect()        # the last layout's tensors gone before the next
         lay = parse_layout(spec, args)
-        rec = (run_ernie_parallel(lay, dev) if args.model == "ernie"
+        rec = (run_ernie_parallel(lay, dev) if lay.model == "ernie"
+               else run_fluid_parallel(lay, dev)
+               if lay.model in ("encoder", "resnet50")
                else run_parallel(lay, dev))
         rec["stamps"].update(start=t0, init=t_init)
         line = json.dumps(rec)
@@ -1780,8 +2104,9 @@ def _parser() -> argparse.ArgumentParser:
     par.add_argument("--layout", action="append", metavar="SPEC",
                      help="run this layout (key=value,...: dp, pp, tp, "
                           "microbatches, layers, grad_reduce, comm_dtype, "
-                          "sharding, ckpt_dir over the flags above); repeat "
-                          "to run several over one gang, in turn")
+                          "sharding, ckpt_dir, model, no_amp "
+                          "over the flags above); repeat to run several "
+                          "over one gang, in turn")
     par.add_argument("--out-dir", default=None,
                      help="write each rank's record to "
                           "layout<i>.rank<r>.json here")

@@ -1479,3 +1479,24 @@ def test_checkpoint_round_trip_gpt_small_bitwise(card, tmp_path):
     for a, b in zip(snapshot(), after):
         assert torch.equal(a, b)
     ck.close()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gate", ["pp2", "dp2", "c_allreduce_sum"])
+def test_fluid_mesh_gates_on_card(card, tmp_path, gate):
+    """chip_smoke's 11f gates at 2 gloo ranks sharing the card: the
+    encoder at 2 layers pipelined against one rank (rtol 2e-4, atol 1e-5;
+    Adam's noise-floor elements within lr a step), ResNet-18 under
+    ``with_data_parallel`` against one rank on the whole batch (rtol
+    5e-4, atol 5e-5), the per-rank ``c_allreduce_sum`` program against
+    the numpy sum (rtol 1e-6)."""
+    if str(REPO / "tests") not in sys.path:
+        sys.path.insert(0, str(REPO / "tests"))
+    import torch_dist_worker as W
+    from paddle_tpu_torch.tools import train_bench as TB
+
+    ranks = W.spawn(W.fluid_gate_worker, 2, gate, out_dir=str(tmp_path),
+                    device="cuda:0", timeout=600)
+    for par in ranks:
+        assert (par["ok"] if gate == "c_allreduce_sum"
+                else TB.fluid_parity_ok(par)), par

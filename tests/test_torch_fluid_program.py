@@ -149,8 +149,6 @@ def test_not_ported_names_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP A5"):
         T.layers.sequence_pool
     with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        T.optimizer.PipelineOptimizer
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
         T.contrib.slim
     assert not hasattr(T.layers, "lstm")
     with TUN.guard():

@@ -14,7 +14,8 @@
 - The fused ``Momentum`` under bf16 AMP, and ``RecomputeOptimizer(Lamb)``,
   merged as the reference merges them: the optimizer tail (the AMP
   check and the fused update) runs once a step.
-- A mesh reaching the merge block raises naming ROADMAP A5.
+- A per-rank mesh plan with an axis besides dp is refused with the
+  reference's ``NotImplementedError``.
 """
 import numpy as np
 import pytest
@@ -202,7 +203,25 @@ def test_grad_merge_rejects_indivisible():
 
 
 def test_a_mesh_on_the_merge_block_is_refused():
+    """The merge block composes with one data-parallel axis: a per-rank
+    mesh plan with another axis is refused with the reference's
+    ``NotImplementedError`` (``paddle_tpu/parallel/grad_merge.py``), as
+    is one without a data axis; the data-parallel plan is taken."""
+    from paddle_tpu_torch.framework.executor import MeshPlan
+
     main, _startup, loss, _ = _build(T, TUN, merge_k=2)
     assert main._annotations["grad_merge"]["k"] == 2
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        GradMergeBlock(main, [loss.name], mesh_plan=object())
+    plan = MeshPlan(mode="shard_map", axes=(("dp", 2), ("tp", 2)),
+                    data_axis="dp", ring_axes={0: "dp"})
+    with pytest.raises(NotImplementedError, match=(
+            r"gradient merge composes with a single data-parallel axis; "
+            r"mesh plan has axes \(\('dp', 2\), \('tp', 2\)\) "
+            r"data_axis=dp")):
+        GradMergeBlock(main, [loss.name], mesh_plan=plan)
+    with pytest.raises(NotImplementedError, match="single data-parallel"):
+        GradMergeBlock(main, [loss.name], mesh_plan=MeshPlan(
+            mode="shard_map", axes=(("dp", 2),), data_axis=None))
+    block = GradMergeBlock(main, [loss.name], mesh_plan=MeshPlan(
+        mode="gspmd", axes=(("dp", 2),), data_axis="dp",
+        ring_axes={0: "dp"}))
+    assert block.mode == "gspmd" and block.mean

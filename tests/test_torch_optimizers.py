@@ -233,14 +233,11 @@ def test_averages_apply_and_restore(case):
 
 def test_every_reference_name_is_ported_but_pipeline():
     """``paddle_tpu_torch.optimizer`` has every class and alias of the
-    reference's ``__all__`` but ``PipelineOptimizer``, which raises
-    naming ROADMAP A5."""
+    reference's ``__all__``, ``PipelineOptimizer`` now among them: the
+    two lists are equal."""
     from paddle_tpu import optimizer as JO
 
-    missing = [n for n in JO.__all__ if n != "PipelineOptimizer"
-               and not hasattr(T.optimizer, n)]
+    missing = [n for n in JO.__all__ if not hasattr(T.optimizer, n)]
     assert missing == []
-    assert set(T.optimizer.__all__) == set(JO.__all__) - {
-        "PipelineOptimizer"}
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        T.optimizer.PipelineOptimizer
+    assert T.optimizer.__all__ == JO.__all__
+    assert isinstance(T.optimizer.PipelineOptimizer, type)

@@ -466,6 +466,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "paddle_tpu_torch.ops.optimizer_ops, paddle_tpu_torch.ops.tensor, "
         "paddle_tpu_torch.contrib.mixed_precision, "
         "paddle_tpu_torch.testing\n"
+        "import paddle_tpu_torch.framework.compiler, "
+        "paddle_tpu_torch.ops.collective, "
+        "paddle_tpu_torch.layers.collective, "
+        "paddle_tpu_torch.parallel.pipeline_program\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'paddle_tpu'))\n"
         "print(bad)\n"

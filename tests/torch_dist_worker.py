@@ -522,3 +522,135 @@ def overlap_worker(rank, cfg_kw, trace_dir):
     with DT.capture(tdir, device=DEVICE):
         float(step(params, opt, tokens, tokens)[2])
     return comm_opt.measure_overlap_fraction(tdir)
+
+
+# ---------------------------------------------------------------------------
+# the fluid mesh: with_data_parallel, per-rank programs, the pipeline
+# ---------------------------------------------------------------------------
+
+def _numpy_state(scope, names):
+    out = {}
+    for n in names:
+        t = scope.find_var(n)
+        if t is not None:
+            out[n] = t.detach().float().cpu().numpy().copy() \
+                if t.is_floating_point() else t.cpu().numpy().copy()
+    return out
+
+
+def fluid_mesh_worker(rank, build_kw, start, feed, steps, how="plain",
+                      fetch=()):
+    """``steps`` runs on this rank of ``testing.mesh_program(**build_kw)``
+    from the persistables ``start`` (numpy, by name), fed the global
+    ``feed`` each time: ``how`` "plain" (the program itself: a pipeline
+    program's stages over the world), "dp" (``CompiledProgram(main)
+    .with_data_parallel(loss_name=)``), "dp_sync" (the same with
+    ``BuildStrategy(sync_batch_norm=True)``). Returns each run's fetches
+    (the loss first, then ``fetch``) and every persistable after."""
+    import paddle_tpu_torch as T
+    from paddle_tpu_torch.framework import unique_name as TUN
+    from paddle_tpu_torch.testing import mesh_program
+
+    main, _startup, loss = mesh_program(T, TUN, **build_kw)
+    place = T.CPUPlace() if DEVICE == "cpu" else T.CUDAPlace(0)
+    scope = T.scope_from_numpy(start, place)
+    exe = T.Executor(place)
+    target = main
+    if how in ("dp", "dp_sync"):
+        bs = T.BuildStrategy()
+        bs.sync_batch_norm = how == "dp_sync"
+        target = T.CompiledProgram(main).with_data_parallel(
+            loss_name=loss.name, build_strategy=bs)
+    runs = [exe.run(target, feed=feed, fetch_list=[loss.name, *fetch],
+                    scope=scope) for _ in range(steps)]
+    names = [n for n, v in main.global_block().vars.items() if v.persistable]
+    return {"runs": runs, "state": _numpy_state(scope, names)}
+
+
+def mesh_error_worker(rank, build_kw, start, feed, how="plain"):
+    """The error one run raises on this rank (type name and message), or
+    None."""
+    try:
+        fluid_mesh_worker(rank, build_kw, start, feed, 1, how)
+    except Exception as e:           # the test reads which one
+        return (type(e).__name__, str(e))
+    return None
+
+
+def collective_ops_worker(rank, x, w, lr):
+    """The c_* ops of one per-rank program over the world (its fetches, a
+    program run under ``with_data_parallel``; the same program routed by
+    its ``_annotations["mesh"]`` instead), and one SGD step of
+    ``mean(c_allreduce_sum(x @ w))`` (the gradient through the
+    all-reduce; the persistables rank 0's)."""
+    import paddle_tpu_torch as T
+    from paddle_tpu_torch.framework import unique_name as TUN
+    from paddle_tpu_torch.framework.layer_helper import LayerHelper
+    from paddle_tpu_torch.layers import collective as C
+
+    world = torch.distributed.get_world_size()
+    with TUN.guard():
+        main, startup = T.Program(), T.Program()
+        with T.program_guard(main, startup):
+            xv = T.layers.data("x", [x.shape[1]], dtype="float32")
+            outs = {k: C._c_allreduce(xv, reduce_type=k)
+                    for k in ("sum", "max", "min", "prod", "avg")}
+            outs["allgather"] = C._c_allgather(xv, world)
+            outs["reducescatter"] = C._c_reducescatter(xv, world)
+            outs["broadcast"] = C._c_broadcast(xv, root=1)
+            for t, attrs in (("c_concat", {}), ("c_split", {}),
+                             ("c_identity", {}), ("allreduce",
+                                                  {"reduce_type": 1}),
+                             ("broadcast", {"root": 1})):
+                helper = LayerHelper(t)
+                out = helper.create_variable_for_type_inference("float32")
+                helper.append_op(type=t, inputs={"X": [xv]},
+                                 outputs={"Out": [out]},
+                                 attrs=dict(attrs, ring_id=0))
+                outs["legacy_" + t if t in ("allreduce", "broadcast")
+                     else t] = out
+    exe = T.Executor(T.CPUPlace())
+    prog = T.CompiledProgram(main).with_data_parallel()
+    got = exe.run(prog, feed={"x": x}, fetch_list=list(outs.values()),
+                  scope=T.Scope())
+    res = {"fetch": dict(zip(outs, got))}
+    main._annotations["mesh"] = {"mode": "shard_map", "axes": [("dp", -1)],
+                                 "data_axis": "dp", "ring_axes": {0: "dp"}}
+    got = exe.run(main, feed={"x": x}, fetch_list=list(outs.values()),
+                  scope=T.Scope())
+    res["annotated"] = dict(zip(outs, got))
+    with TUN.guard():
+        main, startup = T.Program(), T.Program()
+        with T.program_guard(main, startup):
+            xv = T.layers.data("x", [x.shape[1]], dtype="float32")
+            pred = T.layers.fc(xv, 1, param_attr=T.ParamAttr("w"),
+                               bias_attr=False)
+            loss = T.layers.mean(C._c_allreduce(pred, reduce_type="sum"))
+            T.optimizer.SGD(lr).minimize(loss)
+    scope = T.Scope()
+    exe.run(startup, scope=scope)
+    scope.set_var("w", torch.from_numpy(w.copy()))
+    prog = T.CompiledProgram(main).with_data_parallel(loss_name=loss.name)
+    res["loss"] = exe.run(prog, feed={"x": x}, fetch_list=[loss],
+                          scope=scope)[0]
+    res["w"] = scope.find_var("w").numpy()
+    return res
+
+
+def fluid_gate_worker(rank, gate, tiny=False):
+    """One of chip_smoke's 11f gates on this rank
+    (``train_bench.encoder_pipeline_parity`` "pp2",
+    ``resnet_dp_parity`` "dp2", ``collective_parity``
+    "c_allreduce_sum"), on the world's device."""
+    import argparse
+
+    from paddle_tpu_torch.tools import train_bench as TB
+
+    dev = torch.device(DEVICE)
+    world = torch.distributed.get_world_size()
+    args = argparse.Namespace(tiny=tiny, pp=world)
+    if gate == "pp2":
+        return TB.encoder_pipeline_parity(args, dev)
+    if gate == "dp2":
+        return TB.resnet_dp_parity(args, dev, world)
+    return TB.collective_parity(dev, world, rank)
